@@ -1,0 +1,164 @@
+"""Deployment inference: a restored checkpoint applied to user batches.
+
+:class:`Predictor` holds a checkpoint warm on one device for repeated
+calls; :func:`infer` is the one-shot form. Inputs are ``.npy`` or MATLAB
+v5 ``.mat`` files laid out like the benchmark's inputs.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from position_induced_transformer_torch.configs import get
+from position_induced_transformer_torch.train import benchmarks
+from position_induced_transformer_torch.train import checkpoint as ckpt
+from position_induced_transformer_torch.train.runner import padded_batches
+from position_induced_transformer_torch.utils.devices import resolve_device
+
+
+def _load_input(path: str, key: str = "x"):
+    """Load a user input batch: ``(x, table)`` where ``table`` is the full
+    variable dict of a ``.mat`` file (None for ``.npy``)."""
+    if path.endswith(".npy"):
+        return np.asarray(np.load(path, allow_pickle=False)), None
+    if path.endswith((".h5", ".hdf5")):
+        raise ValueError(
+            f"{path}: HDF5 input needs h5py, which this package does not "
+            "use; send .npy or a MATLAB v5 .mat"
+        )
+    if not path.endswith(".mat"):
+        raise ValueError(f"unsupported input format {path!r} (expected .npy or .mat)")
+    from position_induced_transformer_torch.data.loaders import load_mat
+
+    d = load_mat(path)
+    if key not in d:
+        raise KeyError(
+            f"variable {key!r} not found in {path}; available: "
+            f"{sorted(k for k in d if not k.startswith('__'))}"
+        )
+    return np.asarray(d[key]), d
+
+
+def _prepare_inputs(problem, x: np.ndarray) -> np.ndarray:
+    """Check a raw input batch against the benchmark's model input layout,
+    reshaping when the per-sample element counts agree."""
+    x = np.asarray(x, np.float32)
+    expect = tuple(np.shape(problem.test_data["x"])[1:])
+    if x.shape[1:] != expect:
+        if int(np.prod(x.shape[1:])) != int(np.prod(expect)):
+            raise ValueError(
+                f"input sample shape {tuple(x.shape[1:])} does not match "
+                f"the benchmark's model input {expect}"
+            )
+        x = x.reshape((x.shape[0],) + expect)
+    return np.ascontiguousarray(x)
+
+
+class Predictor:
+    """A restored checkpoint held warm on ``device`` for repeated inference.
+
+    The benchmark problem (geometry on the device, a minimal synthetic data
+    split for layouts) is built once; each ``predict_*`` call moves its
+    batches to the device and back.
+    """
+
+    def __init__(
+        self,
+        config,
+        checkpoint_path: str,
+        data_path: Optional[str] = None,
+        device="cuda",
+    ):
+        dev = resolve_device(device)
+        cfg = get(config) if isinstance(config, str) else config
+        restored = ckpt.restore(checkpoint_path)
+        if restored["config"] != cfg.name:
+            raise ValueError(
+                f"checkpoint {checkpoint_path!r} holds benchmark "
+                f"{restored['config']!r}, not {cfg.name!r}"
+            )
+        nmin = max(2, min(cfg.batch_size, 8))
+        problem = benchmarks.setup(
+            cfg, data_path, ntrain=nmin, ntest=nmin, device=dev
+        )
+        problem.model.load_state_dict(restored["state_dict"])
+        problem.model.eval()
+        problem.train_data = {}
+        self.cfg = cfg
+        self.problem = problem
+        self.device = dev
+
+    def _batch_size(self, batch_size: Optional[int] = None) -> int:
+        """The device batch size: requests pad up to it, so every call runs
+        at one shape."""
+        if batch_size is not None and batch_size < 1:
+            raise ValueError(f"batch_size must be >= 1, got {batch_size}")
+        return batch_size or self.cfg.eval_batch_size or self.cfg.batch_size
+
+    def predict_array(self, data: dict, batch_size: Optional[int] = None) -> np.ndarray:
+        """Predictions over a prepared batch dict (padded-tail batching:
+        every sample covered, one batch shape)."""
+        x_all = np.asarray(data["x"], np.float32)
+        n = x_all.shape[0]
+        bs = self._batch_size(batch_size)
+        task, geom = self.problem.task, self.problem.geom
+        outs = []
+        with torch.inference_mode():
+            for idx in padded_batches(n, bs):
+                x = torch.from_numpy(np.ascontiguousarray(x_all[idx])).to(self.device)
+                outs.append(task.forward(geom, {"x": x}).cpu().numpy())
+        return np.concatenate(outs, axis=0)[:n]
+
+    def prepare_file(self, input_path: str, input_key: str = "x") -> dict:
+        """Parse and check an input file into the dict ``predict_array``
+        takes."""
+        x_raw, _ = _load_input(input_path, input_key)
+        if x_raw.ndim < 2:
+            raise ValueError(
+                f"input must carry a leading batch axis; got shape "
+                f"{tuple(x_raw.shape)}"
+            )
+        if x_raw.shape[0] < 1:
+            raise ValueError("input batch is empty (0 samples)")
+        return {"x": _prepare_inputs(self.problem, x_raw)}
+
+    def predict_file(
+        self, input_path: str, input_key: str = "x",
+        batch_size: Optional[int] = None,
+    ) -> np.ndarray:
+        return self.predict_array(self.prepare_file(input_path, input_key), batch_size)
+
+
+def infer(
+    config,
+    checkpoint_path: str,
+    input_path: str,
+    input_key: str = "x",
+    output_path: Optional[str] = None,
+    batch_size: Optional[int] = None,
+    data_path: Optional[str] = None,
+    device="cuda",
+) -> dict:
+    """One-shot inference on an input file; writes ``.npy`` or ``.mat``
+    (variable ``pred``) when ``output_path`` is given."""
+    if output_path and not output_path.endswith((".npy", ".mat")):
+        raise ValueError(
+            f"unsupported output format {output_path!r} (expected .npy or .mat)"
+        )
+    predictor = Predictor(config, checkpoint_path, data_path=data_path, device=device)
+    pred = predictor.predict_file(input_path, input_key, batch_size=batch_size)
+    if output_path and output_path.endswith(".npy"):
+        np.save(output_path, pred)
+    elif output_path:
+        from scipy.io import savemat
+
+        savemat(output_path, {"pred": pred})
+    return {
+        "benchmark": predictor.cfg.name,
+        "n": int(pred.shape[0]),
+        "pred_shape": [int(s) for s in pred.shape],
+        "output": output_path,
+    }

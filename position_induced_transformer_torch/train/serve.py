@@ -1,0 +1,288 @@
+"""HTTP model server: a warm checkpoint behind a small REST surface.
+
+- ``GET  /health``  -> ``{"status": "ok", "benchmark": ..., "requests": N,
+  "device_calls": M}``
+- ``GET  /info``    -> benchmark and model configuration summary
+- ``POST /predict`` -> the body is a ``.npy`` or MATLAB v5 ``.mat`` input
+  batch (raw values, the layout ``infer`` takes), sniffed from its magic
+  bytes. Query parameters: ``key`` (input variable, default ``x``),
+  ``batch_size``, ``format`` (``npy`` or ``mat``). The reply is the
+  predictions as ``.npy`` bytes, or a ``.mat`` with variable ``pred``.
+  HDF5 bodies are answered with 400: they need h5py, which this package
+  does not use.
+
+Malformed requests are 400s; failures while running the model are 500s.
+Device work runs on one worker thread with dynamic batching: concurrent
+shape-compatible requests are concatenated into one call of the model.
+"""
+
+from __future__ import annotations
+
+import io
+import json
+import tempfile
+import threading
+import traceback
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Optional
+from urllib.parse import parse_qs, urlparse
+
+import numpy as np
+
+_MAGIC = (
+    (b"\x93NUMPY", ".npy"),
+    (b"MATLAB", ".mat"),  # v5 .mat header text
+)
+_HDF5_MAGIC = b"\x89HDF\r\n\x1a\n"
+_MAX_BODY_BYTES = 512 * 1024 * 1024
+
+
+def _sniff_suffix(body: bytes) -> str:
+    for magic, suffix in _MAGIC:
+        if body.startswith(magic):
+            return suffix
+    if body.startswith(_HDF5_MAGIC):
+        raise ValueError(
+            "HDF5 payloads (.h5, MATLAB v7.3 .mat) need h5py, which this "
+            "server does not use; send .npy bytes or a MATLAB v5 .mat"
+        )
+    raise ValueError(
+        "unrecognized input payload: expected .npy bytes or a MATLAB v5 .mat"
+    )
+
+
+class _Request:
+    __slots__ = ("data", "batch_size", "done", "result", "error")
+
+    def __init__(self, data, batch_size):
+        self.data = data
+        self.batch_size = batch_size
+        self.done = threading.Event()
+        self.result = None
+        self.error = None
+
+    def key(self):
+        # coalescible iff same batch override and per-sample shapes
+        return (
+            self.batch_size,
+            tuple((k, tuple(np.shape(v)[1:])) for k, v in sorted(self.data.items())),
+        )
+
+
+class _Batcher:
+    """Dynamic batching: the worker drains whatever is queued when it
+    becomes free and runs shape-compatible requests as one concatenated
+    call (no added delay when idle, full coalescing when busy)."""
+
+    def __init__(self, predictor):
+        self.predictor = predictor
+        self._queue: list[_Request] = []
+        self._cv = threading.Condition()
+        self.n_calls = 0  # device batches run, written by the worker only
+        self._thread = threading.Thread(target=self._worker, daemon=True)
+        self._thread.start()
+
+    def predict(self, data, batch_size) -> np.ndarray:
+        req = _Request(data, batch_size)
+        with self._cv:
+            self._queue.append(req)
+            self._cv.notify()
+        req.done.wait()
+        if req.error is not None:
+            raise req.error
+        return req.result
+
+    def _worker(self):
+        while True:
+            with self._cv:
+                while not self._queue:
+                    self._cv.wait()
+                batch, self._queue = self._queue, []
+            try:
+                self._run_batch(batch)
+            except Exception as e:  # the one worker must not die and leave
+                # every waiter blocked; each waiter gets the error, and the
+                # worker goes on
+                for r in batch:
+                    if not r.done.is_set():
+                        r.error = r.error or e
+                        r.done.set()
+
+    def _run_batch(self, batch):
+        groups: dict = {}
+        for r in batch:
+            groups.setdefault(r.key(), []).append(r)
+        for reqs in groups.values():
+            try:
+                sizes = [int(r.data["x"].shape[0]) for r in reqs]
+                data = {
+                    k: np.concatenate([np.asarray(r.data[k]) for r in reqs])
+                    for k in reqs[0].data
+                }
+                out = self.predictor.predict_array(data, reqs[0].batch_size)
+                bs = self.predictor._batch_size(reqs[0].batch_size)
+                self.n_calls += -(-sum(sizes) // bs)
+                start = 0
+                for r, n in zip(reqs, sizes):
+                    r.result = out[start : start + n]
+                    start += n
+            except Exception as e:  # delivered to every waiter of the group
+                for r in reqs:
+                    r.error = e
+            finally:
+                for r in reqs:
+                    r.done.set()
+
+
+class PredictHandler(BaseHTTPRequestHandler):
+    server: "PredictServer"
+
+    def log_message(self, fmt, *args):
+        if self.server.verbose:
+            BaseHTTPRequestHandler.log_message(self, fmt, *args)
+
+    def _reply(self, code: int, body: bytes, content_type: str):
+        self.send_response(code)
+        self.send_header("Content-Type", content_type)
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
+
+    def _reply_json(self, code: int, obj: dict):
+        self._reply(code, json.dumps(obj).encode(), "application/json")
+
+    def do_GET(self):
+        path = urlparse(self.path).path
+        srv = self.server
+        if path == "/health":
+            self._reply_json(200, {
+                "status": "ok",
+                "benchmark": srv.predictor.cfg.name,
+                "requests": srv.n_requests,
+                "device_calls": srv.batcher.n_calls,
+            })
+        elif path == "/info":
+            cfg = srv.predictor.cfg
+            m = cfg.model
+            self._reply_json(200, {
+                "benchmark": cfg.name,
+                "device": str(srv.predictor.device),
+                "hid_dim": m.hid_dim,
+                "n_head": m.n_head,
+                "n_blocks": m.n_blocks,
+                "in_dim": m.in_dim,
+                "out_dim": m.out_dim,
+                "batch_size": srv.predictor._batch_size(),
+                "input_shape": [
+                    int(s) for s in np.shape(srv.predictor.problem.test_data["x"])[1:]
+                ],
+            })
+        else:
+            self._reply_json(404, {"error": f"unknown path {path!r}"})
+
+    def do_POST(self):
+        parsed = urlparse(self.path)
+        if parsed.path != "/predict":
+            self._reply_json(404, {"error": f"unknown path {parsed.path!r}"})
+            return
+        srv = self.server
+        try:  # request parsing and validation: failures are 400s
+            length = int(self.headers.get("Content-Length", 0))
+            if length > _MAX_BODY_BYTES:
+                self._reply_json(413, {
+                    "error": f"payload {length} bytes exceeds the "
+                    f"{_MAX_BODY_BYTES}-byte limit"
+                })
+                return
+            body = self.rfile.read(length)
+            q = {k: v[-1] for k, v in parse_qs(parsed.query).items()}
+            key = q.get("key", "x")
+            bs = int(q["batch_size"]) if "batch_size" in q else None
+            if bs is not None and bs < 1:
+                raise ValueError(f"batch_size must be >= 1, got {bs}")
+            out_fmt = q.get("format", "npy")
+            if out_fmt not in ("npy", "mat"):
+                raise ValueError(f"unknown output format {out_fmt!r}")
+            suffix = _sniff_suffix(body)
+            with tempfile.NamedTemporaryFile(suffix=suffix) as f:
+                f.write(body)
+                f.flush()
+                data = srv.predictor.prepare_file(f.name, key)
+        except Exception as e:  # every parse failure is the client's
+            if srv.verbose:
+                traceback.print_exc()
+            self._reply_json(400, {"error": f"{type(e).__name__}: {e}"})
+            return
+        try:  # model execution: failures are 500s
+            pred = srv.batcher.predict(data, bs)
+            with srv.lock:
+                srv.n_requests += 1
+        except Exception as e:
+            if srv.verbose:
+                traceback.print_exc()
+            self._reply_json(500, {"error": f"{type(e).__name__}: {e}"})
+            return
+        buf = io.BytesIO()
+        if out_fmt == "mat":
+            from scipy.io import savemat
+
+            savemat(buf, {"pred": pred})
+        else:
+            np.save(buf, pred)
+        self._reply(200, buf.getvalue(), "application/octet-stream")
+
+
+class PredictServer(ThreadingHTTPServer):
+    """ThreadingHTTPServer carrying the warm Predictor and its batcher."""
+
+    daemon_threads = True
+
+    def __init__(self, addr, predictor, verbose: bool = True):
+        super().__init__(addr, PredictHandler)
+        self.predictor = predictor
+        self.lock = threading.Lock()  # guards n_requests
+        self.batcher = _Batcher(predictor)
+        self.n_requests = 0
+        self.verbose = verbose
+
+
+def make_server(
+    config,
+    checkpoint_path: str,
+    host: str = "127.0.0.1",
+    port: int = 8765,
+    warmup: bool = True,
+    verbose: bool = True,
+    data_path: Optional[str] = None,
+    device="cuda",
+) -> PredictServer:
+    """Build the server, bound but not yet serving (call ``serve_forever``).
+
+    ``warmup=True`` runs one batch at the serving batch size first, so the
+    first request does not pay for kernel builds and allocator growth.
+    """
+    from position_induced_transformer_torch.train.evaluate import Predictor
+
+    predictor = Predictor(config, checkpoint_path, data_path=data_path, device=device)
+    if warmup:
+        x = np.asarray(predictor.problem.test_data["x"])
+        idx = np.minimum(np.arange(predictor._batch_size()), x.shape[0] - 1)
+        predictor.predict_array({"x": x[idx]})
+    return PredictServer((host, port), predictor, verbose=verbose)
+
+
+def serve(config, checkpoint_path: str, **kwargs) -> None:
+    """Blocking entry point: build the server and serve until interrupted."""
+    server = make_server(config, checkpoint_path, **kwargs)
+    host, port = server.server_address[:2]
+    print(
+        f"serving benchmark {server.predictor.cfg.name!r} on "
+        f"http://{host}:{port} (POST /predict, GET /health, GET /info)",
+        flush=True,
+    )
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.server_close()
