@@ -18,20 +18,34 @@ Phases, each of which fails the run (non-zero exit, no result line):
    with 1 to 8 heads; times from CUDA events, the bound from the H100's
    published peaks and the work this run's inputs need, and one PyTorch
    library call computing the same function as a yardstick;
-5. serve: a full-width Burgers model (random weights from a seeded
+5. backward kernels: the stats, dscale and du kernels against their plain
+   versions at the Burgers training shapes (dU is not needed at the
+   encoder) and at ragged shapes with 1 to 8 heads, timed and bounded as
+   in phase 4; the autograd Function's gradients against torch.autograd of
+   the plain oracle, with one forward + backward launching each of the
+   four kernels exactly once;
+6. serve: a full-width Burgers model (random weights from a seeded
    generator) behind the port's HTTP server on the card, answering 1, 8
    and 13 samples, then 4 concurrent requests, then warm requests; every
    reply must be 200 and agree with the same model run with the plain
-   attention on the card and with a CPU run; the kernel must have launched
-   exactly 7 times per device batch.
+   attention on the card and with a CPU run; the forward kernel must have
+   launched exactly 7 times per device batch and no backward kernel at all;
+7. train: ``runner.train`` on full-width, full-depth Burgers on the card
+   (synthetic data, 64 training and 16 test samples, 2 epochs of 8 steps);
+   exactly 7/7/7/6 launches of the forward/stats/dscale/du kernels per
+   step and 7 forward launches per eval batch; the per-step losses and the
+   final weights agree with the same training with the plain attention on
+   the card and with a CPU run; then the wall time per step, steps/s and
+   the device's busy share of warm steps.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
-``kernels`` record, and before that the ``serve`` record.
+``kernels`` record, and before that the ``train`` and ``serve`` records.
 """
 
 from __future__ import annotations
 
 import io
+import itertools
 import json
 import os
 import statistics
@@ -41,6 +55,7 @@ import threading
 import time
 import urllib.error
 import urllib.request
+from contextlib import nullcontext
 from pathlib import Path
 from unittest import mock
 
@@ -55,6 +70,18 @@ OP_RTOL, OP_ATOL = 2e-5, 2e-6
 # whole model: the op-level differences compound through 7 attention
 # layers and 7 MLPs (the CPU tests hold the port to the JAX package here)
 MODEL_RTOL, MODEL_ATOL = 1e-4, 1e-5
+# the bandwidth gradient is a cancelling sum of L_out * B * D terms: held
+# on terms normalised to unit size, at the bound tests/test_pallas.py holds
+# the JAX fused backward to
+DS_RTOL, DS_ATOL = 5e-4, 5e-6
+# 16 Adam steps: each step divides a gradient by its own running magnitude,
+# so a rounding difference in a near-zero gradient moves its weight by up to
+# lr; the CPU tests hold the port's trajectory to the JAX package's here
+# (tests/test_training_parity.py's bounds). Measured on the CPU, the
+# closed-form backward and autograd of the oracle part by at most 8.2e-7
+# over these 16 steps.
+LOSS_RTOL = 2e-4
+PARAM_RTOL, PARAM_ATOL = 5e-3, 2e-5
 
 BURGERS_B = 8  # the serving batch
 SLEEP_CYCLES = 10_000_000  # ~5 ms of spinning: longer than enqueueing 10 calls
@@ -68,17 +95,21 @@ def fail(msg: str):
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
-def check_close(name, got, want, rtol, atol):
-    """Max abs error; fails when any element exceeds atol + rtol*|want|."""
+def check_close(name, got, want, rtol, atol, size=None):
+    """Max abs error; fails when any element exceeds atol + rtol * size.
+    ``size`` defaults to |want|; for a sum of signed terms pass the sum of
+    their magnitudes: the rounding of a float32 sum scales with those, not
+    with its (cancelled) result."""
     import torch
 
     got, want = got.double().cpu(), want.double().cpu()
+    size = want.abs() if size is None else size.double().cpu()
     if got.shape != want.shape:
         fail(f"{name}: shape {tuple(got.shape)} != {tuple(want.shape)}")
     if not torch.isfinite(got).all():
         fail(f"{name}: non-finite values")
     err = (got - want).abs()
-    bad = err > atol + rtol * want.abs()
+    bad = err > atol + rtol * size
     if bad.any():
         fail(f"{name}: {int(bad.sum())} elements outside rtol {rtol} atol {atol}; "
              f"max abs err {err.max().item():.3e}")
@@ -109,28 +140,30 @@ def cuda_ms(fn, reps=20, per_rep=10, warmup=5):
     return statistics.median(times)
 
 
-def profile_forward(predictor, x, reps=5):
-    """Wall time and device busy time of warm forwards, from torch.profiler:
-    the union of the CUDA activity intervals over the host's wall clock,
-    and device time by kernel. None where the trace holds no device
-    activity."""
+def profile_device(fn, unit, reps=5):
+    """Wall time and device busy time of warm calls of ``fn``, from
+    torch.profiler: the union of the CUDA activity intervals over the
+    host's wall clock, and device time by kernel, per call. None where the
+    trace holds no device activity."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    predictor.predict_array({"x": x})
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(reps):
-            predictor.predict_array({"x": x})
+            fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+    # device work only: a user annotation (the optimizer's step range)
+    # spans the gaps between its kernels
     spans = sorted(
         (e.time_range.start, e.time_range.end, e.name) for e in prof.events()
-        if e.device_type == torch.autograd.DeviceType.CUDA
+        if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation
     )
     if not spans:
-        return {"wall_ms_per_forward": wall_ms, "device_busy_ms_per_forward": None}
+        return {f"wall_ms_per_{unit}": wall_ms, f"device_busy_ms_per_{unit}": None}
     busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
     by_name: dict = {}
     for s0, e0, name in spans:
@@ -142,12 +175,12 @@ def profile_forward(predictor, x, reps=5):
             cur_e = max(cur_e, e0)
     busy += cur_e - cur_s
     busy_ms = busy / 1e3 / reps
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     return {
-        "wall_ms_per_forward": wall_ms,
-        "device_busy_ms_per_forward": busy_ms,
+        f"wall_ms_per_{unit}": wall_ms,
+        f"device_busy_ms_per_{unit}": busy_ms,
         "device_idle_share": 1.0 - busy_ms / wall_ms,
-        "device_ms_per_forward_by_kernel": {n[:80]: t / 1e3 / reps for n, t in top},
+        f"device_ms_per_{unit}_by_kernel": {n[:80]: t / 1e3 / reps for n, t in top},
     }
 
 
@@ -179,9 +212,10 @@ def build():
     from position_induced_transformer_torch.kernels import _build
 
     t0 = time.perf_counter()
+    _build.build_all()  # one nvcc per source, all at once
     for name in _build.KERNELS:
         _build.load(name)
-    log(f"build: {len(_build.KERNELS)} kernel(s) in {time.perf_counter() - t0:.2f} s "
+    log(f"build: {len(_build.KERNELS)} kernel source(s) in {time.perf_counter() - t0:.2f} s "
         f"into {_build.BUILD_DIR.relative_to(REPO)}")
 
 
@@ -226,17 +260,66 @@ def geometry_phase():
     return gg
 
 
+def roofline(flops, nbytes):
+    """Least time in ms for ``flops`` f32 operations and ``nbytes`` bytes of
+    device memory traffic, and which of the two bounds it."""
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def kept_entries(dist, thr):
+    return int(((dist <= thr) & (dist < float("inf"))).sum())
+
+
 def bound(dist, thr, H, B, D):
-    """Least time for the function on these inputs: each input read once,
+    """Least time for the forward on these inputs: each input read once,
     the output written once, and 2*H*B*D operations per kept entry (a
     masked weight is exactly 0, so a masked entry needs none)."""
     Lo, Li = dist.shape
-    kept = int(((dist <= thr) & (dist < float("inf"))).sum())
+    kept = kept_entries(dist, thr)
     flops = 2 * H * B * D * kept
     nbytes = 4 * (Lo * Li + Lo + Li * B * D + H * Lo * B * D)
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
-    by = "operations" if t_ops >= t_bytes else "bytes"
-    return max(t_ops, t_bytes), by, flops, nbytes, kept
+    return (*roofline(flops, nbytes), flops, nbytes, kept)
+
+
+def bound_bwd(kernel, dist, thr, H, B, D):
+    """Least time for a backward kernel on these inputs, counted as
+    :func:`bound` counts the forward. All read dist, thr and scale. Stats
+    writes M and L, 5*H operations per kept entry (scale, max, subtract,
+    exp, add). dscale and du read M, L and the (B, L_out, H*D) cotangent;
+    dscale reads the values and writes H numbers, du writes dU; both do
+    2*H*B*D operations per kept entry."""
+    Lo, Li = dist.shape
+    kept = kept_entries(dist, thr)
+    base = Lo * Li + Lo + H
+    if kernel == "posatt_stats":
+        flops, words = 5 * H * kept, base + 2 * H * Lo
+    else:
+        flops = 2 * H * B * D * kept
+        words = base + 2 * H * Lo + B * Lo * H * D + B * Li * D
+        words += H if kernel == "posatt_bwd_dscale" else 0
+    return (*roofline(flops, 4 * words), flops, 4 * words, kept)
+
+
+RAGGED = [  # L not a multiple of any tile; 1, 2, 4 and 8 heads; N = B*D
+    # ragged, on both sides of the kernels' B*D <= 32 tile choice
+    ("ragged_h1_masked", 97, 1000, 3, 1, 5, 0.02),
+    ("ragged_h8_global", 1000, 97, 2, 8, 33, 1.0),
+    ("ragged_h8_masked", 33, 65, 1, 8, 64, 0.1),
+    ("ragged_h2_wide", 70, 300, 8, 2, 100, 0.3),
+    ("ragged_h8_narrow", 50, 300, 4, 8, 4, 0.2),
+    ("ragged_h4_narrow", 300, 50, 3, 4, 9, 1.0),
+]
+
+
+def ragged_dist(rng, Lo, Li):
+    import numpy as np
+    import torch
+
+    from position_induced_transformer_torch.ops import distances
+
+    to = lambda a: torch.from_numpy(a.astype(np.float32)).cuda()
+    return distances.euclidean_sq(to(rng.random((Lo, 2))), to(rng.random((Li, 2))))
 
 
 def kernel_phase(geom):
@@ -246,7 +329,7 @@ def kernel_phase(geom):
 
     from position_induced_transformer_torch import configs
     from position_induced_transformer_torch.kernels import posatt_pallas as kp
-    from position_induced_transformer_torch.ops import distances, locality, posatt
+    from position_induced_transformer_torch.ops import locality, posatt
 
     rng = np.random.default_rng(0)
     dev = torch.device("cuda")
@@ -331,24 +414,290 @@ def kernel_phase(geom):
         })
         log(f"kernel {name}: {json.dumps(shapes[-1])}")
 
-    ragged = [  # L not a multiple of any tile; 1, 4 and 8 heads; N = B*D ragged,
-        # on both sides of the kernel's B*D <= 32 tile choice
-        ("ragged_h1_masked", 97, 1000, 3, 1, 5, 0.02),
-        ("ragged_h8_global", 1000, 97, 2, 8, 33, 1.0),
-        ("ragged_h8_masked", 33, 65, 1, 8, 64, 0.1),
-        ("ragged_h2_wide", 70, 300, 8, 2, 100, 0.3),
-        ("ragged_h8_narrow", 50, 300, 4, 8, 4, 0.2),
-        ("ragged_h4_narrow", 300, 50, 3, 4, 9, 1.0),
-    ]
-    for name, Lo, Li, B, Hr, D, loc in ragged:
-        mo = torch.from_numpy(rng.random((Lo, 2)).astype(np.float32)).to(dev)
-        mi = torch.from_numpy(rng.random((Li, 2)).astype(np.float32)).to(dev)
-        dist = distances.euclidean_sq(mo, mi)
+    for name, Lo, Li, B, Hr, D, loc in RAGGED:
+        dist = ragged_dist(rng, Lo, Li)
         # thr missing: the wrapper computes the quantile itself
         err = compare(name, *case(dist, loc, None, Hr, B, D))
         errs.append(err)
         log(f"kernel {name}: H={Hr} L_out={Lo} L_in={Li} B={B} D={D} max_abs_err={err:.3e}")
     return shapes, max(errs)
+
+
+BWD_KERNELS = ("posatt_stats", "posatt_bwd_dscale", "posatt_bwd_du")
+
+
+def launchers():
+    """The four launchers, by kernel name; each counts its launches."""
+    from position_induced_transformer_torch.kernels import posatt_pallas as kp
+
+    return {
+        "posatt_fixed_fwd": kp.posatt_fixed_cuda,
+        "posatt_stats": kp.posatt_stats_cuda,
+        "posatt_bwd_dscale": kp.posatt_bwd_dscale_cuda,
+        "posatt_bwd_du": kp.posatt_bwd_du_cuda,
+    }
+
+
+def counts():
+    return {name: fn.launches for name, fn in launchers().items()}
+
+
+def zero_counts():
+    for fn in launchers().values():
+        fn.launches = 0
+
+
+def backward_kernel_phase(geom):
+    """Each backward kernel against its plain version, timed and bounded at
+    the Burgers training shapes; at ragged shapes; and the autograd
+    Function's gradients against torch.autograd of the plain oracle."""
+    import numpy as np
+    import torch
+
+    from position_induced_transformer_torch import configs
+    from position_induced_transformer_torch.kernels import posatt_pallas as kp
+    from position_induced_transformer_torch.ops import locality, posatt
+
+    rng = np.random.default_rng(1)
+    dev = torch.device("cuda")
+    to = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)
+    m = configs.BURGERS.model
+    H, B = m.n_head, BURGERS_B
+
+    def inputs(dist, thr, H, B, D):
+        lmda = to(rng.random((H, 1, 1)))
+        u = to(rng.standard_normal((B, dist.shape[1], D)))
+        g = to(rng.standard_normal((B, dist.shape[0], H * D)))
+        return lmda, u, g, posatt.bandwidth_scale(lmda).reshape(H, 1)
+
+    def compare(name, dist, thr, scale, u, g, with_du=True):
+        """Each launcher against its plain version; max abs error by kernel."""
+        M, L = kp.posatt_stats_cuda(dist, thr, scale)
+        Mp, Lp = kp.posatt_stats_reference(dist, thr, scale)
+        torch.cuda.synchronize()
+        errs = {"posatt_stats": max(
+            check_close(f"{name} stats M", M, Mp, OP_RTOL, OP_ATOL),
+            check_close(f"{name} stats L", L, Lp, OP_RTOL, OP_ATOL),
+        )}
+        ds = kp.posatt_bwd_dscale_cuda(dist, thr, scale, M, L, g, u)
+        again = kp.posatt_bwd_dscale_cuda(dist, thr, scale, M, L, g, u)
+        torch.cuda.synchronize()
+        if not torch.equal(ds, again):
+            fail(f"{name}: two dscale runs on the same inputs differ")
+        want = kp.posatt_bwd_dscale_reference(dist, thr, scale, Mp, Lp, g, u)
+        # the size of the summed terms, per head: sum_i |w_i| + |r_i v_i|
+        keep = (dist <= thr) & (dist < float("inf"))
+        p = torch.where(keep, torch.exp(-dist[None] * scale[:, :, None] - Mp), 0.0) / Lp
+        Bq, Lo, HD = g.shape
+        t = torch.einsum("bihk,bjk->hij", g.reshape(Bq, Lo, -1, u.shape[-1]), u)
+        d = torch.where(keep, dist, 0.0)
+        size = ((p * t * d).sum(-1).abs()
+                + (p * t).sum(-1).abs() * (p * d).sum(-1)).sum(-1, keepdim=True)
+        check_close(f"{name} dscale (normalised)", ds / size, want / size, DS_RTOL, DS_ATOL)
+        errs["posatt_bwd_dscale"] = (ds - want).abs().max().item()
+        if with_du:
+            du = kp.posatt_bwd_du_cuda(dist, thr, scale, M, L, g)
+            torch.cuda.synchronize()
+            want = kp.posatt_bwd_du_reference(dist, thr, scale, Mp, Lp, g)
+            size = kp.posatt_bwd_du_reference(dist, thr, scale, Mp, Lp, g.abs())
+            errs["posatt_bwd_du"] = check_close(f"{name} du", du, want, OP_RTOL, OP_ATOL, size)
+        return errs, (M, L)
+
+    def function_check(name, dist, lmda, u, loc, thr):
+        """One forward + backward through position_attention_fixed launches
+        each kernel once, and its gradients match autograd of the oracle."""
+        w = to(rng.standard_normal((u.shape[0], dist.shape[0], lmda.shape[0] * u.shape[-1])))
+
+        def grads(fn, w):
+            lm = lmda.clone().requires_grad_(True)
+            x = u.clone().requires_grad_(True)
+            out = fn(dist, lm, x, loc, thr=thr)
+            (out * w).sum().backward()
+            return out.detach(), lm.grad, x.grad
+
+        before = counts()
+        got = grads(kp.position_attention_fixed, w)
+        torch.cuda.synchronize()
+        after = counts()
+        if any(after[k] - before[k] != 1 for k in after):
+            fail(f"{name}: one forward + backward launched "
+                 f"{ {k: after[k] - before[k] for k in after} }, expected 1 each")
+        oracle = lambda *a, thr=None: posatt.position_attention(*a, thr=thr)
+        want = grads(oracle, w)
+        size_u = grads(oracle, w.abs())[2]
+        return max(
+            check_close(f"{name} Function out", got[0], want[0], OP_RTOL, OP_ATOL),
+            check_close(f"{name} Function d lmda", got[1], want[1], DS_RTOL,
+                        DS_ATOL * want[1].abs().max().item()),
+            check_close(f"{name} Function d u", got[2], want[2], OP_RTOL, OP_ATOL, size_u),
+        )
+
+    in_dim = m.in_dim + m.space_dim
+    inf = lambda Lo: torch.full((Lo, 1), float("inf"), device=dev)
+    burgers = [
+        # name, dist, thr, D, launches per step of stats/dscale, of du
+        ("encoder", geom.dist_down, geom.thr_down, in_dim, 1, 0),
+        ("processor", geom.dist_proc, inf(geom.dist_proc.shape[0]), m.hid_dim, m.n_blocks, m.n_blocks),
+        ("decoder", geom.dist_up, geom.thr_up, m.hid_dim, 1, 1),
+    ]
+    rows = {k: [] for k in BWD_KERNELS}
+    errs = {k: 0.0 for k in BWD_KERNELS}
+    fn_err = 0.0
+    for name, dist, thr, D, n23, n4 in burgers:
+        lmda, u, g, scale = inputs(dist, thr, H, B, D)
+        e, (M, L) = compare(name, dist, thr, scale, u, g, with_du=n4 > 0)
+        for k, v in e.items():
+            errs[k] = max(errs[k], v)
+        calls = {
+            "posatt_stats": (lambda: kp.posatt_stats_cuda(dist, thr, scale),
+                             lambda: kp.posatt_stats_reference(dist, thr, scale), n23),
+            "posatt_bwd_dscale": (lambda: kp.posatt_bwd_dscale_cuda(dist, thr, scale, M, L, g, u),
+                                  lambda: kp.posatt_bwd_dscale_reference(dist, thr, scale, M, L, g, u), n23),
+            "posatt_bwd_du": (lambda: kp.posatt_bwd_du_cuda(dist, thr, scale, M, L, g),
+                              lambda: kp.posatt_bwd_du_reference(dist, thr, scale, M, L, g), n4),
+        }
+        for kernel, (launch, plain, per_step) in calls.items():
+            if not per_step:
+                continue
+            bound_ms, bound_by, flops, nbytes, kept = bound_bwd(kernel, dist, thr, H, B, D)
+            rows[kernel].append({
+                "shape": name, "H": H, "L_out": dist.shape[0], "L_in": dist.shape[1],
+                "B": B, "D": D, "kept_entries": kept, "launches_per_step": per_step,
+                "max_abs_err": e[kernel], "ms": cuda_ms(launch), "plain_ms": cuda_ms(plain),
+                # no one PyTorch call computes any of these three functions
+                "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
+                "flops": flops, "bytes": nbytes,
+            })
+            log(f"kernel {kernel} {name}: {json.dumps(rows[kernel][-1])}")
+        if name != "encoder":  # the encoder's values need no gradient
+            loc = m.de_loc if name == "decoder" else 1.0
+            fn_err = max(fn_err, function_check(
+                name, dist, lmda, u, loc, None if loc >= 1 else thr))
+
+    for name, Lo, Li, Bq, Hr, D, loc in RAGGED:
+        dist = ragged_dist(rng, Lo, Li)
+        thr = inf(Lo) if loc >= 1 else locality.quantile_threshold(dist, loc)
+        lmda, u, g, scale = inputs(dist, thr, Hr, Bq, D)
+        e, _ = compare(name, dist, thr, scale, u, g)
+        for k, v in e.items():
+            errs[k] = max(errs[k], v)
+        fn_err = max(fn_err, function_check(name, dist, lmda, u, loc, None))
+        log(f"backward {name}: H={Hr} L_out={Lo} L_in={Li} B={Bq} D={D} "
+            f"max_abs_err={json.dumps(e)}")
+    log(f"Function: gradients match autograd of the oracle, max abs err {fn_err:.3e}")
+    return rows, errs
+
+
+def train_phase():
+    """runner.train on full-width Burgers on the card, with the kernels;
+    again with the plain attention on the card, and on the CPU; then the
+    time per step and the device's busy share of warm steps."""
+    import numpy as np
+    import torch
+
+    from position_induced_transformer_torch import configs
+    from position_induced_transformer_torch.models import pit
+    from position_induced_transformer_torch.ops.posatt import position_attention
+    from position_induced_transformer_torch.train import loop, runner
+
+    cfg = configs.BURGERS
+    epochs, ntrain, ntest = 2, 64, 16
+    plain = lambda dist, lmda, inputs, locality, thr=None: position_attention(
+        dist, lmda, inputs, locality, thr=thr)
+
+    def run(device, plain_attention=False):
+        step_losses = []
+        make = runner.make_train_epoch
+
+        def capturing(*a, **kw):  # keeps each epoch's per-step losses
+            epoch = make(*a, **kw)
+
+            def train_epoch(*b):
+                state, losses = epoch(*b)
+                step_losses.append(losses)
+                return state, losses
+            return train_epoch
+
+        patch = (mock.patch.object(pit, "position_attention_fixed", plain)
+                 if plain_attention else nullcontext())
+        zero_counts()
+        t0 = time.perf_counter()
+        with mock.patch.object(runner, "make_train_epoch", capturing), patch:
+            problem, state, history = runner.train(
+                cfg, epochs=epochs, ntrain=ntrain, ntest=ntest, seed=0,
+                verbose=False, device=device,
+            )
+        seconds = time.perf_counter() - t0
+        launched = counts()
+        weights = {k: v.detach().cpu() for k, v in state.model.state_dict().items()}
+        return problem, state, history, torch.cat(step_losses).cpu(), weights, launched, seconds
+
+    problem, state, history, losses, weights, launched, seconds = run("cuda")
+    steps = state.step
+    eval_batches = epochs * -(-ntest // cfg.batch_size)
+    per_step = {"posatt_fixed_fwd": 7, "posatt_stats": 7, "posatt_bwd_dscale": 7, "posatt_bwd_du": 6}
+    expected = {k: n * steps for k, n in per_step.items()}
+    expected["posatt_fixed_fwd"] += 7 * eval_batches
+    if steps != epochs * ntrain // cfg.batch_size or launched != expected:
+        fail(f"train: {steps} steps, {eval_batches} eval batches launched {launched}; "
+             f"expected {expected} (7/7/7/6 per step, 7 forward per eval batch)")
+    if not torch.isfinite(losses).all() or not all(
+        np.isfinite(v) for row in history for v in row.values()
+    ):
+        fail(f"train: non-finite losses or metrics: {history}")
+
+    report = {
+        "config": cfg.name, "epochs": epochs, "ntrain": ntrain, "ntest": ntest,
+        "steps": steps, "eval_batches": eval_batches, "launches": launched,
+        "seconds_whole_run_cuda": seconds, "history": history,
+        "step_losses_first_last": [losses[0].item(), losses[-1].item()],
+    }
+    for device, plain_attention, label in (("cuda", True, "plain_cuda"), ("cpu", False, "cpu")):
+        _, _, _, ref_losses, ref_weights, ref_launched, ref_s = run(device, plain_attention)
+        if any(ref_launched.values()):
+            fail(f"train: the {label} run launched kernels: {ref_launched}")
+        report[f"max_abs_err_step_loss_vs_{label}"] = check_close(
+            f"train losses vs {label}", losses, ref_losses, LOSS_RTOL, 0.0)
+        report[f"max_abs_err_weights_vs_{label}"] = max(
+            check_close(f"train weight {k} vs {label}", v, ref_weights[k], PARAM_RTOL, PARAM_ATOL)
+            for k, v in weights.items())
+        report[f"seconds_whole_run_{label}"] = ref_s
+
+    # time per step: the trained state, a constant learning rate, batch 8
+    dev = torch.device("cuda")
+    data = {k: torch.from_numpy(v).to(dev) for k, v in problem.train_data.items()}
+    perm = loop.epoch_permutation(0, epochs, ntrain, cfg.batch_size).to(dev)
+    train_epoch = loop.make_train_epoch(problem.task, lambda step: cfg.lr)
+
+    rows = itertools.cycle(range(perm.shape[0]))
+
+    def one_step():
+        i = next(rows)
+        train_epoch(state, problem.geom, data, perm[i:i + 1])
+
+    for _ in range(5):
+        one_step()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(30):
+        t0 = time.perf_counter()
+        one_step()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    epoch_s = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        train_epoch(state, problem.geom, data, perm)
+        torch.cuda.synchronize()
+        epoch_s.append(time.perf_counter() - t0)
+    report.update({
+        "wall_ms_per_step_median": statistics.median(walls),
+        "steps_per_s_synchronised_steps": 1e3 / statistics.median(walls),
+        "steps_per_s_back_to_back_epoch": perm.shape[0] / statistics.median(epoch_s),
+        "profile_warm_steps": profile_device(one_step, "step"),
+        "batch": cfg.batch_size,
+    })
+    return report
 
 
 def post(url, body):
@@ -402,7 +751,7 @@ def serve_phase():
         return out
 
     try:
-        kp.posatt_fixed_cuda.launches = 0
+        zero_counts()
         calls0 = server.batcher.n_calls
         t0 = time.perf_counter()
         ask(x[:1])
@@ -425,7 +774,8 @@ def serve_phase():
             t0 = time.perf_counter()
             ask(a)
             warm.append((time.perf_counter() - t0) * 1e3)
-        launches = kp.posatt_fixed_cuda.launches
+        launched = counts()
+        launches = launched["posatt_fixed_fwd"]
         device_calls = server.batcher.n_calls - calls0
     finally:
         server.shutdown()
@@ -435,6 +785,8 @@ def serve_phase():
     if launches != 7 * device_calls or device_calls < 25:
         fail(f"serve: {launches} kernel launches for {device_calls} device batches "
              "(expected exactly 7 per batch)")
+    if any(launched[k] for k in BWD_KERNELS):
+        fail(f"serve: backward kernels launched while serving: {launched}")
 
     # the same model with the plain attention on the card, and on the CPU
     predictor = server.predictor
@@ -457,7 +809,9 @@ def serve_phase():
             ref_cpu = torch.from_numpy(cpu.predict_array({"x": a}))
             err_cpu = max(err_cpu, check_close("serve vs CPU", got, ref_cpu, MODEL_RTOL, MODEL_ATOL))
     report = {
-        "profile_8_samples": profile_forward(predictor, x[:BURGERS_B]),
+        "profile_8_samples": profile_device(
+            lambda: predictor.predict_array({"x": x[:BURGERS_B]}), "forward"
+        ),
         "requests": len(sent), "samples": int(sum(a.shape[0] for a, _ in sent)),
         "device_batches": device_calls, "kernel_launches": launches,
         "first_request_ms": first_ms, "warm_median_ms": statistics.median(warm),
@@ -483,8 +837,11 @@ def main() -> int:
     build()
     geom = geometry_phase()
     shapes, max_err = kernel_phase(geom)
+    bwd_rows, bwd_errs = backward_kernel_phase(geom)
     serve = serve_phase()
     log("serve " + json.dumps(serve))
+    train = train_phase()
+    log("train " + json.dumps(train))
 
     per = {s["shape"]: s for s in shapes}
     total = lambda key: sum(s[key] * s["launches_per_forward"] for s in shapes)
@@ -499,6 +856,8 @@ def main() -> int:
         "source": "position_induced_transformer_torch/kernels/csrc/posatt_fixed_fwd.cu",
         "replaces": "position_induced_transformer_tpu/kernels/posatt_pallas.py:268",
         "launches": serve["kernel_launches"],
+        "launches_by_path": {"serve": serve["kernel_launches"],
+                             "train": train["launches"]["posatt_fixed_fwd"]},
         "max_abs_err": max_err,
         # times and bounds: one Burgers forward at batch 8, i.e. the sum of
         # 1 encoder + 5 processor + 1 decoder launches; "shapes" splits them
@@ -509,6 +868,33 @@ def main() -> int:
         "library_ms": total("library_ms"),
         "shapes": [per[n] for n in ("encoder", "processor", "decoder")],
     }]}
+    replaces = {  # the pl.pallas_call of each TPU kernel
+        "posatt_stats": "position_induced_transformer_tpu/kernels/posatt_pallas.py:419",
+        "posatt_bwd_dscale": "position_induced_transformer_tpu/kernels/posatt_pallas.py:545",
+        "posatt_bwd_du": "position_induced_transformer_tpu/kernels/posatt_pallas.py:627",
+    }
+    for name in BWD_KERNELS:
+        rows = bwd_rows[name]
+        # times and bounds: one Burgers training step at batch 8, the sum
+        # over its launches; "shapes" splits them
+        step = lambda key: sum(r[key] * r["launches_per_step"] for r in rows)
+        by = {kind: sum(r["bound_ms"] * r["launches_per_step"] for r in rows
+                        if r["bound_by"] == kind) for kind in ("operations", "bytes")}
+        kernels["kernels"].append({
+            "name": name,
+            "route": "cuda",
+            "source": "position_induced_transformer_torch/kernels/csrc/posatt_fixed_bwd.cu",
+            "replaces": replaces[name],
+            "launches": train["launches"][name],
+            "launches_by_path": {"serve": 0, "train": train["launches"][name]},
+            "max_abs_err": bwd_errs[name],
+            "ms": step("ms"),
+            "plain_ms": step("plain_ms"),
+            "bound_ms": step("bound_ms"),
+            "bound_by": max(by, key=by.get),
+            "library_ms": None,
+            "shapes": rows,
+        })
     log(json.dumps(kernels))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
