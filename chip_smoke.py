@@ -36,10 +36,39 @@ Phases, each of which fails the run (non-zero exit, no result line):
    step and 7 forward launches per eval batch; the per-step losses and the
    final weights agree with the same training with the plain attention on
    the card and with a CPU run; then the wall time per step, steps/s and
-   the device's busy share of warm steps.
+   the device's busy share of warm steps;
+8. batched kernels: the per-sample-mesh forward (kernel #7) against its
+   plain version at the full elasticity shapes (encoder 972 x (972 + 384)
+   with its circular band, D 44; processor 972 x 972, all kept, D 256;
+   decoder, band, D 256; the band-less serving encoder and decoder), with
+   bands and thresholds from ``setup_elasticity`` on synthetic clouds, and
+   at ragged shapes (1 to 8 heads, D 4 to 44, the kernel's own keep count,
+   seam-crossing bands, L_out not a multiple of 256); the public wrapper
+   against ``ops.posatt.position_attention`` on materialized distances;
+   times, bounds and the SDPA yardstick as in phase 4;
+9. batched backward: kernel #8's dscale and du entry points against their
+   plain versions at the elasticity training shapes and the ragged ones,
+   timed and bounded; dscale twice gives the same bits; the autograd
+   Function's gradients against torch.autograd of the oracle, one forward
+   + backward launching the forward and dscale once and du once where the
+   values need a gradient;
+10. elasticity serve: ``make_server("elasticity")`` on the card with a
+    seeded random-weight checkpoint; ``.mat`` bodies holding ``x`` and
+    ``mesh`` (1, 10, 13 samples, 4 concurrent, 20 warm); every reply 200
+    and in agreement with a plain-attention card run and a CPU run; exactly
+    6 launches of kernel #7 per device batch and no other kernel; a bare
+    ``.npy`` gets 400;
+11. elasticity train: ``runner.train("elasticity")`` at full width (80
+    training and 20 test samples, 2 epochs of 8 steps at batch 10); exactly
+    6/6/5 launches of the batched forward/dscale/du per step and 6 forward
+    launches per eval batch; losses and weights against a plain-attention
+    card run and a CPU run; the time per step, steps/s and the device's
+    busy share.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
-``kernels`` record, and before that the ``train`` and ``serve`` records.
+``kernels`` record (six kernels: #1-#4 and the per-sample-mesh #7, #8),
+and before that the ``elasticity_train``, ``elasticity_serve``, ``train``
+and ``serve`` records.
 """
 
 from __future__ import annotations
@@ -426,8 +455,13 @@ def kernel_phase(geom):
 BWD_KERNELS = ("posatt_stats", "posatt_bwd_dscale", "posatt_bwd_du")
 
 
+FIXED_KERNELS = ("posatt_fixed_fwd",) + BWD_KERNELS
+BATCHED_KERNELS = ("posatt_batched_fwd", "posatt_batched_bwd_dscale", "posatt_batched_bwd_du")
+
+
 def launchers():
-    """The four launchers, by kernel name; each counts its launches."""
+    """The seven launchers, by kernel entry point; each counts its launches."""
+    from position_induced_transformer_torch.kernels import posatt_batched as kb
     from position_induced_transformer_torch.kernels import posatt_pallas as kp
 
     return {
@@ -435,6 +469,9 @@ def launchers():
         "posatt_stats": kp.posatt_stats_cuda,
         "posatt_bwd_dscale": kp.posatt_bwd_dscale_cuda,
         "posatt_bwd_du": kp.posatt_bwd_du_cuda,
+        "posatt_batched_fwd": kb.posatt_batched_cuda,
+        "posatt_batched_bwd_dscale": kb.posatt_batched_bwd_dscale_cuda,
+        "posatt_batched_bwd_du": kb.posatt_batched_bwd_du_cuda,
     }
 
 
@@ -519,7 +556,7 @@ def backward_kernel_phase(geom):
         got = grads(kp.position_attention_fixed, w)
         torch.cuda.synchronize()
         after = counts()
-        if any(after[k] - before[k] != 1 for k in after):
+        if any(after[k] - before[k] != (k in FIXED_KERNELS) for k in after):
             fail(f"{name}: one forward + backward launched "
                  f"{ {k: after[k] - before[k] for k in after} }, expected 1 each")
         oracle = lambda *a, thr=None: posatt.position_attention(*a, thr=thr)
@@ -598,45 +635,18 @@ def train_phase():
     from position_induced_transformer_torch import configs
     from position_induced_transformer_torch.models import pit
     from position_induced_transformer_torch.ops.posatt import position_attention
-    from position_induced_transformer_torch.train import loop, runner
 
     cfg = configs.BURGERS
     epochs, ntrain, ntest = 2, 64, 16
     plain = lambda dist, lmda, inputs, locality, thr=None: position_attention(
         dist, lmda, inputs, locality, thr=thr)
 
-    def run(device, plain_attention=False):
-        step_losses = []
-        make = runner.make_train_epoch
-
-        def capturing(*a, **kw):  # keeps each epoch's per-step losses
-            epoch = make(*a, **kw)
-
-            def train_epoch(*b):
-                state, losses = epoch(*b)
-                step_losses.append(losses)
-                return state, losses
-            return train_epoch
-
-        patch = (mock.patch.object(pit, "position_attention_fixed", plain)
-                 if plain_attention else nullcontext())
-        zero_counts()
-        t0 = time.perf_counter()
-        with mock.patch.object(runner, "make_train_epoch", capturing), patch:
-            problem, state, history = runner.train(
-                cfg, epochs=epochs, ntrain=ntrain, ntest=ntest, seed=0,
-                verbose=False, device=device,
-            )
-        seconds = time.perf_counter() - t0
-        launched = counts()
-        weights = {k: v.detach().cpu() for k, v in state.model.state_dict().items()}
-        return problem, state, history, torch.cat(step_losses).cpu(), weights, launched, seconds
-
-    problem, state, history, losses, weights, launched, seconds = run("cuda")
+    problem, state, history, losses, weights, launched, seconds = run_training(
+        cfg, "cuda", epochs, ntrain, ntest)
     steps = state.step
     eval_batches = epochs * -(-ntest // cfg.batch_size)
     per_step = {"posatt_fixed_fwd": 7, "posatt_stats": 7, "posatt_bwd_dscale": 7, "posatt_bwd_du": 6}
-    expected = {k: n * steps for k, n in per_step.items()}
+    expected = {k: per_step.get(k, 0) * steps for k in launchers()}
     expected["posatt_fixed_fwd"] += 7 * eval_batches
     if steps != epochs * ntrain // cfg.batch_size or launched != expected:
         fail(f"train: {steps} steps, {eval_batches} eval batches launched {launched}; "
@@ -652,8 +662,10 @@ def train_phase():
         "seconds_whole_run_cuda": seconds, "history": history,
         "step_losses_first_last": [losses[0].item(), losses[-1].item()],
     }
-    for device, plain_attention, label in (("cuda", True, "plain_cuda"), ("cpu", False, "cpu")):
-        _, _, _, ref_losses, ref_weights, ref_launched, ref_s = run(device, plain_attention)
+    patch = mock.patch.object(pit, "position_attention_fixed", plain)
+    for device, p, label in (("cuda", patch, "plain_cuda"), ("cpu", None, "cpu")):
+        _, _, _, ref_losses, ref_weights, ref_launched, ref_s = run_training(
+            cfg, device, epochs, ntrain, ntest, p)
         if any(ref_launched.values()):
             fail(f"train: the {label} run launched kernels: {ref_launched}")
         report[f"max_abs_err_step_loss_vs_{label}"] = check_close(
@@ -662,41 +674,7 @@ def train_phase():
             check_close(f"train weight {k} vs {label}", v, ref_weights[k], PARAM_RTOL, PARAM_ATOL)
             for k, v in weights.items())
         report[f"seconds_whole_run_{label}"] = ref_s
-
-    # time per step: the trained state, a constant learning rate, batch 8
-    dev = torch.device("cuda")
-    data = {k: torch.from_numpy(v).to(dev) for k, v in problem.train_data.items()}
-    perm = loop.epoch_permutation(0, epochs, ntrain, cfg.batch_size).to(dev)
-    train_epoch = loop.make_train_epoch(problem.task, lambda step: cfg.lr)
-
-    rows = itertools.cycle(range(perm.shape[0]))
-
-    def one_step():
-        i = next(rows)
-        train_epoch(state, problem.geom, data, perm[i:i + 1])
-
-    for _ in range(5):
-        one_step()
-    torch.cuda.synchronize()
-    walls = []
-    for _ in range(30):
-        t0 = time.perf_counter()
-        one_step()
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
-    epoch_s = []
-    for _ in range(5):
-        t0 = time.perf_counter()
-        train_epoch(state, problem.geom, data, perm)
-        torch.cuda.synchronize()
-        epoch_s.append(time.perf_counter() - t0)
-    report.update({
-        "wall_ms_per_step_median": statistics.median(walls),
-        "steps_per_s_synchronised_steps": 1e3 / statistics.median(walls),
-        "steps_per_s_back_to_back_epoch": perm.shape[0] / statistics.median(epoch_s),
-        "profile_warm_steps": profile_device(one_step, "step"),
-        "batch": cfg.batch_size,
-    })
+    report.update(step_timing(problem, state, cfg.batch_size, ntrain, cfg.lr))
     return report
 
 
@@ -785,8 +763,8 @@ def serve_phase():
     if launches != 7 * device_calls or device_calls < 25:
         fail(f"serve: {launches} kernel launches for {device_calls} device batches "
              "(expected exactly 7 per batch)")
-    if any(launched[k] for k in BWD_KERNELS):
-        fail(f"serve: backward kernels launched while serving: {launched}")
+    if any(launched[k] for k in launched if k != "posatt_fixed_fwd"):
+        fail(f"serve: other kernels than the forward launched while serving: {launched}")
 
     # the same model with the plain attention on the card, and on the CPU
     predictor = server.predictor
@@ -821,6 +799,604 @@ def serve_phase():
     return report
 
 
+# ------------------------------------------------ elasticity: kernels #7, #8
+
+ELASTICITY_B = 10  # the training and serving batch
+
+RAGGED_BATCHED = [  # B, L_q, L_k, H, D, locality, thresholds: "none" (the
+    # kernel's own keep count, or global), "robust" (precomputed) or "ring"
+    # (an angle-sorted ring with a circular band)
+    ("b_h2_keep7", 2, 64, 64, 2, 8, 0.1, "none"),
+    ("b_h1_global", 2, 64, 64, 1, 8, 1.0, "none"),
+    ("b_h2_d19", 3, 37, 53, 2, 19, 0.1, "none"),
+    ("b_h1_keep3", 2, 300, 120, 1, 4, 0.02, "none"),
+    ("b_h4_d44", 2, 300, 120, 4, 44, 0.1, "robust"),
+    ("b_h8_d19", 1, 97, 1000, 8, 19, 0.02, "robust"),
+    ("b_ring_seam", 2, 900, 700, 2, 8, 0.02, "ring"),
+    ("b_ring_h8_lout1000", 2, 1000, 800, 8, 33, 0.02, "ring"),
+]
+
+
+def ring_cloud(rng, B, L):
+    import numpy as np
+
+    th = np.sort(rng.uniform(0, 2 * np.pi, (B, L)), axis=1)
+    rad = 1.0 + 0.1 * rng.random((B, 1))
+    return np.stack([rad * np.cos(th), rad * np.sin(th)], -1).astype(np.float32)
+
+
+def batched_case(rng, mq, mk, u, loc, thr, band, H):
+    """Inputs of one batched call: the launcher's (mq, mk, scale, u, thr,
+    starts, keep_count, width) on the extended key axis, prepared as the
+    wrapper prepares them, and the wrapper's (mq, mk, lmda, u, loc, thr,
+    band)."""
+    import numpy as np
+    import torch
+
+    from position_induced_transformer_torch.ops import locality, posatt
+
+    lmda = torch.from_numpy(rng.random((H, 1, 1)).astype(np.float32)).to(mq.device)
+    scale = posatt.bandwidth_scale(lmda).reshape(H, 1)
+    mk_e, u_e = mk, u
+    if band is not None and band.wrap:
+        mk_e = torch.cat([mk, mk[:, : band.wrap]], 1)
+        u_e = torch.cat([u, u[:, : band.wrap]], 1)
+    launch = (mq, mk_e, scale, u_e, thr, None if band is None else band.starts,
+              locality.topk_keep_count(mk.shape[1], loc), 0 if band is None else band.width)
+    return launch, (mq, mk, lmda, u, loc, thr, band)
+
+
+def ragged_batched(rng, B, Lq, Lk, H, D, loc, kind):
+    import numpy as np
+    import torch
+
+    from position_induced_transformer_torch.kernels import posatt_batched as kb
+    from position_induced_transformer_torch.ops import locality
+
+    to = lambda a: torch.from_numpy(np.asarray(a, np.float32)).cuda()
+    if kind == "ring":
+        mq, mk = to(ring_cloud(rng, B, Lq)), to(ring_cloud(rng, B, Lk))
+    else:
+        mq, mk = to(rng.random((B, Lq, 2))), to(rng.random((B, Lk, 2)))
+    u = to(rng.random((B, Lk, D)))
+    thr = band = None
+    if kind != "none":
+        thr = locality.batched_topk_thresholds(mq, mk, loc)
+    if kind == "ring":
+        starts, width, wrap = locality.batched_band_starts(
+            mq, mk, thr, kb.band_tile_rows(Lq), circular=True)
+        if not (starts.numpy() + width > Lk).any():
+            fail(f"ring case {B}x{Lq}x{Lk}: no band crosses the seam")
+        band = kb.BandSpec(starts.cuda(), width, wrap)
+    return batched_case(rng, mq, mk, u, loc, thr, band, H)
+
+
+def batched_oracle(mq, mk, lmda, u, loc, thr=None, band=None):
+    """ops.posatt.position_attention on materialized distances: the band
+    holds every kept column, so the oracle needs none."""
+    from position_induced_transformer_torch.ops import distances, locality, posatt
+
+    dist = distances.euclidean_sq(mq, mk)
+    if thr is None and loc < 1:
+        thr = locality.topk_threshold(dist, loc)
+    return posatt.position_attention(dist, lmda, u, loc, thr=thr)
+
+
+def elasticity_shapes(rng):
+    """The attention calls of full-width elasticity on its first training
+    batch as setup_elasticity prepares it (angle-sorted synthetic clouds,
+    thresholds, circular band starts), and of a served batch (thresholds
+    from robust_topk_threshold, no band): name -> (launcher args, wrapper
+    args, launches per forward)."""
+    import numpy as np
+    import torch
+
+    from position_induced_transformer_torch import configs
+    from position_induced_transformer_torch.ops import distances, locality
+    from position_induced_transformer_torch.train import benchmarks
+
+    cfg = configs.ELASTICITY
+    m = cfg.model
+    problem = benchmarks.setup_elasticity(cfg, ntrain=ELASTICITY_B, ntest=2, device="cuda")
+    batch = {k: torch.from_numpy(v).cuda() for k, v in problem.train_data.items()}
+    geom = problem.task.geom_fn(batch)
+    mesh, x, band = batch["mesh"], batch["x"], geom.band_down
+    hid = torch.from_numpy(rng.standard_normal((ELASTICITY_B, mesh.shape[1], m.hid_dim))
+                           .astype(np.float32)).cuda()
+    serve_thr = locality.robust_topk_threshold(distances.euclidean_sq(mesh, mesh), m.en_loc)
+    H = m.n_head
+    shapes = {
+        "encoder": (*batched_case(rng, mesh, mesh, x, m.en_loc, geom.thr_down, band, H), 1),
+        "processor": (*batched_case(rng, mesh, mesh, hid, 1.0, None, None, H), m.n_blocks),
+        "decoder": (*batched_case(rng, mesh, mesh, hid, m.de_loc, geom.thr_up, geom.band_up, H), 1),
+        "serve_encoder": (*batched_case(rng, mesh, mesh, x, m.en_loc, serve_thr, None, H), 1),
+        "serve_decoder": (*batched_case(rng, mesh, mesh, hid, m.de_loc, serve_thr, None, H), 1),
+    }
+    info = {"band_width": band.width, "band_wrap": band.wrap,
+            "band_starts_sample0": band.starts[0].tolist()}
+    return shapes, info
+
+
+def batched_work(args, keep=None):
+    """What the forward must do on these inputs: the distances it inspects
+    (every column of each row's window), the kept entries, and the bytes it
+    must move (coordinates, thresholds, starts, values, output, each once)."""
+    from position_induced_transformer_torch.kernels import posatt_batched as kb
+
+    mq, mk, scale, u, thr, starts, kc, width = args
+    B, Lo, d = mq.shape
+    Li, D = u.shape[1:]
+    if keep is None:
+        keep = kb._rows(mq, mk, thr, starts, kc, width)[1]
+    win = kb._window(starts, width, Lo, Li, mq.device)
+    inspected = B * Lo * Li if win is None else int(win.sum())
+    words = B * Lo * d + B * Li * d + B * Li * D + B * Lo * scale.shape[0] * D
+    words += (B * Lo if thr is not None else 0) + (starts.numel() if starts is not None else 0)
+    return inspected, int(keep.sum()), 4 * words
+
+
+def batched_kernel_phase():
+    """Kernel #7 against its plain version at the elasticity shapes and at
+    ragged ones, the public wrapper against the oracle on materialized
+    distances; times, bounds and the SDPA yardstick at the elasticity
+    shapes."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from position_induced_transformer_torch.kernels import posatt_batched as kb
+
+    rng = np.random.default_rng(3)
+
+    def compare(name, args, wargs):
+        mq, mk, scale, u, thr, starts, kc, width = args
+        kw = dict(keep_count=kc, width=width)
+        got = kb.posatt_batched_cuda(mq, mk, scale, u, thr, starts, **kw)
+        torch.cuda.synchronize()
+        want = kb.posatt_batched_reference(mq, mk, scale, u, thr, starts, **kw)
+        torch.cuda.synchronize()
+        err = check_close(name, got, want, OP_RTOL, OP_ATOL)
+        before = kb.posatt_batched_cuda.launches
+        with torch.no_grad():
+            got = kb.position_attention_batched(*wargs)
+        torch.cuda.synchronize()
+        if kb.posatt_batched_cuda.launches != before + 1:
+            fail(f"{name}: position_attention_batched did not launch the kernel once")
+        want = batched_oracle(*wargs)
+        return max(err, check_close(f"{name} (wrapper)", got, want, OP_RTOL, OP_ATOL)), want
+
+    shapes, info = elasticity_shapes(rng)
+    log("elasticity band " + json.dumps(info))
+    rows, errs = [], []
+    for name, (args, wargs, per_forward) in shapes.items():
+        mq, mk, scale, u, thr, starts, kc, width = args
+        B, Lo, _ = mq.shape
+        Li, D = u.shape[1:]
+        H = scale.shape[0]
+        err, want = compare(name, args, wargs)
+        errs.append(err)
+        kw = dict(keep_count=kc, width=width)
+        ms = cuda_ms(lambda: kb.posatt_batched_cuda(mq, mk, scale, u, thr, starts, **kw))
+        plain_ms = cuda_ms(lambda: kb.posatt_batched_reference(mq, mk, scale, u, thr, starts, **kw))
+        # yardstick: one SDPA call with zero q and k and the masked logits
+        # as attn_mask (built outside the timing) computes the same function
+        dist, keep, _, _ = kb._rows(mq, mk, thr, starts, kc, width)
+        logits = torch.where(keep[:, None], -dist[:, None] * scale.reshape(1, H, 1, 1), -1e38)
+        q = torch.zeros((B, H, Lo, D), device=mq.device)
+        k = torch.zeros((B, H, Li, D), device=mq.device)
+        v = u[:, None].expand(B, H, Li, D).contiguous()
+        sdpa = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=logits)
+        lib_err = (sdpa().permute(0, 2, 1, 3).reshape(B, Lo, H * D) - want).abs().max().item()
+        library_ms = cuda_ms(sdpa)
+        del dist, logits, q, k, v
+        inspected, kept, nbytes = batched_work(args, keep)
+        flops = 3 * mq.shape[-1] * inspected + 2 * H * D * kept
+        bound_ms, bound_by = roofline(flops, nbytes)
+        rows.append({
+            "shape": name, "H": H, "B": B, "L_out": Lo, "L_in": Li, "D": D,
+            "band_width": width, "inspected": inspected, "kept_entries": kept,
+            "launches_per_forward": per_forward, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": library_ms, "library_max_abs_err": lib_err,
+            "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops, "bytes": nbytes,
+        })
+        log(f"kernel posatt_batched_fwd {name}: {json.dumps(rows[-1])}")
+    for name, *shape in RAGGED_BATCHED:
+        args, wargs = ragged_batched(rng, *shape)
+        err, _ = compare(name, args, wargs)
+        errs.append(err)
+        log(f"kernel posatt_batched_fwd {name}: {shape} max_abs_err={err:.3e}")
+    return shapes, rows, max(errs)
+
+
+def batched_backward_phase(shapes):
+    """Kernel #8's entry points against their plain versions at the
+    elasticity training shapes and at ragged ones, timed and bounded; the
+    Function's gradients against torch.autograd of the oracle, with the
+    stated launches per forward + backward; dscale twice, the same bits."""
+    import numpy as np
+    import torch
+
+    from position_induced_transformer_torch.kernels import posatt_batched as kb
+
+    rng = np.random.default_rng(4)
+
+    def compare(name, args, g, with_du=True):
+        mq, mk, scale, u, thr, starts, kc, width = args
+        _, stats = kb.posatt_batched_cuda(mq, mk, scale, u, thr, starts, keep_count=kc,
+                                          width=width, stats=True)
+        want_stats = kb.posatt_batched_stats_reference(mq, mk, scale, thr, starts,
+                                                       keep_count=kc, width=width)
+        torch.cuda.synchronize()
+        # the row minimum and the keep threshold (+inf for a global row) come
+        # from bit-equal distances
+        if not torch.equal(stats[:, :2], want_stats[:, :2]):
+            fail(f"{name}: the forward's row minimum or keep threshold differs from the plain version")
+        errs = {"stats": check_close(f"{name} stats", stats[:, 2:], want_stats[:, 2:], OP_RTOL, 0.0)}
+        w = dict(width=width)
+        ds = kb.posatt_batched_bwd_dscale_cuda(mq, mk, scale, u, g, stats, starts, **w)
+        again = kb.posatt_batched_bwd_dscale_cuda(mq, mk, scale, u, g, stats, starts, **w)
+        torch.cuda.synchronize()
+        if not torch.equal(ds, again):
+            fail(f"{name}: two dscale runs on the same inputs differ")
+        want = kb.posatt_batched_bwd_dscale_reference(mq, mk, scale, u, g, stats, starts, **w)
+        # the size of the summed terms per sample and head: sum_i |w_i| + |r_i v_i|
+        att, keep, dist = kb._weights_from_stats(mq, mk, scale, stats, starts, width)
+        B, Lo, HD = g.shape
+        t = torch.einsum("bihd,bjd->bhij", g.reshape(B, Lo, scale.shape[0], -1), u)
+        nd = torch.where(keep, dist, 0.0)[:, None]
+        size = ((att * t * nd).sum(-1).abs() + (att * t).sum(-1).abs() * (att * nd).sum(-1)).sum(-1)
+        del att, t, nd, dist
+        check_close(f"{name} dscale (normalised)", ds / size, want / size, DS_RTOL, DS_ATOL)
+        errs["posatt_batched_bwd_dscale"] = (ds - want).abs().max().item()
+        if with_du:
+            du = kb.posatt_batched_bwd_du_cuda(mq, mk, scale, g, stats, starts, **w)
+            torch.cuda.synchronize()
+            want = kb.posatt_batched_bwd_du_reference(mq, mk, scale, g, stats, starts, **w)
+            size = kb.posatt_batched_bwd_du_reference(mq, mk, scale, g.abs(), stats, starts, **w)
+            errs["posatt_batched_bwd_du"] = check_close(f"{name} du", du, want, OP_RTOL, OP_ATOL, size)
+        return errs, stats, keep
+
+    def function_check(name, wargs, need_du):
+        """One forward + backward through position_attention_batched launches
+        the forward and dscale once and du once when the values need a
+        gradient; its gradients match autograd of the oracle."""
+        mq, mk, lmda, u, loc, thr, band = wargs
+        H, D = lmda.shape[0], u.shape[-1]
+        w = torch.from_numpy(rng.standard_normal((u.shape[0], mq.shape[1], H * D))
+                             .astype(np.float32)).cuda()
+
+        def grads(fn, w):
+            lm = lmda.clone().requires_grad_(True)
+            x = u.clone().requires_grad_(need_du)
+            out = fn(mq, mk, lm, x, loc, thr, band)
+            (out * w).sum().backward()
+            return out.detach(), lm.grad, x.grad
+
+        before = counts()
+        got = grads(kb.position_attention_batched, w)
+        torch.cuda.synchronize()
+        after = counts()
+        expect = {"posatt_batched_fwd": 1, "posatt_batched_bwd_dscale": 1,
+                  "posatt_batched_bwd_du": int(need_du)}
+        diff = {k: after[k] - before[k] for k in after}
+        if diff != {k: expect.get(k, 0) for k in after}:
+            fail(f"{name}: one forward + backward launched {diff}, expected {expect}")
+        want = grads(batched_oracle, w)
+        err = max(
+            check_close(f"{name} Function out", got[0], want[0], OP_RTOL, OP_ATOL),
+            check_close(f"{name} Function d lmda", got[1], want[1], DS_RTOL,
+                        DS_ATOL * want[1].abs().max().item()),
+        )
+        if need_du:
+            size_u = grads(batched_oracle, w.abs())[2]
+            err = max(err, check_close(f"{name} Function d u", got[2], want[2], OP_RTOL, OP_ATOL, size_u))
+        return err
+
+    # launches per training step of dscale and du: the encoder's values are
+    # the model input, which needs no gradient
+    per_step = {"encoder": (1, 0), "processor": (4, 4), "decoder": (1, 1)}
+    rows = {k: [] for k in BATCHED_KERNELS[1:]}
+    errs = {k: 0.0 for k in ("stats",) + BATCHED_KERNELS[1:]}
+    fn_err = 0.0
+    for name, (n_ds, n_du) in per_step.items():
+        args, wargs, _ = shapes[name]
+        mq, mk, scale, u, thr, starts, kc, width = args
+        H = scale.shape[0]
+        B, Lo, d = mq.shape
+        Li, D = u.shape[1:]
+        g = torch.from_numpy(rng.standard_normal((B, Lo, H * D)).astype(np.float32)).cuda()
+        e, stats, keep = compare(name, args, g, with_du=n_du > 0)
+        for k, v in e.items():
+            errs[k] = max(errs[k], v)
+        inspected, kept, _ = batched_work(args, keep)
+        flops = 3 * d * inspected + 2 * H * D * kept
+        # coordinates, starts, statistics and the cotangent; dscale reads
+        # the values and writes (B, H), du writes dU
+        words = B * Lo * d + B * Li * d + B * (H + 2) * Lo + B * Lo * H * D
+        words += starts.numel() if starts is not None else 0
+        w = dict(width=width)
+        calls = {
+            "posatt_batched_bwd_dscale": (
+                lambda: kb.posatt_batched_bwd_dscale_cuda(mq, mk, scale, u, g, stats, starts, **w),
+                lambda: kb.posatt_batched_bwd_dscale_reference(mq, mk, scale, u, g, stats, starts, **w),
+                n_ds, words + B * Li * D + B * H),
+            "posatt_batched_bwd_du": (
+                lambda: kb.posatt_batched_bwd_du_cuda(mq, mk, scale, g, stats, starts, **w),
+                lambda: kb.posatt_batched_bwd_du_reference(mq, mk, scale, g, stats, starts, **w),
+                n_du, words + B * Li * D),
+        }
+        for kernel, (launch, plain, n, nwords) in calls.items():
+            if not n:
+                continue
+            bound_ms, bound_by = roofline(flops, 4 * nwords)
+            rows[kernel].append({
+                "shape": name, "H": H, "B": B, "L_out": Lo, "L_in": Li, "D": D,
+                "band_width": width, "inspected": inspected, "kept_entries": kept,
+                "launches_per_step": n, "max_abs_err": e[kernel], "ms": cuda_ms(launch),
+                "plain_ms": cuda_ms(plain, reps=10, per_rep=3),
+                # no one PyTorch call computes either function
+                "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
+                "flops": flops, "bytes": 4 * nwords,
+            })
+            log(f"kernel {kernel} {name}: {json.dumps(rows[kernel][-1])}")
+        fn_err = max(fn_err, function_check(name, wargs, need_du=n_du > 0))
+    for name, *shape in RAGGED_BATCHED:
+        args, wargs = ragged_batched(rng, *shape)
+        B, Lo = args[0].shape[:2]
+        HD = args[2].shape[0] * args[3].shape[-1]
+        g = torch.from_numpy(rng.standard_normal((B, Lo, HD)).astype(np.float32)).cuda()
+        e, _, _ = compare(name, args, g)
+        for k, v in e.items():
+            errs[k] = max(errs[k], v)
+        fn_err = max(fn_err, function_check(name, wargs, need_du=True))
+        log(f"backward {name}: {shape} max_abs_err={json.dumps(e)}")
+    log(f"PosAttBatched: gradients match autograd of the oracle, max abs err {fn_err:.3e}")
+    return rows, errs
+
+
+def mat_bytes(**arrays):
+    from scipy.io import savemat
+
+    buf = io.BytesIO()
+    savemat(buf, arrays)
+    return buf.getvalue()
+
+
+def plain_batched(mesh_q, mesh_k, lmda, inputs, locality, thr=None, band=None):
+    return batched_oracle(mesh_q, mesh_k, lmda, inputs, locality, thr)
+
+
+def elasticity_serve_phase():
+    """make_server("elasticity") with a seeded random-weight checkpoint on
+    the card: .mat bodies holding x and mesh, 1, 10 and 13 samples, 4
+    concurrent requests, then 20 warm ones; every reply 200 and in
+    agreement with a plain-attention card run and a CPU run; exactly 6
+    launches of the batched forward per device batch and no other kernel;
+    a bare .npy gets 400."""
+    import numpy as np
+    import torch
+
+    from position_induced_transformer_torch import configs
+    from position_induced_transformer_torch.data import synthetic
+    from position_induced_transformer_torch.models import pit
+    from position_induced_transformer_torch.train import benchmarks, checkpoint
+    from position_induced_transformer_torch.train.evaluate import Predictor
+    from position_induced_transformer_torch.train.serve import make_server
+
+    cfg = configs.ELASTICITY
+    model = benchmarks._make_model(cfg, torch.Generator().manual_seed(0))
+    ckpt = checkpoint.save(
+        str(REPO / "build" / "chip_smoke" / "elasticity.pt"), model.state_dict(), cfg.name
+    )
+    t0 = time.perf_counter()
+    server = make_server(cfg.name, ckpt, host="127.0.0.1", port=0, verbose=False, device="cuda")
+    startup_s = time.perf_counter() - t0
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}/predict"
+    X, ext, _ = synthetic.elasticity(n=50, seed=1)
+    sent = []  # (x, mesh, reply)
+
+    def ask(i, j):
+        code, body = post(url, mat_bytes(x=X[i:j], mesh=ext[i:j]))
+        if code != 200:
+            fail(f"elasticity serve: HTTP {code} for {j - i} samples: {body[:500]!r}")
+        out = np.load(io.BytesIO(body))
+        sent.append((X[i:j], ext[i:j], out))
+        return out
+
+    try:
+        zero_counts()
+        calls0 = server.batcher.n_calls
+        t0 = time.perf_counter()
+        ask(0, 1)
+        first_ms = (time.perf_counter() - t0) * 1e3
+        ask(1, 11)
+        ask(11, 24)  # 13 samples: one full and one padded batch
+        threads = [threading.Thread(target=ask, args=(24 + 3 * i, 27 + 3 * i)) for i in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        if any(t.is_alive() for t in threads) or len(sent) != 7:
+            fail("elasticity serve: concurrent requests did not all complete")
+        warm = []
+        for i in range(20):
+            t0 = time.perf_counter()
+            ask(10 * (i % 5), 10 * (i % 5) + 10)
+            warm.append((time.perf_counter() - t0) * 1e3)
+        launched = counts()
+        device_calls = server.batcher.n_calls - calls0
+        code, body = post(url, npy(X[:2]))  # x alone: the clouds are missing
+        if code != 400 or b"mesh" not in body:
+            fail(f"elasticity serve: a bare .npy got HTTP {code}: {body[:300]!r}")
+        if counts() != launched:
+            fail("elasticity serve: the refused request launched kernels")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+
+    expected = {k: 6 * device_calls if k == "posatt_batched_fwd" else 0 for k in launched}
+    if launched != expected or device_calls < 25:
+        fail(f"elasticity serve: {launched} for {device_calls} device batches "
+             "(expected 6 batched forward launches per batch and nothing else)")
+
+    predictor = server.predictor
+    cpu = Predictor(cfg.name, ckpt, device="cpu")
+    err_plain = err_cpu = 0.0
+    with mock.patch.object(pit, "position_attention_batched", plain_batched):
+        for a, m, out in sent:
+            before = counts()
+            ref = torch.from_numpy(predictor.predict_array({"x": a, "mesh": m}))
+            if counts() != before:
+                fail("elasticity serve: the plain comparison run launched a kernel")
+            got = torch.from_numpy(out)
+            if got.shape != (a.shape[0], a.shape[1], cfg.model.out_dim):
+                fail(f"elasticity serve: reply shape {tuple(got.shape)}")
+            err_plain = max(err_plain, check_close(
+                "elasticity serve vs plain on CUDA", got, ref, MODEL_RTOL, MODEL_ATOL))
+    for a, m, out in sent:
+        ref_cpu = torch.from_numpy(cpu.predict_array({"x": a, "mesh": m}))
+        err_cpu = max(err_cpu, check_close(
+            "elasticity serve vs CPU", torch.from_numpy(out), ref_cpu, MODEL_RTOL, MODEL_ATOL))
+    return {
+        "config": cfg.name, "startup_s": startup_s,
+        "profile_10_samples": profile_device(
+            lambda: predictor.predict_array({"x": X[:ELASTICITY_B], "mesh": ext[:ELASTICITY_B]}),
+            "forward"),
+        "requests": len(sent), "samples": int(sum(a.shape[0] for a, _, _ in sent)),
+        "device_batches": device_calls, "launches": launched,
+        "first_request_ms": first_ms, "warm_median_ms": statistics.median(warm),
+        "warm_requests": len(warm), "warm_samples_per_request": ELASTICITY_B,
+        "max_abs_err_vs_plain_cuda": err_plain, "max_abs_err_vs_cpu": err_cpu,
+    }
+
+
+def run_training(cfg, device, epochs, ntrain, ntest, patch=None):
+    """runner.train with the launch counts zeroed first; returns the
+    problem, state, history, per-step losses, final weights, launches and
+    seconds. ``patch``: a context manager around the run."""
+    import torch
+
+    from position_induced_transformer_torch.train import runner
+
+    step_losses = []
+    make = runner.make_train_epoch
+
+    def capturing(*a, **kw):  # keeps each epoch's per-step losses
+        epoch = make(*a, **kw)
+
+        def train_epoch(*b):
+            state, losses = epoch(*b)
+            step_losses.append(losses)
+            return state, losses
+        return train_epoch
+
+    zero_counts()
+    t0 = time.perf_counter()
+    with mock.patch.object(runner, "make_train_epoch", capturing), patch or nullcontext():
+        problem, state, history = runner.train(
+            cfg, epochs=epochs, ntrain=ntrain, ntest=ntest, seed=0, verbose=False, device=device,
+        )
+    seconds = time.perf_counter() - t0
+    launched = counts()
+    weights = {k: v.detach().cpu() for k, v in state.model.state_dict().items()}
+    return problem, state, history, torch.cat(step_losses).cpu(), weights, launched, seconds
+
+
+def step_timing(problem, state, batch_size, n_rows, lr):
+    """Wall time of synchronised training steps on the trained state at a
+    constant learning rate, steps/s, and the device's busy share."""
+    import torch
+
+    from position_induced_transformer_torch.train import loop
+
+    dev = torch.device("cuda")
+    data = {k: torch.from_numpy(v).to(dev) for k, v in problem.train_data.items()}
+    perm = loop.epoch_permutation(0, 99, n_rows, batch_size).to(dev)
+    train_epoch = loop.make_train_epoch(problem.task, lambda step: lr)
+    rows = itertools.cycle(range(perm.shape[0]))
+
+    def one_step():
+        i = next(rows)
+        train_epoch(state, problem.geom, data, perm[i:i + 1])
+
+    for _ in range(5):
+        one_step()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(30):
+        t0 = time.perf_counter()
+        one_step()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    epoch_s = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        train_epoch(state, problem.geom, data, perm)
+        torch.cuda.synchronize()
+        epoch_s.append(time.perf_counter() - t0)
+    return {
+        "wall_ms_per_step_median": statistics.median(walls),
+        "steps_per_s_synchronised_steps": 1e3 / statistics.median(walls),
+        "steps_per_s_back_to_back_epoch": perm.shape[0] / statistics.median(epoch_s),
+        "profile_warm_steps": profile_device(one_step, "step"),
+        "batch": batch_size,
+    }
+
+
+def elasticity_train_phase():
+    """runner.train on full-width elasticity on the card (synthetic data,
+    80 training and 20 test samples, 2 epochs of 8 steps at batch 10):
+    exactly 6/6/5 launches of the batched forward/dscale/du per step and 6
+    forward launches per eval batch; losses and weights against a
+    plain-attention card run and a CPU run; then the time per step."""
+    import numpy as np
+    import torch
+
+    from position_induced_transformer_torch import configs
+    from position_induced_transformer_torch.models import pit
+
+    cfg = configs.ELASTICITY
+    epochs, ntrain, ntest = 2, 80, 20
+    problem, state, history, losses, weights, launched, seconds = run_training(
+        cfg, "cuda", epochs, ntrain, ntest)
+    steps = state.step
+    eval_batches = epochs * -(-ntest // cfg.batch_size)
+    per_step = {"posatt_batched_fwd": 6, "posatt_batched_bwd_dscale": 6, "posatt_batched_bwd_du": 5}
+    expected = {k: per_step.get(k, 0) * steps for k in launched}
+    expected["posatt_batched_fwd"] += 6 * eval_batches
+    if steps != epochs * (ntrain // cfg.batch_size) or launched != expected:
+        fail(f"elasticity train: {steps} steps, {eval_batches} eval batches launched {launched}; "
+             f"expected {expected} (6/6/5 per step, 6 forward per eval batch)")
+    if not torch.isfinite(losses).all() or not all(
+        np.isfinite(v) for row in history for v in row.values()
+    ):
+        fail(f"elasticity train: non-finite losses or metrics: {history}")
+    report = {
+        "config": cfg.name, "epochs": epochs, "ntrain": ntrain, "ntest": ntest,
+        "steps": steps, "eval_batches": eval_batches, "launches": launched,
+        "seconds_whole_run_cuda": seconds, "history": history,
+        "step_losses_first_last": [losses[0].item(), losses[-1].item()],
+    }
+    patch = mock.patch.object(pit, "position_attention_batched", plain_batched)
+    for device, p, label in (("cuda", patch, "plain_cuda"), ("cpu", None, "cpu")):
+        _, _, _, ref_losses, ref_weights, ref_launched, ref_s = run_training(
+            cfg, device, epochs, ntrain, ntest, p)
+        if any(ref_launched.values()):
+            fail(f"elasticity train: the {label} run launched kernels: {ref_launched}")
+        report[f"max_abs_err_step_loss_vs_{label}"] = check_close(
+            f"elasticity train losses vs {label}", losses, ref_losses, LOSS_RTOL, 0.0)
+        report[f"max_abs_err_weights_vs_{label}"] = max(
+            check_close(f"elasticity train weight {k} vs {label}", v, ref_weights[k],
+                        PARAM_RTOL, PARAM_ATOL)
+            for k, v in weights.items())
+        report[f"seconds_whole_run_{label}"] = ref_s
+    report.update(step_timing(problem, state, cfg.batch_size, ntrain, cfg.lr))
+    return report
+
+
 def main() -> int:
     import torch
 
@@ -842,6 +1418,12 @@ def main() -> int:
     log("serve " + json.dumps(serve))
     train = train_phase()
     log("train " + json.dumps(train))
+    b_shapes, b_rows, b_err = batched_kernel_phase()
+    b_bwd_rows, b_bwd_errs = batched_backward_phase(b_shapes)
+    e_serve = elasticity_serve_phase()
+    log("elasticity_serve " + json.dumps(e_serve))
+    e_train = elasticity_train_phase()
+    log("elasticity_train " + json.dumps(e_train))
 
     per = {s["shape"]: s for s in shapes}
     total = lambda key: sum(s[key] * s["launches_per_forward"] for s in shapes)
@@ -873,13 +1455,20 @@ def main() -> int:
         "posatt_bwd_dscale": "position_induced_transformer_tpu/kernels/posatt_pallas.py:545",
         "posatt_bwd_du": "position_induced_transformer_tpu/kernels/posatt_pallas.py:627",
     }
+
+    def per_step(rows, launches_key):
+        """Times and bounds summed over a step's launches, and what bounds
+        the larger share of the bound."""
+        step = lambda key: sum(r[key] * r[launches_key] for r in rows)
+        by = {kind: sum(r["bound_ms"] * r[launches_key] for r in rows if r["bound_by"] == kind)
+              for kind in ("operations", "bytes")}
+        return {"ms": step("ms"), "plain_ms": step("plain_ms"), "bound_ms": step("bound_ms"),
+                "bound_by": max(by, key=by.get)}
+
     for name in BWD_KERNELS:
         rows = bwd_rows[name]
         # times and bounds: one Burgers training step at batch 8, the sum
         # over its launches; "shapes" splits them
-        step = lambda key: sum(r[key] * r["launches_per_step"] for r in rows)
-        by = {kind: sum(r["bound_ms"] * r["launches_per_step"] for r in rows
-                        if r["bound_by"] == kind) for kind in ("operations", "bytes")}
         kernels["kernels"].append({
             "name": name,
             "route": "cuda",
@@ -888,13 +1477,51 @@ def main() -> int:
             "launches": train["launches"][name],
             "launches_by_path": {"serve": 0, "train": train["launches"][name]},
             "max_abs_err": bwd_errs[name],
-            "ms": step("ms"),
-            "plain_ms": step("plain_ms"),
-            "bound_ms": step("bound_ms"),
-            "bound_by": max(by, key=by.get),
+            **per_step(rows, "launches_per_step"),
             "library_ms": None,
             "shapes": rows,
         })
+    # kernel #7: one elasticity training forward at batch 10 (1 encoder + 4
+    # processor + 1 decoder launches); a served forward swaps the banded
+    # encoder and decoder for the band-less serving shapes
+    train_rows = [r for r in b_rows if not r["shape"].startswith("serve_")]
+    serve_rows = [r for r in b_rows if r["shape"] in ("processor", "serve_encoder", "serve_decoder")]
+    fwd = per_step(train_rows, "launches_per_forward")
+    n_serve, n_train = (e_serve["launches"]["posatt_batched_fwd"],
+                        e_train["launches"]["posatt_batched_fwd"])
+    kernels["kernels"].append({
+        "name": "posatt_batched_fwd",
+        "route": "cuda",
+        "source": "position_induced_transformer_torch/kernels/csrc/posatt_batched_fwd.cu",
+        "replaces": "position_induced_transformer_tpu/kernels/posatt_batched.py:278",
+        "launches": n_serve + n_train,
+        "launches_by_path": {"serve": n_serve, "train": n_train},
+        "max_abs_err": b_err,
+        **fwd,
+        "library_ms": sum(r["library_ms"] * r["launches_per_forward"] for r in train_rows),
+        "per_serve_forward": {
+            **per_step(serve_rows, "launches_per_forward"),
+            "library_ms": sum(r["library_ms"] * r["launches_per_forward"] for r in serve_rows)},
+        "shapes": b_rows,
+    })
+    # kernel #8: its two entry points over one elasticity training step
+    entry = {k: per_step(b_bwd_rows[k], "launches_per_step") for k in BATCHED_KERNELS[1:]}
+    kernels["kernels"].append({
+        "name": "posatt_batched_bwd",
+        "route": "cuda",
+        "source": "position_induced_transformer_torch/kernels/csrc/posatt_batched_bwd.cu",
+        "replaces": "position_induced_transformer_tpu/kernels/posatt_batched.py:415",
+        "launches": sum(e_train["launches"][k] for k in BATCHED_KERNELS[1:]),
+        "launches_by_path": {"serve": 0, **{k: e_train["launches"][k] for k in BATCHED_KERNELS[1:]}},
+        "max_abs_err": max(b_bwd_errs[k] for k in BATCHED_KERNELS[1:]),
+        "ms": sum(e["ms"] for e in entry.values()),
+        "plain_ms": sum(e["plain_ms"] for e in entry.values()),
+        "bound_ms": sum(e["bound_ms"] for e in entry.values()),
+        "bound_by": max(entry.values(), key=lambda e: e["bound_ms"])["bound_by"],
+        "library_ms": None,
+        "entry_points": entry,
+        "shapes": b_bwd_rows,
+    })
     log(json.dumps(kernels))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -82,3 +82,31 @@ def burgers(path=None, ntrain=1024, ntest=128, L=1024) -> Tuple[np.ndarray, ...]
         x, y = synthetic.burgers(n=ntrain + ntest, L=L)
     x_tr, x_te, y_tr, y_te = _split((x, y), x.shape[0], ntrain, ntest, "burgers")
     return x_tr, y_tr, x_te, y_te
+
+
+def elasticity(
+    dirpath=None, ntrain=1000, ntest=200, n_points=972
+) -> Tuple[np.ndarray, ...]:
+    """``(X_tr, ext_tr, Y_tr, X_te, ext_te, Y_te)`` from the three
+    ``Random_UnitCell_{rr,XY,sigma}_10.npy`` files in ``dirpath``, or from
+    the synthetic generator when they are absent."""
+    paths = None
+    if dirpath is not None:
+        paths = {
+            k: os.path.join(dirpath, f"Random_UnitCell_{k}_10.npy")
+            for k in ("rr", "XY", "sigma")
+        }
+    if paths and all(_is_real_file(p) for p in paths.values()):
+        # cast before the (N, 972, 42) repeat: float64 would double it
+        r = np.transpose(np.load(paths["rr"]), (1, 0))[:, None, :].astype(np.float32)
+        ext = np.transpose(np.load(paths["XY"]), (2, 0, 1)).astype(np.float32)
+        rvec = np.repeat(5 * r - 1, ext.shape[1], 1)
+        X = np.concatenate([ext, rvec], axis=-1)
+        Y = np.transpose(np.load(paths["sigma"]), (1, 0))[..., None].astype(np.float32)
+    else:
+        _warn_fallback(dirpath, "elasticity")
+        X, ext, Y = synthetic.elasticity(n=ntrain + ntest, L=n_points)
+    X_tr, X_te, ext_tr, ext_te, Y_tr, Y_te = _split(
+        (X, ext, Y), X.shape[0], ntrain, ntest, "elasticity"
+    )
+    return X_tr, ext_tr, Y_tr, X_te, ext_te, Y_te

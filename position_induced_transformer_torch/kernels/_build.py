@@ -21,7 +21,7 @@ from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-KERNELS = ("posatt_fixed_fwd", "posatt_fixed_bwd")
+KERNELS = ("posatt_fixed_fwd", "posatt_fixed_bwd", "posatt_batched_fwd", "posatt_batched_bwd")
 
 # no --use_fast_math: expf and the divisions must round as the f32 oracle's
 _NVCC_FLAGS = (

@@ -17,15 +17,20 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from position_induced_transformer_torch.kernels.posatt_batched import (
+    position_attention_batched,
+)
 from position_induced_transformer_torch.kernels.posatt_pallas import (
     position_attention_fixed,
 )
 from position_induced_transformer_torch.models.geometry import Geometry
+from position_induced_transformer_torch.ops.distances import pairwise_sq_dist
 from position_induced_transformer_torch.ops.initializers import (
     kaiming_normal,
     torch_linear_bias,
     uniform01,
 )
+from position_induced_transformer_torch.ops.locality import robust_topk_threshold
 from position_induced_transformer_torch.ops.normalization import instance_norm
 
 
@@ -64,13 +69,24 @@ class KaimingMLP(nn.Module):
         return self.mlp2(F.gelu(self.mlp1(x), approximate="none"))
 
 
-def _dispatch_posatt(dist, lmda, inputs, locality, thr):
-    """Fixed meshes go through the kernel wrapper, which launches the CUDA
-    kernel for CUDA tensors and runs the plain version for CPU tensors."""
-    if dist is None or dist.ndim != 2:
+def _dispatch_posatt(dist, lmda, inputs, locality, thr, mesh_q=None, mesh_k=None, band=None):
+    """Route an attention op to its kernel wrapper; each launches its CUDA
+    kernel for CUDA tensors and runs the plain version for CPU tensors.
+
+    Fixed meshes (a 2-D ``dist``) take the fixed-mesh kernel. Lazy
+    per-sample geometry (``dist`` None, raw coordinates ``mesh_q`` and
+    ``mesh_k``) takes the batched kernel; without precomputed thresholds a
+    local op first computes the robust wide-gap ones from the distances,
+    so that its kept sets match every other path's.
+    """
+    if dist is None:
+        if locality < 1.0 and thr is None:
+            thr = robust_topk_threshold(pairwise_sq_dist(mesh_q, mesh_k), locality)
+        return position_attention_batched(mesh_q, mesh_k, lmda, inputs, locality, thr, band)
+    if dist.ndim != 2:
         raise NotImplementedError(
-            "only fixed (L_out, L_in) meshes are ported; per-sample meshes "
-            "land in a later slice"
+            "batched (B, L_out, L_in) distances are not ported; per-sample "
+            "meshes take a lazy Geometry"
         )
     return position_attention_fixed(dist, lmda, inputs, locality, thr=thr)
 
@@ -87,8 +103,10 @@ class PosAtt(nn.Module):
         self.locality = locality
         self.lmda = nn.Parameter(uniform01((n_head, 1, 1), generator))
 
-    def forward(self, dist, inputs, thr=None):
-        conv = _dispatch_posatt(dist, self.lmda, inputs, self.locality, thr)
+    def forward(self, dist, inputs, thr=None, mesh_q=None, mesh_k=None, band=None):
+        conv = _dispatch_posatt(
+            dist, self.lmda, inputs, self.locality, thr, mesh_q, mesh_k, band
+        )
         return torch.cat([inputs, conv], dim=-1)
 
 
@@ -103,8 +121,10 @@ class PosAttCross(nn.Module):
         self.locality = locality
         self.lmda = nn.Parameter(uniform01((n_head, 1, 1), generator))
 
-    def forward(self, dist, inputs, thr=None):
-        return _dispatch_posatt(dist, self.lmda, inputs, self.locality, thr)
+    def forward(self, dist, inputs, thr=None, mesh_q=None, mesh_k=None, band=None):
+        return _dispatch_posatt(
+            dist, self.lmda, inputs, self.locality, thr, mesh_q, mesh_k, band
+        )
 
 
 class PiT(nn.Module):
@@ -157,18 +177,28 @@ class PiT(nn.Module):
 
     def encoder(self, geom: Geometry, func_in: torch.Tensor) -> torch.Tensor:
         if self.concat_mesh:
-            mesh = geom.mesh_in.expand(func_in.shape[0], -1, -1)
+            mesh = geom.mesh_in
+            if mesh.ndim == 2:  # fixed mesh: broadcast over the batch
+                mesh = mesh.expand(func_in.shape[0], -1, -1)
             func_in = torch.cat([mesh, func_in], dim=-1)
-        f = self.down(geom.dist_down, func_in, geom.thr_down)
+        f = self.down(
+            geom.dist_down, func_in, geom.thr_down,
+            mesh_q=geom.mesh_ltt, mesh_k=geom.mesh_in, band=geom.band_down,
+        )
         return F.gelu(self.en_layer(f), approximate="none")
 
     def processor(self, geom: Geometry, f: torch.Tensor) -> torch.Tensor:
         for a, w in zip(self.conv, self.mlp):
-            f = F.gelu(w(a(geom.dist_proc, f)), approximate="none")
+            f = a(geom.dist_proc, f, mesh_q=geom.mesh_ltt, mesh_k=geom.mesh_ltt)
+            f = F.gelu(w(f), approximate="none")
         return f
 
     def decoder(self, geom: Geometry, f: torch.Tensor) -> torch.Tensor:
-        return self.de(self.up(geom.dist_up, f, geom.thr_up))
+        f = self.up(
+            geom.dist_up, f, geom.thr_up,
+            mesh_q=geom.mesh_out, mesh_k=geom.mesh_ltt, band=geom.band_up,
+        )
+        return self.de(f)
 
     def forward(self, geom: Geometry, func_in: torch.Tensor) -> torch.Tensor:
         f = self.encoder(geom, func_in)

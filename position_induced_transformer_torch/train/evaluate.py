@@ -2,7 +2,9 @@
 
 :class:`Predictor` holds a checkpoint warm on one device for repeated
 calls; :func:`infer` is the one-shot form. Inputs are ``.npy`` or MATLAB
-v5 ``.mat`` files laid out like the benchmark's inputs.
+v5 ``.mat`` files laid out like the benchmark's inputs. A benchmark on
+per-sample meshes (elasticity) also needs each sample's coordinates: its
+input is a ``.mat`` that holds them beside ``x`` (variable ``mesh``).
 """
 
 from __future__ import annotations
@@ -57,12 +59,83 @@ def _prepare_inputs(problem, x: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(x)
 
 
+class _AccessRecorder(dict):
+    """A batch dict that records the keys read with ``batch[k]``;
+    ``batch.get(k)`` goes through dict's own lookup and is not recorded,
+    which is the required/optional split the geometry builders follow."""
+
+    def __init__(self, base):
+        super().__init__(base)
+        self.hard = set()
+
+    def __getitem__(self, k):
+        self.hard.add(k)
+        return super().__getitem__(k)
+
+
+def _required_geometry_keys(problem) -> set:
+    """The batch variables besides ``x`` that the benchmark's per-sample
+    geometry cannot do without: ``Task.geometry_required_keys`` where it is
+    declared, else found by probing ``geom_fn`` on one test sample."""
+    task = problem.task
+    if task.geometry_required_keys is not None:
+        return set(task.geometry_required_keys)
+    if task.geom_fn is None:
+        return set()
+    dev = next(task.model.parameters()).device
+    probe = _AccessRecorder(
+        {k: torch.from_numpy(np.asarray(v)[:1]).to(dev) for k, v in problem.test_data.items()}
+    )
+    task.geom_fn(probe)
+    return probe.hard - {"x", "y"}
+
+
+def _prepare_infer_data(problem, x, table, input_path: str, input_key: str, required=None) -> dict:
+    """The inference batch dict of a raw input: ``x`` in the model's layout
+    and, for per-sample geometry, the benchmark's other variables from the
+    parsed ``.mat`` ``table`` (None for ``.npy``). Required variables (the
+    coordinates) must be there; optional ones (precomputed thresholds and
+    bands) are taken when present, and computed per step otherwise."""
+    data = {"x": _prepare_inputs(problem, x)}
+    n = int(data["x"].shape[0])
+    extra = [k for k in problem.test_data if k not in ("x", "y")]
+    if not extra:
+        return data
+    if required is None:
+        required = _required_geometry_keys(problem)
+    if table is None and required:
+        raise ValueError(
+            f"benchmark {problem.config.name!r} builds per-sample geometry "
+            f"from the batch variables {sorted(required)}; send a .mat holding "
+            f"them beside {input_key!r} (a bare .npy carries one array only)"
+        )
+    for k in extra:
+        if table is None or k not in table:
+            if k in required:
+                raise ValueError(
+                    f"input file {input_path} is missing the required variable "
+                    f"{k!r} (benchmark {problem.config.name!r} takes "
+                    f"{['x'] + extra})"
+                )
+            continue
+        ref = np.asarray(problem.test_data[k])
+        arr = np.asarray(table[k], ref.dtype)
+        expect = (n,) + ref.shape[1:]
+        if arr.shape != expect:
+            raise ValueError(
+                f"input variable {k!r} has shape {tuple(arr.shape)}, expected {expect}"
+            )
+        data[k] = np.ascontiguousarray(arr)
+    return data
+
+
 class Predictor:
     """A restored checkpoint held warm on ``device`` for repeated inference.
 
     The benchmark problem (geometry on the device, a minimal synthetic data
-    split for layouts) is built once; each ``predict_*`` call moves its
-    batches to the device and back.
+    split for layouts) is built once, and the batch variables its
+    per-sample geometry requires are found once; each ``predict_*`` call
+    moves its batches to the device and back.
     """
 
     def __init__(
@@ -90,6 +163,7 @@ class Predictor:
         self.cfg = cfg
         self.problem = problem
         self.device = dev
+        self.required_keys = frozenset(_required_geometry_keys(problem))
 
     def _batch_size(self, batch_size: Optional[int] = None) -> int:
         """The device batch size: requests pad up to it, so every call runs
@@ -100,22 +174,25 @@ class Predictor:
 
     def predict_array(self, data: dict, batch_size: Optional[int] = None) -> np.ndarray:
         """Predictions over a prepared batch dict (padded-tail batching:
-        every sample covered, one batch shape)."""
-        x_all = np.asarray(data["x"], np.float32)
-        n = x_all.shape[0]
+        every sample covered, one batch shape); every variable of the dict
+        is gathered per batch."""
+        n = int(np.shape(data["x"])[0])
         bs = self._batch_size(batch_size)
         task, geom = self.problem.task, self.problem.geom
         outs = []
         with torch.inference_mode():
             for idx in padded_batches(n, bs):
-                x = torch.from_numpy(np.ascontiguousarray(x_all[idx])).to(self.device)
-                outs.append(task.forward(geom, {"x": x}).cpu().numpy())
+                batch = {
+                    k: torch.from_numpy(np.ascontiguousarray(np.asarray(v)[idx])).to(self.device)
+                    for k, v in data.items()
+                }
+                outs.append(task.forward(geom, batch).cpu().numpy())
         return np.concatenate(outs, axis=0)[:n]
 
     def prepare_file(self, input_path: str, input_key: str = "x") -> dict:
         """Parse and check an input file into the dict ``predict_array``
         takes."""
-        x_raw, _ = _load_input(input_path, input_key)
+        x_raw, table = _load_input(input_path, input_key)
         if x_raw.ndim < 2:
             raise ValueError(
                 f"input must carry a leading batch axis; got shape "
@@ -123,7 +200,9 @@ class Predictor:
             )
         if x_raw.shape[0] < 1:
             raise ValueError("input batch is empty (0 samples)")
-        return {"x": _prepare_inputs(self.problem, x_raw)}
+        return _prepare_infer_data(
+            self.problem, x_raw, table, input_path, input_key, required=self.required_keys
+        )
 
     def predict_file(
         self, input_path: str, input_key: str = "x",

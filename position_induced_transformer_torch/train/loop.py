@@ -49,9 +49,17 @@ class Task:
     postprocess: Optional[Callable] = None  # e.g. a denormalizer
     rollout_steps: int = 0
     batch_mean_loss: bool = False  # TF loss convention: mean over batch
+    geom_fn: Optional[Callable] = None  # batch -> Geometry (per-sample meshes)
+    # the batch variables geom_fn cannot do without (a deployment input
+    # must carry them); None = found by probing geom_fn, which reads
+    # required keys as batch[k] and optional ones as batch.get(k)
+    geometry_required_keys: Optional[tuple] = None
+
+    def _geometry(self, geom, batch):
+        return self.geom_fn(batch) if self.geom_fn is not None else geom
 
     def forward(self, geom, batch):
-        out = self.model(geom, batch["x"])
+        out = self.model(self._geometry(geom, batch), batch["x"])
         if self.postprocess is not None:
             out = self.postprocess(out)
         return out

@@ -215,16 +215,18 @@ def save_history(history, csv_path):
 
 def predict(problem, data=None, batch_size: Optional[int] = None) -> np.ndarray:
     """Predictions of ``problem.model`` over a host data dict (default: the
-    test split), in padded batches of one size on the model's device."""
+    test split), in padded batches of one size on the model's device. Every
+    variable of the dict rides with its batch: per-sample geometry reads
+    its coordinates from there."""
     data = data if data is not None else problem.test_data
-    x_all = np.asarray(data["x"], np.float32)
-    n = x_all.shape[0]
+    n = np.shape(data["x"])[0]
     bs = min(batch_size or problem.config.eval_batch_size or problem.config.batch_size, n)
     dev = next(problem.model.parameters()).device
     problem.model.eval()
     outs = []
     with torch.inference_mode():
         for idx in padded_batches(n, bs):
-            x = torch.from_numpy(np.ascontiguousarray(x_all[idx])).to(dev)
-            outs.append(problem.task.forward(problem.geom, {"x": x}).cpu().numpy())
+            batch = {k: torch.from_numpy(np.ascontiguousarray(np.asarray(v)[idx])).to(dev)
+                     for k, v in data.items()}
+            outs.append(problem.task.forward(problem.geom, batch).cpu().numpy())
     return np.concatenate(outs, axis=0)[:n]

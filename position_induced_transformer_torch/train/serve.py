@@ -8,8 +8,9 @@
   bytes. Query parameters: ``key`` (input variable, default ``x``),
   ``batch_size``, ``format`` (``npy`` or ``mat``). The reply is the
   predictions as ``.npy`` bytes, or a ``.mat`` with variable ``pred``.
-  HDF5 bodies are answered with 400: they need h5py, which this package
-  does not use.
+  A benchmark on per-sample meshes (elasticity) takes a ``.mat`` holding
+  ``x`` and ``mesh``; a bare ``.npy`` is answered with 400. HDF5 bodies are
+  answered with 400: they need h5py, which this package does not use.
 
 Malformed requests are 400s; failures while running the model are 500s.
 Device work runs on one worker thread with dynamic batching: concurrent
@@ -259,15 +260,18 @@ def make_server(
     """Build the server, bound but not yet serving (call ``serve_forever``).
 
     ``warmup=True`` runs one batch at the serving batch size first, so the
-    first request does not pay for kernel builds and allocator growth.
+    first request does not pay for kernel builds and allocator growth. The
+    batch carries what a request carries: ``x`` and the variables the
+    benchmark's per-sample geometry requires, without optional extras.
     """
     from position_induced_transformer_torch.train.evaluate import Predictor
 
     predictor = Predictor(config, checkpoint_path, data_path=data_path, device=device)
     if warmup:
-        x = np.asarray(predictor.problem.test_data["x"])
-        idx = np.minimum(np.arange(predictor._batch_size()), x.shape[0] - 1)
-        predictor.predict_array({"x": x[idx]})
+        keys = {"x"} | set(predictor.required_keys)
+        data = {k: np.asarray(v) for k, v in predictor.problem.test_data.items() if k in keys}
+        idx = np.minimum(np.arange(predictor._batch_size()), data["x"].shape[0] - 1)
+        predictor.predict_array({k: v[idx] for k, v in data.items()})
     return PredictServer((host, port), predictor, verbose=verbose)
 
 

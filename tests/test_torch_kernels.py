@@ -259,7 +259,9 @@ def test_build_command_targets_sm90a():
     assert {"-shared", "-O3", "-std=c++17"} <= set(cmd)
     # the library name follows the source's content
     assert _build.library_path("posatt_fixed_fwd").name.startswith("libposatt_fixed_fwd-")
-    assert set(_build.KERNELS) == {"posatt_fixed_fwd", "posatt_fixed_bwd"}
+    assert set(_build.KERNELS) == {
+        "posatt_fixed_fwd", "posatt_fixed_bwd", "posatt_batched_fwd", "posatt_batched_bwd"
+    }
     for name in _build.KERNELS:
         assert (_build.CSRC / f"{name}.cu").exists()
 
