@@ -63,12 +63,38 @@ Phases, each of which fails the run (non-zero exit, no result line):
     6/6/5 launches of the batched forward/dscale/du per step and 6 forward
     launches per eval batch; losses and weights against a plain-attention
     card run and a CPU run; the time per step, steps/s and the device's
-    busy share.
+    busy share;
+12. TF kernels: the TF-semantics forwards #9 (pre-built halved distances)
+    and #11 (from coordinates) against their plain versions at the full
+    elasticity_tf shapes (B 10, L 972, 8 heads of V 64: #11's banded
+    encoder and decoder with ``setup_elasticity_tf``'s thresholds and
+    starts and its global processor; #9's served encoder and decoder with
+    per-request thresholds and its global processor) and at ragged shapes;
+    the public wrappers against the oracle on materialized distances;
+    times, bounds and the SDPA yardstick (zero q and k, per-head values,
+    the masked logits as ``attn_mask``);
+13. TF backward: #10's and #12's dscale and dv entry points against their
+    plain versions at the same shapes, timed and bounded; dscale twice
+    gives the same bits; the autograd Functions' gradients against
+    torch.autograd of the oracle, one forward + backward launching each
+    entry point once;
+14. elasticity_tf serve: ``make_server("elasticity_tf")`` with a seeded
+    random-weight checkpoint answering bare ``.npy`` requests (1, 10, 13
+    samples, 4 concurrent, 20 warm); the model computes thresholds per
+    request, so exactly 6 launches of #9 per device batch and no other
+    kernel; replies against a plain-attention card run and a CPU run (the
+    first three requests);
+15. elasticity_tf train: ``runner.train("elasticity_tf")`` at full width (80
+    training and 20 test samples, 2 epochs of 8 steps); exactly 6/6/6
+    launches of #11 and #12's dscale and dv per step and 6 of #11 per eval
+    batch; losses and weights against a plain-attention card run, and the
+    first two steps against a CPU run; the time per step, steps/s and the
+    device's busy share; then one step on a batch without thresholds and
+    bands, which launches 6 of #9 and 6 of each of #10's entry points.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
-``kernels`` record (six kernels: #1-#4 and the per-sample-mesh #7, #8),
-and before that the ``elasticity_train``, ``elasticity_serve``, ``train``
-and ``serve`` records.
+``kernels`` record (ten kernels: #1-#4, the per-sample-mesh #7, #8 and the
+TF-semantics #9-#12), and before that the phases' records.
 """
 
 from __future__ import annotations
@@ -84,7 +110,7 @@ import threading
 import time
 import urllib.error
 import urllib.request
-from contextlib import nullcontext
+from contextlib import contextmanager, nullcontext
 from pathlib import Path
 from unittest import mock
 
@@ -457,14 +483,23 @@ BWD_KERNELS = ("posatt_stats", "posatt_bwd_dscale", "posatt_bwd_du")
 
 FIXED_KERNELS = ("posatt_fixed_fwd",) + BWD_KERNELS
 BATCHED_KERNELS = ("posatt_batched_fwd", "posatt_batched_bwd_dscale", "posatt_batched_bwd_du")
+TF_DIST_KERNELS = ("posatt_tf_fwd", "posatt_tf_bwd_dscale", "posatt_tf_bwd_dv")
+TF_COORD_KERNELS = ("posatt_tf_coord_fwd", "posatt_tf_coord_bwd_dscale", "posatt_tf_coord_bwd_dv")
 
 
 def launchers():
-    """The seven launchers, by kernel entry point; each counts its launches."""
+    """The thirteen launchers, by kernel entry point; each counts its
+    launches."""
     from position_induced_transformer_torch.kernels import posatt_batched as kb
     from position_induced_transformer_torch.kernels import posatt_pallas as kp
 
     return {
+        "posatt_tf_fwd": kb.posatt_tf_cuda,
+        "posatt_tf_bwd_dscale": kb.posatt_tf_bwd_dscale_cuda,
+        "posatt_tf_bwd_dv": kb.posatt_tf_bwd_dv_cuda,
+        "posatt_tf_coord_fwd": kb.posatt_tf_coord_cuda,
+        "posatt_tf_coord_bwd_dscale": kb.posatt_tf_coord_bwd_dscale_cuda,
+        "posatt_tf_coord_bwd_dv": kb.posatt_tf_coord_bwd_dv_cuda,
         "posatt_fixed_fwd": kp.posatt_fixed_cuda,
         "posatt_stats": kp.posatt_stats_cuda,
         "posatt_bwd_dscale": kp.posatt_bwd_dscale_cuda,
@@ -1397,6 +1432,631 @@ def elasticity_train_phase():
     return report
 
 
+# ------------------------------------- elasticity_tf: kernels #9 - #12
+
+RAGGED_TF = [  # B, L_q, L_k, H, V, thresholds: "none" (global), "thr" (a
+    # percentile per row) or "ring" (angle-sorted rings, a circular band)
+    ("tf_h2_v3_global", 2, 48, 48, 2, 3, "none"),
+    ("tf_h8_v3_thr", 2, 37, 53, 8, 3, "thr"),
+    ("tf_h4_v19_thr", 1, 97, 1000, 4, 19, "thr"),
+    ("tf_h1_v130_global", 2, 1000, 97, 1, 130, "none"),
+    ("tf_ring_seam", 2, 900, 700, 2, 8, "ring"),
+    ("tf_ring_h8_lout1000", 2, 1000, 800, 8, 33, "ring"),
+]
+
+
+def tf_scales(rng, H, device):
+    import numpy as np
+    import torch
+
+    r = rng.uniform(-0.6, 0.6, (H, 1)).astype(np.float32)  # the glorot range of r at 8 heads
+    return torch.from_numpy(r * r).to(device)
+
+
+def tf_calls(mq, mk, scales, values, thr, band):
+    """The three forms of one TF op: the coordinate launcher's arguments
+    (mq, mk, 0.5 s, v, 2 thr, starts, width) on the extended key axis, the
+    pre-built-distance launcher's (half distances, thr, s, values), and the
+    wrapper's (mq, mk, s, values, thr, band); ``thr`` is on the halved
+    distances."""
+    import torch
+
+    from position_induced_transformer_torch.models import pit_tf
+
+    mk_e, v_e = mk, values
+    if band is not None and band.wrap:
+        mk_e = torch.cat([mk, mk[:, : band.wrap]], 1)
+        v_e = torch.cat([values, values[:, : band.wrap]], 1)
+    coord = (mq, mk_e, 0.5 * scales, v_e, None if thr is None else 2.0 * thr,
+             None if band is None else band.starts, 0 if band is None else band.width)
+    dist = (pit_tf.pairwise_dist_half(mq, mk), thr, scales, values)
+    return coord, dist, (mq, mk, scales, values, thr, band)
+
+
+def tf_ragged(rng, B, Lq, Lk, H, V, kind):
+    import numpy as np
+    import torch
+
+    from position_induced_transformer_torch.kernels import posatt_batched as kb
+    from position_induced_transformer_torch.models import pit_tf
+    from position_induced_transformer_torch.ops import locality
+
+    to = lambda a: torch.from_numpy(np.asarray(a, np.float32)).cuda()
+    if kind == "ring":
+        mq, mk = to(ring_cloud(rng, B, Lq)), to(ring_cloud(rng, B, Lk))
+    else:
+        mq, mk = to(rng.random((B, Lq, 2))), to(rng.random((B, Lk, 2)))
+    values = to(rng.standard_normal((B, Lk, H * V)))
+    half = pit_tf.pairwise_dist_half(mq, mk)
+    thr = band = None
+    if kind == "thr":
+        thr = locality.quantile_threshold(half, 0.3)
+    elif kind == "ring":
+        thr = locality.robust_topk_threshold(half, 0.02)
+        starts, width, wrap = locality.batched_band_starts(
+            mq, mk, 2.0 * thr, kb.band_tile_rows(Lq), circular=True)
+        if not (starts.numpy() + width > Lk).any():
+            fail(f"TF ring case {B}x{Lq}x{Lk}: no band crosses the seam")
+        band = kb.BandSpec(starts.cuda(), width, wrap)
+    return tf_calls(mq, mk, tf_scales(rng, H, mq.device), values, thr, band)
+
+
+def tf_oracle(mq, mk, scales, values, thr=None, band=None):
+    """TF attention over materialized halved distances, differentiable by
+    autograd; a band holds every kept column, so the oracle needs none."""
+    from position_induced_transformer_torch.kernels import posatt_batched as kb
+    from position_induced_transformer_torch.models import pit_tf
+
+    return kb.posatt_tf_reference(pit_tf.pairwise_dist_half(mq, mk), thr, scales, values)
+
+
+def plain_tf_dist(dist, scales, values, thr=None):
+    from position_induced_transformer_torch.kernels import posatt_batched as kb
+
+    return kb.posatt_tf_reference(dist, thr, scales, values)
+
+
+@contextmanager
+def plain_tf_attention():
+    """The TF model's attention ops on their plain versions: no kernel."""
+    from position_induced_transformer_torch.models import pit_tf
+
+    with mock.patch.object(pit_tf, "position_attention_batched_dist", plain_tf_dist), \
+            mock.patch.object(pit_tf, "position_attention_batched_tf_coords", tf_oracle):
+        yield
+
+
+def elasticity_tf_shapes(rng):
+    """The attention calls of full-width elasticity_tf: on its first
+    training batch as setup_elasticity_tf prepares it (angle-sorted clouds,
+    thresholds on the halved distances, circular band starts; kernel #11),
+    and on a served batch (thresholds from quantile_threshold of the
+    model's pre-built halved distances; kernel #9): name -> (calls, kind,
+    launches per forward)."""
+    import numpy as np
+    import torch
+
+    from position_induced_transformer_torch import configs
+    from position_induced_transformer_torch.models import pit_tf
+    from position_induced_transformer_torch.ops import locality
+    from position_induced_transformer_torch.train import benchmarks
+
+    cfg = configs.ELASTICITY_TF
+    m = cfg.model
+    problem = benchmarks.setup_elasticity_tf(cfg, ntrain=ELASTICITY_B, ntest=2, device="cuda")
+    batch = {k: torch.from_numpy(v).cuda() for k, v in problem.train_data.items()}
+    geom = problem.task.geom_fn(batch)
+    c = batch["x"][..., :2].contiguous()
+    H = m.n_head
+    vals = lambda: torch.from_numpy(
+        rng.standard_normal((ELASTICITY_B, c.shape[1], m.hid_dim)).astype(np.float32)).cuda()
+    s = lambda: tf_scales(rng, H, c.device)
+    serve_thr = locality.quantile_threshold(pit_tf.pairwise_dist_half(c, c), m.en_loc / 100.0)
+    shapes = {
+        "encoder": (tf_calls(c, c, s(), vals(), geom["thr_en"], geom["band_en"]), "coord", 1),
+        "processor": (tf_calls(c, c, s(), vals(), None, None), "coord", m.n_blocks),
+        "decoder": (tf_calls(c, c, s(), vals(), geom["thr_de"], geom["band_de"]), "coord", 1),
+        "serve_encoder": (tf_calls(c, c, s(), vals(), serve_thr, None), "dist", 1),
+        "serve_processor": (tf_calls(c, c, s(), vals(), None, None), "dist", m.n_blocks),
+        "serve_decoder": (tf_calls(c, c, s(), vals(), serve_thr, None), "dist", 1),
+    }
+    band = geom["band_en"]
+    info = {"band_width": band.width, "band_wrap": band.wrap,
+            "band_starts_sample0": band.starts[0].tolist()}
+    return shapes, info
+
+
+def tf_rows(calls, kind):
+    """(distances as the kernel sees them, keep mask, bare minimum) of one
+    op: full squared distances for the coordinate kernel (its scale and
+    thresholds carry the halving), the pre-built halved ones for #9."""
+    from position_induced_transformer_torch.kernels import posatt_batched as kb
+
+    coord, dist, _ = calls
+    if kind == "coord":
+        mq, mk, scale, v, thr, starts, width = coord
+        return kb._tf_coord_rows(mq, mk, thr, starts, width)
+    d, thr, scale, values = dist
+    keep, dmin, _ = kb._tf_keep(d, thr)
+    return d, keep, dmin
+
+
+def tf_work(calls, kind, keep):
+    """Distances inspected (every column of each row's window), kept
+    entries, and the words the forward must move: the coordinates (or the
+    pre-built distances), thresholds, starts, values and output, once each."""
+    from position_induced_transformer_torch.kernels import posatt_batched as kb
+
+    coord, dist, _ = calls
+    if kind == "coord":
+        mq, mk, scale, v, thr, starts, width = coord
+        B, Lo, d = mq.shape
+        Li = mk.shape[1]
+        win = kb._window(starts, width, Lo, Li, mq.device)
+        inspected = B * Lo * Li if win is None else int(win.sum())
+        words = B * Lo * d + B * Li * d + (starts.numel() if starts is not None else 0)
+    else:
+        dd, thr, scale, v = dist
+        B, Lo, Li = dd.shape
+        d, inspected, words = 0, B * Lo * Li, B * Lo * Li
+    words += (B * Lo if thr is not None else 0) + B * Li * v.shape[-1] + B * Lo * v.shape[-1]
+    return inspected, int(keep.sum()), words, d
+
+
+def tf_launch(calls, kind, stats=False):
+    from position_induced_transformer_torch.kernels import posatt_batched as kb
+
+    coord, dist, _ = calls
+    if kind == "coord":
+        mq, mk, scale, v, thr, starts, width = coord
+        return kb.posatt_tf_coord_cuda(mq, mk, scale, v, thr, starts, width=width, stats=stats)
+    return kb.posatt_tf_cuda(*dist, stats=stats)
+
+
+def tf_plain(calls, kind):
+    from position_induced_transformer_torch.kernels import posatt_batched as kb
+
+    coord, dist, _ = calls
+    if kind == "coord":
+        mq, mk, scale, v, thr, starts, width = coord
+        return kb.posatt_tf_coord_reference(mq, mk, scale, v, thr, starts, width=width)
+    return kb.posatt_tf_reference(*dist)
+
+
+def tf_kernel_phase():
+    """Kernels #9 and #11 against their plain versions at the elasticity_tf
+    shapes and at ragged ones, the public wrappers against the oracle;
+    times, bounds and the SDPA yardstick at the elasticity_tf shapes."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from position_induced_transformer_torch.kernels import posatt_batched as kb
+
+    rng = np.random.default_rng(5)
+
+    def compare(name, calls, kind):
+        got = tf_launch(calls, kind)
+        torch.cuda.synchronize()
+        want = tf_plain(calls, kind)
+        err = check_close(name, got, want, OP_RTOL, OP_ATOL)
+        mq, mk, scales, values, thr, band = calls[2]
+        counter = kb.posatt_tf_coord_cuda if kind == "coord" else kb.posatt_tf_cuda
+        before = counter.launches
+        with torch.no_grad():
+            if kind == "coord":
+                got = kb.position_attention_batched_tf_coords(mq, mk, scales, values, thr, band)
+            else:
+                got = kb.position_attention_batched_dist(calls[1][0], scales, values, thr)
+        torch.cuda.synchronize()
+        if counter.launches != before + 1:
+            fail(f"{name}: the {kind} wrapper did not launch its kernel once")
+        want = tf_oracle(mq, mk, scales, values, thr)
+        return max(err, check_close(f"{name} (wrapper)", got, want, OP_RTOL, OP_ATOL)), want
+
+    shapes, info = elasticity_tf_shapes(rng)
+    log("elasticity_tf band " + json.dumps(info))
+    rows, errs = {"coord": [], "dist": []}, {"coord": 0.0, "dist": 0.0}
+    for name, (calls, kind, per_forward) in shapes.items():
+        err, want = compare(name, calls, kind)
+        errs[kind] = max(errs[kind], err)
+        ms = cuda_ms(lambda: tf_launch(calls, kind))
+        plain_ms = cuda_ms(lambda: tf_plain(calls, kind), reps=10, per_rep=3)
+        # yardstick: one SDPA call with zero q and k, per-head values and
+        # the masked logits as attn_mask (built outside the timing)
+        dist, keep, _ = tf_rows(calls, kind)
+        scale = calls[0][2] if kind == "coord" else calls[1][2]
+        v = calls[0][3] if kind == "coord" else calls[1][3]
+        B, Lo, Li = dist.shape
+        H = scale.shape[0]
+        V = v.shape[-1] // H
+        logits = torch.where(keep[:, None], -dist[:, None] * scale.reshape(1, H, 1, 1), -1e38)
+        q = torch.zeros((B, H, Lo, V), device=dist.device)
+        k = torch.zeros((B, H, Li, V), device=dist.device)
+        vv = v.reshape(B, Li, H, V).permute(0, 2, 1, 3).contiguous()
+        sdpa = lambda: F.scaled_dot_product_attention(q, k, vv, attn_mask=logits)
+        lib_err = (sdpa().permute(0, 2, 1, 3).reshape(B, Lo, H * V) - want).abs().max().item()
+        library_ms = cuda_ms(sdpa)
+        del logits, q, k, vv
+        inspected, kept, words, d = tf_work(calls, kind, keep)
+        flops = 3 * d * inspected + 2 * H * V * kept
+        bound_ms, bound_by = roofline(flops, 4 * words)
+        rows[kind].append({
+            "shape": name, "H": H, "V": V, "B": B, "L_out": Lo, "L_in": Li,
+            "band_width": calls[0][6] if kind == "coord" else 0, "inspected": inspected,
+            "kept_entries": kept, "launches_per_forward": per_forward, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "library_max_abs_err": lib_err, "bound_ms": bound_ms, "bound_by": bound_by,
+            "flops": flops, "bytes": 4 * words,
+        })
+        kernel = "posatt_tf_coord_fwd" if kind == "coord" else "posatt_tf_fwd"
+        log(f"kernel {kernel} {name}: {json.dumps(rows[kind][-1])}")
+    for name, *shape in RAGGED_TF:
+        calls = tf_ragged(rng, *shape)
+        for kind in ("coord", "dist"):
+            err, _ = compare(f"{name} {kind}", calls, kind)
+            errs[kind] = max(errs[kind], err)
+        log(f"kernels posatt_tf_fwd, posatt_tf_coord_fwd {name}: {shape} max_abs_err={err:.3e}")
+    return shapes, rows, errs
+
+
+def tf_backward_phase(shapes):
+    """#10's and #12's entry points against their plain versions at the
+    elasticity_tf shapes (#12 at the training ones, #10 at the served ones,
+    which a step without thresholds takes) and at ragged ones, timed and
+    bounded; dscale twice, the same bits; the Functions' gradients against
+    torch.autograd of the oracle, one forward + backward launching each
+    entry point once."""
+    import numpy as np
+    import torch
+
+    from position_induced_transformer_torch.kernels import posatt_batched as kb
+
+    rng = np.random.default_rng(6)
+
+    def entry_points(calls, kind, g, stats):
+        """(dscale, dv) launchers of one op."""
+        coord, dist, _ = calls
+        if kind == "coord":
+            mq, mk, scale, v, thr, starts, width = coord
+            return (lambda: kb.posatt_tf_coord_bwd_dscale_cuda(mq, mk, scale, v, g, stats, starts, width=width),
+                    lambda: kb.posatt_tf_coord_bwd_dv_cuda(mq, mk, scale, g, stats, starts, width=width))
+        d, thr, scale, v = dist
+        return (lambda: kb.posatt_tf_bwd_dscale_cuda(d, scale, v, g, stats),
+                lambda: kb.posatt_tf_bwd_dv_cuda(d, scale, g, stats))
+
+    def plain_bwd(calls, kind, g):
+        coord, dist, _ = calls
+        if kind == "coord":
+            mq, mk, scale, v, thr, starts, width = coord
+            return kb.posatt_tf_coord_bwd_reference(mq, mk, scale, v, g, thr, starts, width=width)
+        d, thr, scale, v = dist
+        return kb.posatt_tf_bwd_reference(d, thr, scale, v, g)
+
+    def compare(name, calls, kind, g):
+        _, stats = tf_launch(calls, kind, stats=True)
+        torch.cuda.synchronize()
+        dscale, dv = entry_points(calls, kind, g, stats)
+        ds, again, dvv = dscale(), dscale(), dv()
+        torch.cuda.synchronize()
+        if not torch.equal(ds, again):
+            fail(f"{name}: two dscale runs on the same inputs differ")
+        want_dv, want_ds = plain_bwd(calls, kind, g)
+        size_dv, _ = plain_bwd(calls, kind, g.abs())
+        errs = {"dv": check_close(f"{name} dv", dvv, want_dv, OP_RTOL, OP_ATOL, size_dv)}
+        # the size of dscale's summed terms per sample and head:
+        # sum_i |w_i| + |r_i v_i| with T = G_h V_h^T
+        dist, keep, dmin = tf_rows(calls, kind)
+        scale = calls[0][2] if kind == "coord" else calls[1][2]
+        v = calls[0][3] if kind == "coord" else calls[1][3]
+        att = kb._tf_attention(dist, keep, dmin, scale)
+        B, H, Lo, Li = att.shape
+        t = torch.einsum("bihv,bjhv->bhij", g.reshape(B, Lo, H, -1), v.reshape(B, Li, H, -1))
+        nd = torch.where(keep, dist, 0.0)[:, None]
+        size = ((att * t * nd).sum(-1).abs() + (att * t).sum(-1).abs() * (att * nd).sum(-1)).sum(-1)
+        del att, t, nd
+        check_close(f"{name} dscale (normalised)", ds / size, want_ds / size, DS_RTOL, DS_ATOL)
+        errs["dscale"] = (ds - want_ds).abs().max().item()
+        return errs, stats, keep, (dscale, dv)
+
+    def function_check(name, calls, kind):
+        """One forward + backward through the public wrapper launches the
+        forward and each backward entry point once; gradients match
+        autograd of the oracle."""
+        mq, mk, scales, values, thr, band = calls[2]
+        w = torch.from_numpy(rng.standard_normal((values.shape[0], mq.shape[1], values.shape[2]))
+                             .astype(np.float32)).cuda()
+        half = calls[1][0]
+
+        def grads(fn, w):
+            s = scales.clone().requires_grad_(True)
+            x = values.clone().requires_grad_(True)
+            out = fn(s, x)
+            (out * w).sum().backward()
+            return out.detach(), s.grad, x.grad
+
+        if kind == "coord":
+            fn = lambda s, x: kb.position_attention_batched_tf_coords(mq, mk, s, x, thr, band)
+        else:
+            fn = lambda s, x: kb.position_attention_batched_dist(half, s, x, thr)
+        before = counts()
+        got = grads(fn, w)
+        torch.cuda.synchronize()
+        after = counts()
+        names = TF_COORD_KERNELS if kind == "coord" else TF_DIST_KERNELS
+        diff = {k: after[k] - before[k] for k in after}
+        if diff != {k: int(k in names) for k in after}:
+            fail(f"{name}: one forward + backward launched {diff}, expected 1 each of {names}")
+        oracle = lambda s, x: tf_oracle(mq, mk, s, x, thr)
+        want = grads(oracle, w)
+        size_v = grads(oracle, w.abs())[2]
+        return max(
+            check_close(f"{name} Function out", got[0], want[0], OP_RTOL, OP_ATOL),
+            check_close(f"{name} Function d scales", got[1], want[1], DS_RTOL,
+                        DS_ATOL * want[1].abs().max().item()),
+            check_close(f"{name} Function d values", got[2], want[2], OP_RTOL, OP_ATOL, size_v),
+        )
+
+    rows = {"coord": [], "dist": []}
+    errs = {"coord": {"dscale": 0.0, "dv": 0.0}, "dist": {"dscale": 0.0, "dv": 0.0}}
+    fn_err = 0.0
+    for name, (calls, kind, per_step) in shapes.items():
+        v = calls[0][3] if kind == "coord" else calls[1][3]
+        B, Lo = calls[2][0].shape[:2]
+        g = torch.from_numpy(rng.standard_normal((B, Lo, v.shape[-1])).astype(np.float32)).cuda()
+        e, stats, keep, (dscale, dv) = compare(name, calls, kind, g)
+        for k, x in e.items():
+            errs[kind][k] = max(errs[kind][k], x)
+        inspected, kept, fwd_words, d = tf_work(calls, kind, keep)
+        H = stats.shape[1] - 2
+        V = v.shape[-1] // H
+        flops = 3 * d * inspected + 2 * H * V * kept
+        # the forward's words with the statistics (which hold the threshold)
+        # in place of thr and the cotangent in place of the output; dscale
+        # also writes (B, H), dv writes dV where dscale reads the values
+        Li = v.shape[1]
+        words = fwd_words - (B * Lo if calls[2][4] is not None else 0) + B * (H + 2) * Lo
+        parts = {"dscale": (dscale, words + B * H), "dv": (dv, words)}
+        row = {"shape": name, "H": H, "V": V, "B": B, "L_out": Lo, "L_in": Li,
+               "inspected": inspected, "kept_entries": kept, "launches_per_step": per_step,
+               "max_abs_err": e}
+        for part, (launch, nwords) in parts.items():
+            bound_ms, bound_by = roofline(flops, 4 * nwords)
+            row[part] = {"ms": cuda_ms(launch), "bound_ms": bound_ms, "bound_by": bound_by,
+                         "flops": flops, "bytes": 4 * nwords}
+        row["ms"] = row["dscale"]["ms"] + row["dv"]["ms"]
+        row["bound_ms"] = row["dscale"]["bound_ms"] + row["dv"]["bound_ms"]
+        row["bound_by"] = row["dscale"]["bound_by"]
+        # the plain version computes both gradients at once
+        row["plain_ms"] = cuda_ms(lambda: plain_bwd(calls, kind, g), reps=5, per_rep=2)
+        # no one PyTorch call computes either function
+        row["library_ms"] = None
+        rows[kind].append(row)
+        kernel = "posatt_tf_coord_bwd" if kind == "coord" else "posatt_tf_bwd"
+        log(f"kernel {kernel} {name}: {json.dumps(row)}")
+        if name in ("encoder", "processor", "serve_encoder"):
+            fn_err = max(fn_err, function_check(name, calls, kind))
+    for name, *shape in RAGGED_TF:
+        calls = tf_ragged(rng, *shape)
+        B, Lo = calls[2][0].shape[:2]
+        g = torch.from_numpy(rng.standard_normal((B, Lo, calls[2][3].shape[-1])).astype(np.float32)).cuda()
+        for kind in ("coord", "dist"):
+            e, _, _, _ = compare(f"{name} {kind}", calls, kind, g)
+            for k, x in e.items():
+                errs[kind][k] = max(errs[kind][k], x)
+            fn_err = max(fn_err, function_check(f"{name} {kind}", calls, kind))
+        log(f"backward {name}: {shape} max_abs_err={json.dumps(errs)}")
+    log(f"PosAttTF, PosAttTFCoord: gradients match autograd of the oracle, max abs err {fn_err:.3e}")
+    return rows, errs
+
+
+def elasticity_tf_serve_phase():
+    """make_server("elasticity_tf") with a seeded random-weight checkpoint
+    on the card, answering bare .npy bodies (1, 10, 13 samples, 4
+    concurrent, 20 warm); every reply 200 and in agreement with a
+    plain-attention card run and (the first three requests) a CPU run;
+    exactly 6 launches of kernel #9 per device batch and no other kernel."""
+    import numpy as np
+    import torch
+
+    from position_induced_transformer_torch import configs
+    from position_induced_transformer_torch.data import synthetic
+    from position_induced_transformer_torch.train import benchmarks, checkpoint
+    from position_induced_transformer_torch.train.evaluate import Predictor
+    from position_induced_transformer_torch.train.serve import make_server
+
+    cfg = configs.ELASTICITY_TF
+    model = benchmarks._make_model(cfg, torch.Generator().manual_seed(0))
+    ckpt = checkpoint.save(
+        str(REPO / "build" / "chip_smoke" / "elasticity_tf.pt"), model.state_dict(), cfg.name
+    )
+    t0 = time.perf_counter()
+    server = make_server(cfg.name, ckpt, host="127.0.0.1", port=0, verbose=False, device="cuda")
+    startup_s = time.perf_counter() - t0
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}/predict"
+    X, _, _ = synthetic.elasticity(n=50, seed=1)
+    sent = []  # (x, reply)
+
+    def ask(i, j):
+        code, body = post(url, npy(X[i:j]))
+        if code != 200:
+            fail(f"elasticity_tf serve: HTTP {code} for {j - i} samples: {body[:500]!r}")
+        out = np.load(io.BytesIO(body))
+        sent.append((X[i:j], out))
+        return out
+
+    try:
+        zero_counts()
+        calls0 = server.batcher.n_calls
+        t0 = time.perf_counter()
+        ask(0, 1)
+        first_ms = (time.perf_counter() - t0) * 1e3
+        ask(1, 11)
+        ask(11, 24)  # 13 samples: one full and one padded batch
+        threads = [threading.Thread(target=ask, args=(24 + 3 * i, 27 + 3 * i)) for i in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        if any(t.is_alive() for t in threads) or len(sent) != 7:
+            fail("elasticity_tf serve: concurrent requests did not all complete")
+        warm = []
+        for i in range(20):
+            t0 = time.perf_counter()
+            ask(10 * (i % 5), 10 * (i % 5) + 10)
+            warm.append((time.perf_counter() - t0) * 1e3)
+        launched = counts()
+        device_calls = server.batcher.n_calls - calls0
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+
+    expected = {k: 6 * device_calls if k == "posatt_tf_fwd" else 0 for k in launched}
+    if launched != expected or device_calls < 25:
+        fail(f"elasticity_tf serve: {launched} for {device_calls} device batches "
+             "(expected 6 launches of #9 per batch and nothing else)")
+
+    predictor = server.predictor
+    err_plain = err_cpu = 0.0
+    with plain_tf_attention():
+        for a, out in sent:
+            before = counts()
+            ref = torch.from_numpy(predictor.predict_array({"x": a}))
+            if counts() != before:
+                fail("elasticity_tf serve: the plain comparison run launched a kernel")
+            got = torch.from_numpy(out)
+            if got.shape != (a.shape[0], a.shape[1], cfg.model.out_dim):
+                fail(f"elasticity_tf serve: reply shape {tuple(got.shape)}")
+            err_plain = max(err_plain, check_close(
+                "elasticity_tf serve vs plain on CUDA", got, ref, MODEL_RTOL, MODEL_ATOL))
+    cpu = Predictor(cfg.name, ckpt, device="cpu")
+    t0 = time.perf_counter()
+    for a, out in sent[:3]:  # 24 samples: the CPU takes seconds per batch
+        ref_cpu = torch.from_numpy(cpu.predict_array({"x": a}))
+        err_cpu = max(err_cpu, check_close(
+            "elasticity_tf serve vs CPU", torch.from_numpy(out), ref_cpu, MODEL_RTOL, MODEL_ATOL))
+    cpu_s = time.perf_counter() - t0
+    return {
+        "config": cfg.name, "startup_s": startup_s,
+        "profile_10_samples": profile_device(
+            lambda: predictor.predict_array({"x": X[:ELASTICITY_B]}), "forward"),
+        "requests": len(sent), "samples": int(sum(a.shape[0] for a, _ in sent)),
+        "device_batches": device_calls, "launches": launched,
+        "first_request_ms": first_ms, "warm_median_ms": statistics.median(warm),
+        "warm_requests": len(warm), "warm_samples_per_request": ELASTICITY_B,
+        "max_abs_err_vs_plain_cuda": err_plain, "max_abs_err_vs_cpu": err_cpu,
+        "cpu_requests_compared": 3, "cpu_seconds": cpu_s,
+    }
+
+
+def first_steps(cfg, device, n_steps, ntrain, ntest, epochs):
+    """The first ``n_steps`` optimizer steps of ``runner.train(cfg)`` on
+    ``device`` (the same setup, weights, shuffle and schedule): per-step
+    losses, the weights after them, and the launches."""
+    import numpy as np
+    import torch
+
+    from position_induced_transformer_torch.train import benchmarks, loop, runner
+
+    problem = benchmarks.setup(cfg, ntrain=ntrain, ntest=ntest, device=device)
+    state = runner.init_state(problem, 0)
+    dev = torch.device(device)
+    data = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for k, v in problem.train_data.items()}
+    n_batches = ntrain // cfg.batch_size
+    schedule = loop.make_lr_schedule(cfg.lr, epochs * n_batches, warmup_steps=cfg.warmup_steps)
+    perm = loop.epoch_permutation(0, 0, ntrain, cfg.batch_size)[:n_steps].to(dev)
+    zero_counts()
+    state, losses = loop.make_train_epoch(problem.task, schedule)(state, None, data, perm)
+    weights = {k: v.detach().cpu() for k, v in state.model.state_dict().items()}
+    return losses.cpu(), weights, counts()
+
+
+def elasticity_tf_train_phase():
+    """runner.train on full-width elasticity_tf on the card (synthetic data,
+    80 training and 20 test samples, 2 epochs of 8 steps at batch 10):
+    exactly 6/6/6 launches of #11 and #12's dscale and dv per step and 6 of
+    #11 per eval batch; losses and weights against a plain-attention card
+    run, the first two steps against a CPU run; the time per step; then a
+    step on a batch without thresholds (6 of #9 and of each #10 entry)."""
+    import numpy as np
+    import torch
+
+    from position_induced_transformer_torch import configs
+    from position_induced_transformer_torch.train import loop
+
+    cfg = configs.ELASTICITY_TF
+    epochs, ntrain, ntest = 2, 80, 20
+    problem, state, history, losses, weights, launched, seconds = run_training(
+        cfg, "cuda", epochs, ntrain, ntest)
+    steps = state.step
+    eval_batches = epochs * -(-ntest // cfg.batch_size)
+    expected = {k: 6 * steps if k in TF_COORD_KERNELS else 0 for k in launched}
+    expected["posatt_tf_coord_fwd"] += 6 * eval_batches
+    if steps != epochs * (ntrain // cfg.batch_size) or launched != expected:
+        fail(f"elasticity_tf train: {steps} steps, {eval_batches} eval batches launched {launched}; "
+             f"expected {expected} (6/6/6 per step, 6 forward per eval batch)")
+    if not torch.isfinite(losses).all() or not all(
+        np.isfinite(v) for row in history for v in row.values()
+    ):
+        fail(f"elasticity_tf train: non-finite losses or metrics: {history}")
+    report = {
+        "config": cfg.name, "epochs": epochs, "ntrain": ntrain, "ntest": ntest,
+        "steps": steps, "eval_batches": eval_batches, "launches": launched,
+        "seconds_whole_run_cuda": seconds, "history": history,
+        "step_losses_first_last": [losses[0].item(), losses[-1].item()],
+    }
+    _, _, _, ref_losses, ref_weights, ref_launched, ref_s = run_training(
+        cfg, "cuda", epochs, ntrain, ntest, plain_tf_attention())
+    if any(ref_launched.values()):
+        fail(f"elasticity_tf train: the plain card run launched kernels: {ref_launched}")
+    report["max_abs_err_step_loss_vs_plain_cuda"] = check_close(
+        "elasticity_tf train losses vs plain_cuda", losses, ref_losses, LOSS_RTOL, 0.0)
+    report["max_abs_err_weights_vs_plain_cuda"] = max(
+        check_close(f"elasticity_tf train weight {k} vs plain_cuda", v, ref_weights[k],
+                    PARAM_RTOL, PARAM_ATOL) for k, v in weights.items())
+    report["seconds_whole_run_plain_cuda"] = ref_s
+    # the CPU takes seconds per full-width step: its first two steps against
+    # the same two on the card, whose losses are the full run's first two
+    n = 2
+    card_losses, card_weights, card_launched = first_steps(cfg, "cuda", n, ntrain, ntest, epochs)
+    check_close("elasticity_tf first steps vs the full run", card_losses, losses[:n], LOSS_RTOL, 0.0)
+    t0 = time.perf_counter()
+    cpu_losses, cpu_weights, cpu_launched = first_steps(cfg, "cpu", n, ntrain, ntest, epochs)
+    report["seconds_first_steps_cpu"] = time.perf_counter() - t0
+    if any(cpu_launched.values()):
+        fail(f"elasticity_tf train: the CPU run launched kernels: {cpu_launched}")
+    report["cpu_steps_compared"] = n
+    report["max_abs_err_step_loss_vs_cpu"] = check_close(
+        "elasticity_tf train losses vs cpu", card_losses, cpu_losses, LOSS_RTOL, 0.0)
+    report["max_abs_err_weights_vs_cpu"] = max(
+        check_close(f"elasticity_tf train weight {k} vs cpu", v, cpu_weights[k], PARAM_RTOL, PARAM_ATOL)
+        for k, v in card_weights.items())
+    report.update(step_timing(problem, state, cfg.batch_size, ntrain, cfg.lr))
+
+    # a step on a batch without thresholds and bands: the model builds its
+    # halved distances and every op takes #9 and #10
+    dev = torch.device("cuda")
+    bare = {k: torch.from_numpy(problem.train_data[k]).to(dev) for k in ("x", "y")}
+    perm = loop.epoch_permutation(0, 7, ntrain, cfg.batch_size)[:1].to(dev)
+    train_epoch = loop.make_train_epoch(problem.task, lambda step: cfg.lr)
+    zero_counts()
+    t0 = time.perf_counter()
+    _, bare_loss = train_epoch(state, None, bare, perm)
+    torch.cuda.synchronize()
+    report["step_without_thresholds_ms"] = (time.perf_counter() - t0) * 1e3
+    bare_launched = counts()
+    expected = {k: 6 if k in TF_DIST_KERNELS else 0 for k in bare_launched}
+    if bare_launched != expected or not torch.isfinite(bare_loss).all():
+        fail(f"elasticity_tf train: a step without thresholds launched {bare_launched} "
+             f"(expected 6 of each of {TF_DIST_KERNELS}), loss {bare_loss.tolist()}")
+    report["launches_step_without_thresholds"] = bare_launched
+    return report
+
+
+
 def main() -> int:
     import torch
 
@@ -1424,6 +2084,12 @@ def main() -> int:
     log("elasticity_serve " + json.dumps(e_serve))
     e_train = elasticity_train_phase()
     log("elasticity_train " + json.dumps(e_train))
+    tf_shapes, tf_fwd_rows, tf_errs = tf_kernel_phase()
+    tf_bwd_rows, tf_bwd_errs = tf_backward_phase(tf_shapes)
+    t_serve = elasticity_tf_serve_phase()
+    log("elasticity_tf_serve " + json.dumps(t_serve))
+    t_train = elasticity_tf_train_phase()
+    log("elasticity_tf_train " + json.dumps(t_train))
 
     per = {s["shape"]: s for s in shapes}
     total = lambda key: sum(s[key] * s["launches_per_forward"] for s in shapes)
@@ -1522,6 +2188,45 @@ def main() -> int:
         "entry_points": entry,
         "shapes": b_bwd_rows,
     })
+    # the TF kernels: #9 over one served forward (and #10 over one step on
+    # a batch without thresholds), #11 over one training forward and #12
+    # over one training step, at batch 10; "shapes" splits them
+    bare = t_train["launches_step_without_thresholds"]
+    tf = {
+        # name: (source, pallas_call, rows, launches key, launches by path, error)
+        "posatt_tf_fwd": ("posatt_tf_fwd.cu", 733, tf_fwd_rows["dist"], "launches_per_forward",
+                          {"serve": t_serve["launches"]["posatt_tf_fwd"],
+                           "train_without_thresholds": bare["posatt_tf_fwd"]}, tf_errs["dist"]),
+        "posatt_tf_bwd": ("posatt_tf_bwd.cu", 779, tf_bwd_rows["dist"], "launches_per_step",
+                          {"serve": 0, **{k: bare[k] for k in TF_DIST_KERNELS[1:]}},
+                          max(tf_bwd_errs["dist"].values())),
+        "posatt_tf_coord_fwd": ("posatt_tf_fwd.cu", 1175, tf_fwd_rows["coord"], "launches_per_forward",
+                                {"serve": 0, "train": t_train["launches"]["posatt_tf_coord_fwd"]},
+                                tf_errs["coord"]),
+        "posatt_tf_coord_bwd": ("posatt_tf_bwd.cu", 1236, tf_bwd_rows["coord"], "launches_per_step",
+                                {"serve": 0, **{k: t_train["launches"][k] for k in TF_COORD_KERNELS[1:]}},
+                                max(tf_bwd_errs["coord"].values())),
+    }
+    for name, (source, line, rows, key, by_path, err) in tf.items():
+        entry = {
+            "name": name,
+            "route": "cuda",
+            "source": f"position_induced_transformer_torch/kernels/csrc/{source}",
+            "replaces": f"position_induced_transformer_tpu/kernels/posatt_batched.py:{line}",
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
+            "max_abs_err": err,
+            **per_step(rows, key),
+            "library_ms": (sum(r["library_ms"] * r[key] for r in rows)
+                           if rows[0]["library_ms"] is not None else None),
+            "shapes": rows,
+        }
+        if name.endswith("_bwd"):
+            entry["entry_points"] = {
+                part: {"ms": sum(r[part]["ms"] * r[key] for r in rows),
+                       "bound_ms": sum(r[part]["bound_ms"] * r[key] for r in rows)}
+                for part in ("dscale", "dv")}
+        kernels["kernels"].append(entry)
     log(json.dumps(kernels))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

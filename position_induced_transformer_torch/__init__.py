@@ -7,7 +7,8 @@ and no JAX. Layout and module names mirror the JAX package:
 - ``ops``      : position attention (plain PyTorch oracle), distances,
                  locality thresholds, initializers.
 - ``kernels``  : hand-written sm_90a CUDA kernels and their wrappers.
-- ``models``   : ``PiT`` as ``nn.Module``s and its mesh ``Geometry``.
+- ``models``   : ``PiT`` and the TF-semantics ``PiTTFPointCloud`` as
+                 ``nn.Module``s, and the mesh ``Geometry``.
 - ``data``     : loaders and synthetic generators.
 - ``train``    : benchmark setup, checkpoints, ``Predictor``/``infer`` and
                  the HTTP server.

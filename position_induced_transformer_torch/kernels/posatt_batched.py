@@ -26,6 +26,23 @@ of the extended key axis, ``start = starts[b, i // band_tile_rows(L_out)]``):
 - ``p_hij = exp(-s_h (d_ij - dmin_i))`` on kept entries, else 0;
 - ``out[b, i, h*D:(h+1)*D] = sum_j p_hij u_bj / max(sum_j p_hij, 1e-30)``.
 
+The TF-semantics point-cloud model (elasticity_tf) has four more kernels,
+in two more sources:
+
+- ``csrc/posatt_tf_fwd.cu``: the forwards ``_make_tf_fwd_kernel`` (#9,
+  over pre-built (B, L_out, L_in) distances) and
+  ``_make_tf_coord_fwd_kernel`` (#11, from coordinates, with an optional
+  band); both write the backward's row statistics when asked;
+- ``csrc/posatt_tf_bwd.cu``: their backwards ``_make_tf_bwd_kernel`` (#10)
+  and ``_make_tf_coord_bwd_kernel`` (#12), each as two entry points, the
+  per-sample bandwidth gradient (dscale) and the value gradient (dv).
+
+They compute the function above with two differences: every column of
+the window is kept without ``thr`` (no keep count), and the values are per
+head, ``values`` (B, L_in, H*V) with head h reading only its own columns
+``[h*V, (h+1)*V)``, so that ``out[b, i, h*V:(h+1)*V] = sum_j p_hij
+values[b, j, h*V:(h+1)*V] / max(sum_j p_hij, 1e-30)``.
+
 Dispatch is by device: a CUDA tensor launches the kernel or raises, a CPU
 tensor takes the plain version (``*_reference``). There is no fallback and
 no switch.
@@ -438,3 +455,439 @@ def position_attention_batched(
     if torch.is_grad_enabled() and (scale.requires_grad or inputs.requires_grad):
         return PosAttBatched.apply(mesh_q, mesh_k, scale, inputs, thr, starts, keep_count, width)
     return _forward(mesh_q, mesh_k, scale, inputs, thr, starts, keep_count, width)
+
+
+# ============================================ TF semantics: kernels #9 - #12
+#
+# #9 and #10 read pre-built distances (B, L_out, L_in); #11 and #12 compute
+# them from coordinates and take a band. Both keep every column of the
+# window without ``thr``. The forward kernels write the row statistics of
+# posatt_batched_stats_reference (dmin, the keep threshold, +inf without
+# thr, and per head the reciprocal denominator) for the backward kernels.
+
+# ------------------------------------------------------------ plain versions
+
+
+def _tf_keep(dist, thr):
+    """The keep mask and bare row minimum over pre-built distances."""
+    t = torch.full_like(dist[..., :1], float("inf")) if thr is None else thr
+    return dist <= t, dist.amin(dim=-1, keepdim=True), t
+
+
+def _tf_attention(dist, keep, dmin, scale):
+    """Normalised weights (B, H, L_out, L_in), exactly 0 where not kept."""
+    p = _exp_weights(dist, keep, dmin, scale)
+    return p / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+
+
+def _tf_apply(att, values):
+    """Head h's weights on head h's value columns: (B, L_out, H*V)."""
+    B, H, L_out, L_in = att.shape
+    v = values.reshape(B, L_in, H, -1)
+    return torch.einsum("bhij,bjhv->bihv", att, v).reshape(B, L_out, -1)
+
+
+def _tf_grads(att, keep, dist, values, g):
+    """(dValues (B, L_in, H*V), dScale (B, H)) as the TPU backward kernels
+    compute them: with T = G_h V_h^T, r = sum_j P T and -d on kept entries,
+    ``ds_bh = sum_ij P T (-d) - sum_i r_i sum_j P (-d)``."""
+    B, H, L_out, L_in = att.shape
+    gh, vh = g.reshape(B, L_out, H, -1), values.reshape(B, L_in, H, -1)
+    dv = torch.einsum("bhij,bihv->bjhv", att, gh).reshape(B, L_in, -1)
+    t = torch.einsum("bihv,bjhv->bhij", gh, vh)
+    nd = torch.where(keep, -dist, 0.0)[:, None]
+    pt = att * t
+    r = pt.sum(dim=-1)
+    ds = (pt * nd).sum(dim=(-1, -2)) - (r * (att * nd).sum(dim=-1)).sum(dim=-1)
+    return dv, ds
+
+
+def posatt_tf_reference(dist, thr, scale, values):
+    """Plain PyTorch version of kernel #9: (B, L_out, H*V) over pre-built
+    distances ``dist`` (B, L_out, L_in), ``thr`` (B, L_out, 1) or None,
+    ``scale`` (H, 1) >= 0 and per-head ``values`` (B, L_in, H*V)."""
+    keep, dmin, _ = _tf_keep(dist, thr)
+    return _tf_apply(_tf_attention(dist, keep, dmin, scale), values)
+
+
+def posatt_tf_stats_reference(dist, thr, scale):
+    """Plain version of the row statistics kernel #9 writes for the
+    backward, laid out as :func:`posatt_batched_stats_reference`'s."""
+    keep, dmin, t = _tf_keep(dist, thr)
+    rden = 1.0 / _exp_weights(dist, keep, dmin, scale).sum(dim=-1).clamp_min(1e-30)
+    return torch.cat([dmin.transpose(1, 2), t.transpose(1, 2), rden], dim=1)
+
+
+def posatt_tf_bwd_reference(dist, thr, scale, values, g):
+    """Plain version of kernel #10: (dValues (B, L_in, H*V), dScale (B, H))
+    for a cotangent ``g`` (B, L_out, H*V) of #9's output."""
+    keep, dmin, _ = _tf_keep(dist, thr)
+    return _tf_grads(_tf_attention(dist, keep, dmin, scale), keep, dist, values, g)
+
+
+def _tf_coord_rows(mesh_q, mesh_k, thr, starts, width):
+    """Distances, keep mask and bare window minimum from coordinates: the
+    rows of the batched kernels with every column of the window kept
+    where ``thr`` is None."""
+    dist, keep, dmin, _ = _rows(mesh_q, mesh_k, thr, starts, mesh_k.shape[1], width)
+    return dist, keep, dmin
+
+
+def posatt_tf_coord_reference(mesh_q, mesh_k, scale, values, thr=None, starts=None, *, width=0):
+    """Plain version of kernel #11: (B, L_out, H*V) from coordinates
+    ``mesh_q`` (B, L_out, d) and ``mesh_k`` (B, L_in, d), with ``values``
+    (B, L_in, H*V) on the extended key axis and the band of
+    :func:`posatt_batched_reference`. The caller folds the TF halving of
+    the distances into ``scale`` and ``thr``."""
+    dist, keep, dmin = _tf_coord_rows(mesh_q, mesh_k, thr, starts, width)
+    return _tf_apply(_tf_attention(dist, keep, dmin, scale), values)
+
+
+def posatt_tf_coord_bwd_reference(
+    mesh_q, mesh_k, scale, values, g, thr=None, starts=None, *, width=0
+):
+    """Plain version of kernel #12: (dValues on the extended key axis,
+    dScale (B, H)) for a cotangent ``g`` of #11's output."""
+    dist, keep, dmin = _tf_coord_rows(mesh_q, mesh_k, thr, starts, width)
+    return _tf_grads(_tf_attention(dist, keep, dmin, scale), keep, dist, values, g)
+
+
+# ------------------------------------------------------------ CUDA launchers
+
+
+def _check_tf(dist, thr, scale, values) -> None:
+    named = [("dist", dist), ("scale", scale), ("values", values)]
+    _check_tensors(named + ([("thr", thr)] if thr is not None else []), dist.device)
+    if dist.ndim != 3 or values.ndim != 3:
+        raise ValueError("dist and values must be (B, L, .) tensors")
+    B, L_out, L_in = dist.shape
+    _check_tf_heads(scale, values, B, L_in)
+    if thr is not None and tuple(thr.shape) != (B, L_out, 1):
+        raise ValueError(f"thr must be ({B}, {L_out}, 1), got {tuple(thr.shape)}")
+
+
+def _check_tf_heads(scale, values, B, L_in) -> None:
+    if scale.ndim != 2 or scale.shape[1] != 1 or scale.shape[0] < 1:
+        raise ValueError(f"scale must be (H, 1), got {tuple(scale.shape)}")
+    if tuple(values.shape[:2]) != (B, L_in) or values.shape[2] % scale.shape[0]:
+        raise ValueError(
+            f"values must be ({B}, {L_in}, H*V) with H = {scale.shape[0]}, got "
+            f"{tuple(values.shape)}"
+        )
+
+
+def _check_tf_coord(mesh_q, mesh_k, scale, values, thr, starts, width) -> None:
+    named = [("mesh_q", mesh_q), ("mesh_k", mesh_k), ("scale", scale), ("values", values)]
+    _check_tensors(named + ([("thr", thr)] if thr is not None else []), mesh_q.device)
+    if mesh_q.ndim != 3 or mesh_k.ndim != 3 or values.ndim != 3:
+        raise ValueError("mesh_q, mesh_k and values must be (B, L, .) tensors")
+    B, L_out, d = mesh_q.shape
+    L_in = mesh_k.shape[1]
+    if tuple(mesh_k.shape) != (B, L_in, d):
+        raise ValueError(f"mesh_k must be ({B}, L_in, {d}), got {tuple(mesh_k.shape)}")
+    _check_tf_heads(scale, values, B, L_in)
+    if thr is not None and tuple(thr.shape) != (B, L_out, 1):
+        raise ValueError(f"thr must be ({B}, {L_out}, 1), got {tuple(thr.shape)}")
+    if starts is not None and thr is None:
+        raise ValueError("a band needs the thresholds it was computed from")
+    _check_starts(starts, width, B, L_out, mesh_q.device)
+
+
+def _check_tf_cuda(name, t, space_dim=None) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} needs CUDA tensors, got {t.device}")
+    if space_dim is not None and not 1 <= space_dim <= MAX_SPACE_DIM:
+        raise ValueError(
+            f"the kernels take 1 to {MAX_SPACE_DIM} coordinates per point, got {space_dim}"
+        )
+
+
+def _check_tf_bwd(B, L_out, L_in, scale, g, stats, values=None) -> None:
+    """The backward launchers' cotangent, statistics and values."""
+    named = [("g", g), ("stats", stats)] + ([("values", values)] if values is not None else [])
+    _check_tensors(named, scale.device)
+    H = scale.shape[0]
+    if g.ndim != 3 or tuple(g.shape[:2]) != (B, L_out) or g.shape[2] % H:
+        raise ValueError(f"g must be ({B}, {L_out}, H*V), got {tuple(g.shape)}")
+    if values is not None and tuple(values.shape) != (B, L_in, g.shape[2]):
+        raise ValueError(f"values must be ({B}, {L_in}, {g.shape[2]}), got {tuple(values.shape)}")
+    if tuple(stats.shape) != (B, H + 2, L_out):
+        raise ValueError(f"stats must be ({B}, {H + 2}, {L_out}), got {tuple(stats.shape)}")
+
+
+def _check_tf_dist_bwd(name, dist, scale, g, stats, values=None):
+    _check_tensors([("dist", dist), ("scale", scale)], dist.device)
+    _check_tf_cuda(name, dist)
+    if dist.ndim != 3:
+        raise ValueError(f"dist must be (B, L_out, L_in), got {tuple(dist.shape)}")
+    B, L_out, L_in = dist.shape
+    _check_tf_bwd(B, L_out, L_in, scale, g, stats, values)
+    return B, L_out, L_in
+
+
+def _tf_partials(B, L_out, H, V, device):
+    """Scratch for the dscale kernels' per-block partials: an upper bound
+    on the blocks per (sample, head), 16 rows by at least 32 columns."""
+    return torch.empty((B, H, -(-L_out // _TLO) * -(-V // 32)), dtype=torch.float32, device=device)
+
+
+def posatt_tf_cuda(dist, thr, scale, values, *, stats=False):
+    """Launch kernel #9 on CUDA tensors: (B, L_out, H*V), and with
+    ``stats`` also its row statistics (:func:`posatt_tf_stats_reference`).
+    Adds one to ``posatt_tf_cuda.launches`` for each launch."""
+    _check_tf(dist, thr, scale, values)
+    _check_tf_cuda("posatt_tf_cuda", dist)
+    B, L_out, L_in = dist.shape
+    H = scale.shape[0]
+    dev = dist.device
+    out = torch.empty((B, L_out, values.shape[2]), dtype=torch.float32, device=dev)
+    st = torch.empty((B, H + 2, L_out), dtype=torch.float32, device=dev) if stats else None
+    fn = _entry("posatt_tf_fwd", "posatt_tf_fwd", 6, 5)
+    _launch(fn, "posatt_tf_fwd", dev, dist, thr, scale, values, out, st,
+            B, L_out, L_in, H, values.shape[2] // H)
+    posatt_tf_cuda.launches += 1
+    return (out, st) if stats else out
+
+
+def posatt_tf_bwd_dscale_cuda(dist, scale, values, g, stats):
+    """Launch #10's dscale entry point: (B, H), from #9's inputs, its row
+    statistics and a cotangent ``g``. Deterministic: per-block partials
+    summed per sample and head in a fixed order. Adds one to
+    ``posatt_tf_bwd_dscale_cuda.launches``."""
+    B, L_out, L_in = _check_tf_dist_bwd("posatt_tf_bwd_dscale_cuda", dist, scale, g, stats, values)
+    H, V = scale.shape[0], g.shape[2] // scale.shape[0]
+    partial = _tf_partials(B, L_out, H, V, dist.device)
+    ds = torch.empty((B, H), dtype=torch.float32, device=dist.device)
+    fn = _entry("posatt_tf_bwd", "posatt_tf_bwd_dscale", 7, 5)
+    _launch(fn, "posatt_tf_bwd_dscale", dist.device, dist, scale, values, g, stats, partial, ds,
+            B, L_out, L_in, H, V)
+    posatt_tf_bwd_dscale_cuda.launches += 1
+    return ds
+
+
+def posatt_tf_bwd_dv_cuda(dist, scale, g, stats):
+    """Launch #10's dv entry point: (B, L_in, H*V). Adds one to
+    ``posatt_tf_bwd_dv_cuda.launches``."""
+    B, L_out, L_in = _check_tf_dist_bwd("posatt_tf_bwd_dv_cuda", dist, scale, g, stats)
+    H = scale.shape[0]
+    dv = torch.empty((B, L_in, g.shape[2]), dtype=torch.float32, device=dist.device)
+    fn = _entry("posatt_tf_bwd", "posatt_tf_bwd_dv", 5, 5)
+    _launch(fn, "posatt_tf_bwd_dv", dist.device, dist, scale, g, stats, dv,
+            B, L_out, L_in, H, g.shape[2] // H)
+    posatt_tf_bwd_dv_cuda.launches += 1
+    return dv
+
+
+def posatt_tf_coord_cuda(mesh_q, mesh_k, scale, values, thr=None, starts=None, *, width=0,
+                         stats=False):
+    """Launch kernel #11 on CUDA tensors: (B, L_out, H*V), and with
+    ``stats`` also its row statistics (those of
+    :func:`posatt_batched_stats_reference` with every column of the window
+    kept where ``thr`` is None). Adds one to
+    ``posatt_tf_coord_cuda.launches`` for each launch."""
+    _check_tf_coord(mesh_q, mesh_k, scale, values, thr, starts, width)
+    B, L_out, d = mesh_q.shape
+    _check_tf_cuda("posatt_tf_coord_cuda", mesh_q, d)
+    L_in, H = mesh_k.shape[1], scale.shape[0]
+    dev = mesh_q.device
+    out = torch.empty((B, L_out, values.shape[2]), dtype=torch.float32, device=dev)
+    st = torch.empty((B, H + 2, L_out), dtype=torch.float32, device=dev) if stats else None
+    fn = _entry("posatt_tf_fwd", "posatt_tf_coord_fwd", 8, 8)
+    _launch(fn, "posatt_tf_coord_fwd", dev, mesh_q, mesh_k, scale, values, thr, starts, out, st,
+            B, L_out, L_in, H, values.shape[2] // H, d,
+            width if starts is not None else 0, band_tile_rows(L_out))
+    posatt_tf_coord_cuda.launches += 1
+    return (out, st) if stats else out
+
+
+def _check_tf_coord_bwd(name, mesh_q, mesh_k, scale, g, stats, starts, width, values=None):
+    _check_tensors([("mesh_q", mesh_q), ("mesh_k", mesh_k), ("scale", scale)], mesh_q.device)
+    B, L_out, d = mesh_q.shape
+    _check_tf_cuda(name, mesh_q, d)
+    L_in = mesh_k.shape[1]
+    if tuple(mesh_k.shape) != (B, L_in, d):
+        raise ValueError(f"mesh_k must be ({B}, L_in, {d}), got {tuple(mesh_k.shape)}")
+    _check_tf_bwd(B, L_out, L_in, scale, g, stats, values)
+    _check_starts(starts, width, B, L_out, mesh_q.device)
+    return B, L_out, L_in, d
+
+
+def posatt_tf_coord_bwd_dscale_cuda(mesh_q, mesh_k, scale, values, g, stats, starts=None, *,
+                                    width=0):
+    """Launch #12's dscale entry point: (B, H), deterministic as #10's.
+    Adds one to ``posatt_tf_coord_bwd_dscale_cuda.launches``."""
+    B, L_out, L_in, d = _check_tf_coord_bwd("posatt_tf_coord_bwd_dscale_cuda", mesh_q, mesh_k,
+                                            scale, g, stats, starts, width, values)
+    H, V = scale.shape[0], g.shape[2] // scale.shape[0]
+    dev = mesh_q.device
+    partial = _tf_partials(B, L_out, H, V, dev)
+    ds = torch.empty((B, H), dtype=torch.float32, device=dev)
+    fn = _entry("posatt_tf_bwd", "posatt_tf_coord_bwd_dscale", 9, 8)
+    _launch(fn, "posatt_tf_coord_bwd_dscale", dev, mesh_q, mesh_k, scale, values, g, stats,
+            starts, partial, ds, B, L_out, L_in, H, V, d,
+            width if starts is not None else 0, band_tile_rows(L_out))
+    posatt_tf_coord_bwd_dscale_cuda.launches += 1
+    return ds
+
+
+def posatt_tf_coord_bwd_dv_cuda(mesh_q, mesh_k, scale, g, stats, starts=None, *, width=0):
+    """Launch #12's dv entry point: (B, L_in, H*V) on the extended key
+    axis. Adds one to ``posatt_tf_coord_bwd_dv_cuda.launches``."""
+    B, L_out, L_in, d = _check_tf_coord_bwd("posatt_tf_coord_bwd_dv_cuda", mesh_q, mesh_k,
+                                            scale, g, stats, starts, width)
+    H = scale.shape[0]
+    dev = mesh_q.device
+    dv = torch.empty((B, L_in, g.shape[2]), dtype=torch.float32, device=dev)
+    fn = _entry("posatt_tf_bwd", "posatt_tf_coord_bwd_dv", 7, 8)
+    _launch(fn, "posatt_tf_coord_bwd_dv", dev, mesh_q, mesh_k, scale, g, stats, starts, dv,
+            B, L_out, L_in, H, g.shape[2] // H, d,
+            width if starts is not None else 0, band_tile_rows(L_out))
+    posatt_tf_coord_bwd_dv_cuda.launches += 1
+    return dv
+
+
+posatt_tf_cuda.launches = 0
+posatt_tf_bwd_dscale_cuda.launches = 0
+posatt_tf_bwd_dv_cuda.launches = 0
+posatt_tf_coord_cuda.launches = 0
+posatt_tf_coord_bwd_dscale_cuda.launches = 0
+posatt_tf_coord_bwd_dv_cuda.launches = 0
+
+
+# ------------------------------------------------------------ autograd
+
+
+def _tf_grad_outputs(ctx, scale, ds, dv):
+    """dScale summed over the batch, and dValues, where they are needed."""
+    dscale = ds.sum(dim=0).reshape(scale.shape) if ctx.needs_input_grad[2] else None
+    return dscale, dv if ctx.needs_input_grad[3] else None
+
+
+class PosAttTF(torch.autograd.Function):
+    """Kernel #9 with its backward #10: ``apply(dist, thr, scale, values)``
+    -> (B, L_out, H*V), the ``_posatt_tf`` custom VJP. The backward runs
+    the dscale entry point when ``scale`` needs a gradient (summing its
+    per-sample (B, H) result over B) and the dv one when ``values`` does;
+    ``dist`` and ``thr`` get none. CPU tensors take the plain versions."""
+
+    @staticmethod
+    def forward(ctx, dist, thr, scale, values):
+        if dist.device.type == "cuda":
+            out, stats = posatt_tf_cuda(dist, thr, scale, values, stats=True)
+        else:
+            _check_tf(dist, thr, scale, values)
+            out, stats = posatt_tf_reference(dist, thr, scale, values), None
+        ctx.save_for_backward(dist, thr, scale, values, stats)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        dist, thr, scale, values, stats = ctx.saved_tensors
+        g = g.contiguous()
+        if dist.device.type != "cuda":
+            dv, ds = posatt_tf_bwd_reference(dist, thr, scale, values, g)
+        else:
+            ds = posatt_tf_bwd_dscale_cuda(dist, scale, values, g, stats) if ctx.needs_input_grad[2] else None
+            dv = posatt_tf_bwd_dv_cuda(dist, scale, g, stats) if ctx.needs_input_grad[3] else None
+        return (None, None, *_tf_grad_outputs(ctx, scale, ds, dv))
+
+
+class PosAttTFCoord(torch.autograd.Function):
+    """Kernel #11 with its backward #12: ``apply(mesh_q, mesh_k, scale,
+    values, thr, starts, width)`` -> (B, L_out, H*V), the
+    ``_posatt_tf_coord`` custom VJP; gradients as :class:`PosAttTF`'s."""
+
+    @staticmethod
+    def forward(ctx, mesh_q, mesh_k, scale, values, thr, starts, width):
+        if mesh_q.device.type == "cuda":
+            out, stats = posatt_tf_coord_cuda(mesh_q, mesh_k, scale, values, thr, starts,
+                                              width=width, stats=True)
+        else:
+            _check_tf_coord(mesh_q, mesh_k, scale, values, thr, starts, width)
+            out = posatt_tf_coord_reference(mesh_q, mesh_k, scale, values, thr, starts, width=width)
+            stats = None
+        ctx.save_for_backward(mesh_q, mesh_k, scale, values, thr, starts, stats)
+        ctx.width = width
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        mesh_q, mesh_k, scale, values, thr, starts, stats = ctx.saved_tensors
+        g = g.contiguous()
+        w = dict(width=ctx.width)
+        if mesh_q.device.type != "cuda":
+            dv, ds = posatt_tf_coord_bwd_reference(mesh_q, mesh_k, scale, values, g, thr, starts, **w)
+        else:
+            ds = dv = None
+            if ctx.needs_input_grad[2]:
+                ds = posatt_tf_coord_bwd_dscale_cuda(mesh_q, mesh_k, scale, values, g, stats, starts, **w)
+            if ctx.needs_input_grad[3]:
+                dv = posatt_tf_coord_bwd_dv_cuda(mesh_q, mesh_k, scale, g, stats, starts, **w)
+        return (None, None, *_tf_grad_outputs(ctx, scale, ds, dv), None, None, None)
+
+
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def position_attention_batched_dist(
+    dist: torch.Tensor,
+    scales: torch.Tensor,
+    values: torch.Tensor,
+    thr: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """TF-semantics position attention over pre-built per-sample distances
+    (kernel #9): ``dist`` (B, L_out, L_in), ``scales`` (H, 1) >= 0 (r^2),
+    per-head ``values`` (B, L_in, H*V) -> (B, L_out, H*V). ``thr`` (B,
+    L_out, 1): locality thresholds on ``dist``; None keeps every column.
+    Differentiable in ``scales`` and ``values`` through :class:`PosAttTF`;
+    without a gradient only the forward kernel runs."""
+    if dist.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dist.device}")
+    if _needs_grad(scales, values):
+        return PosAttTF.apply(dist, thr, scales, values)
+    if dist.device.type == "cuda":
+        return posatt_tf_cuda(dist, thr, scales, values)
+    _check_tf(dist, thr, scales, values)
+    return posatt_tf_reference(dist, thr, scales, values)
+
+
+def position_attention_batched_tf_coords(
+    coords_q: torch.Tensor,
+    coords_k: torch.Tensor,
+    scales: torch.Tensor,
+    values: torch.Tensor,
+    thr: Optional[torch.Tensor] = None,
+    band: Optional[BandSpec] = None,
+) -> torch.Tensor:
+    """TF-semantics position attention from point-cloud coordinates (kernel
+    #11): the attention of :func:`position_attention_batched_dist` over
+    the halved squared distances ``|q_i - k_j|^2 / 2`` of ``coords_q`` (B,
+    L_out, d) and ``coords_k`` (B, L_in, d), which never reach device
+    memory. ``thr`` (B, L_out, 1): thresholds on the halved distances;
+    ``band``: a :class:`BandSpec` (needs ``thr``). The halving is folded
+    into the scale (0.5 s) and the thresholds (2 thr), and the wrap margin
+    appended to the keys and values, before :class:`PosAttTFCoord`, so
+    that autograd chains the scale's gradient through the 0.5 and routes
+    the duplicated value gradients back through the concat."""
+    if coords_q.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {coords_q.device}")
+    if band is not None and thr is None:
+        raise ValueError(
+            "a band needs precomputed thresholds: its starts hold only for "
+            "the thresholds they were computed from"
+        )
+    if band is not None and band.wrap:
+        coords_k = torch.cat([coords_k, coords_k[:, : band.wrap]], dim=1)
+        values = torch.cat([values, values[:, : band.wrap]], dim=1)
+    scale = 0.5 * scales
+    thr = None if thr is None else 2.0 * thr
+    starts, width = (None, 0) if band is None else (band.starts, band.width)
+    if _needs_grad(scale, values):
+        return PosAttTFCoord.apply(coords_q, coords_k, scale, values, thr, starts, width)
+    if coords_q.device.type == "cuda":
+        return posatt_tf_coord_cuda(coords_q, coords_k, scale, values, thr, starts, width=width)
+    _check_tf_coord(coords_q, coords_k, scale, values, thr, starts, width)
+    return posatt_tf_coord_reference(coords_q, coords_k, scale, values, thr, starts, width=width)

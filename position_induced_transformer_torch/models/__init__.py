@@ -1,4 +1,5 @@
-"""PiT model (torch-semantics family) and its mesh geometry."""
+"""PiT models (the torch-semantics family and the TF-semantics point-cloud
+model) and the mesh geometry."""
 
 from position_induced_transformer_torch.models.geometry import (  # noqa: F401
     Geometry,
@@ -10,4 +11,11 @@ from position_induced_transformer_torch.models.pit import (  # noqa: F401
     PosAtt,
     PosAttCross,
     TorchLinear,
+)
+from position_induced_transformer_torch.models.pit_tf import (  # noqa: F401
+    MultiHeadPosAttBatched,
+    PiTTFPointCloud,
+    TFDense,
+    TFMlp,
+    pairwise_dist_half,
 )

@@ -123,6 +123,23 @@ def batched_topk_thresholds(
     return torch.cat(outs, dim=0)
 
 
+def batched_halfdist_percentile_thresholds(coords: torch.Tensor, percentile: float, chunk: int = 8):
+    """(B, L, 1) :func:`robust_topk_threshold` per sample over the TF
+    point-cloud model's halved distances ``|c_i - c_j|^2 / 2`` (the op
+    order of ``models/pit_tf.pairwise_dist_half``), at a ``percentile`` in
+    [0, 100], in chunks of ``chunk`` samples; None above 100 (global).
+    Per-sample clouds are constant across training, so this runs once at
+    setup."""
+    if percentile > 100:
+        return None
+    outs = []
+    for s in range(0, coords.shape[0], chunk):
+        c = coords[s : s + chunk]
+        diff = c[:, :, None, :] - c[:, None, :, :]
+        outs.append(robust_topk_threshold(0.5 * torch.sum(diff * diff, dim=-1), percentile / 100.0))
+    return torch.cat(outs, dim=0)
+
+
 def batched_band_starts(
     mesh_q: torch.Tensor,
     mesh_k: torch.Tensor,

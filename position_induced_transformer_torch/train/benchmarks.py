@@ -1,7 +1,8 @@
 """Per-benchmark problem setup: data -> meshes -> Geometry -> model -> Task.
 
-Ported: ``burgers`` (a fixed periodic mesh) and ``elasticity`` (per-sample
-point clouds); :func:`setup` names the others as not yet ported.
+Ported: ``burgers`` (a fixed periodic mesh), ``elasticity`` (per-sample
+point clouds) and ``elasticity_tf`` (the TF-semantics point-cloud model);
+:func:`setup` names the others as not yet ported.
 """
 
 from __future__ import annotations
@@ -11,13 +12,15 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+from torch import nn
 
 from position_induced_transformer_torch.configs import REGISTRY, BenchmarkConfig
 from position_induced_transformer_torch.data import loaders, meshes
 from position_induced_transformer_torch.kernels.posatt_batched import BandSpec, band_tile_rows
-from position_induced_transformer_torch.models import Geometry, PiT, build_geometry
+from position_induced_transformer_torch.models import Geometry, PiT, PiTTFPointCloud, build_geometry
 from position_induced_transformer_torch.ops.locality import (
     batched_band_starts,
+    batched_halfdist_percentile_thresholds,
     batched_topk_thresholds,
 )
 from position_induced_transformer_torch.train.loop import Task
@@ -27,7 +30,7 @@ from position_induced_transformer_torch.utils.devices import resolve_device
 @dataclasses.dataclass
 class Problem:
     config: BenchmarkConfig
-    model: PiT
+    model: nn.Module
     task: Task
     geom: Optional[Geometry]
     train_data: Dict[str, np.ndarray]  # host arrays; batches move per call
@@ -36,14 +39,29 @@ class Problem:
     n_test: int
 
 
-def _make_model(cfg: BenchmarkConfig, generator: Optional[torch.Generator] = None) -> PiT:
-    """The benchmark's PiT on the CPU, weights drawn from ``generator``."""
+def _make_model(cfg: BenchmarkConfig, generator: Optional[torch.Generator] = None) -> nn.Module:
+    """The benchmark's model on the CPU, weights drawn from ``generator``:
+    the TF-semantics point-cloud model for ``elasticity_tf``, PiT for the
+    torch family."""
+    m = cfg.model
+    if cfg.name == "elasticity_tf":
+        if (cfg.model_variant or "pit") != "pit":
+            raise NotImplementedError(
+                f"model variant {cfg.model_variant!r}: only 'pit' (position "
+                "attention) is ported for the TF family"
+            )
+        return PiTTFPointCloud(
+            in_dim=m.in_dim, out_dim=m.out_dim, hid_dim=m.hid_dim, n_head=m.n_head,
+            locality_encoder=m.en_loc, locality_decoder=m.de_loc, n_blocks=m.n_blocks,
+            compute_dtype=m.compute_dtype, generator=generator,
+        )
+    if cfg.name.endswith("_tf"):
+        raise NotImplementedError(f"the TF-family model of {cfg.name!r} is not ported yet")
     if (cfg.model_variant or "pit") != "pit":
         raise ValueError(
             f"model variant {cfg.model_variant!r} exists for the TF-family "
             "benchmarks only"
         )
-    m = cfg.model
     return PiT(
         space_dim=m.space_dim,
         in_dim=m.in_dim,
@@ -171,7 +189,95 @@ def setup_elasticity(
     )
 
 
-SETUPS = {"burgers": setup_burgers, "elasticity": setup_elasticity}
+def setup_elasticity_tf(
+    cfg: BenchmarkConfig, data_path=None, ntrain=None, ntest=None, n_points=972, *,
+    device="cuda",
+) -> Problem:
+    """Elasticity with the TF-semantics point-cloud model: distances
+    between the first two input channels, percentile locality.
+
+    Each cloud is sorted by angle (as :func:`setup_elasticity` does). The
+    clouds are constant across training, so the per-sample thresholds on
+    the halved distances are data: computed here on ``device``
+    (``thr_en``, and ``thr_de`` when the decoder's locality differs), with a
+    circular band per threshold from ``2 * thr`` on the full squared
+    distances and one band width shared by both splits. They ride in the
+    data and reach the model through ``geom_fn``; a batch without them (a
+    deployment input: ``x`` alone) makes the model compute its thresholds
+    per call. Data stay on the host; the model lives on ``device``.
+    """
+    dev = resolve_device(device)
+    ntrain, ntest = ntrain or cfg.ntrain, ntest or cfg.ntest
+    X_tr, ext_tr, Y_tr, X_te, ext_te, Y_te = loaders.elasticity(
+        data_path, ntrain, ntest, n_points=n_points
+    )
+    m = cfg.model
+    model = _make_model(cfg, torch.Generator().manual_seed(cfg.seed)).to(dev)
+
+    def sort_split(X, ext, Y):
+        perm = meshes.angular_sort_perm(ext)[..., None]
+        return tuple(np.take_along_axis(a, perm, axis=1) for a in (X, ext, Y))
+
+    splits = [sort_split(X_tr, ext_tr, Y_tr), sort_split(X_te, ext_te, Y_te)]
+    data = [{"x": X, "mesh": ext, "y": Y} for X, ext, Y in splits]
+    coords = [torch.from_numpy(np.ascontiguousarray(X[..., :2])).to(dev) for X, _, _ in splits]
+    tlo = band_tile_rows(splits[0][0].shape[1])
+    band_meta = {}  # threshold key -> (width, wrap)
+    for key, loc in (("thr_en", m.en_loc), ("thr_de", m.de_loc)):
+        if key == "thr_de" and m.de_loc == m.en_loc:
+            thrs = [d.get("thr_en") for d in data]
+        else:
+            thrs = [batched_halfdist_percentile_thresholds(c, loc) for c in coords]
+        if thrs[0] is None:
+            continue
+        for d, t in zip(data, thrs):
+            d[key] = t if isinstance(t, np.ndarray) else t.cpu().numpy()
+        if key == "thr_de" and "thr_en" in band_meta:
+            band_meta["thr_de"] = band_meta["thr_en"]
+            for d in data:
+                d["band_de"] = d["band_en"]
+            continue
+        full = [2.0 * torch.from_numpy(d[key]).to(dev) for d in data]
+        b_tr = batched_band_starts(coords[0], coords[0], full[0], tlo, circular=True)
+        b_te = None if b_tr is None else batched_band_starts(
+            coords[1], coords[1], full[1], tlo, width=b_tr[1], circular=True)
+        if b_te is None:
+            continue
+        width, wrap = max(b_tr[1], b_te[1]), max(b_tr[2], b_te[2])
+        if b_tr[1] < width:
+            b_tr = batched_band_starts(coords[0], coords[0], full[0], tlo, width=width, circular=True)
+        bkey = key.replace("thr", "band")
+        data[0][bkey], data[1][bkey] = b_tr[0].numpy(), b_te[0].numpy()
+        band_meta[key] = (width, wrap)
+
+    def spec(batch, bkey, tkey):
+        starts, meta = batch.get(bkey), band_meta.get(tkey)
+        return None if starts is None or meta is None else BandSpec(starts, *meta)
+
+    def geom_fn(batch):
+        return {
+            "thr_en": batch.get("thr_en"), "thr_de": batch.get("thr_de"),
+            "band_en": spec(batch, "band_en", "thr_en"),
+            "band_de": spec(batch, "band_de", "thr_de"),
+        }
+
+    def apply_fn(model, geom, batch):
+        g = geom or {}
+        return model(batch["x"], g.get("thr_en"), g.get("thr_de"), g.get("band_en"), g.get("band_de"))
+
+    task = Task(
+        model=model, loss_p=cfg.loss_p, out_dim=m.out_dim, swap_loss_args=cfg.swap_loss_args,
+        batch_mean_loss=True, geom_fn=geom_fn, apply_fn=apply_fn, keras_adam=True,
+        geometry_required_keys=(),  # the thresholds are optional, the mesh plot-only
+    )
+    return Problem(cfg, model, task, None, data[0], data[1], ntrain, ntest)
+
+
+SETUPS = {
+    "burgers": setup_burgers,
+    "elasticity": setup_elasticity,
+    "elasticity_tf": setup_elasticity_tf,
+}
 
 
 def setup(cfg: BenchmarkConfig, data_path=None, *, device="cuda", **kw) -> Problem:

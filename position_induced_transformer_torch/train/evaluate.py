@@ -5,6 +5,8 @@ calls; :func:`infer` is the one-shot form. Inputs are ``.npy`` or MATLAB
 v5 ``.mat`` files laid out like the benchmark's inputs. A benchmark on
 per-sample meshes (elasticity) also needs each sample's coordinates: its
 input is a ``.mat`` that holds them beside ``x`` (variable ``mesh``).
+elasticity_tf reads them from ``x`` and computes its locality thresholds
+per call, so a bare ``.npy`` serves it.
 """
 
 from __future__ import annotations

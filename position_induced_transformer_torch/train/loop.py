@@ -14,8 +14,8 @@ loop sets each step's learning rate from it. ``torch.optim``'s
 ``CosineAnnealingLR`` is not used: its recursive update drifts from the
 closed form.
 
-Ported: non-rollout tasks and the ``adam`` optimizer. Rollout training
-and the keras Adam of the TF family raise "not ported".
+Ported: non-rollout tasks, the ``adam`` optimizer and the keras Adam of
+the TF family (:class:`KerasAdam`). Rollout training raises "not ported".
 """
 
 from __future__ import annotations
@@ -54,12 +54,21 @@ class Task:
     # must carry them); None = found by probing geom_fn, which reads
     # required keys as batch[k] and optional ones as batch.get(k)
     geometry_required_keys: Optional[tuple] = None
+    # (model, geom, batch) -> out, in place of model(geom, x): the TF
+    # family's call takes x, thr_en, thr_de, band_en, band_de; it gets the
+    # batch's x only, as a deployment input carries no more
+    apply_fn: Optional[Callable] = None
+    keras_adam: bool = False  # train with KerasAdam (make_optimizer "keras")
 
     def _geometry(self, geom, batch):
         return self.geom_fn(batch) if self.geom_fn is not None else geom
 
     def forward(self, geom, batch):
-        out = self.model(self._geometry(geom, batch), batch["x"])
+        geom = self._geometry(geom, batch)
+        if self.apply_fn is not None:
+            out = self.apply_fn(self.model, geom, {"x": batch["x"]})
+        else:
+            out = self.model(geom, batch["x"])
         if self.postprocess is not None:
             out = self.postprocess(out)
         return out
@@ -112,14 +121,57 @@ def make_lr_schedule(
     return schedule
 
 
+class KerasAdam(torch.optim.Optimizer):
+    """``tf.keras.optimizers.Adam``'s update, as the JAX package's
+    ``_keras_adam``: with ``t`` the steps taken before this one,
+
+        m = b1 m + (1 - b1) g;  v = b2 v + (1 - b2) g^2
+        p -= lr * sqrt(1 - b2^(t+1)) / (1 - b1^(t+1)) * m / (sqrt(v) + eps)
+
+    epsilon (1e-7) outside the root of the *uncorrected* v, where torch's
+    Adam adds it to the corrected root. The train epoch sets ``lr`` to the
+    schedule's value at ``t`` before each step, as keras reads its decayed
+    rate at the pre-increment count."""
+
+    def __init__(self, params, lr: float, betas=(0.9, 0.999), eps: float = 1e-7):
+        super().__init__(params, dict(lr=lr, betas=betas, eps=eps))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            b1, b2 = group["betas"]
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            for p in params:
+                if not self.state[p]:
+                    self.state[p] = {"step": 0, "exp_avg": torch.zeros_like(p),
+                                     "exp_avg_sq": torch.zeros_like(p)}
+            states = [self.state[p] for p in params]
+            t = states[0]["step"] + 1
+            grads = [p.grad for p in params]
+            ms = [s["exp_avg"] for s in states]
+            vs = [s["exp_avg_sq"] for s in states]
+            torch._foreach_mul_(ms, b1)
+            torch._foreach_add_(ms, grads, alpha=1.0 - b1)
+            torch._foreach_mul_(vs, b2)
+            torch._foreach_addcmul_(vs, grads, grads, value=1.0 - b2)
+            denom = torch._foreach_sqrt(vs)
+            torch._foreach_add_(denom, group["eps"])
+            lr_t = group["lr"] * math.sqrt(1.0 - b2**t) / (1.0 - b1**t)
+            torch._foreach_addcdiv_(params, ms, denom, value=-lr_t)
+            for s in states:
+                s["step"] = t
+        return None
+
+
 def make_optimizer(params, lr: float, flavor: str = "adam") -> torch.optim.Optimizer:
-    """Adam with optax's (and torch's) epsilon, 1e-8, outside the bias
-    correction's root. Its learning rate is set per step from
-    :func:`make_lr_schedule` by the train epoch."""
+    """``adam``: torch's Adam, whose epsilon (1e-8, as optax's) sits
+    outside the bias correction's root; ``keras``: :class:`KerasAdam`, for
+    the TF family. The train epoch sets the learning rate per step from
+    :func:`make_lr_schedule`."""
     if flavor == "keras":
-        raise NotImplementedError(
-            "the keras Adam of the TF family is not ported yet"
-        )
+        return KerasAdam(params, lr=lr)
     if flavor != "adam":
         raise ValueError(f"unknown optimizer flavor {flavor!r}")
     return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)

@@ -47,10 +47,12 @@ def round_batch(bs: int, k: int) -> int:
 def init_state(problem, seed: int = 0) -> TrainState:
     """Draw the model's weights from ``torch.Generator().manual_seed(seed)``
     (in place, so ``problem.task.model`` stays the same module) and make
-    its Adam optimizer."""
+    its optimizer: the keras Adam where the task asks for it (the TF
+    family), else Adam."""
     fresh = benchmarks._make_model(problem.config, torch.Generator().manual_seed(seed))
     problem.model.load_state_dict(fresh.state_dict())
-    return TrainState(problem.model, make_optimizer(problem.model.parameters(), problem.config.lr))
+    flavor = "keras" if problem.task.keras_adam else "adam"
+    return TrainState(problem.model, make_optimizer(problem.model.parameters(), problem.config.lr, flavor))
 
 
 def default_metrics(out_dim: int):

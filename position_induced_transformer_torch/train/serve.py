@@ -9,7 +9,9 @@
   ``batch_size``, ``format`` (``npy`` or ``mat``). The reply is the
   predictions as ``.npy`` bytes, or a ``.mat`` with variable ``pred``.
   A benchmark on per-sample meshes (elasticity) takes a ``.mat`` holding
-  ``x`` and ``mesh``; a bare ``.npy`` is answered with 400. HDF5 bodies are
+  ``x`` and ``mesh``; a bare ``.npy`` is answered with 400. elasticity_tf
+  reads each cloud from its inputs' first two channels and takes a bare
+  ``.npy``. HDF5 bodies are
   answered with 400: they need h5py, which this package does not use.
 
 Malformed requests are 400s; failures while running the model are 500s.

@@ -1,5 +1,6 @@
 """The CUDA kernels against their plain versions, on the card: the
-fixed-mesh kernels #1-#4 and the per-sample-mesh kernels #7 and #8.
+fixed-mesh kernels #1-#4, the per-sample-mesh kernels #7 and #8, and the
+TF-semantics kernels #9-#12.
 
 Every test here is marked ``cuda`` and skips without a CUDA device. The
 file imports no JAX, so that it runs on a machine without it:
@@ -384,7 +385,7 @@ def test_cuda_tensors_never_reach_the_plain_versions(cuda):
     tensors still runs, through the kernels alone."""
     _, (mq, mk, lmda, u, loc, thr, band), w = _batched_case(cuda, 2, 900, 700, 2, 6, 0.02, "ring")
     names = [n for n in dir(kb) if n.endswith("_reference")]
-    assert len(names) == 5
+    assert len(names) == 10  # five of #7/#8, five of #9-#12
     boom = mock.Mock(side_effect=AssertionError("a plain version ran on CUDA tensors"))
     patches = [mock.patch.object(kb, n, boom) for n in names]
     for p in patches:
@@ -401,3 +402,188 @@ def test_cuda_tensors_never_reach_the_plain_versions(cuda):
             p.stop()
     assert boom.call_count == 0
     assert torch.isfinite(lm.grad).all() and torch.isfinite(x.grad).all()
+
+
+# ---------------------------------------- TF semantics: kernels #9 - #12
+
+TF_SHAPES = [
+    # B, L_q, L_k, H, V, thresholds: "none" (global), "thr" (a percentile
+    # per row) or "ring" (angle-sorted rings with a circular band; the
+    # coordinate kernels only)
+    (2, 48, 48, 2, 3, "none"),
+    (2, 37, 53, 8, 3, "thr"),
+    (2, 300, 200, 2, 64, "none"),
+    (1, 97, 1000, 4, 19, "thr"),
+    (2, 1000, 97, 1, 130, "none"),  # two value tiles per head
+    (3, 64, 64, 8, 64, "thr"),
+    (2, 900, 700, 2, 8, "ring"),
+    (2, 1000, 800, 8, 33, "ring"),  # L_out not a multiple of 256
+]
+
+
+def _tf_case(dev, B, Lq, Lk, H, V, kind, seed=0):
+    """Coordinates (mq, mk on the extended key axis), pre-built halved
+    distances, (H, 1) scales, values on the extended axis, thresholds on
+    the full squared distances, starts, width; the wrapper's (mq, mk,
+    scales, values, thr on the halved distances, band); a cotangent."""
+    rng = np.random.default_rng(seed)
+    to = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+    if kind == "ring":
+        mq, mk = to(_ring(rng, B, Lq)), to(_ring(rng, B, Lk))
+    else:
+        mq, mk = to(rng.random((B, Lq, 2))), to(rng.random((B, Lk, 2)))
+    scales = to(rng.standard_normal((H, 1)) ** 2)
+    values = to(rng.standard_normal((B, Lk, H * V)))
+    g = to(rng.standard_normal((B, Lq, H * V)))
+    half = 0.5 * distances.euclidean_sq(mq, mk)
+    thr = band = None
+    if kind == "thr":
+        thr = locality.quantile_threshold(half, 0.3)
+    elif kind == "ring":
+        thr = locality.robust_topk_threshold(half, 0.02)
+        starts, width, wrap = locality.batched_band_starts(
+            mq, mk, 2.0 * thr, kb.band_tile_rows(Lq), circular=True)
+        assert (starts.numpy() + width > Lk).any(), "no band crosses the seam"
+        band = kb.BandSpec(starts.to(dev), width, wrap)
+    mk_e, v_e = mk, values
+    if band is not None:
+        mk_e = torch.cat([mk, mk[:, : band.wrap]], 1)
+        v_e = torch.cat([values, values[:, : band.wrap]], 1)
+    launch = (mq, mk_e, 0.5 * scales, v_e, None if thr is None else 2.0 * thr,
+              None if band is None else band.starts, 0 if band is None else band.width)
+    return launch, half, (mq, mk, scales, values, thr, band), g
+
+
+def _tf_size(att, keep, dist, values, g):
+    """The size of dscale's summed terms per sample and head, (B, H):
+    sum_i |w_i| + |r_i v_i| with T = G_h V_h^T, as the other kernels'
+    tests normalise."""
+    B, H, Lo, Li = att.shape
+    t = torch.einsum("bihv,bjhv->bhij", g.reshape(B, Lo, H, -1), values.reshape(B, Li, H, -1))
+    nd = torch.where(keep, dist, 0.0)[:, None]
+    return ((att * t * nd).sum(-1).abs() + (att * t).sum(-1).abs() * (att * nd).sum(-1)).sum(-1)
+
+
+def _check_tf_bwd(ds, ds2, dv, want_dv, size_dv, want_ds, size_ds):
+    assert torch.equal(ds, ds2)
+    assert torch.isfinite(dv).all()
+    assert ((dv - want_dv).abs() <= ATOL + RTOL * size_dv).all(), (dv - want_dv).abs().max()
+    torch.testing.assert_close(ds / size_ds, want_ds / size_ds, rtol=DS_RTOL, atol=DS_ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Lq,Lk,H,V,kind", [s for s in TF_SHAPES if s[-1] != "ring"])
+def test_cuda_tf_dist_kernels_match_plain(cuda, B, Lq, Lk, H, V, kind):
+    """Kernel #9 and #10's two entry points against their plain versions."""
+    _, dist, (_, _, scales, values, thr, _), g = _tf_case(cuda, B, Lq, Lk, H, V, kind)
+    before = [f.launches for f in (kb.posatt_tf_cuda, kb.posatt_tf_bwd_dscale_cuda,
+                                   kb.posatt_tf_bwd_dv_cuda)]
+    out, stats = kb.posatt_tf_cuda(dist, thr, scales, values, stats=True)
+    again = kb.posatt_tf_cuda(dist, thr, scales, values)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    torch.testing.assert_close(out, kb.posatt_tf_reference(dist, thr, scales, values), rtol=RTOL, atol=ATOL)
+    want_st = kb.posatt_tf_stats_reference(dist, thr, scales)
+    assert torch.equal(stats[:, :2], want_st[:, :2])
+    torch.testing.assert_close(stats[:, 2:], want_st[:, 2:], rtol=RTOL, atol=0.0)
+    ds = kb.posatt_tf_bwd_dscale_cuda(dist, scales, values, g, stats)
+    ds2 = kb.posatt_tf_bwd_dscale_cuda(dist, scales, values, g, stats)
+    dv = kb.posatt_tf_bwd_dv_cuda(dist, scales, g, stats)
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip((kb.posatt_tf_cuda, kb.posatt_tf_bwd_dscale_cuda,
+                                            kb.posatt_tf_bwd_dv_cuda), before)] == [2, 2, 1]
+    want_dv, want_ds = kb.posatt_tf_bwd_reference(dist, thr, scales, values, g)
+    size_dv, _ = kb.posatt_tf_bwd_reference(dist, thr, scales, values, g.abs())
+    keep, dmin, _ = kb._tf_keep(dist, thr)
+    size_ds = _tf_size(kb._tf_attention(dist, keep, dmin, scales), keep, dist, values, g)
+    _check_tf_bwd(ds, ds2, dv, want_dv, size_dv, want_ds, size_ds)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Lq,Lk,H,V,kind", TF_SHAPES)
+def test_cuda_tf_coord_kernels_match_plain(cuda, B, Lq, Lk, H, V, kind):
+    """Kernel #11 and #12's two entry points against their plain versions."""
+    (mq, mk, scale, v, thr, starts, width), _, _, g = _tf_case(cuda, B, Lq, Lk, H, V, kind)
+    w = dict(width=width)
+    out, stats = kb.posatt_tf_coord_cuda(mq, mk, scale, v, thr, starts, stats=True, **w)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, kb.posatt_tf_coord_reference(mq, mk, scale, v, thr, starts, **w),
+                               rtol=RTOL, atol=ATOL)
+    want_st = kb.posatt_batched_stats_reference(mq, mk, scale, thr, starts, keep_count=mk.shape[1], **w)
+    assert torch.equal(stats[:, :2], want_st[:, :2])  # bit-equal distances
+    torch.testing.assert_close(stats[:, 2:], want_st[:, 2:], rtol=RTOL, atol=0.0)
+    ds = kb.posatt_tf_coord_bwd_dscale_cuda(mq, mk, scale, v, g, stats, starts, **w)
+    ds2 = kb.posatt_tf_coord_bwd_dscale_cuda(mq, mk, scale, v, g, stats, starts, **w)
+    dv = kb.posatt_tf_coord_bwd_dv_cuda(mq, mk, scale, g, stats, starts, **w)
+    torch.cuda.synchronize()
+    want_dv, want_ds = kb.posatt_tf_coord_bwd_reference(mq, mk, scale, v, g, thr, starts, **w)
+    size_dv, _ = kb.posatt_tf_coord_bwd_reference(mq, mk, scale, v, g.abs(), thr, starts, **w)
+    dist, keep, dmin = kb._tf_coord_rows(mq, mk, thr, starts, width)
+    size_ds = _tf_size(kb._tf_attention(dist, keep, dmin, scale), keep, dist, v, g)
+    _check_tf_bwd(ds, ds2, dv, want_dv, size_dv, want_ds, size_ds)
+
+
+def _tf_oracle(mq, mk, scales, values, thr, band=None):
+    """TF attention over materialized halved distances with autograd: the
+    band holds every kept column, so the oracle needs none."""
+    return kb.posatt_tf_reference(0.5 * distances.euclidean_sq(mq, mk), thr, scales, values)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Lq,Lk,H,V,kind", TF_SHAPES)
+def test_tf_function_gradients_match_oracle_autograd(cuda, B, Lq, Lk, H, V, kind):
+    """PosAttTFCoord and PosAttTF: one forward + backward launches the
+    forward and each backward entry point once; gradients match autograd
+    of the oracle."""
+    _, half, (mq, mk, scales, values, thr, band), w = _tf_case(cuda, B, Lq, Lk, H, V, kind)
+
+    def grads(fn, w):
+        s = scales.clone().requires_grad_(True)
+        x = values.clone().requires_grad_(True)
+        out = fn(s, x)
+        (out * w).sum().backward()
+        return out.detach(), s.grad, x.grad
+
+    paths = {
+        "coords": ((kb.posatt_tf_coord_cuda, kb.posatt_tf_coord_bwd_dscale_cuda,
+                    kb.posatt_tf_coord_bwd_dv_cuda),
+                   lambda s, x: kb.position_attention_batched_tf_coords(mq, mk, s, x, thr, band)),
+        "dist": ((kb.posatt_tf_cuda, kb.posatt_tf_bwd_dscale_cuda, kb.posatt_tf_bwd_dv_cuda),
+                 lambda s, x: kb.position_attention_batched_dist(half, s, x, thr)),
+    }
+    want = grads(lambda s, x: _tf_oracle(mq, mk, s, x, thr), w)
+    size = grads(lambda s, x: _tf_oracle(mq, mk, s, x, thr), w.abs())[2]
+    for name, (counters, fn) in paths.items():
+        before = [f.launches for f in counters]
+        got = grads(fn, w)
+        torch.cuda.synchronize()
+        assert [f.launches - b for f, b in zip(counters, before)] == [1, 1, 1], name
+        torch.testing.assert_close(got[0], want[0], rtol=RTOL, atol=ATOL)
+        torch.testing.assert_close(got[1], want[1], rtol=DS_RTOL, atol=DS_ATOL * want[1].abs().max().item())
+        assert ((got[2] - want[2]).abs() <= ATOL + RTOL * size).all(), (name, (got[2] - want[2]).abs().max())
+
+
+@pytest.mark.cuda
+def test_tf_model_launches_the_tf_kernels_only(cuda):
+    """A small PiTTFPointCloud on the card: with thresholds every op runs
+    #11 and #12, without them #9 and #10; no plain version runs."""
+    from position_induced_transformer_torch.models import PiTTFPointCloud
+
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal((2, 64, 5)).astype(np.float32)).to(cuda)
+    model = PiTTFPointCloud(5, 1, 16, 4, 10.0, 10.0, n_blocks=2,
+                            generator=torch.Generator().manual_seed(0)).to(cuda)
+    thr = locality.batched_halfdist_percentile_thresholds(x[..., :2].contiguous(), 10.0)
+    names = [n for n in dir(kb) if n.endswith("_reference")]
+    boom = mock.Mock(side_effect=AssertionError("a plain version ran on CUDA tensors"))
+    counters = [kb.posatt_tf_coord_cuda, kb.posatt_tf_coord_bwd_dscale_cuda,
+                kb.posatt_tf_coord_bwd_dv_cuda, kb.posatt_tf_cuda, kb.posatt_tf_bwd_dscale_cuda,
+                kb.posatt_tf_bwd_dv_cuda, kb.posatt_batched_cuda]
+    with mock.patch.multiple(kb, **{n: boom for n in names}):
+        for args, expect in (((thr, thr), [4, 4, 4, 0, 0, 0, 0]), ((), [0, 0, 0, 4, 4, 4, 0])):
+            before = [f.launches for f in counters]
+            model(x, *args).sum().backward()
+            torch.cuda.synchronize()
+            assert [f.launches - b for f, b in zip(counters, before)] == expect
+    assert boom.call_count == 0
+    assert all(torch.isfinite(p.grad).all() for p in model.parameters())

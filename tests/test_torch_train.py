@@ -66,8 +66,9 @@ def test_optimizer_flavors():
     assert isinstance(opt, torch.optim.Adam)
     assert opt.param_groups[0]["eps"] == 1e-8
     assert opt.param_groups[0]["betas"] == (0.9, 0.999)
-    with pytest.raises(NotImplementedError, match="keras"):
-        t_loop.make_optimizer(params, 1e-3, flavor="keras")
+    keras = t_loop.make_optimizer(params, 1e-3, flavor="keras")
+    assert isinstance(keras, t_loop.KerasAdam)
+    assert keras.param_groups[0]["eps"] == 1e-7
     with pytest.raises(ValueError, match="flavor"):
         t_loop.make_optimizer(params, 1e-3, flavor="sgd")
 
