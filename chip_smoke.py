@@ -90,11 +90,24 @@ Phases, each of which fails the run (non-zero exit, no result line):
     batch; losses and weights against a plain-attention card run, and the
     first two steps against a CPU run; the time per step, steps/s and the
     device's busy share; then one step on a batch without thresholds and
-    bands, which launches 6 of #9 and 6 of each of #10's entry points.
+    bands, which launches 6 of #9 and 6 of each of #10's entry points;
+16. fixed-mesh schedules: the forward's schedule variants #5 (v1: a block
+    per head, sample and row tile) and #6 (v2: a block per head and tile of
+    the batch-folded columns) beside #1 (v3) through
+    ``position_attention_fixed(version=...)``, at the six fixed-mesh shapes
+    of scripts/tpu_checks.py and the Darcy 421^2 ZSSR encoder and decoder
+    at its eval batch (random 2-D points, thresholds by
+    ``quantile_threshold`` on the card): each version against the plain
+    version and #1; one forward + backward per version at the Burgers
+    decoder and ZSSR decoder shapes launching that version's forward and
+    #2-#4 once each, with the same dscale and dU bits under all three and
+    gradients against autograd of the oracle; times, bounds and the SDPA
+    yardstick as in phase 4.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
-``kernels`` record (ten kernels: #1-#4, the per-sample-mesh #7, #8 and the
-TF-semantics #9-#12), and before that the phases' records.
+``kernels`` record (twelve kernels: #1-#4, the per-sample-mesh #7, #8, the
+TF-semantics #9-#12 and the schedule variants #5, #6), and before that the
+phases' records.
 """
 
 from __future__ import annotations
@@ -377,10 +390,39 @@ def ragged_dist(rng, Lo, Li):
     return distances.euclidean_sq(to(rng.random((Lo, 2))), to(rng.random((Li, 2))))
 
 
+def plain_fixed(dist, thr, scale, u):
+    """The fixed-mesh forward's plain version in the kernels' (B, L_out,
+    H*D) layout."""
+    from position_induced_transformer_torch.kernels import posatt_pallas as kp
+
+    B, _, D = u.shape
+    out = kp.posatt_fixed_reference(dist, thr, scale, u)
+    return out.permute(1, 2, 0, 3).reshape(B, dist.shape[0], -1)
+
+
+def fixed_sdpa(dist, thr, scale, u):
+    """The fixed-mesh forward's yardstick: one SDPA call with zero q and k,
+    so that softmax(mask) @ v is the same function (the logits are built
+    here, outside the timing), and its max abs difference from the plain
+    version, reported and not held: the yardstick is not part of the port."""
+    import torch
+    import torch.nn.functional as F
+
+    H, (B, Li, D), Lo = scale.shape[0], u.shape, dist.shape[0]
+    keep = (dist <= thr) & (dist < float("inf"))
+    logits = torch.where(keep, -dist[None] * scale[:, :, None], -1e38)[None]
+    q = torch.zeros((B, H, Lo, D), device=dist.device)
+    k = torch.zeros((B, H, Li, D), device=dist.device)
+    v = u[:, None].expand(B, H, Li, D).contiguous()
+    sdpa = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=logits)
+    err = (sdpa().permute(0, 2, 1, 3).reshape(B, Lo, H * D)
+           - plain_fixed(dist, thr, scale, u)).abs().max().item()
+    return sdpa, err
+
+
 def kernel_phase(geom):
     import numpy as np
     import torch
-    import torch.nn.functional as F
 
     from position_induced_transformer_torch import configs
     from position_induced_transformer_torch.kernels import posatt_pallas as kp
@@ -405,17 +447,12 @@ def kernel_phase(geom):
         scale = posatt.bandwidth_scale(lmda).reshape(H, 1)
         return (dist, lmda, u, loc, thr), (dist, full_thr, scale, u)
 
-    def plain_concat(dist, thr, scale, u):
-        B, _, D = u.shape
-        out = kp.posatt_fixed_reference(dist, thr, scale, u)
-        return out.permute(1, 2, 0, 3).reshape(B, dist.shape[0], -1)
-
     def compare(name, wrapper_args, args):
         """The launcher against the kernel's plain version, and the public
         wrapper against the model-level oracle; the larger error."""
         got = kp.posatt_fixed_cuda(*args)
         torch.cuda.synchronize()
-        want = plain_concat(*args)
+        want = plain_fixed(*args)
         torch.cuda.synchronize()
         err = check_close(name, got, want, OP_RTOL, OP_ATOL)
         dist, lmda, u, loc, thr = wrapper_args
@@ -444,19 +481,8 @@ def kernel_phase(geom):
         err = compare(name, wrapper_args, args)
         errs.append(err)
         ms = cuda_ms(lambda: kp.posatt_fixed_cuda(*args))
-        plain_ms = cuda_ms(lambda: plain_concat(*args))
-        # yardstick: one SDPA call with zero q and k, so that softmax(mask)
-        # @ v is the same function; the logits are built outside the timing
-        keep = (dist <= thr) & (dist < float("inf"))
-        logits = torch.where(keep, -dist[None] * scale[:, :, None], -1e38)[None]
-        q = torch.zeros((B, H, Lo, D), device=dev)
-        k = torch.zeros((B, H, Li, D), device=dev)
-        v = u[:, None].expand(B, H, Li, D).contiguous()
-        sdpa = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=logits)
-        # reported, not held: the yardstick is not part of the port
-        lib_err = (
-            sdpa().permute(0, 2, 1, 3).reshape(B, Lo, H * D) - plain_concat(*args)
-        ).abs().max().item()
+        plain_ms = cuda_ms(lambda: plain_fixed(*args))
+        sdpa, lib_err = fixed_sdpa(*args)
         library_ms = cuda_ms(sdpa)
         bound_ms, bound_by, flops, nbytes, kept = bound(dist, thr, H, B, D)
         shapes.append({
@@ -488,7 +514,7 @@ TF_COORD_KERNELS = ("posatt_tf_coord_fwd", "posatt_tf_coord_bwd_dscale", "posatt
 
 
 def launchers():
-    """The thirteen launchers, by kernel entry point; each counts its
+    """The fifteen launchers, by kernel entry point; each counts its
     launches."""
     from position_induced_transformer_torch.kernels import posatt_batched as kb
     from position_induced_transformer_torch.kernels import posatt_pallas as kp
@@ -501,6 +527,8 @@ def launchers():
         "posatt_tf_coord_bwd_dscale": kb.posatt_tf_coord_bwd_dscale_cuda,
         "posatt_tf_coord_bwd_dv": kb.posatt_tf_coord_bwd_dv_cuda,
         "posatt_fixed_fwd": kp.posatt_fixed_cuda,
+        "posatt_fixed_fwd_v1": kp.posatt_fixed_v1_cuda,
+        "posatt_fixed_fwd_v2": kp.posatt_fixed_v2_cuda,
         "posatt_stats": kp.posatt_stats_cuda,
         "posatt_bwd_dscale": kp.posatt_bwd_dscale_cuda,
         "posatt_bwd_du": kp.posatt_bwd_du_cuda,
@@ -2056,6 +2084,193 @@ def elasticity_tf_train_phase():
     return report
 
 
+# --------------------------------------- fixed-mesh schedules: kernels #5, #6
+
+SCHEDULE_H = 2  # every shape below has two heads, as Burgers, vorticity and Darcy
+# the forward's schedules: version -> entry point (#5 v1, #6 v2, #1 v3)
+SCHEDULE_VERSIONS = {1: "posatt_fixed_fwd_v1", 2: "posatt_fixed_fwd_v2", 3: "posatt_fixed_fwd"}
+SCHEDULE_SHAPES = [
+    # name, L_out, L_in, B, D, locality, launches per Burgers forward: the
+    # six fixed-mesh shapes of scripts/tpu_checks.py; the two full Darcy
+    # 421^2 ZSSR shapes are added from configs.DARCY by schedule_shapes
+    ("burgers_processor", 256, 256, 8, 64, 1.0, 5),
+    ("burgers_encoder", 256, 1024, 8, 2, 0.02, 1),
+    ("burgers_decoder", 1024, 256, 8, 64, 0.02, 1),
+    ("vorticity_processor", 256, 256, 20, 256, 1.0, 0),
+    ("vorticity_decoder", 4096, 256, 20, 256, 0.02, 0),
+    ("darcy_zssr_decoder_slab", 177241 // 4, 256, 4, 64, 0.02, 0),
+]
+# one forward + backward through PosAttFixed per version at these shapes
+SCHEDULE_FUNCTION_SHAPES = ("burgers_decoder", "darcy_zssr_decoder")
+
+
+def schedule_shapes():
+    """SCHEDULE_SHAPES and the Darcy zero-shot super-resolution at 421^2
+    (177,241 points) at its eval batch: the encoder from the 421^2 mesh to
+    the 16^2 latent (values: the input and the coordinates) and the decoder
+    back (values: hid_dim)."""
+    from position_induced_transformer_torch import configs
+
+    cfg, side = configs.DARCY, 421
+    m = cfg.model
+    if m.n_head != SCHEDULE_H:
+        fail(f"configs.DARCY has {m.n_head} heads, expected {SCHEDULE_H}")
+    lat = cfg.latent_grid[0] * cfg.latent_grid[1]
+    B = cfg.eval_batch_size
+    return SCHEDULE_SHAPES + [
+        ("darcy_zssr_encoder", lat, side * side, B, m.in_dim + m.space_dim, m.en_loc, 0),
+        ("darcy_zssr_decoder", side * side, lat, B, m.hid_dim, m.de_loc, 0),
+    ]
+
+
+def schedule_phase():
+    """Phase 16: the schedule variants #5 (v1) and #6 (v2) of the fixed-mesh
+    forward beside #1 (v3), through their public entry point
+    ``position_attention_fixed(version=...)``, at the eight shapes of
+    :func:`schedule_shapes` (random 2-D points as scripts/tpu_checks.py
+    makes them, thresholds by ``quantile_threshold`` on the card).
+
+    The counted run: at every shape each version's forward against the
+    plain version, and at SCHEDULE_FUNCTION_SHAPES one forward + backward
+    per version, which launches that version's forward and #2-#4 once each
+    and gives the same dscale and dU bits under every version, within
+    phase 5's bounds of autograd on the oracle. Then, outside the counted
+    run, each launcher's time, the plain version's, SDPA's and the bound."""
+    import numpy as np
+    import torch
+
+    from position_induced_transformer_torch.kernels import posatt_pallas as kp
+    from position_induced_transformer_torch.ops import distances, locality, posatt
+
+    dev = torch.device("cuda")
+    H = SCHEDULE_H
+    shapes = schedule_shapes()
+    cases = {}
+    for seed, (name, Lo, Li, B, D, loc, _) in enumerate(shapes):
+        rng = np.random.default_rng(seed)
+        to = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)
+        dist = distances.euclidean_sq(to(rng.random((Lo, 2))), to(rng.random((Li, 2))))
+        thr = (torch.full((Lo, 1), float("inf"), device=dev) if loc >= 1
+               else locality.quantile_threshold(dist, loc))
+        lmda = to(rng.standard_normal((H, 1, 1)))
+        u = to(rng.random((B, Li, D)))
+        cases[name] = (dist, thr, lmda, u, loc, posatt.bandwidth_scale(lmda).reshape(H, 1))
+    torch.cuda.synchronize()
+
+    def grads(fn, dist, lmda, u, loc, thr, w):
+        lm = lmda.clone().requires_grad_(True)
+        x = u.clone().requires_grad_(True)
+        out = fn(dist, lm, x, loc, thr=thr)
+        (out * w).sum().backward()
+        return out.detach(), lm.grad, x.grad
+
+    # ---- the counted run
+    zero_counts()
+    errs = {}
+    for name, *_ in shapes:
+        dist, thr, lmda, u, loc, scale = cases[name]
+        with torch.no_grad():
+            outs = {v: kp.position_attention_fixed(dist, lmda, u, loc, thr=thr, version=v)
+                    for v in SCHEDULE_VERSIONS}
+            torch.cuda.synchronize()
+            want = plain_fixed(dist, thr, scale, u)
+        errs[name] = {v: {
+            "max_abs_err": check_close(f"schedules {name} v{v}", out, want, OP_RTOL, OP_ATOL),
+            "max_abs_diff_vs_v3": (out - outs[3]).abs().max().item(),
+        } for v, out in outs.items()}
+        del outs, want
+    fn_errs = {}
+    for name in SCHEDULE_FUNCTION_SHAPES:
+        dist, thr, lmda, u, loc, _ = cases[name]
+        gen = torch.Generator(device=dev).manual_seed(7)
+        w = torch.randn((u.shape[0], dist.shape[0], H * u.shape[-1]), generator=gen, device=dev)
+        got = {}
+        for v, kernel in SCHEDULE_VERSIONS.items():
+            before = counts()
+            got[v] = grads(lambda *a, **k: kp.position_attention_fixed(*a, **k, version=v),
+                           dist, lmda, u, loc, thr, w)
+            torch.cuda.synchronize()
+            diff = {k: n - before[k] for k, n in counts().items()}
+            expect = {k: int(k in (kernel,) + BWD_KERNELS) for k in diff}
+            if diff != expect:
+                fail(f"schedules {name}: one forward + backward of version {v} launched "
+                     f"{diff}, expected {expect}")
+        for v in (1, 2):
+            if not (torch.equal(got[v][1], got[3][1]) and torch.equal(got[v][2], got[3][2])):
+                fail(f"schedules {name}: dscale or dU of version {v} differ from version 3's")
+        oracle = lambda *a, **k: posatt.position_attention(*a, **k)
+        want = grads(oracle, dist, lmda, u, loc, thr, w)
+        size_u = grads(oracle, dist, lmda, u, loc, thr, w.abs())[2]
+        fn_errs[name] = {
+            "out": max(check_close(f"schedules {name} v{v} Function out", got[v][0], want[0],
+                                   OP_RTOL, OP_ATOL) for v in SCHEDULE_VERSIONS),
+            "d_lmda": check_close(f"schedules {name} Function d lmda", got[3][1], want[1],
+                                  DS_RTOL, DS_ATOL * want[1].abs().max().item()),
+            "d_u": check_close(f"schedules {name} Function d u", got[3][2], want[2],
+                               OP_RTOL, OP_ATOL, size_u),
+        }
+        del got, want, size_u, w
+    launched = counts()
+    n_fwd, n_fn = len(shapes), len(SCHEDULE_FUNCTION_SHAPES)
+    expected = {k: 0 for k in launched}
+    expected.update({k: n_fwd + n_fn for k in SCHEDULE_VERSIONS.values()})
+    expected.update({k: len(SCHEDULE_VERSIONS) * n_fn for k in BWD_KERNELS})
+    if launched != expected:
+        fail(f"schedules: the run launched {launched}, expected {expected}")
+    log(f"schedules: launches {json.dumps(launched)}; Function max abs err {json.dumps(fn_errs)}")
+
+    # ---- times and bounds, outside the counted run
+    launcher = {v: launchers()[k] for v, k in SCHEDULE_VERSIONS.items()}
+    rows = []
+    for name, Lo, Li, B, D, loc, per_forward in shapes:
+        dist, thr, lmda, u, loc, scale = cases[name]
+        args = (dist, thr, scale, u)
+        versions = {str(v): {"ms": cuda_ms(lambda: launcher[v](*args)), **errs[name][v]}
+                    for v in SCHEDULE_VERSIONS}
+        sdpa, lib_err = fixed_sdpa(*args)
+        bound_ms, bound_by, flops, nbytes, kept = bound(dist, thr, H, B, D)
+        rows.append({
+            "shape": name, "H": H, "L_out": Lo, "L_in": Li, "B": B, "D": D, "locality": loc,
+            "kept_entries": kept, "launches_per_burgers_forward": per_forward,
+            "versions": versions, "plain_ms": cuda_ms(lambda: plain_fixed(*args)),
+            "library_ms": cuda_ms(sdpa), "library_max_abs_err": lib_err,
+            "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops, "bytes": nbytes,
+        })
+        del sdpa
+        log(f"schedules {name}: {json.dumps(rows[-1])}")
+    return rows, launched, fn_errs
+
+
+def schedule_entry(version, rows, launched):
+    """The kernels-record entry of one schedule: times and bounds summed
+    over the seven launches of a Burgers forward (1 encoder + 5 processor
+    + 1 decoder, as #1's entry), per-shape rows under ``shapes``."""
+    name = SCHEDULE_VERSIONS[version]
+    burgers = [r for r in rows if r["launches_per_burgers_forward"]]
+    total = lambda f: sum(f(r) * r["launches_per_burgers_forward"] for r in burgers)
+    by = {kind: total(lambda r: r["bound_ms"] * (r["bound_by"] == kind))
+          for kind in ("operations", "bytes")}
+    per_shape = [{k: v for k, v in r.items() if k != "versions"} | r["versions"][str(version)]
+                 for r in rows]
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": "position_induced_transformer_torch/kernels/csrc/posatt_fixed_fwd.cu",
+        "replaces": "position_induced_transformer_tpu/kernels/posatt_pallas.py:"
+                    + {1: "133", 2: "233", 3: "341"}[version],
+        "launches": launched[name],
+        # no model path sets the version: the phase's calls of
+        # position_attention_fixed(version=...) are the path
+        "launches_by_path": {"kernel_api": launched[name]},
+        "max_abs_err": max(r["max_abs_err"] for r in per_shape),
+        "ms": total(lambda r: r["versions"][str(version)]["ms"]),
+        "plain_ms": total(lambda r: r["plain_ms"]),
+        "bound_ms": total(lambda r: r["bound_ms"]),
+        "bound_by": max(by, key=by.get),
+        "library_ms": total(lambda r: r["library_ms"]),
+        "shapes": per_shape,
+    }
+
 
 def main() -> int:
     import torch
@@ -2090,6 +2305,13 @@ def main() -> int:
     log("elasticity_tf_serve " + json.dumps(t_serve))
     t_train = elasticity_tf_train_phase()
     log("elasticity_tf_train " + json.dumps(t_train))
+    s_rows, s_launched, s_fn_errs = schedule_phase()
+    v3 = schedule_entry(3, s_rows, s_launched)
+    log("schedules " + json.dumps({
+        "launches": s_launched, "function_max_abs_err": s_fn_errs,
+        # #1 at this phase's Burgers shapes, beside #5 and #6
+        "v3_per_burgers_forward": {k: v3[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+    }))
 
     per = {s["shape"]: s for s in shapes}
     total = lambda key: sum(s[key] * s["launches_per_forward"] for s in shapes)
@@ -2227,6 +2449,8 @@ def main() -> int:
                        "bound_ms": sum(r[part]["bound_ms"] * r[key] for r in rows)}
                 for part in ("dscale", "dv")}
         kernels["kernels"].append(entry)
+    # #5 and #6, the schedule variants of #1: phase 16
+    kernels["kernels"] += [schedule_entry(v, s_rows, s_launched) for v in (1, 2)]
     log(json.dumps(kernels))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,20 @@
 // Fixed-mesh position attention, forward pass, hand-written for Hopper
-// (sm_90a), float32 throughout.
+// (sm_90a), float32 throughout: one kernel body under three schedules.
 //
-// Replaces the TPU kernel _make_posatt_kernel_v3, launched by
-// _posatt_fixed_raw_v3 in position_induced_transformer_tpu/kernels/
-// posatt_pallas.py. It computes, for every output row i, head h and
-// column n = b*D + k of the batch-folded values:
+// Replaces the three TPU forward kernels of position_induced_transformer_tpu/
+// kernels/posatt_pallas.py. They compute one function and differ only in
+// what a grid cell owns, and so in how often the distance matrix is read:
+// - posatt_fixed_fwd    <- _make_posatt_kernel_v3 (_posatt_fixed_raw_v3,
+//   version 3): a block owns a tile of rows and a tile of the batch-folded
+//   value columns, for all H heads;
+// - posatt_fixed_fwd_v2 <- _posatt_kernel_v2 (_posatt_fixed_raw_v2,
+//   version 2): a block owns one head, a tile of rows and a tile of the
+//   batch-folded value columns;
+// - posatt_fixed_fwd_v1 <- _posatt_kernel (_posatt_fixed_raw, version 1):
+//   a block owns one head, one sample and a tile of rows, with that
+//   sample's D value columns.
+// Each computes, for every output row i, head h and column n = b*D + k of
+// the batch-folded values:
 //
 //   logit[h,i,j] = -scale[h] * dist[i,j]  if dist[i,j] <= thr[i] and finite
 //                = -1e38                  otherwise (finite: no inf - inf)
@@ -19,23 +29,43 @@
 // is far above the H100's f32 ridge (67 TFLOP/s / 3.35 TB/s = 20 per byte),
 // so the f32 CUDA-core rate bounds it. A masked row keeps a few entries
 // (Burgers: 21 of 1024 in the encoder, 6 or 7 of 256 in the decoder), so
-// reading the distances and writing the output bound it.
+// reading the distances and writing the output bound it. The bound is the
+// same under every schedule; what a schedule adds is its own streaming of
+// the distance matrix: each block reads its rows' distances in both passes
+// below, and a row tile has ceil(B*D/TN) blocks under v3, H*ceil(B*D/TN)
+// under v2 and H*B under v1 (one column tile per sample while D <= 256;
+// H*B*ceil(D/256) above that). Blocks that share a row tile are neighbours
+// in launch order (blockIdx.x, the column tile or sample, varies fastest),
+// so most of those reads hit the 50 MB L2; the head (blockIdx.z, slowest)
+// is what sends the matrix through device memory again.
 //
 // What the design does about it:
 // - Two passes over each block's rows. The first computes every row's
 //   final softmax max and normaliser per head (one warp per row, one
 //   reduction per row), so the second writes final weights and carries no
-//   running max or rescale: its L_in loop is a plain accumulation.
-// - Each distance element is read once per block for all H heads (the one
-//   idea of the TPU's v3 schedule worth keeping); the H weight tiles P it
-//   yields are staged in shared memory and reused by every value column of
-//   the block, so the exp work is amortised over the columns.
-// - The contraction is register-tiled: for B*D > 32 each thread holds 4
-//   rows x 4 columns per head, reads 4 rows of P as one broadcast float4
-//   and 4 values as one float4, so it issues 16 FMAs per head for every 2
-//   shared-memory loads (the f32 rate, not shared memory, is the limit).
-//   For B*D <= 32 (the encoder) a block holds fewer rows and longer L_in
+//   running max or rescale: its L_in loop is a plain accumulation. (The
+//   TPU's online rescale across L_in grid steps exists because a TPU grid
+//   runs in order; it is not carried over.)
+// - Under v3 each distance element is read once per block for all H heads;
+//   the H weight tiles P it yields are staged in shared memory and reused
+//   by every value column of the block, so the exp work is amortised over
+//   the columns.
+// - The contraction is register-tiled: for wide tiles each thread holds 4
+//   rows x CPL columns per head, reads 4 rows of P as one broadcast float4
+//   and its values as float4s, so it issues 4*CPL FMAs per head for every
+//   1 + CPL/4 shared-memory loads (the f32 rate, not shared memory, is the
+//   limit). For few columns a block holds fewer rows and longer L_in
 //   steps, so that there are more blocks and fewer barriers per element.
+// - A v1 or v2 block owns one head, so its accumulator holds one head's
+//   outputs and its column tile can be wider than v3's: the narrowest of
+//   32, 64, 128 or 256 columns that holds its columns (v1: the sample's D;
+//   v2: B*D). Any head count is taken; v3 is instantiated for 1, 2, 4, 8.
+//   The price of owning one head: each staged value feeds one head's
+//   products, so at H = 2 a v1 or v2 block issues twice v3's shared-memory
+//   loads per FMA. Measured on the H100, that (and not the extra distance
+//   streaming, which L2 serves) makes them 1.4-1.7x v3 where the
+//   contraction bounds the time; for D <= 32 a v1 block also computes 32
+//   columns for D live ones (PERF.md has the times).
 // - Ragged edges are masked by index inside the kernel: no padded copy of
 //   the distance matrix is made.
 // Tensor cores are not used: TF32 would not hold parity with the f32
@@ -44,8 +74,8 @@
 // needs. Skipping them (a compacted kept list per row tile), double-buffered
 // loads and splitting L_in across blocks are work for later.
 //
-// The function launches on the caller's stream, allocates nothing, and
-// returns cudaGetLastError() after the launch.
+// The functions launch on the caller's stream, allocate nothing, and
+// return cudaGetLastError() after the launch.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -54,6 +84,9 @@
 namespace {
 
 constexpr float NEG = -1e38f;
+
+// what a block owns: the TPU kernel version it schedules as
+enum Schedule { HEAD_SAMPLE = 1, HEAD = 2, ALL_HEADS = 3 };
 
 __device__ __forceinline__ float warp_max(float v) {
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
@@ -69,77 +102,102 @@ __device__ __forceinline__ float logit(float d, float thr, float s) {
   return ((d <= thr) && (d < INFINITY)) ? -s * d : NEG;
 }
 
-// N consecutive floats from shared memory; 4 of them as one vector load
+// N consecutive floats from shared memory; 2, 4 or 8 of them as vector loads
 template <int N>
 __device__ __forceinline__ void lds(const float* p, float (&v)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) v[i] = p[i];
 }
 template <>
+__device__ __forceinline__ void lds<2>(const float* p, float (&v)[2]) {
+  const float2 q = *reinterpret_cast<const float2*>(p);
+  v[0] = q.x; v[1] = q.y;
+}
+template <>
 __device__ __forceinline__ void lds<4>(const float* p, float (&v)[4]) {
   const float4 q = *reinterpret_cast<const float4*>(p);
   v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
 }
+template <>
+__device__ __forceinline__ void lds<8>(const float* p, float (&v)[8]) {
+  const float4 q = *reinterpret_cast<const float4*>(p);
+  const float4 r = *reinterpret_cast<const float4*>(p + 4);
+  v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+  v[4] = r.x; v[5] = r.y; v[6] = r.z; v[7] = r.w;
+}
 
-// A block owns TLO = NWARPS*RPT rows and TN = 32*CPL value columns; warp w
-// owns rows [w*RPT, w*RPT + RPT), lane c owns columns [c*CPL, c*CPL + CPL).
-template <int H, int NWARPS, int RPT, int CPL, int TLI>
+// A block owns HB heads from h0, TLO = NWARPS*RPT rows and the value
+// columns [col0, col_end) of the batch-folded axis, at most TN = 32*CPL;
+// warp w owns rows [w*RPT, w*RPT + RPT), lane c owns columns
+// [c*CPL, c*CPL + CPL) from col0.
+template <int SCHED, int HB, int NWARPS, int RPT, int CPL, int TLI>
 __global__ void __launch_bounds__(NWARPS * 32)
 posatt_fixed_fwd_kernel(const float* __restrict__ dist,   // (Lo, Li)
                         const float* __restrict__ thr,    // (Lo)
                         const float* __restrict__ scale,  // (H)
                         const float* __restrict__ u,      // (B, Li, D)
                         float* __restrict__ out,          // (B, Lo, H*D)
-                        int Lo, int Li, int D, int N) {
+                        int Lo, int Li, int D, int N, int HD, int ctiles) {
   constexpr int THREADS = NWARPS * 32;
   constexpr int TLO = NWARPS * RPT;
   constexpr int TN = 32 * CPL;
   static_assert(THREADS % TLO == 0 && THREADS % TN == 0, "tile shape");
   static_assert(RPT == 1 || RPT == 4, "rows per thread");
   static_assert((TLI * TN) % THREADS == 0 && (TLI * TLO) % THREADS == 0, "steps");
-  __shared__ __align__(16) float s_p[H][TLI][TLO];  // final weights
-  __shared__ __align__(16) float s_u[TLI][TN];      // values
-  __shared__ float s_m[H][TLO];                      // row max
-  __shared__ float s_il[H][TLO];                     // 1 / row normaliser
-  __shared__ float s_scale[H];
+  static_assert(SCHED == ALL_HEADS || HB == 1, "v1 and v2 blocks own one head");
+  __shared__ __align__(16) float s_p[HB][TLI][TLO];  // final weights
+  __shared__ __align__(16) float s_u[TLI][TN];       // values
+  __shared__ float s_m[HB][TLO];                      // row max
+  __shared__ float s_il[HB][TLO];                     // 1 / row normaliser
+  __shared__ float s_scale[HB];
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int row0 = blockIdx.y * TLO;
-  const int col0 = blockIdx.x * TN;
+  const int h0 = SCHED == ALL_HEADS ? 0 : blockIdx.z;
+  int col0, col_end;
+  if (SCHED == HEAD_SAMPLE) {  // sample b, column tile c of its D columns
+    const int b = blockIdx.x / ctiles;
+    const int c0 = (blockIdx.x - b * ctiles) * TN;
+    col0 = b * D + c0;
+    col_end = b * D + min(D, c0 + TN);
+  } else {
+    col0 = blockIdx.x * TN;
+    col_end = N;
+  }
 
-  if (tid < H) s_scale[tid] = scale[tid];
+  if (tid < HB) s_scale[tid] = scale[h0 + tid];
   __syncthreads();
 
   // ---- pass 1: each row's softmax max and normaliser, one warp per row
   for (int r = warp; r < TLO; r += NWARPS) {
     const int i = row0 + r;
     if (i >= Lo) {  // never written; keep the weights finite
-      if (lane < H) { s_m[lane][r] = 0.f; s_il[lane][r] = 0.f; }
+      if (lane < HB) { s_m[lane][r] = 0.f; s_il[lane][r] = 0.f; }
       continue;
     }
     const float t = thr[i];
     const float* drow = dist + (size_t)i * Li;
-    float mx[H], sm[H];
+    float mx[HB], sm[HB];
 #pragma unroll
-    for (int h = 0; h < H; ++h) { mx[h] = -INFINITY; sm[h] = 0.f; }
+    for (int h = 0; h < HB; ++h) { mx[h] = -INFINITY; sm[h] = 0.f; }
 #pragma unroll 8
     for (int j = lane; j < Li; j += 32) {
       const float d = drow[j];
 #pragma unroll
-      for (int h = 0; h < H; ++h) mx[h] = fmaxf(mx[h], logit(d, t, s_scale[h]));
+      for (int h = 0; h < HB; ++h) mx[h] = fmaxf(mx[h], logit(d, t, s_scale[h]));
     }
 #pragma unroll
-    for (int h = 0; h < H; ++h) mx[h] = warp_max(mx[h]);
+    for (int h = 0; h < HB; ++h) mx[h] = warp_max(mx[h]);
 #pragma unroll 8
     for (int j = lane; j < Li; j += 32) {
       const float d = drow[j];
 #pragma unroll
-      for (int h = 0; h < H; ++h) sm[h] += expf(logit(d, t, s_scale[h]) - mx[h]);
+      for (int h = 0; h < HB; ++h) sm[h] += expf(logit(d, t, s_scale[h]) - mx[h]);
     }
 #pragma unroll
-    for (int h = 0; h < H; ++h) {
+    for (int h = 0; h < HB; ++h) {
       sm[h] = warp_sum(sm[h]);
       if (lane == 0) { s_m[h][r] = mx[h]; s_il[h][r] = 1.f / sm[h]; }
     }
@@ -153,16 +211,16 @@ posatt_fixed_fwd_kernel(const float* __restrict__ dist,   // (Lo, Li)
   const float* dp = dist + (size_t)(ip < Lo ? ip : 0) * Li;
   const int cu = tid % TN;  // the value column this thread stages
   const int nu = col0 + cu;
-  const bool col_ok = nu < N;
+  const bool col_ok = nu < col_end;
   const float* up = u;
   if (col_ok) {
     const int b = nu / D, k = nu - b * D;
     up = u + (size_t)b * Li * D + k;
   }
 
-  float acc[H][RPT][CPL];
+  float acc[HB][RPT][CPL];
 #pragma unroll
-  for (int h = 0; h < H; ++h)
+  for (int h = 0; h < HB; ++h)
 #pragma unroll
     for (int r = 0; r < RPT; ++r)
 #pragma unroll
@@ -184,7 +242,7 @@ posatt_fixed_fwd_kernel(const float* __restrict__ dist,   // (Lo, Li)
       const bool ok = ip < Lo && j < Li;
       const float d = ok ? dp[j] : 0.f;
 #pragma unroll
-      for (int h = 0; h < H; ++h)
+      for (int h = 0; h < HB; ++h)
         s_p[h][jj][rp] = ok ? expf(logit(d, tp, s_scale[h]) - s_m[h][rp]) * s_il[h][rp] : 0.f;
     }
     __syncthreads();
@@ -194,7 +252,7 @@ posatt_fixed_fwd_kernel(const float* __restrict__ dist,   // (Lo, Li)
       float uv[CPL];
       lds<CPL>(&s_u[jj][lane * CPL], uv);
 #pragma unroll
-      for (int h = 0; h < H; ++h) {
+      for (int h = 0; h < HB; ++h) {
         float pv[RPT];
         lds<RPT>(&s_p[h][jj][warp * RPT], pv);
 #pragma unroll
@@ -207,7 +265,6 @@ posatt_fixed_fwd_kernel(const float* __restrict__ dist,   // (Lo, Li)
   }
 
   // ---- write the head-concat layout
-  const int HD = H * D;
 #pragma unroll
   for (int r = 0; r < RPT; ++r) {
     const int i = row0 + warp * RPT + r;
@@ -215,34 +272,58 @@ posatt_fixed_fwd_kernel(const float* __restrict__ dist,   // (Lo, Li)
 #pragma unroll
     for (int c = 0; c < CPL; ++c) {
       const int n = col0 + lane * CPL + c;
-      if (n >= N) continue;
+      if (n >= col_end) continue;
       const int b = n / D, k = n - b * D;
       float* dst = out + ((size_t)b * Lo + i) * HD + k;
 #pragma unroll
-      for (int h = 0; h < H; ++h) dst[h * D] = acc[h][r][c];
+      for (int h = 0; h < HB; ++h) dst[(h0 + h) * D] = acc[h][r][c];
     }
   }
 }
 
-template <int H, int NWARPS, int RPT, int CPL, int TLI>
+template <int SCHED, int HB, int NWARPS, int RPT, int CPL, int TLI>
 void launch_tiles(const float* dist, const float* thr, const float* scale,
-                  const float* u, float* out, int Lo, int Li, int D, int N,
+                  const float* u, float* out, int H, int B, int Lo, int Li, int D,
                   cudaStream_t stream) {
   constexpr int TLO = NWARPS * RPT, TN = 32 * CPL;
-  const dim3 grid((N + TN - 1) / TN, (Lo + TLO - 1) / TLO);
-  posatt_fixed_fwd_kernel<H, NWARPS, RPT, CPL, TLI><<<grid, NWARPS * 32, 0, stream>>>(
-      dist, thr, scale, u, out, Lo, Li, D, N);
+  const int N = B * D;
+  const int ctiles = (D + TN - 1) / TN;  // column tiles of one sample (v1)
+  const dim3 grid(SCHED == HEAD_SAMPLE ? B * ctiles : (N + TN - 1) / TN,
+                  (Lo + TLO - 1) / TLO, SCHED == ALL_HEADS ? 1 : H);
+  posatt_fixed_fwd_kernel<SCHED, HB, NWARPS, RPT, CPL, TLI><<<grid, NWARPS * 32, 0, stream>>>(
+      dist, thr, scale, u, out, Lo, Li, D, N, H * D, ctiles);
 }
 
+// v3: all H heads a block
 template <int H>
-void launch(const float* dist, const float* thr, const float* scale,
-            const float* u, float* out, int B, int Lo, int Li, int D,
-            cudaStream_t stream) {
-  const int N = B * D;
-  if (N <= 32)  // few columns: 8-row blocks, long L_in steps
-    launch_tiles<H, 8, 1, 1, (H >= 8 ? 64 : 128)>(dist, thr, scale, u, out, Lo, Li, D, N, stream);
+void launch_all_heads(const float* dist, const float* thr, const float* scale,
+                      const float* u, float* out, int B, int Lo, int Li, int D,
+                      cudaStream_t stream) {
+  if (B * D <= 32)  // few columns: 8-row blocks, long L_in steps
+    launch_tiles<ALL_HEADS, H, 8, 1, 1, (H >= 8 ? 64 : 128)>(
+        dist, thr, scale, u, out, H, B, Lo, Li, D, stream);
   else  // 16 x 128 blocks, 4 x 4 outputs per thread and head
-    launch_tiles<H, 4, 4, 4, 32>(dist, thr, scale, u, out, Lo, Li, D, N, stream);
+    launch_tiles<ALL_HEADS, H, 4, 4, 4, 32>(dist, thr, scale, u, out, H, B, Lo, Li, D, stream);
+}
+
+// v1 and v2: one head a block, the narrowest column tile that holds
+// `cols` columns (at most 256)
+template <int SCHED>
+void launch_per_head(const float* dist, const float* thr, const float* scale,
+                     const float* u, float* out, int H, int B, int Lo, int Li, int D,
+                     int cols, cudaStream_t stream) {
+  if (cols <= 32)  // 8 x 32
+    launch_tiles<SCHED, 1, 8, 1, 1, 128>(dist, thr, scale, u, out, H, B, Lo, Li, D, stream);
+  else if (cols <= 64)  // 16 x 64
+    launch_tiles<SCHED, 1, 4, 4, 2, 32>(dist, thr, scale, u, out, H, B, Lo, Li, D, stream);
+  else if (cols <= 128)  // 16 x 128
+    launch_tiles<SCHED, 1, 4, 4, 4, 32>(dist, thr, scale, u, out, H, B, Lo, Li, D, stream);
+  else  // 32 x 256
+    launch_tiles<SCHED, 1, 8, 4, 8, 32>(dist, thr, scale, u, out, H, B, Lo, Li, D, stream);
+}
+
+bool bad_shape(int H, int B, int Lo, int Li, int D) {
+  return H < 1 || B < 1 || Lo < 1 || Li < 1 || D < 1;
 }
 
 }  // namespace
@@ -251,14 +332,34 @@ extern "C" int posatt_fixed_fwd(const float* dist, const float* thr,
                                 const float* scale, const float* u, float* out,
                                 int H, int B, int Lo, int Li, int D,
                                 void* stream) {
-  if (B < 1 || Lo < 1 || Li < 1 || D < 1) return (int)cudaErrorInvalidValue;
+  if (bad_shape(H, B, Lo, Li, D)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (H) {
-    case 1: launch<1>(dist, thr, scale, u, out, B, Lo, Li, D, s); break;
-    case 2: launch<2>(dist, thr, scale, u, out, B, Lo, Li, D, s); break;
-    case 4: launch<4>(dist, thr, scale, u, out, B, Lo, Li, D, s); break;
-    case 8: launch<8>(dist, thr, scale, u, out, B, Lo, Li, D, s); break;
+    case 1: launch_all_heads<1>(dist, thr, scale, u, out, B, Lo, Li, D, s); break;
+    case 2: launch_all_heads<2>(dist, thr, scale, u, out, B, Lo, Li, D, s); break;
+    case 4: launch_all_heads<4>(dist, thr, scale, u, out, B, Lo, Li, D, s); break;
+    case 8: launch_all_heads<8>(dist, thr, scale, u, out, B, Lo, Li, D, s); break;
     default: return (int)cudaErrorInvalidValue;
   }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int posatt_fixed_fwd_v2(const float* dist, const float* thr,
+                                   const float* scale, const float* u, float* out,
+                                   int H, int B, int Lo, int Li, int D,
+                                   void* stream) {
+  if (bad_shape(H, B, Lo, Li, D)) return (int)cudaErrorInvalidValue;
+  launch_per_head<HEAD>(dist, thr, scale, u, out, H, B, Lo, Li, D, B * D,
+                        static_cast<cudaStream_t>(stream));
+  return (int)cudaGetLastError();
+}
+
+extern "C" int posatt_fixed_fwd_v1(const float* dist, const float* thr,
+                                   const float* scale, const float* u, float* out,
+                                   int H, int B, int Lo, int Li, int D,
+                                   void* stream) {
+  if (bad_shape(H, B, Lo, Li, D)) return (int)cudaErrorInvalidValue;
+  launch_per_head<HEAD_SAMPLE>(dist, thr, scale, u, out, H, B, Lo, Li, D, D,
+                               static_cast<cudaStream_t>(stream));
   return (int)cudaGetLastError();
 }

@@ -2,19 +2,26 @@
 versions, and the autograd Function around them.
 
 Counterpart of the JAX package's ``kernels/posatt_pallas.py`` (the module
-keeps that name so that a reader finds it). Four hand-written sm_90a
+keeps that name so that a reader finds it). Six hand-written sm_90a
 kernels, each the port of one TPU kernel:
 
-- ``csrc/posatt_fixed_fwd.cu``: the forward, ``_make_posatt_kernel_v3``;
+- ``csrc/posatt_fixed_fwd.cu``: the forward under the three schedules of
+  the JAX ``version`` option, one entry point each: ``posatt_fixed_fwd``
+  (version 3, ``_make_posatt_kernel_v3``), ``posatt_fixed_fwd_v2``
+  (``_posatt_kernel_v2``) and ``posatt_fixed_fwd_v1`` (``_posatt_kernel``);
 - ``csrc/posatt_fixed_bwd.cu``: the row statistics ``_posatt_stats``, the
   bandwidth gradient ``_posatt_bwd_dscale`` and the value gradient
   ``_posatt_bwd_du``.
 
-Each source says what bounds it and how. :class:`PosAttFixed` mirrors the
-``_posatt_fixed`` custom VJP with its fused backward: the forward saves
-only the row statistics (M, L), and the backward recomputes the attention
-weights from them. The JAX ``fused_bwd=False`` recompute path is a switch
-of the JAX package and has no counterpart here.
+Each source says what bounds it and how. The three versions compute one
+function and differ only in what a block owns (all heads, one head, or one
+head and one sample), so on the CPU every version takes the one plain
+version, :func:`posatt_fixed_reference`. :class:`PosAttFixed` mirrors the
+``_posatt_fixed`` custom VJP with its fused backward: the forward runs the
+chosen version's kernel and the stats kernel and saves only the row
+statistics (M, L); the backward recomputes the attention weights from them
+and is the same whatever the version. The JAX ``fused_bwd=False``
+recompute path and ``interpret`` switch have no counterpart here.
 
 Dispatch is by the device of the tensors: a CUDA tensor launches the
 kernel or raises, a CPU tensor takes the plain version (``*_reference``).
@@ -36,7 +43,10 @@ from position_induced_transformer_torch.ops.locality import quantile_threshold
 from position_induced_transformer_torch.ops.posatt import bandwidth_scale
 
 _NEG = -1e38  # mask sentinel: finite, so the online max never meets inf - inf
-CUDA_HEADS = (1, 2, 4, 8)  # head counts the kernels are instantiated for
+# head counts the kernels are instantiated for; the v1 and v2 forwards take
+# any, since a block of theirs owns one head
+CUDA_HEADS = (1, 2, 4, 8)
+VERSIONS = (1, 2, 3)  # the forward's schedules, as the JAX ``version``
 
 
 def _keep(dist, thr):
@@ -122,10 +132,15 @@ def _check(dist, thr, scale, u) -> None:
         raise ValueError(f"scale must be (H, 1), got {tuple(scale.shape)}")
 
 
-def _check_cuda(name, dist, scale) -> None:
+def _check_version(version) -> None:
+    if version not in VERSIONS:
+        raise ValueError(f"unknown kernel version {version!r}; expected 1, 2 or 3")
+
+
+def _check_cuda(name, dist, scale, any_heads=False) -> None:
     if dist.device.type != "cuda":
         raise ValueError(f"{name} needs CUDA tensors, got {dist.device}")
-    if scale.shape[0] not in CUDA_HEADS:
+    if not any_heads and scale.shape[0] not in CUDA_HEADS:
         raise ValueError(f"the kernels support {CUDA_HEADS} heads, got {scale.shape[0]}")
 
 
@@ -164,23 +179,46 @@ def _launch(fn, name, device, *args) -> None:
         raise RuntimeError(f"{name} launch failed with CUDA error {rc}")
 
 
-def posatt_fixed_cuda(dist, thr, scale, u):
-    """Launch the forward kernel on CUDA tensors: (B, L_out, H*D),
-    head-concat.
-
-    Same arguments as :func:`posatt_fixed_reference`. Adds one to
-    ``posatt_fixed_cuda.launches`` for each launch.
-    """
+def _fixed_forward_cuda(name, dist, thr, scale, u, any_heads=False):
+    """Launch the named forward entry point: (B, L_out, H*D)."""
     _check(dist, thr, scale, u)
-    _check_cuda("posatt_fixed_cuda", dist, scale)
+    _check_cuda(name, dist, scale, any_heads)
     H = scale.shape[0]
     B, L_in, D = u.shape
     L_out = dist.shape[0]
     out = torch.empty((B, L_out, H * D), dtype=torch.float32, device=dist.device)
-    fn = _entry("posatt_fixed_fwd", "posatt_fixed_fwd", 5, 5)
-    _launch(fn, "posatt_fixed_fwd", dist.device,
+    _launch(_entry("posatt_fixed_fwd", name, 5, 5), name, dist.device,
             dist, thr, scale, u, out, H, B, L_out, L_in, D)
+    return out
+
+
+def posatt_fixed_cuda(dist, thr, scale, u):
+    """Launch the forward kernel (version 3: a block owns all heads) on
+    CUDA tensors: (B, L_out, H*D), head-concat.
+
+    Same arguments as :func:`posatt_fixed_reference`. Adds one to
+    ``posatt_fixed_cuda.launches`` for each launch.
+    """
+    out = _fixed_forward_cuda("posatt_fixed_fwd", dist, thr, scale, u)
     posatt_fixed_cuda.launches += 1
+    return out
+
+
+def posatt_fixed_v2_cuda(dist, thr, scale, u):
+    """Launch the version-2 forward (a block owns one head and a tile of the
+    batch-folded columns) on CUDA tensors: (B, L_out, H*D), any head
+    count. Adds one to ``posatt_fixed_v2_cuda.launches`` for each launch."""
+    out = _fixed_forward_cuda("posatt_fixed_fwd_v2", dist, thr, scale, u, any_heads=True)
+    posatt_fixed_v2_cuda.launches += 1
+    return out
+
+
+def posatt_fixed_v1_cuda(dist, thr, scale, u):
+    """Launch the version-1 forward (a block owns one head and one sample)
+    on CUDA tensors: (B, L_out, H*D), any head count. Adds one to
+    ``posatt_fixed_v1_cuda.launches`` for each launch."""
+    out = _fixed_forward_cuda("posatt_fixed_fwd_v1", dist, thr, scale, u, any_heads=True)
+    posatt_fixed_v1_cuda.launches += 1
     return out
 
 
@@ -237,16 +275,23 @@ def posatt_bwd_du_cuda(dist, thr, scale, M, L, g):
 
 
 posatt_fixed_cuda.launches = 0
+posatt_fixed_v2_cuda.launches = 0
+posatt_fixed_v1_cuda.launches = 0
 posatt_stats_cuda.launches = 0
 posatt_bwd_dscale_cuda.launches = 0
 posatt_bwd_du_cuda.launches = 0
 
 
-def _forward(dist, thr, scale, u):
+_FORWARDS = {1: posatt_fixed_v1_cuda, 2: posatt_fixed_v2_cuda, 3: posatt_fixed_cuda}
+
+
+def _forward(dist, thr, scale, u, version=3):
     """The forward on either device; the inputs are validated once, by the
-    launcher or here before the plain version."""
+    launcher or here before the plain version, which serves every version
+    on the CPU."""
+    _check_version(version)
     if dist.device.type == "cuda":
-        return posatt_fixed_cuda(dist, thr, scale, u)
+        return _FORWARDS[version](dist, thr, scale, u)
     _check(dist, thr, scale, u)
     B, _, D = u.shape
     out = posatt_fixed_reference(dist, thr, scale, u)  # (H, B, L_out, D)
@@ -255,18 +300,20 @@ def _forward(dist, thr, scale, u):
 
 class PosAttFixed(torch.autograd.Function):
     """Fixed-mesh position attention with the fused backward:
-    ``apply(dist, thr, scale, u)`` -> (B, L_out, H*D).
+    ``apply(dist, thr, scale, u, version=3)`` -> (B, L_out, H*D).
 
-    The forward runs the forward kernel and the stats kernel and saves
-    (dist, thr, scale, u, M, L); the backward runs the dscale kernel when
-    ``scale`` needs a gradient and the du kernel when ``u`` does. ``dist``
-    and ``thr`` get none. CPU tensors take the plain versions of the same
-    four functions, so the CPU tests run this backward's closed form.
+    The forward runs the chosen version's forward kernel and the stats
+    kernel and saves (dist, thr, scale, u, M, L); the backward runs the
+    dscale kernel when ``scale`` needs a gradient and the du kernel when
+    ``u`` does, whatever the version: it never reads the forward's output.
+    ``dist``, ``thr`` and ``version`` get none. CPU tensors take the plain
+    versions of the same four functions, so the CPU tests run this
+    backward's closed form.
     """
 
     @staticmethod
-    def forward(ctx, dist, thr, scale, u):
-        out = _forward(dist, thr, scale, u)
+    def forward(ctx, dist, thr, scale, u, version=3):
+        out = _forward(dist, thr, scale, u, version)
         if dist.device.type == "cuda":
             M, L = posatt_stats_cuda(dist, thr, scale)
         else:
@@ -289,20 +336,26 @@ class PosAttFixed(torch.autograd.Function):
             du = (posatt_bwd_du_cuda if cuda else posatt_bwd_du_reference)(
                 dist, thr, scale, M, L, g
             )
-        return None, None, dscale, du
+        return None, None, dscale, du, None
 
 
-def position_attention_fixed(dist, lmda, inputs, locality: float, thr=None):
+def position_attention_fixed(dist, lmda, inputs, locality: float, thr=None, *, version=3):
     """Fixed-mesh position attention: (B, L_out, H*D).
 
     Same contract as ``ops.posatt.position_attention`` for a 2-D ``dist``.
     ``thr`` is the optional per-row threshold (L_out, 1): ``+inf`` when
-    ``locality >= 1``, else computed by quantile when missing. When a
-    gradient is needed the call goes through :class:`PosAttFixed` (forward
-    and stats kernels); otherwise, as under ``torch.inference_mode``, it
-    launches the forward kernel only. The gradient with respect to ``lmda``
-    flows through ``bandwidth_scale`` outside the Function.
+    ``locality >= 1``, else computed by quantile when missing. ``version``
+    picks the forward kernel's schedule, as in the JAX package: 3 (the
+    default) = all heads and a tile of the batch-folded columns a block, 2
+    = one head and a tile of the batch-folded columns, 1 = one head and one
+    sample; another value raises ``ValueError`` before anything runs. When
+    a gradient is needed the call goes through :class:`PosAttFixed`
+    (forward and stats kernels); otherwise, as under
+    ``torch.inference_mode``, it launches the forward kernel only. The
+    gradient with respect to ``lmda`` flows through ``bandwidth_scale``
+    outside the Function.
     """
+    _check_version(version)
     if dist.device.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dist.device}")
     H = lmda.shape[0]
@@ -315,5 +368,5 @@ def position_attention_fixed(dist, lmda, inputs, locality: float, thr=None):
         thr = quantile_threshold(dist, locality)
     scale = bandwidth_scale(lmda).reshape(H, 1)
     if torch.is_grad_enabled() and (scale.requires_grad or inputs.requires_grad):
-        return PosAttFixed.apply(dist, thr, scale, inputs)
-    return _forward(dist, thr, scale, inputs)
+        return PosAttFixed.apply(dist, thr, scale, inputs, version)
+    return _forward(dist, thr, scale, inputs, version)

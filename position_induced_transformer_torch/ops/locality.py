@@ -26,7 +26,8 @@ from position_induced_transformer_torch.ops.distances import pairwise_sq_dist
 def quantile_threshold(dist: torch.Tensor, locality: float) -> torch.Tensor:
     """Per-row linear-interpolation quantile along the last axis, keepdim.
 
-    ``torch.quantile`` refuses inputs of more than 2**24 elements.
+    ``torch.quantile`` refuses a reduced row longer than 2**24 entries; the
+    number of rows is not limited (a (177241, 256) matrix passes).
     """
     return torch.quantile(
         dist, locality, dim=-1, keepdim=True, interpolation="linear"

@@ -1,6 +1,7 @@
 """The CUDA kernels against their plain versions, on the card: the
-fixed-mesh kernels #1-#4, the per-sample-mesh kernels #7 and #8, and the
-TF-semantics kernels #9-#12.
+fixed-mesh kernels #1-#4 and the schedule variants #5 (v1) and #6 (v2) of
+#1, the per-sample-mesh kernels #7 and #8, and the TF-semantics kernels
+#9-#12.
 
 Every test here is marked ``cuda`` and skips without a CUDA device. The
 file imports no JAX, so that it runs on a machine without it:
@@ -205,6 +206,87 @@ def test_cuda_kernels_refuse_other_head_counts(cuda):
         kp.posatt_bwd_du_cuda(dist, thr, scale, M, M, g)
     with pytest.raises(ValueError, match="heads"):
         kp.posatt_bwd_dscale_cuda(dist, thr, scale, M, M, g, u)
+
+
+# ------------------------------ fixed-mesh schedule variants: #5 (v1), #6 (v2)
+
+SCHEDULE_SHAPES = [
+    # L_out, L_in, B, H, D, locality; no L_out a multiple of a row tile
+    (100, 48, 2, 1, 2, 0.5),  # one head, D 2: 32-column tiles
+    (97, 200, 3, 2, 64, 0.1),  # D 64: 64-column tiles (v1), 256 (v2)
+    (33, 65, 2, 3, 5, 1.0),  # three heads, global
+    (50, 300, 4, 8, 64, 0.2),  # eight heads
+    (70, 130, 3, 2, 100, 0.3),  # 128-column tiles (v1)
+    (40, 72, 2, 2, 300, 0.2),  # D above 256: v1 splits a sample's columns
+]
+SCHEDULE_LAUNCHERS = {1: kp.posatt_fixed_v1_cuda, 2: kp.posatt_fixed_v2_cuda, 3: kp.posatt_fixed_cuda}
+
+
+def _schedule_inputs(dev, L_out, L_in, B, H, D, loc, inf_row=True):
+    """As _stats_inputs, with row 5 global (thr +inf) and, with
+    ``inf_row``, row 3 all +inf distances but one kept entry (autograd of
+    the oracle meets inf * 0 there)."""
+    dist, thr, scale, u, g = _stats_inputs(dev, L_out, L_in, B, H, D, loc)
+    thr[5] = float("inf")
+    if inf_row:
+        dist[3] = float("inf")
+        dist[3, 7] = 0.5
+        thr[3] = 1.0
+    return dist, thr, scale, u, g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("version", [1, 2])
+@pytest.mark.parametrize("L_out,L_in,B,H,D,loc", SCHEDULE_SHAPES)
+def test_cuda_schedule_kernel_matches_plain(cuda, L_out, L_in, B, H, D, loc, version):
+    dist, thr, scale, u, _ = _schedule_inputs(cuda, L_out, L_in, B, H, D, loc)
+    launcher = SCHEDULE_LAUNCHERS[version]
+    before = [f.launches for f in SCHEDULE_LAUNCHERS.values()]
+    got = launcher(dist, thr, scale, u)
+    torch.cuda.synchronize()
+    after = [f.launches for f in SCHEDULE_LAUNCHERS.values()]
+    assert [a - b for a, b in zip(after, before)] == [int(v == version) for v in SCHEDULE_LAUNCHERS]
+    want = kp.posatt_fixed_reference(dist, thr, scale, u)
+    want = want.permute(1, 2, 0, 3).reshape(B, L_out, H * D)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L_out,L_in,B,H,D,loc", [s for s in SCHEDULE_SHAPES if s[3] in kp.CUDA_HEADS])
+def test_schedule_versions_share_one_backward(cuda, L_out, L_in, B, H, D, loc):
+    """One forward + backward per version launches that version's forward
+    and #2, #3, #4 once each; the backward never reads the forward's output,
+    so dscale and dU are the same bits under every version."""
+    dist, thr, _, u, w = _schedule_inputs(cuda, L_out, L_in, B, H, D, loc, inf_row=False)
+    lmda = torch.from_numpy(np.random.default_rng(3).random((H, 1, 1)).astype(np.float32)).to(cuda)
+    backward = (kp.posatt_stats_cuda, kp.posatt_bwd_dscale_cuda, kp.posatt_bwd_du_cuda)
+    results = {}
+    for version, launcher in SCHEDULE_LAUNCHERS.items():
+        before = [f.launches for f in (*SCHEDULE_LAUNCHERS.values(), *backward)]
+        fn = lambda *a: kp.position_attention_fixed(*a, thr=thr, version=version)
+        results[version] = _grads(fn, dist, lmda, u, loc, w)
+        torch.cuda.synchronize()
+        after = [f.launches for f in (*SCHEDULE_LAUNCHERS.values(), *backward)]
+        assert [a - b for a, b in zip(after, before)] == [
+            int(v == version) for v in SCHEDULE_LAUNCHERS] + [1, 1, 1]
+    for version in (1, 2):
+        torch.testing.assert_close(results[version][0], results[3][0], rtol=RTOL, atol=ATOL)
+        assert torch.equal(results[version][1], results[3][1])
+        assert torch.equal(results[version][2], results[3][2])
+    want = _grads(lambda *a: posatt.position_attention(*a, thr=thr), dist, lmda, u, loc, w)
+    torch.testing.assert_close(results[1][1], want[1], rtol=DS_RTOL,
+                               atol=DS_ATOL * want[1].abs().max().item())
+
+
+@pytest.mark.cuda
+def test_unknown_version_raises_before_any_launch_on_cuda(cuda):
+    dist, lmda, u = _inputs(cuda, 16, 24, 2, 2, 3)
+    before = [f.launches for f in SCHEDULE_LAUNCHERS.values()]
+    for version in (0, 4):
+        with pytest.raises(ValueError, match="version"):
+            kp.position_attention_fixed(dist, lmda, u, 0.3, version=version)
+    assert [f.launches for f in SCHEDULE_LAUNCHERS.values()] == before
 
 
 # ------------------------------------------- per-sample meshes: kernels #7, #8

@@ -1,7 +1,8 @@
 """The fixed-mesh attention kernels' wrappers, on the CPU.
 
-On the CPU each wrapper runs its kernel's plain version; each is held
-against the JAX package's Pallas kernel run in interpret mode, at rtol 2e-5
+On the CPU each wrapper runs its kernel's plain version (one for the three
+forward schedules of ``version``); each is held against the JAX package's
+Pallas kernel of the same version run in interpret mode, at rtol 2e-5
 / atol 2e-6 (the bound of tests/test_pallas.py: both float32, sums in
 another order). The bandwidth gradient is a cancelling sum and is held at
 that file's rtol 5e-4 / atol 5e-6. The CUDA kernels themselves are tested
@@ -67,6 +68,56 @@ def test_wrapper_cpu_matches_interpret_v3(L_out, L_in, B, H, D, loc):
     assert t_k.posatt_fixed_cuda.launches == before  # the CPU path launches nothing
 
 
+FORWARD_LAUNCHERS = ("posatt_fixed_cuda", "posatt_fixed_v1_cuda", "posatt_fixed_v2_cuda")
+ALL_LAUNCHERS = FORWARD_LAUNCHERS + (
+    "posatt_stats_cuda", "posatt_bwd_dscale_cuda", "posatt_bwd_du_cuda")
+
+
+def _launches():
+    return [getattr(t_k, n).launches for n in ALL_LAUNCHERS]
+
+
+@pytest.mark.parametrize("version", [1, 2])
+@pytest.mark.parametrize("L_out,L_in,B,H,D,loc", SHAPES)
+def test_wrapper_cpu_matches_interpret_other_versions(L_out, L_in, B, H, D, loc, version):
+    """The v1 and v2 schedules: the same plain version on the CPU, against
+    the JAX kernel of that version in interpret mode."""
+    dist, lmda, u = _inputs(L_out, L_in, B, H, D)
+    before = _launches()
+    got = t_k.position_attention_fixed(
+        torch.from_numpy(dist), torch.from_numpy(lmda), torch.from_numpy(u), loc,
+        version=version,
+    ).numpy()
+    want = np.asarray(j_k.position_attention_fixed(
+        jnp.asarray(dist), jnp.asarray(lmda), jnp.asarray(u), loc,
+        interpret=True, version=version,
+    ))
+    assert got.shape == (B, L_out, H * D)
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+    assert _launches() == before  # the CPU path launches nothing
+
+
+@pytest.mark.parametrize("version", [0, 4])
+def test_unknown_version_raises_in_both_packages(version):
+    dist, lmda, u = _inputs(16, 24, 2, 2, 3)
+    before = _launches()
+    with pytest.raises(ValueError, match="version"):
+        t_k.position_attention_fixed(
+            torch.from_numpy(dist), torch.from_numpy(lmda), torch.from_numpy(u), 0.3,
+            version=version,
+        )
+    d, lm, x = map(torch.from_numpy, (dist, lmda, u))
+    thr, scale = torch.full((16, 1), float("inf")), torch.ones(2, 1)
+    with pytest.raises(ValueError, match="version"):
+        t_k.PosAttFixed.apply(d, thr, scale, x.requires_grad_(True), version)
+    with pytest.raises(ValueError, match="version"):
+        j_k.position_attention_fixed(
+            jnp.asarray(dist), jnp.asarray(lmda), jnp.asarray(u), 0.3,
+            interpret=True, version=version,
+        )
+    assert _launches() == before
+
+
 def test_reference_matches_model_oracle_with_global_rows():
     """The kernel's plain version equals the model-level oracle, including
     an all-masked-but-one row and +inf distances (the ``d < inf`` term)."""
@@ -106,8 +157,9 @@ def test_kernel_launcher_refuses_cpu_tensors():
     dist, lmda, u = map(torch.from_numpy, _inputs(16, 24, 2, 2, 3))
     thr = torch.full((16, 1), float("inf"))
     scale = torch.ones(2, 1)
-    with pytest.raises(ValueError, match="CUDA"):
-        t_k.posatt_fixed_cuda(dist, thr, scale, u)
+    for name in FORWARD_LAUNCHERS:
+        with pytest.raises(ValueError, match="CUDA"):
+            getattr(t_k, name)(dist, thr, scale, u)
     with pytest.raises(ValueError, match="CUDA"):
         t_k.posatt_stats_cuda(dist, thr, scale)
     M = torch.zeros(2, 16, 1)
@@ -223,6 +275,33 @@ def test_function_gradients_match_jax_fused_backward(L_out, L_in, B, H, D, loc):
     np.testing.assert_allclose(got[0], oracle[0], rtol=RTOL, atol=ATOL)
 
 
+@pytest.mark.parametrize("version", [1, 2])
+@pytest.mark.parametrize("L_out,L_in,B,H,D,loc", BWD_SHAPES)
+def test_function_gradients_match_jax_other_versions(L_out, L_in, B, H, D, loc, version):
+    """The autograd Function under the v1 and v2 schedules (on the CPU: the
+    same plain versions) against jax.grad of the JAX custom VJP of that
+    version in interpret mode; dU at the forward's bound, d lmda (a
+    cancelling sum) at tests/test_pallas.py's."""
+    dist, _, u, w, lmda = (_bwd_inputs(L_out, L_in, B, H, D, loc)[i] for i in (0, 1, 3, 4, 5))
+    before = _launches()
+    fn = lambda *a: t_k.position_attention_fixed(*a, version=version)
+    got = _torch_grads(fn, dist, lmda, u, loc, w)
+    assert _launches() == before
+
+    def loss(lm, x):
+        out = j_k.position_attention_fixed(
+            jnp.asarray(dist), lm, x, loc, interpret=True, version=version
+        )
+        return jnp.sum(out * jnp.asarray(w))
+
+    jg = jax.grad(loss, argnums=(0, 1))(jnp.asarray(lmda), jnp.asarray(u))
+    np.testing.assert_allclose(got[1], np.asarray(jg[0]), rtol=5e-4, atol=5e-6)
+    np.testing.assert_allclose(got[2], np.asarray(jg[1]), rtol=RTOL, atol=ATOL)
+    # the backward never reads the forward's output: the same bits as v3
+    v3 = _torch_grads(t_k.position_attention_fixed, dist, lmda, u, loc, w)
+    assert np.array_equal(got[1], v3[1]) and np.array_equal(got[2], v3[2])
+
+
 def test_no_grad_forward_skips_the_function():
     dist, lmda, u = map(torch.from_numpy, _inputs(16, 24, 2, 2, 3))
     lmda.requires_grad_(True)
@@ -240,6 +319,7 @@ def test_module_imports_without_nvcc_or_gpu():
         "import sys, position_induced_transformer_torch.kernels as k;"
         "assert 'triton' not in sys.modules;"
         "assert k.posatt_fixed_cuda.launches == 0;"
+        "assert k.posatt_fixed_v1_cuda.launches == k.posatt_fixed_v2_cuda.launches == 0;"
         "print('ok')"
     )
     res = subprocess.run(

@@ -101,6 +101,19 @@ def test_quantile_threshold_and_keep_mask(rows, cols, loc):
     np.testing.assert_array_equal(got, want)
 
 
+def test_quantile_threshold_limit_is_on_the_row_length():
+    """``torch.quantile`` refuses a reduced row of more than 2**24 entries,
+    not a tensor of more than 2**24 elements: the 421^2 ZSSR decoder's
+    (177241, 256) distances pass (here 65537 rows of 256)."""
+    d = torch.from_numpy(np.random.default_rng(2).random((2**24 // 256 + 1, 256), np.float32))
+    assert d.numel() > 2**24
+    thr = t_loc.quantile_threshold(d, 0.02)
+    assert thr.shape == (d.shape[0], 1)
+    torch.testing.assert_close(thr[:3], torch.quantile(d[:3].double(), 0.02, dim=-1, keepdim=True).float())
+    with pytest.raises(RuntimeError, match="too large"):
+        t_loc.quantile_threshold(torch.zeros(1, 2**24 + 1), 0.02)
+
+
 def test_bandwidth_scale():
     """Across its whole range, including the pole at sin(lmda) = 1 where
     it reaches ~1.3e7 and the softmax becomes one-hot."""
