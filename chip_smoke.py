@@ -15,12 +15,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
 4. kernels: each kernel's launcher against its plain PyTorch version, and
    its public wrapper (the call the model makes) against the model-level
    oracle, on the card, at the three Burgers shapes and at ragged shapes
-   with 1 to 8 heads; times from CUDA events, the bound from the H100's
+   with 1 to 12 heads; times from CUDA events, the bound from the H100's
    published peaks and the work this run's inputs need, and one PyTorch
    library call computing the same function as a yardstick;
 5. backward kernels: the stats, dscale and du kernels against their plain
    versions at the Burgers training shapes (dU is not needed at the
-   encoder) and at ragged shapes with 1 to 8 heads, timed and bounded as
+   encoder) and at ragged shapes with 1 to 12 heads, timed and bounded as
    in phase 4; the autograd Function's gradients against torch.autograd of
    the plain oracle, with one forward + backward launching each of the
    four kernels exactly once;
@@ -42,10 +42,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    with its circular band, D 44; processor 972 x 972, all kept, D 256;
    decoder, band, D 256; the band-less serving encoder and decoder), with
    bands and thresholds from ``setup_elasticity`` on synthetic clouds, and
-   at ragged shapes (1 to 8 heads, D 4 to 44, the kernel's own keep count,
-   seam-crossing bands, L_out not a multiple of 256); the public wrapper
-   against ``ops.posatt.position_attention`` on materialized distances;
-   times, bounds and the SDPA yardstick as in phase 4;
+   at ragged shapes (1, 2, 3, 4, 6 and 8 heads, D 4 to 44, the kernel's
+   own keep count, seam-crossing bands, L_out not a multiple of 256); the
+   public wrapper against ``ops.posatt.position_attention`` on
+   materialized distances; times, bounds and the SDPA yardstick as in
+   phase 4;
 9. batched backward: kernel #8's dscale and du entry points against their
    plain versions at the elasticity training shapes and the ragged ones,
    timed and bounded; dscale twice gives the same bits; the autograd
@@ -74,7 +75,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
     times, bounds and the SDPA yardstick (zero q and k, per-head values,
     the masked logits as ``attn_mask``);
 13. TF backward: #10's and #12's dscale and dv entry points against their
-    plain versions at the same shapes, timed and bounded; dscale twice
+    plain versions at the same shapes, timed and bounded, and at ragged
+    ones (a band whose row blocks keep no entry in some 32-column steps,
+    V not a multiple of the 64-column tile, 1 to 8 heads); dscale twice
     gives the same bits; the autograd Functions' gradients against
     torch.autograd of the oracle, one forward + backward launching each
     entry point once;
@@ -369,7 +372,7 @@ def bound_bwd(kernel, dist, thr, H, B, D):
     return (*roofline(flops, 4 * words), flops, 4 * words, kept)
 
 
-RAGGED = [  # L not a multiple of any tile; 1, 2, 4 and 8 heads; N = B*D
+RAGGED = [  # L not a multiple of any tile; 1 to 12 heads; N = B*D
     # ragged, on both sides of the kernels' B*D <= 32 tile choice
     ("ragged_h1_masked", 97, 1000, 3, 1, 5, 0.02),
     ("ragged_h8_global", 1000, 97, 2, 8, 33, 1.0),
@@ -377,6 +380,9 @@ RAGGED = [  # L not a multiple of any tile; 1, 2, 4 and 8 heads; N = B*D
     ("ragged_h2_wide", 70, 300, 8, 2, 100, 0.3),
     ("ragged_h8_narrow", 50, 300, 4, 8, 4, 0.2),
     ("ragged_h4_narrow", 300, 50, 3, 4, 9, 1.0),
+    ("ragged_h3_wide", 60, 90, 2, 3, 20, 0.3),
+    ("ragged_h6_narrow", 70, 150, 4, 6, 4, 0.2),
+    ("ragged_h12_global", 40, 72, 3, 12, 16, 1.0),  # two groups of six heads
 ]
 
 
@@ -877,6 +883,9 @@ RAGGED_BATCHED = [  # B, L_q, L_k, H, D, locality, thresholds: "none" (the
     ("b_h8_d19", 1, 97, 1000, 8, 19, 0.02, "robust"),
     ("b_ring_seam", 2, 900, 700, 2, 8, 0.02, "ring"),
     ("b_ring_h8_lout1000", 2, 1000, 800, 8, 33, 0.02, "ring"),
+    ("b_h3_d8", 2, 64, 80, 3, 8, 0.1, "robust"),
+    ("b_h6_keep", 2, 50, 60, 6, 40, 0.2, "none"),
+    ("b_ring_h6", 2, 900, 700, 6, 12, 0.02, "ring"),
 ]
 
 
@@ -1470,6 +1479,10 @@ RAGGED_TF = [  # B, L_q, L_k, H, V, thresholds: "none" (global), "thr" (a
     ("tf_h1_v130_global", 2, 1000, 97, 1, 130, "none"),
     ("tf_ring_seam", 2, 900, 700, 2, 8, "ring"),
     ("tf_ring_h8_lout1000", 2, 1000, 800, 8, 33, "ring"),
+    # V not a multiple of the backward's 64-column tile; a band whose row
+    # blocks keep no entry in some 32-column steps of their window
+    ("tf_ring_h3_v80", 2, 900, 700, 3, 80, "ring"),
+    ("tf_h5_v100_thr", 2, 300, 200, 5, 100, "thr"),
 ]
 
 
@@ -1742,16 +1755,35 @@ def tf_backward_phase(shapes):
 
     rng = np.random.default_rng(6)
 
-    def entry_points(calls, kind, g, stats):
-        """(dscale, dv) launchers of one op."""
+    def entry_points(calls, kind, out, g, stats):
+        """(dscale, dv) launchers of one op; dscale reads the forward's
+        output ``out``."""
         coord, dist, _ = calls
         if kind == "coord":
             mq, mk, scale, v, thr, starts, width = coord
-            return (lambda: kb.posatt_tf_coord_bwd_dscale_cuda(mq, mk, scale, v, g, stats, starts, width=width),
+            return (lambda: kb.posatt_tf_coord_bwd_dscale_cuda(mq, mk, scale, v, out, g, stats,
+                                                               starts, width=width),
                     lambda: kb.posatt_tf_coord_bwd_dv_cuda(mq, mk, scale, g, stats, starts, width=width))
         d, thr, scale, v = dist
-        return (lambda: kb.posatt_tf_bwd_dscale_cuda(d, scale, v, g, stats),
+        return (lambda: kb.posatt_tf_bwd_dscale_cuda(d, scale, v, out, g, stats),
                 lambda: kb.posatt_tf_bwd_dv_cuda(d, scale, g, stats))
+
+    def empty_steps(calls):
+        """Of the 32-column steps of each 32-row block's band window, those
+        in which no row of the block keeps an entry, and all of them."""
+        mq, mk, scale, v, thr, starts, width = calls[0]
+        _, keep, _ = kb._tf_coord_rows(mq, mk, thr, starts, width)
+        B, Lo, Li = keep.shape
+        tile = kb.band_tile_rows(Lo)
+        empty = total = 0
+        for r0 in range(0, Lo, 32):
+            cols = keep[:, r0:r0 + 32].any(dim=1).cpu()  # (B, Li)
+            for b, st in enumerate(starts[:, r0 // tile].tolist()):
+                lo, hi = max(st, 0), min(st + width, Li)
+                for j0 in range(lo, hi, 32):
+                    total += 1
+                    empty += int(not cols[b, j0:min(j0 + 32, hi)].any())
+        return empty, total
 
     def plain_bwd(calls, kind, g):
         coord, dist, _ = calls
@@ -1762,9 +1794,9 @@ def tf_backward_phase(shapes):
         return kb.posatt_tf_bwd_reference(d, thr, scale, v, g)
 
     def compare(name, calls, kind, g):
-        _, stats = tf_launch(calls, kind, stats=True)
+        out, stats = tf_launch(calls, kind, stats=True)
         torch.cuda.synchronize()
-        dscale, dv = entry_points(calls, kind, g, stats)
+        dscale, dv = entry_points(calls, kind, out, g, stats)
         ds, again, dvv = dscale(), dscale(), dv()
         torch.cuda.synchronize()
         if not torch.equal(ds, again):
@@ -1841,7 +1873,9 @@ def tf_backward_phase(shapes):
         flops = 3 * d * inspected + 2 * H * V * kept
         # the forward's words with the statistics (which hold the threshold)
         # in place of thr and the cotangent in place of the output; dscale
-        # also writes (B, H), dv writes dV where dscale reads the values
+        # also writes (B, H), dv writes dV where dscale reads the values.
+        # dscale's kernel also reads the forward's output, which the
+        # function does not need: the bound leaves it out
         Li = v.shape[1]
         words = fwd_words - (B * Lo if calls[2][4] is not None else 0) + B * (H + 2) * Lo
         parts = {"dscale": (dscale, words + B * H), "dv": (dv, words)}
@@ -1866,6 +1900,12 @@ def tf_backward_phase(shapes):
             fn_err = max(fn_err, function_check(name, calls, kind))
     for name, *shape in RAGGED_TF:
         calls = tf_ragged(rng, *shape)
+        if shape[-1] == "ring":
+            empty, total = empty_steps(calls)
+            log(f"backward {name}: {empty} of {total} 32-column steps of the row blocks' "
+                "windows keep no entry")
+            if empty == 0:
+                fail(f"{name}: every 32-column step of the band keeps an entry")
         B, Lo = calls[2][0].shape[:2]
         g = torch.from_numpy(rng.standard_normal((B, Lo, calls[2][3].shape[-1])).astype(np.float32)).cuda()
         for kind in ("coord", "dist"):

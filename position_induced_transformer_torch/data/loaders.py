@@ -1,9 +1,10 @@
 """Dataset loaders (numpy host arrays).
 
-``.mat`` files are read with scipy (MATLAB v5). MATLAB v7.3 files are HDF5
-and need ``h5py``, which the port does not depend on: they raise with the
-reason. Without a usable file the loaders fall back to the synthetic
-generators; a fallback from an explicitly supplied path warns.
+``.mat`` files are read with scipy (MATLAB v5); MATLAB v7.3 files, which
+are HDF5, through the optional ``h5py``, imported only when such a file
+is read (without it they raise, naming it). Without a usable file the
+loaders fall back to the synthetic generators; a fallback from an
+explicitly supplied path warns.
 """
 
 from __future__ import annotations
@@ -19,18 +20,52 @@ from position_induced_transformer_torch.data import synthetic
 _LFS_POINTER = b"version https://git-lfs"
 
 
+def read_hdf5(path: str, transpose: bool) -> dict:
+    """The datasets at the root of the HDF5 file ``path``, as arrays:
+    transposed for MATLAB v7.3's column-major storage, native row-major
+    layout otherwise. Groups (MATLAB structs and cells) are skipped with a
+    warning, and ``#``-prefixed MATLAB bookkeeping silently. h5py is
+    imported here; without it, or for a file it cannot open, this raises
+    ``ValueError`` naming it."""
+    try:
+        import h5py
+    except ImportError as e:
+        raise ValueError(
+            f"{path}: reading an HDF5 file (.h5, MATLAB v7.3 .mat) needs the "
+            "optional package h5py, which is not installed; install it, or "
+            "send .npy or a MATLAB v5 .mat"
+        ) from e
+    out, skipped = {}, []
+    try:
+        with h5py.File(path, "r") as f:
+            for k, v in f.items():
+                if isinstance(v, h5py.Dataset):
+                    out[k] = np.array(v).T if transpose else np.array(v)
+                elif not k.startswith("#"):
+                    skipped.append(k)
+    except OSError as e:
+        raise ValueError(f"{path}: h5py cannot read it as HDF5 ({e})") from e
+    if skipped:
+        warnings.warn(
+            f"{path}: skipped non-array HDF5 entries {skipped} "
+            "(MATLAB structs/cells are not supported by this loader)",
+            stacklevel=3,
+        )
+    return out
+
+
 def load_mat(path: str) -> dict:
-    """Load a MATLAB v5 file into a dict of arrays."""
+    """Load a MATLAB file into a dict of arrays: v5 through scipy, v7.3
+    (and a bare HDF5 file, which has no MATLAB header) through h5py,
+    transposed from MATLAB's column-major storage to ``loadmat``'s
+    orientation."""
     from scipy.io import loadmat
 
     try:
         return loadmat(path)
-    except (NotImplementedError, ValueError) as e:
-        raise ValueError(
-            f"{path}: not a MATLAB v5 file ({e}); MATLAB v7.3 / HDF5 files "
-            "need h5py, which this package does not use — save with "
-            "scipy.io.savemat or send .npy"
-        ) from e
+    except (NotImplementedError, ValueError):
+        # v7.3 raises NotImplementedError, bare HDF5 ValueError
+        return read_hdf5(path, transpose=True)
 
 
 def _is_real_file(path) -> bool:

@@ -46,6 +46,9 @@
 //   its products (__syncthreads_or over the keep flags).
 // - Ragged edges (rows, window columns past the extended key axis, value
 //   columns past D) are masked by index; D may be any width.
+// - Any head count: a block owns a group of HB <= 8 heads (ceil(H/8)
+//   groups as even as can be; HB = H up to 8 heads), and a short last group
+//   masks its missing heads.
 // Tensor cores are not used: TF32 would not hold parity with the f32
 // oracle. Double-buffered loads and a split of the column loop across
 // blocks are work for later.
@@ -98,10 +101,10 @@ __device__ __forceinline__ void lds<4>(const float* p, float (&v)[4]) {
   v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
 }
 
-// A block owns TLO = NWARPS*RPT rows of one sample and TN = 32*CPL value
-// columns; warp w owns rows [w*RPT, w*RPT + RPT), lane c owns columns
-// [c*CPL, c*CPL + CPL).
-template <int H, int NWARPS, int RPT, int CPL, int TLI>
+// A block owns the heads [h0, h0 + HB) below H, TLO = NWARPS*RPT rows of
+// one sample and TN = 32*CPL value columns; warp w owns rows
+// [w*RPT, w*RPT + RPT), lane c owns columns [c*CPL, c*CPL + CPL).
+template <int HB, int NWARPS, int RPT, int CPL, int TLI>
 __global__ void __launch_bounds__(NWARPS * 32)
 posatt_batched_fwd_kernel(const float* __restrict__ mq,      // (B, Lo, dd)
                           const float* __restrict__ mk,      // (B, Li, dd)
@@ -111,27 +114,31 @@ posatt_batched_fwd_kernel(const float* __restrict__ mq,      // (B, Lo, dd)
                           const int* __restrict__ starts,    // (B, n_tiles) or null
                           float* __restrict__ out,           // (B, Lo, H*D)
                           float* __restrict__ stats,         // (B, H+2, Lo) or null
-                          int Lo, int Li, int D, int dd, int keep_count, int width,
-                          int tile_rows, int n_tiles) {
+                          int H, int Lo, int Li, int D, int dd, int keep_count,
+                          int width, int tile_rows, int n_tiles) {
   constexpr int THREADS = NWARPS * 32;
   constexpr int TN = 32 * CPL;
   static_assert(NWARPS * RPT == TLO, "rows per block");
   static_assert(THREADS % TLO == 0 && THREADS % TN == 0, "tile shape");
   static_assert((TLI * TN) % THREADS == 0 && (TLI * TLO) % THREADS == 0, "steps");
-  __shared__ __align__(16) float s_p[H][TLI][TLO];  // final weights
-  __shared__ __align__(16) float s_u[TLI][TN];      // values
-  __shared__ float s_q[TLO][MAX_DIM];                // query coordinates
+  __shared__ __align__(16) float s_p[HB][TLI][TLO];  // final weights
+  __shared__ __align__(16) float s_u[TLI][TN];       // values
+  __shared__ float s_q[TLO][MAX_DIM];                 // query coordinates
   __shared__ float s_dmin[TLO];
   __shared__ float s_thr[TLO];
-  __shared__ float s_rden[H][TLO];
-  __shared__ float s_scale[H];
+  __shared__ float s_rden[HB][TLO];
+  __shared__ float s_scale[HB];
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int b = blockIdx.z;
   const int row0 = blockIdx.y * TLO;
-  const int col0 = blockIdx.x * TN;
+  const int n_ct = (D + TN - 1) / TN;
+  const int grp = blockIdx.x / n_ct;  // the head group; 0 up to 8 heads
+  const int ct = blockIdx.x - grp * n_ct;
+  const int col0 = ct * TN;
+  const int h0 = grp * HB;
   const float* mkb = mk + (size_t)b * Li * dd;
   const float* ub = u + (size_t)b * Li * D;
 
@@ -143,7 +150,7 @@ posatt_batched_fwd_kernel(const float* __restrict__ mq,      // (B, Lo, dd)
     j_end = min(s + width, Li);
   }
 
-  if (tid < H) s_scale[tid] = scale[tid];
+  if (tid < HB) s_scale[tid] = h0 + tid < H ? scale[h0 + tid] : 0.f;  // a missing head: finite
   for (int e = tid; e < TLO * MAX_DIM; e += THREADS) {
     const int r = e / MAX_DIM, c = e - r * MAX_DIM;
     const int i = row0 + r;
@@ -156,7 +163,7 @@ posatt_batched_fwd_kernel(const float* __restrict__ mq,      // (B, Lo, dd)
     const int i = row0 + r;
     if (i >= Lo) {  // never written; keeps nothing
       if (lane == 0) { s_dmin[r] = 0.f; s_thr[r] = -INFINITY; }
-      if (lane < H) s_rden[lane][r] = 0.f;
+      if (lane < HB) s_rden[lane][r] = 0.f;
       continue;
     }
     float q[MAX_DIM];
@@ -181,27 +188,27 @@ posatt_batched_fwd_kernel(const float* __restrict__ mq,      // (B, Lo, dd)
         t = warp_min(m2);
       }
     }
-    float sm[H];
+    float sm[HB];
 #pragma unroll
-    for (int h = 0; h < H; ++h) sm[h] = 0.f;
+    for (int h = 0; h < HB; ++h) sm[h] = 0.f;
     for (int j = j_begin + lane; j < j_end; j += 32) {
       const float d = sqdist(q, mkb + (size_t)j * dd, dd);
       if (d <= t) {
         const float x = __fsub_rn(d, mn);
 #pragma unroll
-        for (int h = 0; h < H; ++h) sm[h] += expf(-x * s_scale[h]);
+        for (int h = 0; h < HB; ++h) sm[h] += expf(-x * s_scale[h]);
       }
     }
-    const bool write_stats = stats != nullptr && blockIdx.x == 0 && lane == 0;
+    const bool write_stats = stats != nullptr && ct == 0 && lane == 0;
     float* st = write_stats ? stats + (size_t)b * (H + 2) * Lo + i : nullptr;
 #pragma unroll
-    for (int h = 0; h < H; ++h) {
+    for (int h = 0; h < HB; ++h) {
       const float rd = 1.f / fmaxf(warp_sum(sm[h]), 1e-30f);
       if (lane == 0) s_rden[h][r] = rd;
-      if (write_stats) st[(size_t)(2 + h) * Lo] = rd;
+      if (write_stats && h0 + h < H) st[(size_t)(2 + h0 + h) * Lo] = rd;
     }
     if (lane == 0) { s_dmin[r] = mn; s_thr[r] = t; }
-    if (write_stats) { st[0] = mn; st[Lo] = t; }
+    if (write_stats && grp == 0) { st[0] = mn; st[Lo] = t; }
   }
   __syncthreads();
 
@@ -217,9 +224,9 @@ posatt_batched_fwd_kernel(const float* __restrict__ mq,      // (B, Lo, dd)
   const int nu = col0 + cu;
   const bool col_ok = nu < D;
 
-  float acc[H][RPT][CPL];
+  float acc[HB][RPT][CPL];
 #pragma unroll
-  for (int h = 0; h < H; ++h)
+  for (int h = 0; h < HB; ++h)
 #pragma unroll
     for (int r = 0; r < RPT; ++r)
 #pragma unroll
@@ -237,7 +244,7 @@ posatt_batched_fwd_kernel(const float* __restrict__ mq,      // (B, Lo, dd)
       any |= k;
       const float x = __fsub_rn(d, dminp);
 #pragma unroll
-      for (int h = 0; h < H; ++h) s_p[h][jj][rp] = k ? expf(-x * s_scale[h]) * s_rden[h][rp] : 0.f;
+      for (int h = 0; h < HB; ++h) s_p[h][jj][rp] = k ? expf(-x * s_scale[h]) * s_rden[h][rp] : 0.f;
     }
     if (__syncthreads_or(any)) {  // block-uniform: the values only when needed
 #pragma unroll
@@ -252,7 +259,7 @@ posatt_batched_fwd_kernel(const float* __restrict__ mq,      // (B, Lo, dd)
         float uv[CPL];
         lds<CPL>(&s_u[jj][lane * CPL], uv);
 #pragma unroll
-        for (int h = 0; h < H; ++h) {
+        for (int h = 0; h < HB; ++h) {
           float pv[RPT];
           lds<RPT>(&s_p[h][jj][warp * RPT], pv);
 #pragma unroll
@@ -275,39 +282,47 @@ posatt_batched_fwd_kernel(const float* __restrict__ mq,      // (B, Lo, dd)
     for (int c = 0; c < CPL; ++c) {
       const int n = col0 + lane * CPL + c;
       if (n >= D) continue;
-      float* dst = out + ((size_t)b * Lo + i) * HD + n;
+      float* dst = out + ((size_t)b * Lo + i) * HD + (size_t)h0 * D + n;
 #pragma unroll
-      for (int h = 0; h < H; ++h) dst[h * D] = acc[h][r][c];
+      for (int h = 0; h < HB; ++h)
+        if (h0 + h < H) dst[h * D] = acc[h][r][c];
     }
   }
 }
 
-template <int H, int CPL>
+template <int HB, int CPL>
 void launch_tiles(const float* mq, const float* mk, const float* scale, const float* u,
                   const float* thr, const int* starts, float* out, float* stats,
-                  int B, int Lo, int Li, int D, int dd, int keep_count, int width,
+                  int H, int B, int Lo, int Li, int D, int dd, int keep_count, int width,
                   int tile_rows, cudaStream_t stream) {
   constexpr int TN = 32 * CPL;
-  const dim3 grid((D + TN - 1) / TN, (Lo + TLO - 1) / TLO, B);
+  const dim3 grid((H + HB - 1) / HB * ((D + TN - 1) / TN), (Lo + TLO - 1) / TLO, B);
   const int n_tiles = (Lo + tile_rows - 1) / tile_rows;
-  posatt_batched_fwd_kernel<H, 4, 4, CPL, 32><<<grid, 128, 0, stream>>>(
-      mq, mk, scale, u, thr, starts, out, stats, Lo, Li, D, dd, keep_count, width,
+  posatt_batched_fwd_kernel<HB, 4, 4, CPL, 32><<<grid, 128, 0, stream>>>(
+      mq, mk, scale, u, thr, starts, out, stats, H, Lo, Li, D, dd, keep_count, width,
       tile_rows, n_tiles);
 }
 
-template <int H>
-void launch(const float* mq, const float* mk, const float* scale, const float* u,
-            const float* thr, const int* starts, float* out, float* stats, int B, int Lo,
-            int Li, int D, int dd, int keep_count, int width, int tile_rows,
-            cudaStream_t s) {
+template <int HB>
+int launch(const float* mq, const float* mk, const float* scale, const float* u,
+           const float* thr, const int* starts, float* out, float* stats, int H, int B,
+           int Lo, int Li, int D, int dd, int keep_count, int width, int tile_rows,
+           cudaStream_t s) {
   // the value columns a block owns: 32, 64 or 128, the least that covers D
   // (D = 44 at the elasticity encoder, 256 after it)
   if (D <= 32)
-    launch_tiles<H, 1>(mq, mk, scale, u, thr, starts, out, stats, B, Lo, Li, D, dd, keep_count, width, tile_rows, s);
+    launch_tiles<HB, 1>(mq, mk, scale, u, thr, starts, out, stats, H, B, Lo, Li, D, dd, keep_count, width, tile_rows, s);
   else if (D <= 64)
-    launch_tiles<H, 2>(mq, mk, scale, u, thr, starts, out, stats, B, Lo, Li, D, dd, keep_count, width, tile_rows, s);
+    launch_tiles<HB, 2>(mq, mk, scale, u, thr, starts, out, stats, H, B, Lo, Li, D, dd, keep_count, width, tile_rows, s);
   else
-    launch_tiles<H, 4>(mq, mk, scale, u, thr, starts, out, stats, B, Lo, Li, D, dd, keep_count, width, tile_rows, s);
+    launch_tiles<HB, 4>(mq, mk, scale, u, thr, starts, out, stats, H, B, Lo, Li, D, dd, keep_count, width, tile_rows, s);
+  return (int)cudaGetLastError();
+}
+
+// heads per block: at most 8, in ceil(H/8) groups as even as can be
+int head_group(int H) {
+  const int groups = (H + 7) / 8;
+  return (H + groups - 1) / groups;
 }
 
 }  // namespace
@@ -319,16 +334,21 @@ extern "C" int posatt_batched_fwd(const float* mq, const float* mk, const float*
                                   void* stream) {
   // a block of TLO rows must stay inside one band tile
   const bool tiles_ok = tile_rows >= Lo || (tile_rows > 0 && tile_rows % TLO == 0);
-  if (B < 1 || Lo < 1 || Li < 1 || D < 1 || dd < 1 || dd > MAX_DIM || !tiles_ok ||
+  if (H < 1 || B < 1 || Lo < 1 || Li < 1 || D < 1 || dd < 1 || dd > MAX_DIM || !tiles_ok ||
       (starts != nullptr && width < 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (H) {
-    case 1: launch<1>(mq, mk, scale, u, thr, starts, out, stats, B, Lo, Li, D, dd, keep_count, width, tile_rows, s); break;
-    case 2: launch<2>(mq, mk, scale, u, thr, starts, out, stats, B, Lo, Li, D, dd, keep_count, width, tile_rows, s); break;
-    case 4: launch<4>(mq, mk, scale, u, thr, starts, out, stats, B, Lo, Li, D, dd, keep_count, width, tile_rows, s); break;
-    case 8: launch<8>(mq, mk, scale, u, thr, starts, out, stats, B, Lo, Li, D, dd, keep_count, width, tile_rows, s); break;
-    default: return (int)cudaErrorInvalidValue;
+#define LAUNCH(HB) \
+  launch<HB>(mq, mk, scale, u, thr, starts, out, stats, H, B, Lo, Li, D, dd, keep_count, width, tile_rows, s)
+  switch (head_group(H)) {
+    case 1: return LAUNCH(1);
+    case 2: return LAUNCH(2);
+    case 3: return LAUNCH(3);
+    case 4: return LAUNCH(4);
+    case 5: return LAUNCH(5);
+    case 6: return LAUNCH(6);
+    case 7: return LAUNCH(7);
+    default: return LAUNCH(8);
   }
-  return (int)cudaGetLastError();
+#undef LAUNCH
 }

@@ -6,7 +6,7 @@
 // what a grid cell owns, and so in how often the distance matrix is read:
 // - posatt_fixed_fwd    <- _make_posatt_kernel_v3 (_posatt_fixed_raw_v3,
 //   version 3): a block owns a tile of rows and a tile of the batch-folded
-//   value columns, for all H heads;
+//   value columns, for all H heads (a group of them above 8 heads);
 // - posatt_fixed_fwd_v2 <- _posatt_kernel_v2 (_posatt_fixed_raw_v2,
 //   version 2): a block owns one head, a tile of rows and a tile of the
 //   batch-folded value columns;
@@ -56,11 +56,14 @@
 //   1 + CPL/4 shared-memory loads (the f32 rate, not shared memory, is the
 //   limit). For few columns a block holds fewer rows and longer L_in
 //   steps, so that there are more blocks and fewer barriers per element.
+// - A v3 block owns a group of HB <= 8 heads: HB = H up to 8 heads (the
+//   code of one group, GROUPED false), else ceil(H/8) groups as even as can
+//   be (6 + 6 at H = 12), one per blockIdx.z, a short last group masking
+//   its missing heads. Any head count is taken.
 // - A v1 or v2 block owns one head, so its accumulator holds one head's
 //   outputs and its column tile can be wider than v3's: the narrowest of
 //   32, 64, 128 or 256 columns that holds its columns (v1: the sample's D;
-//   v2: B*D). Any head count is taken; v3 is instantiated for 1, 2, 4, 8.
-//   The price of owning one head: each staged value feeds one head's
+//   v2: B*D). The price of owning one head: each staged value feeds one head's
 //   products, so at H = 2 a v1 or v2 block issues twice v3's shared-memory
 //   loads per FMA. Measured on the H100, that (and not the extra distance
 //   streaming, which L2 serves) makes them 1.4-1.7x v3 where the
@@ -126,18 +129,18 @@ __device__ __forceinline__ void lds<8>(const float* p, float (&v)[8]) {
   v[4] = r.x; v[5] = r.y; v[6] = r.z; v[7] = r.w;
 }
 
-// A block owns HB heads from h0, TLO = NWARPS*RPT rows and the value
-// columns [col0, col_end) of the batch-folded axis, at most TN = 32*CPL;
-// warp w owns rows [w*RPT, w*RPT + RPT), lane c owns columns
+// A block owns the heads [h0, h0 + HB) below H, TLO = NWARPS*RPT rows and
+// the value columns [col0, col_end) of the batch-folded axis, at most
+// TN = 32*CPL; warp w owns rows [w*RPT, w*RPT + RPT), lane c owns columns
 // [c*CPL, c*CPL + CPL) from col0.
-template <int SCHED, int HB, int NWARPS, int RPT, int CPL, int TLI>
+template <int SCHED, int HB, bool GROUPED, int NWARPS, int RPT, int CPL, int TLI>
 __global__ void __launch_bounds__(NWARPS * 32)
 posatt_fixed_fwd_kernel(const float* __restrict__ dist,   // (Lo, Li)
                         const float* __restrict__ thr,    // (Lo)
                         const float* __restrict__ scale,  // (H)
                         const float* __restrict__ u,      // (B, Li, D)
                         float* __restrict__ out,          // (B, Lo, H*D)
-                        int Lo, int Li, int D, int N, int HD, int ctiles) {
+                        int H, int Lo, int Li, int D, int N, int HD, int ctiles) {
   constexpr int THREADS = NWARPS * 32;
   constexpr int TLO = NWARPS * RPT;
   constexpr int TN = 32 * CPL;
@@ -155,7 +158,8 @@ posatt_fixed_fwd_kernel(const float* __restrict__ dist,   // (Lo, Li)
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int row0 = blockIdx.y * TLO;
-  const int h0 = SCHED == ALL_HEADS ? 0 : blockIdx.z;
+  // v1, v2: one head a block (HB = 1); v3: one group of heads
+  const int h0 = (SCHED != ALL_HEADS || GROUPED) ? blockIdx.z * HB : 0;
   int col0, col_end;
   if (SCHED == HEAD_SAMPLE) {  // sample b, column tile c of its D columns
     const int b = blockIdx.x / ctiles;
@@ -167,7 +171,8 @@ posatt_fixed_fwd_kernel(const float* __restrict__ dist,   // (Lo, Li)
     col_end = N;
   }
 
-  if (tid < HB) s_scale[tid] = scale[h0 + tid];
+  if (tid < HB)  // a missing head: finite
+    s_scale[tid] = (!GROUPED || h0 + tid < H) ? scale[h0 + tid] : 0.f;
   __syncthreads();
 
   // ---- pass 1: each row's softmax max and normaliser, one warp per row
@@ -276,12 +281,13 @@ posatt_fixed_fwd_kernel(const float* __restrict__ dist,   // (Lo, Li)
       const int b = n / D, k = n - b * D;
       float* dst = out + ((size_t)b * Lo + i) * HD + k;
 #pragma unroll
-      for (int h = 0; h < HB; ++h) dst[(h0 + h) * D] = acc[h][r][c];
+      for (int h = 0; h < HB; ++h)
+        if (!GROUPED || h0 + h < H) dst[(h0 + h) * D] = acc[h][r][c];
     }
   }
 }
 
-template <int SCHED, int HB, int NWARPS, int RPT, int CPL, int TLI>
+template <int SCHED, int HB, bool GROUPED, int NWARPS, int RPT, int CPL, int TLI>
 void launch_tiles(const float* dist, const float* thr, const float* scale,
                   const float* u, float* out, int H, int B, int Lo, int Li, int D,
                   cudaStream_t stream) {
@@ -289,21 +295,29 @@ void launch_tiles(const float* dist, const float* thr, const float* scale,
   const int N = B * D;
   const int ctiles = (D + TN - 1) / TN;  // column tiles of one sample (v1)
   const dim3 grid(SCHED == HEAD_SAMPLE ? B * ctiles : (N + TN - 1) / TN,
-                  (Lo + TLO - 1) / TLO, SCHED == ALL_HEADS ? 1 : H);
-  posatt_fixed_fwd_kernel<SCHED, HB, NWARPS, RPT, CPL, TLI><<<grid, NWARPS * 32, 0, stream>>>(
-      dist, thr, scale, u, out, Lo, Li, D, N, H * D, ctiles);
+                  (Lo + TLO - 1) / TLO, (H + HB - 1) / HB);
+  posatt_fixed_fwd_kernel<SCHED, HB, GROUPED, NWARPS, RPT, CPL, TLI><<<grid, NWARPS * 32, 0, stream>>>(
+      dist, thr, scale, u, out, H, Lo, Li, D, N, H * D, ctiles);
 }
 
-// v3: all H heads a block
-template <int H>
+// v3: a group of HB heads a block
+template <int HB, bool GROUPED>
 void launch_all_heads(const float* dist, const float* thr, const float* scale,
-                      const float* u, float* out, int B, int Lo, int Li, int D,
+                      const float* u, float* out, int H, int B, int Lo, int Li, int D,
                       cudaStream_t stream) {
   if (B * D <= 32)  // few columns: 8-row blocks, long L_in steps
-    launch_tiles<ALL_HEADS, H, 8, 1, 1, (H >= 8 ? 64 : 128)>(
+    launch_tiles<ALL_HEADS, HB, GROUPED, 8, 1, 1, (HB >= 8 ? 64 : 128)>(
         dist, thr, scale, u, out, H, B, Lo, Li, D, stream);
   else  // 16 x 128 blocks, 4 x 4 outputs per thread and head
-    launch_tiles<ALL_HEADS, H, 4, 4, 4, 32>(dist, thr, scale, u, out, H, B, Lo, Li, D, stream);
+    launch_tiles<ALL_HEADS, HB, GROUPED, 4, 4, 4, 32>(dist, thr, scale, u, out, H, B, Lo, Li, D,
+                                                      stream);
+}
+
+// heads per v3 block above 8 heads: ceil(H/8) groups as even as can be,
+// 5 to 8 heads each
+int head_group(int H) {
+  const int groups = (H + 7) / 8;
+  return (H + groups - 1) / groups;
 }
 
 // v1 and v2: one head a block, the narrowest column tile that holds
@@ -313,13 +327,13 @@ void launch_per_head(const float* dist, const float* thr, const float* scale,
                      const float* u, float* out, int H, int B, int Lo, int Li, int D,
                      int cols, cudaStream_t stream) {
   if (cols <= 32)  // 8 x 32
-    launch_tiles<SCHED, 1, 8, 1, 1, 128>(dist, thr, scale, u, out, H, B, Lo, Li, D, stream);
+    launch_tiles<SCHED, 1, false, 8, 1, 1, 128>(dist, thr, scale, u, out, H, B, Lo, Li, D, stream);
   else if (cols <= 64)  // 16 x 64
-    launch_tiles<SCHED, 1, 4, 4, 2, 32>(dist, thr, scale, u, out, H, B, Lo, Li, D, stream);
+    launch_tiles<SCHED, 1, false, 4, 4, 2, 32>(dist, thr, scale, u, out, H, B, Lo, Li, D, stream);
   else if (cols <= 128)  // 16 x 128
-    launch_tiles<SCHED, 1, 4, 4, 4, 32>(dist, thr, scale, u, out, H, B, Lo, Li, D, stream);
+    launch_tiles<SCHED, 1, false, 4, 4, 4, 32>(dist, thr, scale, u, out, H, B, Lo, Li, D, stream);
   else  // 32 x 256
-    launch_tiles<SCHED, 1, 8, 4, 8, 32>(dist, thr, scale, u, out, H, B, Lo, Li, D, stream);
+    launch_tiles<SCHED, 1, false, 8, 4, 8, 32>(dist, thr, scale, u, out, H, B, Lo, Li, D, stream);
 }
 
 bool bad_shape(int H, int B, int Lo, int Li, int D) {
@@ -335,11 +349,21 @@ extern "C" int posatt_fixed_fwd(const float* dist, const float* thr,
   if (bad_shape(H, B, Lo, Li, D)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (H) {
-    case 1: launch_all_heads<1>(dist, thr, scale, u, out, B, Lo, Li, D, s); break;
-    case 2: launch_all_heads<2>(dist, thr, scale, u, out, B, Lo, Li, D, s); break;
-    case 4: launch_all_heads<4>(dist, thr, scale, u, out, B, Lo, Li, D, s); break;
-    case 8: launch_all_heads<8>(dist, thr, scale, u, out, B, Lo, Li, D, s); break;
-    default: return (int)cudaErrorInvalidValue;
+    case 1: launch_all_heads<1, false>(dist, thr, scale, u, out, H, B, Lo, Li, D, s); break;
+    case 2: launch_all_heads<2, false>(dist, thr, scale, u, out, H, B, Lo, Li, D, s); break;
+    case 3: launch_all_heads<3, false>(dist, thr, scale, u, out, H, B, Lo, Li, D, s); break;
+    case 4: launch_all_heads<4, false>(dist, thr, scale, u, out, H, B, Lo, Li, D, s); break;
+    case 5: launch_all_heads<5, false>(dist, thr, scale, u, out, H, B, Lo, Li, D, s); break;
+    case 6: launch_all_heads<6, false>(dist, thr, scale, u, out, H, B, Lo, Li, D, s); break;
+    case 7: launch_all_heads<7, false>(dist, thr, scale, u, out, H, B, Lo, Li, D, s); break;
+    case 8: launch_all_heads<8, false>(dist, thr, scale, u, out, H, B, Lo, Li, D, s); break;
+    default:
+      switch (head_group(H)) {
+        case 5: launch_all_heads<5, true>(dist, thr, scale, u, out, H, B, Lo, Li, D, s); break;
+        case 6: launch_all_heads<6, true>(dist, thr, scale, u, out, H, B, Lo, Li, D, s); break;
+        case 7: launch_all_heads<7, true>(dist, thr, scale, u, out, H, B, Lo, Li, D, s); break;
+        default: launch_all_heads<8, true>(dist, thr, scale, u, out, H, B, Lo, Li, D, s); break;
+      }
   }
   return (int)cudaGetLastError();
 }

@@ -14,47 +14,71 @@
 // dscale -> d(loss)/d(scale) per sample and head, (B, H); dv ->
 // d(loss)/d(values), (B, Li, H*V), on the extended key axis for the
 // coordinate kernel (the caller's concat routes the wrap margin's share
-// back). Notation as in posatt_tf_fwd.cu, plus the output's cotangent g
-// (B, Lo, H*V) and the forward's row statistics stats (B, H+2, Lo): dmin,
-// the keep threshold t and the reciprocal denominators rden_h. On a kept
-// entry (j in the row's window, d <= t)
+// back). Notation as in posatt_tf_fwd.cu, plus the forward's output O and
+// its cotangent G (B, Lo, H*V), and the forward's row statistics stats
+// (B, H+2, Lo): dmin, the keep threshold t and the reciprocal denominators
+// rden_h. On a kept entry (j in the row's window, d <= t), with
+// x = d - dmin >= 0,
 //
-//   P_h[i,j] = exp(-(d[i,j] - dmin[i]) * scale[h]) * rden_h[i]
+//   P_h[i,j] = exp(-x[i,j] * scale[h]) * rden_h[i]
 //
 // and P is exactly 0 elsewhere. Distances are recomputed in the forward's
 // op order without FMA contraction, so the kept sets are the forward's.
 //
-// The TPU kernels walk a sample's row tiles in order and carry dValues and
-// dScale across grid steps; blocks on the card run in parallel and carry
-// nothing, so the work is split as posatt_batched_bwd.cu splits it:
+// dscale: the TPU kernel sums, per row, r = sum_j P T, v = sum_j P (-d)
+// and w = sum_j P T (-d) with T = G_h V_h^T, and returns
+// sum_i (w_i - r_i v_i). Since r_i = G_i . O_i (O_i = sum_j P_ij V_j is
+// the forward's output row), that is
 //
-// dscale: the TPU kernel sums, per row, r = sum_j P T, v = sum_j P (-d) and
-// w = sum_j P T (-d) with T = G_h V_h^T, and returns sum_i (w_i - r_i v_i),
+//   ds[b,h] = sum_{i,k} G_h[i,k] * (Y_h[i,k] - v_i O_h[i,k]),
+//   Y_h = W_h V_h,  W_h = P_h (-x),  v_i = sum_j W_h[i,j]
 //
-//   ds[b,h] = sum_{i,k} G_h[i,k] * (Q_h V_h)[i,k],   Q_h = P_h (-d - v_h),
+// with x in place of d: the two differ by dmin_i r_i (1 - sum_j P_ij),
+// zero but for rounding, and the smaller x keeps the cancellation in
+// Y - v O small. One pass over the kept entries gives both Y and v: no
+// separate pass for v. Per-block partials are summed per (sample, head)
+// in a fixed order by a second kernel: the same bits on every run, no
+// float atomics.
 //
-// so the product with V_h is the forward's contraction with weights Q. A
-// block owns one head, a tile of its value columns and 16 rows: a prologue
-// finds v per row (a warp per row), the column loop stages Q and V_h and
-// contracts, the epilogue multiplies by G_h and reduces to one partial per
-// block. A second kernel sums each (sample, head)'s partials in a fixed
-// order: the same bits on every run, no float atomics.
+// dv: dV_h = P_h^T G_h. Each dv element is written by one block.
 //
-// dv: dV_h = P_h^T G_h. A block owns 16 key rows j of one sample, one head
-// and a tile of its value columns; it walks only the band tiles whose
-// window meets its key rows (every row without a band), stages P_h
-// recomputed from the statistics and the matching rows of G_h per step of
-// 32 rows, and skips a step without a kept entry before loading G_h. Each
-// dv element is written by one block: no atomics.
+// Both are one contraction over the kept entries, 2*V operations per kept
+// entry and head, with the roles of rows and keys swapped: a block owns 32
+// "owned" indices (dscale: rows i; dv: keys j) of one sample, a group of HG
+// heads (a warp each) and 64 value columns of each, and streams over the
+// other index (dscale: the keys of its band window; dv: the rows of the
+// band tiles whose windows meet its keys, every row without a band).
 //
-// What bounds them on this card: each does 2*V operations per kept entry
-// and head (2*H*V in all) plus the distance's 3*dd, and moves the
-// coordinates (or distances), values, statistics and cotangent once. At the
-// elasticity_tf processor (every entry of a 972 x 972 window kept, H*V =
-// 512) the f32 CUDA-core rate bounds both; at the banded encoder and decoder
-// bytes do, and the kernels inspect every column of the band. Tensor cores
-// are not used (TF32 would not hold parity with the f32 oracle), there is no
-// fast math, and ragged edges are masked by index.
+// What bounds them on this card: 2*H*V operations per kept entry (plus 3*dd
+// per distance inspected) against moving the coordinates (or distances),
+// values, output, statistics and cotangent once. At the elasticity_tf
+// processor (every entry of a 972 x 972 window kept, H*V = 512) the f32
+// CUDA-core rate bounds both; at the banded encoder and decoder (about 20
+// of a 384-column window kept per row) bytes do. What the design does:
+// - The kept set d <= t does not depend on the head: a block computes each
+//   (i, j) distance once for its heads, and each warp computes its head's
+//   weight once per kept entry.
+// - Only kept work is contracted: the block first lists, in order, the
+//   streamed indices that keep an entry with any of its owned indices
+//   (a compaction by warp ballots in shared memory), then contracts over
+//   that list in steps of 16, gathering the V or G rows it names. With
+//   angle-sorted clouds a 32-row tile keeps a few dozen of its window's 384
+//   columns.
+// - Register tiles of 8 x 8 outputs per lane, read from shared memory as
+//   float4s laid out so that a warp's loads are conflict-free: 64 FMAs per
+//   four 16-byte loads.
+// - The steps are pipelined, with one block barrier each: while step s is
+//   weighted and contracted, step s + 1's V or G rows are in flight
+//   (cp.async, 16-byte pieces where V % 4 == 0) and the loads of its x tile
+//   are in registers; the tile is computed after step s's products.
+// - The compaction tests eight owned indices at a time, so that their
+//   loads are in flight together.
+// - Row statistics and owned coordinates are staged once per block in
+//   shared memory.
+// PERF.md says what holds them: the per-step chain of tile loads, barrier,
+// exp (one per 64 FMAs at V = 64) and row copies, more than the FMAs.
+// Tensor cores are not used (TF32 would not hold parity with the f32
+// oracle), there is no fast math, and ragged edges are masked by index.
 //
 // Every function launches on the caller's stream, allocates nothing, and
 // returns cudaGetLastError() after its launches.
@@ -66,11 +90,13 @@
 namespace {
 
 constexpr int MAX_DIM = 4;
-constexpr int TLO = 16;  // rows per dscale block, key rows per dv block
-constexpr int NWARPS = 4;
-constexpr int RPT = 4;
-constexpr int TLI = 32;  // window columns (dscale) or rows (dv) per step
-constexpr int THREADS = NWARPS * 32;
+constexpr int TM = 32;      // owned indices a block: rows (dscale) or keys (dv)
+constexpr int TK = 16;      // streamed indices a step
+constexpr int TN = 64;      // value columns of each head a block
+constexpr int LCAP = 1024;  // the compacted list of streamed indices
+// blocks of four warps resident on an SM: up to 168 registers a thread,
+// none spilled at four heads (the cap of four blocks, 128, spills)
+constexpr int MIN_BLOCKS = 3;
 
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -90,16 +116,30 @@ __device__ __forceinline__ float sqdist(const float (&q)[MAX_DIM], const float* 
   return d;
 }
 
-template <int N>
-__device__ __forceinline__ void lds(const float* p, float (&v)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) v[i] = p[i];
-}
-template <>
-__device__ __forceinline__ void lds<4>(const float* p, float (&v)[4]) {
+__device__ __forceinline__ void lds4(const float* p, float* v) {
   const float4 q = *reinterpret_cast<const float4*>(p);
   v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
 }
+
+// an asynchronous 4-byte copy to shared memory; zero-filled when !ok
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool ok) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+               "r"(ok ? 4 : 0));
+}
+
+// an asynchronous 16-byte copy to shared memory; zero-filled when !ok
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool ok) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(ok ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+// wait until at most N of this thread's committed copy groups are pending
+template <int N>
+__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
 
 // The inputs of one launch. COORDS: distances from mq/mk (and the band);
 // otherwise read from dist.
@@ -109,12 +149,14 @@ struct Args {
   const float* mk;      // (B, Li, dd) or null
   const float* scale;   // (H)
   const float* values;  // (B, Li, H*V); dscale only
+  const float* out;     // the forward's output O (B, Lo, H*V); dscale only
   const float* g;       // (B, Lo, H*V)
   const float* stats;   // (B, H+2, Lo)
   const int* starts;    // (B, n_tiles) or null
   float* partial;       // (B, H, nparts); dscale only
-  float* out;           // ds (B, H) or dv (B, Li, H*V)
+  float* res;           // ds (B, H) or dv (B, Li, H*V)
   int Lo, Li, H, V, dd, width, tile_rows, n_tiles;
+  bool vec4;            // the V or G rows copy in 16-byte pieces (V % 4 == 0, aligned)
 };
 
 // the window [*j_begin, *j_end) of band tile t of sample b; the whole key
@@ -126,151 +168,370 @@ __device__ __forceinline__ void window(const Args& a, int b, int t, int* j_begin
   *j_end = min(s + a.width, a.Li);
 }
 
-// --------------------------------------------------------------- dscale
+// What a block keeps in shared memory (dynamic: above the 48 KB of a
+// static allocation). The step's x and the V or G rows are double
+// buffered: step s + 1's are written while step s's are used.
+template <int HG>
+struct Smem {
+  __align__(16) float v[2][HG][TK][TN];  // each head's V (dscale) or G (dv) rows
+  __align__(16) float w[HG][TK][TM];     // each head's weights: W (dscale) or P (dv)
+  float x[2][TK][TM + 1];  // x = d - dmin of a step's entries, -1 where not kept
+  int list[LCAP];          // the streamed indices that keep an entry
+  float oq[TM][MAX_DIM];   // the owned indices' coordinates
+  float odmin[TM], othr[TM];  // dscale: the owned rows' statistics
+  float orden[HG][TM];
+  float srden[2][HG][TK];  // dv: the step's rows' rden per head
+  float vrow[HG][TM];      // dscale: v_i per head
+  int cnt[HG];
+};
 
-template <bool COORDS, int CPL>
-__global__ void __launch_bounds__(THREADS) dscale_kernel(const Args a) {
-  constexpr int TN = 32 * CPL;
-  static_assert(THREADS % TLO == 0 && THREADS % TN == 0, "tile shape");
-  static_assert((TLI * TN) % THREADS == 0 && (TLI * TLO) % THREADS == 0, "steps");
-  __shared__ __align__(16) float s_w[TLI][TLO];  // Q = P (-d - v)
-  __shared__ __align__(16) float s_v[TLI][TN];   // the head's values
-  __shared__ float s_q[TLO][MAX_DIM];
-  __shared__ float s_dmin[TLO];
-  __shared__ float s_thr[TLO];
-  __shared__ float s_rden[TLO];
-  __shared__ float s_nv[TLO];  // sum_j P (-d)
-  __shared__ float s_red[NWARPS];
+// A streamed index c of sample b (dscale: key c; dv: row c) and what the
+// entries with the owned indices need of it: the coordinates, and for a
+// row its keep threshold and bare minimum.
+template <bool COORDS>
+struct Streamed {
+  float q[COORDS ? MAX_DIM : 1];
+  float t, mn;
+  int c;
+  bool ok;
+};
 
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
+template <bool COORDS, bool DV>
+__device__ __forceinline__ Streamed<COORDS> streamed(const Args& a, int b, int c, bool ok) {
+  Streamed<COORDS> st;
+  st.c = ok ? c : 0;
+  st.ok = ok;
+  const float* src = DV ? a.mq + ((size_t)b * a.Lo + st.c) * a.dd
+                        : (COORDS ? a.mk + ((size_t)b * a.Li + st.c) * a.dd : nullptr);
+  if constexpr (COORDS) {
+#pragma unroll
+    for (int k = 0; k < MAX_DIM; ++k) st.q[k] = k < a.dd ? __ldg(src + k) : 0.f;
+  }
+  if (DV) {
+    const float* stb = a.stats + (size_t)b * (a.H + 2) * a.Lo;
+    st.t = __ldg(stb + a.Lo + st.c);
+    st.mn = __ldg(stb + st.c);
+  }
+  return st;
+}
+
+// The block's owned indices are o0 + o, o < TM, of sample b. The distance
+// of the entry between owned index o and the streamed index (dscale: row
+// o0 + o, key st.c; dv: row st.c, key o0 + o) from the coordinates, or read
+// from dist.
+template <bool COORDS, bool DV, int HG>
+__device__ __forceinline__ float entry_dist(const Args& a, const Smem<HG>& sm, int b, int o0,
+                                            int o, const Streamed<COORDS>& st) {
+  if constexpr (COORDS) {
+    return DV ? sqdist(st.q, sm.oq[o], a.dd) : sqdist(sm.oq[o], st.q, a.dd);
+  } else {
+    const int i = DV ? st.c : o0 + o;
+    const int j = DV ? o0 + o : st.c;
+    return __ldg(a.dist + ((size_t)b * a.Lo + min(i, a.Lo - 1)) * a.Li + min(j, a.Li - 1));
+  }
+}
+
+// x of that entry, whose distance is d, when it is kept, else -1. [wb, we)
+// is the window of the band tile the rows are in.
+template <bool COORDS, bool DV, int HG>
+__device__ __forceinline__ float kept_x(const Args& a, const Smem<HG>& sm, int o0, int o,
+                                        const Streamed<COORDS>& st, float d, int wb, int we) {
+  const int i = DV ? st.c : o0 + o;
+  const int j = DV ? o0 + o : st.c;
+  if (!st.ok || i >= a.Lo || j < wb || j >= we) return -1.f;
+  const float t = DV ? st.t : sm.othr[o];
+  const float mn = DV ? st.mn : sm.odmin[o];
+  return d <= t ? __fsub_rn(d, mn) : -1.f;
+}
+
+// Block-uniform: appends to sm.list, from *n on, the streamed indices of
+// [*c, c_end) that keep an entry with an owned index, in order, until the
+// range ends or the list has no room for another round; advances *c.
+template <bool COORDS, bool DV, int HG>
+__device__ void compact(const Args& a, Smem<HG>& sm, int b, int o0, int* c, int c_end, int wb,
+                        int we, int* n) {
+  constexpr int THREADS = HG * 32;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  while (*c < c_end && *n + THREADS <= LCAP) {
+    const int cand = *c + tid;
+    const Streamed<COORDS> st = streamed<COORDS, DV>(a, b, cand, cand < c_end);
+    bool any = false;
+    // eight owned indices at a time: their loads in flight together
+    for (int o = 0; o < TM && !any; o += 8) {
+      float d[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) d[u] = entry_dist<COORDS, DV, HG>(a, sm, b, o0, o + u, st);
+#pragma unroll
+      for (int u = 0; u < 8; ++u)
+        any |= kept_x<COORDS, DV, HG>(a, sm, o0, o + u, st, d[u], wb, we) >= 0.f;
+    }
+    const unsigned m = __ballot_sync(0xffffffffu, any);
+    if (lane == 0) sm.cnt[warp] = __popc(m);
+    __syncthreads();
+    int off = *n, total = *n;
+    for (int w = 0; w < HG; ++w) {
+      if (w < warp) off += sm.cnt[w];
+      total += sm.cnt[w];
+    }
+    if (any) sm.list[off + __popc(m & ((1u << lane) - 1u))] = cand;
+    __syncthreads();  // the counts are read before the next round writes them
+    *n = total;
+    *c += THREADS;
+  }
+}
+
+// A block: the owned tile blockIdx.y of sample blockIdx.z; head group and
+// column tile from blockIdx.x. Warp h owns head h0 + h; lane (og, cg) =
+// (lane / 8, lane % 8) owns the owned indices og*4 + {0..3} and
+// 16 + og*4 + {0..3} and the columns cg*4 + {0..3} and 32 + cg*4 + {0..3}
+// of the tile.
+template <bool COORDS, bool DV, int HG>
+__global__ void __launch_bounds__(HG * 32, MIN_BLOCKS * 4 / HG) tf_bwd_kernel(const Args a) {
+  constexpr int THREADS = HG * 32;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Smem<HG>& sm = *reinterpret_cast<Smem<HG>*>(smem_raw);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int n_ct = (a.V + TN - 1) / TN;
-  const int h = blockIdx.x / n_ct;
-  const int ct = blockIdx.x - h * n_ct;
+  const int grp = blockIdx.x / n_ct;
+  const int ct = blockIdx.x - grp * n_ct;
   const int col0 = ct * TN;
-  const int row0 = blockIdx.y * TLO;
+  const int h0 = grp * HG;
+  const int h = h0 + warp;  // this warp's head
+  const bool head_ok = h < a.H;
+  const int o0 = blockIdx.y * TM;
   const int b = blockIdx.z;
   const int Lo = a.Lo, Li = a.Li, HV = a.H * a.V;
-  const float s = a.scale[h];
-  const float* distb = COORDS ? nullptr : a.dist + (size_t)b * Lo * Li;
-  const float* mkb = COORDS ? a.mk + (size_t)b * Li * a.dd : nullptr;
-  const float* vb = a.values + (size_t)b * Li * HV + (size_t)h * a.V;
+  const float s = head_ok ? a.scale[h] : 0.f;
   const float* stb = a.stats + (size_t)b * (a.H + 2) * Lo;
-  int j_begin, j_end;
-  window(a, b, row0 / a.tile_rows, &j_begin, &j_end);
 
-  for (int r = tid; r < TLO; r += THREADS) {
-    const int i = row0 + r;
-    s_dmin[r] = i < Lo ? stb[i] : 0.f;
-    s_thr[r] = i < Lo ? stb[Lo + i] : -INFINITY;  // a padded row keeps nothing
-    s_rden[r] = i < Lo ? stb[(size_t)(2 + h) * Lo + i] : 0.f;
-  }
+  // ---- the owned indices' coordinates and (dscale) row statistics
   if (COORDS) {
-    for (int e = tid; e < TLO * MAX_DIM; e += THREADS) {
-      const int r = e / MAX_DIM, c = e - r * MAX_DIM;
-      const int i = row0 + r;
-      s_q[r][c] = (i < Lo && c < a.dd) ? a.mq[((size_t)b * Lo + i) * a.dd + c] : 0.f;
+    for (int e = tid; e < TM * MAX_DIM; e += THREADS) {
+      const int o = e / MAX_DIM, k = e - o * MAX_DIM;
+      const int i = o0 + o;
+      const int L = DV ? Li : Lo;
+      const float* src = DV ? a.mk : a.mq;
+      sm.oq[o][k] = (i < L && k < a.dd) ? src[((size_t)b * L + i) * a.dd + k] : 0.f;
+    }
+  }
+  if (!DV) {
+    for (int o = tid; o < TM; o += THREADS) {
+      const int i = o0 + o;
+      sm.odmin[o] = i < Lo ? stb[i] : 0.f;
+      sm.othr[o] = i < Lo ? stb[Lo + i] : -INFINITY;
+    }
+    for (int e = tid; e < HG * TM; e += THREADS) {
+      const int hh = e / TM, o = e - hh * TM;
+      const int i = o0 + o;
+      sm.orden[hh][o] =
+          (i < Lo && h0 + hh < a.H) ? stb[(size_t)(2 + h0 + hh) * Lo + i] : 0.f;
     }
   }
   __syncthreads();
 
-  auto dist_at = [&](int r, int i, int j) -> float {
-    if constexpr (COORDS) {
-      float q[MAX_DIM];
+  const int og = lane >> 3, cg = lane & 7;
+  float acc[8][8];
 #pragma unroll
-      for (int c = 0; c < MAX_DIM; ++c) q[c] = s_q[r][c];
-      return sqdist(q, mkb + (size_t)j * a.dd, a.dd);
+  for (int r = 0; r < 8; ++r)
+#pragma unroll
+    for (int c = 0; c < 8; ++c) acc[r][c] = 0.f;
+  float vsum = 0.f;  // dscale: v of row o0 + lane, this warp's head
+  const float ord = DV ? 0.f : sm.orden[warp][lane];
+  // the rows whose V (dscale) or G (dv) values this warp stages
+  const float* vsrc = (DV ? a.g + (size_t)b * Lo * HV : a.values + (size_t)b * Li * HV) +
+                      (size_t)(head_ok ? h : 0) * a.V + col0;
+  const bool c0_ok = col0 + lane < a.V, c1_ok = col0 + lane + 32 < a.V;
+
+  // A thread's share of a step's x tile: FILL entries (k, o). k runs
+  // fastest (one streamed index a thread: a row's keys are contiguous in
+  // dist), but for dv over dist, where o does (a key row is).
+  constexpr int FILL = TK * TM / THREADS;
+  constexpr bool O_FASTEST = DV && !COORDS;
+  constexpr int NST = O_FASTEST ? FILL : 1;  // streamed indices a thread
+  auto entry = [&](int q, int* k, int* o) {
+    const int e = tid + q * THREADS;
+    *k = O_FASTEST ? e / TM : e % TK;
+    *o = O_FASTEST ? e % TM : e / TK;
+  };
+  // what a thread's share of step s0's fill reads from device memory,
+  // loaded a step ahead so that the loads are in flight during a
+  // contraction
+  struct Pending {
+    Streamed<COORDS> st[NST];
+    float d[FILL];
+    float rden;  // dv: one of the step's rows' rden
+  };
+  auto fill_load = [&](int s0, int n) {
+    Pending p;
+#pragma unroll
+    for (int u = 0; u < NST; ++u) {
+      int k, o;
+      entry(u, &k, &o);
+      const bool ok = s0 + k < n;
+      p.st[u] = streamed<COORDS, DV>(a, b, ok ? sm.list[s0 + k] : 0, ok);
+    }
+#pragma unroll
+    for (int q = 0; q < FILL; ++q) {
+      int k, o;
+      entry(q, &k, &o);
+      p.d[q] = COORDS ? 0.f
+                      : entry_dist<COORDS, DV, HG>(a, sm, b, o0, o, p.st[O_FASTEST ? q : 0]);
+    }
+    p.rden = 0.f;
+    if (DV && tid < HG * TK) {
+      const int hh = tid / TK, k = tid - hh * TK;
+      if (s0 + k < n && h0 + hh < a.H)
+        p.rden = stb[(size_t)(2 + h0 + hh) * Lo + sm.list[s0 + k]];
+    }
+    return p;
+  };
+  // x (and for dv the rows' rden) of a step into buffer xb
+  auto fill_store = [&](const Pending& p, int xb, int wb, int we) {
+#pragma unroll
+    for (int q = 0; q < FILL; ++q) {
+      int k, o;
+      entry(q, &k, &o);
+      const Streamed<COORDS>& st = p.st[O_FASTEST ? q : 0];
+      const float d = COORDS ? entry_dist<COORDS, DV, HG>(a, sm, b, o0, o, st) : p.d[q];
+      sm.x[xb][k][o] = kept_x<COORDS, DV, HG>(a, sm, o0, o, st, d, wb, we);
+    }
+    if (DV && tid < HG * TK) sm.srden[xb][tid / TK][tid % TK] = p.rden;
+  };
+  // warp: start copying this head's V or G rows of step s0 into buffer vb
+  auto stage = [&](int s0, int n, int vb) {
+    if (a.vec4) {  // 16 pieces of 4 columns a row
+#pragma unroll
+      for (int q = 0; q < TK * TN / 4 / 32; ++q) {
+        const int e = lane + q * 32;
+        const int k = e / (TN / 4), c4 = (e - k * (TN / 4)) * 4;
+        const bool ok = s0 + k < n && col0 + c4 < a.V;
+        const float* p = vsrc + (size_t)(s0 + k < n ? sm.list[s0 + k] : 0) * HV + c4;
+        cp_async16(&sm.v[vb][warp][k][c4], ok ? p : vsrc, ok);
+      }
     } else {
-      return distb[(size_t)i * Li + j];
+#pragma unroll
+      for (int k = 0; k < TK; ++k) {
+        const bool ok = s0 + k < n;
+        const float* p = vsrc + (size_t)(ok ? sm.list[s0 + k] : 0) * HV;
+        cp_async4(&sm.v[vb][warp][k][lane], ok && c0_ok ? p + lane : vsrc, ok && c0_ok);
+        cp_async4(&sm.v[vb][warp][k][lane + 32], ok && c1_ok ? p + lane + 32 : vsrc,
+                  ok && c1_ok);
+      }
+    }
+    cp_async_commit();
+  };
+
+  // contract over the listed streamed indices [0, n), pipelined: while
+  // step s is weighted and contracted, step s + 1's rows are in flight and
+  // its x is computed; one block barrier a step
+  auto contract = [&](int n, int wb, int we) {
+    if (n == 0) return;  // block-uniform
+    fill_store(fill_load(0, n), 0, wb, we);
+    if (head_ok) stage(0, n, 0);
+    __syncthreads();
+    int buf = 0;
+    for (int s0 = 0; s0 < n; s0 += TK, buf ^= 1) {
+      const bool more = s0 + TK < n;
+      const Pending next = fill_load(s0 + TK, n);  // nothing past the list
+      if (head_ok) {  // warp-uniform
+        if (more) stage(s0 + TK, n, buf ^ 1);
+        // this head's weights: lane = owned index
+#pragma unroll
+        for (int k = 0; k < TK; ++k) {
+          const float x = sm.x[buf][k][lane];
+          float w = 0.f;
+          if (x >= 0.f) {
+            if (DV) {
+              w = expf(-x * s) * sm.srden[buf][warp][k];
+            } else {
+              w = expf(-x * s) * ord * -x;
+              vsum += w;
+            }
+          }
+          sm.w[warp][k][lane] = w;
+        }
+        if (more) cp_async_wait<1>(); else cp_async_wait<0>();
+        __syncwarp();
+#pragma unroll
+        for (int k = 0; k < TK; ++k) {
+          float wv[8], vv[8];
+          lds4(&sm.w[warp][k][og * 4], wv);
+          lds4(&sm.w[warp][k][16 + og * 4], wv + 4);
+          lds4(&sm.v[buf][warp][k][cg * 4], vv);
+          lds4(&sm.v[buf][warp][k][32 + cg * 4], vv + 4);
+#pragma unroll
+          for (int r = 0; r < 8; ++r)
+#pragma unroll
+            for (int c = 0; c < 8; ++c) acc[r][c] = fmaf(wv[r], vv[c], acc[r][c]);
+        }
+      }
+      if (more) fill_store(next, buf ^ 1, wb, we);
+      __syncthreads();  // step s's buffers are free, step s + 1's x is visible
     }
   };
 
-  // ---- prologue: v[i] = sum_j P[i,j] * (-d_ij), a warp per row
-  for (int r = warp; r < TLO; r += NWARPS) {
-    const int i = row0 + r;
-    const float t = s_thr[r], mn = s_dmin[r], rd = s_rden[r];
-    float v = 0.f;
-    if (i < Lo) {
-      for (int j = j_begin + lane; j < j_end; j += 32) {
-        const float d = dist_at(r, i, j);
-        if (d <= t) v += expf(-__fsub_rn(d, mn) * s) * rd * -d;
+  // ---- the streamed ranges: compact, then contract
+  if (!DV) {
+    int wb, we;
+    window(a, b, o0 / a.tile_rows, &wb, &we);
+    for (int c = wb; c < we;) {
+      int n = 0;
+      compact<COORDS, DV, HG>(a, sm, b, o0, &c, we, wb, we, &n);
+      contract(n, wb, we);
+    }
+  } else {
+    const int n_t = a.starts != nullptr ? a.n_tiles : 1;
+    for (int t = 0; t < n_t; ++t) {
+      int wb, we;
+      window(a, b, t, &wb, &we);
+      if (max(wb, o0) >= min(we, min(o0 + TM, Li))) continue;  // no owned key in the window
+      const int i_end = a.starts != nullptr ? min((t + 1) * a.tile_rows, Lo) : Lo;
+      for (int c = a.starts != nullptr ? t * a.tile_rows : 0; c < i_end;) {
+        int n = 0;
+        compact<COORDS, DV, HG>(a, sm, b, o0, &c, i_end, wb, we, &n);
+        contract(n, wb, we);
       }
     }
-    v = warp_sum(v);
-    if (lane == 0) s_nv[r] = v;
   }
-  __syncthreads();
+  if (!head_ok) return;  // warp-uniform; no block barrier follows
 
-  // ---- Y = Q V_h over column steps, skipping steps without a kept entry
-  const int rp = tid % TLO;
-  const int ip = row0 + rp;
-  const float tp = s_thr[rp], dminp = s_dmin[rp], rdp = s_rden[rp], nvp = s_nv[rp];
-  const int cv = tid % TN;
-  const bool col_ok = col0 + cv < a.V;
-
-  float acc[RPT][CPL];
+  // ---- epilogue
+  const int rows[8] = {og * 4, og * 4 + 1, og * 4 + 2, og * 4 + 3,
+                       16 + og * 4, 16 + og * 4 + 1, 16 + og * 4 + 2, 16 + og * 4 + 3};
+  const int cols[8] = {cg * 4, cg * 4 + 1, cg * 4 + 2, cg * 4 + 3,
+                       32 + cg * 4, 32 + cg * 4 + 1, 32 + cg * 4 + 2, 32 + cg * 4 + 3};
+  if (DV) {
 #pragma unroll
-  for (int r = 0; r < RPT; ++r)
+    for (int r = 0; r < 8; ++r) {
+      const int j = o0 + rows[r];
+      if (j >= Li) continue;
+      float* dst = a.res + ((size_t)b * Li + j) * HV + (size_t)h * a.V + col0;
 #pragma unroll
-    for (int c = 0; c < CPL; ++c) acc[r][c] = 0.f;
-
-  for (int j0 = j_begin; j0 < j_end; j0 += TLI) {
-    int any = 0;
-#pragma unroll
-    for (int q = 0; q < TLI * TLO / THREADS; ++q) {
-      const int jj = tid / TLO + q * (THREADS / TLO);
-      const int j = j0 + jj;
-      const bool ok = ip < Lo && j < j_end;
-      const float d = ok ? dist_at(rp, ip, j) : 0.f;
-      const bool k = ok && d <= tp;
-      any |= k;
-      s_w[jj][rp] = k ? expf(-__fsub_rn(d, dminp) * s) * rdp * (-d - nvp) : 0.f;
+      for (int c = 0; c < 8; ++c)
+        if (col0 + cols[c] < a.V) dst[cols[c]] = acc[r][c];
     }
-    if (__syncthreads_or(any)) {
+  } else {
+    // sum over the block's (i, k) of G * (Y - v O)
+    sm.vrow[warp][lane] = vsum;
+    __syncwarp();
+    float part = 0.f;
 #pragma unroll
-      for (int q = 0; q < TLI * TN / THREADS; ++q) {
-        const int jj = tid / TN + q * (THREADS / TN);
-        const int j = j0 + jj;
-        s_v[jj][cv] = (col_ok && j < j_end) ? vb[(size_t)j * HV + col0 + cv] : 0.f;
-      }
-      __syncthreads();
-#pragma unroll 4
-      for (int jj = 0; jj < TLI; ++jj) {
-        float vv[CPL], wv[RPT];
-        lds<CPL>(&s_v[jj][lane * CPL], vv);
-        lds<RPT>(&s_w[jj][warp * RPT], wv);
+    for (int r = 0; r < 8; ++r) {
+      const int i = o0 + rows[r];
+      if (i >= Lo) continue;
+      const float vi = sm.vrow[warp][rows[r]];
+      const size_t base = ((size_t)b * Lo + i) * HV + (size_t)h * a.V + col0;
 #pragma unroll
-        for (int r = 0; r < RPT; ++r)
-#pragma unroll
-          for (int c = 0; c < CPL; ++c) acc[r][c] = fmaf(wv[r], vv[c], acc[r][c]);
-      }
+      for (int c = 0; c < 8; ++c)
+        if (col0 + cols[c] < a.V)
+          part = fmaf(a.g[base + cols[c]], acc[r][c] - vi * a.out[base + cols[c]], part);
     }
-    __syncthreads();
-  }
-
-  // ---- epilogue: sum over the block's (i, k) of G_h * Y
-  float part = 0.f;
-#pragma unroll
-  for (int r = 0; r < RPT; ++r) {
-    const int i = row0 + warp * RPT + r;
-    if (i >= Lo) continue;
-    const float* gp = a.g + ((size_t)b * Lo + i) * HV + (size_t)h * a.V + col0;
-#pragma unroll
-    for (int c = 0; c < CPL; ++c) {
-      const int n = lane * CPL + c;
-      if (col0 + n < a.V) part = fmaf(acc[r][c], gp[n], part);
+    part = warp_sum(part);
+    if (lane == 0) {
+      const size_t nparts = (size_t)gridDim.y * n_ct;
+      a.partial[((size_t)b * a.H + h) * nparts + (size_t)blockIdx.y * n_ct + ct] = part;
     }
-  }
-  part = warp_sum(part);
-  if (lane == 0) s_red[warp] = part;
-  __syncthreads();
-  if (tid == 0) {
-    float sum = 0.f;
-#pragma unroll
-    for (int w = 0; w < NWARPS; ++w) sum += s_red[w];
-    const size_t nparts = (size_t)gridDim.y * n_ct;
-    a.partial[((size_t)b * a.H + h) * nparts + (size_t)blockIdx.y * n_ct + ct] = sum;
   }
 }
 
@@ -286,208 +547,96 @@ sum_partials_kernel(const float* __restrict__ partial, float* __restrict__ ds, i
   if (lane == 0) ds[bh] = s;
 }
 
-// ------------------------------------------------------------------- dv
-
-template <bool COORDS, int CPL>
-__global__ void __launch_bounds__(THREADS) dv_kernel(const Args a) {
-  constexpr int TN = 32 * CPL;
-  static_assert(THREADS % TN == 0 && (TLI * TN) % THREADS == 0, "tile shape");
-  __shared__ __align__(16) float s_p[TLI][TLO];  // rows i by the block's key rows
-  __shared__ __align__(16) float s_g[TLI][TN];
-  __shared__ float s_k[TLO][MAX_DIM];  // the block's key coordinates
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int n_ct = (a.V + TN - 1) / TN;
-  const int h = blockIdx.x / n_ct;
-  const int ct = blockIdx.x - h * n_ct;
-  const int col0 = ct * TN;
-  const int j0 = blockIdx.y * TLO;
-  const int b = blockIdx.z;
-  const int Lo = a.Lo, Li = a.Li, HV = a.H * a.V;
-  const float s = a.scale[h];
-  const float* distb = COORDS ? nullptr : a.dist + (size_t)b * Lo * Li;
-  const float* mqb = COORDS ? a.mq + (size_t)b * Lo * a.dd : nullptr;
-  const float* stb = a.stats + (size_t)b * (a.H + 2) * Lo;
-  const float* rden = stb + (size_t)(2 + h) * Lo;
-
-  if (COORDS) {
-    for (int e = tid; e < TLO * MAX_DIM; e += THREADS) {
-      const int r = e / MAX_DIM, c = e - r * MAX_DIM;
-      const int j = j0 + r;
-      s_k[r][c] = (j < Li && c < a.dd) ? a.mk[((size_t)b * Li + j) * a.dd + c] : 0.f;
-    }
-    __syncthreads();
-  }
-
-  const int cg = tid % TN;  // the column of G_h this thread stages
-  const bool col_ok = col0 + cg < a.V;
-  const float* gp = a.g + (size_t)b * Lo * HV + (size_t)h * a.V + col0 + (col_ok ? cg : 0);
-
-  float acc[RPT][CPL];
-#pragma unroll
-  for (int r = 0; r < RPT; ++r)
-#pragma unroll
-    for (int c = 0; c < CPL; ++c) acc[r][c] = 0.f;
-
-  const int n_t = a.starts != nullptr ? a.n_tiles : 1;
-  for (int t = 0; t < n_t; ++t) {
-    int w_begin, w_end;
-    window(a, b, t, &w_begin, &w_end);
-    // the columns of this tile's window that are the block's key rows
-    const int jb = max(w_begin, j0), je = min(w_end, min(j0 + TLO, Li));
-    if (jb >= je) continue;  // block-uniform
-    const int i_begin = a.starts != nullptr ? t * a.tile_rows : 0;
-    const int i_end = a.starts != nullptr ? min((t + 1) * a.tile_rows, Lo) : Lo;
-    for (int i0 = i_begin; i0 < i_end; i0 += TLI) {
-      int any = 0;
-      for (int e = tid; e < TLI * TLO; e += THREADS) {
-        const int ii = e / TLO, jj = e - ii * TLO;
-        const int i = i0 + ii, j = j0 + jj;
-        const bool ok = i < i_end && j >= jb && j < je;
-        float d = 0.f;
-        if (ok) {
-          if constexpr (COORDS) {
-            float q[MAX_DIM];
-#pragma unroll
-            for (int c = 0; c < MAX_DIM; ++c) q[c] = c < a.dd ? mqb[(size_t)i * a.dd + c] : 0.f;
-            d = sqdist(q, s_k[jj], a.dd);
-          } else {
-            d = distb[(size_t)i * Li + j];
-          }
-        }
-        const bool k = ok && d <= stb[Lo + i];
-        any |= k;
-        s_p[ii][jj] = k ? expf(-__fsub_rn(d, stb[i]) * s) * rden[i] : 0.f;
-      }
-      if (__syncthreads_or(any)) {  // block-uniform: G_h only when needed
-#pragma unroll
-        for (int q = 0; q < TLI * TN / THREADS; ++q) {
-          const int ii = tid / TN + q * (THREADS / TN);
-          const int i = i0 + ii;
-          s_g[ii][cg] = (col_ok && i < i_end) ? gp[(size_t)i * HV] : 0.f;
-        }
-        __syncthreads();
-#pragma unroll 8
-        for (int ii = 0; ii < TLI; ++ii) {
-          float gv[CPL], pv[RPT];
-          lds<CPL>(&s_g[ii][lane * CPL], gv);
-          lds<RPT>(&s_p[ii][warp * RPT], pv);
-#pragma unroll
-          for (int r = 0; r < RPT; ++r)
-#pragma unroll
-            for (int c = 0; c < CPL; ++c) acc[r][c] = fmaf(pv[r], gv[c], acc[r][c]);
-        }
-      }
-      __syncthreads();
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < RPT; ++r) {
-    const int j = j0 + warp * RPT + r;
-    if (j >= Li) continue;
-    float* dst = a.out + ((size_t)b * Li + j) * HV + (size_t)h * a.V + col0;
-#pragma unroll
-    for (int c = 0; c < CPL; ++c) {
-      const int n = lane * CPL + c;
-      if (col0 + n < a.V) dst[n] = acc[r][c];
-    }
-  }
-}
-
 // --------------------------------------------------------------- launch
 
-// the value columns a block owns: 32, 64 or 128, the least that covers V;
-// the partial buffer must hold B * H * ceil(Lo/16) * ceil(V/32) floats
-template <bool COORDS, int CPL>
-int dscale_tiles(const Args& a, int B, cudaStream_t s) {
-  constexpr int TN = 32 * CPL;
-  const dim3 grid(a.H * ((a.V + TN - 1) / TN), (a.Lo + TLO - 1) / TLO, B);
-  dscale_kernel<COORDS, CPL><<<grid, THREADS, 0, s>>>(a);
-  const int rc = (int)cudaGetLastError();
+// heads a block: 1, 2 or 4 (a warp each), the least power of two that
+// holds H up to 4
+template <bool COORDS, bool DV, int HG>
+int launch_group(const Args& a, int B, cudaStream_t s) {
+  constexpr int smem = (int)sizeof(Smem<HG>);
+  int rc = (int)cudaFuncSetAttribute(tf_bwd_kernel<COORDS, DV, HG>,
+                                     cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (rc != 0) return rc;
-  sum_partials_kernel<<<B * a.H, 32, 0, s>>>(a.partial, a.out, (int)(grid.x / a.H * grid.y));
+  const int n_ct = (a.V + TN - 1) / TN;
+  const dim3 grid((a.H + HG - 1) / HG * n_ct, ((DV ? a.Li : a.Lo) + TM - 1) / TM, B);
+  tf_bwd_kernel<COORDS, DV, HG><<<grid, HG * 32, smem, s>>>(a);
+  rc = (int)cudaGetLastError();
+  if (rc != 0 || DV) return rc;
+  sum_partials_kernel<<<B * a.H, 32, 0, s>>>(a.partial, a.res, (int)(grid.y * n_ct));
   return (int)cudaGetLastError();
 }
 
-template <bool COORDS, int CPL>
-int dv_tiles(const Args& a, int B, cudaStream_t s) {
-  constexpr int TN = 32 * CPL;
-  const dim3 grid(a.H * ((a.V + TN - 1) / TN), (a.Li + TLO - 1) / TLO, B);
-  dv_kernel<COORDS, CPL><<<grid, THREADS, 0, s>>>(a);
-  return (int)cudaGetLastError();
-}
-
-template <bool COORDS>
-int launch_dscale(const Args& a, int B, cudaStream_t s) {
-  if (a.V <= 32) return dscale_tiles<COORDS, 1>(a, B, s);
-  if (a.V <= 64) return dscale_tiles<COORDS, 2>(a, B, s);
-  return dscale_tiles<COORDS, 4>(a, B, s);
-}
-
-// G_h is staged per head, so a staged value feeds as many products as in
-// the forward: the same column tiles
-template <bool COORDS>
-int launch_dv(const Args& a, int B, cudaStream_t s) {
-  if (a.V <= 32) return dv_tiles<COORDS, 1>(a, B, s);
-  if (a.V <= 64) return dv_tiles<COORDS, 2>(a, B, s);
-  return dv_tiles<COORDS, 4>(a, B, s);
+template <bool COORDS, bool DV>
+int launch(const Args& a, int B, cudaStream_t s) {
+  if (a.H == 1) return launch_group<COORDS, DV, 1>(a, B, s);
+  if (a.H == 2) return launch_group<COORDS, DV, 2>(a, B, s);
+  return launch_group<COORDS, DV, 4>(a, B, s);
 }
 
 bool bad_shape(int B, int Lo, int Li, int H, int V) {
   return B < 1 || Lo < 1 || Li < 1 || H < 1 || V < 1 || B > 65535 ||
-         (Lo + TLO - 1) / TLO > 65535 || (Li + TLO - 1) / TLO > 65535;
+         (Lo + TM - 1) / TM > 65535 || (Li + TM - 1) / TM > 65535;
 }
 
 bool bad_coords(int Lo, int dd, int tile_rows, const int* starts, int width) {
-  // a block of TLO rows must stay inside one band tile
-  const bool tiles_ok = tile_rows >= Lo || (tile_rows > 0 && tile_rows % TLO == 0);
+  // a block of TM rows must stay inside one band tile
+  const bool tiles_ok = tile_rows >= Lo || (tile_rows > 0 && tile_rows % TM == 0);
   return dd < 1 || dd > MAX_DIM || !tiles_ok || (starts != nullptr && width < 1);
 }
 
-Args dist_args(const float* dist, const float* scale, const float* values, const float* g,
-               const float* stats, float* partial, float* out, int Lo, int Li, int H, int V) {
-  return Args{dist, nullptr, nullptr, scale, values, g, stats, nullptr, partial, out,
-              Lo, Li, H, V, 0, 0, Lo, 1};
+// the rows copy in 16-byte pieces: V a multiple of 4 and both sources aligned
+bool vec4(const float* values, const float* g, int V) {
+  return V % 4 == 0 && reinterpret_cast<size_t>(values) % 16 == 0 &&
+         reinterpret_cast<size_t>(g) % 16 == 0;
+}
+
+Args dist_args(const float* dist, const float* scale, const float* values, const float* out,
+               const float* g, const float* stats, float* partial, float* res, int Lo, int Li,
+               int H, int V) {
+  return Args{dist, nullptr, nullptr, scale, values, out, g, stats, nullptr, partial, res,
+              Lo, Li, H, V, 0, 0, Lo, 1, vec4(values, g, V)};
 }
 
 Args coord_args(const float* mq, const float* mk, const float* scale, const float* values,
-                const float* g, const float* stats, const int* starts, float* partial,
-                float* out, int Lo, int Li, int H, int V, int dd, int width, int tile_rows) {
-  return Args{nullptr, mq, mk, scale, values, g, stats, starts, partial, out,
-              Lo, Li, H, V, dd, width, tile_rows, (Lo + tile_rows - 1) / tile_rows};
+                const float* out, const float* g, const float* stats, const int* starts,
+                float* partial, float* res, int Lo, int Li, int H, int V, int dd, int width,
+                int tile_rows) {
+  return Args{nullptr, mq, mk, scale, values, out, g, stats, starts, partial, res,
+              Lo, Li, H, V, dd, width, tile_rows, (Lo + tile_rows - 1) / tile_rows,
+              vec4(values, g, V)};
 }
 
 }  // namespace
 
+// partial: B * H * ceil(Lo/32) * ceil(V/64) floats of scratch
 extern "C" int posatt_tf_bwd_dscale(const float* dist, const float* scale, const float* values,
-                                    const float* g, const float* stats, float* partial,
-                                    float* ds, int B, int Lo, int Li, int H, int V,
-                                    void* stream) {
+                                    const float* out, const float* g, const float* stats,
+                                    float* partial, float* ds, int B, int Lo, int Li, int H,
+                                    int V, void* stream) {
   if (bad_shape(B, Lo, Li, H, V)) return (int)cudaErrorInvalidValue;
-  return launch_dscale<false>(dist_args(dist, scale, values, g, stats, partial, ds, Lo, Li, H, V),
-                              B, static_cast<cudaStream_t>(stream));
+  return launch<false, false>(
+      dist_args(dist, scale, values, out, g, stats, partial, ds, Lo, Li, H, V), B,
+      static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int posatt_tf_bwd_dv(const float* dist, const float* scale, const float* g,
                                 const float* stats, float* dv, int B, int Lo, int Li, int H,
                                 int V, void* stream) {
   if (bad_shape(B, Lo, Li, H, V)) return (int)cudaErrorInvalidValue;
-  return launch_dv<false>(dist_args(dist, scale, nullptr, g, stats, nullptr, dv, Lo, Li, H, V),
-                          B, static_cast<cudaStream_t>(stream));
+  return launch<false, true>(
+      dist_args(dist, scale, nullptr, nullptr, g, stats, nullptr, dv, Lo, Li, H, V), B,
+      static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int posatt_tf_coord_bwd_dscale(const float* mq, const float* mk, const float* scale,
-                                          const float* values, const float* g,
+                                          const float* values, const float* out, const float* g,
                                           const float* stats, const int* starts, float* partial,
                                           float* ds, int B, int Lo, int Li, int H, int V, int dd,
                                           int width, int tile_rows, void* stream) {
   if (bad_shape(B, Lo, Li, H, V) || bad_coords(Lo, dd, tile_rows, starts, width))
     return (int)cudaErrorInvalidValue;
-  return launch_dscale<true>(coord_args(mq, mk, scale, values, g, stats, starts, partial, ds,
-                                        Lo, Li, H, V, dd, width, tile_rows),
+  return launch<true, false>(coord_args(mq, mk, scale, values, out, g, stats, starts, partial,
+                                        ds, Lo, Li, H, V, dd, width, tile_rows),
                              B, static_cast<cudaStream_t>(stream));
 }
 
@@ -497,7 +646,7 @@ extern "C" int posatt_tf_coord_bwd_dv(const float* mq, const float* mk, const fl
                                       int width, int tile_rows, void* stream) {
   if (bad_shape(B, Lo, Li, H, V) || bad_coords(Lo, dd, tile_rows, starts, width))
     return (int)cudaErrorInvalidValue;
-  return launch_dv<true>(coord_args(mq, mk, scale, nullptr, g, stats, starts, nullptr, dv,
-                                    Lo, Li, H, V, dd, width, tile_rows),
-                         B, static_cast<cudaStream_t>(stream));
+  return launch<true, true>(coord_args(mq, mk, scale, nullptr, nullptr, g, stats, starts,
+                                       nullptr, dv, Lo, Li, H, V, dd, width, tile_rows),
+                            B, static_cast<cudaStream_t>(stream));
 }

@@ -35,7 +35,8 @@ in two more sources:
   band); both write the backward's row statistics when asked;
 - ``csrc/posatt_tf_bwd.cu``: their backwards ``_make_tf_bwd_kernel`` (#10)
   and ``_make_tf_coord_bwd_kernel`` (#12), each as two entry points, the
-  per-sample bandwidth gradient (dscale) and the value gradient (dv).
+  per-sample bandwidth gradient (dscale, which also reads the forward's
+  output) and the value gradient (dv).
 
 They compute the function above with two differences: every column of
 the window is kept without ``thr`` (no keep count), and the values are per
@@ -57,7 +58,6 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from position_induced_transformer_torch.kernels.posatt_pallas import (
-    CUDA_HEADS,
     _check_tensors,
     _entry,
     _launch,
@@ -70,7 +70,7 @@ from position_induced_transformer_torch.ops.locality import (
 from position_induced_transformer_torch.ops.posatt import bandwidth_scale
 
 MAX_SPACE_DIM = 4  # coordinates per point the kernels take
-_TLO = 16  # the kernels' row tile; divides every band tile height
+_TLO = 16  # the #7/#8 kernels' row tile; divides every band tile height
 
 
 def band_tile_rows(L_out: int) -> int:
@@ -260,11 +260,9 @@ def _check_starts(starts, width, B, L_out, device) -> None:
         )
 
 
-def _check_cuda(name, mesh_q, scale) -> None:
+def _check_cuda(name, mesh_q) -> None:
     if mesh_q.device.type != "cuda":
         raise ValueError(f"{name} needs CUDA tensors, got {mesh_q.device}")
-    if scale.shape[0] not in CUDA_HEADS:
-        raise ValueError(f"the kernels support {CUDA_HEADS} heads, got {scale.shape[0]}")
     if not 1 <= mesh_q.shape[-1] <= MAX_SPACE_DIM:
         raise ValueError(
             f"the kernels take 1 to {MAX_SPACE_DIM} coordinates per point, "
@@ -282,7 +280,7 @@ def posatt_batched_cuda(
     :func:`posatt_batched_reference`. Adds one to
     ``posatt_batched_cuda.launches`` for each launch."""
     _check(mesh_q, mesh_k, scale, u, thr, starts, width)
-    _check_cuda("posatt_batched_cuda", mesh_q, scale)
+    _check_cuda("posatt_batched_cuda", mesh_q)
     H = scale.shape[0]
     B, L_out, d = mesh_q.shape
     L_in, D = u.shape[1:]
@@ -302,7 +300,7 @@ def _check_bwd(name, mesh_q, mesh_k, scale, g, stats, starts, width, u=None) -> 
     values and band, its row statistics and a cotangent of its output."""
     named = [("mesh_q", mesh_q), ("mesh_k", mesh_k), ("scale", scale), ("g", g), ("stats", stats)]
     _check_tensors(named + ([("inputs", u)] if u is not None else []), mesh_q.device)
-    _check_cuda(name, mesh_q, scale)
+    _check_cuda(name, mesh_q)
     H = scale.shape[0]
     B, L_out, d = mesh_q.shape
     L_in = mesh_k.shape[1]
@@ -602,33 +600,37 @@ def _check_tf_cuda(name, t, space_dim=None) -> None:
         )
 
 
-def _check_tf_bwd(B, L_out, L_in, scale, g, stats, values=None) -> None:
-    """The backward launchers' cotangent, statistics and values."""
-    named = [("g", g), ("stats", stats)] + ([("values", values)] if values is not None else [])
+def _check_tf_bwd(B, L_out, L_in, scale, g, stats, values=None, out=None) -> None:
+    """The backward launchers' cotangent, statistics, and for dscale the
+    values and the forward's output."""
+    named = [("g", g), ("stats", stats)]
+    named += [("values", values), ("out", out)] if values is not None else []
     _check_tensors(named, scale.device)
     H = scale.shape[0]
     if g.ndim != 3 or tuple(g.shape[:2]) != (B, L_out) or g.shape[2] % H:
         raise ValueError(f"g must be ({B}, {L_out}, H*V), got {tuple(g.shape)}")
     if values is not None and tuple(values.shape) != (B, L_in, g.shape[2]):
         raise ValueError(f"values must be ({B}, {L_in}, {g.shape[2]}), got {tuple(values.shape)}")
+    if out is not None and out.shape != g.shape:
+        raise ValueError(f"out must be {tuple(g.shape)} as g, got {tuple(out.shape)}")
     if tuple(stats.shape) != (B, H + 2, L_out):
         raise ValueError(f"stats must be ({B}, {H + 2}, {L_out}), got {tuple(stats.shape)}")
 
 
-def _check_tf_dist_bwd(name, dist, scale, g, stats, values=None):
+def _check_tf_dist_bwd(name, dist, scale, g, stats, values=None, out=None):
     _check_tensors([("dist", dist), ("scale", scale)], dist.device)
     _check_tf_cuda(name, dist)
     if dist.ndim != 3:
         raise ValueError(f"dist must be (B, L_out, L_in), got {tuple(dist.shape)}")
     B, L_out, L_in = dist.shape
-    _check_tf_bwd(B, L_out, L_in, scale, g, stats, values)
+    _check_tf_bwd(B, L_out, L_in, scale, g, stats, values, out)
     return B, L_out, L_in
 
 
 def _tf_partials(B, L_out, H, V, device):
-    """Scratch for the dscale kernels' per-block partials: an upper bound
-    on the blocks per (sample, head), 16 rows by at least 32 columns."""
-    return torch.empty((B, H, -(-L_out // _TLO) * -(-V // 32)), dtype=torch.float32, device=device)
+    """Scratch for the dscale kernels' per-block partials: the blocks per
+    (sample, head), 32 rows by 64 value columns each."""
+    return torch.empty((B, H, -(-L_out // 32) * -(-V // 64)), dtype=torch.float32, device=device)
 
 
 def posatt_tf_cuda(dist, thr, scale, values, *, stats=False):
@@ -649,18 +651,19 @@ def posatt_tf_cuda(dist, thr, scale, values, *, stats=False):
     return (out, st) if stats else out
 
 
-def posatt_tf_bwd_dscale_cuda(dist, scale, values, g, stats):
-    """Launch #10's dscale entry point: (B, H), from #9's inputs, its row
-    statistics and a cotangent ``g``. Deterministic: per-block partials
-    summed per sample and head in a fixed order. Adds one to
-    ``posatt_tf_bwd_dscale_cuda.launches``."""
-    B, L_out, L_in = _check_tf_dist_bwd("posatt_tf_bwd_dscale_cuda", dist, scale, g, stats, values)
+def posatt_tf_bwd_dscale_cuda(dist, scale, values, out, g, stats):
+    """Launch #10's dscale entry point: (B, H), from #9's inputs, its
+    output ``out`` and row statistics and a cotangent ``g``. Deterministic:
+    per-block partials summed per sample and head in a fixed order. Adds
+    one to ``posatt_tf_bwd_dscale_cuda.launches``."""
+    B, L_out, L_in = _check_tf_dist_bwd("posatt_tf_bwd_dscale_cuda", dist, scale, g, stats,
+                                        values, out)
     H, V = scale.shape[0], g.shape[2] // scale.shape[0]
     partial = _tf_partials(B, L_out, H, V, dist.device)
     ds = torch.empty((B, H), dtype=torch.float32, device=dist.device)
-    fn = _entry("posatt_tf_bwd", "posatt_tf_bwd_dscale", 7, 5)
-    _launch(fn, "posatt_tf_bwd_dscale", dist.device, dist, scale, values, g, stats, partial, ds,
-            B, L_out, L_in, H, V)
+    fn = _entry("posatt_tf_bwd", "posatt_tf_bwd_dscale", 8, 5)
+    _launch(fn, "posatt_tf_bwd_dscale", dist.device, dist, scale, values, out, g, stats, partial,
+            ds, B, L_out, L_in, H, V)
     posatt_tf_bwd_dscale_cuda.launches += 1
     return ds
 
@@ -700,30 +703,32 @@ def posatt_tf_coord_cuda(mesh_q, mesh_k, scale, values, thr=None, starts=None, *
     return (out, st) if stats else out
 
 
-def _check_tf_coord_bwd(name, mesh_q, mesh_k, scale, g, stats, starts, width, values=None):
+def _check_tf_coord_bwd(name, mesh_q, mesh_k, scale, g, stats, starts, width, values=None,
+                        out=None):
     _check_tensors([("mesh_q", mesh_q), ("mesh_k", mesh_k), ("scale", scale)], mesh_q.device)
     B, L_out, d = mesh_q.shape
     _check_tf_cuda(name, mesh_q, d)
     L_in = mesh_k.shape[1]
     if tuple(mesh_k.shape) != (B, L_in, d):
         raise ValueError(f"mesh_k must be ({B}, L_in, {d}), got {tuple(mesh_k.shape)}")
-    _check_tf_bwd(B, L_out, L_in, scale, g, stats, values)
+    _check_tf_bwd(B, L_out, L_in, scale, g, stats, values, out)
     _check_starts(starts, width, B, L_out, mesh_q.device)
     return B, L_out, L_in, d
 
 
-def posatt_tf_coord_bwd_dscale_cuda(mesh_q, mesh_k, scale, values, g, stats, starts=None, *,
-                                    width=0):
-    """Launch #12's dscale entry point: (B, H), deterministic as #10's.
-    Adds one to ``posatt_tf_coord_bwd_dscale_cuda.launches``."""
+def posatt_tf_coord_bwd_dscale_cuda(mesh_q, mesh_k, scale, values, out, g, stats, starts=None,
+                                    *, width=0):
+    """Launch #12's dscale entry point: (B, H), from #11's inputs, its
+    output ``out`` and row statistics and a cotangent ``g``; deterministic
+    as #10's. Adds one to ``posatt_tf_coord_bwd_dscale_cuda.launches``."""
     B, L_out, L_in, d = _check_tf_coord_bwd("posatt_tf_coord_bwd_dscale_cuda", mesh_q, mesh_k,
-                                            scale, g, stats, starts, width, values)
+                                            scale, g, stats, starts, width, values, out)
     H, V = scale.shape[0], g.shape[2] // scale.shape[0]
     dev = mesh_q.device
     partial = _tf_partials(B, L_out, H, V, dev)
     ds = torch.empty((B, H), dtype=torch.float32, device=dev)
-    fn = _entry("posatt_tf_bwd", "posatt_tf_coord_bwd_dscale", 9, 8)
-    _launch(fn, "posatt_tf_coord_bwd_dscale", dev, mesh_q, mesh_k, scale, values, g, stats,
+    fn = _entry("posatt_tf_bwd", "posatt_tf_coord_bwd_dscale", 10, 8)
+    _launch(fn, "posatt_tf_coord_bwd_dscale", dev, mesh_q, mesh_k, scale, values, out, g, stats,
             starts, partial, ds, B, L_out, L_in, H, V, d,
             width if starts is not None else 0, band_tile_rows(L_out))
     posatt_tf_coord_bwd_dscale_cuda.launches += 1
@@ -765,8 +770,9 @@ def _tf_grad_outputs(ctx, scale, ds, dv):
 
 class PosAttTF(torch.autograd.Function):
     """Kernel #9 with its backward #10: ``apply(dist, thr, scale, values)``
-    -> (B, L_out, H*V), the ``_posatt_tf`` custom VJP. The backward runs
-    the dscale entry point when ``scale`` needs a gradient (summing its
+    -> (B, L_out, H*V), the ``_posatt_tf`` custom VJP. The forward saves
+    its output: the dscale entry point reads it. The backward runs the
+    dscale entry point when ``scale`` needs a gradient (summing its
     per-sample (B, H) result over B) and the dv one when ``values`` does;
     ``dist`` and ``thr`` get none. CPU tensors take the plain versions."""
 
@@ -777,18 +783,19 @@ class PosAttTF(torch.autograd.Function):
         else:
             _check_tf(dist, thr, scale, values)
             out, stats = posatt_tf_reference(dist, thr, scale, values), None
-        ctx.save_for_backward(dist, thr, scale, values, stats)
+        ctx.save_for_backward(dist, thr, scale, values, out, stats)
         return out
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
-        dist, thr, scale, values, stats = ctx.saved_tensors
+        dist, thr, scale, values, out, stats = ctx.saved_tensors
         g = g.contiguous()
         if dist.device.type != "cuda":
             dv, ds = posatt_tf_bwd_reference(dist, thr, scale, values, g)
         else:
-            ds = posatt_tf_bwd_dscale_cuda(dist, scale, values, g, stats) if ctx.needs_input_grad[2] else None
+            ds = (posatt_tf_bwd_dscale_cuda(dist, scale, values, out, g, stats)
+                  if ctx.needs_input_grad[2] else None)
             dv = posatt_tf_bwd_dv_cuda(dist, scale, g, stats) if ctx.needs_input_grad[3] else None
         return (None, None, *_tf_grad_outputs(ctx, scale, ds, dv))
 
@@ -796,7 +803,8 @@ class PosAttTF(torch.autograd.Function):
 class PosAttTFCoord(torch.autograd.Function):
     """Kernel #11 with its backward #12: ``apply(mesh_q, mesh_k, scale,
     values, thr, starts, width)`` -> (B, L_out, H*V), the
-    ``_posatt_tf_coord`` custom VJP; gradients as :class:`PosAttTF`'s."""
+    ``_posatt_tf_coord`` custom VJP; saved output and gradients as
+    :class:`PosAttTF`'s."""
 
     @staticmethod
     def forward(ctx, mesh_q, mesh_k, scale, values, thr, starts, width):
@@ -807,14 +815,14 @@ class PosAttTFCoord(torch.autograd.Function):
             _check_tf_coord(mesh_q, mesh_k, scale, values, thr, starts, width)
             out = posatt_tf_coord_reference(mesh_q, mesh_k, scale, values, thr, starts, width=width)
             stats = None
-        ctx.save_for_backward(mesh_q, mesh_k, scale, values, thr, starts, stats)
+        ctx.save_for_backward(mesh_q, mesh_k, scale, values, thr, starts, out, stats)
         ctx.width = width
         return out
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
-        mesh_q, mesh_k, scale, values, thr, starts, stats = ctx.saved_tensors
+        mesh_q, mesh_k, scale, values, thr, starts, out, stats = ctx.saved_tensors
         g = g.contiguous()
         w = dict(width=ctx.width)
         if mesh_q.device.type != "cuda":
@@ -822,7 +830,8 @@ class PosAttTFCoord(torch.autograd.Function):
         else:
             ds = dv = None
             if ctx.needs_input_grad[2]:
-                ds = posatt_tf_coord_bwd_dscale_cuda(mesh_q, mesh_k, scale, values, g, stats, starts, **w)
+                ds = posatt_tf_coord_bwd_dscale_cuda(mesh_q, mesh_k, scale, values, out, g, stats,
+                                                     starts, **w)
             if ctx.needs_input_grad[3]:
                 dv = posatt_tf_coord_bwd_dv_cuda(mesh_q, mesh_k, scale, g, stats, starts, **w)
         return (None, None, *_tf_grad_outputs(ctx, scale, ds, dv), None, None, None)

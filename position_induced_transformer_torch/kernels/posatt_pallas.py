@@ -14,8 +14,9 @@ kernels, each the port of one TPU kernel:
   ``_posatt_bwd_du``.
 
 Each source says what bounds it and how. The three versions compute one
-function and differ only in what a block owns (all heads, one head, or one
-head and one sample), so on the CPU every version takes the one plain
+function and differ only in what a block owns (a group of up to 8 heads,
+one head, or one head and one sample), so on the CPU every version takes
+the one plain
 version, :func:`posatt_fixed_reference`. :class:`PosAttFixed` mirrors the
 ``_posatt_fixed`` custom VJP with its fused backward: the forward runs the
 chosen version's kernel and the stats kernel and saves only the row
@@ -43,9 +44,6 @@ from position_induced_transformer_torch.ops.locality import quantile_threshold
 from position_induced_transformer_torch.ops.posatt import bandwidth_scale
 
 _NEG = -1e38  # mask sentinel: finite, so the online max never meets inf - inf
-# head counts the kernels are instantiated for; the v1 and v2 forwards take
-# any, since a block of theirs owns one head
-CUDA_HEADS = (1, 2, 4, 8)
 VERSIONS = (1, 2, 3)  # the forward's schedules, as the JAX ``version``
 
 
@@ -137,11 +135,9 @@ def _check_version(version) -> None:
         raise ValueError(f"unknown kernel version {version!r}; expected 1, 2 or 3")
 
 
-def _check_cuda(name, dist, scale, any_heads=False) -> None:
+def _check_cuda(name, dist) -> None:
     if dist.device.type != "cuda":
         raise ValueError(f"{name} needs CUDA tensors, got {dist.device}")
-    if not any_heads and scale.shape[0] not in CUDA_HEADS:
-        raise ValueError(f"the kernels support {CUDA_HEADS} heads, got {scale.shape[0]}")
 
 
 def _check_bwd(name, dist, scale, M, L, g, B, D, u=None) -> None:
@@ -150,7 +146,7 @@ def _check_bwd(name, dist, scale, M, L, g, B, D, u=None) -> None:
     output."""
     named = (("M", M), ("L", L), ("g", g)) + ((("u", u),) if u is not None else ())
     _check_tensors(named, dist.device)
-    _check_cuda(name, dist, scale)
+    _check_cuda(name, dist)
     H, L_out = scale.shape[0], dist.shape[0]
     for stat, t in (("M", M), ("L", L)):
         if tuple(t.shape) != (H, L_out, 1):
@@ -179,10 +175,10 @@ def _launch(fn, name, device, *args) -> None:
         raise RuntimeError(f"{name} launch failed with CUDA error {rc}")
 
 
-def _fixed_forward_cuda(name, dist, thr, scale, u, any_heads=False):
+def _fixed_forward_cuda(name, dist, thr, scale, u):
     """Launch the named forward entry point: (B, L_out, H*D)."""
     _check(dist, thr, scale, u)
-    _check_cuda(name, dist, scale, any_heads)
+    _check_cuda(name, dist)
     H = scale.shape[0]
     B, L_in, D = u.shape
     L_out = dist.shape[0]
@@ -193,8 +189,8 @@ def _fixed_forward_cuda(name, dist, thr, scale, u, any_heads=False):
 
 
 def posatt_fixed_cuda(dist, thr, scale, u):
-    """Launch the forward kernel (version 3: a block owns all heads) on
-    CUDA tensors: (B, L_out, H*D), head-concat.
+    """Launch the forward kernel (version 3: a block owns a group of up to
+    8 heads) on CUDA tensors: (B, L_out, H*D), head-concat, any head count.
 
     Same arguments as :func:`posatt_fixed_reference`. Adds one to
     ``posatt_fixed_cuda.launches`` for each launch.
@@ -208,7 +204,7 @@ def posatt_fixed_v2_cuda(dist, thr, scale, u):
     """Launch the version-2 forward (a block owns one head and a tile of the
     batch-folded columns) on CUDA tensors: (B, L_out, H*D), any head
     count. Adds one to ``posatt_fixed_v2_cuda.launches`` for each launch."""
-    out = _fixed_forward_cuda("posatt_fixed_fwd_v2", dist, thr, scale, u, any_heads=True)
+    out = _fixed_forward_cuda("posatt_fixed_fwd_v2", dist, thr, scale, u)
     posatt_fixed_v2_cuda.launches += 1
     return out
 
@@ -217,7 +213,7 @@ def posatt_fixed_v1_cuda(dist, thr, scale, u):
     """Launch the version-1 forward (a block owns one head and one sample)
     on CUDA tensors: (B, L_out, H*D), any head count. Adds one to
     ``posatt_fixed_v1_cuda.launches`` for each launch."""
-    out = _fixed_forward_cuda("posatt_fixed_fwd_v1", dist, thr, scale, u, any_heads=True)
+    out = _fixed_forward_cuda("posatt_fixed_fwd_v1", dist, thr, scale, u)
     posatt_fixed_v1_cuda.launches += 1
     return out
 
@@ -226,7 +222,7 @@ def posatt_stats_cuda(dist, thr, scale):
     """Launch the stats kernel on CUDA tensors: (M, L), (H, L_out, 1) each.
     Adds one to ``posatt_stats_cuda.launches`` for each launch."""
     _check_tensors((("dist", dist), ("thr", thr), ("scale", scale)), dist.device)
-    _check_cuda("posatt_stats_cuda", dist, scale)
+    _check_cuda("posatt_stats_cuda", dist)
     H = scale.shape[0]
     L_out, L_in = dist.shape
     M = torch.empty((H, L_out, 1), dtype=torch.float32, device=dist.device)
@@ -346,7 +342,8 @@ def position_attention_fixed(dist, lmda, inputs, locality: float, thr=None, *, v
     ``thr`` is the optional per-row threshold (L_out, 1): ``+inf`` when
     ``locality >= 1``, else computed by quantile when missing. ``version``
     picks the forward kernel's schedule, as in the JAX package: 3 (the
-    default) = all heads and a tile of the batch-folded columns a block, 2
+    default) = a group of up to 8 heads and a tile of the batch-folded
+    columns a block, 2
     = one head and a tile of the batch-folded columns, 1 = one head and one
     sample; another value raises ``ValueError`` before anything runs. When
     a gradient is needed the call goes through :class:`PosAttFixed`

@@ -1,10 +1,11 @@
 """Deployment inference: a restored checkpoint applied to user batches.
 
 :class:`Predictor` holds a checkpoint warm on one device for repeated
-calls; :func:`infer` is the one-shot form. Inputs are ``.npy`` or MATLAB
-v5 ``.mat`` files laid out like the benchmark's inputs. A benchmark on
-per-sample meshes (elasticity) also needs each sample's coordinates: its
-input is a ``.mat`` that holds them beside ``x`` (variable ``mesh``).
+calls; :func:`infer` is the one-shot form. Inputs are ``.npy``, MATLAB
+``.mat`` (v5, or v7.3 through the optional h5py) or HDF5 ``.h5`` files
+laid out like the benchmark's inputs. A benchmark on per-sample meshes
+(elasticity) also needs each sample's coordinates: its input is a
+``.mat`` or ``.h5`` that holds them beside ``x`` (variable ``mesh``).
 elasticity_tf reads them from ``x`` and computes its locality thresholds
 per call, so a bare ``.npy`` serves it.
 """
@@ -25,19 +26,21 @@ from position_induced_transformer_torch.utils.devices import resolve_device
 
 def _load_input(path: str, key: str = "x"):
     """Load a user input batch: ``(x, table)`` where ``table`` is the full
-    variable dict of a ``.mat`` file (None for ``.npy``)."""
+    variable dict of a ``.mat`` or ``.h5``/``.hdf5`` file (None for
+    ``.npy``). ``.mat`` goes through ``load_mat`` (v5, or v7.3 transposed
+    from MATLAB's column-major storage); ``.h5``/``.hdf5`` are read with
+    h5py in their native row-major layout, so batches written by ordinary
+    h5py code round-trip unchanged."""
     if path.endswith(".npy"):
         return np.asarray(np.load(path, allow_pickle=False)), None
-    if path.endswith((".h5", ".hdf5")):
-        raise ValueError(
-            f"{path}: HDF5 input needs h5py, which this package does not "
-            "use; send .npy or a MATLAB v5 .mat"
-        )
-    if not path.endswith(".mat"):
-        raise ValueError(f"unsupported input format {path!r} (expected .npy or .mat)")
-    from position_induced_transformer_torch.data.loaders import load_mat
+    from position_induced_transformer_torch.data.loaders import load_mat, read_hdf5
 
-    d = load_mat(path)
+    if path.endswith(".mat"):
+        d = load_mat(path)
+    elif path.endswith((".h5", ".hdf5")):
+        d = read_hdf5(path, transpose=False)
+    else:
+        raise ValueError(f"unsupported input format {path!r} (expected .npy, .mat, .h5)")
     if key not in d:
         raise KeyError(
             f"variable {key!r} not found in {path}; available: "

@@ -3,16 +3,18 @@
 - ``GET  /health``  -> ``{"status": "ok", "benchmark": ..., "requests": N,
   "device_calls": M}``
 - ``GET  /info``    -> benchmark and model configuration summary
-- ``POST /predict`` -> the body is a ``.npy`` or MATLAB v5 ``.mat`` input
-  batch (raw values, the layout ``infer`` takes), sniffed from its magic
-  bytes. Query parameters: ``key`` (input variable, default ``x``),
-  ``batch_size``, ``format`` (``npy`` or ``mat``). The reply is the
-  predictions as ``.npy`` bytes, or a ``.mat`` with variable ``pred``.
+- ``POST /predict`` -> the body is a ``.npy``, MATLAB ``.mat`` or HDF5
+  input batch (raw values, the layout ``infer`` takes), sniffed from its
+  magic bytes and read as ``infer`` reads the file: an HDF5 body is a
+  plain ``.h5`` in native layout (MATLAB v7.3 files start with a v5-style
+  header and go the ``.mat`` way); HDF5 needs the optional h5py. Query
+  parameters: ``key`` (input variable, default ``x``), ``batch_size``,
+  ``format`` (``npy`` or ``mat``). The reply is the predictions as
+  ``.npy`` bytes, or a ``.mat`` with variable ``pred``.
   A benchmark on per-sample meshes (elasticity) takes a ``.mat`` holding
   ``x`` and ``mesh``; a bare ``.npy`` is answered with 400. elasticity_tf
   reads each cloud from its inputs' first two channels and takes a bare
-  ``.npy``. HDF5 bodies are
-  answered with 400: they need h5py, which this package does not use.
+  ``.npy``.
 
 Malformed requests are 400s; failures while running the model are 500s.
 Device work runs on one worker thread with dynamic batching: concurrent
@@ -32,11 +34,14 @@ from urllib.parse import parse_qs, urlparse
 
 import numpy as np
 
+# magic bytes -> temp-file suffix, routing the body through the loaders
+# infer uses (load_mat for both .mat generations, native-layout h5py for
+# plain HDF5; see evaluate._load_input)
 _MAGIC = (
     (b"\x93NUMPY", ".npy"),
-    (b"MATLAB", ".mat"),  # v5 .mat header text
+    (b"MATLAB", ".mat"),  # v5 and v7.3 .mat header text
+    (b"\x89HDF\r\n\x1a\n", ".h5"),
 )
-_HDF5_MAGIC = b"\x89HDF\r\n\x1a\n"
 _MAX_BODY_BYTES = 512 * 1024 * 1024
 
 
@@ -44,13 +49,9 @@ def _sniff_suffix(body: bytes) -> str:
     for magic, suffix in _MAGIC:
         if body.startswith(magic):
             return suffix
-    if body.startswith(_HDF5_MAGIC):
-        raise ValueError(
-            "HDF5 payloads (.h5, MATLAB v7.3 .mat) need h5py, which this "
-            "server does not use; send .npy bytes or a MATLAB v5 .mat"
-        )
     raise ValueError(
-        "unrecognized input payload: expected .npy bytes or a MATLAB v5 .mat"
+        "unrecognized input payload: expected .npy bytes, a MATLAB .mat "
+        "file, or an HDF5 file"
     )
 
 

@@ -38,6 +38,10 @@ SHAPES = [
     (256, 1024, 8, 2, 2, 0.02),  # the Burgers encoder's shape
     (50, 300, 4, 8, 4, 0.2),  # B*D <= 32 tiles, eight heads
     (300, 50, 3, 4, 9, 1.0),  # four heads
+    (60, 90, 2, 3, 20, 0.3),  # three heads
+    (70, 150, 4, 6, 4, 0.2),  # six heads, B*D <= 32 tiles
+    (40, 72, 3, 12, 16, 1.0),  # twelve heads: two groups of six
+    (97, 200, 2, 12, 5, 0.1),  # twelve heads, B*D <= 32 tiles
 ]
 
 
@@ -190,24 +194,6 @@ def test_no_grad_forward_launches_the_forward_kernel_only(cuda):
     )
 
 
-@pytest.mark.cuda
-def test_cuda_kernels_refuse_other_head_counts(cuda):
-    dist, _, u = _inputs(cuda, 16, 24, 2, 3, 3)
-    lmda = torch.zeros(3, 1, 1, device=cuda)
-    with torch.no_grad(), pytest.raises(ValueError, match="heads"):
-        kp.position_attention_fixed(dist, lmda, u, 0.3)
-    thr = torch.full((16, 1), float("inf"), device=cuda)
-    scale = torch.ones(3, 1, device=cuda)
-    with pytest.raises(ValueError, match="heads"):
-        kp.posatt_stats_cuda(dist, thr, scale)
-    M = torch.zeros(3, 16, 1, device=cuda)
-    g = torch.zeros(2, 16, 9, device=cuda)
-    with pytest.raises(ValueError, match="heads"):
-        kp.posatt_bwd_du_cuda(dist, thr, scale, M, M, g)
-    with pytest.raises(ValueError, match="heads"):
-        kp.posatt_bwd_dscale_cuda(dist, thr, scale, M, M, g, u)
-
-
 # ------------------------------ fixed-mesh schedule variants: #5 (v1), #6 (v2)
 
 SCHEDULE_SHAPES = [
@@ -253,7 +239,7 @@ def test_cuda_schedule_kernel_matches_plain(cuda, L_out, L_in, B, H, D, loc, ver
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("L_out,L_in,B,H,D,loc", [s for s in SCHEDULE_SHAPES if s[3] in kp.CUDA_HEADS])
+@pytest.mark.parametrize("L_out,L_in,B,H,D,loc", SCHEDULE_SHAPES)
 def test_schedule_versions_share_one_backward(cuda, L_out, L_in, B, H, D, loc):
     """One forward + backward per version launches that version's forward
     and #2, #3, #4 once each; the backward never reads the forward's output,
@@ -302,6 +288,9 @@ BATCHED_SHAPES = [
     (1, 97, 1000, 8, 19, 0.02, "robust"),
     (2, 900, 700, 2, 8, 0.02, "ring"),  # the band crosses the seam
     (2, 1000, 800, 8, 33, 0.02, "ring"),  # L_out not a multiple of 256
+    (2, 64, 80, 3, 8, 0.1, "robust"),  # three heads
+    (2, 50, 60, 6, 40, 0.2, "none"),  # six heads, in-kernel keep count
+    (2, 900, 700, 6, 12, 0.02, "ring"),  # six heads, band
 ]
 
 
@@ -446,19 +435,38 @@ def test_batched_no_grad_launches_the_forward_only(cuda):
 
 
 @pytest.mark.cuda
-def test_batched_kernels_refuse_other_head_counts(cuda):
-    args, (mq, mk, _, u, loc, thr, band), g = _batched_case(cuda, 2, 16, 24, 3, 3, 0.2, "robust")
-    lmda = torch.zeros(3, 1, 1, device=cuda)
-    with torch.no_grad(), pytest.raises(ValueError, match="heads"):
-        kb.position_attention_batched(mq, mk, lmda, u, loc, thr)
-    kw, pos = _fwd(args)
-    with pytest.raises(ValueError, match="heads"):
-        kb.posatt_batched_cuda(*pos, **kw)
-    stats = torch.zeros(2, 5, 16, device=cuda)
-    with pytest.raises(ValueError, match="heads"):
-        kb.posatt_batched_bwd_dscale_cuda(mq, mk, pos[2], u, g, stats)
-    with pytest.raises(ValueError, match="heads"):
-        kb.posatt_batched_bwd_du_cuda(mq, mk, pos[2], g, stats)
+def test_three_head_elasticity_trains_on_the_card(cuda):
+    """An elasticity model with ``model.n_head=3`` (narrow, two blocks):
+    two training steps on the card launch #7 and #8 (4 / 4 / 3 launches of
+    forward / dscale / du per step) and agree with the same steps on the
+    CPU at the training bounds of test_torch_train.py."""
+    from position_induced_transformer_torch import configs
+    from position_induced_transformer_torch.train import benchmarks, loop
+
+    cfg = configs.apply_overrides(
+        configs.ELASTICITY, ["model.hid_dim=24", "model.n_head=3", "model.n_blocks=2"])
+    perm = torch.tensor([[0, 1], [2, 3]])
+    runs = {}
+    for dev in ("cpu", cuda):
+        problem = benchmarks.setup(cfg, ntrain=4, ntest=2, device=dev)
+        if dev != "cpu":
+            problem.model.load_state_dict(runs["cpu"][1])
+        data = {k: torch.as_tensor(v, device=dev) for k, v in problem.train_data.items()}
+        state = loop.TrainState(problem.model, loop.make_optimizer(problem.model.parameters(), 1e-3))
+        epoch = loop.make_train_epoch(problem.task, loop.make_lr_schedule(1e-3, 10))
+        counters = (kb.posatt_batched_cuda, kb.posatt_batched_bwd_dscale_cuda,
+                    kb.posatt_batched_bwd_du_cuda)
+        start = {k: v.detach().cpu().clone() for k, v in problem.model.state_dict().items()}
+        before = [f.launches for f in counters]
+        state, losses = epoch(state, None, data, perm.to(dev))
+        torch.cuda.synchronize()
+        launches = [f.launches - b for f, b in zip(counters, before)]
+        assert launches == ([0, 0, 0] if dev == "cpu" else [8, 8, 6])
+        runs["cpu" if dev == "cpu" else "cuda"] = (
+            losses.cpu(), start, {k: v.cpu() for k, v in problem.model.state_dict().items()})
+    torch.testing.assert_close(runs["cuda"][0], runs["cpu"][0], rtol=2e-4, atol=0.0)
+    for k, v in runs["cpu"][2].items():
+        torch.testing.assert_close(runs["cuda"][2][k], v, rtol=5e-3, atol=2e-5, msg=k)
 
 
 @pytest.mark.cuda
@@ -500,6 +508,8 @@ TF_SHAPES = [
     (3, 64, 64, 8, 64, "thr"),
     (2, 900, 700, 2, 8, "ring"),
     (2, 1000, 800, 8, 33, "ring"),  # L_out not a multiple of 256
+    (2, 900, 700, 3, 80, "ring"),  # V not a multiple of the 64-column tile
+    (2, 300, 200, 5, 100, "thr"),  # two head groups, the second short
 ]
 
 
@@ -568,8 +578,8 @@ def test_cuda_tf_dist_kernels_match_plain(cuda, B, Lq, Lk, H, V, kind):
     want_st = kb.posatt_tf_stats_reference(dist, thr, scales)
     assert torch.equal(stats[:, :2], want_st[:, :2])
     torch.testing.assert_close(stats[:, 2:], want_st[:, 2:], rtol=RTOL, atol=0.0)
-    ds = kb.posatt_tf_bwd_dscale_cuda(dist, scales, values, g, stats)
-    ds2 = kb.posatt_tf_bwd_dscale_cuda(dist, scales, values, g, stats)
+    ds = kb.posatt_tf_bwd_dscale_cuda(dist, scales, values, out, g, stats)
+    ds2 = kb.posatt_tf_bwd_dscale_cuda(dist, scales, values, out, g, stats)
     dv = kb.posatt_tf_bwd_dv_cuda(dist, scales, g, stats)
     torch.cuda.synchronize()
     assert [f.launches - b for f, b in zip((kb.posatt_tf_cuda, kb.posatt_tf_bwd_dscale_cuda,
@@ -594,8 +604,8 @@ def test_cuda_tf_coord_kernels_match_plain(cuda, B, Lq, Lk, H, V, kind):
     want_st = kb.posatt_batched_stats_reference(mq, mk, scale, thr, starts, keep_count=mk.shape[1], **w)
     assert torch.equal(stats[:, :2], want_st[:, :2])  # bit-equal distances
     torch.testing.assert_close(stats[:, 2:], want_st[:, 2:], rtol=RTOL, atol=0.0)
-    ds = kb.posatt_tf_coord_bwd_dscale_cuda(mq, mk, scale, v, g, stats, starts, **w)
-    ds2 = kb.posatt_tf_coord_bwd_dscale_cuda(mq, mk, scale, v, g, stats, starts, **w)
+    ds = kb.posatt_tf_coord_bwd_dscale_cuda(mq, mk, scale, v, out, g, stats, starts, **w)
+    ds2 = kb.posatt_tf_coord_bwd_dscale_cuda(mq, mk, scale, v, out, g, stats, starts, **w)
     dv = kb.posatt_tf_coord_bwd_dv_cuda(mq, mk, scale, g, stats, starts, **w)
     torch.cuda.synchronize()
     want_dv, want_ds = kb.posatt_tf_coord_bwd_reference(mq, mk, scale, v, g, thr, starts, **w)

@@ -128,8 +128,13 @@ def test_infer_and_file_formats(burgers, predictor, tmp_path):
     savemat(tmp_path / "in.mat", {"u": x[:2, :, 0]})
     got = predictor.predict_file(str(tmp_path / "in.mat"), input_key="u")
     np.testing.assert_allclose(got, want[:2], rtol=RTOL, atol=ATOL)
-    with pytest.raises(ValueError, match="h5py"):
-        predictor.prepare_file(str(tmp_path / "in.h5"))
+    # an HDF5 batch in native layout, read through the optional h5py
+    import h5py
+
+    with h5py.File(tmp_path / "in.h5", "w") as f:
+        f["x"] = x[:2]
+    got = predictor.predict_file(str(tmp_path / "in.h5"))
+    np.testing.assert_allclose(got, want[:2], rtol=RTOL, atol=ATOL)
     with pytest.raises(ValueError, match="does not match"):
         predictor.predict_array(t_eval._prepare_inputs(predictor.problem, x[:, :64]))
 
@@ -220,6 +225,28 @@ def test_bad_payloads_are_400(server, body, params, needle):
     code, reply = _post(base + "/predict", body, **params)
     assert code == 400
     assert needle in json.loads(reply)["error"]
+
+
+def test_server_answers_hdf5_bodies(burgers, server, tmp_path, monkeypatch):
+    """An HDF5 body (a plain .h5 in native layout, or a MATLAB v7.3 .mat
+    stored column-major) is answered as the JAX forward on the same
+    samples; without h5py it is a 400 naming it."""
+    from tests.test_torch_io import write_h5, write_v73
+
+    _, _, x, want = burgers
+    base, _ = server
+    write_h5(tmp_path / "in.h5", {"x": x[:3]})
+    write_v73(tmp_path / "in.mat", {"u": x[3:5, :, 0]})
+    code, body = _post(base + "/predict", (tmp_path / "in.h5").read_bytes())
+    assert code == 200, body
+    np.testing.assert_allclose(np.load(io.BytesIO(body)), want[:3], rtol=RTOL, atol=ATOL)
+    code, body = _post(base + "/predict", (tmp_path / "in.mat").read_bytes(), key="u")
+    assert code == 200, body
+    np.testing.assert_allclose(np.load(io.BytesIO(body)), want[3:5], rtol=RTOL, atol=ATOL)
+    monkeypatch.setitem(sys.modules, "h5py", None)
+    code, body = _post(base + "/predict", (tmp_path / "in.h5").read_bytes())
+    assert code == 400
+    assert "h5py" in json.loads(body)["error"]
 
 
 def test_unknown_path_is_404(server):

@@ -171,6 +171,50 @@ def test_coord_plain_versions_match_interpret_kernels(kind):
     np.testing.assert_allclose(ds.numpy() / size, np.asarray(jds) / size, rtol=DS_RTOL, atol=DS_ATOL)
 
 
+def _dscale_through_output(att, keep, dist, dmin, values, out, g):
+    """dscale as the CUDA kernels of #10 and #12 compute it, in float32:
+    ``sum_{i,k} G (Y - v O)`` with ``W = P (-x)``, ``x = d - dmin``,
+    ``Y = W V``, ``v = sum_j W`` and the forward's output O."""
+    B, H, Lo, Li = att.shape
+    w = att * torch.where(keep, -(dist - dmin), 0.0)[:, None]
+    vh, gh = values.reshape(B, Li, H, -1), g.reshape(B, Lo, H, -1)
+    y = torch.einsum("bhij,bjhv->bihv", w, vh)
+    v = w.sum(-1).transpose(1, 2)[..., None]  # (B, Lo, H, 1)
+    return (gh * (y - v * out.reshape(B, Lo, H, -1))).sum(dim=(1, 3))
+
+
+@pytest.mark.parametrize("case", [f"dist-{n}" for n in DIST_CASES] + ["coord-thr", "coord-ring"])
+def test_dscale_through_the_forward_output_matches_interpret_kernels(case):
+    """The CUDA dscale kernels read the forward's output O instead of a
+    separate pass for v: their formula, computed here in float32 on the
+    plain versions' weights, against _posatt_tf_bwd_raw and
+    _posatt_tf_coord_bwd_raw in interpret mode, at the dscale bound."""
+    kind, name = case.split("-", 1)
+    if kind == "dist":
+        dist, thr, scale, values, g = _dist_case(*DIST_CASES[name])
+        tthr = None if thr is None else t(thr)
+        keep, dmin, _ = t_b._tf_keep(t(dist), tthr)
+        d = t(dist)
+        out = t_b.posatt_tf_reference(d, tthr, t(scale), t(values))
+        _, jds = j_b._posatt_tf_bwd_raw(jnp.asarray(dist), None if thr is None else jnp.asarray(thr),
+                                        jnp.asarray(scale), jnp.asarray(values), jnp.asarray(g),
+                                        interpret=True)
+    else:
+        (mq, mk, scale, values, thr, starts, width), _, g = _coord_case(name)
+        opt = lambda a: None if a is None else t(a)
+        d, keep, dmin = t_b._tf_coord_rows(t(mq), t(mk), opt(thr), opt(starts), width)
+        out = t_b.posatt_tf_coord_reference(t(mq), t(mk), t(scale), t(values), opt(thr),
+                                            opt(starts), width=width)
+        jopt = lambda a: None if a is None else jnp.asarray(a)
+        _, jds = j_b._posatt_tf_coord_bwd_raw(*[jnp.asarray(a) for a in (mq, mk, scale, values, g)],
+                                              jopt(thr), jopt(starts), band_width=width,
+                                              interpret=True)
+    att = t_b._tf_attention(d, keep, dmin, t(scale))
+    ds = _dscale_through_output(att, keep, d, dmin, t(values), out, t(g))
+    size = np.abs(np.asarray(jds)).max() + 1.0
+    np.testing.assert_allclose(ds.numpy() / size, np.asarray(jds) / size, rtol=DS_RTOL, atol=DS_ATOL)
+
+
 def _plain_oracle(coords, scales, values, thr):
     """Autograd-differentiable TF attention over materialized halved
     distances (a band holds every kept column, so the oracle needs none)."""
