@@ -47,9 +47,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    public wrapper against ``ops.posatt.position_attention`` on
    materialized distances; times, bounds and the SDPA yardstick as in
    phase 4;
-9. batched backward: kernel #8's dscale and du entry points against their
-   plain versions at the elasticity training shapes and the ragged ones,
-   timed and bounded; dscale twice gives the same bits; the autograd
+9. batched backward: kernel #8's dscale (which reads the forward's
+   output) and du entry points against their plain versions at the
+   elasticity training shapes and the ragged ones, timed and bounded, with
+   the length of each block's compacted list (mean and max per block);
+   dscale twice gives the same bits; the autograd
    Function's gradients against torch.autograd of the oracle, one forward
    + backward launching the forward and dscale once and du once where the
    values need a gradient;
@@ -73,7 +75,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
     per-request thresholds and its global processor) and at ragged shapes;
     the public wrappers against the oracle on materialized distances;
     times, bounds and the SDPA yardstick (zero q and k, per-head values,
-    the masked logits as ``attn_mask``);
+    the masked logits as ``attn_mask``), and #11's compacted list lengths;
 13. TF backward: #10's and #12's dscale and dv entry points against their
     plain versions at the same shapes, timed and bounded, and at ragged
     ones (a band whose row blocks keep no entry in some 32-column steps,
@@ -1007,6 +1009,20 @@ def batched_work(args, keep=None):
     return inspected, int(keep.sum()), 4 * words
 
 
+def list_lengths(keep):
+    """The redesigned kernels' compacted lists (#8's dscale and du, #11):
+    per block of 32 owned indices (the first axis of ``keep`` (B, owned,
+    streamed)), the streamed indices that keep an entry with any of them;
+    mean and max over the blocks."""
+    import torch
+
+    B, n, m = keep.shape
+    k = torch.zeros((B, -(-n // 32) * 32, m), dtype=torch.bool, device=keep.device)
+    k[:, :n] = keep
+    per = k.reshape(B, -1, 32, m).any(dim=2).sum(dim=-1).float()
+    return {"mean": per.mean().item(), "max": int(per.max().item()), "blocks": per.numel()}
+
+
 def batched_kernel_phase():
     """Kernel #7 against its plain version at the elasticity shapes and at
     ragged ones, the public wrapper against the oracle on materialized
@@ -1094,8 +1110,8 @@ def batched_backward_phase(shapes):
 
     def compare(name, args, g, with_du=True):
         mq, mk, scale, u, thr, starts, kc, width = args
-        _, stats = kb.posatt_batched_cuda(mq, mk, scale, u, thr, starts, keep_count=kc,
-                                          width=width, stats=True)
+        out, stats = kb.posatt_batched_cuda(mq, mk, scale, u, thr, starts, keep_count=kc,
+                                            width=width, stats=True)
         want_stats = kb.posatt_batched_stats_reference(mq, mk, scale, thr, starts,
                                                        keep_count=kc, width=width)
         torch.cuda.synchronize()
@@ -1105,8 +1121,8 @@ def batched_backward_phase(shapes):
             fail(f"{name}: the forward's row minimum or keep threshold differs from the plain version")
         errs = {"stats": check_close(f"{name} stats", stats[:, 2:], want_stats[:, 2:], OP_RTOL, 0.0)}
         w = dict(width=width)
-        ds = kb.posatt_batched_bwd_dscale_cuda(mq, mk, scale, u, g, stats, starts, **w)
-        again = kb.posatt_batched_bwd_dscale_cuda(mq, mk, scale, u, g, stats, starts, **w)
+        ds = kb.posatt_batched_bwd_dscale_cuda(mq, mk, scale, u, out, g, stats, starts, **w)
+        again = kb.posatt_batched_bwd_dscale_cuda(mq, mk, scale, u, out, g, stats, starts, **w)
         torch.cuda.synchronize()
         if not torch.equal(ds, again):
             fail(f"{name}: two dscale runs on the same inputs differ")
@@ -1126,7 +1142,7 @@ def batched_backward_phase(shapes):
             want = kb.posatt_batched_bwd_du_reference(mq, mk, scale, g, stats, starts, **w)
             size = kb.posatt_batched_bwd_du_reference(mq, mk, scale, g.abs(), stats, starts, **w)
             errs["posatt_batched_bwd_du"] = check_close(f"{name} du", du, want, OP_RTOL, OP_ATOL, size)
-        return errs, stats, keep
+        return errs, out, stats, keep
 
     def function_check(name, wargs, need_du):
         """One forward + backward through position_attention_batched launches
@@ -1177,7 +1193,7 @@ def batched_backward_phase(shapes):
         B, Lo, d = mq.shape
         Li, D = u.shape[1:]
         g = torch.from_numpy(rng.standard_normal((B, Lo, H * D)).astype(np.float32)).cuda()
-        e, stats, keep = compare(name, args, g, with_du=n_du > 0)
+        e, out, stats, keep = compare(name, args, g, with_du=n_du > 0)
         for k, v in e.items():
             errs[k] = max(errs[k], v)
         inspected, kept, _ = batched_work(args, keep)
@@ -1187,17 +1203,20 @@ def batched_backward_phase(shapes):
         words = B * Lo * d + B * Li * d + B * (H + 2) * Lo + B * Lo * H * D
         words += starts.numel() if starts is not None else 0
         w = dict(width=width)
+        # dscale's kernel also reads the forward's output, which the function
+        # does not need: the bound leaves it out. The compacted lists: dscale
+        # blocks own 32 rows and list keys, du blocks the reverse
         calls = {
             "posatt_batched_bwd_dscale": (
-                lambda: kb.posatt_batched_bwd_dscale_cuda(mq, mk, scale, u, g, stats, starts, **w),
+                lambda: kb.posatt_batched_bwd_dscale_cuda(mq, mk, scale, u, out, g, stats, starts, **w),
                 lambda: kb.posatt_batched_bwd_dscale_reference(mq, mk, scale, u, g, stats, starts, **w),
-                n_ds, words + B * Li * D + B * H),
+                n_ds, words + B * Li * D + B * H, list_lengths(keep)),
             "posatt_batched_bwd_du": (
                 lambda: kb.posatt_batched_bwd_du_cuda(mq, mk, scale, g, stats, starts, **w),
                 lambda: kb.posatt_batched_bwd_du_reference(mq, mk, scale, g, stats, starts, **w),
-                n_du, words + B * Li * D),
+                n_du, words + B * Li * D, list_lengths(keep.transpose(1, 2))),
         }
-        for kernel, (launch, plain, n, nwords) in calls.items():
+        for kernel, (launch, plain, n, nwords, lists) in calls.items():
             if not n:
                 continue
             bound_ms, bound_by = roofline(flops, 4 * nwords)
@@ -1208,7 +1227,7 @@ def batched_backward_phase(shapes):
                 "plain_ms": cuda_ms(plain, reps=10, per_rep=3),
                 # no one PyTorch call computes either function
                 "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
-                "flops": flops, "bytes": 4 * nwords,
+                "flops": flops, "bytes": 4 * nwords, "list_length": lists,
             })
             log(f"kernel {kernel} {name}: {json.dumps(rows[kernel][-1])}")
         fn_err = max(fn_err, function_check(name, wargs, need_du=n_du > 0))
@@ -1217,7 +1236,7 @@ def batched_backward_phase(shapes):
         B, Lo = args[0].shape[:2]
         HD = args[2].shape[0] * args[3].shape[-1]
         g = torch.from_numpy(rng.standard_normal((B, Lo, HD)).astype(np.float32)).cuda()
-        e, _, _ = compare(name, args, g)
+        e, _, _, _ = compare(name, args, g)
         for k, v in e.items():
             errs[k] = max(errs[k], v)
         fn_err = max(fn_err, function_check(name, wargs, need_du=True))
@@ -1730,6 +1749,8 @@ def tf_kernel_phase():
             "library_max_abs_err": lib_err, "bound_ms": bound_ms, "bound_by": bound_by,
             "flops": flops, "bytes": 4 * words,
         })
+        if kind == "coord":  # #11's blocks own 32 rows and list kept columns
+            rows[kind][-1]["list_length"] = list_lengths(keep)
         kernel = "posatt_tf_coord_fwd" if kind == "coord" else "posatt_tf_fwd"
         log(f"kernel {kernel} {name}: {json.dumps(rows[kind][-1])}")
     for name, *shape in RAGGED_TF:

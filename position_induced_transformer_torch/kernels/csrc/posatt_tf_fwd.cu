@@ -25,40 +25,60 @@
 //   out[b, i, h*V + k] = sum_j p values[b, j, h*V + k] / max(sum_j p, 1e-30)
 //
 // Values are per head: head h reads only its own V columns. With a non-null
-// `stats` the kernel also writes, per row, dmin, the keep threshold (+inf
+// `stats` the kernels also write, per row, dmin, the keep threshold (+inf
 // without thr) and per head the reciprocal denominator, (B, H + 2, Lo): the
 // residuals of the backward kernels in posatt_tf_bwd.cu.
 //
-// What bounds it on this card: 2*V operations per kept entry and head (2*H*V
-// in all), plus 3*dd per distance inspected when it recomputes them, against
-// inputs of the coordinates (or the (B, Lo, Li) distances), the values and
-// the (B, Lo, H*V) output. At the elasticity_tf processor (every entry of a
-// 972 x 972 window kept, H*V = 512) that is far above the f32 ridge of 20
-// operations per byte, so the f32 CUDA-core rate bounds it; the banded
-// encoder and decoder keep about 20 columns a row and bytes bound them.
-// With pre-built distances the 37.8 MB a batch of them takes at L = 972
-// bounds a thresholded op.
+// What bounds them on this card: 2*V operations per kept entry and head
+// (2*H*V in all), plus 3*dd per distance inspected when they compute them,
+// against inputs of the coordinates (or the (B, Lo, Li) distances), the
+// values and the (B, Lo, H*V) output. At the elasticity_tf processor (every
+// entry of a 972 x 972 window kept, H*V = 512) that is far above the f32
+// ridge of 20 operations per byte, so the f32 CUDA-core rate bounds it,
+// about 0.144 ms a launch; the banded encoder and decoder keep about 20
+// columns a row of a 384-column window and bytes bound them. With
+// pre-built distances the 37.8 MB a batch of them takes at L = 972 bounds a
+// thresholded op.
 //
-// What the design does about it:
-// - A block owns one head, a tile of that head's value columns (32, 64 or
-//   128, the least that covers V) and 16 rows of one sample, so each weight
-//   is computed once per column tile and feeds V products; the distances,
-//   which cost less than the exp, are recomputed per head (or re-read, where
-//   the L2 cache holds the rows the heads' blocks share).
-// - Two passes: a warp per row finds dmin over the window; the column loop
-//   then computes each weight once, stages it and the values in shared
-//   memory, contracts with a register-tiled f32 product (4 rows x CPL
-//   columns per thread), and sums the denominators beside it: the
-//   normalisation is deferred to the output, as the TPU kernel #11 does.
+// posatt_tf_coord_fwd (the coordinate kernel, tf_coord_kernel) follows the
+// design of posatt_tf_bwd.cu's TF backward:
+// - A block owns 32 rows of one sample, a group of HG heads (a warp each;
+//   HG = 1, 2 or 4, groups of four above four heads) and 64 value columns
+//   of each. It computes each (i, j) distance of its window once for all
+//   its heads, in the op order above (__fsub_rn / __fmul_rn / __fadd_rn, no
+//   FMA contraction), so the kept sets and dmin are bit for bit
+//   ops/distances.euclidean_sq's; each warp computes its head's weight once
+//   per kept entry.
+// - Pass 1 scans the window once: per row the bare minimum, and from the
+//   same distances a compacted, ordered list of the columns that any of
+//   the block's rows keeps (warp ballots in shared memory). The window's
+//   distances are not staged (32 x 972 x 4 B = 124 KB at the processor
+//   would leave one block a SM); pass 2 recomputes the listed ones, 3*dd
+//   operations against 2*HG*64 a kept entry.
+// - Pass 2 contracts over the list only: with angle-sorted clouds a 32-row
+//   tile keeps a few dozen of its 384-column window. Register tiles of 8 x
+//   8 outputs per lane, read from shared memory as conflict-free float4s
+//   (64 FMAs per four 16-byte loads). Pipelined two deep, one block barrier
+//   a step: while step s is contracted, step s + 1's value rows are in
+//   flight (cp.async, 16-byte pieces where V % 4 == 0) and its weights are
+//   computed, branch-free so that the exps interleave with the products,
+//   and step s + 2's distances are computed.
+// - The normalisation is deferred to the output, as the TPU kernel #11
+//   does; the denominators are summed beside the products, one lane a row.
 //   Sums in fixed orders: the same bits on every run.
-// - Distances from coordinates are written with __fsub_rn / __fmul_rn /
-//   __fadd_rn, so that no FMA contraction moves a kept set: they are bit for
-//   bit ops/distances.euclidean_sq's.
-// - A step whose weights are all zero skips its value loads and products;
-//   a block stays inside one band tile (16 divides the tile height), so its
-//   window is block-uniform. Rows, window columns past the key axis and
-//   value columns past V are masked by index (the TPU kernels pad instead).
+// - About 57 KB of dynamic shared memory a block of four warps, three
+//   blocks a SM at up to 168 registers a thread.
+//
+// posatt_tf_fwd (#9) keeps the body of the first port: a block owns one
+// head, a tile of that head's value columns (32, 64 or 128, the least that
+// covers V) and 16 rows of one sample; a warp per row finds dmin, then the
+// column loop computes each weight once per column tile, stages it and the
+// values in shared memory and contracts with a register-tiled f32 product
+// (4 rows x CPL columns per thread); a step whose weights are all zero
+// skips its value loads and products.
 // Tensor cores are not used: TF32 would not hold parity with the f32 oracle.
+// Rows, window columns past the key axis and value columns past V are
+// masked by index (the TPU kernels pad instead).
 //
 // Each function launches on the caller's stream, allocates nothing, and
 // returns cudaGetLastError() after the launch.
@@ -70,11 +90,6 @@
 namespace {
 
 constexpr int MAX_DIM = 4;  // coordinates per point
-constexpr int TLO = 16;     // rows per block: divides every band tile height
-constexpr int NWARPS = 4;
-constexpr int RPT = 4;      // rows per thread in the product
-constexpr int TLI = 32;     // window columns per step
-constexpr int THREADS = NWARPS * 32;
 
 __device__ __forceinline__ float warp_min(float v) {
   for (int o = 16; o > 0; o >>= 1) v = fminf(v, __shfl_xor_sync(0xffffffffu, v, o));
@@ -83,7 +98,7 @@ __device__ __forceinline__ float warp_min(float v) {
 
 // squared distance in the op order of ops/distances.euclidean_sq, without
 // contraction into FMAs
-__device__ __forceinline__ float sqdist(const float (&q)[MAX_DIM], const float* k, int dd) {
+__device__ __forceinline__ float sqdist(const float* q, const float* k, int dd) {
   float df = __fsub_rn(q[0], k[0]);
   float d = __fmul_rn(df, df);
 #pragma unroll
@@ -96,6 +111,14 @@ __device__ __forceinline__ float sqdist(const float (&q)[MAX_DIM], const float* 
   return d;
 }
 
+// ================================================ #9: pre-built distances
+
+constexpr int TLO = 16;     // rows per block
+constexpr int NWARPS = 4;
+constexpr int RPT = 4;      // rows per thread in the product
+constexpr int TLI = 32;     // window columns per step
+constexpr int THREADS = NWARPS * 32;
+
 template <int N>
 __device__ __forceinline__ void lds(const float* p, float (&v)[N]) {
 #pragma unroll
@@ -107,31 +130,25 @@ __device__ __forceinline__ void lds<4>(const float* p, float (&v)[4]) {
   v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
 }
 
-// The inputs of one launch. COORDS: distances from mq/mk (and the band);
-// otherwise read from dist.
-struct Args {
-  const float* dist;    // (B, Lo, Li) or null
-  const float* mq;      // (B, Lo, dd) or null
-  const float* mk;      // (B, Li, dd) or null
+struct DistArgs {
+  const float* dist;    // (B, Lo, Li)
   const float* scale;   // (H)
   const float* values;  // (B, Li, H*V)
   const float* thr;     // (B, Lo) or null
-  const int* starts;    // (B, n_tiles) or null
   float* out;           // (B, Lo, H*V)
   float* stats;         // (B, H+2, Lo) or null
-  int Lo, Li, H, V, dd, width, tile_rows, n_tiles;
+  int Lo, Li, H, V;
 };
 
 // Warp w owns rows [w*RPT, w*RPT + RPT) of the product, lane c the value
 // columns [c*CPL, c*CPL + CPL) of the block's tile.
-template <bool COORDS, int CPL>
-__global__ void __launch_bounds__(THREADS) tf_fwd_kernel(const Args a) {
+template <int CPL>
+__global__ void __launch_bounds__(THREADS) tf_fwd_kernel(const DistArgs a) {
   constexpr int TN = 32 * CPL;
   static_assert(THREADS % TLO == 0 && THREADS % TN == 0, "tile shape");
   static_assert((TLI * TN) % THREADS == 0 && (TLI * TLO) % THREADS == 0, "steps");
   __shared__ __align__(16) float s_p[TLI][TLO];  // unnormalised weights
   __shared__ __align__(16) float s_v[TLI][TN];   // the head's values
-  __shared__ float s_q[TLO][MAX_DIM];
   __shared__ float s_dmin[TLO];
   __shared__ float s_thr[TLO];
   __shared__ float s_den[THREADS];  // each thread's share of its row's denominator
@@ -147,39 +164,11 @@ __global__ void __launch_bounds__(THREADS) tf_fwd_kernel(const Args a) {
   const int b = blockIdx.z;
   const int Lo = a.Lo, Li = a.Li, HV = a.H * a.V;
   const float s = a.scale[h];
-  const float* distb = COORDS ? nullptr : a.dist + (size_t)b * Lo * Li;
-  const float* mkb = COORDS ? a.mk + (size_t)b * Li * a.dd : nullptr;
+  const float* distb = a.dist + (size_t)b * Lo * Li;
   const float* vb = a.values + (size_t)b * Li * HV + (size_t)h * a.V;
+  const int j_begin = 0, j_end = Li;
 
-  // the block's column window, the same for all its rows
-  int j_begin = 0, j_end = Li;
-  if (COORDS && a.starts != nullptr) {
-    const int st = a.starts[(size_t)b * a.n_tiles + row0 / a.tile_rows];
-    j_begin = max(st, 0);
-    j_end = min(st + a.width, Li);
-  }
-  if (COORDS) {
-    for (int e = tid; e < TLO * MAX_DIM; e += THREADS) {
-      const int r = e / MAX_DIM, c = e - r * MAX_DIM;
-      const int i = row0 + r;
-      s_q[r][c] = (i < Lo && c < a.dd) ? a.mq[((size_t)b * Lo + i) * a.dd + c] : 0.f;
-    }
-    __syncthreads();
-  }
-
-  // distance of block row r (global row i) to key j
-  auto dist_at = [&](int r, int i, int j) -> float {
-    if constexpr (COORDS) {
-      float q[MAX_DIM];
-#pragma unroll
-      for (int c = 0; c < MAX_DIM; ++c) q[c] = s_q[r][c];
-      return sqdist(q, mkb + (size_t)j * a.dd, a.dd);
-    } else {
-      return distb[(size_t)i * Li + j];
-    }
-  };
-
-  // ---- pass 1: the bare window minimum and the threshold, a warp per row
+  // ---- pass 1: the bare row minimum and the threshold, a warp per row
   for (int r = warp; r < TLO; r += NWARPS) {
     const int i = row0 + r;
     if (i >= Lo) {  // never written; keeps nothing
@@ -187,7 +176,7 @@ __global__ void __launch_bounds__(THREADS) tf_fwd_kernel(const Args a) {
       continue;
     }
     float mn = INFINITY;
-    for (int j = j_begin + lane; j < j_end; j += 32) mn = fminf(mn, dist_at(r, i, j));
+    for (int j = j_begin + lane; j < j_end; j += 32) mn = fminf(mn, distb[(size_t)i * Li + j]);
     mn = warp_min(mn);
     if (lane == 0) {
       s_dmin[r] = mn;
@@ -218,7 +207,7 @@ __global__ void __launch_bounds__(THREADS) tf_fwd_kernel(const Args a) {
       const int jj = tid / TLO + q * (THREADS / TLO);
       const int j = j0 + jj;
       const bool ok = ip < Lo && j < j_end;
-      const float d = ok ? dist_at(rp, ip, j) : 0.f;
+      const float d = ok ? distb[(size_t)ip * Li + j] : 0.f;
       const bool k = ok && d <= tp;
       any |= k;
       const float p = k ? expf(-__fsub_rn(d, dminp) * s) : 0.f;
@@ -278,25 +267,393 @@ __global__ void __launch_bounds__(THREADS) tf_fwd_kernel(const Args a) {
   }
 }
 
-template <bool COORDS, int CPL>
-void launch_tiles(const Args& a, int B, cudaStream_t stream) {
+template <int CPL>
+void launch_tiles(const DistArgs& a, int B, cudaStream_t stream) {
   constexpr int TN = 32 * CPL;
   const dim3 grid(a.H * ((a.V + TN - 1) / TN), (a.Lo + TLO - 1) / TLO, B);
-  tf_fwd_kernel<COORDS, CPL><<<grid, THREADS, 0, stream>>>(a);
+  tf_fwd_kernel<CPL><<<grid, THREADS, 0, stream>>>(a);
 }
 
-// the value columns a block owns: 32, 64 or 128, the least that covers V
-// (V = 64 at elasticity_tf: 512 hidden over 8 heads)
-template <bool COORDS>
-int launch(const Args& a, int B, cudaStream_t s) {
-  if (a.V <= 32)
-    launch_tiles<COORDS, 1>(a, B, s);
-  else if (a.V <= 64)
-    launch_tiles<COORDS, 2>(a, B, s);
-  else
-    launch_tiles<COORDS, 4>(a, B, s);
+// =============================================== #11: from coordinates
+
+namespace coord {
+
+constexpr int TM = 32;      // rows a block
+constexpr int TK = 16;      // listed columns a step
+constexpr int TN = 64;      // value columns of each head a block
+constexpr int LCAP = 1024;  // the compacted list of kept columns
+// blocks of four warps resident on an SM: up to 168 registers a thread
+constexpr int MIN_BLOCKS = 3;
+
+__device__ __forceinline__ void lds4(const float* p, float* v) {
+  const float4 q = *reinterpret_cast<const float4*>(p);
+  v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+}
+
+// an asynchronous 4-byte copy to shared memory; zero-filled when !ok
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool ok) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+               "r"(ok ? 4 : 0));
+}
+
+// an asynchronous 16-byte copy to shared memory; zero-filled when !ok
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool ok) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(ok ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+// wait until at most N of this thread's committed copy groups are pending
+template <int N>
+__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
+
+struct Args {
+  const float* mq;      // (B, Lo, dd)
+  const float* mk;      // (B, Li, dd)
+  const float* scale;   // (H)
+  const float* values;  // (B, Li, H*V)
+  const float* thr;     // (B, Lo) or null
+  const int* starts;    // (B, n_tiles) or null
+  float* out;           // (B, Lo, H*V)
+  float* stats;         // (B, H+2, Lo) or null
+  int Lo, Li, H, V, dd, width, tile_rows, n_tiles;
+  bool vec4;            // the value rows copy in 16-byte pieces (V % 4 == 0, aligned)
+};
+
+// What a block keeps in shared memory (dynamic: above the 48 KB of a static
+// allocation at four heads). The steps' x, weights and value rows are double
+// buffered: step s + 1's weights and value rows and step s + 2's x are
+// written while step s's are used.
+template <int HG>
+struct Smem {
+  __align__(16) float v[2][HG][TK][TN];  // each head's value rows
+  __align__(16) float w[2][HG][TK][TM];  // each head's weights
+  float x[2][TK][TM + 1];  // x = d - dmin of a step's entries, -1 where not kept
+  int list[LCAP];          // the window's columns that a row keeps, in order
+  float oq[TM][MAX_DIM];   // the rows' coordinates
+  float othr[TM];          // the rows' keep thresholds
+  float odmin[TM];         // the rows' bare window minima
+  float wmin[HG][TM];      // each warp's share of them
+  float rden[HG][TM];      // each head's reciprocal denominators
+  int cnt[HG];
+};
+
+// One step of a transposing butterfly: v[i], i < 2*OFF, holds rows r(i);
+// a lane keeps the half of them its bit OFF selects, and takes the minimum
+// with its partner's copy of that half.
+template <int OFF>
+__device__ __forceinline__ void min_step(float (&v)[TM], int lane) {
+  const bool upper = (lane & OFF) != 0;
+#pragma unroll
+  for (int i = 0; i < OFF; ++i) {
+    const float send = upper ? v[i] : v[i + OFF];
+    const float keep = upper ? v[i + OFF] : v[i];
+    v[i] = fminf(keep, __shfl_xor_sync(0xffffffffu, send, OFF));
+  }
+}
+
+// Lane l of a warp ends with the minimum over the warp's lanes of v[l]:
+// 31 exchanges for 32 rows.
+__device__ __forceinline__ float warp_min_rows(float (&v)[TM], int lane) {
+  min_step<16>(v, lane);
+  min_step<8>(v, lane);
+  min_step<4>(v, lane);
+  min_step<2>(v, lane);
+  min_step<1>(v, lane);
+  return v[0];
+}
+
+// A block: rows o0 = 32*blockIdx.y.. of sample blockIdx.z; head group and
+// column tile from blockIdx.x. Warp h owns head h0 + h; lane (og, cg) =
+// (lane / 8, lane % 8) owns the rows og*4 + {0..3} and 16 + og*4 + {0..3}
+// and the columns cg*4 + {0..3} and 32 + cg*4 + {0..3} of the tile.
+template <int HG>
+__global__ void __launch_bounds__(HG * 32, MIN_BLOCKS * 4 / HG) tf_coord_kernel(const Args a) {
+  constexpr int THREADS = HG * 32;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Smem<HG>& sm = *reinterpret_cast<Smem<HG>*>(smem_raw);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int n_ct = (a.V + TN - 1) / TN;
+  const int grp = blockIdx.x / n_ct;
+  const int ct = blockIdx.x - grp * n_ct;
+  const int col0 = ct * TN;
+  const int h0 = grp * HG;
+  const int h = h0 + warp;  // this warp's head
+  const bool head_ok = h < a.H;
+  const int o0 = blockIdx.y * TM;
+  const int b = blockIdx.z;
+  const int Lo = a.Lo, Li = a.Li, HV = a.H * a.V, dd = a.dd;
+  const float s = head_ok ? a.scale[h] : 0.f;
+  const float* mkb = a.mk + (size_t)b * Li * dd;
+
+  // the block's window, the same for all its rows
+  int wb = 0, we = Li;
+  if (a.starts != nullptr) {
+    const int st = a.starts[(size_t)b * a.n_tiles + o0 / a.tile_rows];
+    wb = max(st, 0);
+    we = min(st + a.width, Li);
+  }
+  for (int e = tid; e < TM * MAX_DIM; e += THREADS) {
+    const int o = e / MAX_DIM, k = e - o * MAX_DIM;
+    const int i = o0 + o;
+    sm.oq[o][k] = (i < Lo && k < dd) ? a.mq[((size_t)b * Lo + i) * dd + k] : 0.f;
+  }
+  for (int o = tid; o < TM; o += THREADS) {
+    const int i = o0 + o;
+    // a padded row keeps nothing
+    sm.othr[o] = i >= Lo ? -INFINITY : (a.thr != nullptr ? a.thr[(size_t)b * Lo + i] : INFINITY);
+  }
+  __syncthreads();
+
+  // Block-uniform: one round of the compaction. Appends to sm.list, from
+  // *n on, the candidate column cand of each thread when `any` (a row
+  // keeps it), in order.
+  auto append = [&](bool any, int cand, int* n) {
+    const unsigned m = __ballot_sync(0xffffffffu, any);
+    if (lane == 0) sm.cnt[warp] = __popc(m);
+    __syncthreads();
+    int off = *n, total = *n;
+#pragma unroll
+    for (int w = 0; w < HG; ++w) {
+      if (w < warp) off += sm.cnt[w];
+      total += sm.cnt[w];
+    }
+    if (any) sm.list[off + __popc(m & ((1u << lane) - 1u))] = cand;
+    __syncthreads();  // the counts are read before the next round writes them
+    *n = total;
+  };
+
+  // ---- pass 1: each row's bare window minimum and, from the same
+  // distances, the list of kept columns; `resume` is the first column
+  // whose round did not fit in the list
+  int n = 0, resume = we;
+  {
+    float mn[TM];
+#pragma unroll
+    for (int o = 0; o < TM; ++o) mn[o] = INFINITY;
+    for (int c0 = wb; c0 < we; c0 += THREADS) {
+      const int c = c0 + tid;
+      const bool ok = c < we;
+      float kq[MAX_DIM];
+#pragma unroll
+      for (int k = 0; k < MAX_DIM; ++k) kq[k] = ok && k < dd ? __ldg(mkb + (size_t)c * dd + k) : 0.f;
+      bool any = false;
+#pragma unroll
+      for (int o = 0; o < TM; ++o) {
+        const float d = sqdist(sm.oq[o], kq, dd);
+        if (ok) {
+          mn[o] = fminf(mn[o], d);
+          any |= d <= sm.othr[o];
+        }
+      }
+      if (resume == we) {  // block-uniform
+        if (n + THREADS <= LCAP)
+          append(any, c, &n);
+        else
+          resume = c0;
+      }
+    }
+    sm.wmin[warp][lane] = warp_min_rows(mn, lane);
+  }
+  __syncthreads();
+  for (int o = tid; o < TM; o += THREADS) {
+    float m = sm.wmin[0][o];
+#pragma unroll
+    for (int w = 1; w < HG; ++w) m = fminf(m, sm.wmin[w][o]);
+    sm.odmin[o] = m;
+  }
+  __syncthreads();
+
+  const int og = lane >> 3, cg = lane & 7;
+  float acc[8][8];
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
+#pragma unroll
+    for (int c = 0; c < 8; ++c) acc[r][c] = 0.f;
+  float den = 0.f;  // the denominator of row o0 + lane, this warp's head
+  const float* vsrc = a.values + (size_t)b * Li * HV + (size_t)(head_ok ? h : 0) * a.V + col0;
+  const bool c0_ok = col0 + lane < a.V, c1_ok = col0 + lane + 32 < a.V;
+
+  // A thread's share of a step's x tile: FILL entries (k, o), k fastest:
+  // one listed column a thread
+  constexpr int FILL = TK * TM / THREADS;
+  const int fk = tid % TK;
+  struct Pending {
+    float kq[MAX_DIM];
+    int c;  // the column; -1 past the list
+  };
+  // the column's coordinates, loaded a step ahead so that the loads are in
+  // flight during a contraction
+  auto fill_load = [&](int s0, int nl) {
+    Pending p;
+    const bool ok = s0 + fk < nl;
+    p.c = ok ? sm.list[s0 + fk] : -1;
+    const float* src = mkb + (size_t)(ok ? p.c : 0) * dd;
+#pragma unroll
+    for (int k = 0; k < MAX_DIM; ++k) p.kq[k] = k < dd ? __ldg(src + k) : 0.f;
+    return p;
+  };
+  // x of a step into buffer xb: d - dmin where kept, else -1
+  auto fill_store = [&](const Pending& p, int xb) {
+#pragma unroll
+    for (int q = 0; q < FILL; ++q) {
+      const int o = tid / TK + q * (THREADS / TK);
+      float x = -1.f;
+      if (p.c >= 0) {  // a listed column is inside the window
+        const float d = sqdist(sm.oq[o], p.kq, dd);
+        if (d <= sm.othr[o]) x = __fsub_rn(d, sm.odmin[o]);
+      }
+      sm.x[xb][fk][o] = x;
+    }
+  };
+  // warp: start copying this head's value rows of step s0 into buffer vb
+  auto stage = [&](int s0, int nl, int vb) {
+    if (a.vec4) {  // 16 pieces of 4 columns a row
+#pragma unroll
+      for (int q = 0; q < TK * TN / 4 / 32; ++q) {
+        const int e = lane + q * 32;
+        const int k = e / (TN / 4), c4 = (e - k * (TN / 4)) * 4;
+        const bool ok = s0 + k < nl && col0 + c4 < a.V;
+        const float* p = vsrc + (size_t)(s0 + k < nl ? sm.list[s0 + k] : 0) * HV + c4;
+        cp_async16(&sm.v[vb][warp][k][c4], ok ? p : vsrc, ok);
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < TK; ++k) {
+        const bool ok = s0 + k < nl;
+        const float* p = vsrc + (size_t)(ok ? sm.list[s0 + k] : 0) * HV;
+        cp_async4(&sm.v[vb][warp][k][lane], ok && c0_ok ? p + lane : vsrc, ok && c0_ok);
+        cp_async4(&sm.v[vb][warp][k][lane + 32], ok && c1_ok ? p + lane + 32 : vsrc,
+                  ok && c1_ok);
+      }
+    }
+    cp_async_commit();
+  };
+
+  // this head's weights of the step whose x is in buffer xb, into weight
+  // buffer xb; lane = row. Branch-free (not kept or past the list: 0), so
+  // that the compiler can interleave it with the products of the step before
+  auto weights = [&](int xb) {
+#pragma unroll
+    for (int k = 0; k < TK; ++k) {
+      const float x = sm.x[xb][k][lane];
+      const float e = expf(-fmaxf(x, 0.f) * s);
+      const float p = x >= 0.f ? e : 0.f;
+      den += p;
+      sm.w[xb][warp][k][lane] = p;
+    }
+  };
+
+  // ---- pass 2: contract over the listed columns [0, nl), pipelined two
+  // deep: while step s is contracted, step s + 1's value rows are in flight
+  // and its weights are computed, and step s + 2's x is computed; one block
+  // barrier a step
+  auto contract = [&](int nl) {
+    if (nl == 0) return;  // block-uniform
+    fill_store(fill_load(0, nl), 0);
+    fill_store(fill_load(TK, nl), 1);  // past the list: -1
+    if (head_ok) stage(0, nl, 0);
+    __syncthreads();
+    weights(0);
+    __syncthreads();  // x of step 0 is read before step 0 writes step 2's
+    int buf = 0;
+    for (int s0 = 0; s0 < nl; s0 += TK, buf ^= 1) {
+      const bool more = s0 + TK < nl;
+      const Pending next = fill_load(s0 + 2 * TK, nl);  // nothing past the list
+      if (head_ok) {  // warp-uniform
+        if (more) stage(s0 + TK, nl, buf ^ 1);
+        if (more) cp_async_wait<1>(); else cp_async_wait<0>();
+        __syncwarp();
+      }
+#pragma unroll
+      for (int k = 0; k < TK; ++k) {
+        float wv[8], vv[8];
+        lds4(&sm.w[buf][warp][k][og * 4], wv);
+        lds4(&sm.w[buf][warp][k][16 + og * 4], wv + 4);
+        lds4(&sm.v[buf][warp][k][cg * 4], vv);
+        lds4(&sm.v[buf][warp][k][32 + cg * 4], vv + 4);
+#pragma unroll
+        for (int r = 0; r < 8; ++r)
+#pragma unroll
+          for (int c = 0; c < 8; ++c) acc[r][c] = fmaf(wv[r], vv[c], acc[r][c]);
+      }
+      weights(buf ^ 1);  // step s + 1's; past the list: zeros, never read
+      fill_store(next, buf);
+      __syncthreads();  // step s's buffers are free, step s + 1's are visible
+    }
+  };
+
+  contract(n);
+  // the columns whose rounds did not fit in the list, in list-sized rounds
+  for (int c0 = resume; c0 < we;) {
+    int nl = 0;
+    while (c0 < we && nl + THREADS <= LCAP) {
+      const int c = c0 + tid;
+      bool any = false;
+      if (c < we) {
+        float kq[MAX_DIM];
+#pragma unroll
+        for (int k = 0; k < MAX_DIM; ++k) kq[k] = k < dd ? __ldg(mkb + (size_t)c * dd + k) : 0.f;
+        for (int o = 0; o < TM && !any; ++o) any = sqdist(sm.oq[o], kq, dd) <= sm.othr[o];
+      }
+      append(any, c, &nl);
+      c0 += THREADS;
+    }
+    contract(nl);
+  }
+  if (!head_ok) return;  // warp-uniform; no block barrier follows
+
+  // ---- epilogue: normalise, write the head's columns and the statistics
+  const float rden = 1.f / fmaxf(den, 1e-30f);
+  sm.rden[warp][lane] = rden;
+  __syncwarp();
+  const int i_own = o0 + lane;
+  if (a.stats != nullptr && ct == 0 && i_own < Lo) {
+    float* st = a.stats + (size_t)b * (a.H + 2) * Lo + i_own;
+    st[(size_t)(2 + h) * Lo] = rden;
+    if (h == 0) { st[0] = sm.odmin[lane]; st[Lo] = sm.othr[lane]; }
+  }
+  const int rows[8] = {og * 4, og * 4 + 1, og * 4 + 2, og * 4 + 3,
+                       16 + og * 4, 16 + og * 4 + 1, 16 + og * 4 + 2, 16 + og * 4 + 3};
+  const int cols[8] = {cg * 4, cg * 4 + 1, cg * 4 + 2, cg * 4 + 3,
+                       32 + cg * 4, 32 + cg * 4 + 1, 32 + cg * 4 + 2, 32 + cg * 4 + 3};
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const int i = o0 + rows[r];
+    if (i >= Lo) continue;
+    const float rd = sm.rden[warp][rows[r]];
+    float* dst = a.out + ((size_t)b * Lo + i) * HV + (size_t)h * a.V + col0;
+#pragma unroll
+    for (int c = 0; c < 8; ++c)
+      if (col0 + cols[c] < a.V) dst[cols[c]] = acc[r][c] * rd;
+  }
+}
+
+// heads a block: 1, 2 or 4 (a warp each), the least power of two that
+// holds H up to 4
+template <int HG>
+int launch_group(const Args& a, int B, cudaStream_t s) {
+  constexpr int smem = (int)sizeof(Smem<HG>);
+  int rc = (int)cudaFuncSetAttribute(tf_coord_kernel<HG>,
+                                     cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (rc != 0) return rc;
+  const int n_ct = (a.V + TN - 1) / TN;
+  const dim3 grid((a.H + HG - 1) / HG * n_ct, (a.Lo + TM - 1) / TM, B);
+  tf_coord_kernel<HG><<<grid, HG * 32, smem, s>>>(a);
   return (int)cudaGetLastError();
 }
+
+int launch(const Args& a, int B, cudaStream_t s) {
+  if (a.H == 1) return launch_group<1>(a, B, s);
+  if (a.H == 2) return launch_group<2>(a, B, s);
+  return launch_group<4>(a, B, s);
+}
+
+}  // namespace coord
 
 bool bad_shape(int B, int Lo, int Li, int H, int V) {
   return B < 1 || Lo < 1 || Li < 1 || H < 1 || V < 1 || B > 65535 || (Lo + TLO - 1) / TLO > 65535;
@@ -308,21 +665,31 @@ extern "C" int posatt_tf_fwd(const float* dist, const float* thr, const float* s
                              const float* values, float* out, float* stats, int B, int Lo,
                              int Li, int H, int V, void* stream) {
   if (bad_shape(B, Lo, Li, H, V)) return (int)cudaErrorInvalidValue;
-  const Args a{dist, nullptr, nullptr, scale, values, thr, nullptr, out, stats,
-               Lo, Li, H, V, 0, 0, Lo, 1};
-  return launch<false>(a, B, static_cast<cudaStream_t>(stream));
+  const DistArgs a{dist, scale, values, thr, out, stats, Lo, Li, H, V};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // the value columns a block owns: 32, 64 or 128, the least that covers V
+  // (V = 64 at elasticity_tf: 512 hidden over 8 heads)
+  if (V <= 32)
+    launch_tiles<1>(a, B, s);
+  else if (V <= 64)
+    launch_tiles<2>(a, B, s);
+  else
+    launch_tiles<4>(a, B, s);
+  return (int)cudaGetLastError();
 }
 
 extern "C" int posatt_tf_coord_fwd(const float* mq, const float* mk, const float* scale,
                                    const float* values, const float* thr, const int* starts,
                                    float* out, float* stats, int B, int Lo, int Li, int H,
                                    int V, int dd, int width, int tile_rows, void* stream) {
-  // a block of TLO rows must stay inside one band tile
-  const bool tiles_ok = tile_rows >= Lo || (tile_rows > 0 && tile_rows % TLO == 0);
+  // a block of 32 rows must stay inside one band tile
+  const bool tiles_ok = tile_rows >= Lo || (tile_rows > 0 && tile_rows % coord::TM == 0);
   if (bad_shape(B, Lo, Li, H, V) || dd < 1 || dd > MAX_DIM || !tiles_ok ||
       (starts != nullptr && width < 1))
     return (int)cudaErrorInvalidValue;
-  const Args a{nullptr, mq, mk, scale, values, thr, starts, out, stats,
-               Lo, Li, H, V, dd, width, tile_rows, (Lo + tile_rows - 1) / tile_rows};
-  return launch<true>(a, B, static_cast<cudaStream_t>(stream));
+  const bool vec4 = V % 4 == 0 && reinterpret_cast<size_t>(values) % 16 == 0;
+  const coord::Args a{mq, mk, scale, values, thr, starts, out, stats,
+                      Lo, Li, H, V, dd, width, tile_rows, (Lo + tile_rows - 1) / tile_rows,
+                      vec4};
+  return coord::launch(a, B, static_cast<cudaStream_t>(stream));
 }

@@ -70,7 +70,6 @@ from position_induced_transformer_torch.ops.locality import (
 from position_induced_transformer_torch.ops.posatt import bandwidth_scale
 
 MAX_SPACE_DIM = 4  # coordinates per point the kernels take
-_TLO = 16  # the #7/#8 kernels' row tile; divides every band tile height
 
 
 def band_tile_rows(L_out: int) -> int:
@@ -295,11 +294,13 @@ def posatt_batched_cuda(
     return (out, st) if stats else out
 
 
-def _check_bwd(name, mesh_q, mesh_k, scale, g, stats, starts, width, u=None) -> None:
+def _check_bwd(name, mesh_q, mesh_k, scale, g, stats, starts, width, u=None, out=None) -> None:
     """The backward launchers' inputs: the forward's coordinates, scale,
-    values and band, its row statistics and a cotangent of its output."""
+    values and band, its row statistics and a cotangent of its output, and
+    for dscale the values and the forward's output."""
     named = [("mesh_q", mesh_q), ("mesh_k", mesh_k), ("scale", scale), ("g", g), ("stats", stats)]
-    _check_tensors(named + ([("inputs", u)] if u is not None else []), mesh_q.device)
+    named += [("inputs", u), ("out", out)] if u is not None else []
+    _check_tensors(named, mesh_q.device)
     _check_cuda(name, mesh_q)
     H = scale.shape[0]
     B, L_out, d = mesh_q.shape
@@ -313,25 +314,31 @@ def _check_bwd(name, mesh_q, mesh_k, scale, g, stats, starts, width, u=None) -> 
     _check_starts(starts, width, B, L_out, mesh_q.device)
     if tuple(g.shape) != (B, L_out, H * D):
         raise ValueError(f"g must be ({B}, {L_out}, {H * D}), got {tuple(g.shape)}")
+    if out is not None and out.shape != g.shape:
+        raise ValueError(f"out must be {tuple(g.shape)} as g, got {tuple(out.shape)}")
     if tuple(stats.shape) != (B, H + 2, L_out):
         raise ValueError(f"stats must be ({B}, {H + 2}, {L_out}), got {tuple(stats.shape)}")
 
 
-def posatt_batched_bwd_dscale_cuda(mesh_q, mesh_k, scale, u, g, stats, starts=None, *, width=0):
-    """Launch the dscale kernel on CUDA tensors: (B, H). Deterministic:
-    per-block partials summed per sample in a fixed order inside the
-    library. Adds one to ``posatt_batched_bwd_dscale_cuda.launches``."""
-    _check_bwd("posatt_batched_bwd_dscale_cuda", mesh_q, mesh_k, scale, g, stats, starts, width, u)
+def posatt_batched_bwd_dscale_cuda(mesh_q, mesh_k, scale, u, out, g, stats, starts=None, *,
+                                   width=0):
+    """Launch the dscale kernel on CUDA tensors: (B, H), from the forward's
+    inputs, its output ``out`` (B, L_out, H*D) and row statistics and a
+    cotangent ``g``. Deterministic: per-block partials summed per sample
+    and head in a fixed order inside the library. Adds one to
+    ``posatt_batched_bwd_dscale_cuda.launches``."""
+    _check_bwd("posatt_batched_bwd_dscale_cuda", mesh_q, mesh_k, scale, g, stats, starts, width,
+               u, out)
     H = scale.shape[0]
     B, L_out, d = mesh_q.shape
     L_in, D = u.shape[1:]
     dev = mesh_q.device
-    # an upper bound on the kernel's blocks per sample: 16 rows by at least
-    # 32 value columns each
-    partial = torch.empty((B, -(-L_out // _TLO) * -(-D // 32), H), dtype=torch.float32, device=dev)
+    # an upper bound on the kernel's blocks per (sample, head): 32 rows by at
+    # least 64 value columns each
+    partial = torch.empty((B, H, -(-L_out // 32) * -(-D // 64)), dtype=torch.float32, device=dev)
     ds = torch.empty((B, H), dtype=torch.float32, device=dev)
-    fn = _entry("posatt_batched_bwd", "posatt_batched_bwd_dscale", 9, 8)
-    _launch(fn, "posatt_batched_bwd_dscale", dev, mesh_q, mesh_k, scale, u, g, stats,
+    fn = _entry("posatt_batched_bwd", "posatt_batched_bwd_dscale", 10, 8)
+    _launch(fn, "posatt_batched_bwd_dscale", dev, mesh_q, mesh_k, scale, u, out, g, stats,
             starts, partial, ds, H, B, L_out, L_in, D, d,
             width if starts is not None else 0, band_tile_rows(L_out))
     posatt_batched_bwd_dscale_cuda.launches += 1
@@ -380,30 +387,34 @@ class PosAttBatched(torch.autograd.Function):
     (B, L_out, H*D), the ``_posatt_batched`` custom VJP.
 
     The forward runs the forward kernel with its row statistics and saves
-    (coordinates, scale, values, statistics, starts); the backward runs the
-    dscale kernel when ``scale`` needs a gradient, summing its per-sample
-    (B, H) result over B, and the du kernel when ``u`` does. Coordinates,
-    thresholds and starts get none. CPU tensors take the plain versions of
-    the same functions.
+    (coordinates, scale, values, statistics, starts, output); the backward
+    runs the dscale kernel, which reads the output, when ``scale`` needs a
+    gradient, summing its per-sample (B, H) result over B, and the du
+    kernel when ``u`` does. Coordinates, thresholds and starts get none.
+    CPU tensors take the plain versions of the same functions.
     """
 
     @staticmethod
     def forward(ctx, mesh_q, mesh_k, scale, u, thr, starts, keep_count, width):
         out, stats = _forward(mesh_q, mesh_k, scale, u, thr, starts, keep_count, width, stats=True)
-        ctx.save_for_backward(mesh_q, mesh_k, scale, u, stats, starts)
+        ctx.save_for_backward(mesh_q, mesh_k, scale, u, stats, starts, out)
         ctx.width = width
         return out
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
-        mesh_q, mesh_k, scale, u, stats, starts = ctx.saved_tensors
+        mesh_q, mesh_k, scale, u, stats, starts, out = ctx.saved_tensors
         g = g.contiguous()  # the residual concat hands over a strided slice
         cuda = mesh_q.device.type == "cuda"
         dscale = du = None
         if ctx.needs_input_grad[2]:
-            fn = posatt_batched_bwd_dscale_cuda if cuda else posatt_batched_bwd_dscale_reference
-            ds = fn(mesh_q, mesh_k, scale, u, g, stats, starts, width=ctx.width)
+            if cuda:
+                ds = posatt_batched_bwd_dscale_cuda(mesh_q, mesh_k, scale, u, out, g, stats, starts,
+                                                    width=ctx.width)
+            else:
+                ds = posatt_batched_bwd_dscale_reference(mesh_q, mesh_k, scale, u, g, stats, starts,
+                                                         width=ctx.width)
             dscale = ds.sum(dim=0).reshape(scale.shape)
         if ctx.needs_input_grad[3]:
             fn = posatt_batched_bwd_du_cuda if cuda else posatt_batched_bwd_du_reference

@@ -216,6 +216,71 @@ def test_function_gradients_match_jax_grad(name):
     np.testing.assert_allclose(x.grad.numpy(), np.asarray(jg[1]), rtol=DS_RTOL, atol=DS_ATOL)
 
 
+def _dscale_through_output(mq, mk, scale, u, out, g, stats, starts, width):
+    """dscale as the CUDA kernel of #8 computes it, in float32: ``sum_{i,k}
+    G_h (Y_h - v_h O_h)`` with ``W_h = P_h (-x)``, ``x = d - dmin``, ``Y_h =
+    W_h U``, ``v_h = sum_j W_h`` and the forward's output O."""
+    att, keep, dist = t_b._weights_from_stats(mq, mk, scale, stats, starts, width)
+    B, H, Lo, _ = att.shape
+    w = att * torch.where(keep, -(dist - stats[:, 0, :, None]), 0.0)[:, None]
+    y = torch.einsum("bhij,bjd->bihd", w, u)
+    v = w.sum(-1).transpose(1, 2)[..., None]  # (B, Lo, H, 1)
+    gh, oh = g.reshape(B, Lo, H, -1), out.reshape(B, Lo, H, -1)
+    return (gh * (y - v * oh)).sum(dim=(1, 3))
+
+
+@pytest.mark.parametrize("name", ["(2, 64, 64, 2, 8, 0.1)-thr", "(3, 37, 53, 2, 19, 0.1)-thr",
+                                  "(2, 64, 64, 1, 8, 1.0)", "ring-band"])
+def test_dscale_through_the_forward_output_matches_interpret_kernel(name):
+    """The CUDA dscale kernel of #8 reads the forward's output O instead of
+    a separate pass for v, over x = d - dmin: its formula, computed here in
+    float32 on the plain versions' weights, against _posatt_batched_bwd_raw
+    in interpret mode at the dscale bound on unit-size terms; with
+    thresholds, globally and with a circular band whose seam tile wraps."""
+    mq, mk, lmda, u, g, loc, thr, band = CASES[name]
+    scale, mk_e, u_e, kc, starts, width = _raw_args(mq, mk, lmda, u, loc, thr, band)
+    opt = lambda a: None if a is None else t(a)
+    kw = dict(keep_count=kc, width=width)
+    out = t_b.posatt_batched_reference(t(mq), t(mk_e), t(scale), t(u_e), opt(thr), opt(starts), **kw)
+    stats = t_b.posatt_batched_stats_reference(t(mq), t(mk_e), t(scale), opt(thr), opt(starts), **kw)
+    ds = _dscale_through_output(t(mq), t(mk_e), t(scale), t(u_e), out, t(g), stats, opt(starts),
+                                width)
+    jopt = lambda a: None if a is None else jnp.asarray(a)
+    _, jds = j_b._posatt_batched_bwd_raw(*[jnp.asarray(a) for a in (mq, mk_e, scale, u_e, g)],
+                                         jopt(thr), jopt(starts), keep_count=kc, band_width=width,
+                                         interpret=True)
+    size = np.abs(np.asarray(jds)).max() + 1.0
+    np.testing.assert_allclose(ds.numpy() / size, np.asarray(jds) / size, rtol=DS_RTOL, atol=DS_ATOL)
+
+
+@pytest.mark.parametrize("H", [1, 3, 9])
+def test_function_saves_the_output_and_matches_jax_vjp_at_any_head_count(H):
+    """PosAttBatched (its CPU path) saves the forward's output beside its
+    residuals, the dscale kernel's input, and its gradients match the JAX
+    _posatt_batched custom VJP in interpret mode; 9 heads make a short
+    second group of the card's kernels."""
+    mq, mk, lmda, u, w = _case(2, 48, 56, H, 6, seed=13)
+    thr = t_loc.batched_topk_thresholds(t(mq), t(mk), 0.1)
+    lm = t(lmda).requires_grad_(True)
+    x = t(u).requires_grad_(True)
+    out = t_b.position_attention_batched(t(mq), t(mk), lm, x, 0.1, thr)
+    assert type(out.grad_fn).__name__ == "PosAttBatchedBackward"
+    saved = [s for s in out.grad_fn.saved_tensors if s is not None]
+    assert any(s.shape == out.shape and torch.equal(s, out) for s in saved)
+    (out * t(w)).sum().backward()
+
+    def loss(lm, uu):
+        o = j_b.position_attention_batched(jnp.asarray(mq), jnp.asarray(mk), lm, uu, 0.1,
+                                           jnp.asarray(thr.numpy()), interpret=True)
+        return jnp.sum(o * jnp.asarray(w)), o
+
+    (_, jout), jg = jax.value_and_grad(loss, argnums=(0, 1), has_aux=True)(
+        jnp.asarray(lmda), jnp.asarray(u))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(jout), rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(lm.grad.numpy(), np.asarray(jg[0]), rtol=DS_RTOL, atol=DS_ATOL)
+    np.testing.assert_allclose(x.grad.numpy(), np.asarray(jg[1]), rtol=DS_RTOL, atol=DS_ATOL)
+
+
 def test_wrapper_matches_oracle_and_computes_large_keep_counts_outside():
     """keep count 50 > 32: the wrapper computes robust thresholds itself;
     the output is ops.posatt.position_attention's on the distances."""
@@ -273,7 +338,7 @@ def test_launchers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         t_b.posatt_batched_cuda(mq, mk, scale, u, keep_count=24)
     with pytest.raises(ValueError, match="CUDA"):
-        t_b.posatt_batched_bwd_dscale_cuda(mq, mk, scale, u, g, stats)
+        t_b.posatt_batched_bwd_dscale_cuda(mq, mk, scale, u, g, g, stats)
     with pytest.raises(ValueError, match="CUDA"):
         t_b.posatt_batched_bwd_du_cuda(mq, mk, scale, g, stats)
 

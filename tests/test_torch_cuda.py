@@ -362,10 +362,11 @@ def test_cuda_batched_bwd_matches_plain(cuda, B, Lq, Lk, H, D, loc, kind):
     args, _, g = _batched_case(cuda, B, Lq, Lk, H, D, loc, kind)
     kw, (mq, mk, scale, u, thr, starts) = _fwd(args)
     stats = kb.posatt_batched_stats_reference(mq, mk, scale, thr, starts, **kw)
+    out = kb.posatt_batched_reference(mq, mk, scale, u, thr, starts, **kw)
     w = dict(width=kw["width"])
     before = (kb.posatt_batched_bwd_dscale_cuda.launches, kb.posatt_batched_bwd_du_cuda.launches)
-    ds = kb.posatt_batched_bwd_dscale_cuda(mq, mk, scale, u, g, stats, starts, **w)
-    ds2 = kb.posatt_batched_bwd_dscale_cuda(mq, mk, scale, u, g, stats, starts, **w)
+    ds = kb.posatt_batched_bwd_dscale_cuda(mq, mk, scale, u, out, g, stats, starts, **w)
+    ds2 = kb.posatt_batched_bwd_dscale_cuda(mq, mk, scale, u, out, g, stats, starts, **w)
     du = kb.posatt_batched_bwd_du_cuda(mq, mk, scale, g, stats, starts, **w)
     torch.cuda.synchronize()
     assert (kb.posatt_batched_bwd_dscale_cuda.launches, kb.posatt_batched_bwd_du_cuda.launches) == (
@@ -421,6 +422,61 @@ def test_batched_function_gradients_match_oracle_autograd(cuda, B, Lq, Lk, H, D,
     torch.testing.assert_close(got[1], want[1], rtol=DS_RTOL, atol=DS_ATOL * want[1].abs().max().item())
     size = grads(_oracle, w.abs())[2]
     assert ((got[2] - want[2]).abs() <= ATOL + RTOL * size).all(), (got[2] - want[2]).abs().max()
+
+
+# the elasticity and elasticity_tf op shapes: 972-point angle-sorted clouds
+# (972 rows: 30 blocks of 32 and a ragged 12), the processor (every column
+# kept) and the banded encoder / decoder (setup thresholds at locality 0.02
+# and a circular band); head counts from one to two groups of six, value
+# widths of one 32-column slab and of the processor's 256
+CLOUD_OPS = ["processor", "banded"]
+CLOUD_HEADS = [1, 3, 8, 12]
+CLOUD_WIDTHS = [32, 256]
+
+
+def _cloud_case(dev, op, H, D, seed=0, B=2, L=972):
+    """Self-attention on angle-sorted clouds: the batched launcher's
+    arguments at one elasticity op shape and a cotangent."""
+    rng = np.random.default_rng(seed)
+    to = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+    c = to(_ring(rng, B, L))
+    u = to(rng.random((B, L, D)))
+    g = to(rng.standard_normal((B, L, H * D)))
+    scale = posatt.bandwidth_scale(to(rng.standard_normal((H, 1, 1)))).reshape(H, 1)
+    if op == "processor":
+        return (c, c, scale, u, None, None, L, 0), g
+    thr = locality.batched_topk_thresholds(c, c, 0.02)
+    starts, width, wrap = locality.batched_band_starts(c, c, thr, kb.band_tile_rows(L), circular=True)
+    assert (starts.numpy() + width > L).any(), "no band crosses the seam"
+    mk = torch.cat([c, c[:, :wrap]], 1)
+    u = torch.cat([u, u[:, :wrap]], 1)
+    return (c, mk, scale, u, thr, starts.to(dev), locality.topk_keep_count(L, 0.02), width), g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", CLOUD_WIDTHS)
+@pytest.mark.parametrize("H", CLOUD_HEADS)
+@pytest.mark.parametrize("op", CLOUD_OPS)
+def test_cuda_batched_bwd_at_elasticity_shapes(cuda, op, H, D):
+    """#8's dscale (through the forward kernel's output) and du against
+    their plain versions at the elasticity op shapes; dscale bitwise equal
+    over two runs."""
+    args, g = _cloud_case(cuda, op, H, D)
+    kw, (mq, mk, scale, u, thr, starts) = _fwd(args)
+    out, stats = kb.posatt_batched_cuda(mq, mk, scale, u, thr, starts, stats=True, **kw)
+    w = dict(width=kw["width"])
+    ds = kb.posatt_batched_bwd_dscale_cuda(mq, mk, scale, u, out, g, stats, starts, **w)
+    ds2 = kb.posatt_batched_bwd_dscale_cuda(mq, mk, scale, u, out, g, stats, starts, **w)
+    du = kb.posatt_batched_bwd_du_cuda(mq, mk, scale, g, stats, starts, **w)
+    torch.cuda.synchronize()
+    assert torch.equal(ds, ds2)
+    want_du = kb.posatt_batched_bwd_du_reference(mq, mk, scale, g, stats, starts, **w)
+    size = kb.posatt_batched_bwd_du_reference(mq, mk, scale, g.abs(), stats, starts, **w)
+    assert torch.isfinite(du).all()
+    assert ((du - want_du).abs() <= ATOL + RTOL * size).all(), (du - want_du).abs().max()
+    want_ds = kb.posatt_batched_bwd_dscale_reference(mq, mk, scale, u, g, stats, starts, **w)
+    size = _dscale_size(mq, mk, scale, u, g, stats, starts, kw["width"])
+    torch.testing.assert_close(ds / size, want_ds / size, rtol=DS_RTOL, atol=DS_ATOL)
 
 
 @pytest.mark.cuda
@@ -613,6 +669,30 @@ def test_cuda_tf_coord_kernels_match_plain(cuda, B, Lq, Lk, H, V, kind):
     dist, keep, dmin = kb._tf_coord_rows(mq, mk, thr, starts, width)
     size_ds = _tf_size(kb._tf_attention(dist, keep, dmin, scale), keep, dist, v, g)
     _check_tf_bwd(ds, ds2, dv, want_dv, size_dv, want_ds, size_ds)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("V", CLOUD_WIDTHS)
+@pytest.mark.parametrize("H", CLOUD_HEADS)
+@pytest.mark.parametrize("op", CLOUD_OPS)
+def test_cuda_tf_coord_fwd_at_elasticity_tf_shapes(cuda, op, H, V):
+    """#11 against its plain version at the elasticity_tf op shapes (the
+    coordinate launcher's folded scale and thresholds), with its row
+    statistics; the same bits over two runs."""
+    rng = np.random.default_rng(1)
+    to = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(cuda)
+    (mq, mk, scale, _, thr, starts, _, width), _ = _cloud_case(cuda, op, H, 1)
+    v = to(rng.standard_normal((mq.shape[0], mk.shape[1], H * V)))
+    w = dict(width=width)
+    out, stats = kb.posatt_tf_coord_cuda(mq, mk, scale, v, thr, starts, stats=True, **w)
+    again = kb.posatt_tf_coord_cuda(mq, mk, scale, v, thr, starts, **w)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    torch.testing.assert_close(out, kb.posatt_tf_coord_reference(mq, mk, scale, v, thr, starts, **w),
+                               rtol=RTOL, atol=ATOL)
+    want_st = kb.posatt_batched_stats_reference(mq, mk, scale, thr, starts, keep_count=mk.shape[1], **w)
+    assert torch.equal(stats[:, :2], want_st[:, :2])  # bit-equal distances
+    torch.testing.assert_close(stats[:, 2:], want_st[:, 2:], rtol=RTOL, atol=0.0)
 
 
 def _tf_oracle(mq, mk, scales, values, thr, band=None):

@@ -171,6 +171,25 @@ def test_coord_plain_versions_match_interpret_kernels(kind):
     np.testing.assert_allclose(ds.numpy() / size, np.asarray(jds) / size, rtol=DS_RTOL, atol=DS_ATOL)
 
 
+@pytest.mark.parametrize("H,V,seed", [(2, 3, 4), (8, 4, 9)])
+def test_coord_plain_version_matches_jax_wrapper_across_the_wrap_margin(H, V, seed):
+    """Kernel #11's plain version, on the extended key axis, against the JAX
+    position_attention_batched_tf_coords (which appends the wrap margin and
+    folds the halving itself) in interpret mode, on angle-sorted rings whose
+    seam tile's band window runs into the wrap margin."""
+    (mq, mk, scale, v, thr, starts, width), (c, scales, values, hthr, band), _ = _coord_case(
+        "ring", H=H, V=V, seed=seed)
+    assert mk.shape[1] > c.shape[1] and (starts + width > c.shape[1]).any()
+    got = t_b.posatt_tf_coord_reference(t(mq), t(mk), t(scale), t(v), t(thr), t(starts),
+                                        width=width)
+    jband = j_b.BandSpec(jnp.asarray(starts), width, band.wrap)
+    want = np.asarray(j_b.position_attention_batched_tf_coords(
+        jnp.asarray(c), jnp.asarray(c), jnp.asarray(scales), jnp.asarray(values),
+        jnp.asarray(hthr), jband, interpret=True))
+    assert got.shape == want.shape == (2, c.shape[1], H * V)
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+
+
 def _dscale_through_output(att, keep, dist, dmin, values, out, g):
     """dscale as the CUDA kernels of #10 and #12 compute it, in float32:
     ``sum_{i,k} G (Y - v O)`` with ``W = P (-x)``, ``x = d - dmin``,
