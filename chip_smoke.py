@@ -42,11 +42,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
    with its circular band, D 44; processor 972 x 972, all kept, D 256;
    decoder, band, D 256; the band-less serving encoder and decoder), with
    bands and thresholds from ``setup_elasticity`` on synthetic clouds, and
-   at ragged shapes (1, 2, 3, 4, 6 and 8 heads, D 4 to 44, the kernel's
-   own keep count, seam-crossing bands, L_out not a multiple of 256); the
-   public wrapper against ``ops.posatt.position_attention`` on
-   materialized distances; times, bounds and the SDPA yardstick as in
-   phase 4;
+   at ragged shapes (1, 2, 3, 4, 6 and 8 heads, D 4 to 256, the kernel's
+   own keep count, seam-crossing bands, L_out not a multiple of 256, a
+   band tile of 200 rows with a short last 32-row block, a global window of
+   1500 columns past the kernel's 1024-column list); the public wrapper
+   against ``ops.posatt.position_attention`` on materialized distances;
+   times, bounds, the SDPA yardstick as in phase 4 and each block's
+   compacted list length (mean and max);
 9. batched backward: kernel #8's dscale (which reads the forward's
    output) and du entry points against their plain versions at the
    elasticity training shapes and the ragged ones, timed and bounded, with
@@ -72,10 +74,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
     elasticity_tf shapes (B 10, L 972, 8 heads of V 64: #11's banded
     encoder and decoder with ``setup_elasticity_tf``'s thresholds and
     starts and its global processor; #9's served encoder and decoder with
-    per-request thresholds and its global processor) and at ragged shapes;
-    the public wrappers against the oracle on materialized distances;
-    times, bounds and the SDPA yardstick (zero q and k, per-head values,
-    the masked logits as ``attn_mask``), and #11's compacted list lengths;
+    per-request thresholds and its global processor) and at ragged shapes
+    (1 to 8 heads, V 3 to 130, a global window of 1500 columns past the
+    kernels' 1024-column list); the public wrappers against the oracle on
+    materialized distances; times, bounds and the SDPA yardstick (zero q
+    and k, per-head values, the masked logits as ``attn_mask``), and #9's
+    and #11's compacted list lengths;
 13. TF backward: #10's and #12's dscale and dv entry points against their
     plain versions at the same shapes, timed and bounded, and at ragged
     ones (a band whose row blocks keep no entry in some 32-column steps,
@@ -875,8 +879,9 @@ def serve_phase():
 ELASTICITY_B = 10  # the training and serving batch
 
 RAGGED_BATCHED = [  # B, L_q, L_k, H, D, locality, thresholds: "none" (the
-    # kernel's own keep count, or global), "robust" (precomputed) or "ring"
-    # (an angle-sorted ring with a circular band)
+    # kernel's own keep count, or global), "robust" (precomputed), "ring"
+    # (an angle-sorted ring with a circular band) or "arc" (queries on an
+    # arc of the key ring, a circular band)
     ("b_h2_keep7", 2, 64, 64, 2, 8, 0.1, "none"),
     ("b_h1_global", 2, 64, 64, 1, 8, 1.0, "none"),
     ("b_h2_d19", 3, 37, 53, 2, 19, 0.1, "none"),
@@ -888,6 +893,11 @@ RAGGED_BATCHED = [  # B, L_q, L_k, H, D, locality, thresholds: "none" (the
     ("b_h3_d8", 2, 64, 80, 3, 8, 0.1, "robust"),
     ("b_h6_keep", 2, 50, 60, 6, 40, 0.2, "none"),
     ("b_ring_h6", 2, 900, 700, 6, 12, 0.02, "ring"),
+    # a global window past the kernels' 1024-column list: the list refills
+    ("b_h2_d256_global_L1500", 1, 70, 1500, 2, 256, 1.0, "none"),
+    # queries on an arc across the key ring's seam: one band tile of 200
+    # rows covers them all, and its last 32-row block is short
+    ("b_arc_lout200", 2, 200, 300, 2, 8, 0.02, "arc"),
 ]
 
 
@@ -895,6 +905,16 @@ def ring_cloud(rng, B, L):
     import numpy as np
 
     th = np.sort(rng.uniform(0, 2 * np.pi, (B, L)), axis=1)
+    rad = 1.0 + 0.1 * rng.random((B, 1))
+    return np.stack([rad * np.cos(th), rad * np.sin(th)], -1).astype(np.float32)
+
+
+def arc_cloud(rng, B, L):
+    """Points on the arc of a ring from -60 to 60 degrees, angle-sorted:
+    across the seam of ring_cloud's angle order."""
+    import numpy as np
+
+    th = np.sort(rng.uniform(-np.pi / 3, np.pi / 3, (B, L)), axis=1)
     rad = 1.0 + 0.1 * rng.random((B, 1))
     return np.stack([rad * np.cos(th), rad * np.sin(th)], -1).astype(np.float32)
 
@@ -928,21 +948,48 @@ def ragged_batched(rng, B, Lq, Lk, H, D, loc, kind):
     from position_induced_transformer_torch.ops import locality
 
     to = lambda a: torch.from_numpy(np.asarray(a, np.float32)).cuda()
-    if kind == "ring":
-        mq, mk = to(ring_cloud(rng, B, Lq)), to(ring_cloud(rng, B, Lk))
+    if kind in ("ring", "arc"):
+        mq = to((ring_cloud if kind == "ring" else arc_cloud)(rng, B, Lq))
+        mk = to(ring_cloud(rng, B, Lk))
     else:
         mq, mk = to(rng.random((B, Lq, 2))), to(rng.random((B, Lk, 2)))
     u = to(rng.random((B, Lk, D)))
     thr = band = None
     if kind != "none":
         thr = locality.batched_topk_thresholds(mq, mk, loc)
-    if kind == "ring":
+    if kind in ("ring", "arc"):
         starts, width, wrap = locality.batched_band_starts(
             mq, mk, thr, kb.band_tile_rows(Lq), circular=True)
         if not (starts.numpy() + width > Lk).any():
             fail(f"ring case {B}x{Lq}x{Lk}: no band crosses the seam")
         band = kb.BandSpec(starts.cuda(), width, wrap)
     return batched_case(rng, mq, mk, u, loc, thr, band, H)
+
+
+def unsorted_permutation(L):
+    """A fixed random order of L points, on the card."""
+    import numpy as np
+    import torch
+
+    return torch.from_numpy(np.random.default_rng(7).permutation(L)).cuda()
+
+
+def unsorted_batched(args):
+    """A band-less self-attention op's launcher arguments (#7) with the
+    cloud in a fixed random order, as a served request may hold it."""
+    mq, mk, scale, u, thr, starts, kc, width = args
+    perm = unsorted_permutation(mq.shape[1])
+    mq = mq[:, perm].contiguous()
+    return mq, mq, scale, u[:, perm].contiguous(), thr[:, perm].contiguous(), None, kc, 0
+
+
+def unsorted_dist(call):
+    """#9's arguments (distances, thresholds, scales, values) of a
+    self-attention op with the cloud in the same random order."""
+    dist, thr, scales, values = call
+    perm = unsorted_permutation(dist.shape[1])
+    return (dist[:, perm][:, :, perm].contiguous(), thr[:, perm].contiguous(), scales,
+            values[:, perm].contiguous())
 
 
 def batched_oracle(mq, mk, lmda, u, loc, thr=None, band=None):
@@ -1010,10 +1057,10 @@ def batched_work(args, keep=None):
 
 
 def list_lengths(keep):
-    """The redesigned kernels' compacted lists (#8's dscale and du, #11):
-    per block of 32 owned indices (the first axis of ``keep`` (B, owned,
-    streamed)), the streamed indices that keep an entry with any of them;
-    mean and max over the blocks."""
+    """The redesigned kernels' compacted lists (#7, #8's dscale and du, #9,
+    #11): per block of 32 owned indices (the first axis of ``keep`` (B,
+    owned, streamed)), the streamed indices that keep an entry with any of
+    them; mean and max over the blocks."""
     import torch
 
     B, n, m = keep.shape
@@ -1086,13 +1133,27 @@ def batched_kernel_phase():
             "launches_per_forward": per_forward, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "library_ms": library_ms, "library_max_abs_err": lib_err,
             "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops, "bytes": nbytes,
+            # the blocks own 32 rows and list the kept columns
+            "list_length": list_lengths(keep),
         })
         log(f"kernel posatt_batched_fwd {name}: {json.dumps(rows[-1])}")
     for name, *shape in RAGGED_BATCHED:
         args, wargs = ragged_batched(rng, *shape)
         err, _ = compare(name, args, wargs)
         errs.append(err)
-        log(f"kernel posatt_batched_fwd {name}: {shape} max_abs_err={err:.3e}")
+        mq, mk, scale, u, thr, starts, kc, width = args
+        lists = list_lengths(kb._rows(mq, mk, thr, starts, kc, width)[1])
+        log(f"kernel posatt_batched_fwd {name}: {shape} max_abs_err={err:.3e} "
+            f"list_length={json.dumps(lists)}")
+    # the served decoder over a cloud in a random order, as a request may
+    # hold it: a 32-row block's list grows from tens of columns to hundreds
+    mq, mk, scale, u, thr, starts, kc, width = unsorted_batched(shapes["serve_decoder"][0])
+    run = lambda: kb.posatt_batched_cuda(mq, mk, scale, u, thr, keep_count=kc)
+    want = kb.posatt_batched_reference(mq, mk, scale, u, thr, keep_count=kc)
+    errs.append(check_close("serve_decoder_unsorted", run(), want, OP_RTOL, OP_ATOL))
+    log("kernel posatt_batched_fwd serve_decoder_unsorted: " + json.dumps({
+        "ms": cuda_ms(run), "max_abs_err": errs[-1],
+        "list_length": list_lengths(kb._rows(mq, mk, thr, None, kc, 0)[1])}))
     return shapes, rows, max(errs)
 
 
@@ -1502,6 +1563,8 @@ RAGGED_TF = [  # B, L_q, L_k, H, V, thresholds: "none" (global), "thr" (a
     # blocks keep no entry in some 32-column steps of their window
     ("tf_ring_h3_v80", 2, 900, 700, 3, 80, "ring"),
     ("tf_h5_v100_thr", 2, 300, 200, 5, 100, "thr"),
+    # a global window past the kernels' 1024-column list: the list refills
+    ("tf_h8_v64_global_L1500", 1, 70, 1500, 8, 64, "none"),
 ]
 
 
@@ -1749,16 +1812,29 @@ def tf_kernel_phase():
             "library_max_abs_err": lib_err, "bound_ms": bound_ms, "bound_by": bound_by,
             "flops": flops, "bytes": 4 * words,
         })
-        if kind == "coord":  # #11's blocks own 32 rows and list kept columns
-            rows[kind][-1]["list_length"] = list_lengths(keep)
+        # #9's and #11's blocks own 32 rows and list the kept columns
+        rows[kind][-1]["list_length"] = list_lengths(keep)
         kernel = "posatt_tf_coord_fwd" if kind == "coord" else "posatt_tf_fwd"
         log(f"kernel {kernel} {name}: {json.dumps(rows[kind][-1])}")
+    # #9's served encoder over a cloud in a random order, as a request may
+    # hold it: a 32-row block's list grows from tens of columns to hundreds
+    dist, thr, scales, values = unsorted_dist(shapes["serve_encoder"][0][1])
+    run = lambda: kb.posatt_tf_cuda(dist, thr, scales, values)
+    err = check_close("serve_encoder_unsorted", run(), kb.posatt_tf_reference(dist, thr, scales, values),
+                      OP_RTOL, OP_ATOL)
+    errs["dist"] = max(errs["dist"], err)
+    log("kernel posatt_tf_fwd serve_encoder_unsorted: " + json.dumps({
+        "ms": cuda_ms(run), "max_abs_err": err,
+        "list_length": list_lengths(kb._tf_keep(dist, thr)[0])}))
     for name, *shape in RAGGED_TF:
         calls = tf_ragged(rng, *shape)
+        lists = {}
         for kind in ("coord", "dist"):
             err, _ = compare(f"{name} {kind}", calls, kind)
             errs[kind] = max(errs[kind], err)
-        log(f"kernels posatt_tf_fwd, posatt_tf_coord_fwd {name}: {shape} max_abs_err={err:.3e}")
+            lists[kind] = list_lengths(tf_rows(calls, kind)[1])
+        log(f"kernels posatt_tf_fwd, posatt_tf_coord_fwd {name}: {shape} max_abs_err={err:.3e} "
+            f"list_length={json.dumps(lists)}")
     return shapes, rows, errs
 
 

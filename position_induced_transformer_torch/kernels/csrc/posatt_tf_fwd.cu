@@ -40,42 +40,43 @@
 // pre-built distances the 37.8 MB a batch of them takes at L = 972 bounds a
 // thresholded op.
 //
-// posatt_tf_coord_fwd (the coordinate kernel, tf_coord_kernel) follows the
-// design of posatt_tf_bwd.cu's TF backward:
+// Both entry points run one body, tf_kernel, templated on where the
+// distances come from (the design of posatt_tf_bwd.cu's TF backward):
 // - A block owns 32 rows of one sample, a group of HG heads (a warp each;
 //   HG = 1, 2 or 4, groups of four above four heads) and 64 value columns
-//   of each. It computes each (i, j) distance of its window once for all
-//   its heads, in the op order above (__fsub_rn / __fmul_rn / __fadd_rn, no
-//   FMA contraction), so the kept sets and dmin are bit for bit
-//   ops/distances.euclidean_sq's; each warp computes its head's weight once
-//   per kept entry.
+//   of each. It reads or computes each (i, j) distance of its window once
+//   for all its heads: read from dist, or computed in the op order above
+//   (__fsub_rn / __fmul_rn / __fadd_rn, no FMA contraction), so the kept
+//   sets and dmin are bit for bit ops/distances.euclidean_sq's; each warp
+//   computes its head's weight once per kept entry.
 // - Pass 1 scans the window once: per row the bare minimum, and from the
 //   same distances a compacted, ordered list of the columns that any of
-//   the block's rows keeps (warp ballots in shared memory). The window's
+//   the block's rows keeps (warp ballots in shared memory, refilled in
+//   rounds when a window keeps more than LCAP columns). The window's
 //   distances are not staged (32 x 972 x 4 B = 124 KB at the processor
-//   would leave one block a SM); pass 2 recomputes the listed ones, 3*dd
-//   operations against 2*HG*64 a kept entry.
+//   would leave one block a SM); pass 2 reads (from L2: 37.8 MB of them at
+//   the served elasticity_tf batch) or recomputes the listed ones.
 // - Pass 2 contracts over the list only: with angle-sorted clouds a 32-row
-//   tile keeps a few dozen of its 384-column window. Register tiles of 8 x
-//   8 outputs per lane, read from shared memory as conflict-free float4s
-//   (64 FMAs per four 16-byte loads). Pipelined two deep, one block barrier
-//   a step: while step s is contracted, step s + 1's value rows are in
-//   flight (cp.async, 16-byte pieces where V % 4 == 0) and its weights are
-//   computed, branch-free so that the exps interleave with the products,
-//   and step s + 2's distances are computed.
-// - The normalisation is deferred to the output, as the TPU kernel #11
-//   does; the denominators are summed beside the products, one lane a row.
-//   Sums in fixed orders: the same bits on every run.
-// - About 57 KB of dynamic shared memory a block of four warps, three
-//   blocks a SM at up to 168 registers a thread.
-//
-// posatt_tf_fwd (#9) keeps the body of the first port: a block owns one
-// head, a tile of that head's value columns (32, 64 or 128, the least that
-// covers V) and 16 rows of one sample; a warp per row finds dmin, then the
-// column loop computes each weight once per column tile, stages it and the
-// values in shared memory and contracts with a register-tiled f32 product
-// (4 rows x CPL columns per thread); a step whose weights are all zero
-// skips its value loads and products.
+//   tile keeps a few dozen of its window's columns. Register tiles of 8 x 8
+//   outputs per lane, read from shared memory as conflict-free float4s (64
+//   FMAs per four 16-byte loads); one block barrier a step, and while step
+//   s is contracted, step s + 1's value rows are in flight (cp.async,
+//   16-byte pieces where V % 4 == 0) and its weights are computed,
+//   branch-free so that the exps interleave with the products. From
+//   coordinates, all the block's threads compute step s + 2's x = d - dmin
+//   into a tile its head warps share. From pre-built distances, the block
+//   stages step s + 2's 32 x 16 distances into shared memory by cp.async
+//   (row-wise: 16-byte pieces where the step's listed columns run
+//   contiguously, as at the processor, else a column a copy) and each
+//   head warp weights its entries from them: no x tile and no distance held
+//   in registers, which PERF.md finds faster at the processor.
+// - The normalisation is deferred to the output, as the TPU kernels do; the
+//   denominators are summed beside the products, one lane a row. Sums in
+//   fixed orders: the same bits on every run.
+// - About 60 KB of dynamic shared memory a block of four warps, three
+//   blocks a SM at up to 168 registers a thread. A producer warp feeding a
+//   ring by tensor-map copies, with mbarriers in place of the barrier, was
+//   timed as an ablation (scripts/torch_kernel_ablations.py) and not kept.
 // Tensor cores are not used: TF32 would not hold parity with the f32 oracle.
 // Rows, window columns past the key axis and value columns past V are
 // masked by index (the TPU kernels pad instead).
@@ -90,11 +91,6 @@
 namespace {
 
 constexpr int MAX_DIM = 4;  // coordinates per point
-
-__device__ __forceinline__ float warp_min(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fminf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
 
 // squared distance in the op order of ops/distances.euclidean_sq, without
 // contraction into FMAs
@@ -111,173 +107,6 @@ __device__ __forceinline__ float sqdist(const float* q, const float* k, int dd) 
   return d;
 }
 
-// ================================================ #9: pre-built distances
-
-constexpr int TLO = 16;     // rows per block
-constexpr int NWARPS = 4;
-constexpr int RPT = 4;      // rows per thread in the product
-constexpr int TLI = 32;     // window columns per step
-constexpr int THREADS = NWARPS * 32;
-
-template <int N>
-__device__ __forceinline__ void lds(const float* p, float (&v)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) v[i] = p[i];
-}
-template <>
-__device__ __forceinline__ void lds<4>(const float* p, float (&v)[4]) {
-  const float4 q = *reinterpret_cast<const float4*>(p);
-  v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
-}
-
-struct DistArgs {
-  const float* dist;    // (B, Lo, Li)
-  const float* scale;   // (H)
-  const float* values;  // (B, Li, H*V)
-  const float* thr;     // (B, Lo) or null
-  float* out;           // (B, Lo, H*V)
-  float* stats;         // (B, H+2, Lo) or null
-  int Lo, Li, H, V;
-};
-
-// Warp w owns rows [w*RPT, w*RPT + RPT) of the product, lane c the value
-// columns [c*CPL, c*CPL + CPL) of the block's tile.
-template <int CPL>
-__global__ void __launch_bounds__(THREADS) tf_fwd_kernel(const DistArgs a) {
-  constexpr int TN = 32 * CPL;
-  static_assert(THREADS % TLO == 0 && THREADS % TN == 0, "tile shape");
-  static_assert((TLI * TN) % THREADS == 0 && (TLI * TLO) % THREADS == 0, "steps");
-  __shared__ __align__(16) float s_p[TLI][TLO];  // unnormalised weights
-  __shared__ __align__(16) float s_v[TLI][TN];   // the head's values
-  __shared__ float s_dmin[TLO];
-  __shared__ float s_thr[TLO];
-  __shared__ float s_den[THREADS];  // each thread's share of its row's denominator
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int n_ct = (a.V + TN - 1) / TN;
-  const int h = blockIdx.x / n_ct;
-  const int ct = blockIdx.x - h * n_ct;
-  const int col0 = ct * TN;  // within the head's V columns
-  const int row0 = blockIdx.y * TLO;
-  const int b = blockIdx.z;
-  const int Lo = a.Lo, Li = a.Li, HV = a.H * a.V;
-  const float s = a.scale[h];
-  const float* distb = a.dist + (size_t)b * Lo * Li;
-  const float* vb = a.values + (size_t)b * Li * HV + (size_t)h * a.V;
-  const int j_begin = 0, j_end = Li;
-
-  // ---- pass 1: the bare row minimum and the threshold, a warp per row
-  for (int r = warp; r < TLO; r += NWARPS) {
-    const int i = row0 + r;
-    if (i >= Lo) {  // never written; keeps nothing
-      if (lane == 0) { s_dmin[r] = 0.f; s_thr[r] = -INFINITY; }
-      continue;
-    }
-    float mn = INFINITY;
-    for (int j = j_begin + lane; j < j_end; j += 32) mn = fminf(mn, distb[(size_t)i * Li + j]);
-    mn = warp_min(mn);
-    if (lane == 0) {
-      s_dmin[r] = mn;
-      s_thr[r] = a.thr != nullptr ? a.thr[(size_t)b * Lo + i] : INFINITY;
-    }
-  }
-  __syncthreads();
-
-  // ---- pass 2: weights once each, staged with the values, contracted
-  const int rp = tid % TLO;  // the row this thread computes weights for
-  const int ip = row0 + rp;
-  const float tp = s_thr[rp];
-  const float dminp = s_dmin[rp];
-  const int cv = tid % TN;  // the value column this thread stages
-  const bool col_ok = col0 + cv < a.V;
-  float den = 0.f;
-
-  float acc[RPT][CPL];
-#pragma unroll
-  for (int r = 0; r < RPT; ++r)
-#pragma unroll
-    for (int c = 0; c < CPL; ++c) acc[r][c] = 0.f;
-
-  for (int j0 = j_begin; j0 < j_end; j0 += TLI) {
-    int any = 0;
-#pragma unroll
-    for (int q = 0; q < TLI * TLO / THREADS; ++q) {
-      const int jj = tid / TLO + q * (THREADS / TLO);
-      const int j = j0 + jj;
-      const bool ok = ip < Lo && j < j_end;
-      const float d = ok ? distb[(size_t)ip * Li + j] : 0.f;
-      const bool k = ok && d <= tp;
-      any |= k;
-      const float p = k ? expf(-__fsub_rn(d, dminp) * s) : 0.f;
-      den += p;
-      s_p[jj][rp] = p;
-    }
-    if (__syncthreads_or(any)) {  // block-uniform: the values only when needed
-#pragma unroll
-      for (int q = 0; q < TLI * TN / THREADS; ++q) {
-        const int jj = tid / TN + q * (THREADS / TN);
-        const int j = j0 + jj;
-        s_v[jj][cv] = (col_ok && j < j_end) ? vb[(size_t)j * HV + col0 + cv] : 0.f;
-      }
-      __syncthreads();
-#pragma unroll 4
-      for (int jj = 0; jj < TLI; ++jj) {
-        float vv[CPL], pv[RPT];
-        lds<CPL>(&s_v[jj][lane * CPL], vv);
-        lds<RPT>(&s_p[jj][warp * RPT], pv);
-#pragma unroll
-        for (int r = 0; r < RPT; ++r)
-#pragma unroll
-          for (int c = 0; c < CPL; ++c) acc[r][c] = fmaf(pv[r], vv[c], acc[r][c]);
-      }
-    }
-    __syncthreads();
-  }
-
-  // ---- the denominators: row r's shares sit at tid = r + TLO * k
-  s_den[tid] = den;
-  __syncthreads();
-  const bool write_stats = a.stats != nullptr && ct == 0;
-  if (write_stats && tid < TLO && row0 + tid < Lo) {
-    float sum = 0.f;
-    for (int k = 0; k < THREADS / TLO; ++k) sum += s_den[tid + TLO * k];
-    const int i = row0 + tid;
-    float* st = a.stats + (size_t)b * (a.H + 2) * Lo + i;
-    st[(size_t)(2 + h) * Lo] = 1.f / fmaxf(sum, 1e-30f);
-    if (h == 0) { st[0] = s_dmin[tid]; st[Lo] = s_thr[tid]; }
-  }
-
-  // ---- normalise and write the head's columns
-#pragma unroll
-  for (int r = 0; r < RPT; ++r) {
-    const int rr = warp * RPT + r;
-    const int i = row0 + rr;
-    if (i >= Lo) continue;
-    float sum = 0.f;
-    for (int k = 0; k < THREADS / TLO; ++k) sum += s_den[rr + TLO * k];
-    const float rden = 1.f / fmaxf(sum, 1e-30f);
-    float* dst = a.out + ((size_t)b * Lo + i) * HV + (size_t)h * a.V + col0;
-#pragma unroll
-    for (int c = 0; c < CPL; ++c) {
-      const int n = lane * CPL + c;
-      if (col0 + n < a.V) dst[n] = acc[r][c] * rden;
-    }
-  }
-}
-
-template <int CPL>
-void launch_tiles(const DistArgs& a, int B, cudaStream_t stream) {
-  constexpr int TN = 32 * CPL;
-  const dim3 grid(a.H * ((a.V + TN - 1) / TN), (a.Lo + TLO - 1) / TLO, B);
-  tf_fwd_kernel<CPL><<<grid, THREADS, 0, stream>>>(a);
-}
-
-// =============================================== #11: from coordinates
-
-namespace coord {
-
 constexpr int TM = 32;      // rows a block
 constexpr int TK = 16;      // listed columns a step
 constexpr int TN = 64;      // value columns of each head a block
@@ -288,6 +117,11 @@ constexpr int MIN_BLOCKS = 3;
 __device__ __forceinline__ void lds4(const float* p, float* v) {
   const float4 q = *reinterpret_cast<const float4*>(p);
   v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+}
+
+// a 16-byte store of v[0..3] * f
+__device__ __forceinline__ void st4(float* p, const float* v, float f) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0] * f, v[1] * f, v[2] * f, v[3] * f);
 }
 
 // an asynchronous 4-byte copy to shared memory; zero-filled when !ok
@@ -311,7 +145,8 @@ template <int N>
 __device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
 
 struct Args {
-  const float* mq;      // (B, Lo, dd)
+  const float* dist;    // (B, Lo, Li): pre-built distances (#9), or null
+  const float* mq;      // (B, Lo, dd): coordinates (#11), or null
   const float* mk;      // (B, Li, dd)
   const float* scale;   // (H)
   const float* values;  // (B, Li, H*V)
@@ -320,20 +155,24 @@ struct Args {
   float* out;           // (B, Lo, H*V)
   float* stats;         // (B, H+2, Lo) or null
   int Lo, Li, H, V, dd, width, tile_rows, n_tiles;
-  bool vec4;            // the value rows copy in 16-byte pieces (V % 4 == 0, aligned)
+  bool vec4;            // value and output rows move in 16-byte pieces (V % 4 == 0, aligned)
+  bool dvec4;           // distance rows copy in 16-byte pieces (L_in % 4 == 0, aligned)
 };
 
 // What a block keeps in shared memory (dynamic: above the 48 KB of a static
 // allocation at four heads). The steps' x, weights and value rows are double
 // buffered: step s + 1's weights and value rows and step s + 2's x are
 // written while step s's are used.
-template <int HG>
+template <int HG, bool DIST>
 struct Smem {
   __align__(16) float v[2][HG][TK][TN];  // each head's value rows
   __align__(16) float w[2][HG][TK][TM];  // each head's weights
-  float x[2][TK][TM + 1];  // x = d - dmin of a step's entries, -1 where not kept
+  // DIST: a step's distances, a row each; else x = d - dmin of a step's
+  // entries, -1 where not kept
+  __align__(16) float d[DIST ? 2 : 1][TM][TK + 4];
+  float x[DIST ? 1 : 2][TK][TM + 1];
   int list[LCAP];          // the window's columns that a row keeps, in order
-  float oq[TM][MAX_DIM];   // the rows' coordinates
+  float oq[TM][MAX_DIM];   // the rows' coordinates (from coordinates only)
   float othr[TM];          // the rows' keep thresholds
   float odmin[TM];         // the rows' bare window minima
   float wmin[HG][TM];      // each warp's share of them
@@ -369,12 +208,14 @@ __device__ __forceinline__ float warp_min_rows(float (&v)[TM], int lane) {
 // A block: rows o0 = 32*blockIdx.y.. of sample blockIdx.z; head group and
 // column tile from blockIdx.x. Warp h owns head h0 + h; lane (og, cg) =
 // (lane / 8, lane % 8) owns the rows og*4 + {0..3} and 16 + og*4 + {0..3}
-// and the columns cg*4 + {0..3} and 32 + cg*4 + {0..3} of the tile.
-template <int HG>
-__global__ void __launch_bounds__(HG * 32, MIN_BLOCKS * 4 / HG) tf_coord_kernel(const Args a) {
+// and the columns cg*4 + {0..3} and 32 + cg*4 + {0..3} of the tile. DIST:
+// the distances are read from a.dist (no band), else computed from a.mq and
+// a.mk.
+template <int HG, bool DIST>
+__global__ void __launch_bounds__(HG * 32, MIN_BLOCKS * 4 / HG) tf_kernel(const Args a) {
   constexpr int THREADS = HG * 32;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  Smem<HG>& sm = *reinterpret_cast<Smem<HG>*>(smem_raw);
+  Smem<HG, DIST>& sm = *reinterpret_cast<Smem<HG, DIST>*>(smem_raw);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int n_ct = (a.V + TN - 1) / TN;
@@ -388,7 +229,11 @@ __global__ void __launch_bounds__(HG * 32, MIN_BLOCKS * 4 / HG) tf_coord_kernel(
   const int b = blockIdx.z;
   const int Lo = a.Lo, Li = a.Li, HV = a.H * a.V, dd = a.dd;
   const float s = head_ok ? a.scale[h] : 0.f;
-  const float* mkb = a.mk + (size_t)b * Li * dd;
+  const float* mkb = DIST ? nullptr : a.mk + (size_t)b * Li * dd;
+  // DIST: the block's 32 distance rows; a row past Lo reads row Lo - 1,
+  // and keeps nothing
+  const float* db = DIST ? a.dist + ((size_t)b * Lo + o0) * Li : nullptr;
+  const int olast = Lo - 1 - o0;
 
   // the block's window, the same for all its rows
   int wb = 0, we = Li;
@@ -397,17 +242,33 @@ __global__ void __launch_bounds__(HG * 32, MIN_BLOCKS * 4 / HG) tf_coord_kernel(
     wb = max(st, 0);
     we = min(st + a.width, Li);
   }
-  for (int e = tid; e < TM * MAX_DIM; e += THREADS) {
-    const int o = e / MAX_DIM, k = e - o * MAX_DIM;
-    const int i = o0 + o;
-    sm.oq[o][k] = (i < Lo && k < dd) ? a.mq[((size_t)b * Lo + i) * dd + k] : 0.f;
-  }
+  if (!DIST)
+    for (int e = tid; e < TM * MAX_DIM; e += THREADS) {
+      const int o = e / MAX_DIM, k = e - o * MAX_DIM;
+      const int i = o0 + o;
+      sm.oq[o][k] = (i < Lo && k < dd) ? a.mq[((size_t)b * Lo + i) * dd + k] : 0.f;
+    }
   for (int o = tid; o < TM; o += THREADS) {
     const int i = o0 + o;
     // a padded row keeps nothing
     sm.othr[o] = i >= Lo ? -INFINITY : (a.thr != nullptr ? a.thr[(size_t)b * Lo + i] : INFINITY);
   }
   __syncthreads();
+
+  // the key coordinates of column c, zeros where !ok (from coordinates only)
+  auto key = [&](int c, bool ok, float (&kq)[MAX_DIM]) {
+    if constexpr (!DIST) {
+#pragma unroll
+      for (int k = 0; k < MAX_DIM; ++k) kq[k] = ok && k < dd ? __ldg(mkb + (size_t)c * dd + k) : 0.f;
+    }
+  };
+  // the distance of row o0 + o to column c, whose coordinates are kq
+  auto dist_at = [&](int o, int c, const float (&kq)[MAX_DIM]) -> float {
+    if constexpr (DIST)
+      return __ldg(db + (size_t)min(o, olast) * Li + c);
+    else
+      return sqdist(sm.oq[o], kq, dd);
+  };
 
   // Block-uniform: one round of the compaction. Appends to sm.list, from
   // *n on, the candidate column cand of each thread when `any` (a row
@@ -439,12 +300,11 @@ __global__ void __launch_bounds__(HG * 32, MIN_BLOCKS * 4 / HG) tf_coord_kernel(
       const int c = c0 + tid;
       const bool ok = c < we;
       float kq[MAX_DIM];
-#pragma unroll
-      for (int k = 0; k < MAX_DIM; ++k) kq[k] = ok && k < dd ? __ldg(mkb + (size_t)c * dd + k) : 0.f;
+      key(c, ok, kq);
       bool any = false;
 #pragma unroll
       for (int o = 0; o < TM; ++o) {
-        const float d = sqdist(sm.oq[o], kq, dd);
+        const float d = dist_at(o, ok ? c : wb, kq);
         if (ok) {
           mn[o] = fminf(mn[o], d);
           any |= d <= sm.othr[o];
@@ -478,38 +338,6 @@ __global__ void __launch_bounds__(HG * 32, MIN_BLOCKS * 4 / HG) tf_coord_kernel(
   const float* vsrc = a.values + (size_t)b * Li * HV + (size_t)(head_ok ? h : 0) * a.V + col0;
   const bool c0_ok = col0 + lane < a.V, c1_ok = col0 + lane + 32 < a.V;
 
-  // A thread's share of a step's x tile: FILL entries (k, o), k fastest:
-  // one listed column a thread
-  constexpr int FILL = TK * TM / THREADS;
-  const int fk = tid % TK;
-  struct Pending {
-    float kq[MAX_DIM];
-    int c;  // the column; -1 past the list
-  };
-  // the column's coordinates, loaded a step ahead so that the loads are in
-  // flight during a contraction
-  auto fill_load = [&](int s0, int nl) {
-    Pending p;
-    const bool ok = s0 + fk < nl;
-    p.c = ok ? sm.list[s0 + fk] : -1;
-    const float* src = mkb + (size_t)(ok ? p.c : 0) * dd;
-#pragma unroll
-    for (int k = 0; k < MAX_DIM; ++k) p.kq[k] = k < dd ? __ldg(src + k) : 0.f;
-    return p;
-  };
-  // x of a step into buffer xb: d - dmin where kept, else -1
-  auto fill_store = [&](const Pending& p, int xb) {
-#pragma unroll
-    for (int q = 0; q < FILL; ++q) {
-      const int o = tid / TK + q * (THREADS / TK);
-      float x = -1.f;
-      if (p.c >= 0) {  // a listed column is inside the window
-        const float d = sqdist(sm.oq[o], p.kq, dd);
-        if (d <= sm.othr[o]) x = __fsub_rn(d, sm.odmin[o]);
-      }
-      sm.x[xb][fk][o] = x;
-    }
-  };
   // warp: start copying this head's value rows of step s0 into buffer vb
   auto stage = [&](int s0, int nl, int vb) {
     if (a.vec4) {  // 16 pieces of 4 columns a row
@@ -533,7 +361,56 @@ __global__ void __launch_bounds__(HG * 32, MIN_BLOCKS * 4 / HG) tf_coord_kernel(
     }
     cp_async_commit();
   };
+  // this warp's products of the step in buffer buf
+  auto products = [&](int buf) {
+#pragma unroll
+    for (int k = 0; k < TK; ++k) {
+      float wv[8], vv[8];
+      lds4(&sm.w[buf][warp][k][og * 4], wv);
+      lds4(&sm.w[buf][warp][k][16 + og * 4], wv + 4);
+      lds4(&sm.v[buf][warp][k][cg * 4], vv);
+      lds4(&sm.v[buf][warp][k][32 + cg * 4], vv + 4);
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+#pragma unroll
+        for (int c = 0; c < 8; ++c) acc[r][c] = fmaf(wv[r], vv[c], acc[r][c]);
+    }
+  };
 
+  // ---- pass 2 from coordinates: contract over the listed columns [0, nl),
+  // pipelined two deep: while step s is contracted, step s + 1's value rows
+  // are in flight and its weights are computed, and step s + 2's x is
+  // computed; one block barrier a step.
+  // A thread's share of a step's x tile: FILL entries (k, o), k fastest:
+  // one listed column a thread
+  constexpr int FILL = TK * TM / THREADS;
+  const int fk = tid % TK;
+  struct Pending {
+    float kq[MAX_DIM];  // the column's coordinates
+    int c;              // the column; -1 past the list
+  };
+  // the column's coordinates, loaded a step ahead so that the loads are in
+  // flight during a contraction
+  auto fill_load = [&](int s0, int nl) {
+    Pending p;
+    const bool ok = s0 + fk < nl;
+    p.c = ok ? sm.list[s0 + fk] : -1;
+    key(ok ? p.c : 0, true, p.kq);
+    return p;
+  };
+  // x of a step into buffer xb: d - dmin where kept, else -1
+  auto fill_store = [&](const Pending& p, int xb) {
+#pragma unroll
+    for (int q = 0; q < FILL; ++q) {
+      const int o = tid / TK + q * (THREADS / TK);
+      float x = -1.f;
+      if (p.c >= 0) {  // a listed column is inside the window
+        const float d = dist_at(o, p.c, p.kq);
+        if (d <= sm.othr[o]) x = __fsub_rn(d, sm.odmin[o]);
+      }
+      sm.x[xb][fk][o] = x;
+    }
+  };
   // this head's weights of the step whose x is in buffer xb, into weight
   // buffer xb; lane = row. Branch-free (not kept or past the list: 0), so
   // that the compiler can interleave it with the products of the step before
@@ -547,11 +424,6 @@ __global__ void __launch_bounds__(HG * 32, MIN_BLOCKS * 4 / HG) tf_coord_kernel(
       sm.w[xb][warp][k][lane] = p;
     }
   };
-
-  // ---- pass 2: contract over the listed columns [0, nl), pipelined two
-  // deep: while step s is contracted, step s + 1's value rows are in flight
-  // and its weights are computed, and step s + 2's x is computed; one block
-  // barrier a step
   auto contract = [&](int nl) {
     if (nl == 0) return;  // block-uniform
     fill_store(fill_load(0, nl), 0);
@@ -569,25 +441,90 @@ __global__ void __launch_bounds__(HG * 32, MIN_BLOCKS * 4 / HG) tf_coord_kernel(
         if (more) cp_async_wait<1>(); else cp_async_wait<0>();
         __syncwarp();
       }
-#pragma unroll
-      for (int k = 0; k < TK; ++k) {
-        float wv[8], vv[8];
-        lds4(&sm.w[buf][warp][k][og * 4], wv);
-        lds4(&sm.w[buf][warp][k][16 + og * 4], wv + 4);
-        lds4(&sm.v[buf][warp][k][cg * 4], vv);
-        lds4(&sm.v[buf][warp][k][32 + cg * 4], vv + 4);
-#pragma unroll
-        for (int r = 0; r < 8; ++r)
-#pragma unroll
-          for (int c = 0; c < 8; ++c) acc[r][c] = fmaf(wv[r], vv[c], acc[r][c]);
-      }
+      products(buf);
       weights(buf ^ 1);  // step s + 1's; past the list: zeros, never read
       fill_store(next, buf);
       __syncthreads();  // step s's buffers are free, step s + 1's are visible
     }
   };
 
-  contract(n);
+  // ---- pass 2 over pre-built distances: the same, with each step's 32 x
+  // 16 distances staged row-wise into shared memory by cp.async (16-byte
+  // pieces where the step's listed columns run contiguously and aligned, as
+  // at the processor; else a listed column a copy), and each warp weighting
+  // its head's entries from them; one step in flight, one block barrier a
+  // step
+  const float othr_l = sm.othr[lane], dmin_l = sm.odmin[lane];
+  // the block: start copying the distances of step s0 into buffer dbuf;
+  // past the list: zeros, never kept
+  auto stage_d = [&](int s0, int nl, int dbuf) {
+    const bool run = s0 + TK <= nl && a.dvec4 && sm.list[s0] % 4 == 0 &&
+                     sm.list[s0 + TK - 1] - sm.list[s0] == TK - 1;  // block-uniform
+    if (run) {
+      const int cf = sm.list[s0];
+#pragma unroll
+      for (int e0 = 0; e0 < TM * TK / 4; e0 += THREADS) {
+        const int e = e0 + tid, o = e / (TK / 4), k4 = (e - o * (TK / 4)) * 4;
+        if ((TM * TK / 4) % THREADS == 0 || e < TM * TK / 4)  // predicated, no break
+          cp_async16(&sm.d[dbuf][o][k4], db + (size_t)min(o, olast) * Li + cf + k4, true);
+      }
+    } else {
+#pragma unroll
+      for (int e0 = 0; e0 < TM * TK; e0 += THREADS) {
+        const int e = e0 + tid, o = e / TK, k = e - o * TK;
+        const bool ok = s0 + k < nl;
+        if ((TM * TK) % THREADS == 0 || e < TM * TK)
+          cp_async4(&sm.d[dbuf][o][k], ok ? db + (size_t)min(o, olast) * Li + sm.list[s0 + k] : db,
+                    ok);
+      }
+    }
+  };
+  // this head's weights of the step at s0, its distances in buffer dbuf,
+  // into weight buffer wb; lane = row; branch-free as weights()
+  auto weights_d = [&](int dbuf, int s0, int nl, int wb) {
+#pragma unroll
+    for (int k4 = 0; k4 < TK; k4 += 4) {
+      float d[4];
+      lds4(&sm.d[dbuf][lane][k4], d);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const bool kept = s0 + k4 + q < nl && d[q] <= othr_l;
+        const float e = expf(-fmaxf(__fsub_rn(d[q], dmin_l), 0.f) * s);
+        const float p = kept ? e : 0.f;
+        den += p;
+        sm.w[wb][warp][k4 + q][lane] = p;
+      }
+    }
+  };
+  auto contract_d = [&](int nl) {
+    if (nl == 0) return;  // block-uniform
+    stage_d(0, nl, 0);
+    stage_d(TK, nl, 1);
+    if (head_ok) stage(0, nl, 0);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    weights_d(0, 0, nl, 0);
+    __syncthreads();  // step 0's distances are read before step 0 stages step 2's
+    int buf = 0;
+    for (int s0 = 0; s0 < nl; s0 += TK, buf ^= 1) {
+      if (head_ok && s0 + TK < nl) stage(s0 + TK, nl, buf ^ 1);  // warp-uniform
+      stage_d(s0 + 2 * TK, nl, buf);
+      cp_async_commit();
+      products(buf);
+      weights_d(buf ^ 1, s0 + TK, nl, buf ^ 1);  // step s + 1's
+      cp_async_wait<0>();
+      __syncthreads();  // step s's buffers are free, step s + 1's are visible
+    }
+  };
+  auto run = [&](int nl) {
+    if constexpr (DIST)
+      contract_d(nl);
+    else
+      contract(nl);
+  };
+
+  run(n);
   // the columns whose rounds did not fit in the list, in list-sized rounds
   for (int c0 = resume; c0 < we;) {
     int nl = 0;
@@ -596,18 +533,19 @@ __global__ void __launch_bounds__(HG * 32, MIN_BLOCKS * 4 / HG) tf_coord_kernel(
       bool any = false;
       if (c < we) {
         float kq[MAX_DIM];
-#pragma unroll
-        for (int k = 0; k < MAX_DIM; ++k) kq[k] = k < dd ? __ldg(mkb + (size_t)c * dd + k) : 0.f;
-        for (int o = 0; o < TM && !any; ++o) any = sqdist(sm.oq[o], kq, dd) <= sm.othr[o];
+        key(c, true, kq);
+        for (int o = 0; o < TM && !any; ++o) any = dist_at(o, c, kq) <= sm.othr[o];
       }
       append(any, c, &nl);
       c0 += THREADS;
     }
-    contract(nl);
+    run(nl);
   }
   if (!head_ok) return;  // warp-uniform; no block barrier follows
 
   // ---- epilogue: normalise, write the head's columns and the statistics
+  // (once a row: from the blocks of column tile 0, dmin and the threshold
+  // from head 0's)
   const float rden = 1.f / fmaxf(den, 1e-30f);
   sm.rden[warp][lane] = rden;
   __syncwarp();
@@ -627,36 +565,47 @@ __global__ void __launch_bounds__(HG * 32, MIN_BLOCKS * 4 / HG) tf_coord_kernel(
     if (i >= Lo) continue;
     const float rd = sm.rden[warp][rows[r]];
     float* dst = a.out + ((size_t)b * Lo + i) * HV + (size_t)h * a.V + col0;
+    if (a.vec4) {  // 16-byte stores: a warp writes four whole 128-byte rows
 #pragma unroll
-    for (int c = 0; c < 8; ++c)
-      if (col0 + cols[c] < a.V) dst[cols[c]] = acc[r][c] * rd;
+      for (int c = 0; c < 8; c += 4)
+        if (col0 + cols[c] < a.V) st4(dst + cols[c], acc[r] + c, rd);
+    } else {
+#pragma unroll
+      for (int c = 0; c < 8; ++c)
+        if (col0 + cols[c] < a.V) dst[cols[c]] = acc[r][c] * rd;
+    }
   }
 }
 
 // heads a block: 1, 2 or 4 (a warp each), the least power of two that
 // holds H up to 4
-template <int HG>
+template <int HG, bool DIST>
 int launch_group(const Args& a, int B, cudaStream_t s) {
-  constexpr int smem = (int)sizeof(Smem<HG>);
-  int rc = (int)cudaFuncSetAttribute(tf_coord_kernel<HG>,
+  constexpr int smem = (int)sizeof(Smem<HG, DIST>);
+  int rc = (int)cudaFuncSetAttribute(tf_kernel<HG, DIST>,
                                      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (rc != 0) return rc;
   const int n_ct = (a.V + TN - 1) / TN;
   const dim3 grid((a.H + HG - 1) / HG * n_ct, (a.Lo + TM - 1) / TM, B);
-  tf_coord_kernel<HG><<<grid, HG * 32, smem, s>>>(a);
+  tf_kernel<HG, DIST><<<grid, HG * 32, smem, s>>>(a);
   return (int)cudaGetLastError();
 }
 
+template <bool DIST>
 int launch(const Args& a, int B, cudaStream_t s) {
-  if (a.H == 1) return launch_group<1>(a, B, s);
-  if (a.H == 2) return launch_group<2>(a, B, s);
-  return launch_group<4>(a, B, s);
+  if (a.H == 1) return launch_group<1, DIST>(a, B, s);
+  if (a.H == 2) return launch_group<2, DIST>(a, B, s);
+  return launch_group<4, DIST>(a, B, s);
 }
 
-}  // namespace coord
-
 bool bad_shape(int B, int Lo, int Li, int H, int V) {
-  return B < 1 || Lo < 1 || Li < 1 || H < 1 || V < 1 || B > 65535 || (Lo + TLO - 1) / TLO > 65535;
+  return B < 1 || Lo < 1 || Li < 1 || H < 1 || V < 1 || B > 65535 || (Lo + TM - 1) / TM > 65535;
+}
+
+// value and output rows move in 16-byte pieces: V a multiple of 4, both aligned
+bool vec4(const float* values, const float* out, int V) {
+  return V % 4 == 0 && reinterpret_cast<size_t>(values) % 16 == 0 &&
+         reinterpret_cast<size_t>(out) % 16 == 0;
 }
 
 }  // namespace
@@ -665,17 +614,11 @@ extern "C" int posatt_tf_fwd(const float* dist, const float* thr, const float* s
                              const float* values, float* out, float* stats, int B, int Lo,
                              int Li, int H, int V, void* stream) {
   if (bad_shape(B, Lo, Li, H, V)) return (int)cudaErrorInvalidValue;
-  const DistArgs a{dist, scale, values, thr, out, stats, Lo, Li, H, V};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // the value columns a block owns: 32, 64 or 128, the least that covers V
-  // (V = 64 at elasticity_tf: 512 hidden over 8 heads)
-  if (V <= 32)
-    launch_tiles<1>(a, B, s);
-  else if (V <= 64)
-    launch_tiles<2>(a, B, s);
-  else
-    launch_tiles<4>(a, B, s);
-  return (int)cudaGetLastError();
+  // no band: the window is the whole key axis
+  const Args a{dist, nullptr, nullptr, scale, values, thr, nullptr, out, stats,
+               Lo, Li, H, V, 0, 0, Lo, 1, vec4(values, out, V),
+               Li % 4 == 0 && reinterpret_cast<size_t>(dist) % 16 == 0};
+  return launch<true>(a, B, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int posatt_tf_coord_fwd(const float* mq, const float* mk, const float* scale,
@@ -683,13 +626,12 @@ extern "C" int posatt_tf_coord_fwd(const float* mq, const float* mk, const float
                                    float* out, float* stats, int B, int Lo, int Li, int H,
                                    int V, int dd, int width, int tile_rows, void* stream) {
   // a block of 32 rows must stay inside one band tile
-  const bool tiles_ok = tile_rows >= Lo || (tile_rows > 0 && tile_rows % coord::TM == 0);
+  const bool tiles_ok = tile_rows >= Lo || (tile_rows > 0 && tile_rows % TM == 0);
   if (bad_shape(B, Lo, Li, H, V) || dd < 1 || dd > MAX_DIM || !tiles_ok ||
       (starts != nullptr && width < 1))
     return (int)cudaErrorInvalidValue;
-  const bool vec4 = V % 4 == 0 && reinterpret_cast<size_t>(values) % 16 == 0;
-  const coord::Args a{mq, mk, scale, values, thr, starts, out, stats,
-                      Lo, Li, H, V, dd, width, tile_rows, (Lo + tile_rows - 1) / tile_rows,
-                      vec4};
-  return coord::launch(a, B, static_cast<cudaStream_t>(stream));
+  const Args a{nullptr, mq, mk, scale, values, thr, starts, out, stats,
+               Lo, Li, H, V, dd, width, tile_rows, (Lo + tile_rows - 1) / tile_rows,
+               vec4(values, out, V), false};
+  return launch<false>(a, B, static_cast<cudaStream_t>(stream));
 }

@@ -782,7 +782,8 @@ def _tf_grad_outputs(ctx, scale, ds, dv):
 class PosAttTF(torch.autograd.Function):
     """Kernel #9 with its backward #10: ``apply(dist, thr, scale, values)``
     -> (B, L_out, H*V), the ``_posatt_tf`` custom VJP. The forward saves
-    its output: the dscale entry point reads it. The backward runs the
+    its output and row statistics (B, H + 2, L_out) on either device: the
+    dscale entry point reads both. The backward runs the
     dscale entry point when ``scale`` needs a gradient (summing its
     per-sample (B, H) result over B) and the dv one when ``values`` does;
     ``dist`` and ``thr`` get none. CPU tensors take the plain versions."""
@@ -793,7 +794,8 @@ class PosAttTF(torch.autograd.Function):
             out, stats = posatt_tf_cuda(dist, thr, scale, values, stats=True)
         else:
             _check_tf(dist, thr, scale, values)
-            out, stats = posatt_tf_reference(dist, thr, scale, values), None
+            out = posatt_tf_reference(dist, thr, scale, values)
+            stats = posatt_tf_stats_reference(dist, thr, scale)
         ctx.save_for_backward(dist, thr, scale, values, out, stats)
         return out
 

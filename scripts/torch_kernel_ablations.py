@@ -1,18 +1,26 @@
-"""Ablations of the port's per-sample-mesh kernels #8 (dscale, du) and #11
-on an NVIDIA GPU: what holds each one's time.
+"""Ablations of the port's per-sample-mesh kernels on an NVIDIA GPU: what
+holds each one's time. #7 (posatt_batched_fwd), #8 (dscale, du), #9
+(posatt_tf_fwd) and #11 (posatt_tf_coord_fwd, which shares #9's source).
 
 Each variant is the kernel source with one piece of its work taken out or
-one design choice changed (a text substitution), built with the port's
-nvcc flags into a scratch library and timed with ``chip_smoke.cuda_ms``
-(CUDA events) at the full-width elasticity / elasticity_tf processor and
-decoder shapes of ``chip_smoke.py``, in turns (base, variants, variants in
-reverse, base). Variants that take work out give wrong results; they are
-timed only. Prints one JSON object per (op, kernel, variant) and, last,
+one design choice changed (a text substitution), or, for #9's producer
+warp, the source scripts/ablations/posatt_tf_fwd_producer.cu in its place
+(in two forms); each is built with the port's nvcc flags into a scratch
+library and timed with ``chip_smoke.cuda_ms`` (CUDA events) at the
+full-width elasticity / elasticity_tf shapes of ``chip_smoke.py``, in
+turns (base, variants, variants in reverse, base). Variants that take work
+out give wrong results; they are timed only. The producer warp's forms are
+held against the plain version at the one shape they take (the served
+processor). Prints one JSON object per (op, kernel, variant) and, last,
 the card's name and power limit.
 
-    python scripts/torch_kernel_ablations.py
+    python scripts/torch_kernel_ablations.py [--parent CSRC] [source ...]
 
-Run from the repository root on a machine with the card and nvcc.
+with sources among posatt_batched_fwd, posatt_batched_bwd, posatt_tf_fwd
+(default: all three). ``--parent CSRC``: one more variant of each source,
+the file of the same name in the directory CSRC (for example the kernels
+of a parent commit unpacked with ``git archive``), timed in turns with the
+rest. Run from the repository root on a machine with the card and nvcc.
 """
 
 from __future__ import annotations
@@ -26,6 +34,7 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[1]
 CSRC = REPO / "position_induced_transformer_torch" / "kernels" / "csrc"
+PRODUCER = Path(__file__).resolve().parent / "ablations" / "posatt_tf_fwd_producer.cu"
 
 FMA = "acc[r][c] = fmaf(wv[r], vv[c], acc[r][c]);"
 FEW_FMA = "if (r == c) acc[r][c] = fmaf(wv[r], vv[c], acc[r][c]);"  # 8 of 64 products
@@ -39,16 +48,43 @@ HALF_V_BWD = [
      "if ((kk & 1) == 0) { lds4(vr + cg * 4, vv); lds4(vr + 32 + cg * 4, vv + 4); }"),
 ]
 HALF_V_TF = [
-    ("#pragma unroll\n      for (int k = 0; k < TK; ++k) {\n        float wv[8], vv[8];",
-     "float vv[8];\n#pragma unroll\n      for (int k = 0; k < TK; ++k) {\n        float wv[8];"),
-    ("lds4(&sm.v[buf][warp][k][cg * 4], vv);\n        lds4(&sm.v[buf][warp][k][32 + cg * 4], vv + 4);",
+    ("#pragma unroll\n    for (int k = 0; k < TK; ++k) {\n      float wv[8], vv[8];",
+     "float vv[8];\n#pragma unroll\n    for (int k = 0; k < TK; ++k) {\n      float wv[8];"),
+    ("lds4(&sm.v[buf][warp][k][cg * 4], vv);\n      lds4(&sm.v[buf][warp][k][32 + cg * 4], vv + 4);",
      "if ((k & 1) == 0) { lds4(&sm.v[buf][warp][k][cg * 4], vv); lds4(&sm.v[buf][warp][k][32 + cg * 4], vv + 4); }"),
 ]
 DU_FOUR = "if (a.D > 2 * TN) return launch_shape<true, GROUPED, HB, 4>(a, B, s);"
 DS_TWO = "    if (slabs >= 2) return launch_shape<false, false, HB, 2>(a, B, s);"
+FWD_TWO = "    if (slabs >= 2) return launch_shape<HB, 2>(a, B, s);"
+# the output written 4 bytes a store instead of 16
+SCALAR_STORES = [("    if (a.vec4) {  // 16-byte stores: a warp writes four whole 128-byte rows",
+                  "    if (false) {")]
+# pass 2 left out: the row minima, the list and the epilogue only
+NO_PASS2 = "(n);\n  // the columns whose rounds"
 
-# source -> variant -> substitutions (old text, new text)
+# source -> variant -> substitutions (old text, new text) in the kernel's
+# source, or (path, substitutions) in another source built in its place
 VARIANTS = {
+    "posatt_batched_fwd": {
+        "base": [],
+        "few_fma": [(FMA, FEW_FMA)],
+        "no_exp": [("const float e = expf(-x * sh[h]);", "const float e = -x * sh[h];")],
+        "no_staging": [("cp_async16(&sm.v[buf][r][c4], ok ? src + col0 + c4 : a.u, ok);",
+                        "(void)src;")],
+        "no_pass2": [("  contract" + NO_PASS2, "  // the columns whose rounds")],
+        "scalar_stores": SCALAR_STORES,
+        # the value slab a block owns at two heads: 256 columns (one block of
+        # eight warps a row tile) or 64 (four blocks) against 128 (two)
+        "slabs_four": [(FWD_TWO, "    {\n    if (slabs >= 3) return launch_shape<HB, 4>(a, B, s);\n"
+                        + FWD_TWO + "\n    }")],
+        "slabs_one": [(FWD_TWO, "")],
+        "steps_of_32": [("constexpr int TK = 16;        // listed columns a step (at most)",
+                         "constexpr int TK = 32;        // listed columns a step (at most)"),
+                        ("static constexpr int SK = TK < 4 * NW ? TK : 4 * NW;",
+                         "static constexpr int SK = TK < 8 * NW ? TK : 8 * NW;")],
+        "regs_128": [("constexpr int SM_WARPS = 12;", "constexpr int SM_WARPS = 16;")],
+        "regs_255": [("constexpr int SM_WARPS = 12;", "constexpr int SM_WARPS = 8;")],
+    },
     "posatt_batched_bwd": {
         "base": [],
         "few_fma": [(FMA, FEW_FMA)],
@@ -67,25 +103,42 @@ VARIANTS = {
     "posatt_tf_fwd": {
         "base": [],
         "few_fma": [(FMA, FEW_FMA)],
-        "no_exp": [("const float e = expf(-fmaxf(x, 0.f) * s);", "const float e = -x * s;")],
+        "no_exp": [("const float e = expf(-fmaxf(x, 0.f) * s);", "const float e = -x * s;"),
+                   ("const float e = expf(-fmaxf(__fsub_rn(d[q], dmin_l), 0.f) * s);",
+                    "const float e = -__fsub_rn(d[q], dmin_l) * s;")],
         "no_staging": [("cp_async16(&sm.v[vb][warp][k][c4], ok ? p : vsrc, ok);", "(void)p;")],
+        # #9: pass 2 stages the distances of its first two steps only
+        "no_dist_loads": [("      stage_d(s0 + 2 * TK, nl, buf);\n", "")],
+        "no_pass2": [("  run" + NO_PASS2, "  // the columns whose rounds")],
+        "scalar_stores": SCALAR_STORES,
         "half_v_loads": HALF_V_TF,
         "regs_255": [("constexpr int MIN_BLOCKS = 3;", "constexpr int MIN_BLOCKS = 2;")],
         "steps_of_8": [("constexpr int TK = 16;      // listed columns a step",
                         "constexpr int TK = 8;      // listed columns a step")],
+        # pass 2 through a producer warp, TMA copies and mbarriers: two 2-D
+        # boxes a step over tensor maps, or a 1-D bulk copy a row
+        "producer_warp": (PRODUCER, []),
+        "producer_warp_rows": (PRODUCER, [("constexpr bool TENSOR_MAPS = true;",
+                                           "constexpr bool TENSOR_MAPS = false;")]),
     },
 }
+# variants that take only some (op, kernel)s
+ONLY = {("posatt_tf_fwd", v): {("serve_processor", "dist_fwd")}
+        for v in ("producer_warp", "producer_warp_rows")}
 
 
-def build(scratch: Path) -> dict:
+def build(scratch: Path, sources) -> dict:
     """Every variant's library, built concurrently: (source, variant) -> path."""
     from position_induced_transformer_torch.kernels import _build
 
     jobs = {}
-    for src, variants in VARIANTS.items():
+    for src in sources:
         text = (CSRC / f"{src}.cu").read_text()
-        for name, subs in variants.items():
+        for name, subs in VARIANTS[src].items():
             body = text
+            if isinstance(subs, tuple):
+                path, subs = subs
+                body = path.read_text()
             for old, new in subs:
                 if body.count(old) != 1:
                     raise RuntimeError(f"{src} {name}: {old!r} is not in the source exactly once")
@@ -105,7 +158,7 @@ def build(scratch: Path) -> dict:
     return libs
 
 
-def main() -> int:
+def main(sources, parent=None) -> int:
     import numpy as np
     import torch
 
@@ -118,36 +171,69 @@ def main() -> int:
     from position_induced_transformer_torch.kernels import posatt_batched as kb
 
     c.environment()
+    rng = np.random.default_rng(4)
+    shapes, _ = c.elasticity_shapes(rng)
+    tf_shapes, _ = c.elasticity_tf_shapes(rng)
+    c.build()
+    timed = {src: {} for src in sources}  # source -> (op, kernel) -> launch
+    # the served decoder also over a cloud in a random order, as a request
+    # may hold it
+    shapes["serve_decoder_unsorted"] = (c.unsorted_batched(shapes["serve_decoder"][0]),)
+    for op in ("processor", "decoder", "serve_decoder", "serve_decoder_unsorted"):
+        mq, mk, scale, u, thr, starts, kc, width = shapes[op][0]
+        kw = dict(keep_count=kc, width=width)
+        timed.setdefault("posatt_batched_fwd", {})[(op, "fwd")] = (
+            lambda mq=mq, mk=mk, scale=scale, u=u, thr=thr, starts=starts, kw=kw:
+            kb.posatt_batched_cuda(mq, mk, scale, u, thr, starts, **kw))
+        if op.startswith("serve_decoder"):
+            continue
+        out, stats = kb.posatt_batched_cuda(mq, mk, scale, u, thr, starts, stats=True, **kw)
+        g = torch.from_numpy(rng.standard_normal(out.shape).astype(np.float32)).cuda()
+        w = dict(width=width)
+        timed.setdefault("posatt_batched_bwd", {}).update({
+            (op, "dscale"): lambda mq=mq, mk=mk, scale=scale, u=u, out=out, g=g, stats=stats,
+            starts=starts, w=w: kb.posatt_batched_bwd_dscale_cuda(mq, mk, scale, u, out, g, stats,
+                                                                   starts, **w),
+            (op, "du"): lambda mq=mq, mk=mk, scale=scale, g=g, stats=stats, starts=starts, w=w:
+            kb.posatt_batched_bwd_du_cuda(mq, mk, scale, g, stats, starts, **w),
+        })
+    for op, kernel in (("processor", "coord_fwd"), ("decoder", "coord_fwd"),
+                       ("serve_processor", "dist_fwd"), ("serve_encoder", "dist_fwd")):
+        calls, kind, _ = tf_shapes[op]
+        timed.setdefault("posatt_tf_fwd", {})[(op, kernel)] = (
+            lambda calls=calls, kind=kind: c.tf_launch(calls, kind))
+    unsorted = c.unsorted_dist(tf_shapes["serve_encoder"][0][1])
+    timed["posatt_tf_fwd"][("serve_encoder_unsorted", "dist_fwd")] = (
+        lambda: kb.posatt_tf_cuda(*unsorted))
+    want = kb.posatt_tf_reference(*tf_shapes["serve_processor"][0][1])
+
+    if parent is not None:
+        for src in sources:
+            VARIANTS[src]["parent"] = (Path(parent) / f"{src}.cu", [])
     with tempfile.TemporaryDirectory() as tmp:
-        libs = build(Path(tmp))
-        rng = np.random.default_rng(4)
-        shapes, _ = c.elasticity_shapes(rng)
-        tf_shapes, _ = c.elasticity_tf_shapes(rng)
-        for op in ("processor", "decoder"):
-            mq, mk, scale, u, thr, starts, kc, width = shapes[op][0]
-            out, stats = kb.posatt_batched_cuda(mq, mk, scale, u, thr, starts, keep_count=kc,
-                                                width=width, stats=True)
-            g = torch.from_numpy(rng.standard_normal(out.shape).astype(np.float32)).cuda()
-            calls, kind, _ = tf_shapes[op]
-            timed = {
-                "posatt_batched_bwd": {
-                    "dscale": lambda: kb.posatt_batched_bwd_dscale_cuda(
-                        mq, mk, scale, u, out, g, stats, starts, width=width),
-                    "du": lambda: kb.posatt_batched_bwd_du_cuda(mq, mk, scale, g, stats, starts,
-                                                                width=width),
-                },
-                "posatt_tf_fwd": {"coord_fwd": lambda: c.tf_launch(calls, kind)},
-            }
-            for src, variants in VARIANTS.items():
-                order = list(variants) + list(reversed(list(variants)))
-                ms: dict = {}
-                for name in order:
-                    _build._loaded[src] = ctypes.CDLL(str(libs[(src, name)]))
-                    kb._entry.cache_clear()
-                    for kernel, fn in timed[src].items():
-                        ms.setdefault((kernel, name), []).append(c.cuda_ms(fn))
-                for (kernel, name), t in ms.items():
-                    print(json.dumps({"op": op, "kernel": kernel, "variant": name, "ms": t}), flush=True)
+        libs = build(Path(tmp), sources)
+        for src in sources:
+            variants = list(VARIANTS[src])
+            ms: dict = {}
+            checked = set()
+            for name in ["base"] + variants[1:] + variants[::-1]:
+                _build._loaded[src] = ctypes.CDLL(str(libs[(src, name)]))
+                kb._entry.cache_clear()
+                only = ONLY.get((src, name))
+                if only is not None and name not in checked:
+                    got = c.tf_launch(*tf_shapes["serve_processor"][:2])
+                    torch.cuda.synchronize()
+                    err = (got - want).abs().max().item()
+                    ok = bool(((got - want).abs() <= c.OP_ATOL + c.OP_RTOL * want.abs()).all())
+                    print(json.dumps({"variant": name, "op": "serve_processor", "max_abs_err": err,
+                                      "within_rtol_2e-5_atol_2e-6": ok}), flush=True)
+                    checked.add(name)
+                for key, fn in timed[src].items():
+                    if only is None or key in only:
+                        ms.setdefault((key, name), []).append(c.cuda_ms(fn))
+            for ((op, kernel), name), t in ms.items():
+                print(json.dumps({"op": op, "kernel": kernel, "source": src, "variant": name,
+                                  "ms": t}), flush=True)
         _build._loaded.clear()
         kb._entry.cache_clear()
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -156,4 +242,12 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", help="a directory of kernel sources to time as one more variant")
+    ap.add_argument("sources", nargs="*", help=f"among {', '.join(VARIANTS)} (default: all)")
+    args = ap.parse_args()
+    if set(args.sources) - set(VARIANTS):
+        ap.error(f"unknown sources {sorted(set(args.sources) - set(VARIANTS))}")
+    sys.exit(main(args.sources or list(VARIANTS), args.parent))

@@ -157,6 +157,9 @@ def _all_cases():
             yield f"{shape}-thr", (mq, mk, lmda, u, g, loc, thr, None)
     mq, mk, lmda, u, g, thr, band = _ring_case()
     yield "ring-band", (mq, mk, lmda, u, g, 0.02, thr, band)
+    # a global window past the CUDA kernel's 1024-column list of kept columns
+    mq, mk, lmda, u, g = _case(1, 12, 1100, 2, 8, seed=17)
+    yield "global-L1100", (mq, mk, lmda, u, g, 1.0, None, None)
 
 
 CASES = dict(_all_cases())
@@ -272,6 +275,49 @@ def test_function_saves_the_output_and_matches_jax_vjp_at_any_head_count(H):
     def loss(lm, uu):
         o = j_b.position_attention_batched(jnp.asarray(mq), jnp.asarray(mk), lm, uu, 0.1,
                                            jnp.asarray(thr.numpy()), interpret=True)
+        return jnp.sum(o * jnp.asarray(w)), o
+
+    (_, jout), jg = jax.value_and_grad(loss, argnums=(0, 1), has_aux=True)(
+        jnp.asarray(lmda), jnp.asarray(u))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(jout), rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(lm.grad.numpy(), np.asarray(jg[0]), rtol=DS_RTOL, atol=DS_ATOL)
+    np.testing.assert_allclose(x.grad.numpy(), np.asarray(jg[1]), rtol=DS_RTOL, atol=DS_ATOL)
+
+
+def test_function_saves_the_output_and_stats_with_the_bare_row_minimum():
+    """PosAttBatched (its CPU path) saves the forward's output and the row
+    statistics (B, H + 2, L_out) that the card's backward kernels read: the
+    bare minimum over all columns, also in rows whose threshold keeps none
+    of them (where a minimum over the kept columns would be +inf), the
+    threshold, and the reciprocal denominators; the output and gradients
+    match the JAX custom VJP in interpret mode."""
+    mq, mk, lmda, u, w = _case(2, 30, 44, 2, 5, seed=19)
+    dist = t_dist.euclidean_sq(t(mq), t(mk)).numpy()
+    thr = t_loc.batched_topk_thresholds(t(mq), t(mk), 0.2).numpy()
+    thr[:, ::4] = 0.5 * dist[:, ::4].min(-1, keepdims=True)  # rows that keep nothing
+    lm = t(lmda).requires_grad_(True)
+    x = t(u).requires_grad_(True)
+    out = t_b.position_attention_batched(t(mq), t(mk), lm, x, 0.2, t(thr))
+    assert type(out.grad_fn).__name__ == "PosAttBatchedBackward"
+    saved = [s for s in out.grad_fn.saved_tensors if s is not None]
+    assert any(s.shape == out.shape and torch.equal(s, out) for s in saved)
+    stats = [s for s in saved if tuple(s.shape) == (2, 2 + 2, 30)]
+    assert len(stats) == 1
+    st = stats[0].numpy()
+    keep = dist <= thr
+    assert not keep[:, ::4].any() and keep[:, 1::4].any()
+    np.testing.assert_array_equal(st[:, 0], dist.min(-1))
+    np.testing.assert_array_equal(st[:, 1], thr[..., 0])
+    scale = t_posatt.bandwidth_scale(t(lmda)).reshape(2, 1).numpy()
+    xd = (dist - dist.min(-1, keepdims=True)).astype(np.float64)
+    den = np.where(keep[:, None], np.exp(-xd[:, None] * scale[None, :, :, None]), 0.0).sum(-1)
+    np.testing.assert_allclose(st[:, 2:], 1.0 / np.maximum(den, 1e-30), rtol=RTOL)
+    assert not out.detach()[:, ::4].any()
+    (out * t(w)).sum().backward()
+
+    def loss(lm, uu):
+        o = j_b.position_attention_batched(jnp.asarray(mq), jnp.asarray(mk), lm, uu, 0.2,
+                                           jnp.asarray(thr), interpret=True)
         return jnp.sum(o * jnp.asarray(w)), o
 
     (_, jout), jg = jax.value_and_grad(loss, argnums=(0, 1), has_aux=True)(

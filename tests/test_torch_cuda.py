@@ -291,6 +291,10 @@ BATCHED_SHAPES = [
     (2, 64, 80, 3, 8, 0.1, "robust"),  # three heads
     (2, 50, 60, 6, 40, 0.2, "none"),  # six heads, in-kernel keep count
     (2, 900, 700, 6, 12, 0.02, "ring"),  # six heads, band
+    (1, 70, 1500, 2, 256, 1.0, "none"),  # a window past the 1024-column list
+    # queries on an arc across the key ring's seam: one band tile of 200
+    # rows, a short last 32-row block
+    (2, 200, 300, 2, 8, 0.02, "arc"),
 ]
 
 
@@ -300,13 +304,22 @@ def _ring(rng, B, L):
     return np.stack([rad * np.cos(th), rad * np.sin(th)], -1).astype(np.float32)
 
 
+def _arc(rng, B, L):
+    """Points on the arc of a ring from -60 to 60 degrees, angle-sorted:
+    across the seam of _ring's angle order."""
+    th = np.sort(rng.uniform(-np.pi / 3, np.pi / 3, (B, L)), axis=1)
+    rad = 1.0 + 0.1 * rng.random((B, 1))
+    return np.stack([rad * np.cos(th), rad * np.sin(th)], -1).astype(np.float32)
+
+
 def _batched_case(dev, B, Lq, Lk, H, D, loc, kind, seed=0):
     """Launcher arguments (mq, mk_ext, scale, u_ext, thr, starts, keep_count,
     width), the wrapper's (mq, mk, lmda, u, loc, thr, band) and a cotangent."""
     rng = np.random.default_rng(seed)
     to = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)
-    if kind == "ring":
-        mq, mk = to(_ring(rng, B, Lq)), to(_ring(rng, B, Lk))
+    if kind in ("ring", "arc"):
+        mq = to((_ring if kind == "ring" else _arc)(rng, B, Lq))
+        mk = to(_ring(rng, B, Lk))
     else:
         mq, mk = to(rng.random((B, Lq, 2))), to(rng.random((B, Lk, 2)))
     lmda = to(rng.standard_normal((H, 1, 1)))
@@ -315,7 +328,7 @@ def _batched_case(dev, B, Lq, Lk, H, D, loc, kind, seed=0):
     thr = band = None
     if kind != "none":
         thr = locality.batched_topk_thresholds(mq, mk, loc)
-    if kind == "ring":
+    if kind in ("ring", "arc"):
         starts, width, wrap = locality.batched_band_starts(
             mq, mk, thr, kb.band_tile_rows(Lq), circular=True
         )
@@ -480,6 +493,31 @@ def test_cuda_batched_bwd_at_elasticity_shapes(cuda, op, H, D):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("D", CLOUD_WIDTHS)
+@pytest.mark.parametrize("H", CLOUD_HEADS)
+@pytest.mark.parametrize("op", CLOUD_OPS + ["served"])
+def test_cuda_batched_fwd_at_elasticity_shapes(cuda, op, H, D):
+    """#7 against its plain version at the elasticity op shapes, and at a
+    served op (robust thresholds, no band), with its row statistics; the
+    same bits over two runs."""
+    if op == "served":
+        (c, _, scale, u, _, _, _, _), _ = _cloud_case(cuda, "processor", H, D)
+        thr = locality.robust_topk_threshold(distances.euclidean_sq(c, c), 0.02)
+        args = (c, c, scale, u, thr, None, locality.topk_keep_count(c.shape[1], 0.02), 0)
+    else:
+        args, _ = _cloud_case(cuda, op, H, D)
+    kw, pos = _fwd(args)
+    out, stats = kb.posatt_batched_cuda(*pos, stats=True, **kw)
+    again = kb.posatt_batched_cuda(*pos, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    torch.testing.assert_close(out, kb.posatt_batched_reference(*pos, **kw), rtol=RTOL, atol=ATOL)
+    want = kb.posatt_batched_stats_reference(*pos[:3], *pos[4:], **kw)
+    assert torch.equal(stats[:, :2], want[:, :2])  # bit-equal distances
+    torch.testing.assert_close(stats[:, 2:], want[:, 2:], rtol=RTOL, atol=0.0)
+
+
+@pytest.mark.cuda
 def test_batched_no_grad_launches_the_forward_only(cuda):
     _, (mq, mk, lmda, u, loc, thr, band), _ = _batched_case(cuda, 2, 40, 50, 2, 5, 0.1, "none")
     lmda.requires_grad_(True)
@@ -566,6 +604,7 @@ TF_SHAPES = [
     (2, 1000, 800, 8, 33, "ring"),  # L_out not a multiple of 256
     (2, 900, 700, 3, 80, "ring"),  # V not a multiple of the 64-column tile
     (2, 300, 200, 5, 100, "thr"),  # two head groups, the second short
+    (1, 70, 1500, 8, 64, "none"),  # a window past the 1024-column list
 ]
 
 
@@ -692,6 +731,41 @@ def test_cuda_tf_coord_fwd_at_elasticity_tf_shapes(cuda, op, H, V):
                                rtol=RTOL, atol=ATOL)
     want_st = kb.posatt_batched_stats_reference(mq, mk, scale, thr, starts, keep_count=mk.shape[1], **w)
     assert torch.equal(stats[:, :2], want_st[:, :2])  # bit-equal distances
+    torch.testing.assert_close(stats[:, 2:], want_st[:, 2:], rtol=RTOL, atol=0.0)
+
+
+# the served elasticity_tf ops of #9: the processor (every column kept) and
+# the encoder / decoder (a quantile threshold per row at 2 %) on the
+# model's pre-built halved distances of an angle-sorted or an unsorted
+# cloud; head counts from one to three groups of four
+TF_DIST_OPS = ["processor", "served", "unsorted"]
+TF_DIST_HEADS = [1, 3, 6, 8, 12]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("V", CLOUD_WIDTHS)
+@pytest.mark.parametrize("H", TF_DIST_HEADS)
+@pytest.mark.parametrize("op", TF_DIST_OPS)
+def test_cuda_tf_dist_fwd_at_elasticity_tf_shapes(cuda, op, H, V):
+    """#9 against its plain version at the served elasticity_tf op shapes,
+    with its row statistics; the same bits over two runs."""
+    rng = np.random.default_rng(2)
+    to = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(cuda)
+    c = _ring(rng, 2, 972)
+    if op == "unsorted":
+        c = c[:, rng.permutation(972)]
+    c = to(c)
+    half = 0.5 * distances.euclidean_sq(c, c)
+    thr = None if op == "processor" else locality.quantile_threshold(half, 0.02)
+    scales = to(rng.standard_normal((H, 1)) ** 2)
+    v = to(rng.standard_normal((2, 972, H * V)))
+    out, stats = kb.posatt_tf_cuda(half, thr, scales, v, stats=True)
+    again = kb.posatt_tf_cuda(half, thr, scales, v)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    torch.testing.assert_close(out, kb.posatt_tf_reference(half, thr, scales, v), rtol=RTOL, atol=ATOL)
+    want_st = kb.posatt_tf_stats_reference(half, thr, scales)
+    assert torch.equal(stats[:, :2], want_st[:, :2])
     torch.testing.assert_close(stats[:, 2:], want_st[:, 2:], rtol=RTOL, atol=0.0)
 
 

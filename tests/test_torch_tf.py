@@ -94,6 +94,8 @@ DIST_CASES = {
     "h8_ragged": (2, 37, 53, 8, 3, "thr"),
     "large_s": (1, 36, 36, 2, 4, "large_s"),
     "s0": (1, 36, 36, 1, 8, "s0"),
+    # past the CUDA kernel's 1024-column list of kept columns
+    "global_L1100": (1, 8, 1100, 2, 3, "global"),
 }
 
 
@@ -302,6 +304,43 @@ def test_stats_and_rows_that_keep_nothing():
                      (t_b.posatt_tf_coord_cuda, (t(c), t(c), t(scale), t(values[:, :20])))):
         with pytest.raises(ValueError, match="CUDA"):
             fn(*args)
+
+
+def test_dist_function_saves_the_output_and_stats_with_the_bare_row_minimum():
+    """PosAttTF (its CPU path) saves the forward's output and the row
+    statistics (B, H + 2, L_out) that the card's backward kernels read: the
+    bare minimum over all columns, also in rows whose threshold keeps none
+    of them (where a minimum over the kept columns would be +inf), the
+    threshold, and the reciprocal denominators; the output and gradients
+    match the JAX kernels in interpret mode."""
+    dist, thr, scale, values, g = _dist_case(2, 24, 40, 3, 4, "thr", seed=8)
+    thr[:, ::5] = 0.5 * dist[:, ::5].min(-1, keepdims=True)  # rows that keep nothing
+    s = t(scale).requires_grad_(True)
+    v = t(values).requires_grad_(True)
+    out = t_b.position_attention_batched_dist(t(dist), s, v, t(thr))
+    assert type(out.grad_fn).__name__ == "PosAttTFBackward"
+    saved = [x for x in out.grad_fn.saved_tensors if x is not None]
+    assert any(x.shape == out.shape and torch.equal(x, out) for x in saved)
+    stats = [x for x in saved if tuple(x.shape) == (2, 3 + 2, 24)]
+    assert len(stats) == 1
+    st = stats[0].numpy()
+    keep = dist <= thr
+    assert not keep[:, ::5].any() and keep[:, 1::5].any()
+    np.testing.assert_array_equal(st[:, 0], dist.min(-1))
+    np.testing.assert_array_equal(st[:, 1], thr[..., 0])
+    x = (dist - dist.min(-1, keepdims=True)).astype(np.float64)
+    den = np.where(keep[:, None], np.exp(-x[:, None] * scale[None, :, :, None]), 0.0).sum(-1)
+    np.testing.assert_allclose(st[:, 2:], 1.0 / np.maximum(den, 1e-30), rtol=RTOL)
+    jargs = [jnp.asarray(a) for a in (dist, thr, scale, values)]
+    want = np.asarray(j_b._posatt_tf_raw(*jargs, interpret=True))
+    np.testing.assert_allclose(out.detach().numpy(), want, rtol=RTOL, atol=ATOL)
+    assert not out.detach()[:, ::5].any()
+    (out * t(g)).sum().backward()
+    jdv, jds = j_b._posatt_tf_bwd_raw(*jargs, jnp.asarray(g), interpret=True)
+    np.testing.assert_allclose(v.grad.numpy(), np.asarray(jdv), rtol=RTOL, atol=ATOL)
+    jds = np.asarray(jds).sum(0).reshape(scale.shape)
+    size = np.abs(jds).max() + 1.0
+    np.testing.assert_allclose(s.grad.numpy() / size, jds / size, rtol=DS_RTOL, atol=DS_ATOL)
 
 
 def test_no_grad_forward_skips_the_functions_and_launches_nothing():
