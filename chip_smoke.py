@@ -18,12 +18,17 @@ Phases, each of which fails the run (non-zero exit, no result line):
    with 1 to 12 heads; times from CUDA events, the bound from the H100's
    published peaks and the work this run's inputs need, and one PyTorch
    library call computing the same function as a yardstick;
-5. backward kernels: the stats, dscale and du kernels against their plain
+5. backward kernels: the stats, dscale (which reads the forward's output;
+   one launch, the same bits twice) and du kernels against their plain
    versions at the Burgers training shapes (dU is not needed at the
    encoder) and at ragged shapes with 1 to 12 heads, timed and bounded as
-   in phase 4; the autograd Function's gradients against torch.autograd of
-   the plain oracle, with one forward + backward launching each of the
-   four kernels exactly once;
+   in phase 4, with each op's kept fraction and the number of ranges the
+   kernel splits its streamed index into; dscale and du also, through the
+   kernel API, at the vorticity training shapes (encoder 256 x 4096, D 12;
+   processor 256 x 256 and decoder 4096 x 256, D 256; B 20, H 2) and one
+   H 1 shape at sod's widths; the autograd Function's gradients against
+   torch.autograd of the plain oracle, with one forward + backward
+   launching each of the four kernels exactly once;
 6. serve: a full-width Burgers model (random weights from a seeded
    generator) behind the port's HTTP server on the card, answering 1, 8
    and 13 samples, then 4 concurrent requests, then warm requests; every
@@ -110,8 +115,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
     version and #1; one forward + backward per version at the Burgers
     decoder and ZSSR decoder shapes launching that version's forward and
     #2-#4 once each, with the same dscale and dU bits under all three and
-    gradients against autograd of the oracle; times, bounds and the SDPA
-    yardstick as in phase 4.
+    gradients against autograd of the oracle (dscale reads each version's
+    own output, so only dU is the same bits under all three); times,
+    bounds and the SDPA yardstick as in phase 4.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 ``kernels`` record (twelve kernels: #1-#4, the per-sample-mesh #7, #8, the
@@ -409,7 +415,7 @@ def plain_fixed(dist, thr, scale, u):
 
     B, _, D = u.shape
     out = kp.posatt_fixed_reference(dist, thr, scale, u)
-    return out.permute(1, 2, 0, 3).reshape(B, dist.shape[0], -1)
+    return out.permute(1, 2, 0, 3).reshape(B, dist.shape[0], -1).contiguous()
 
 
 def fixed_sdpa(dist, thr, scale, u):
@@ -583,20 +589,26 @@ def backward_kernel_phase(geom):
         return lmda, u, g, posatt.bandwidth_scale(lmda).reshape(H, 1)
 
     def compare(name, dist, thr, scale, u, g, with_du=True):
-        """Each launcher against its plain version; max abs error by kernel."""
+        """Each launcher against its plain version; max abs error by
+        kernel, the row statistics and the forward's output (the plain
+        version's: dscale reads it)."""
         M, L = kp.posatt_stats_cuda(dist, thr, scale)
         Mp, Lp = kp.posatt_stats_reference(dist, thr, scale)
+        out = plain_fixed(dist, thr, scale, u)
         torch.cuda.synchronize()
         errs = {"posatt_stats": max(
             check_close(f"{name} stats M", M, Mp, OP_RTOL, OP_ATOL),
             check_close(f"{name} stats L", L, Lp, OP_RTOL, OP_ATOL),
         )}
-        ds = kp.posatt_bwd_dscale_cuda(dist, thr, scale, M, L, g, u)
-        again = kp.posatt_bwd_dscale_cuda(dist, thr, scale, M, L, g, u)
+        before = kp.posatt_bwd_dscale_cuda.launches
+        ds = kp.posatt_bwd_dscale_cuda(dist, thr, scale, M, L, g, u, out)
+        again = kp.posatt_bwd_dscale_cuda(dist, thr, scale, M, L, g, u, out)
         torch.cuda.synchronize()
+        if kp.posatt_bwd_dscale_cuda.launches != before + 2:
+            fail(f"{name}: two dscale calls did not count two launches")
         if not torch.equal(ds, again):
             fail(f"{name}: two dscale runs on the same inputs differ")
-        want = kp.posatt_bwd_dscale_reference(dist, thr, scale, Mp, Lp, g, u)
+        want = kp.posatt_bwd_dscale_reference(dist, thr, scale, Mp, Lp, g, u, out)
         # the size of the summed terms, per head: sum_i |w_i| + |r_i v_i|
         keep = (dist <= thr) & (dist < float("inf"))
         p = torch.where(keep, torch.exp(-dist[None] * scale[:, :, None] - Mp), 0.0) / Lp
@@ -613,7 +625,7 @@ def backward_kernel_phase(geom):
             want = kp.posatt_bwd_du_reference(dist, thr, scale, Mp, Lp, g)
             size = kp.posatt_bwd_du_reference(dist, thr, scale, Mp, Lp, g.abs())
             errs["posatt_bwd_du"] = check_close(f"{name} du", du, want, OP_RTOL, OP_ATOL, size)
-        return errs, (M, L)
+        return errs, (M, L, out)
 
     def function_check(name, dist, lmda, u, loc, thr):
         """One forward + backward through position_attention_fixed launches
@@ -652,39 +664,69 @@ def backward_kernel_phase(geom):
         ("processor", geom.dist_proc, inf(geom.dist_proc.shape[0]), m.hid_dim, m.n_blocks, m.n_blocks),
         ("decoder", geom.dist_up, geom.thr_up, m.hid_dim, 1, 1),
     ]
+    def timed_rows(name, dist, thr, lmda, u, g, scale, per_step, kernels, small_plain=False):
+        """Hold the kernels against their plain versions at one shape, then
+        time them (the plain versions with fewer repetitions where they
+        take milliseconds) and bound them: one row per kernel."""
+        Hs, (Bs, _, Ds) = scale.shape[0], u.shape
+        e, (M, L, out) = compare(name, dist, thr, scale, u, g, with_du="posatt_bwd_du" in kernels)
+        for k, v in e.items():
+            errs[k] = max(errs[k], v)
+        calls = {
+            "posatt_stats": (lambda: kp.posatt_stats_cuda(dist, thr, scale),
+                             lambda: kp.posatt_stats_reference(dist, thr, scale)),
+            "posatt_bwd_dscale": (
+                lambda: kp.posatt_bwd_dscale_cuda(dist, thr, scale, M, L, g, u, out),
+                lambda: kp.posatt_bwd_dscale_reference(dist, thr, scale, M, L, g, u, out)),
+            "posatt_bwd_du": (lambda: kp.posatt_bwd_du_cuda(dist, thr, scale, M, L, g),
+                              lambda: kp.posatt_bwd_du_reference(dist, thr, scale, M, L, g)),
+        }
+        plain_reps = dict(reps=5, per_rep=2, warmup=1) if small_plain else {}
+        out_rows = {}
+        for kernel in kernels:
+            launch, plain = calls[kernel]
+            bound_ms, bound_by, flops, nbytes, kept = bound_bwd(kernel, dist, thr, Hs, Bs, Ds)
+            Lo, Li = dist.shape
+            splits = (None if kernel == "posatt_stats"
+                      else kp._bwd_plan(kernel == "posatt_bwd_du", Hs, Bs, Lo, Li, Ds)[1])
+            out_rows[kernel] = {
+                "shape": name, "H": Hs, "L_out": Lo, "L_in": Li, "B": Bs, "D": Ds,
+                "kept_entries": kept, "kept_fraction": kept / (Lo * Li), "splits": splits,
+                "launches_per_step": per_step[kernel], "max_abs_err": e[kernel],
+                "ms": cuda_ms(launch), "plain_ms": cuda_ms(plain, **plain_reps),
+                # no one PyTorch call computes any of these three functions
+                "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
+                "flops": flops, "bytes": nbytes,
+            }
+            log(f"kernel {kernel} {name}: {json.dumps(out_rows[kernel])}")
+        return out_rows
+
     rows = {k: [] for k in BWD_KERNELS}
     errs = {k: 0.0 for k in BWD_KERNELS}
     fn_err = 0.0
     for name, dist, thr, D, n23, n4 in burgers:
         lmda, u, g, scale = inputs(dist, thr, H, B, D)
-        e, (M, L) = compare(name, dist, thr, scale, u, g, with_du=n4 > 0)
-        for k, v in e.items():
-            errs[k] = max(errs[k], v)
-        calls = {
-            "posatt_stats": (lambda: kp.posatt_stats_cuda(dist, thr, scale),
-                             lambda: kp.posatt_stats_reference(dist, thr, scale), n23),
-            "posatt_bwd_dscale": (lambda: kp.posatt_bwd_dscale_cuda(dist, thr, scale, M, L, g, u),
-                                  lambda: kp.posatt_bwd_dscale_reference(dist, thr, scale, M, L, g, u), n23),
-            "posatt_bwd_du": (lambda: kp.posatt_bwd_du_cuda(dist, thr, scale, M, L, g),
-                              lambda: kp.posatt_bwd_du_reference(dist, thr, scale, M, L, g), n4),
-        }
-        for kernel, (launch, plain, per_step) in calls.items():
-            if not per_step:
-                continue
-            bound_ms, bound_by, flops, nbytes, kept = bound_bwd(kernel, dist, thr, H, B, D)
-            rows[kernel].append({
-                "shape": name, "H": H, "L_out": dist.shape[0], "L_in": dist.shape[1],
-                "B": B, "D": D, "kept_entries": kept, "launches_per_step": per_step,
-                "max_abs_err": e[kernel], "ms": cuda_ms(launch), "plain_ms": cuda_ms(plain),
-                # no one PyTorch call computes any of these three functions
-                "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
-                "flops": flops, "bytes": nbytes,
-            })
-            log(f"kernel {kernel} {name}: {json.dumps(rows[kernel][-1])}")
+        per_step = {"posatt_stats": n23, "posatt_bwd_dscale": n23, "posatt_bwd_du": n4}
+        got = timed_rows(name, dist, thr, lmda, u, g, scale, per_step,
+                         [k for k in BWD_KERNELS if per_step[k]])
+        for kernel, row in got.items():
+            rows[kernel].append(row)
         if name != "encoder":  # the encoder's values need no gradient
             loc = m.de_loc if name == "decoder" else 1.0
             fn_err = max(fn_err, function_check(
                 name, dist, lmda, u, loc, None if loc >= 1 else thr))
+
+    # dscale and du through the kernel API at other fixed-mesh configs'
+    # training shapes, outside any step: vorticity (its geometry as
+    # build_geometry makes it) and one head at sod's widths
+    config_rows = {k: [] for k in BWD_KERNELS[1:]}
+    for name, dist, thr, Bc, Hc, D in config_shapes():
+        lmda, u, g, scale = inputs(dist, thr, Hc, Bc, D)
+        got = timed_rows(name, dist, thr, lmda, u, g, scale, dict.fromkeys(BWD_KERNELS, 0),
+                         BWD_KERNELS[1:], small_plain=True)
+        for kernel, row in got.items():
+            config_rows[kernel].append(row)
+        del lmda, u, g, scale, got
 
     for name, Lo, Li, Bq, Hr, D, loc in RAGGED:
         dist = ragged_dist(rng, Lo, Li)
@@ -697,7 +739,45 @@ def backward_kernel_phase(geom):
         log(f"backward {name}: H={Hr} L_out={Lo} L_in={Li} B={Bq} D={D} "
             f"max_abs_err={json.dumps(e)}")
     log(f"Function: gradients match autograd of the oracle, max abs err {fn_err:.3e}")
-    return rows, errs
+    return rows, errs, config_rows
+
+
+def config_shapes():
+    """The fixed-mesh training shapes of configs.VORTICITY (a 64^2 periodic
+    grid to a 16^2 latent grid, periodic2d distances and quantile
+    thresholds as build_geometry makes them; B 20, H 2: encoder D = in_dim
+    + space_dim, processor and decoder D = hid_dim) and one head at
+    configs.SOD's widths (its 256-point latent processor, global, D 32,
+    B 8): (name, dist, thr, B, H, D) on the card."""
+    import numpy as np
+    import torch
+
+    from position_induced_transformer_torch import configs
+    from position_induced_transformer_torch.data import meshes
+    from position_induced_transformer_torch.models import build_geometry
+    from position_induced_transformer_torch.ops import distances
+
+    cfg = configs.VORTICITY
+    m = cfg.model
+
+    def grid_2d(n):
+        x = meshes.grid_1d(n)[:, 0]
+        return np.stack(np.meshgrid(x, x, indexing="ij"), -1).reshape(-1, 2)
+
+    geom = build_geometry(grid_2d(cfg.grid[0]), grid_2d(cfg.latent_grid[0]),
+                          grid_2d(cfg.grid[0]), metric=cfg.metric, en_loc=m.en_loc,
+                          de_loc=m.de_loc, device="cuda")
+    inf = lambda Lo: torch.full((Lo, 1), float("inf"), device="cuda")
+    B, H = cfg.batch_size, m.n_head
+    sod = configs.SOD
+    ltt = torch.from_numpy(meshes.grid_1d(sod.latent_grid[0], *sod.domain)).cuda()
+    return [
+        ("vorticity_encoder", geom.dist_down, geom.thr_down, B, H, m.in_dim + m.space_dim),
+        ("vorticity_processor", geom.dist_proc, inf(geom.dist_proc.shape[0]), B, H, m.hid_dim),
+        ("vorticity_decoder", geom.dist_up, geom.thr_up, B, H, m.hid_dim),
+        ("sod_processor", distances.euclidean_sq(ltt, ltt), inf(ltt.shape[0]),
+         sod.batch_size, sod.model.n_head, sod.model.hid_dim),
+    ]
 
 
 def train_phase():
@@ -2332,17 +2412,18 @@ def schedule_phase():
             if diff != expect:
                 fail(f"schedules {name}: one forward + backward of version {v} launched "
                      f"{diff}, expected {expect}")
-        for v in (1, 2):
-            if not (torch.equal(got[v][1], got[3][1]) and torch.equal(got[v][2], got[3][2])):
-                fail(f"schedules {name}: dscale or dU of version {v} differ from version 3's")
+        for v in (1, 2):  # dU never reads the forward's output; dscale does
+            if not torch.equal(got[v][2], got[3][2]):
+                fail(f"schedules {name}: dU of version {v} differs from version 3's")
         oracle = lambda *a, **k: posatt.position_attention(*a, **k)
         want = grads(oracle, dist, lmda, u, loc, thr, w)
         size_u = grads(oracle, dist, lmda, u, loc, thr, w.abs())[2]
         fn_errs[name] = {
             "out": max(check_close(f"schedules {name} v{v} Function out", got[v][0], want[0],
                                    OP_RTOL, OP_ATOL) for v in SCHEDULE_VERSIONS),
-            "d_lmda": check_close(f"schedules {name} Function d lmda", got[3][1], want[1],
-                                  DS_RTOL, DS_ATOL * want[1].abs().max().item()),
+            "d_lmda": max(check_close(f"schedules {name} v{v} Function d lmda", got[v][1], want[1],
+                                      DS_RTOL, DS_ATOL * want[1].abs().max().item())
+                          for v in SCHEDULE_VERSIONS),
             "d_u": check_close(f"schedules {name} Function d u", got[3][2], want[2],
                                OP_RTOL, OP_ATOL, size_u),
         }
@@ -2425,7 +2506,7 @@ def main() -> int:
     build()
     geom = geometry_phase()
     shapes, max_err = kernel_phase(geom)
-    bwd_rows, bwd_errs = backward_kernel_phase(geom)
+    bwd_rows, bwd_errs, bwd_config_rows = backward_kernel_phase(geom)
     serve = serve_phase()
     log("serve " + json.dumps(serve))
     train = train_phase()
@@ -2505,6 +2586,8 @@ def main() -> int:
             **per_step(rows, "launches_per_step"),
             "library_ms": None,
             "shapes": rows,
+            # through the kernel API, outside the Burgers step
+            **({"config_shapes": bwd_config_rows[name]} if name in bwd_config_rows else {}),
         })
     # kernel #7: one elasticity training forward at batch 10 (1 encoder + 4
     # processor + 1 decoder launches); a served forward swaps the banded

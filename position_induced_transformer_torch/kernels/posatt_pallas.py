@@ -19,10 +19,11 @@ one head, or one head and one sample), so on the CPU every version takes
 the one plain
 version, :func:`posatt_fixed_reference`. :class:`PosAttFixed` mirrors the
 ``_posatt_fixed`` custom VJP with its fused backward: the forward runs the
-chosen version's kernel and the stats kernel and saves only the row
-statistics (M, L); the backward recomputes the attention weights from them
-and is the same whatever the version. The JAX ``fused_bwd=False``
-recompute path and ``interpret`` switch have no counterpart here.
+chosen version's kernel and the stats kernel and saves the row statistics
+(M, L) and its output; the backward recomputes the attention weights from
+(M, L), and its bandwidth gradient reads the output, so that it needs no
+second pass over the rows. The JAX ``fused_bwd=False`` recompute path and
+``interpret`` switch have no counterpart here.
 
 Dispatch is by the device of the tensors: a CUDA tensor launches the
 kernel or raises, a CPU tensor takes the plain version (``*_reference``).
@@ -79,21 +80,24 @@ def _weights(dist, thr, scale, M, L):
     return p, keep
 
 
-def posatt_bwd_dscale_reference(dist, thr, scale, M, L, g, u):
+def posatt_bwd_dscale_reference(dist, thr, scale, M, L, g, u, out):
     """Plain version of the dscale kernel: d(loss)/d(scale), (H, 1).
 
     With T = G U^T per head, r = sum_j P T, v = sum_j P (-d) and
-    w = sum_j P T (-d) per row: ``ds_h = sum_i (w_i - r_i v_i)``.
+    w = sum_j P T (-d) per row, ``ds_h = sum_i (w_i - r_i v_i)``. The
+    kernel's closed form, computed here too: r_i = G_h[i] . O_h[i] with
+    ``out`` = O, the forward's output (B, L_out, H*D), so that
+    ``ds_h = sum_{i,n} G_h[i,n] (Y_h[i,n] - v_h[i] O_h[i,n])`` with
+    Y_h = W_h U and W_h = P_h (-d).
     """
     H = scale.shape[0]
     B, L_out, _ = g.shape
+    D = u.shape[-1]
     p, keep = _weights(dist, thr, scale, M, L)
-    t = torch.einsum("bihk,bjk->hij", g.reshape(B, L_out, H, u.shape[-1]), u)
-    nd = torch.where(keep, -dist, 0.0)
-    r = (p * t).sum(-1)
-    v = (p * nd).sum(-1)
-    w = (p * t * nd).sum(-1)
-    return (w - r * v).sum(-1, keepdim=True)
+    w = p * torch.where(keep, -dist, 0.0)  # (H, L_out, L_in)
+    v = w.sum(-1)  # (H, L_out)
+    y = torch.einsum("hij,bjk->bihk", w, u) - v.T[None, :, :, None] * out.reshape(B, L_out, H, D)
+    return (g.reshape(B, L_out, H, D) * y).sum((0, 1, 3)).reshape(H, 1)
 
 
 def posatt_bwd_du_reference(dist, thr, scale, M, L, g):
@@ -233,29 +237,65 @@ def posatt_stats_cuda(dist, thr, scale):
     return M, L
 
 
-def posatt_bwd_dscale_cuda(dist, thr, scale, M, L, g, u):
-    """Launch the dscale kernel on CUDA tensors: (H, 1). Deterministic:
-    per-block partials summed in a fixed order inside the library. Adds one
-    to ``posatt_bwd_dscale_cuda.launches`` for each launch."""
+@functools.lru_cache(maxsize=256)
+def _bwd_plan(du: bool, H: int, B: int, L_out: int, L_in: int, D: int):
+    """How one dscale (``du`` False) or du launch cuts its work at this
+    shape, from the library: (floats of partials dscale needs, the number
+    of splits of its streamed index); du needs no scratch."""
+    fn = getattr(_build.load("posatt_fixed_bwd"), "posatt_bwd_plan")
+    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_longlong),
+                                        ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    floats, splits = ctypes.c_longlong(0), ctypes.c_int(0)
+    rc = fn(int(du), H, B, L_out, L_in, D, ctypes.byref(floats), ctypes.byref(splits))
+    if rc != 0:
+        raise ValueError(f"posatt_bwd_plan refused H={H} B={B} L_out={L_out} L_in={L_in} D={D}")
+    return floats.value, splits.value
+
+
+# (device, stream) -> dscale's launch counter: one int32, zero between
+# launches (the kernel's last block resets it); kept, not made per call, so
+# that a launch needs no memset
+_COUNTERS: dict = {}
+
+
+def _counter(device):
+    """The dscale kernel's counter for ``device``'s current stream, zeroed
+    when first made. Launches on one stream run one after another and share
+    it; another stream gets its own."""
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    if key not in _COUNTERS:
+        _COUNTERS[key] = torch.zeros(1, dtype=torch.int32, device=device)
+    return _COUNTERS[key]
+
+
+def posatt_bwd_dscale_cuda(dist, thr, scale, M, L, g, u, out):
+    """Launch the dscale kernel on CUDA tensors: (H, 1). ``out`` is the
+    forward's output (B, L_out, H*D). One launch; deterministic: the
+    blocks' partials are summed in a fixed order by the last block to
+    finish. Adds one to ``posatt_bwd_dscale_cuda.launches`` for each
+    launch."""
     B, L_in, D = u.shape
     _check_bwd("posatt_bwd_dscale_cuda", dist, scale, M, L, g, B, D, u)
+    _check_tensors((("out", out),), dist.device)
+    if out.shape != g.shape:
+        raise ValueError(f"out must be {tuple(g.shape)}, got {tuple(out.shape)}")
     H = scale.shape[0]
     L_out = dist.shape[0]
-    # an upper bound on the kernel's block count: its narrowest tiles are
-    # 8 rows by 32 columns
-    partial = torch.empty(
-        (-(-L_out // 8) * -(-(B * D) // 32), H), dtype=torch.float32, device=dist.device
-    )
+    floats, _ = _bwd_plan(False, H, B, L_out, L_in, D)
+    partial = torch.empty(floats, dtype=torch.float32, device=dist.device)
     ds = torch.empty((H, 1), dtype=torch.float32, device=dist.device)
-    fn = _entry("posatt_fixed_bwd", "posatt_bwd_dscale", 9, 5)
-    _launch(fn, "posatt_bwd_dscale", dist.device,
-            dist, thr, scale, M, L, g, u, partial, ds, H, B, L_out, L_in, D)
+    fn = _entry("posatt_fixed_bwd", "posatt_bwd_dscale", 11, 5)
+    _launch(fn, "posatt_bwd_dscale", dist.device, dist, thr, scale, M, L, g, u, out,
+            partial, _counter(dist.device), ds, H, B, L_out, L_in, D)
     posatt_bwd_dscale_cuda.launches += 1
     return ds
 
 
 def posatt_bwd_du_cuda(dist, thr, scale, M, L, g):
-    """Launch the du kernel on CUDA tensors: (B, L_in, D). Adds one to
+    """Launch the du kernel on CUDA tensors: (B, L_in, D). One launch;
+    deterministic: where the rows are split over blocks, the blocks of a
+    tile form one cluster and sum their tiles in a fixed order. Adds one to
     ``posatt_bwd_du_cuda.launches`` for each launch."""
     H = scale.shape[0]
     B, L_out, HD = g.shape
@@ -299,12 +339,12 @@ class PosAttFixed(torch.autograd.Function):
     ``apply(dist, thr, scale, u, version=3)`` -> (B, L_out, H*D).
 
     The forward runs the chosen version's forward kernel and the stats
-    kernel and saves (dist, thr, scale, u, M, L); the backward runs the
-    dscale kernel when ``scale`` needs a gradient and the du kernel when
-    ``u`` does, whatever the version: it never reads the forward's output.
-    ``dist``, ``thr`` and ``version`` get none. CPU tensors take the plain
-    versions of the same four functions, so the CPU tests run this
-    backward's closed form.
+    kernel and saves (dist, thr, scale, u, M, L, out); the backward runs
+    the dscale kernel, which reads the forward's output, when ``scale``
+    needs a gradient and the du kernel when ``u`` does, whatever the
+    version. ``dist``, ``thr`` and ``version`` get none. CPU tensors take
+    the plain versions of the same four functions, so the CPU tests run
+    this backward's closed form.
     """
 
     @staticmethod
@@ -314,19 +354,19 @@ class PosAttFixed(torch.autograd.Function):
             M, L = posatt_stats_cuda(dist, thr, scale)
         else:
             M, L = posatt_stats_reference(dist, thr, scale)
-        ctx.save_for_backward(dist, thr, scale, u, M, L)
+        ctx.save_for_backward(dist, thr, scale, u, M, L, out)
         return out
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
-        dist, thr, scale, u, M, L = ctx.saved_tensors
+        dist, thr, scale, u, M, L, out = ctx.saved_tensors
         g = g.contiguous()  # the residual concat hands over a strided slice
         cuda = dist.device.type == "cuda"
         dscale = du = None
         if ctx.needs_input_grad[2]:
             dscale = (posatt_bwd_dscale_cuda if cuda else posatt_bwd_dscale_reference)(
-                dist, thr, scale, M, L, g, u
+                dist, thr, scale, M, L, g, u, out
             )
         if ctx.needs_input_grad[3]:
             du = (posatt_bwd_du_cuda if cuda else posatt_bwd_du_reference)(

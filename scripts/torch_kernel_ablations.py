@@ -1,13 +1,16 @@
-"""Ablations of the port's per-sample-mesh kernels on an NVIDIA GPU: what
-holds each one's time. #7 (posatt_batched_fwd), #8 (dscale, du), #9
-(posatt_tf_fwd) and #11 (posatt_tf_coord_fwd, which shares #9's source).
+"""Ablations of the port's kernels on an NVIDIA GPU: what holds each one's
+time. #7 (posatt_batched_fwd), #8 (dscale, du), #9 (posatt_tf_fwd), #11
+(posatt_tf_coord_fwd, which shares #9's source) and the fixed-mesh
+backward #3 (dscale) and #4 (du) (posatt_fixed_bwd).
 
 Each variant is the kernel source with one piece of its work taken out or
 one design choice changed (a text substitution), or, for #9's producer
 warp, the source scripts/ablations/posatt_tf_fwd_producer.cu in its place
 (in two forms); each is built with the port's nvcc flags into a scratch
 library and timed with ``chip_smoke.cuda_ms`` (CUDA events) at the
-full-width elasticity / elasticity_tf shapes of ``chip_smoke.py``, in
+full-width elasticity / elasticity_tf shapes of ``chip_smoke.py`` (the
+fixed-mesh backward at the Burgers training shapes and, through the kernel
+API, at the vorticity and sod shapes of ``chip_smoke.config_shapes``), in
 turns (base, variants, variants in reverse, base). Variants that take work
 out give wrong results; they are timed only. The producer warp's forms are
 held against the plain version at the one shape they take (the served
@@ -16,11 +19,14 @@ the card's name and power limit.
 
     python scripts/torch_kernel_ablations.py [--parent CSRC] [source ...]
 
-with sources among posatt_batched_fwd, posatt_batched_bwd, posatt_tf_fwd
-(default: all three). ``--parent CSRC``: one more variant of each source,
-the file of the same name in the directory CSRC (for example the kernels
-of a parent commit unpacked with ``git archive``), timed in turns with the
-rest. Run from the repository root on a machine with the card and nvcc.
+with sources among posatt_batched_fwd, posatt_batched_bwd, posatt_tf_fwd,
+posatt_fixed_bwd (default: all four). ``--parent CSRC``: one more variant
+of each source, the file of the same name in the directory CSRC (for
+example the kernels of a parent commit unpacked with ``git archive``),
+timed in turns with the rest; the fixed-mesh backward's parent dscale is
+called through its own C interface (before it read the forward's output
+and took counters). Run from the repository root on a machine with the
+card and nvcc.
 """
 
 from __future__ import annotations
@@ -61,6 +67,30 @@ SCALAR_STORES = [("    if (a.vec4) {  // 16-byte stores: a warp writes four whol
                   "    if (false) {")]
 # pass 2 left out: the row minima, the list and the epilogue only
 NO_PASS2 = "(n);\n  // the columns whose rounds"
+
+# the fixed-mesh backward: the next step's rows staged after the step's
+# products, not in flight during them
+FIXED_NO_PREFETCH = [("      if (s + 1 < steps) stage((s + 1) * SKR, n, buf ^ 1);\n",
+                      "      if (s > 0) {\n        stage(s * SKR, n, buf);\n        cp_async_wait_all();\n"
+                      "        __syncthreads();\n      }\n")]
+# dscale's partials summed by a second kernel, as before the last-block sum
+FIXED_TWO_LAUNCH = [
+    ("  if (tid == 0)\n    sm.last = atomicAdd(a.counters, 1) == (int)(gridDim.x * gridDim.y * gridDim.z) - 1;",
+     "  if (tid == 0) sm.last = 0;"),
+    ("// --------------------------------------------------------------- launch\n",
+     "__global__ void sum_partials(const float* partial, float* ds, int H, int parts) {\n"
+     "  float s = 0.f;\n"
+     "  for (int p = threadIdx.x; p < parts; p += 32) s += partial[(size_t)p * H + blockIdx.x];\n"
+     "  s = warp_sum(s);\n  if (threadIdx.x == 0) ds[blockIdx.x] = s;\n}\n\n"
+     "// --------------------------------------------------------------- launch\n"),
+    ("    bwd_kernel<DU, HB, NS><<<grid, S::THREADS, smem, s>>>(a);\n  }\n  return (int)cudaGetLastError();",
+     "    bwd_kernel<DU, HB, NS><<<grid, S::THREADS, smem, s>>>(a);\n  }\n  rc = (int)cudaGetLastError();\n"
+     "  if (rc != 0 || DU) return rc;\n"
+     "  sum_partials<<<a.H, 32, 0, s>>>(a.partial, a.res, a.H, p.n_ct * p.tiles * p.splits);\n"
+     "  return (int)cudaGetLastError();"),
+]
+FIXED_TARGET = "constexpr int TARGET_WARPS = 1056;"
+FIXED_DU_SLABS = "  if (du) p.ns = slabs > 8 ? 2 : (slabs >= 3 ? 4 : (slabs >= 2 ? 2 : 1));"
 
 # source -> variant -> substitutions (old text, new text) in the kernel's
 # source, or (path, substitutions) in another source built in its place
@@ -121,6 +151,32 @@ VARIANTS = {
         "producer_warp_rows": (PRODUCER, [("constexpr bool TENSOR_MAPS = true;",
                                            "constexpr bool TENSOR_MAPS = false;")]),
     },
+    "posatt_fixed_bwd": {
+        "base": [],
+        "few_fma": [(FMA, FEW_FMA)],
+        "no_exp": [("const float p = expf(-d * sh[h] - sm.mrow[h][slot]) * sm.lrow[h][slot];",
+                    "const float p = -d * sh[h] - sm.mrow[h][slot];"),
+                   ("const float p = expf(-d * sh[h] - om[h]) * ol[h];",
+                    "const float p = -d * sh[h] - om[h];")],
+        "no_prefetch": FIXED_NO_PREFETCH,
+        # the split count: the grid aims at 4 or 2 warps an SM (fewer
+        # splits) or 16 (more) in place of 8
+        "target_4_warps": [(FIXED_TARGET, FIXED_TARGET.replace("1056", "528"))],
+        "target_2_warps": [(FIXED_TARGET, FIXED_TARGET.replace("1056", "264"))],
+        "target_16_warps": [(FIXED_TARGET, FIXED_TARGET.replace("1056", "2112"))],
+        # the streamed index cut into contiguous ranges, one a split, in
+        # place of groups of 16 dealt to the splits in turn
+        "contiguous_splits": [("    return ((t / GROUP) * (int)gridDim.z + (int)blockIdx.z) * GROUP + t % GROUP;",
+                               "    return (int)blockIdx.z * a.R + t;")],
+        # 32 staged rows a step (half the barriers), not 16
+        "steps_of_32": [("constexpr int SK = 16;", "constexpr int SK = 32;")],
+        # du's tile: two 64-column slabs (128 columns) or one, or four up to
+        # any width, in place of four up to 512 columns and two above
+        "du_two_slabs": [(FIXED_DU_SLABS, "  if (du) p.ns = slabs >= 2 ? 2 : 1;")],
+        "du_one_slab": [(FIXED_DU_SLABS, "  if (du) p.ns = 1;")],
+        "du_four_slabs": [(FIXED_DU_SLABS, "  if (du) p.ns = slabs >= 3 ? 4 : (slabs >= 2 ? 2 : 1);")],
+        "dscale_two_launches": FIXED_TWO_LAUNCH,
+    },
 }
 # variants that take only some (op, kernel)s
 ONLY = {("posatt_tf_fwd", v): {("serve_processor", "dist_fwd")}
@@ -158,6 +214,57 @@ def build(scratch: Path, sources) -> dict:
     return libs
 
 
+def fixed_bwd_calls(c, rng) -> dict:
+    """The fixed-mesh backward's timed calls: dscale at the Burgers encoder,
+    processor and decoder, du at the processor and decoder (a Burgers
+    step's launches), both at the shapes of ``chip_smoke.config_shapes``;
+    (op, kernel) -> {"new": launch, "parent": the parent's launch} (dscale's
+    through the parent's own C interface). Inputs (row statistics, the forward's output) are
+    made with the base library."""
+    import numpy as np
+    import torch
+
+    from position_induced_transformer_torch import configs
+    from position_induced_transformer_torch.kernels import posatt_pallas as kp
+    from position_induced_transformer_torch.ops import posatt
+
+    geom = c.burgers_geometry("cuda")
+    m = configs.BURGERS.model
+    inf = lambda Lo: torch.full((Lo, 1), float("inf"), device="cuda")
+    ops = [("burgers_encoder", geom.dist_down, geom.thr_down, c.BURGERS_B, m.n_head,
+            m.in_dim + m.space_dim),
+           ("burgers_processor", geom.dist_proc, inf(geom.dist_proc.shape[0]), c.BURGERS_B,
+            m.n_head, m.hid_dim),
+           ("burgers_decoder", geom.dist_up, geom.thr_up, c.BURGERS_B, m.n_head, m.hid_dim)]
+    ops += c.config_shapes()
+    to = lambda a: torch.from_numpy(a.astype(np.float32)).cuda()
+    calls = {}
+    for op, dist, thr, B, H, D in ops:
+        Lo, Li = dist.shape
+        scale = posatt.bandwidth_scale(to(rng.random((H, 1, 1)))).reshape(H, 1)
+        u = to(rng.standard_normal((B, Li, D)))
+        g = to(rng.standard_normal((B, Lo, H * D)))
+        M, L = kp.posatt_stats_cuda(dist, thr, scale)
+        out = kp.posatt_fixed_cuda(dist, thr, scale, u)
+        # the parent's scratch: a partial per block of its narrowest tiles
+        partial = torch.empty((-(-Lo // 8) * -(-(B * D) // 32), H), device="cuda")
+        ds = torch.empty((H, 1), device="cuda")
+        dims = (H, B, Lo, Li, D)
+
+        def parent_dscale(a=(dist, thr, scale, M, L, g, u, partial, ds) + dims):
+            fn = kp._entry("posatt_fixed_bwd", "posatt_bwd_dscale", 9, 5)
+            kp._launch(fn, "parent dscale", a[0].device, *a)
+
+        calls[(op, "dscale")] = {
+            "new": lambda a=(dist, thr, scale, M, L, g, u, out): kp.posatt_bwd_dscale_cuda(*a),
+            "parent": parent_dscale}
+        if op != "burgers_encoder":  # a Burgers step needs no dU there
+            du = lambda a=(dist, thr, scale, M, L, g): kp.posatt_bwd_du_cuda(*a)
+            calls[(op, "du")] = {"new": du, "parent": du}  # one C interface
+    torch.cuda.synchronize()
+    return calls
+
+
 def main(sources, parent=None) -> int:
     import numpy as np
     import torch
@@ -169,6 +276,7 @@ def main(sources, parent=None) -> int:
     import chip_smoke as c
     from position_induced_transformer_torch.kernels import _build
     from position_induced_transformer_torch.kernels import posatt_batched as kb
+    from position_induced_transformer_torch.kernels import posatt_pallas as kp
 
     c.environment()
     rng = np.random.default_rng(4)
@@ -176,6 +284,8 @@ def main(sources, parent=None) -> int:
     tf_shapes, _ = c.elasticity_tf_shapes(rng)
     c.build()
     timed = {src: {} for src in sources}  # source -> (op, kernel) -> launch
+    # the fixed-mesh backward: (op, kernel) -> {"new" or "parent": launch}
+    fixed = fixed_bwd_calls(c, rng) if "posatt_fixed_bwd" in sources else {}
     # the served decoder also over a cloud in a random order, as a request
     # may hold it
     shapes["serve_decoder_unsorted"] = (c.unsorted_batched(shapes["serve_decoder"][0]),)
@@ -219,6 +329,11 @@ def main(sources, parent=None) -> int:
             for name in ["base"] + variants[1:] + variants[::-1]:
                 _build._loaded[src] = ctypes.CDLL(str(libs[(src, name)]))
                 kb._entry.cache_clear()
+                kp._entry.cache_clear()
+                kp._bwd_plan.cache_clear()
+                if src == "posatt_fixed_bwd":
+                    timed[src] = {key: fns["parent" if name == "parent" else "new"]
+                                  for key, fns in fixed.items()}
                 only = ONLY.get((src, name))
                 if only is not None and name not in checked:
                     got = c.tf_launch(*tf_shapes["serve_processor"][:2])
@@ -236,6 +351,8 @@ def main(sources, parent=None) -> int:
                                   "ms": t}), flush=True)
         _build._loaded.clear()
         kb._entry.cache_clear()
+        kp._entry.cache_clear()
+        kp._bwd_plan.cache_clear()
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip())
     return 0

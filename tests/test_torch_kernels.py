@@ -167,7 +167,7 @@ def test_kernel_launcher_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         t_k.posatt_bwd_du_cuda(dist, thr, scale, M, M, g)
     with pytest.raises(ValueError, match="CUDA"):
-        t_k.posatt_bwd_dscale_cuda(dist, thr, scale, M, M, g, u)
+        t_k.posatt_bwd_dscale_cuda(dist, thr, scale, M, M, g, u, g)
 
 
 # the shapes of tests/test_pallas.py's fused-backward test
@@ -219,7 +219,8 @@ def test_backward_plain_versions_match_interpret_kernels(L_out, L_in, B, H, D, l
     assert du.shape == (B, L_in, D)
     np.testing.assert_allclose(du.numpy(), jdu, rtol=RTOL, atol=ATOL)
 
-    ds = t_k.posatt_bwd_dscale_reference(t(dist), t(thr), t(scale), M, L, t(g), t(u))
+    out = t_k._forward(t(dist), t(thr), t(scale), t(u))  # the forward's output
+    ds = t_k.posatt_bwd_dscale_reference(t(dist), t(thr), t(scale), M, L, t(g), t(u), out)
     jds = np.asarray(j_k._posatt_bwd_dscale(*jargs, uf, interpret=True))
     assert ds.shape == (H, 1)
     np.testing.assert_allclose(ds.numpy(), jds, rtol=5e-4, atol=5e-6)
@@ -236,7 +237,8 @@ def test_backward_plain_versions_keep_global_and_padded_rows_finite():
     g = torch.ones(2, 12, 6)
     M, L = t_k.posatt_stats_reference(dist, thr, scale)
     du = t_k.posatt_bwd_du_reference(dist, thr, scale, M, L, g)
-    ds = t_k.posatt_bwd_dscale_reference(dist, thr, scale, M, L, g, u)
+    out = t_k._forward(dist, thr, scale, u)
+    ds = t_k.posatt_bwd_dscale_reference(dist, thr, scale, M, L, g, u, out)
     assert torch.isfinite(M).all() and torch.isfinite(L).all()
     assert torch.isfinite(du).all() and torch.isfinite(ds).all()
     # row 4 keeps one entry with weight 1 in both heads
@@ -275,6 +277,58 @@ def test_function_gradients_match_jax_fused_backward(L_out, L_in, B, H, D, loc):
     np.testing.assert_allclose(got[0], oracle[0], rtol=RTOL, atol=ATOL)
 
 
+# the closed form of dscale through the forward's output, at a global, a
+# masked and a ragged shape (neither length a multiple of 32)
+DSCALE_SHAPES = [
+    (64, 64, 2, 8, 1.0),  # global
+    (48, 96, 3, 4, 0.1),  # masked
+    (37, 83, 2, 5, 0.3),  # ragged
+]
+
+
+@pytest.mark.parametrize("H", [1, 2, 8])
+@pytest.mark.parametrize("L_out,L_in,B,D,loc", DSCALE_SHAPES)
+def test_dscale_closed_form_matches_jax_fused_backward(L_out, L_in, B, D, loc, H):
+    """The CPU path's dscale (Y - v O through the forward's output, the
+    kernel's closed form) against the scale cotangent of the JAX custom VJP
+    ``_posatt_fixed`` with its fused backward under ``jax.vjp`` (interpret
+    mode), at tests/test_pallas.py's bound."""
+    dist, thr, scale, u, g, _ = _bwd_inputs(L_out, L_in, B, H, D, loc, seed=H)
+    t = lambda a: torch.from_numpy(np.array(a))
+    M, L = t_k.posatt_stats_reference(t(dist), t(thr), t(scale))
+    out = t_k._forward(t(dist), t(thr), t(scale), t(u))
+    ds = t_k.posatt_bwd_dscale_reference(t(dist), t(thr), t(scale), M, L, t(g), t(u), out)
+
+    def f(s):
+        return j_k._posatt_fixed(jnp.asarray(dist), jnp.asarray(thr), s, jnp.asarray(u),
+                                 True, 3, True)
+
+    jout, vjp = jax.vjp(f, jnp.asarray(scale))
+    # the JAX output and its cotangent are (H, B, L_out, D)
+    gj = g.reshape(B, L_out, H, D).transpose(2, 0, 1, 3)
+    (jds,) = vjp(jnp.asarray(gj))
+    np.testing.assert_allclose(out.numpy(), np.asarray(jout).transpose(1, 2, 0, 3).reshape(
+        B, L_out, H * D), rtol=RTOL, atol=ATOL)
+    assert ds.shape == (H, 1)
+    np.testing.assert_allclose(ds.numpy(), np.asarray(jds), rtol=5e-4, atol=5e-6)
+
+
+def test_function_saves_the_forward_output_on_cpu():
+    """PosAttFixed saves (dist, thr, scale, u, M, L, out) on the CPU too,
+    so that the CPU backward runs the kernel's closed form."""
+    dist, thr, scale, u, _, _ = map(torch.from_numpy, _bwd_inputs(24, 40, 2, 2, 3, 0.3))
+    x = u.clone().requires_grad_(True)
+    s = scale.clone().requires_grad_(True)
+    out = t_k.PosAttFixed.apply(dist, thr, s, x, 3)
+    saved = out.grad_fn.saved_tensors
+    assert len(saved) == 7
+    for got, want in zip(saved[:4], (dist, thr, s, x)):
+        assert torch.equal(got, want)
+    M, L = t_k.posatt_stats_reference(dist, thr, scale)
+    assert torch.equal(saved[4], M) and torch.equal(saved[5], L)
+    assert torch.equal(saved[6], out.detach())
+
+
 @pytest.mark.parametrize("version", [1, 2])
 @pytest.mark.parametrize("L_out,L_in,B,H,D,loc", BWD_SHAPES)
 def test_function_gradients_match_jax_other_versions(L_out, L_in, B, H, D, loc, version):
@@ -297,7 +351,8 @@ def test_function_gradients_match_jax_other_versions(L_out, L_in, B, H, D, loc, 
     jg = jax.grad(loss, argnums=(0, 1))(jnp.asarray(lmda), jnp.asarray(u))
     np.testing.assert_allclose(got[1], np.asarray(jg[0]), rtol=5e-4, atol=5e-6)
     np.testing.assert_allclose(got[2], np.asarray(jg[1]), rtol=RTOL, atol=ATOL)
-    # the backward never reads the forward's output: the same bits as v3
+    # on the CPU every version's forward is the one plain version, so the
+    # backward (whose dscale reads the forward's output) gives v3's bits
     v3 = _torch_grads(t_k.position_attention_fixed, dist, lmda, u, loc, w)
     assert np.array_equal(got[1], v3[1]) and np.array_equal(got[2], v3[2])
 
