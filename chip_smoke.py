@@ -12,14 +12,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
 3. geometry: the Burgers geometry built on the card and on the CPU keep
    the same entries (21 per encoder row, 6 or 7 per decoder row, where the
    cut falls inside a tie);
-4. kernels: each kernel's launcher against its plain PyTorch version, and
-   its public wrapper (the call the model makes) against the model-level
-   oracle, on the card, at the three Burgers shapes and at ragged shapes
-   with 1 to 12 heads; times from CUDA events, the bound from the H100's
-   published peaks and the work this run's inputs need, and one PyTorch
-   library call computing the same function as a yardstick;
-5. backward kernels: the stats, dscale (which reads the forward's output;
-   one launch, the same bits twice) and du kernels against their plain
+4. kernels: the forward #1's launcher against its plain PyTorch version,
+   with and without its row statistics M and L out (the same output bits;
+   M and L against the plain version's), and its public wrapper (the call
+   the model makes) against the model-level oracle, on the card, at the
+   three Burgers shapes and at ragged shapes with 1 to 12 heads; times
+   (with and without M and L out) from CUDA events, the bound from the
+   H100's published peaks and the work this run's inputs need, one PyTorch
+   library call computing the same function as a yardstick, each shape's
+   kept fraction and the splits of L_in;
+5. backward kernels: the stats kernel #2 (which writes the bits of M and L
+   that #1 writes at the same shape), dscale (which reads the forward's
+   output; one launch, the same bits twice) and du against their plain
    versions at the Burgers training shapes (dU is not needed at the
    encoder) and at ragged shapes with 1 to 12 heads, timed and bounded as
    in phase 4, with each op's kept fraction and the number of ranges the
@@ -28,17 +32,21 @@ Phases, each of which fails the run (non-zero exit, no result line):
    processor 256 x 256 and decoder 4096 x 256, D 256; B 20, H 2) and one
    H 1 shape at sod's widths; the autograd Function's gradients against
    torch.autograd of the plain oracle, with one forward + backward
-   launching each of the four kernels exactly once;
+   launching the forward, dscale and du exactly once each and #2 never;
 6. serve: a full-width Burgers model (random weights from a seeded
    generator) behind the port's HTTP server on the card, answering 1, 8
-   and 13 samples, then 4 concurrent requests, then warm requests; every
+   and 13 samples, then 4 concurrent requests (each request's thread
+   records its reply or exception; the main thread fails with every
+   request that got no 200, its code and body or traceback and its sample
+   range), then warm requests; every
    reply must be 200 and agree with the same model run with the plain
    attention on the card and with a CPU run; the forward kernel must have
    launched exactly 7 times per device batch and no backward kernel at all;
 7. train: ``runner.train`` on full-width, full-depth Burgers on the card
    (synthetic data, 64 training and 16 test samples, 2 epochs of 8 steps);
-   exactly 7/7/7/6 launches of the forward/stats/dscale/du kernels per
-   step and 7 forward launches per eval batch; the per-step losses and the
+   exactly 7/0/7/6 launches of the forward/stats/dscale/du kernels per
+   step (the forward writes M and L) and 7 forward launches per eval
+   batch; the per-step losses and the
    final weights agree with the same training with the plain attention on
    the card and with a CPU run; then the wall time per step, steps/s and
    the device's busy share of warm steps;
@@ -64,7 +72,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    values need a gradient;
 10. elasticity serve: ``make_server("elasticity")`` on the card with a
     seeded random-weight checkpoint; ``.mat`` bodies holding ``x`` and
-    ``mesh`` (1, 10, 13 samples, 4 concurrent, 20 warm); every reply 200
+    ``mesh`` (1, 10, 13 samples, 4 concurrent as in phase 6, 20 warm);
+    every reply 200
     and in agreement with a plain-attention card run and a CPU run; exactly
     6 launches of kernel #7 per device batch and no other kernel; a bare
     ``.npy`` gets 400;
@@ -113,11 +122,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
     at its eval batch (random 2-D points, thresholds by
     ``quantile_threshold`` on the card): each version against the plain
     version and #1; one forward + backward per version at the Burgers
-    decoder and ZSSR decoder shapes launching that version's forward and
-    #2-#4 once each, with the same dscale and dU bits under all three and
-    gradients against autograd of the oracle (dscale reads each version's
-    own output, so only dU is the same bits under all three); times,
-    bounds and the SDPA yardstick as in phase 4.
+    decoder and ZSSR decoder shapes launching that version's forward, #3
+    and #4 once each and #2 once under versions 1 and 2, with the same dU
+    bits under all three and gradients against autograd of the oracle
+    (dscale reads each version's own output, so only dU is the same bits
+    under all three); times, bounds and the SDPA yardstick as in phase 4,
+    #1 with M and L out, the kept fraction and #1's splits of L_in; and #2
+    at every shape, its M and L the bits #1 writes, against its plain
+    version, timed and bounded.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 ``kernels`` record (twelve kernels: #1-#4, the per-sample-mesh #7, #8, the
@@ -136,6 +148,7 @@ import subprocess
 import sys
 import threading
 import time
+import traceback
 import urllib.error
 import urllib.request
 from contextlib import contextmanager, nullcontext
@@ -466,13 +479,21 @@ def kernel_phase(geom):
         return (dist, lmda, u, loc, thr), (dist, full_thr, scale, u)
 
     def compare(name, wrapper_args, args):
-        """The launcher against the kernel's plain version, and the public
-        wrapper against the model-level oracle; the larger error."""
+        """The launcher against the kernel's plain version, with and without
+        the row statistics out (the same output bits, M and L against the
+        plain version's), and the public wrapper against the model-level
+        oracle; the larger error."""
         got = kp.posatt_fixed_cuda(*args)
+        again, M, L = kp.posatt_fixed_cuda(*args, stats=True)
         torch.cuda.synchronize()
         want = plain_fixed(*args)
+        Mp, Lp = kp.posatt_stats_reference(*args[:3])
         torch.cuda.synchronize()
-        err = check_close(name, got, want, OP_RTOL, OP_ATOL)
+        if not torch.equal(got, again):
+            fail(f"{name}: the forward's output differs with the row statistics out")
+        err = max(check_close(name, got, want, OP_RTOL, OP_ATOL),
+                  check_close(f"{name} M", M, Mp, OP_RTOL, OP_ATOL),
+                  check_close(f"{name} L", L, Lp, OP_RTOL, OP_ATOL))
         dist, lmda, u, loc, thr = wrapper_args
         before = kp.posatt_fixed_cuda.launches
         got = kp.position_attention_fixed(dist, lmda, u, loc, thr=thr)
@@ -499,15 +520,19 @@ def kernel_phase(geom):
         err = compare(name, wrapper_args, args)
         errs.append(err)
         ms = cuda_ms(lambda: kp.posatt_fixed_cuda(*args))
+        ms_stats = cuda_ms(lambda: kp.posatt_fixed_cuda(*args, stats=True))
         plain_ms = cuda_ms(lambda: plain_fixed(*args))
         sdpa, lib_err = fixed_sdpa(*args)
         library_ms = cuda_ms(sdpa)
         bound_ms, bound_by, flops, nbytes, kept = bound(dist, thr, H, B, D)
         shapes.append({
             "shape": name, "H": H, "L_out": Lo, "L_in": Li, "B": B, "D": D,
-            "kept_entries": kept,
+            "kept_entries": kept, "kept_fraction": kept / (Lo * Li),
+            "splits": kp._fwd_plan(True, H, B, Lo, Li, D)[2],
             "launches_per_forward": per_forward, "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            # ms: as serving runs it; ms_with_stats: M and L out, as training
+            "ms": ms, "ms_with_stats": ms_stats, "plain_ms": plain_ms,
+            "library_ms": library_ms,
             "library_max_abs_err": lib_err, "bound_ms": bound_ms,
             "bound_by": bound_by, "flops": flops, "bytes": nbytes,
         })
@@ -525,7 +550,8 @@ def kernel_phase(geom):
 BWD_KERNELS = ("posatt_stats", "posatt_bwd_dscale", "posatt_bwd_du")
 
 
-FIXED_KERNELS = ("posatt_fixed_fwd",) + BWD_KERNELS
+# what one training forward + backward launches: the forward writes M and L
+FIXED_TRAIN_KERNELS = ("posatt_fixed_fwd", "posatt_bwd_dscale", "posatt_bwd_du")
 BATCHED_KERNELS = ("posatt_batched_fwd", "posatt_batched_bwd_dscale", "posatt_batched_bwd_du")
 TF_DIST_KERNELS = ("posatt_tf_fwd", "posatt_tf_bwd_dscale", "posatt_tf_bwd_dv")
 TF_COORD_KERNELS = ("posatt_tf_coord_fwd", "posatt_tf_coord_bwd_dscale", "posatt_tf_coord_bwd_dv")
@@ -591,11 +617,16 @@ def backward_kernel_phase(geom):
     def compare(name, dist, thr, scale, u, g, with_du=True):
         """Each launcher against its plain version; max abs error by
         kernel, the row statistics and the forward's output (the plain
-        version's: dscale reads it)."""
-        M, L = kp.posatt_stats_cuda(dist, thr, scale)
+        version's: dscale reads it). #2 writes the bits of M and L that #1
+        writes beside its output at the same shape."""
+        Bq, _, Dq = u.shape
+        M, L = kp.posatt_stats_cuda(dist, thr, scale, Bq, Dq)
+        _, M1, L1 = kp.posatt_fixed_cuda(dist, thr, scale, u, stats=True)
         Mp, Lp = kp.posatt_stats_reference(dist, thr, scale)
         out = plain_fixed(dist, thr, scale, u)
         torch.cuda.synchronize()
+        if not (torch.equal(M, M1) and torch.equal(L, L1)):
+            fail(f"{name}: #2's M and L are not the bits #1 writes")
         errs = {"posatt_stats": max(
             check_close(f"{name} stats M", M, Mp, OP_RTOL, OP_ATOL),
             check_close(f"{name} stats L", L, Lp, OP_RTOL, OP_ATOL),
@@ -643,9 +674,10 @@ def backward_kernel_phase(geom):
         got = grads(kp.position_attention_fixed, w)
         torch.cuda.synchronize()
         after = counts()
-        if any(after[k] - before[k] != (k in FIXED_KERNELS) for k in after):
+        if any(after[k] - before[k] != (k in FIXED_TRAIN_KERNELS) for k in after):
             fail(f"{name}: one forward + backward launched "
-                 f"{ {k: after[k] - before[k] for k in after} }, expected 1 each")
+                 f"{ {k: after[k] - before[k] for k in after} }, expected 1 each of "
+                 f"{FIXED_TRAIN_KERNELS} and no #2 (the forward writes M and L)")
         oracle = lambda *a, thr=None: posatt.position_attention(*a, thr=thr)
         want = grads(oracle, w)
         size_u = grads(oracle, w.abs())[2]
@@ -659,7 +691,8 @@ def backward_kernel_phase(geom):
     in_dim = m.in_dim + m.space_dim
     inf = lambda Lo: torch.full((Lo, 1), float("inf"), device=dev)
     burgers = [
-        # name, dist, thr, D, launches per step of stats/dscale, of du
+        # name, dist, thr, D, launches per step of dscale (and of #2 in a
+        # forward at version 1 or 2), of du
         ("encoder", geom.dist_down, geom.thr_down, in_dim, 1, 0),
         ("processor", geom.dist_proc, inf(geom.dist_proc.shape[0]), m.hid_dim, m.n_blocks, m.n_blocks),
         ("decoder", geom.dist_up, geom.thr_up, m.hid_dim, 1, 1),
@@ -673,7 +706,7 @@ def backward_kernel_phase(geom):
         for k, v in e.items():
             errs[k] = max(errs[k], v)
         calls = {
-            "posatt_stats": (lambda: kp.posatt_stats_cuda(dist, thr, scale),
+            "posatt_stats": (lambda: kp.posatt_stats_cuda(dist, thr, scale, Bs, Ds),
                              lambda: kp.posatt_stats_reference(dist, thr, scale)),
             "posatt_bwd_dscale": (
                 lambda: kp.posatt_bwd_dscale_cuda(dist, thr, scale, M, L, g, u, out),
@@ -687,7 +720,7 @@ def backward_kernel_phase(geom):
             launch, plain = calls[kernel]
             bound_ms, bound_by, flops, nbytes, kept = bound_bwd(kernel, dist, thr, Hs, Bs, Ds)
             Lo, Li = dist.shape
-            splits = (None if kernel == "posatt_stats"
+            splits = (kp._fwd_plan(False, Hs, Bs, Lo, Li, Ds)[2] if kernel == "posatt_stats"
                       else kp._bwd_plan(kernel == "posatt_bwd_du", Hs, Bs, Lo, Li, Ds)[1])
             out_rows[kernel] = {
                 "shape": name, "H": Hs, "L_out": Lo, "L_in": Li, "B": Bs, "D": Ds,
@@ -706,9 +739,12 @@ def backward_kernel_phase(geom):
     fn_err = 0.0
     for name, dist, thr, D, n23, n4 in burgers:
         lmda, u, g, scale = inputs(dist, thr, H, B, D)
-        per_step = {"posatt_stats": n23, "posatt_bwd_dscale": n23, "posatt_bwd_du": n4}
+        # #2 is off the training path (the forward writes M and L); its rows
+        # count its launches in a forward at version 1 or 2
+        per_step = {"posatt_stats": 0, "posatt_bwd_dscale": n23, "posatt_bwd_du": n4}
         got = timed_rows(name, dist, thr, lmda, u, g, scale, per_step,
-                         [k for k in BWD_KERNELS if per_step[k]])
+                         [k for k in BWD_KERNELS if k != "posatt_bwd_du" or n4])
+        got["posatt_stats"]["launches_per_v12_forward"] = n23
         for kernel, row in got.items():
             rows[kernel].append(row)
         if name != "encoder":  # the encoder's values need no gradient
@@ -800,12 +836,13 @@ def train_phase():
         cfg, "cuda", epochs, ntrain, ntest)
     steps = state.step
     eval_batches = epochs * -(-ntest // cfg.batch_size)
-    per_step = {"posatt_fixed_fwd": 7, "posatt_stats": 7, "posatt_bwd_dscale": 7, "posatt_bwd_du": 6}
+    # the forward writes the row statistics: no #2 launch
+    per_step = {"posatt_fixed_fwd": 7, "posatt_stats": 0, "posatt_bwd_dscale": 7, "posatt_bwd_du": 6}
     expected = {k: per_step.get(k, 0) * steps for k in launchers()}
     expected["posatt_fixed_fwd"] += 7 * eval_batches
     if steps != epochs * ntrain // cfg.batch_size or launched != expected:
         fail(f"train: {steps} steps, {eval_batches} eval batches launched {launched}; "
-             f"expected {expected} (7/7/7/6 per step, 7 forward per eval batch)")
+             f"expected {expected} (7/0/7/6 per step, 7 forward per eval batch)")
     if not torch.isfinite(losses).all() or not all(
         np.isfinite(v) for row in history for v in row.values()
     ):
@@ -842,6 +879,42 @@ def post(url, body):
         return e.code, e.read()
 
 
+def concurrent(label, request, ranges, timeout=330):
+    """One request per sample range [i, j), all at once, each from its own
+    thread. A thread records what came back, the reply's code and body or
+    the exception with its traceback, and never fails itself (a SystemExit
+    raised in a thread dies with it). Then, from the calling thread, fail
+    with every request that got no 200 reply, naming its sample range;
+    else return the bodies in order. ``timeout`` outlasts the client's."""
+    outcomes = [None] * len(ranges)
+
+    def run(k, i, j):
+        try:
+            outcomes[k] = request(i, j)
+        except BaseException:
+            outcomes[k] = traceback.format_exc()
+
+    threads = [threading.Thread(target=run, args=(k, i, j), daemon=True)
+               for k, (i, j) in enumerate(ranges)]
+    for t in threads:
+        t.start()
+    deadline = time.perf_counter() + timeout
+    for t in threads:
+        t.join(timeout=max(0.0, deadline - time.perf_counter()))
+    bad = []
+    for t, (i, j), got in zip(threads, ranges, outcomes):
+        where = f"samples [{i}, {j})"
+        if t.is_alive():
+            bad.append(f"{where}: no outcome after {timeout} s")
+        elif isinstance(got, str):
+            bad.append(f"{where}: raised\n{got}")
+        elif got[0] != 200:
+            bad.append(f"{where}: HTTP {got[0]}: {got[1][:2000]!r}")
+    if bad:
+        fail(f"{label}: {len(bad)} of {len(ranges)} concurrent requests failed:\n" + "\n".join(bad))
+    return [body for _, body in outcomes]
+
+
 def npy(a):
     import numpy as np
 
@@ -875,37 +948,32 @@ def serve_phase():
     x, _ = synthetic.burgers(n=48, L=cfg.grid[0], seed=1)
     sent = []  # (input, reply)
 
-    def ask(a):
-        code, body = post(url, npy(a))
+    def request(i, j):
+        return post(url, npy(x[i:j]))
+
+    def accept(i, j, code, body):
         if code != 200:
-            fail(f"serve: HTTP {code} for {a.shape[0]} samples: {body[:500]!r}")
-        out = np.load(io.BytesIO(body))
-        sent.append((a, out))
-        return out
+            fail(f"serve: HTTP {code} for samples [{i}, {j}): {body[:500]!r}")
+        sent.append((x[i:j], np.load(io.BytesIO(body))))
+
+    def ask(i, j):
+        accept(i, j, *request(i, j))
 
     try:
         zero_counts()
         calls0 = server.batcher.n_calls
         t0 = time.perf_counter()
-        ask(x[:1])
+        ask(0, 1)
         first_ms = (time.perf_counter() - t0) * 1e3
-        ask(x[1:9])
-        ask(x[9:22])  # 13 samples: one full and one padded batch
-        threads = [
-            threading.Thread(target=ask, args=(x[22 + 3 * i : 25 + 3 * i],))
-            for i in range(4)
-        ]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=300)
-        if any(t.is_alive() for t in threads) or len(sent) != 7:
-            fail("serve: concurrent requests did not all complete")
+        ask(1, 9)
+        ask(9, 22)  # 13 samples: one full and one padded batch
+        ranges = [(22 + 3 * i, 25 + 3 * i) for i in range(4)]
+        for (i, j), body in zip(ranges, concurrent("serve", request, ranges)):
+            accept(i, j, 200, body)
         warm = []
         for i in range(20):
-            a = x[8 * (i % 6) : 8 * (i % 6) + 8]
             t0 = time.perf_counter()
-            ask(a)
+            ask(8 * (i % 6), 8 * (i % 6) + 8)
             warm.append((time.perf_counter() - t0) * 1e3)
         launched = counts()
         launches = launched["posatt_fixed_fwd"]
@@ -1429,13 +1497,16 @@ def elasticity_serve_phase():
     X, ext, _ = synthetic.elasticity(n=50, seed=1)
     sent = []  # (x, mesh, reply)
 
-    def ask(i, j):
-        code, body = post(url, mat_bytes(x=X[i:j], mesh=ext[i:j]))
+    def request(i, j):
+        return post(url, mat_bytes(x=X[i:j], mesh=ext[i:j]))
+
+    def accept(i, j, code, body):
         if code != 200:
-            fail(f"elasticity serve: HTTP {code} for {j - i} samples: {body[:500]!r}")
-        out = np.load(io.BytesIO(body))
-        sent.append((X[i:j], ext[i:j], out))
-        return out
+            fail(f"elasticity serve: HTTP {code} for samples [{i}, {j}): {body[:500]!r}")
+        sent.append((X[i:j], ext[i:j], np.load(io.BytesIO(body))))
+
+    def ask(i, j):
+        accept(i, j, *request(i, j))
 
     try:
         zero_counts()
@@ -1445,13 +1516,9 @@ def elasticity_serve_phase():
         first_ms = (time.perf_counter() - t0) * 1e3
         ask(1, 11)
         ask(11, 24)  # 13 samples: one full and one padded batch
-        threads = [threading.Thread(target=ask, args=(24 + 3 * i, 27 + 3 * i)) for i in range(4)]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=300)
-        if any(t.is_alive() for t in threads) or len(sent) != 7:
-            fail("elasticity serve: concurrent requests did not all complete")
+        ranges = [(24 + 3 * i, 27 + 3 * i) for i in range(4)]
+        for (i, j), body in zip(ranges, concurrent("elasticity serve", request, ranges)):
+            accept(i, j, 200, body)
         warm = []
         for i in range(20):
             t0 = time.perf_counter()
@@ -2124,13 +2191,16 @@ def elasticity_tf_serve_phase():
     X, _, _ = synthetic.elasticity(n=50, seed=1)
     sent = []  # (x, reply)
 
-    def ask(i, j):
-        code, body = post(url, npy(X[i:j]))
+    def request(i, j):
+        return post(url, npy(X[i:j]))
+
+    def accept(i, j, code, body):
         if code != 200:
-            fail(f"elasticity_tf serve: HTTP {code} for {j - i} samples: {body[:500]!r}")
-        out = np.load(io.BytesIO(body))
-        sent.append((X[i:j], out))
-        return out
+            fail(f"elasticity_tf serve: HTTP {code} for samples [{i}, {j}): {body[:500]!r}")
+        sent.append((X[i:j], np.load(io.BytesIO(body))))
+
+    def ask(i, j):
+        accept(i, j, *request(i, j))
 
     try:
         zero_counts()
@@ -2140,13 +2210,9 @@ def elasticity_tf_serve_phase():
         first_ms = (time.perf_counter() - t0) * 1e3
         ask(1, 11)
         ask(11, 24)  # 13 samples: one full and one padded batch
-        threads = [threading.Thread(target=ask, args=(24 + 3 * i, 27 + 3 * i)) for i in range(4)]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=300)
-        if any(t.is_alive() for t in threads) or len(sent) != 7:
-            fail("elasticity_tf serve: concurrent requests did not all complete")
+        ranges = [(24 + 3 * i, 27 + 3 * i) for i in range(4)]
+        for (i, j), body in zip(ranges, concurrent("elasticity_tf serve", request, ranges)):
+            accept(i, j, 200, body)
         warm = []
         for i in range(20):
             t0 = time.perf_counter()
@@ -2340,6 +2406,32 @@ def schedule_shapes():
     ]
 
 
+def schedule_cases(shapes):
+    """The inputs of each shape of :func:`schedule_shapes` on the card:
+    name -> (dist, thr, lmda, u, locality, scale), from random 2-D points
+    as scripts/tpu_checks.py makes them, thresholds by
+    ``quantile_threshold``."""
+    import numpy as np
+    import torch
+
+    from position_induced_transformer_torch.ops import distances, locality, posatt
+
+    dev = torch.device("cuda")
+    H = SCHEDULE_H
+    cases = {}
+    for seed, (name, Lo, Li, B, D, loc, _) in enumerate(shapes):
+        rng = np.random.default_rng(seed)
+        to = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)
+        dist = distances.euclidean_sq(to(rng.random((Lo, 2))), to(rng.random((Li, 2))))
+        thr = (torch.full((Lo, 1), float("inf"), device=dev) if loc >= 1
+               else locality.quantile_threshold(dist, loc))
+        lmda = to(rng.standard_normal((H, 1, 1)))
+        u = to(rng.random((B, Li, D)))
+        cases[name] = (dist, thr, lmda, u, loc, posatt.bandwidth_scale(lmda).reshape(H, 1))
+    torch.cuda.synchronize()
+    return cases
+
+
 def schedule_phase():
     """Phase 16: the schedule variants #5 (v1) and #6 (v2) of the fixed-mesh
     forward beside #1 (v3), through their public entry point
@@ -2353,26 +2445,15 @@ def schedule_phase():
     and gives the same dscale and dU bits under every version, within
     phase 5's bounds of autograd on the oracle. Then, outside the counted
     run, each launcher's time, the plain version's, SDPA's and the bound."""
-    import numpy as np
     import torch
 
     from position_induced_transformer_torch.kernels import posatt_pallas as kp
-    from position_induced_transformer_torch.ops import distances, locality, posatt
+    from position_induced_transformer_torch.ops import posatt
 
     dev = torch.device("cuda")
     H = SCHEDULE_H
     shapes = schedule_shapes()
-    cases = {}
-    for seed, (name, Lo, Li, B, D, loc, _) in enumerate(shapes):
-        rng = np.random.default_rng(seed)
-        to = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)
-        dist = distances.euclidean_sq(to(rng.random((Lo, 2))), to(rng.random((Li, 2))))
-        thr = (torch.full((Lo, 1), float("inf"), device=dev) if loc >= 1
-               else locality.quantile_threshold(dist, loc))
-        lmda = to(rng.standard_normal((H, 1, 1)))
-        u = to(rng.random((B, Li, D)))
-        cases[name] = (dist, thr, lmda, u, loc, posatt.bandwidth_scale(lmda).reshape(H, 1))
-    torch.cuda.synchronize()
+    cases = schedule_cases(shapes)
 
     def grads(fn, dist, lmda, u, loc, thr, w):
         lm = lmda.clone().requires_grad_(True)
@@ -2408,7 +2489,9 @@ def schedule_phase():
                            dist, lmda, u, loc, thr, w)
             torch.cuda.synchronize()
             diff = {k: n - before[k] for k, n in counts().items()}
-            expect = {k: int(k in (kernel,) + BWD_KERNELS) for k in diff}
+            # version 3's forward writes M and L; 1 and 2 launch #2 for them
+            launched_here = (kernel,) + (BWD_KERNELS if v != 3 else BWD_KERNELS[1:])
+            expect = {k: int(k in launched_here) for k in diff}
             if diff != expect:
                 fail(f"schedules {name}: one forward + backward of version {v} launched "
                      f"{diff}, expected {expect}")
@@ -2433,30 +2516,57 @@ def schedule_phase():
     expected = {k: 0 for k in launched}
     expected.update({k: n_fwd + n_fn for k in SCHEDULE_VERSIONS.values()})
     expected.update({k: len(SCHEDULE_VERSIONS) * n_fn for k in BWD_KERNELS})
+    expected["posatt_stats"] = (len(SCHEDULE_VERSIONS) - 1) * n_fn
     if launched != expected:
         fail(f"schedules: the run launched {launched}, expected {expected}")
     log(f"schedules: launches {json.dumps(launched)}; Function max abs err {json.dumps(fn_errs)}")
 
-    # ---- times and bounds, outside the counted run
+    # ---- times and bounds, outside the counted run: each version's
+    # forward, #1 with M and L out, and #2 against its plain version (the
+    # bits #1 writes at the shape)
     launcher = {v: launchers()[k] for v, k in SCHEDULE_VERSIONS.items()}
-    rows = []
+    rows, stats_rows = [], []
     for name, Lo, Li, B, D, loc, per_forward in shapes:
         dist, thr, lmda, u, loc, scale = cases[name]
         args = (dist, thr, scale, u)
         versions = {str(v): {"ms": cuda_ms(lambda: launcher[v](*args)), **errs[name][v]}
                     for v in SCHEDULE_VERSIONS}
+        versions["3"]["ms_with_stats"] = cuda_ms(lambda: kp.posatt_fixed_cuda(*args, stats=True))
+        versions["3"]["splits"] = kp._fwd_plan(True, H, B, Lo, Li, D)[2]
         sdpa, lib_err = fixed_sdpa(*args)
         bound_ms, bound_by, flops, nbytes, kept = bound(dist, thr, H, B, D)
         rows.append({
             "shape": name, "H": H, "L_out": Lo, "L_in": Li, "B": B, "D": D, "locality": loc,
-            "kept_entries": kept, "launches_per_burgers_forward": per_forward,
+            "kept_entries": kept, "kept_fraction": kept / (Lo * Li),
+            "launches_per_burgers_forward": per_forward,
             "versions": versions, "plain_ms": cuda_ms(lambda: plain_fixed(*args)),
             "library_ms": cuda_ms(sdpa), "library_max_abs_err": lib_err,
             "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops, "bytes": nbytes,
         })
         del sdpa
         log(f"schedules {name}: {json.dumps(rows[-1])}")
-    return rows, launched, fn_errs
+        M, L = kp.posatt_stats_cuda(dist, thr, scale, B, D)
+        _, M1, L1 = kp.posatt_fixed_cuda(*args, stats=True)
+        Mp, Lp = kp.posatt_stats_reference(dist, thr, scale)
+        torch.cuda.synchronize()
+        if not (torch.equal(M, M1) and torch.equal(L, L1)):
+            fail(f"schedules {name}: #2's M and L are not the bits #1 writes")
+        s_bound, s_by, s_flops, s_bytes, _ = bound_bwd("posatt_stats", dist, thr, H, B, D)
+        stats_rows.append({
+            "shape": name, "H": H, "L_out": Lo, "L_in": Li, "B": B, "D": D,
+            "kept_entries": kept, "kept_fraction": kept / (Lo * Li),
+            "splits": kp._fwd_plan(False, H, B, Lo, Li, D)[2],
+            "launches_per_v12_forward": per_forward,
+            "max_abs_err": max(check_close(f"schedules {name} #2 M", M, Mp, OP_RTOL, OP_ATOL),
+                               check_close(f"schedules {name} #2 L", L, Lp, OP_RTOL, OP_ATOL)),
+            "ms": cuda_ms(lambda: kp.posatt_stats_cuda(dist, thr, scale, B, D)),
+            "plain_ms": cuda_ms(lambda: kp.posatt_stats_reference(dist, thr, scale)),
+            "library_ms": None, "bound_ms": s_bound, "bound_by": s_by,
+            "flops": s_flops, "bytes": s_bytes,
+        })
+        del M, L, M1, L1, Mp, Lp
+        log(f"schedules {name} #2: {json.dumps(stats_rows[-1])}")
+    return rows, launched, fn_errs, stats_rows
 
 
 def schedule_entry(version, rows, launched):
@@ -2523,7 +2633,7 @@ def main() -> int:
     log("elasticity_tf_serve " + json.dumps(t_serve))
     t_train = elasticity_tf_train_phase()
     log("elasticity_tf_train " + json.dumps(t_train))
-    s_rows, s_launched, s_fn_errs = schedule_phase()
+    s_rows, s_launched, s_fn_errs, s_stats_rows = schedule_phase()
     v3 = schedule_entry(3, s_rows, s_launched)
     log("schedules " + json.dumps({
         "launches": s_launched, "function_max_abs_err": s_fn_errs,
@@ -2542,7 +2652,7 @@ def main() -> int:
         "name": "posatt_fixed_fwd",
         "route": "cuda",
         "source": "position_induced_transformer_torch/kernels/csrc/posatt_fixed_fwd.cu",
-        "replaces": "position_induced_transformer_tpu/kernels/posatt_pallas.py:268",
+        "replaces": "position_induced_transformer_tpu/kernels/posatt_pallas.py:341",
         "launches": serve["kernel_launches"],
         "launches_by_path": {"serve": serve["kernel_launches"],
                              "train": train["launches"]["posatt_fixed_fwd"]},
@@ -2571,7 +2681,27 @@ def main() -> int:
         return {"ms": step("ms"), "plain_ms": step("plain_ms"), "bound_ms": step("bound_ms"),
                 "bound_by": max(by, key=by.get)}
 
-    for name in BWD_KERNELS:
+    # #2: off every model path (the forward writes M and L); launched by
+    # versions 1 and 2 of phase 16. Times and bounds: one Burgers forward at
+    # version 1 or 2 (1 encoder + 5 processor + 1 decoder launches) from
+    # phase 5's rows; "schedule_shapes" adds phase 16's shapes
+    rows = bwd_rows["posatt_stats"]
+    v12 = per_step(rows, "launches_per_v12_forward")
+    kernels["kernels"].append({
+        "name": "posatt_stats",
+        "route": "cuda",
+        "source": "position_induced_transformer_torch/kernels/csrc/posatt_fixed_fwd.cu",
+        "replaces": replaces["posatt_stats"],
+        "launches": s_launched["posatt_stats"],
+        "launches_by_path": {"serve": 0, "train": train["launches"]["posatt_stats"],
+                             "kernel_api": s_launched["posatt_stats"]},
+        "max_abs_err": max(bwd_errs["posatt_stats"], max(r["max_abs_err"] for r in s_stats_rows)),
+        **v12,
+        "library_ms": None,
+        "shapes": rows,
+        "schedule_shapes": s_stats_rows,
+    })
+    for name in BWD_KERNELS[1:]:
         rows = bwd_rows[name]
         # times and bounds: one Burgers training step at batch 8, the sum
         # over its launches; "shapes" splits them

@@ -2,10 +2,11 @@
 
 Each ``csrc/<name>.cu`` exports plain C functions and is compiled on its
 own into ``build/kernels/lib<name>-<hash>.so`` at the repository root (a
-directory that ``.gitignore`` lists). The hash covers the source and the
-command, so an edited source never loads a stale library. Nothing is built
-when this module is imported: :func:`load` builds one library at first
-use, :func:`build_all` starts one ``nvcc`` per missing library, all at once.
+directory that ``.gitignore`` lists). The hash covers the source, the
+headers of ``csrc/`` and the command, so an edited source never loads a
+stale library. Nothing is built when this module is imported: :func:`load`
+builds one library at first use, :func:`build_all` starts one ``nvcc`` per
+missing library, all at once.
 """
 
 from __future__ import annotations
@@ -51,6 +52,8 @@ def nvcc_command(src: Path, out: Path) -> List[str]:
 def library_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):  # what a source may include
+        digest.update(header.read_bytes())
     digest.update(" ".join(_NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 

@@ -1,13 +1,17 @@
 // Fixed-mesh position attention, backward pass, hand-written for Hopper
-// (sm_90a), float32 throughout. Three C entry points, each the port of one
+// (sm_90a), float32 throughout. Two C entry points, each the port of one
 // TPU kernel of position_induced_transformer_tpu/kernels/posatt_pallas.py:
 //
-//   posatt_stats       <- _posatt_stats
 //   posatt_bwd_dscale  <- _posatt_bwd_dscale
 //   posatt_bwd_du      <- _posatt_bwd_du
 //
-// and posatt_bwd_plan, which says how the last two split their work and
-// how much scratch dscale needs.
+// and posatt_bwd_plan, which says how they split their work and how much
+// scratch dscale needs. The row statistics M and L they read come from the
+// forward: posatt_fixed_fwd.cu's posatt_fixed_fwd writes them when asked,
+// and its posatt_stats entry point (the port of _posatt_stats) is the same
+// kernel without the contraction, for the schedules that do not write
+// them. posatt_fixed_common.cuh holds what the two sources share, the
+// split rule among it.
 //
 // Notation, as in posatt_fixed_fwd.cu: dist (Lo, Li), thr (Lo), scale (H),
 // values u (B, Li, D), the forward's output O and its cotangent g, both
@@ -19,12 +23,6 @@
 //
 // and P is exactly 0 elsewhere, with M, L the final softmax row max and
 // normaliser of the forward's masked logits (masked logit = -1e38, finite).
-//
-// posatt_stats writes M and L, (H, Lo) each. One warp per row reads the
-// row once for its maximum and once more (from L1) for the normaliser, all
-// H heads from each distance read: the same first pass as the forward
-// kernel's, so M and L are the numbers the forward used. Bound: reading
-// the distances (bytes).
 //
 // posatt_bwd_dscale writes d(loss)/d(scale), (H). The TPU kernel sums, per
 // row, r = sum_j P T, v = sum_j P (-d), w = sum_j P T (-d) with
@@ -82,7 +80,7 @@
 // oracle), there is no fast math, and ragged edges are masked by index,
 // with no padded copy.
 //
-// Any head count: the stats and dscale kernels give a block a group of
+// Any head count: the dscale kernel gives a block a group of
 // HB <= 8 heads (ceil(H/8) groups as even as can be, one per grid index;
 // HB = H up to 8 heads), and a du block, whose sum runs over all heads,
 // walks the groups in turn. A short last group masks its missing heads.
@@ -93,117 +91,12 @@
 // the same time must not share it.
 
 #include <cooperative_groups.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stddef.h>
+
+#include "posatt_fixed_common.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
-
-constexpr float NEG = -1e38f;
-constexpr unsigned FULL = 0xffffffffu;
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(FULL, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
-  return v;
-}
-
-__device__ __forceinline__ bool kept(float d, float thr) {
-  return (d <= thr) && (d < INFINITY);
-}
-
-__device__ __forceinline__ float logit(float d, float thr, float s) {
-  return kept(d, thr) ? -s * d : NEG;
-}
-
-__device__ __forceinline__ void lds4(const float* p, float* v) {
-  const float4 q = *reinterpret_cast<const float4*>(p);
-  v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
-}
-
-// an asynchronous 4-byte copy to shared memory; zero-filled when !ok
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool ok) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
-               "r"(ok ? 4 : 0));
-}
-
-// an asynchronous 16-byte copy to shared memory; zero-filled when !ok
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool ok) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(ok ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
-
-// ---------------------------------------------------------------- stats
-
-constexpr int STATS_WARPS = 8;
-
-template <int HB>
-__global__ void __launch_bounds__(STATS_WARPS * 32)
-posatt_stats_kernel(const float* __restrict__ dist,   // (Lo, Li)
-                    const float* __restrict__ thr,    // (Lo)
-                    const float* __restrict__ scale,  // (H)
-                    float* __restrict__ M,            // (H, Lo)
-                    float* __restrict__ L,            // (H, Lo)
-                    int H, int Lo, int Li) {
-  const int lane = threadIdx.x & 31;
-  const int i = blockIdx.x * STATS_WARPS + (threadIdx.x >> 5);
-  const int h0 = blockIdx.y * HB;
-  if (i >= Lo) return;  // the whole warp leaves together
-  const float t = thr[i];
-  const float* drow = dist + (size_t)i * Li;
-  float s[HB], mx[HB], sm[HB];
-#pragma unroll
-  for (int h = 0; h < HB; ++h) {
-    s[h] = h0 + h < H ? scale[h0 + h] : 0.f;
-    mx[h] = -INFINITY;
-    sm[h] = 0.f;
-  }
-#pragma unroll 8
-  for (int j = lane; j < Li; j += 32) {
-    const float d = drow[j];
-#pragma unroll
-    for (int h = 0; h < HB; ++h) mx[h] = fmaxf(mx[h], logit(d, t, s[h]));
-  }
-#pragma unroll
-  for (int h = 0; h < HB; ++h) mx[h] = warp_max(mx[h]);
-#pragma unroll 8
-  for (int j = lane; j < Li; j += 32) {
-    const float d = drow[j];
-#pragma unroll
-    for (int h = 0; h < HB; ++h) sm[h] += expf(logit(d, t, s[h]) - mx[h]);
-  }
-#pragma unroll
-  for (int h = 0; h < HB; ++h) {
-    sm[h] = warp_sum(sm[h]);
-    if (lane == 0 && h0 + h < H) {
-      M[(size_t)(h0 + h) * Lo + i] = mx[h];
-      L[(size_t)(h0 + h) * Lo + i] = sm[h];
-    }
-  }
-}
-
-// ------------------------------------------------------ dscale and du
-
-constexpr int TM = 32;   // owned indices a block: rows i (dscale) or keys j (du)
-constexpr int TN = 64;   // value columns a warp
-constexpr int SK = 16;   // staged rows a step: U rows (dscale) or G (row, head) pairs (du)
-constexpr int SM_WARPS = 12;        // resident warps a SM the register cap allows
-constexpr int TARGET_WARPS = 1056;  // the split aims at 8 warps on each of 132 SMs
-constexpr int MAX_SPLITS = 32;      // dscale: splits of the keys
-constexpr int MAX_CLUSTER = 8;      // du: splits of the rows, one cluster of blocks a tile
-constexpr int GROUP = 16;           // the streamed indices are dealt to the splits in groups
 
 // The shape of a block. dscale: HB heads by NS column slabs, a warp each;
 // du: NS column slabs, a warp each, and HB heads a group.
@@ -716,59 +609,6 @@ bwd_kernel(const Args a) {
 
 // --------------------------------------------------------------- launch
 
-// heads per block (stats, dscale) or per group of du steps: at most 8, in
-// ceil(H/8) groups as even as can be
-int head_group(int H) {
-  const int groups = (H + 7) / 8;
-  return (H + groups - 1) / groups;
-}
-
-template <int HB>
-int launch_stats(const float* dist, const float* thr, const float* scale,
-                 float* M, float* L, int H, int Lo, int Li, cudaStream_t s) {
-  const dim3 grid((Lo + STATS_WARPS - 1) / STATS_WARPS, (H + HB - 1) / HB);
-  posatt_stats_kernel<HB><<<grid, STATS_WARPS * 32, 0, s>>>(dist, thr, scale, M, L, H, Lo, Li);
-  return (int)cudaGetLastError();
-}
-
-// How a launch cuts its work: slabs a block, column tiles, owned tiles,
-// the split of the streamed index and the scratch it needs (dscale).
-struct Plan {
-  int hb, ns, n_ct, tiles, groups, splits, R;
-  long long scratch;  // floats
-};
-
-Plan plan(bool du, int H, int B, int Lo, int Li, int D) {
-  Plan p;
-  const int N = B * D;
-  const int slabs = (N + TN - 1) / TN;
-  p.hb = head_group(H);
-  // dscale: a warp per head and slab, at most four a block below three
-  // heads (a head's slabs share its weights); du: a warp per slab, up to
-  // four (each weight computed once for all of them)
-  if (du) p.ns = slabs > 8 ? 2 : (slabs >= 3 ? 4 : (slabs >= 2 ? 2 : 1));
-  else if (p.hb == 1) p.ns = slabs >= 3 ? 4 : (slabs >= 2 ? 2 : 1);
-  else p.ns = p.hb == 2 && slabs >= 2 ? 2 : 1;
-  const int nw = du ? p.ns : p.hb * p.ns;
-  p.n_ct = (N + p.ns * TN - 1) / (p.ns * TN);
-  p.tiles = ((du ? Li : Lo) + TM - 1) / TM;
-  p.groups = du ? 1 : (H + p.hb - 1) / p.hb;
-  // split the streamed index until the grid holds about TARGET_WARPS:
-  // its groups of GROUP indices dealt to the splits in turn
-  const int len = du ? Lo : Li;
-  const long long base = (long long)p.groups * p.n_ct * p.tiles;
-  long long want = (TARGET_WARPS / nw + base - 1) / base;
-  const int groups = (len + GROUP - 1) / GROUP;
-  if (want > (du ? MAX_CLUSTER : MAX_SPLITS)) want = du ? MAX_CLUSTER : MAX_SPLITS;
-  if (want > groups) want = groups;
-  if (want < 1) want = 1;
-  const int per = (groups + (int)want - 1) / (int)want;  // groups a split
-  p.splits = (groups + per - 1) / per;
-  p.R = per * GROUP;
-  p.scratch = du ? 0 : (long long)p.n_ct * p.tiles * p.splits * H;
-  return p;
-}
-
 template <bool DU, int HB, int NS>
 int launch_shape(const Args& a, const Plan& p, cudaStream_t s) {
   using S = Shape<DU, HB, NS>;
@@ -821,34 +661,7 @@ int launch(const Args& a, const Plan& p, cudaStream_t s) {
   }
 }
 
-bool bad_shape(int H, int B, int Lo, int Li, int D) {
-  return H < 1 || B < 1 || Lo < 1 || Li < 1 || D < 1 || (Lo + TM - 1) / TM > 65535 ||
-         (Li + TM - 1) / TM > 65535 || (long long)B * D > (1LL << 30);
-}
-
-bool aligned(const float* p) { return reinterpret_cast<size_t>(p) % 16 == 0; }
-
-// return fn<head_group(H)>(...)
-#define BY_HEAD_GROUP(fn, ...)          \
-  switch (head_group(H)) {              \
-    case 1: return fn<1>(__VA_ARGS__);  \
-    case 2: return fn<2>(__VA_ARGS__);  \
-    case 3: return fn<3>(__VA_ARGS__);  \
-    case 4: return fn<4>(__VA_ARGS__);  \
-    case 5: return fn<5>(__VA_ARGS__);  \
-    case 6: return fn<6>(__VA_ARGS__);  \
-    case 7: return fn<7>(__VA_ARGS__);  \
-    default: return fn<8>(__VA_ARGS__); \
-  }
-
 }  // namespace
-
-extern "C" int posatt_stats(const float* dist, const float* thr, const float* scale,
-                            float* M, float* L, int H, int Lo, int Li, void* stream) {
-  if (H < 1 || Lo < 1 || Li < 1) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  BY_HEAD_GROUP(launch_stats, dist, thr, scale, M, L, H, Lo, Li, s)
-}
 
 // How a launch of posatt_bwd_dscale (du = 0) or posatt_bwd_du (du = 1)
 // cuts its work: *splits, the number of splits of its streamed index, and
@@ -857,8 +670,8 @@ extern "C" int posatt_stats(const float* dist, const float* thr, const float* sc
 extern "C" int posatt_bwd_plan(int du, int H, int B, int Lo, int Li, int D,
                                long long* floats, int* splits) {
   if (bad_shape(H, B, Lo, Li, D)) return (int)cudaErrorInvalidValue;
-  const Plan p = plan(du != 0, H, B, Lo, Li, D);
-  *floats = p.scratch;
+  const Plan p = plan(du ? DU : DSCALE, H, B, Lo, Li, D);
+  *floats = du ? 0 : (long long)p.n_ct * p.tiles * p.splits * H;
   *splits = p.splits;
   return 0;
 }
@@ -869,7 +682,7 @@ extern "C" int posatt_bwd_dscale(const float* dist, const float* thr, const floa
                                  int* counters, float* ds, int H, int B, int Lo, int Li, int D,
                                  void* stream) {
   if (bad_shape(H, B, Lo, Li, D)) return (int)cudaErrorInvalidValue;
-  const Plan p = plan(false, H, B, Lo, Li, D);
+  const Plan p = plan(DSCALE, H, B, Lo, Li, D);
   const bool v4 = D % 4 == 0 && aligned(u) && aligned(g) && aligned(out);
   const Args a{dist, thr, scale, M, L, g, u, out, partial, counters, ds,
                H, Lo, Li, D, B * D, p.n_ct, p.R, v4, Li % 4 == 0 && aligned(dist)};
@@ -880,7 +693,7 @@ extern "C" int posatt_bwd_du(const float* dist, const float* thr, const float* s
                              const float* M, const float* L, const float* g, float* du,
                              int H, int B, int Lo, int Li, int D, void* stream) {
   if (bad_shape(H, B, Lo, Li, D)) return (int)cudaErrorInvalidValue;
-  const Plan p = plan(true, H, B, Lo, Li, D);
+  const Plan p = plan(DU, H, B, Lo, Li, D);
   const bool v4 = D % 4 == 0 && aligned(g);
   const Args a{dist, thr, scale, M, L, g, nullptr, nullptr, nullptr, nullptr, du,
                H, Lo, Li, D, B * D, p.n_ct, p.R, v4, Li % 4 == 0 && aligned(dist)};

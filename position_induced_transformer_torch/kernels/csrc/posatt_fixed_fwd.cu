@@ -1,109 +1,103 @@
-// Fixed-mesh position attention, forward pass, hand-written for Hopper
-// (sm_90a), float32 throughout: one kernel body under three schedules.
+// Fixed-mesh position attention, forward pass and row statistics,
+// hand-written for Hopper (sm_90a), float32 throughout.
 //
-// Replaces the three TPU forward kernels of position_induced_transformer_tpu/
-// kernels/posatt_pallas.py. They compute one function and differ only in
-// what a grid cell owns, and so in how often the distance matrix is read:
+// Replaces the TPU kernels of position_induced_transformer_tpu/kernels/
+// posatt_pallas.py that compute the forward and its row statistics:
 // - posatt_fixed_fwd    <- _make_posatt_kernel_v3 (_posatt_fixed_raw_v3,
-//   version 3): a block owns a tile of rows and a tile of the batch-folded
-//   value columns, for all H heads (a group of them above 8 heads);
-// - posatt_fixed_fwd_v2 <- _posatt_kernel_v2 (_posatt_fixed_raw_v2,
-//   version 2): a block owns one head, a tile of rows and a tile of the
-//   batch-folded value columns;
-// - posatt_fixed_fwd_v1 <- _posatt_kernel (_posatt_fixed_raw, version 1):
-//   a block owns one head, one sample and a tile of rows, with that
-//   sample's D value columns.
-// Each computes, for every output row i, head h and column n = b*D + k of
-// the batch-folded values:
+//   version 3): the forward of every model path, which also writes the row
+//   statistics M and L when the caller asks (training);
+// - posatt_stats        <- _posatt_stats: M and L alone, for the version 1
+//   and 2 forwards, which do not write them: the same kernel as
+//   posatt_fixed_fwd with the contraction switched off, on the same plan,
+//   so it writes the same bits of M and L as posatt_fixed_fwd at the same
+//   shape (B and D included: they set the plan);
+// - posatt_fixed_fwd_v2 <- _posatt_kernel_v2 (version 2): a block owns one
+//   head, a tile of rows and a tile of the batch-folded value columns;
+// - posatt_fixed_fwd_v1 <- _posatt_kernel (version 1): a block owns one
+//   head, one sample and a tile of rows, with that sample's D columns.
+// Each forward computes, for every output row i, head h and column
+// n = b*D + k of the batch-folded values:
 //
 //   logit[h,i,j] = -scale[h] * dist[i,j]  if dist[i,j] <= thr[i] and finite
 //                = -1e38                  otherwise (finite: no inf - inf)
 //   out[b, i, h*D + k] = sum_j softmax_j(logit[h,i,:]) * u[b, j, k]
 //
-// and writes the head-concat layout (B, L_out, H*D) directly.
+// in the head-concat layout (B, L_out, H*D); M[h,i] = max_j logit[h,i,j]
+// and L[h,i] = sum_j exp(logit[h,i,j] - M[h,i]), (H, L_out) each.
 //
-// What bounds it on this card: the function must read the (L_out, L_in)
-// distance matrix once and write the output once; its operations are
-// 2*H*B*D f32 per KEPT entry, since a masked weight is exactly 0. A global
-// row keeps all L_in entries: with B*D = 512 (the Burgers processor) that
-// is far above the H100's f32 ridge (67 TFLOP/s / 3.35 TB/s = 20 per byte),
-// so the f32 CUDA-core rate bounds it. A masked row keeps a few entries
-// (Burgers: 21 of 1024 in the encoder, 6 or 7 of 256 in the decoder), so
-// reading the distances and writing the output bound it. The bound is the
-// same under every schedule; what a schedule adds is its own streaming of
-// the distance matrix: each block reads its rows' distances in both passes
-// below, and a row tile has ceil(B*D/TN) blocks under v3, H*ceil(B*D/TN)
-// under v2 and H*B under v1 (one column tile per sample while D <= 256;
-// H*B*ceil(D/256) above that). Blocks that share a row tile are neighbours
-// in launch order (blockIdx.x, the column tile or sample, varies fastest),
-// so most of those reads hit the 50 MB L2; the head (blockIdx.z, slowest)
-// is what sends the matrix through device memory again.
+// What bounds the function on this card: it must read the (L_out, L_in)
+// distances once and write the output once; its operations are 2*H*B*D f32
+// per KEPT entry, since a masked weight is exactly 0. A global row keeps
+// all L_in entries: with B*D = 512 (the Burgers processor) the f32
+// CUDA-core rate bounds it; at 2-2.7 % kept (the Burgers, vorticity and
+// Darcy encoders and decoders) the bytes do.
 //
-// What the design does about it:
-// - Two passes over each block's rows. The first computes every row's
-//   final softmax max and normaliser per head (one warp per row, one
-//   reduction per row), so the second writes final weights and carries no
-//   running max or rescale: its L_in loop is a plain accumulation. (The
-//   TPU's online rescale across L_in grid steps exists because a TPU grid
-//   runs in order; it is not carried over.)
-// - Under v3 each distance element is read once per block for all H heads;
-//   the H weight tiles P it yields are staged in shared memory and reused
-//   by every value column of the block, so the exp work is amortised over
-//   the columns.
-// - The contraction is register-tiled: for wide tiles each thread holds 4
-//   rows x CPL columns per head, reads 4 rows of P as one broadcast float4
-//   and its values as float4s, so it issues 4*CPL FMAs per head for every
-//   1 + CPL/4 shared-memory loads (the f32 rate, not shared memory, is the
-//   limit). For few columns a block holds fewer rows and longer L_in
-//   steps, so that there are more blocks and fewer barriers per element.
-// - A v3 block owns a group of HB <= 8 heads: HB = H up to 8 heads (the
-//   code of one group, GROUPED false), else ceil(H/8) groups as even as can
-//   be (6 + 6 at H = 12), one per blockIdx.z, a short last group masking
-//   its missing heads. Any head count is taken.
-// - A v1 or v2 block owns one head, so its accumulator holds one head's
-//   outputs and its column tile can be wider than v3's: the narrowest of
-//   32, 64, 128 or 256 columns that holds its columns (v1: the sample's D;
-//   v2: B*D). The price of owning one head: each staged value feeds one head's
-//   products, so at H = 2 a v1 or v2 block issues twice v3's shared-memory
-//   loads per FMA. Measured on the H100, that (and not the extra distance
-//   streaming, which L2 serves) makes them 1.4-1.7x v3 where the
-//   contraction bounds the time; for D <= 32 a v1 block also computes 32
-//   columns for D live ones (PERF.md has the times).
-// - Ragged edges are masked by index inside the kernel: no padded copy of
-//   the distance matrix is made.
-// Tensor cores are not used: TF32 would not hold parity with the f32
-// oracle. The contraction is dense: masked entries are multiplied by their
-// zero weights, so a masked row does L_in / kept times the operations it
-// needs. Skipping them (a compacted kept list per row tile), double-buffered
-// loads and splitting L_in across blocks are work for later.
+// posatt_fixed_fwd and posatt_stats (the pattern of posatt_fixed_bwd.cu,
+// one plan for all four fixed-mesh kernels, posatt_fixed_common.cuh):
+// - A block owns 32 rows, a group of up to 8 heads (ceil(H/8) groups as
+//   even as can be; any head count), a tile of 64-column slabs of the
+//   batch-folded values (a warp per head and slab) and one split of L_in.
+//   L_in is dealt to the splits in groups of 16 keys, in turn, so a masked
+//   band is shared by all of them; the split count aims at 8 warps an SM
+//   (the Darcy 421^2 ZSSR encoder, 256 rows by 177,241 keys at B*D = 30:
+//   32 splits; its decoder, 177,241 rows: none).
+// - It works in rounds of RC keys (128 up to two heads a block, 64 up to
+//   four, 32 above). A round's distances arrive in shared memory in one
+//   batch of 16-byte cp.async (4-byte pieces where L_in is not a multiple
+//   of 4).
+//   Warp ballots list, in order, the keys that some owned row keeps; the
+//   list's least and largest kept distance per row give the round's max
+//   logit (-scale * least for scale >= 0, -scale * largest below), each
+//   listed entry gets one exp a head, and the contraction runs over the
+//   list only, on 8 x 8 lane tiles, float4 reads from shared memory, the
+//   next step's u rows in flight (cp.async). Ragged u rows (D not a
+//   multiple of 4: the Burgers encoder's D = 2, ZSSR's 3) take 4-byte
+//   pieces masked by index, with no padded copy.
+// - One pass over the distances per split: the split keeps, per row and
+//   head, its running max, normaliser and un-normalised accumulator,
+//   rescaled within the split as the max grows. (A first scan of the
+//   split's kept distances for each row's max, with no rescale, was timed
+//   and was slower at every shape: PERF.md.)
+// - The splits of a tile combine in a fixed order: M = max_s M_s,
+//   L = sum_s L_s exp(M_s - M), out = sum_s acc_s exp(M_s - M) / L, the
+//   loads of 8 splits in flight at once. Up to 8 splits form a
+//   thread-block cluster (portable size) and combine over distributed
+//   shared memory; above 8 each split's record goes to scratch (a split
+//   that listed no key writes its M and L only) and the last block of the
+//   tile to finish (a counter per tile, left zero) combines them. One
+//   split writes its output straight from its registers. No float
+//   atomics: two launches give the same bits.
+// - Row statistics out: the combine writes M and L when the caller passes
+//   pointers for them (training saves them for the backward, so no stats
+//   launch is needed); with null pointers (serving) it writes nothing else.
+// - A row that keeps no entry (its threshold below its least distance, or
+//   all its distances +inf) has the plain version's softmax over -1e38
+//   everywhere: M = -1e38, L = L_in and the mean of u over all keys, which
+//   the combine computes for such a row alone (a kept list would give 0/0).
+// Tensor cores are not used (TF32 would not hold parity with the f32
+// oracle), there is no fast math, and ragged edges are masked by index.
+//
+// posatt_fixed_fwd_v1 and _v2 keep the first port's body, one head a
+// block: a first pass over each block's rows gives every row's max and
+// normaliser (one warp a row), a second stages final weights and values
+// per L_in step and contracts densely on register tiles; masked entries are
+// multiplied by their zero weights. They are ROADMAP §2's item 10.
 //
 // The functions launch on the caller's stream, allocate nothing, and
 // return cudaGetLastError() after the launch.
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stddef.h>
+#include <cooperative_groups.h>
+
+#include "posatt_fixed_common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr float NEG = -1e38f;
+// ------------------------------------------------ v1, v2: one head a block
 
-// what a block owns: the TPU kernel version it schedules as
-enum Schedule { HEAD_SAMPLE = 1, HEAD = 2, ALL_HEADS = 3 };
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float logit(float d, float thr, float s) {
-  return ((d <= thr) && (d < INFINITY)) ? -s * d : NEG;
-}
+// what a v1 or v2 block owns: the TPU kernel version it schedules as
+enum Schedule { HEAD_SAMPLE = 1, HEAD = 2 };
 
 // N consecutive floats from shared memory; 2, 4 or 8 of them as vector loads
 template <int N>
@@ -129,11 +123,11 @@ __device__ __forceinline__ void lds<8>(const float* p, float (&v)[8]) {
   v[4] = r.x; v[5] = r.y; v[6] = r.z; v[7] = r.w;
 }
 
-// A block owns the heads [h0, h0 + HB) below H, TLO = NWARPS*RPT rows and
+// A v1 or v2 block owns one head h0, TLO = NWARPS*RPT rows and
 // the value columns [col0, col_end) of the batch-folded axis, at most
 // TN = 32*CPL; warp w owns rows [w*RPT, w*RPT + RPT), lane c owns columns
 // [c*CPL, c*CPL + CPL) from col0.
-template <int SCHED, int HB, bool GROUPED, int NWARPS, int RPT, int CPL, int TLI>
+template <int SCHED, int NWARPS, int RPT, int CPL, int TLI>
 __global__ void __launch_bounds__(NWARPS * 32)
 posatt_fixed_fwd_kernel(const float* __restrict__ dist,   // (Lo, Li)
                         const float* __restrict__ thr,    // (Lo)
@@ -141,13 +135,13 @@ posatt_fixed_fwd_kernel(const float* __restrict__ dist,   // (Lo, Li)
                         const float* __restrict__ u,      // (B, Li, D)
                         float* __restrict__ out,          // (B, Lo, H*D)
                         int H, int Lo, int Li, int D, int N, int HD, int ctiles) {
+  constexpr int HB = 1;  // one head a block
   constexpr int THREADS = NWARPS * 32;
   constexpr int TLO = NWARPS * RPT;
   constexpr int TN = 32 * CPL;
   static_assert(THREADS % TLO == 0 && THREADS % TN == 0, "tile shape");
   static_assert(RPT == 1 || RPT == 4, "rows per thread");
   static_assert((TLI * TN) % THREADS == 0 && (TLI * TLO) % THREADS == 0, "steps");
-  static_assert(SCHED == ALL_HEADS || HB == 1, "v1 and v2 blocks own one head");
   __shared__ __align__(16) float s_p[HB][TLI][TLO];  // final weights
   __shared__ __align__(16) float s_u[TLI][TN];       // values
   __shared__ float s_m[HB][TLO];                      // row max
@@ -158,8 +152,7 @@ posatt_fixed_fwd_kernel(const float* __restrict__ dist,   // (Lo, Li)
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int row0 = blockIdx.y * TLO;
-  // v1, v2: one head a block (HB = 1); v3: one group of heads
-  const int h0 = (SCHED != ALL_HEADS || GROUPED) ? blockIdx.z * HB : 0;
+  const int h0 = blockIdx.z;  // the block's head
   int col0, col_end;
   if (SCHED == HEAD_SAMPLE) {  // sample b, column tile c of its D columns
     const int b = blockIdx.x / ctiles;
@@ -171,8 +164,7 @@ posatt_fixed_fwd_kernel(const float* __restrict__ dist,   // (Lo, Li)
     col_end = N;
   }
 
-  if (tid < HB)  // a missing head: finite
-    s_scale[tid] = (!GROUPED || h0 + tid < H) ? scale[h0 + tid] : 0.f;
+  if (tid < HB) s_scale[tid] = scale[h0 + tid];
   __syncthreads();
 
   // ---- pass 1: each row's softmax max and normaliser, one warp per row
@@ -282,12 +274,12 @@ posatt_fixed_fwd_kernel(const float* __restrict__ dist,   // (Lo, Li)
       float* dst = out + ((size_t)b * Lo + i) * HD + k;
 #pragma unroll
       for (int h = 0; h < HB; ++h)
-        if (!GROUPED || h0 + h < H) dst[(h0 + h) * D] = acc[h][r][c];
+        dst[(h0 + h) * D] = acc[h][r][c];
     }
   }
 }
 
-template <int SCHED, int HB, bool GROUPED, int NWARPS, int RPT, int CPL, int TLI>
+template <int SCHED, int NWARPS, int RPT, int CPL, int TLI>
 void launch_tiles(const float* dist, const float* thr, const float* scale,
                   const float* u, float* out, int H, int B, int Lo, int Li, int D,
                   cudaStream_t stream) {
@@ -295,29 +287,9 @@ void launch_tiles(const float* dist, const float* thr, const float* scale,
   const int N = B * D;
   const int ctiles = (D + TN - 1) / TN;  // column tiles of one sample (v1)
   const dim3 grid(SCHED == HEAD_SAMPLE ? B * ctiles : (N + TN - 1) / TN,
-                  (Lo + TLO - 1) / TLO, (H + HB - 1) / HB);
-  posatt_fixed_fwd_kernel<SCHED, HB, GROUPED, NWARPS, RPT, CPL, TLI><<<grid, NWARPS * 32, 0, stream>>>(
+                  (Lo + TLO - 1) / TLO, H);
+  posatt_fixed_fwd_kernel<SCHED, NWARPS, RPT, CPL, TLI><<<grid, NWARPS * 32, 0, stream>>>(
       dist, thr, scale, u, out, H, Lo, Li, D, N, H * D, ctiles);
-}
-
-// v3: a group of HB heads a block
-template <int HB, bool GROUPED>
-void launch_all_heads(const float* dist, const float* thr, const float* scale,
-                      const float* u, float* out, int H, int B, int Lo, int Li, int D,
-                      cudaStream_t stream) {
-  if (B * D <= 32)  // few columns: 8-row blocks, long L_in steps
-    launch_tiles<ALL_HEADS, HB, GROUPED, 8, 1, 1, (HB >= 8 ? 64 : 128)>(
-        dist, thr, scale, u, out, H, B, Lo, Li, D, stream);
-  else  // 16 x 128 blocks, 4 x 4 outputs per thread and head
-    launch_tiles<ALL_HEADS, HB, GROUPED, 4, 4, 4, 32>(dist, thr, scale, u, out, H, B, Lo, Li, D,
-                                                      stream);
-}
-
-// heads per v3 block above 8 heads: ceil(H/8) groups as even as can be,
-// 5 to 8 heads each
-int head_group(int H) {
-  const int groups = (H + 7) / 8;
-  return (H + groups - 1) / groups;
 }
 
 // v1 and v2: one head a block, the narrowest column tile that holds
@@ -327,45 +299,667 @@ void launch_per_head(const float* dist, const float* thr, const float* scale,
                      const float* u, float* out, int H, int B, int Lo, int Li, int D,
                      int cols, cudaStream_t stream) {
   if (cols <= 32)  // 8 x 32
-    launch_tiles<SCHED, 1, false, 8, 1, 1, 128>(dist, thr, scale, u, out, H, B, Lo, Li, D, stream);
+    launch_tiles<SCHED, 8, 1, 1, 128>(dist, thr, scale, u, out, H, B, Lo, Li, D, stream);
   else if (cols <= 64)  // 16 x 64
-    launch_tiles<SCHED, 1, false, 4, 4, 2, 32>(dist, thr, scale, u, out, H, B, Lo, Li, D, stream);
+    launch_tiles<SCHED, 4, 4, 2, 32>(dist, thr, scale, u, out, H, B, Lo, Li, D, stream);
   else if (cols <= 128)  // 16 x 128
-    launch_tiles<SCHED, 1, false, 4, 4, 4, 32>(dist, thr, scale, u, out, H, B, Lo, Li, D, stream);
+    launch_tiles<SCHED, 4, 4, 4, 32>(dist, thr, scale, u, out, H, B, Lo, Li, D, stream);
   else  // 32 x 256
-    launch_tiles<SCHED, 1, false, 8, 4, 8, 32>(dist, thr, scale, u, out, H, B, Lo, Li, D, stream);
+    launch_tiles<SCHED, 8, 4, 8, 32>(dist, thr, scale, u, out, H, B, Lo, Li, D, stream);
 }
 
-bool bad_shape(int H, int B, int Lo, int Li, int D) {
-  return H < 1 || B < 1 || Lo < 1 || Li < 1 || D < 1;
+// ------------------------------------------------ v3 and the row statistics
+
+// The shape of a v3 (or stats) block: HB heads by NS 64-column slabs, a
+// warp each; RC local keys a round (the round's weights, HB x RC rows of
+// 32, stay within 32 KB), scanned in CH chunks of a thread each.
+template <bool OUT, int HB, int NS>
+struct FShape {
+  static constexpr int NW = HB * NS;
+  static constexpr int THREADS = NW * 32;
+  static constexpr int CW = NS * TN;  // value columns a block
+  static constexpr int RC = HB <= 2 ? 128 : (HB <= 4 ? 64 : 32);
+  static constexpr int CH = (RC + THREADS - 1) / THREADS;
+  // a row of a round's distances, padded against bank conflicts; at least
+  // 64 wide, so that the combine's lists of splits fit in their place
+  static constexpr int DP = (RC > 64 ? RC : 64) + 4;
+  static_assert(TM * DP >= 2 * MAX_SPLITS * TM, "the combine's lists");
+  // a split's record: M and L of its rows per head, then (OUT) its
+  // un-normalised accumulator HB x TM x CW
+  static constexpr int REC = HB * TM * (2 + (OUT ? CW : 0));
+  static constexpr int MAIN = (OUT ? 2 * SK * CW : 0) + HB * RC * TM;  // staged u rows, weights
+  static constexpr int UNI = REC > MAIN ? REC : MAIN;
+  static constexpr int MIN_BLOCKS = SM_WARPS / NW > 0 ? SM_WARPS / NW : 1;
+};
+
+// What a v3 block keeps in shared memory (dynamic: above 48 KB).
+template <bool OUT, int HB, int NS>
+struct FSmem {
+  using S = FShape<OUT, HB, NS>;
+  // the staged u rows [2 * SK][CW] (OUT) and the weights [HB * RC][TM];
+  // after the rounds, the split's record
+  __align__(16) float uni[S::UNI];
+  // the round's distances [owned row][slot]; in the combine, each row's
+  // list of the splits that keep an entry and their factors
+  __align__(16) float d[TM][S::DP];
+  float othr[TM];             // the owned rows' keep thresholds
+  float scl[HB];              // the group's scales
+  float mrow[HB][TM];         // the max per head and row, after the rounds
+  float lrow[HB][TM];         // running normaliser
+  float alpha[HB][TM];        // this round's rescale of both
+  float dlo[S::NW][TM];       // each warp's least kept distance per row this round
+  float dhi[S::NW][TM];       // and its largest
+  float lpart[S::NW][HB][TM]; // each warp's share of the round's normaliser
+  int list[S::RC];            // the listed slots, in order
+  int cnt[S::CH][S::NW];
+  float cl[TM];               // the combine: one head's 1 / L per row
+  int empty[TM];              // the combine: the row keeps no entry at all
+  int nz[TM];                 // the combine: the splits that keep an entry of the row
+  float colsum[OUT ? S::CW : 1];  // sum over all keys of u, for empty rows
+  int last;
+};
+
+// The inputs of one v3 or stats launch.
+struct FArgs {
+  const float* dist;   // (Lo, Li)
+  const float* thr;    // (Lo)
+  const float* scale;  // (H)
+  const float* u;      // (B, Li, D); v3 only
+  float* out;          // (B, Lo, H*D); v3 only
+  float* M;            // (H, Lo) or null
+  float* L;            // (H, Lo) or null
+  float* scratch;      // splits > MAX_CLUSTER: a record per (tile, split)
+  int* counters;       // splits > MAX_CLUSTER: one per tile, zero before and after
+  int H, Lo, Li, D, N;
+  int n_ct;            // column tiles (stats: 1)
+  int R;               // local keys a split (a multiple of GROUP)
+  bool vec4;           // 16-byte pieces of u and out: D % 4 == 0, both aligned
+  bool dvec4;          // 16-byte pieces of dist: Li % 4 == 0 and dist aligned
+};
+
+// A block: head group and column tile blockIdx.x, row tile blockIdx.y,
+// split blockIdx.z of the keys (in a cluster of the tile's splits when
+// there are 2 to 8). Lane (og, cg) = (lane / 8, lane % 8) of warp (head wh,
+// slab) owns the rows og*4 + {0..3}, 16 + og*4 + {0..3} and the columns
+// cg*4 + {0..3}, 32 + cg*4 + {0..3} of the slab. In the weighting lane o
+// weights the entries of row o. Without OUT (posatt_stats) the block runs
+// the same rounds, weights and combine and contracts nothing, so it writes
+// the bits of M and L that the forward writes on the same plan.
+template <bool OUT, int HB, int NS>
+__global__ void __launch_bounds__(FShape<OUT, HB, NS>::THREADS, FShape<OUT, HB, NS>::MIN_BLOCKS)
+fwd_kernel(const FArgs a) {
+  using S = FShape<OUT, HB, NS>;
+  constexpr int NW = S::NW, THREADS = S::THREADS, CW = S::CW, RC = S::RC, CH = S::CH;
+  constexpr int REC = S::REC;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  FSmem<OUT, HB, NS>& sm = *reinterpret_cast<FSmem<OUT, HB, NS>*>(smem_raw);
+  float* const sv = sm.uni;                             // staged u rows
+  float* const sw = sm.uni + (OUT ? 2 * SK * CW : 0);  // weights [h * RC + k][row]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int H = a.H, Lo = a.Lo, Li = a.Li, D = a.D, N = a.N;
+  const int grp = blockIdx.x / a.n_ct, ct = blockIdx.x - grp * a.n_ct;
+  const int col0 = ct * CW, o0 = blockIdx.y * TM, h0 = grp * HB;
+  const int splits = gridDim.z, split = blockIdx.z;
+  const int wh = warp / NS, slab = warp % NS;
+  // this split's keys: local index t < R is key ((t / GROUP) * splits +
+  // split) * GROUP + t % GROUP, below Li, so that a band of kept keys is
+  // shared by all splits
+  auto global = [&](int t) { return ((t / GROUP) * splits + split) * GROUP + t % GROUP; };
+
+  for (int o = tid; o < TM; o += THREADS)  // rows past Lo keep nothing
+    sm.othr[o] = o0 + o < Lo ? __ldg(a.thr + o0 + o) : -INFINITY;
+  if (tid < HB) sm.scl[tid] = h0 + tid < H ? __ldg(a.scale + h0 + tid) : 0.f;  // a missing head: finite
+  for (int e = tid; e < HB * TM; e += THREADS) (&sm.lrow[0][0])[e] = 0.f;
+  __syncthreads();
+  const float othr = sm.othr[lane];
+  float sh[HB];
+#pragma unroll
+  for (int h = 0; h < HB; ++h) sh[h] = sm.scl[h];
+
+  // ---- the columns this thread stages (4 of them, fixed across steps):
+  // column n = b*D + k sits at b*Li*D + k of u
+  constexpr int PIECES = CW / 4;           // 4-column pieces a staged row
+  constexpr int RSTEP = THREADS / PIECES;  // staged rows apart for one thread
+  static_assert(THREADS % PIECES == 0, "staging");
+  const int c4 = (tid % PIECES) * 4;
+  size_t cb[4];
+  bool cok[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int n = col0 + c4 + e;
+    cok[e] = OUT && n < N;
+    const int b = cok[e] ? n / D : 0, k = cok[e] ? n - b * D : 0;
+    cb[e] = (size_t)b * Li * D + k;
+  }
+
+  // start copying the u rows of the listed keys [k0, k0 + SK) into buffer
+  // buf; zeros past the list (n)
+  auto stage = [&](int k0, int n, int buf, int cbase) {
+#pragma unroll
+    for (int r = tid / PIECES; r < SK; r += RSTEP) {
+      const bool ok = k0 + r < n;
+      const size_t off = ok ? (size_t)global(cbase + sm.list[k0 + r]) * D : 0;
+      float* dst = sv + ((size_t)buf * SK + r) * CW + c4;
+      if (a.vec4) {
+        cp_async16(dst, ok && cok[0] ? a.u + cb[0] + off : a.u, ok && cok[0]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          cp_async4(dst + e, ok && cok[e] ? a.u + cb[e] + off : a.u, ok && cok[e]);
+      }
+    }
+    cp_async_commit();
+  };
+
+  // start copying the owned rows' distances to the keys of local indices
+  // [cbase, min(cbase + RC, R)) into sm.d, all at once, in 16-byte
+  // pieces of four consecutive keys; keys past Li are zero-filled (the
+  // scan never lists them)
+  auto fetch = [&](int cbase) {
+    const int RPC = min(RC, a.R - cbase) / 4;  // pieces a row (R: whole groups)
+    for (int e = tid; e < TM * RPC; e += THREADS) {
+      const int r = e / RPC, c = (e - r * RPC) * 4;
+      const int i = o0 + r, j = global(cbase + c);
+      const bool row_ok = i < Lo;
+      const float* src = a.dist + (size_t)(row_ok ? i : 0) * Li;
+      if (a.dvec4) {
+        const bool ok = row_ok && j < Li;
+        cp_async16(&sm.d[r][c], ok ? src + j : a.dist, ok);
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const bool ok = row_ok && j + q < Li;
+          cp_async4(&sm.d[r][c + q], ok ? src + j + q : a.dist, ok);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+
+  // The round's scan: thread tid checks the slots tid + c * THREADS against
+  // the 32 owned rows; the block lists, in order, the slots of this split's
+  // keys that keep an entry. Block-uniform: returns the count.
+  auto scan = [&](int cbase) -> int {
+    unsigned masks[CH];
+    bool any[CH];
+#pragma unroll
+    for (int c = 0; c < CH; ++c) {
+      const int slot = c * THREADS + tid;
+      any[c] = false;
+      if (slot < RC && cbase + slot < a.R && global(cbase + slot) < Li) {
+#pragma unroll 8
+        for (int r = 0; r < TM; ++r) any[c] |= kept(sm.d[r][slot], sm.othr[r]);
+      }
+      masks[c] = __ballot_sync(FULL, any[c]);
+      if (lane == 0) sm.cnt[c][warp] = __popc(masks[c]);
+    }
+    __syncthreads();
+    int run = 0, off[CH];
+#pragma unroll
+    for (int c = 0; c < CH; ++c)
+#pragma unroll
+      for (int w = 0; w < NW; ++w) {
+        if (w == warp) off[c] = run;
+        run += sm.cnt[c][w];
+      }
+#pragma unroll
+    for (int c = 0; c < CH; ++c)
+      if (any[c]) sm.list[off[c] + __popc(masks[c] & ((1u << lane) - 1u))] = c * THREADS + tid;
+    __syncthreads();
+    return run;
+  };
+
+  const int og = lane >> 3, cgp = lane & 7;
+  const int rows[8] = {og * 4, og * 4 + 1, og * 4 + 2, og * 4 + 3,
+                       16 + og * 4, 16 + og * 4 + 1, 16 + og * 4 + 2, 16 + og * 4 + 3};
+  const int cols[8] = {cgp * 4, cgp * 4 + 1, cgp * 4 + 2, cgp * 4 + 3,
+                       32 + cgp * 4, 32 + cgp * 4 + 1, 32 + cgp * 4 + 2, 32 + cgp * 4 + 3};
+  float acc[8][8];
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
+#pragma unroll
+    for (int c = 0; c < 8; ++c) acc[r][c] = 0.f;
+
+  // rescale this lane's accumulators by the round's max change, then
+  // contract over the listed keys [0, n), whose weights are in shared
+  // memory and whose first step's u rows are in flight: while step s is
+  // contracted, step s + 1's rows are; one block barrier a step
+  auto contract = [&](int n, int cbase) {
+    const int steps = (n + SK - 1) / SK;
+    cp_async_wait_all();
+    __syncthreads();  // the weights, the rescale and the first step's rows are visible
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      const float al = sm.alpha[wh][rows[r]];
+#pragma unroll
+      for (int c = 0; c < 8; ++c) acc[r][c] *= al;
+    }
+    int buf = 0;
+    for (int s = 0; s < steps; ++s, buf ^= 1) {
+      if (s + 1 < steps) stage((s + 1) * SK, n, buf ^ 1, cbase);
+#pragma unroll
+      for (int kk = 0; kk < SK; ++kk) {
+        const float* wr = sw + (size_t)(wh * RC + s * SK + kk) * TM;
+        const float* vr = sv + (size_t)(buf * SK + kk) * CW + slab * TN;
+        float wv[8], vv[8];
+        lds4(wr + og * 4, wv);
+        lds4(wr + 16 + og * 4, wv + 4);
+        lds4(vr + cgp * 4, vv);
+        lds4(vr + 32 + cgp * 4, vv + 4);
+#pragma unroll
+        for (int r = 0; r < 8; ++r)
+#pragma unroll
+          for (int c = 0; c < 8; ++c) acc[r][c] = fmaf(wv[r], vv[c], acc[r][c]);
+      }
+      cp_async_wait_all();
+      __syncthreads();  // step s's buffer is free, step s + 1's is visible
+    }
+  };
+
+  // ---- the rounds of this split: fetch, scan, max, weights,
+  // contraction (a fetch one round ahead was timed and did not pay for its
+  // shared memory: PERF.md). M and L take explicit roundings (__f*_rn), so
+  // that the forward and the stats entry point, two instantiations of this
+  // body, give the same bits.
+  const int nrounds = (a.R + RC - 1) / RC;
+  bool listed = false;  // block-uniform: some round listed a key
+  float mh[HB];         // the running max of this lane's row per head
+#pragma unroll
+  for (int h = 0; h < HB; ++h) mh[h] = -INFINITY;
+  for (int rd = 0; rd < nrounds; ++rd) {
+    const int cbase = rd * RC;
+    fetch(cbase);
+    cp_async_wait_all();
+    __syncthreads();  // the round's distances are in shared memory
+    const int n = scan(cbase);
+    if (n == 0) continue;
+    listed = true;
+    if (OUT) stage(0, n, 0, cbase);  // in flight while the weights are computed
+    // the least and largest kept distance of each row among the listed
+    // keys: for scale >= 0 the row's largest logit is -scale * least
+    float lo = INFINITY, hi = -INFINITY;
+#pragma unroll 4
+    for (int k = warp; k < n; k += NW) {
+      const float d = sm.d[lane][sm.list[k]];
+      if (kept(d, othr)) {
+        lo = fminf(lo, d);
+        hi = fmaxf(hi, d);
+      }
+    }
+    sm.dlo[warp][lane] = lo;
+    sm.dhi[warp][lane] = hi;
+    __syncthreads();
+    // every warp: the new max of its lane's row per head (the same in every
+    // warp) and the rescale of both, which warp 0 leaves for the contraction
+    // and the normaliser
+    float l0 = INFINITY, h1 = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) {
+      l0 = fminf(l0, sm.dlo[w][lane]);
+      h1 = fmaxf(h1, sm.dhi[w][lane]);
+    }
+#pragma unroll
+    for (int h = 0; h < HB; ++h) {
+      const float m_new =
+          l0 <= h1 ? fmaxf(mh[h], __fmul_rn(-sh[h], sh[h] >= 0.f ? l0 : h1)) : mh[h];
+      if (warp == 0) sm.alpha[h][lane] = m_new == -INFINITY ? 1.f : expf(__fsub_rn(mh[h], m_new));
+      mh[h] = m_new;
+    }
+    // the weights of the listed keys, one exp a head per entry, zeros up to
+    // whole steps, and each warp's share of the normaliser
+    const int kpad = OUT ? (n + SK - 1) / SK * SK : n;
+    float lacc[HB];
+#pragma unroll
+    for (int h = 0; h < HB; ++h) lacc[h] = 0.f;
+#pragma unroll 4
+    for (int k = warp; k < kpad; k += NW) {
+      const bool in = k < n;
+      const float d = sm.d[lane][in ? sm.list[k] : 0];
+      const bool kp = in && kept(d, othr);
+#pragma unroll
+      for (int h = 0; h < HB; ++h) {
+        const float p = kp && h0 + h < H ? expf(__fsub_rn(__fmul_rn(-sh[h], d), mh[h])) : 0.f;
+        lacc[h] = __fadd_rn(lacc[h], p);
+        if (OUT) sw[(size_t)(h * RC + k) * TM + lane] = p;
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < HB; ++h) sm.lpart[warp][h][lane] = lacc[h];
+    if (OUT) contract(n, cbase);
+    else __syncthreads();
+    if (tid < HB * TM) {  // the normaliser, the warps' shares in order
+      const int h = tid / TM, r = tid - h * TM;
+      float s = 0.f;
+#pragma unroll
+      for (int w = 0; w < NW; ++w) s = __fadd_rn(s, sm.lpart[w][h][r]);
+      sm.lrow[h][r] = __fmaf_rn(sm.lrow[h][r], sm.alpha[h][r], s);
+    }
+  }
+  if (warp == 0)
+#pragma unroll
+    for (int h = 0; h < HB; ++h) sm.mrow[h][lane] = mh[h];
+  cp_async_wait_all();
+  __syncthreads();  // the max and last normaliser are written; the staging and weights are free
+
+  // Combine the records of the tile's nsrc splits for the rows [r0, r1),
+  // in split order: M = max_s M_s, L = sum_s L_s f_s with
+  // f_s = exp(M_s - M), out = sum_s acc_s f_s / L. A record is M and L of
+  // its rows per head, then its un-normalised accumulator HB x TM x CW.
+  // A row that keeps no entry at all has the plain version's softmax over
+  // -1e38 everywhere: M = -1e38, L = Li and the mean of u over all keys.
+  // base(s) is split s's record, ld and ld4 a load of 1 and 4 floats. All
+  // the splits' M and L of a row are loaded at once; the output sums run
+  // over each row's list of the splits that keep an entry (f_s != 0, the
+  // same splits for every head), 8 splits' loads in flight at once.
+  auto combine = [&](auto base, auto ld, auto ld4, int nsrc, int r0, int r1) {
+    float* const zf = &sm.d[0][0];             // zf[k * TM + r]: the k-th listed split's f
+    int* const zs = reinterpret_cast<int*>(zf + MAX_SPLITS * TM);  // and its index
+    const int live = OUT ? min(CW, N - col0) : 4;  // the tile's columns (OUT)
+    const int pieces = (live + 3) / 4;
+    for (int h = 0; h < HB && h0 + h < H; ++h) {
+      if (tid < r1 - r0) {
+        const int r = r0 + tid, i = o0 + r;
+        float mq[MAX_SPLITS], lq[MAX_SPLITS];
+#pragma unroll
+        for (int s = 0; s < MAX_SPLITS; ++s) {
+          const bool ok = s < nsrc;
+          mq[s] = ok ? ld(base(s) + h * TM + r) : -INFINITY;
+          lq[s] = ok ? ld(base(s) + HB * TM + h * TM + r) : 0.f;
+        }
+        float M = -INFINITY, L = 0.f;
+#pragma unroll
+        for (int s = 0; s < MAX_SPLITS; ++s) M = fmaxf(M, mq[s]);
+        const bool none = M == -INFINITY;
+        int nz = 0;
+#pragma unroll
+        for (int s = 0; s < MAX_SPLITS; ++s) {
+          const float f = mq[s] == -INFINITY ? 0.f : expf(__fsub_rn(mq[s], M));
+          if (f != 0.f) {
+            L = __fmaf_rn(lq[s], f, L);
+            zf[nz * TM + r] = f;
+            zs[nz * TM + r] = s;
+            ++nz;
+          }
+        }
+        if (none) {
+          M = NEG;
+          L = (float)Li;
+        }
+        sm.cl[r] = __frcp_rn(L);
+        sm.empty[r] = none && i < Lo;
+        sm.nz[r] = nz;
+        if (a.M != nullptr && i < Lo) {
+          a.M[(size_t)(h0 + h) * Lo + i] = M;
+          a.L[(size_t)(h0 + h) * Lo + i] = L;
+        }
+      }
+      if (!OUT) continue;
+      __syncthreads();
+      if (h == 0) {  // rows that keep no entry: the column sums of u, once
+        bool any = false;
+        for (int r = r0; r < r1; ++r) any |= sm.empty[r] != 0;
+        if (any) {  // block-uniform
+          for (int c = tid; c < live; c += THREADS) {
+            const int n = col0 + c, b = n / D;
+            const float* up = a.u + (size_t)b * Li * D + (n - b * D);
+            float s = 0.f;
+            for (int j = 0; j < Li; ++j) s += up[(size_t)j * D];
+            sm.colsum[c] = s;
+          }
+          __syncthreads();
+        }
+      }
+      for (int e = tid; e < (r1 - r0) * pieces; e += THREADS) {
+        const int rr = e / pieces, c = (e - rr * pieces) * 4;
+        const int r = r0 + rr, i = o0 + r;
+        if (i >= Lo) continue;
+        float v[4] = {0.f, 0.f, 0.f, 0.f};
+        if (sm.empty[r]) {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) v[q] = c + q < live ? sm.colsum[c + q] : 0.f;
+        } else {
+          const int nz = sm.nz[r];
+          for (int k0 = 0; k0 < nz; k0 += 8) {
+            float4 aq[8];
+            float fq[8];
+#pragma unroll
+            for (int k = 0; k < 8; ++k) {
+              const bool ok = k0 + k < nz;
+              fq[k] = ok ? zf[(k0 + k) * TM + r] : 0.f;
+              aq[k] = ok ? ld4(base(zs[(k0 + k) * TM + r]) + 2 * HB * TM +
+                               (size_t)(h * TM + r) * CW + c)
+                         : make_float4(0.f, 0.f, 0.f, 0.f);
+            }
+#pragma unroll
+            for (int k = 0; k < 8; ++k) {  // in split order
+              v[0] = fmaf(aq[k].x, fq[k], v[0]);
+              v[1] = fmaf(aq[k].y, fq[k], v[1]);
+              v[2] = fmaf(aq[k].z, fq[k], v[2]);
+              v[3] = fmaf(aq[k].w, fq[k], v[3]);
+            }
+          }
+        }
+        const float il = sm.cl[r];  // 1 / L
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          if (c + q >= live) break;
+          const int n = col0 + c + q, b = n / D;
+          a.out[((size_t)b * Lo + i) * H * D + (size_t)(h0 + h) * D + (n - b * D)] =
+              __fmul_rn(v[q], il);
+        }
+      }
+      __syncthreads();
+    }
+  };
+  auto ld_plain = [](const float* p) { return *p; };
+  auto ld4_plain = [](const float* p) { return *reinterpret_cast<const float4*>(p); };
+
+  if (splits == 1) {
+    // one split and every row keeps an entry: M, L and the output straight
+    // from the block (the bits of a one-split combine: f = 1)
+    const int none = __syncthreads_or(tid < TM && o0 + tid < Lo && sm.mrow[0][tid] == -INFINITY);
+    if (!none) {
+      for (int e = tid; e < HB * TM; e += THREADS) {
+        const int h = e / TM, r = e - h * TM, i = o0 + r;
+        if (a.M != nullptr && h0 + h < H && i < Lo) {
+          a.M[(size_t)(h0 + h) * Lo + i] = sm.mrow[h][r];
+          a.L[(size_t)(h0 + h) * Lo + i] = sm.lrow[h][r];
+        }
+      }
+      if (OUT && h0 + wh < H) {
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+          const int i = o0 + rows[r];
+          if (i >= Lo) continue;
+          const float il = __frcp_rn(sm.lrow[wh][rows[r]]);  // 1 / L
+          float* const orow = a.out + (size_t)i * H * D + (size_t)(h0 + wh) * D;
+#pragma unroll
+          for (int c = 0; c < 8; c += 4) {
+            const int n0 = col0 + slab * TN + cols[c];
+            if (a.vec4 && n0 + 3 < N) {  // four columns of one sample: 16 bytes
+              const int b = n0 / D;
+              *reinterpret_cast<float4*>(orow + (size_t)b * Lo * H * D + (n0 - b * D)) =
+                  make_float4(__fmul_rn(acc[r][c], il), __fmul_rn(acc[r][c + 1], il),
+                              __fmul_rn(acc[r][c + 2], il), __fmul_rn(acc[r][c + 3], il));
+            } else {
+#pragma unroll
+              for (int q = 0; q < 4; ++q) {
+                const int n = n0 + q, b = n / D;
+                if (n < N) orow[(size_t)b * Lo * H * D + (n - b * D)] = __fmul_rn(acc[r][c + q], il);
+              }
+            }
+          }
+        }
+      }
+      return;
+    }
+  }
+  // the split's record: M and L per head and row, then (OUT) the
+  // accumulator, which a split that listed no key leaves out (its f is 0)
+  auto write_record = [&](float* rec) {
+    for (int e = tid; e < HB * TM; e += THREADS) {
+      rec[e] = (&sm.mrow[0][0])[e];
+      rec[HB * TM + e] = (&sm.lrow[0][0])[e];
+    }
+    if (OUT && listed) {
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+#pragma unroll
+        for (int c = 0; c < 8; c += 4)
+          *reinterpret_cast<float4*>(rec + 2 * HB * TM + (size_t)(wh * TM + rows[r]) * CW +
+                                     slab * TN + cols[c]) =
+              make_float4(acc[r][c], acc[r][c + 1], acc[r][c + 2], acc[r][c + 3]);
+    }
+  };
+  if (splits > MAX_CLUSTER) {
+    // more splits than a cluster holds: the records go to scratch and the
+    // last block of the tile to finish combines them (a counter per tile,
+    // left zero for the next launch)
+    const size_t tile = (size_t)blockIdx.y * gridDim.x + blockIdx.x;
+    float* const scr = a.scratch + tile * splits * REC;
+    write_record(scr + (size_t)split * REC);
+    __threadfence();
+    __syncthreads();
+    if (tid == 0) sm.last = atomicAdd(a.counters + tile, 1) == splits - 1;
+    __syncthreads();
+    if (!sm.last) return;
+    __threadfence();
+    combine([&](int s) { return static_cast<const float*>(scr + (size_t)s * REC); },
+            [](const float* p) { return __ldcg(p); },
+            [](const float* p) { return __ldcg(reinterpret_cast<const float4*>(p)); },
+            splits, 0, TM);
+    if (tid == 0) a.counters[tile] = 0;
+    return;
+  }
+  float* const rec = sm.uni;  // the staging and weights are free
+  write_record(rec);
+  if (splits == 1) {  // a row keeps no entry: the block's own record
+    __syncthreads();
+    combine([&](int) { return static_cast<const float*>(rec); }, ld_plain, ld4_plain, 1, 0, TM);
+    return;
+  }
+  // the tile's splits form one cluster: each combines a share of the rows
+  // over the blocks' shared memory
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  const int share = (TM + splits - 1) / splits;
+  const int r0 = split * share, r1 = min(r0 + share, TM);
+  combine([&](int s) { return static_cast<const float*>(cluster.map_shared_rank(rec, s)); },
+          ld_plain, ld4_plain, splits, r0, r1);
+  cluster.sync();  // no block leaves while another reads its record
+}
+
+template <bool OUT, int HB, int NS>
+int launch_fwd_shape(const FArgs& a, const Plan& p, cudaStream_t s) {
+  using S = FShape<OUT, HB, NS>;
+  constexpr int smem = (int)sizeof(FSmem<OUT, HB, NS>);
+  int rc = (int)cudaFuncSetAttribute(fwd_kernel<OUT, HB, NS>,
+                                     cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (rc != 0) return rc;
+  const dim3 grid(p.groups * a.n_ct, p.tiles, p.splits);
+  if (p.splits > 1 && p.splits <= MAX_CLUSTER) {  // the splits of a tile: one cluster
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = grid;
+    cfg.blockDim = dim3(S::THREADS);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = s;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = 1;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = p.splits;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    rc = (int)cudaLaunchKernelEx(&cfg, fwd_kernel<OUT, HB, NS>, a);
+    if (rc != 0) return rc;
+  } else {
+    fwd_kernel<OUT, HB, NS><<<grid, S::THREADS, smem, s>>>(a);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <bool OUT, int HB>
+int launch_fwd_slabs(const FArgs& a, const Plan& p, cudaStream_t s) {
+  if constexpr (HB == 1)
+    if (p.ns == 4) return launch_fwd_shape<OUT, HB, 4>(a, p, s);
+  if constexpr (HB <= 2)
+    if (p.ns == 2) return launch_fwd_shape<OUT, HB, 2>(a, p, s);
+  return launch_fwd_shape<OUT, HB, 1>(a, p, s);
+}
+
+template <bool OUT>
+int launch_fwd(const FArgs& a, const Plan& p, cudaStream_t s) {
+  switch (p.hb) {
+    case 1: return launch_fwd_slabs<OUT, 1>(a, p, s);
+    case 2: return launch_fwd_slabs<OUT, 2>(a, p, s);
+    case 3: return launch_fwd_slabs<OUT, 3>(a, p, s);
+    case 4: return launch_fwd_slabs<OUT, 4>(a, p, s);
+    case 5: return launch_fwd_slabs<OUT, 5>(a, p, s);
+    case 6: return launch_fwd_slabs<OUT, 6>(a, p, s);
+    case 7: return launch_fwd_slabs<OUT, 7>(a, p, s);
+    default: return launch_fwd_slabs<OUT, 8>(a, p, s);
+  }
+}
+
+// A split's record in floats, and the tiles a launch has (one counter
+// each where the records go to scratch).
+long long record_floats(bool out, const Plan& p) {
+  return (long long)p.hb * TM * (2 + (out ? p.ns * TN : 0));
+}
+
+long long launch_tiles_of(bool out, const Plan& p) {
+  return (long long)p.groups * (out ? p.n_ct : 1) * p.tiles;
+}
+
+int run_fwd(bool out, const float* dist, const float* thr, const float* scale, const float* u,
+            float* o, float* M, float* L, float* scratch, int* counters, int H, int B, int Lo,
+            int Li, int D, cudaStream_t s) {
+  if (bad_shape(H, B, Lo, Li, D)) return (int)cudaErrorInvalidValue;
+  const Plan p = plan(FWD, H, B, Lo, Li, D);
+  if (p.splits > MAX_CLUSTER && (scratch == nullptr || counters == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if ((M == nullptr) != (L == nullptr)) return (int)cudaErrorInvalidValue;
+  const FArgs a{dist, thr, scale, u, o, M, L, scratch, counters,
+                H, Lo, Li, D, B * D, out ? p.n_ct : 1, p.R,
+                out && D % 4 == 0 && aligned(u) && aligned(o), Li % 4 == 0 && aligned(dist)};
+  return out ? launch_fwd<true>(a, p, s) : launch_fwd<false>(a, p, s);
 }
 
 }  // namespace
 
-extern "C" int posatt_fixed_fwd(const float* dist, const float* thr,
-                                const float* scale, const float* u, float* out,
-                                int H, int B, int Lo, int Li, int D,
-                                void* stream) {
+// How a launch of posatt_fixed_fwd (out = 1) or posatt_stats (out = 0) at
+// this shape cuts its work: *splits, the splits of L_in; *floats, the
+// scratch of split records it needs (0 up to 8 splits); *tiles, the
+// counters it needs (one int each, zero before the first launch and left
+// zero by each).
+extern "C" int posatt_fwd_plan(int out, int H, int B, int Lo, int Li, int D,
+                               long long* floats, long long* tiles, int* splits) {
   if (bad_shape(H, B, Lo, Li, D)) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (H) {
-    case 1: launch_all_heads<1, false>(dist, thr, scale, u, out, H, B, Lo, Li, D, s); break;
-    case 2: launch_all_heads<2, false>(dist, thr, scale, u, out, H, B, Lo, Li, D, s); break;
-    case 3: launch_all_heads<3, false>(dist, thr, scale, u, out, H, B, Lo, Li, D, s); break;
-    case 4: launch_all_heads<4, false>(dist, thr, scale, u, out, H, B, Lo, Li, D, s); break;
-    case 5: launch_all_heads<5, false>(dist, thr, scale, u, out, H, B, Lo, Li, D, s); break;
-    case 6: launch_all_heads<6, false>(dist, thr, scale, u, out, H, B, Lo, Li, D, s); break;
-    case 7: launch_all_heads<7, false>(dist, thr, scale, u, out, H, B, Lo, Li, D, s); break;
-    case 8: launch_all_heads<8, false>(dist, thr, scale, u, out, H, B, Lo, Li, D, s); break;
-    default:
-      switch (head_group(H)) {
-        case 5: launch_all_heads<5, true>(dist, thr, scale, u, out, H, B, Lo, Li, D, s); break;
-        case 6: launch_all_heads<6, true>(dist, thr, scale, u, out, H, B, Lo, Li, D, s); break;
-        case 7: launch_all_heads<7, true>(dist, thr, scale, u, out, H, B, Lo, Li, D, s); break;
-        default: launch_all_heads<8, true>(dist, thr, scale, u, out, H, B, Lo, Li, D, s); break;
-      }
-  }
-  return (int)cudaGetLastError();
+  const Plan p = plan(FWD, H, B, Lo, Li, D);
+  const bool scr = p.splits > MAX_CLUSTER;
+  *tiles = scr ? launch_tiles_of(out != 0, p) : 0;
+  *floats = scr ? launch_tiles_of(out != 0, p) * p.splits * record_floats(out != 0, p) : 0;
+  *splits = p.splits;
+  return 0;
+}
+
+// M and L may both be null (nothing but the output is written).
+extern "C" int posatt_fixed_fwd(const float* dist, const float* thr, const float* scale,
+                                const float* u, float* out, float* M, float* L,
+                                float* scratch, int* counters,
+                                int H, int B, int Lo, int Li, int D, void* stream) {
+  return run_fwd(true, dist, thr, scale, u, out, M, L, scratch, counters, H, B, Lo, Li, D,
+                 static_cast<cudaStream_t>(stream));
+}
+
+// B and D are the forward's: they set the plan, and so the bits.
+extern "C" int posatt_stats(const float* dist, const float* thr, const float* scale,
+                            float* M, float* L, float* scratch, int* counters,
+                            int H, int B, int Lo, int Li, int D, void* stream) {
+  if (M == nullptr) return (int)cudaErrorInvalidValue;
+  return run_fwd(false, dist, thr, scale, nullptr, nullptr, M, L, scratch, counters, H, B, Lo,
+                 Li, D, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int posatt_fixed_fwd_v2(const float* dist, const float* thr,

@@ -7,11 +7,13 @@ kernels, each the port of one TPU kernel:
 
 - ``csrc/posatt_fixed_fwd.cu``: the forward under the three schedules of
   the JAX ``version`` option, one entry point each: ``posatt_fixed_fwd``
-  (version 3, ``_make_posatt_kernel_v3``), ``posatt_fixed_fwd_v2``
-  (``_posatt_kernel_v2``) and ``posatt_fixed_fwd_v1`` (``_posatt_kernel``);
-- ``csrc/posatt_fixed_bwd.cu``: the row statistics ``_posatt_stats``, the
-  bandwidth gradient ``_posatt_bwd_dscale`` and the value gradient
-  ``_posatt_bwd_du``.
+  (version 3, ``_make_posatt_kernel_v3``, which also writes the row
+  statistics when asked), ``posatt_fixed_fwd_v2`` (``_posatt_kernel_v2``)
+  and ``posatt_fixed_fwd_v1`` (``_posatt_kernel``); and the row statistics
+  ``_posatt_stats`` alone (``posatt_stats``: version 3's kernel without
+  the contraction);
+- ``csrc/posatt_fixed_bwd.cu``: the bandwidth gradient
+  ``_posatt_bwd_dscale`` and the value gradient ``_posatt_bwd_du``.
 
 Each source says what bounds it and how. The three versions compute one
 function and differ only in what a block owns (a group of up to 8 heads,
@@ -19,8 +21,9 @@ one head, or one head and one sample), so on the CPU every version takes
 the one plain
 version, :func:`posatt_fixed_reference`. :class:`PosAttFixed` mirrors the
 ``_posatt_fixed`` custom VJP with its fused backward: the forward runs the
-chosen version's kernel and the stats kernel and saves the row statistics
-(M, L) and its output; the backward recomputes the attention weights from
+chosen version's kernel (version 3's writes the row statistics M and L
+beside its output; versions 1 and 2 add a launch of the stats kernel) and
+saves M, L and its output; the backward recomputes the attention weights from
 (M, L), and its bandwidth gradient reads the output, so that it needs no
 second pass over the rows. The JAX ``fused_bwd=False`` recompute path and
 ``interpret`` switch have no counterpart here.
@@ -52,23 +55,36 @@ def _keep(dist, thr):
     return (dist <= thr) & (dist < float("inf"))
 
 
-def posatt_fixed_reference(dist, thr, scale, u):
-    """Plain PyTorch version of the forward kernel: (H, B, L_out, D).
+def _logits(dist, thr, scale):
+    """The masked logits (H, L_out, L_in): -scale * dist where kept, else
+    the finite -1e38."""
+    return torch.where(_keep(dist, thr), -dist[None] * scale[:, :, None], _NEG)
+
+
+def _row_stats(logits):
+    M = logits.amax(dim=-1, keepdim=True)
+    return M, torch.exp(logits - M).sum(dim=-1, keepdim=True)
+
+
+def posatt_fixed_reference(dist, thr, scale, u, stats=False):
+    """Plain PyTorch version of the forward kernel: (H, B, L_out, D), and
+    with ``stats`` also the row statistics M, L of the same logits, as the
+    kernel writes them: ``(out, M, L)``.
 
     ``dist`` (L_out, L_in), ``thr`` (L_out, 1), ``scale`` (H, 1),
-    ``u`` (B, L_in, D).
+    ``u`` (B, L_in, D). A row that keeps no entry has the softmax of -1e38
+    everywhere: uniform weights, M = -1e38, L = L_in.
     """
-    logits = torch.where(_keep(dist, thr), -dist[None] * scale[:, :, None], _NEG)
+    logits = _logits(dist, thr, scale)
     att = torch.softmax(logits, dim=-1)  # (H, L_out, L_in)
-    return torch.einsum("hnj,bjd->hbnd", att, u)
+    out = torch.einsum("hnj,bjd->hbnd", att, u)
+    return (out, *_row_stats(logits)) if stats else out
 
 
 def posatt_stats_reference(dist, thr, scale):
     """Plain version of the stats kernel: the final softmax row max ``M``
     and normaliser ``L`` of the masked logits, (H, L_out, 1) each."""
-    logits = torch.where(_keep(dist, thr), -dist[None] * scale[:, :, None], _NEG)
-    M = logits.amax(dim=-1, keepdim=True)
-    return M, torch.exp(logits - M).sum(dim=-1, keepdim=True)
+    return _row_stats(_logits(dist, thr, scale))
 
 
 def _weights(dist, thr, scale, M, L):
@@ -180,7 +196,7 @@ def _launch(fn, name, device, *args) -> None:
 
 
 def _fixed_forward_cuda(name, dist, thr, scale, u):
-    """Launch the named forward entry point: (B, L_out, H*D)."""
+    """Launch the named version-1 or -2 forward entry point: (B, L_out, H*D)."""
     _check(dist, thr, scale, u)
     _check_cuda(name, dist)
     H = scale.shape[0]
@@ -192,16 +208,79 @@ def _fixed_forward_cuda(name, dist, thr, scale, u):
     return out
 
 
-def posatt_fixed_cuda(dist, thr, scale, u):
-    """Launch the forward kernel (version 3: a block owns a group of up to
-    8 heads) on CUDA tensors: (B, L_out, H*D), head-concat, any head count.
+@functools.lru_cache(maxsize=256)
+def _fwd_plan(out: bool, H: int, B: int, L_out: int, L_in: int, D: int):
+    """How one version-3 forward (``out`` True) or stats launch cuts its
+    work at this shape, from the library: (floats of split records and
+    tile counters it needs, both 0 up to 8 splits; the splits of L_in)."""
+    fn = getattr(_build.load("posatt_fixed_fwd"), "posatt_fwd_plan")
+    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_longlong)] * 2 + [
+        ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    floats, tiles, splits = ctypes.c_longlong(0), ctypes.c_longlong(0), ctypes.c_int(0)
+    rc = fn(int(out), H, B, L_out, L_in, D, ctypes.byref(floats), ctypes.byref(tiles),
+            ctypes.byref(splits))
+    if rc != 0:
+        raise ValueError(f"posatt_fwd_plan refused H={H} B={B} L_out={L_out} L_in={L_in} D={D}")
+    return floats.value, tiles.value, splits.value
 
-    Same arguments as :func:`posatt_fixed_reference`. Adds one to
-    ``posatt_fixed_cuda.launches`` for each launch.
+
+# (device, stream) -> the launch counters of #1/#2 (one a tile) and of
+# dscale (one): int32 zeros, left zero by every launch, grown (as new
+# zeros) when a launch needs more; kept, not made per call, so that a
+# launch needs no memset
+_COUNTERS: dict = {}
+
+
+def _counters(device, n: int):
+    """At least ``n`` counters for ``device``'s current stream. Launches on
+    one stream run one after another and share them; another stream gets
+    its own."""
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    buf = _COUNTERS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(n, dtype=torch.int32, device=device)
+        _COUNTERS[key] = buf
+    return buf
+
+
+def _split_scratch(out, dist, H, B, L_out, L_in, D):
+    """The split records and tile counters one launch needs (None, None up
+    to 8 splits, where the splits combine inside a cluster)."""
+    floats, tiles, _ = _fwd_plan(out, H, B, L_out, L_in, D)
+    if not floats:
+        return None, None
+    scratch = torch.empty(floats, dtype=torch.float32, device=dist.device)
+    return scratch, _counters(dist.device, tiles)
+
+
+def posatt_fixed_cuda(dist, thr, scale, u, stats=False):
+    """Launch the forward kernel (version 3: a block owns a group of up to
+    8 heads, a column tile and a split of L_in) on CUDA tensors:
+    (B, L_out, H*D), head-concat, any head count; with ``stats`` the same
+    launch also writes the row statistics: ``(out, M, L)``, M and L
+    (H, L_out, 1) each, the bits :func:`posatt_stats_cuda` writes at this
+    shape.
+
+    Same arguments as :func:`posatt_fixed_reference`. Deterministic. Adds
+    one to ``posatt_fixed_cuda.launches`` for each launch.
     """
-    out = _fixed_forward_cuda("posatt_fixed_fwd", dist, thr, scale, u)
+    _check(dist, thr, scale, u)
+    _check_cuda("posatt_fixed_cuda", dist)
+    H = scale.shape[0]
+    B, L_in, D = u.shape
+    L_out = dist.shape[0]
+    out = torch.empty((B, L_out, H * D), dtype=torch.float32, device=dist.device)
+    M = L = None
+    if stats:
+        M = torch.empty((H, L_out, 1), dtype=torch.float32, device=dist.device)
+        L = torch.empty_like(M)
+    scratch, counters = _split_scratch(True, dist, H, B, L_out, L_in, D)
+    _launch(_entry("posatt_fixed_fwd", "posatt_fixed_fwd", 9, 5), "posatt_fixed_fwd",
+            dist.device, dist, thr, scale, u, out, M, L, scratch, counters,
+            H, B, L_out, L_in, D)
     posatt_fixed_cuda.launches += 1
-    return out
+    return (out, M, L) if stats else out
 
 
 def posatt_fixed_v2_cuda(dist, thr, scale, u):
@@ -222,17 +301,24 @@ def posatt_fixed_v1_cuda(dist, thr, scale, u):
     return out
 
 
-def posatt_stats_cuda(dist, thr, scale):
+def posatt_stats_cuda(dist, thr, scale, B, D):
     """Launch the stats kernel on CUDA tensors: (M, L), (H, L_out, 1) each.
-    Adds one to ``posatt_stats_cuda.launches`` for each launch."""
+
+    It is the version-3 forward's kernel without the contraction, on the
+    plan of a forward of ``B`` samples of ``D`` value columns: it writes
+    the bits of M and L that :func:`posatt_fixed_cuda` writes with
+    ``stats`` at that shape. Adds one to ``posatt_stats_cuda.launches`` for
+    each launch."""
     _check_tensors((("dist", dist), ("thr", thr), ("scale", scale)), dist.device)
     _check_cuda("posatt_stats_cuda", dist)
     H = scale.shape[0]
     L_out, L_in = dist.shape
     M = torch.empty((H, L_out, 1), dtype=torch.float32, device=dist.device)
     L = torch.empty_like(M)
-    fn = _entry("posatt_fixed_bwd", "posatt_stats", 5, 3)
-    _launch(fn, "posatt_stats", dist.device, dist, thr, scale, M, L, H, L_out, L_in)
+    scratch, counters = _split_scratch(False, dist, H, B, L_out, L_in, D)
+    fn = _entry("posatt_fixed_fwd", "posatt_stats", 7, 5)
+    _launch(fn, "posatt_stats", dist.device, dist, thr, scale, M, L, scratch, counters,
+            H, B, L_out, L_in, D)
     posatt_stats_cuda.launches += 1
     return M, L
 
@@ -253,22 +339,6 @@ def _bwd_plan(du: bool, H: int, B: int, L_out: int, L_in: int, D: int):
     return floats.value, splits.value
 
 
-# (device, stream) -> dscale's launch counter: one int32, zero between
-# launches (the kernel's last block resets it); kept, not made per call, so
-# that a launch needs no memset
-_COUNTERS: dict = {}
-
-
-def _counter(device):
-    """The dscale kernel's counter for ``device``'s current stream, zeroed
-    when first made. Launches on one stream run one after another and share
-    it; another stream gets its own."""
-    key = (device, torch.cuda.current_stream(device).cuda_stream)
-    if key not in _COUNTERS:
-        _COUNTERS[key] = torch.zeros(1, dtype=torch.int32, device=device)
-    return _COUNTERS[key]
-
-
 def posatt_bwd_dscale_cuda(dist, thr, scale, M, L, g, u, out):
     """Launch the dscale kernel on CUDA tensors: (H, 1). ``out`` is the
     forward's output (B, L_out, H*D). One launch; deterministic: the
@@ -287,7 +357,7 @@ def posatt_bwd_dscale_cuda(dist, thr, scale, M, L, g, u, out):
     ds = torch.empty((H, 1), dtype=torch.float32, device=dist.device)
     fn = _entry("posatt_fixed_bwd", "posatt_bwd_dscale", 11, 5)
     _launch(fn, "posatt_bwd_dscale", dist.device, dist, thr, scale, M, L, g, u, out,
-            partial, _counter(dist.device), ds, H, B, L_out, L_in, D)
+            partial, _counters(dist.device, 1), ds, H, B, L_out, L_in, D)
     posatt_bwd_dscale_cuda.launches += 1
     return ds
 
@@ -321,25 +391,38 @@ posatt_bwd_du_cuda.launches = 0
 _FORWARDS = {1: posatt_fixed_v1_cuda, 2: posatt_fixed_v2_cuda, 3: posatt_fixed_cuda}
 
 
-def _forward(dist, thr, scale, u, version=3):
-    """The forward on either device; the inputs are validated once, by the
-    launcher or here before the plain version, which serves every version
-    on the CPU."""
+def _forward(dist, thr, scale, u, version=3, stats=False):
+    """The forward on either device: (B, L_out, H*D), or with ``stats``
+    ``(out, M, L)`` with the row statistics (H, L_out, 1): on the card
+    version 3's launch writes them, versions 1 and 2 add a stats launch; on
+    the CPU the plain version, which serves every version, gives them from
+    its own logits. The inputs are validated once, by the launcher or here
+    before the plain version."""
     _check_version(version)
     if dist.device.type == "cuda":
-        return _FORWARDS[version](dist, thr, scale, u)
+        if version == 3:
+            return posatt_fixed_cuda(dist, thr, scale, u, stats=stats)
+        out = _FORWARDS[version](dist, thr, scale, u)
+        if not stats:
+            return out
+        B, _, D = u.shape
+        return (out, *posatt_stats_cuda(dist, thr, scale, B, D))
     _check(dist, thr, scale, u)
     B, _, D = u.shape
-    out = posatt_fixed_reference(dist, thr, scale, u)  # (H, B, L_out, D)
-    return out.permute(1, 2, 0, 3).reshape(B, dist.shape[0], -1)
+    got = posatt_fixed_reference(dist, thr, scale, u, stats=stats)
+    out = got[0] if stats else got  # (H, B, L_out, D)
+    out = out.permute(1, 2, 0, 3).reshape(B, dist.shape[0], -1)
+    return (out, *got[1:]) if stats else out
 
 
 class PosAttFixed(torch.autograd.Function):
     """Fixed-mesh position attention with the fused backward:
     ``apply(dist, thr, scale, u, version=3)`` -> (B, L_out, H*D).
 
-    The forward runs the chosen version's forward kernel and the stats
-    kernel and saves (dist, thr, scale, u, M, L, out); the backward runs
+    The forward runs the chosen version's forward kernel, which writes the
+    row statistics M and L at version 3 (versions 1 and 2 add a launch of
+    the stats kernel), and saves (dist, thr, scale, u, M, L, out); the
+    backward runs
     the dscale kernel, which reads the forward's output, when ``scale``
     needs a gradient and the du kernel when ``u`` does, whatever the
     version. ``dist``, ``thr`` and ``version`` get none. CPU tensors take
@@ -349,11 +432,7 @@ class PosAttFixed(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, dist, thr, scale, u, version=3):
-        out = _forward(dist, thr, scale, u, version)
-        if dist.device.type == "cuda":
-            M, L = posatt_stats_cuda(dist, thr, scale)
-        else:
-            M, L = posatt_stats_reference(dist, thr, scale)
+        out, M, L = _forward(dist, thr, scale, u, version, stats=True)
         ctx.save_for_backward(dist, thr, scale, u, M, L, out)
         return out
 
@@ -387,7 +466,7 @@ def position_attention_fixed(dist, lmda, inputs, locality: float, thr=None, *, v
     = one head and a tile of the batch-folded columns, 1 = one head and one
     sample; another value raises ``ValueError`` before anything runs. When
     a gradient is needed the call goes through :class:`PosAttFixed`
-    (forward and stats kernels); otherwise, as under
+    (the forward kernel writes the row statistics too); otherwise, as under
     ``torch.inference_mode``, it launches the forward kernel only. The
     gradient with respect to ``lmda`` flows through ``bandwidth_scale``
     outside the Function.

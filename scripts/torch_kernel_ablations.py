@@ -1,7 +1,9 @@
 """Ablations of the port's kernels on an NVIDIA GPU: what holds each one's
 time. #7 (posatt_batched_fwd), #8 (dscale, du), #9 (posatt_tf_fwd), #11
-(posatt_tf_coord_fwd, which shares #9's source) and the fixed-mesh
-backward #3 (dscale) and #4 (du) (posatt_fixed_bwd).
+(posatt_tf_coord_fwd, which shares #9's source), the fixed-mesh backward
+#3 (dscale) and #4 (du) (posatt_fixed_bwd), and the fixed-mesh forward #1
+with and without its row statistics and #2, the same kernel without the
+contraction (posatt_fixed_fwd).
 
 Each variant is the kernel source with one piece of its work taken out or
 one design choice changed (a text substitution), or, for #9's producer
@@ -10,7 +12,10 @@ warp, the source scripts/ablations/posatt_tf_fwd_producer.cu in its place
 library and timed with ``chip_smoke.cuda_ms`` (CUDA events) at the
 full-width elasticity / elasticity_tf shapes of ``chip_smoke.py`` (the
 fixed-mesh backward at the Burgers training shapes and, through the kernel
-API, at the vorticity and sod shapes of ``chip_smoke.config_shapes``), in
+API, at the vorticity and sod shapes of ``chip_smoke.config_shapes``; the
+fixed-mesh forward at the Burgers shapes and the eight shapes of
+``chip_smoke.schedule_shapes``, up to the Darcy 421^2 ZSSR encoder and
+decoder), in
 turns (base, variants, variants in reverse, base). Variants that take work
 out give wrong results; they are timed only. The producer warp's forms are
 held against the plain version at the one shape they take (the served
@@ -20,12 +25,16 @@ the card's name and power limit.
     python scripts/torch_kernel_ablations.py [--parent CSRC] [source ...]
 
 with sources among posatt_batched_fwd, posatt_batched_bwd, posatt_tf_fwd,
-posatt_fixed_bwd (default: all four). ``--parent CSRC``: one more variant
-of each source, the file of the same name in the directory CSRC (for
-example the kernels of a parent commit unpacked with ``git archive``),
-timed in turns with the rest; the fixed-mesh backward's parent dscale is
-called through its own C interface (before it read the forward's output
-and took counters). Run from the repository root on a machine with the
+posatt_fixed_bwd, posatt_fixed_fwd (default: all five). ``--parent CSRC``:
+one more variant of each source, the file of the same name in the
+directory CSRC (for example the kernels of a parent commit unpacked with
+``git archive``), timed in turns with the rest; the fixed-mesh backward's
+parent dscale is called through its own C interface (before it read the
+forward's output and took counters), and so are the parent's #1 (no row
+statistics out) and #2 (then in CSRC's posatt_fixed_bwd.cu; its
+``fwd_stats`` is its #1 and #2 one after the other). A source that
+includes posatt_fixed_common.cuh is built with the header inlined, so a
+variant may change it. Run from the repository root on a machine with the
 card and nvcc.
 """
 
@@ -90,6 +99,8 @@ FIXED_TWO_LAUNCH = [
      "  return (int)cudaGetLastError();"),
 ]
 FIXED_TARGET = "constexpr int TARGET_WARPS = 1056;"
+COMMON = "posatt_fixed_common.cuh"
+INCLUDE_COMMON = f'#include "{COMMON}"'
 FIXED_DU_SLABS = "  if (du) p.ns = slabs > 8 ? 2 : (slabs >= 3 ? 4 : (slabs >= 2 ? 2 : 1));"
 
 # source -> variant -> substitutions (old text, new text) in the kernel's
@@ -177,10 +188,40 @@ VARIANTS = {
         "du_four_slabs": [(FIXED_DU_SLABS, "  if (du) p.ns = slabs >= 3 ? 4 : (slabs >= 2 ? 2 : 1);")],
         "dscale_two_launches": FIXED_TWO_LAUNCH,
     },
+    "posatt_fixed_fwd": {
+        "base": [],
+        "few_fma": [(FMA, FEW_FMA)],
+        "no_exp": [("expf(__fsub_rn(__fmul_rn(-sh[h], d), mh[h]))",
+                    "__fsub_rn(__fmul_rn(-sh[h], d), mh[h])")],
+        # 32 staged u rows a contraction step (half the barriers), not 16
+        "steps_of_32": [("constexpr int SK = 16;", "constexpr int SK = 32;")],
+        # rounds of 64 keys at one or two heads, not 128 (more blocks fit on
+        # a SM, twice the rounds)
+        "rounds_of_64": [("static constexpr int RC = HB <= 2 ? 128 :",
+                          "static constexpr int RC = HB <= 2 ? 64 :")],
+        # the split count: the grid aims at 4 or 16 warps an SM, not 8
+        "target_4_warps": [(FIXED_TARGET, FIXED_TARGET.replace("1056", "528"))],
+        "target_16_warps": [(FIXED_TARGET, FIXED_TARGET.replace("1056", "2112"))],
+        # one 64-column slab a block at two heads (twice the blocks), not two
+        "one_slab": [("  else p.ns = p.hb == 2 && slabs >= 2 ? 2 : 1;", "  else p.ns = 1;")],
+        # a head a block (and four slabs) where the values are 1024 columns
+        # or wider: half the exps a block, the distances scanned once a head
+        "one_head_wide": [("  p.hb = head_group(H);\n",
+                           "  p.hb = head_group(H);\n  if (kind == FWD && slabs >= 16) p.hb = 1;\n")],
+    },
 }
 # variants that take only some (op, kernel)s
 ONLY = {("posatt_tf_fwd", v): {("serve_processor", "dist_fwd")}
         for v in ("producer_warp", "producer_warp_rows")}
+
+
+def inlined(path: Path) -> str:
+    """A kernel source with the shared fixed-mesh header, where it includes
+    it, put in place of the include."""
+    text = path.read_text()
+    if INCLUDE_COMMON in text:
+        text = text.replace(INCLUDE_COMMON, (path.parent / COMMON).read_text())
+    return text
 
 
 def build(scratch: Path, sources) -> dict:
@@ -189,12 +230,12 @@ def build(scratch: Path, sources) -> dict:
 
     jobs = {}
     for src in sources:
-        text = (CSRC / f"{src}.cu").read_text()
+        text = inlined(CSRC / f"{src}.cu")
         for name, subs in VARIANTS[src].items():
             body = text
             if isinstance(subs, tuple):
                 path, subs = subs
-                body = path.read_text()
+                body = inlined(path)
             for old, new in subs:
                 if body.count(old) != 1:
                     raise RuntimeError(f"{src} {name}: {old!r} is not in the source exactly once")
@@ -244,8 +285,7 @@ def fixed_bwd_calls(c, rng) -> dict:
         scale = posatt.bandwidth_scale(to(rng.random((H, 1, 1)))).reshape(H, 1)
         u = to(rng.standard_normal((B, Li, D)))
         g = to(rng.standard_normal((B, Lo, H * D)))
-        M, L = kp.posatt_stats_cuda(dist, thr, scale)
-        out = kp.posatt_fixed_cuda(dist, thr, scale, u)
+        out, M, L = kp.posatt_fixed_cuda(dist, thr, scale, u, stats=True)
         # the parent's scratch: a partial per block of its narrowest tiles
         partial = torch.empty((-(-Lo // 8) * -(-(B * D) // 32), H), device="cuda")
         ds = torch.empty((H, 1), device="cuda")
@@ -261,6 +301,64 @@ def fixed_bwd_calls(c, rng) -> dict:
         if op != "burgers_encoder":  # a Burgers step needs no dU there
             du = lambda a=(dist, thr, scale, M, L, g): kp.posatt_bwd_du_cuda(*a)
             calls[(op, "du")] = {"new": du, "parent": du}  # one C interface
+    torch.cuda.synchronize()
+    return calls
+
+
+def fixed_fwd_calls(c, rng, parent_bwd) -> dict:
+    """The fixed-mesh forward's timed calls at the Burgers shapes (the
+    model's geometry) and the shapes of phase 16 (``schedule_shapes``):
+    (op, kernel) -> {"new": launch, "parent": the parent's launch}; kernel
+    ``fwd`` (#1 alone, as serving runs it), ``fwd_stats`` (#1 with M and L
+    out, as training runs it; the parent's: its #1, then its #2) and
+    ``stats`` (#2 alone, as versions 1 and 2 run it). ``parent_bwd``: the
+    parent's posatt_fixed_bwd library, which held its #2, or None."""
+    import numpy as np
+    import torch
+
+    from position_induced_transformer_torch import configs
+    from position_induced_transformer_torch.kernels import posatt_pallas as kp
+    from position_induced_transformer_torch.ops import posatt
+
+    geom = c.burgers_geometry("cuda")
+    m = configs.BURGERS.model
+    to = lambda a: torch.from_numpy(a.astype(np.float32)).cuda()
+    inf = lambda Lo: torch.full((Lo, 1), float("inf"), device="cuda")
+    ops = [("burgers_encoder", geom.dist_down, geom.thr_down, c.BURGERS_B, m.in_dim + m.space_dim),
+           ("burgers_processor", geom.dist_proc, inf(geom.dist_proc.shape[0]), c.BURGERS_B,
+            m.hid_dim),
+           ("burgers_decoder", geom.dist_up, geom.thr_up, c.BURGERS_B, m.hid_dim)]
+    ops = [(op, dist, thr, to(rng.random((m.n_head, 1, 1))), to(rng.standard_normal(
+        (B, dist.shape[1], D)))) for op, dist, thr, B, D in ops]
+    shapes = c.schedule_shapes()
+    ops += [(f"phase16_{name}", dist, thr, lmda, u)
+            for name, (dist, thr, lmda, u, _, _) in c.schedule_cases(shapes).items()]
+    calls = {}
+    for op, dist, thr, lmda, u in ops:
+        H = lmda.shape[0]
+        B, Li, D = u.shape
+        Lo = dist.shape[0]
+        scale = posatt.bandwidth_scale(lmda).reshape(H, 1)
+        out = torch.empty((B, Lo, H * D), device="cuda")
+        M, L = torch.empty((H, Lo), device="cuda"), torch.empty((H, Lo), device="cuda")
+
+        def parent_fwd(a=(dist, thr, scale, u, out, H, B, Lo, Li, D)):
+            kp._launch(kp._entry("posatt_fixed_fwd", "posatt_fixed_fwd", 5, 5), "parent #1",
+                       dist.device, *a)
+
+        def parent_stats(a=(dist, thr, scale, M, L, H, Lo, Li)):
+            fn = parent_bwd.posatt_stats
+            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+            kp._launch(fn, "parent #2", dist.device, *a)
+
+        calls[(op, "fwd")] = {"new": lambda a=(dist, thr, scale, u): kp.posatt_fixed_cuda(*a),
+                              "parent": parent_fwd}
+        calls[(op, "fwd_stats")] = {
+            "new": lambda a=(dist, thr, scale, u): kp.posatt_fixed_cuda(*a, stats=True),
+            "parent": lambda f=parent_fwd, s=parent_stats: (f(), s())}
+        calls[(op, "stats")] = {
+            "new": lambda a=(dist, thr, scale), k=dict(B=B, D=D): kp.posatt_stats_cuda(*a, **k),
+            "parent": parent_stats}
     torch.cuda.synchronize()
     return calls
 
@@ -322,6 +420,13 @@ def main(sources, parent=None) -> int:
             VARIANTS[src]["parent"] = (Path(parent) / f"{src}.cu", [])
     with tempfile.TemporaryDirectory() as tmp:
         libs = build(Path(tmp), sources)
+        parent_bwd = None
+        if parent is not None and "posatt_fixed_fwd" in sources:
+            out = Path(tmp) / "parent_posatt_fixed_bwd.so"
+            subprocess.run(_build.nvcc_command(Path(parent) / "posatt_fixed_bwd.cu", out),
+                           check=True, capture_output=True)
+            parent_bwd = ctypes.CDLL(str(out))
+        fixed_fwd = fixed_fwd_calls(c, rng, parent_bwd) if "posatt_fixed_fwd" in sources else {}
         for src in sources:
             variants = list(VARIANTS[src])
             ms: dict = {}
@@ -331,9 +436,11 @@ def main(sources, parent=None) -> int:
                 kb._entry.cache_clear()
                 kp._entry.cache_clear()
                 kp._bwd_plan.cache_clear()
-                if src == "posatt_fixed_bwd":
+                kp._fwd_plan.cache_clear()
+                if src in ("posatt_fixed_bwd", "posatt_fixed_fwd"):
+                    calls = fixed if src == "posatt_fixed_bwd" else fixed_fwd
                     timed[src] = {key: fns["parent" if name == "parent" else "new"]
-                                  for key, fns in fixed.items()}
+                                  for key, fns in calls.items()}
                 only = ONLY.get((src, name))
                 if only is not None and name not in checked:
                     got = c.tf_launch(*tf_shapes["serve_processor"][:2])
@@ -353,6 +460,7 @@ def main(sources, parent=None) -> int:
         kb._entry.cache_clear()
         kp._entry.cache_clear()
         kp._bwd_plan.cache_clear()
+        kp._fwd_plan.cache_clear()
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip())
     return 0

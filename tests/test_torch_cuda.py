@@ -53,6 +53,17 @@ BWD_SHAPES = SHAPES + [
     (256, 256, 20, 2, 256, 1.0),  # vorticity processor
     (256, 1000, 4, 2, 16, 0.05),  # dscale: L_in split 32 ways
 ]
+# the forward (#1) also where it splits L_in more than 8 ways (the split
+# records go to scratch), at the full Darcy 421^2 ZSSR encoder, and at
+# ragged shapes with 1, 3, 8 and 12 heads
+FWD_SHAPES = [
+    (64, 60000, 10, 2, 3, 0.02),  # 32 splits of L_in: the scratch combine
+    (256, 177241, 10, 2, 3, 0.02),  # the ZSSR encoder
+    (97, 333, 3, 1, 7, 0.1),
+    (45, 1001, 2, 3, 5, 0.05),
+    (77, 515, 2, 8, 9, 0.2),
+    (33, 129, 2, 12, 4, 0.3),
+]
 
 
 @pytest.fixture
@@ -70,8 +81,10 @@ def _inputs(dev, L_out, L_in, B, H, D, seed=0):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("L_out,L_in,B,H,D,loc", SHAPES)
+@pytest.mark.parametrize("L_out,L_in,B,H,D,loc", SHAPES + FWD_SHAPES)
 def test_cuda_kernel_matches_plain(cuda, L_out, L_in, B, H, D, loc):
+    """#1 against its plain version, with and without the row statistics
+    out (the same output bits either way), and the same bits on two runs."""
     dist, lmda, u = _inputs(cuda, L_out, L_in, B, H, D)
     thr = (
         torch.full((L_out, 1), float("inf"), device=cuda)
@@ -82,9 +95,69 @@ def test_cuda_kernel_matches_plain(cuda, L_out, L_in, B, H, D, loc):
     got = kp.posatt_fixed_cuda(dist, thr, scale, u)
     torch.cuda.synchronize()
     assert kp.posatt_fixed_cuda.launches == before + 1
-    want = kp.posatt_fixed_reference(dist, thr, scale, u)
+    want, M_want, L_want = kp.posatt_fixed_reference(dist, thr, scale, u, stats=True)
     want = want.permute(1, 2, 0, 3).reshape(B, L_out, H * D)
     torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+    again, M, L = kp.posatt_fixed_cuda(dist, thr, scale, u, stats=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    torch.testing.assert_close(M, M_want, rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(L, L_want, rtol=RTOL, atol=ATOL)
+    third, M2, L2 = kp.posatt_fixed_cuda(dist, thr, scale, u, stats=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, third) and torch.equal(M, M2) and torch.equal(L, L2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L_out,L_in,B,H,D,loc", BWD_SHAPES + FWD_SHAPES[:1])
+def test_cuda_forward_stats_are_the_stats_kernel_bits(cuda, L_out, L_in, B, H, D, loc):
+    """#1's M and L, written beside its output, are bit for bit what #2
+    (its kernel without the contraction) writes at the same shape."""
+    dist, thr, scale, u, _ = _stats_inputs(cuda, L_out, L_in, B, H, D, loc)
+    _, M, L = kp.posatt_fixed_cuda(dist, thr, scale, u, stats=True)
+    M2, L2 = kp.posatt_stats_cuda(dist, thr, scale, B, D)
+    torch.cuda.synchronize()
+    assert torch.equal(M, M2) and torch.equal(L, L2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L_out,L_in,B,H,D,loc", [
+    (40, 72, 2, 2, 4, 0.2),  # one split
+    (256, 256, 8, 2, 64, 1.0),  # 8 splits: the cluster combine
+    (64, 60000, 10, 2, 3, 0.02),  # 32 splits: the scratch combine
+])
+def test_cuda_rows_that_keep_no_entry(cuda, L_out, L_in, B, H, D, loc):
+    """A row whose threshold lies below its least distance and a row of +inf
+    distances keep no entry: softmax over -1e38 everywhere, i.e. the mean
+    of u over all L_in, M = -1e38 and L = L_in, as the plain version."""
+    dist, thr, scale, u, _ = _stats_inputs(cuda, L_out, L_in, B, H, D, loc)
+    thr[2] = -1.0
+    dist[9] = float("inf")
+    thr[9] = float("inf")
+    got, M, L = kp.posatt_fixed_cuda(dist, thr, scale, u, stats=True)
+    M2, L2 = kp.posatt_stats_cuda(dist, thr, scale, B, D)
+    torch.cuda.synchronize()
+    want, M_want, L_want = kp.posatt_fixed_reference(dist, thr, scale, u, stats=True)
+    want = want.permute(1, 2, 0, 3).reshape(B, L_out, H * D)
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(got[:, 2], u.mean(1).repeat(1, H), rtol=RTOL, atol=ATOL)
+    assert torch.equal(M, M_want) and (M[:, [2, 9]] == -1e38).all()
+    assert (L[:, [2, 9]] == L_in).all()
+    torch.testing.assert_close(L, L_want, rtol=RTOL, atol=ATOL)
+    assert torch.equal(M, M2) and torch.equal(L, L2)
+
+
+@pytest.mark.cuda
+def test_fwd_plan_splits_l_in(cuda):
+    """#1 splits L_in until the grid holds about 8 warps an SM: 8 splits of
+    the Burgers processor (a cluster, no scratch), 32 at the ZSSR encoder
+    (split records in scratch, a counter per tile), none at the ZSSR
+    decoder; the stats entry point takes the same split."""
+    assert kp._fwd_plan(True, 2, 8, 256, 256, 64) == (0, 0, 8)
+    floats, tiles, splits = kp._fwd_plan(True, 2, 10, 256, 177241, 3)
+    assert (tiles, splits) == (8, 32) and floats == 8 * 32 * 2 * 32 * (2 + 64)
+    assert kp._fwd_plan(False, 2, 10, 256, 177241, 3) == (8 * 32 * 2 * 32 * 2, 8, 32)
+    assert kp._fwd_plan(True, 2, 10, 177241, 256, 64)[2] == 1
 
 
 @pytest.mark.cuda
@@ -114,7 +187,7 @@ def _stats_inputs(dev, L_out, L_in, B, H, D, loc, seed=0):
 def test_cuda_stats_matches_plain(cuda, L_out, L_in, B, H, D, loc):
     dist, thr, scale, _, _ = _stats_inputs(cuda, L_out, L_in, B, H, D, loc)
     before = kp.posatt_stats_cuda.launches
-    M, L = kp.posatt_stats_cuda(dist, thr, scale)
+    M, L = kp.posatt_stats_cuda(dist, thr, scale, B, D)
     torch.cuda.synchronize()
     assert kp.posatt_stats_cuda.launches == before + 1
     M_want, L_want = kp.posatt_stats_reference(dist, thr, scale)
@@ -182,8 +255,9 @@ def test_function_gradients_match_oracle_autograd(cuda, L_out, L_in, B, H, D, lo
     before = [f.launches for f in counters]
     got = _grads(kp.position_attention_fixed, dist, lmda, u, loc, w)
     torch.cuda.synchronize()
-    # one forward + backward launches each kernel exactly once
-    assert [f.launches - b for f, b in zip(counters, before)] == [1, 1, 1, 1]
+    # one forward + backward launches the forward, dscale and du once each;
+    # the forward writes the row statistics, so the stats kernel never runs
+    assert [f.launches - b for f, b in zip(counters, before)] == [1, 0, 1, 1]
     want = _grads(posatt.position_attention, dist, lmda, u, loc, w)
     torch.testing.assert_close(got[0], want[0], rtol=RTOL, atol=ATOL)
     torch.testing.assert_close(got[1], want[1], rtol=DS_RTOL, atol=DS_ATOL * want[1].abs().max().item())
@@ -214,9 +288,10 @@ def test_bwd_plan_splits_the_burgers_processor(cuda, du):
 def test_burgers_forward_backward_launches_each_kernel_once(cuda):
     """One forward + backward of each Burgers attention op through
     position_attention_fixed, on the model's own geometry, launches the
-    forward, stats, dscale and du kernels exactly once each (dscale one
-    launch: no separate sum of its partials), and the gradients agree with
-    autograd of the oracle."""
+    forward, dscale and du kernels exactly once each and the stats kernel
+    never (the forward writes the row statistics; dscale is one launch: no
+    separate sum of its partials), and the gradients agree with autograd
+    of the oracle."""
     from position_induced_transformer_torch import configs
     from position_induced_transformer_torch.data import meshes
     from position_induced_transformer_torch.models import build_geometry
@@ -238,7 +313,7 @@ def test_burgers_forward_backward_launches_each_kernel_once(cuda):
         before = [f.launches for f in counters]
         got = _grads(lambda *a: kp.position_attention_fixed(*a, thr=thr), dist, lmda, u, loc, w)
         torch.cuda.synchronize()
-        assert [f.launches - b for f, b in zip(counters, before)] == [1, 1, 1, 1]
+        assert [f.launches - b for f, b in zip(counters, before)] == [1, 0, 1, 1]
         want = _grads(lambda *a: posatt.position_attention(*a, thr=thr), dist, lmda, u, loc, w)
         torch.testing.assert_close(got[1], want[1], rtol=DS_RTOL,
                                    atol=DS_ATOL * want[1].abs().max().item())
@@ -278,18 +353,21 @@ SCHEDULE_LAUNCHERS = {1: kp.posatt_fixed_v1_cuda, 2: kp.posatt_fixed_v2_cuda, 3:
 def _schedule_inputs(dev, L_out, L_in, B, H, D, loc, inf_row=True):
     """As _stats_inputs, with row 5 global (thr +inf) and, with
     ``inf_row``, row 3 all +inf distances but one kept entry (autograd of
-    the oracle meets inf * 0 there)."""
+    the oracle meets inf * 0 there), row 6 all +inf distances and row 8 a
+    threshold below all its distances (both keep no entry)."""
     dist, thr, scale, u, g = _stats_inputs(dev, L_out, L_in, B, H, D, loc)
     thr[5] = float("inf")
     if inf_row:
         dist[3] = float("inf")
         dist[3, 7] = 0.5
         thr[3] = 1.0
+        dist[6] = float("inf")
+        thr[8] = -1.0
     return dist, thr, scale, u, g
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("version", [1, 2])
+@pytest.mark.parametrize("version", [1, 2, 3])
 @pytest.mark.parametrize("L_out,L_in,B,H,D,loc", SCHEDULE_SHAPES)
 def test_cuda_schedule_kernel_matches_plain(cuda, L_out, L_in, B, H, D, loc, version):
     dist, thr, scale, u, _ = _schedule_inputs(cuda, L_out, L_in, B, H, D, loc)
@@ -308,10 +386,12 @@ def test_cuda_schedule_kernel_matches_plain(cuda, L_out, L_in, B, H, D, loc, ver
 @pytest.mark.cuda
 @pytest.mark.parametrize("L_out,L_in,B,H,D,loc", SCHEDULE_SHAPES)
 def test_schedule_versions_share_one_backward(cuda, L_out, L_in, B, H, D, loc):
-    """One forward + backward per version launches that version's forward
-    and #2, #3, #4 once each; dU never reads the forward's output, so it is
-    the same bits under every version; dscale reads it, so under each
-    version it is held to autograd of the oracle."""
+    """One forward + backward per version launches that version's forward,
+    #3 and #4 once each, and #2 once under versions 1 and 2 (version 3's
+    forward writes M and L itself, the bits #2 writes); dU never reads the
+    forward's output, so it is the same bits under every version; dscale
+    reads it, so under each version it is held to autograd of the
+    oracle."""
     dist, thr, _, u, w = _schedule_inputs(cuda, L_out, L_in, B, H, D, loc, inf_row=False)
     lmda = torch.from_numpy(np.random.default_rng(3).random((H, 1, 1)).astype(np.float32)).to(cuda)
     backward = (kp.posatt_stats_cuda, kp.posatt_bwd_dscale_cuda, kp.posatt_bwd_du_cuda)
@@ -323,7 +403,7 @@ def test_schedule_versions_share_one_backward(cuda, L_out, L_in, B, H, D, loc):
         torch.cuda.synchronize()
         after = [f.launches for f in (*SCHEDULE_LAUNCHERS.values(), *backward)]
         assert [a - b for a, b in zip(after, before)] == [
-            int(v == version) for v in SCHEDULE_LAUNCHERS] + [1, 1, 1]
+            int(v == version) for v in SCHEDULE_LAUNCHERS] + [int(version != 3), 1, 1]
     for version in (1, 2):
         torch.testing.assert_close(results[version][0], results[3][0], rtol=RTOL, atol=ATOL)
         assert torch.equal(results[version][2], results[3][2])

@@ -161,7 +161,7 @@ def test_kernel_launcher_refuses_cpu_tensors():
         with pytest.raises(ValueError, match="CUDA"):
             getattr(t_k, name)(dist, thr, scale, u)
     with pytest.raises(ValueError, match="CUDA"):
-        t_k.posatt_stats_cuda(dist, thr, scale)
+        t_k.posatt_stats_cuda(dist, thr, scale, 2, 3)
     M = torch.zeros(2, 16, 1)
     g = torch.zeros(2, 16, 6)
     with pytest.raises(ValueError, match="CUDA"):
@@ -275,6 +275,58 @@ def test_function_gradients_match_jax_fused_backward(L_out, L_in, B, H, D, loc):
         np.testing.assert_allclose(got[1], want[1], rtol=5e-4, atol=5e-6)
         np.testing.assert_allclose(got[2], want[2], rtol=5e-4, atol=5e-6)
     np.testing.assert_allclose(got[0], oracle[0], rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("L_out,L_in,B,H,D,loc", BWD_SHAPES)
+def test_function_v3_saves_the_plain_forward_stats(L_out, L_in, B, H, D, loc):
+    """On the CPU, PosAttFixed at version 3 saves the M and L that the plain
+    forward gives beside its output (as the card's #1 writes them, with no
+    stats launch), and its gradients still match jax.grad of the JAX custom
+    VJP with the fused backward in interpret mode."""
+    dist, thr, scale, u, w, _ = _bwd_inputs(L_out, L_in, B, H, D, loc)
+    t = lambda a: torch.from_numpy(np.array(a))
+    before = _launches()
+    s = t(scale).requires_grad_(True)
+    x = t(u).requires_grad_(True)
+    out = t_k.PosAttFixed.apply(t(dist), t(thr), s, x, 3)
+    saved = out.grad_fn.saved_tensors
+    (out * t(w)).sum().backward()
+    assert _launches() == before
+    ref, M, L = t_k.posatt_fixed_reference(t(dist), t(thr), t(scale), t(u), stats=True)
+    assert torch.equal(saved[4], M) and torch.equal(saved[5], L)
+    assert torch.equal(out.detach(), ref.permute(1, 2, 0, 3).reshape(B, L_out, H * D))
+
+    def loss(sc, xx):
+        o = j_k._posatt_fixed(jnp.asarray(dist), jnp.asarray(thr), sc, xx, True, 3, True)
+        return jnp.sum(o * jnp.asarray(w.reshape(B, L_out, H, D).transpose(2, 0, 1, 3)))
+
+    jds, jdu = jax.grad(loss, argnums=(0, 1))(jnp.asarray(scale), jnp.asarray(u))
+    np.testing.assert_allclose(s.grad.numpy(), np.asarray(jds), rtol=5e-4, atol=5e-6)
+    np.testing.assert_allclose(x.grad.numpy(), np.asarray(jdu), rtol=RTOL, atol=ATOL)
+
+
+def test_plain_forward_row_with_no_kept_entry_matches_jax_reference():
+    """Rows that keep no entry (a threshold below the row's least distance;
+    a row of +inf distances under a finite threshold) through the port's
+    plain path: softmax over -1e38 everywhere, the mean of u over all
+    L_in, as JAX's ``_reference_forward``; M = -1e38 and L = L_in."""
+    dist, lmda, u = _inputs(20, 33, 2, 2, 3, seed=7)
+    dist[4, :] = np.inf
+    thr = np.array(j_loc.quantile_threshold(jnp.asarray(dist), 0.2))
+    thr[4] = 1.0
+    thr[9] = -1.0
+    scale = np.asarray(t_posatt.bandwidth_scale(torch.from_numpy(lmda))).reshape(2, 1)
+    t = lambda a: torch.from_numpy(np.array(a))
+    got = t_k._forward(t(dist), t(thr), t(scale), t(u))
+    want = np.asarray(j_k._reference_forward(
+        jnp.asarray(dist), jnp.asarray(thr), jnp.asarray(scale), jnp.asarray(u)))
+    want = want.transpose(1, 2, 0, 3).reshape(2, 20, 6)
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+    mean = np.tile(u.mean(1), (1, 2))
+    for row in (4, 9):
+        np.testing.assert_allclose(got[:, row].numpy(), mean, rtol=RTOL, atol=ATOL)
+    _, M, L = t_k.posatt_fixed_reference(t(dist), t(thr), t(scale), t(u), stats=True)
+    assert (M[:, [4, 9]] == -1e38).all() and (L[:, [4, 9]] == 33).all()
 
 
 # the closed form of dscale through the forward's output, at a global, a
