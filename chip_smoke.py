@@ -115,21 +115,22 @@ Phases, each of which fails the run (non-zero exit, no result line):
     device's busy share; then one step on a batch without thresholds and
     bands, which launches 6 of #9 and 6 of each of #10's entry points;
 16. fixed-mesh schedules: the forward's schedule variants #5 (v1: a block
-    per head, sample and row tile) and #6 (v2: a block per head and tile of
-    the batch-folded columns) beside #1 (v3) through
-    ``position_attention_fixed(version=...)``, at the six fixed-mesh shapes
-    of scripts/tpu_checks.py and the Darcy 421^2 ZSSR encoder and decoder
-    at its eval batch (random 2-D points, thresholds by
-    ``quantile_threshold`` on the card): each version against the plain
-    version and #1; one forward + backward per version at the Burgers
-    decoder and ZSSR decoder shapes launching that version's forward, #3
-    and #4 once each and #2 once under versions 1 and 2, with the same dU
-    bits under all three and gradients against autograd of the oracle
-    (dscale reads each version's own output, so only dU is the same bits
-    under all three); times, bounds and the SDPA yardstick as in phase 4,
-    #1 with M and L out, the kept fraction and #1's splits of L_in; and #2
-    at every shape, its M and L the bits #1 writes, against its plain
-    version, timed and bounded.
+    per head, sample, row tile and split of L_in) and #6 (v2: a block per
+    head, tile of the batch-folded columns, row tile and split), #1's body
+    each, beside #1 (v3) through ``position_attention_fixed(version=...)``,
+    at the six fixed-mesh shapes of scripts/tpu_checks.py and the Darcy
+    421^2 ZSSR encoder and decoder at its eval batch (random 2-D points,
+    thresholds by ``quantile_threshold`` on the card): each version against
+    the plain version and #1, its M and L against the plain version's; one
+    forward + backward per version at the Burgers decoder and ZSSR decoder
+    shapes launching that version's forward, #3 and #4 once each and #2
+    never (every version writes M and L), gradients against autograd of
+    the oracle, and dU the bits of version 3's wherever the version's M
+    and L are (else its M and L within the forward's bounds of #2's);
+    times with and without M and L out, bounds and the SDPA yardstick as
+    in phase 4, the kept fraction, each version's splits of L_in, warps a
+    block and kept-list length; and #2 at every shape, its M and L the bits
+    #1 writes, against its plain version, timed and bounded.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 ``kernels`` record (twelve kernels: #1-#4, the per-sample-mesh #7, #8, the
@@ -691,8 +692,8 @@ def backward_kernel_phase(geom):
     in_dim = m.in_dim + m.space_dim
     inf = lambda Lo: torch.full((Lo, 1), float("inf"), device=dev)
     burgers = [
-        # name, dist, thr, D, launches per step of dscale (and of #2 in a
-        # forward at version 1 or 2), of du
+        # name, dist, thr, D, launches per step of dscale (and the shape's
+        # count in a Burgers forward, for #2's times), of du
         ("encoder", geom.dist_down, geom.thr_down, in_dim, 1, 0),
         ("processor", geom.dist_proc, inf(geom.dist_proc.shape[0]), m.hid_dim, m.n_blocks, m.n_blocks),
         ("decoder", geom.dist_up, geom.thr_up, m.hid_dim, 1, 1),
@@ -739,12 +740,12 @@ def backward_kernel_phase(geom):
     fn_err = 0.0
     for name, dist, thr, D, n23, n4 in burgers:
         lmda, u, g, scale = inputs(dist, thr, H, B, D)
-        # #2 is off the training path (the forward writes M and L); its rows
-        # count its launches in a forward at version 1 or 2
+        # #2 is off every path (every forward writes M and L); its rows
+        # count the shape in one Burgers forward, for its times
         per_step = {"posatt_stats": 0, "posatt_bwd_dscale": n23, "posatt_bwd_du": n4}
         got = timed_rows(name, dist, thr, lmda, u, g, scale, per_step,
                          [k for k in BWD_KERNELS if k != "posatt_bwd_du" or n4])
-        got["posatt_stats"]["launches_per_v12_forward"] = n23
+        got["posatt_stats"]["count_per_burgers_forward"] = n23
         for kernel, row in got.items():
             rows[kernel].append(row)
         if name != "encoder":  # the encoder's values need no gradient
@@ -2432,6 +2433,24 @@ def schedule_cases(shapes):
     return cases
 
 
+def fixed_list_lengths(dist, thr, splits):
+    """The fixed-mesh forward's kept lists: per block (a 32-row tile and a
+    split of L_in, whose keys are the groups of 16 dealt to it in turn), the
+    keys that some row of the tile keeps; mean and max over the blocks
+    (every head and column tile of a block lists the same keys)."""
+    import torch
+
+    Lo, Li = dist.shape
+    keep = (dist <= thr) & (dist < float("inf"))
+    k = torch.zeros((-(-Lo // 32) * 32, Li), dtype=torch.bool, device=dist.device)
+    k[:Lo] = keep
+    tile_any = k.reshape(-1, 32, Li).any(dim=1).float()  # (tiles, Li)
+    split_of = (torch.arange(Li, device=dist.device) // 16) % splits
+    per = torch.zeros((tile_any.shape[0], splits), device=dist.device)
+    per.index_add_(1, split_of, tile_any)
+    return {"mean": per.mean().item(), "max": int(per.max().item()), "blocks": per.numel()}
+
+
 def schedule_phase():
     """Phase 16: the schedule variants #5 (v1) and #6 (v2) of the fixed-mesh
     forward beside #1 (v3), through their public entry point
@@ -2441,10 +2460,15 @@ def schedule_phase():
 
     The counted run: at every shape each version's forward against the
     plain version, and at SCHEDULE_FUNCTION_SHAPES one forward + backward
-    per version, which launches that version's forward and #2-#4 once each
-    and gives the same dscale and dU bits under every version, within
-    phase 5's bounds of autograd on the oracle. Then, outside the counted
-    run, each launcher's time, the plain version's, SDPA's and the bound."""
+    per version, which launches that version's forward, #3 and #4 once each
+    and #2 never (every version's forward writes M and L on its own plan).
+    Its gradients within phase 5's bounds of autograd on the oracle; its
+    dU the bits of version 3's where its M and L are, else its M and L
+    within the forward's bounds of #2's. Then, outside the counted run,
+    each version's M and L against the plain version's, each launcher's
+    time (with and without M and L out), the plain version's, SDPA's and
+    the bound, each version's splits, warps a block and list length; and
+    #2 against its plain version and #1's bits, timed and bounded."""
     import torch
 
     from position_induced_transformer_torch.kernels import posatt_pallas as kp
@@ -2454,6 +2478,7 @@ def schedule_phase():
     H = SCHEDULE_H
     shapes = schedule_shapes()
     cases = schedule_cases(shapes)
+    launcher = {v: launchers()[k] for v, k in SCHEDULE_VERSIONS.items()}
 
     def grads(fn, dist, lmda, u, loc, thr, w):
         lm = lmda.clone().requires_grad_(True)
@@ -2477,7 +2502,7 @@ def schedule_phase():
             "max_abs_diff_vs_v3": (out - outs[3]).abs().max().item(),
         } for v, out in outs.items()}
         del outs, want
-    fn_errs = {}
+    fn_errs, d_u = {}, {}
     for name in SCHEDULE_FUNCTION_SHAPES:
         dist, thr, lmda, u, loc, _ = cases[name]
         gen = torch.Generator(device=dev).manual_seed(7)
@@ -2489,15 +2514,11 @@ def schedule_phase():
                            dist, lmda, u, loc, thr, w)
             torch.cuda.synchronize()
             diff = {k: n - before[k] for k, n in counts().items()}
-            # version 3's forward writes M and L; 1 and 2 launch #2 for them
-            launched_here = (kernel,) + (BWD_KERNELS if v != 3 else BWD_KERNELS[1:])
-            expect = {k: int(k in launched_here) for k in diff}
+            # every version's forward writes M and L: no #2
+            expect = {k: int(k in (kernel,) + BWD_KERNELS[1:]) for k in diff}
             if diff != expect:
                 fail(f"schedules {name}: one forward + backward of version {v} launched "
                      f"{diff}, expected {expect}")
-        for v in (1, 2):  # dU never reads the forward's output; dscale does
-            if not torch.equal(got[v][2], got[3][2]):
-                fail(f"schedules {name}: dU of version {v} differs from version 3's")
         oracle = lambda *a, **k: posatt.position_attention(*a, **k)
         want = grads(oracle, dist, lmda, u, loc, thr, w)
         size_u = grads(oracle, dist, lmda, u, loc, thr, w.abs())[2]
@@ -2507,32 +2528,61 @@ def schedule_phase():
             "d_lmda": max(check_close(f"schedules {name} v{v} Function d lmda", got[v][1], want[1],
                                       DS_RTOL, DS_ATOL * want[1].abs().max().item())
                           for v in SCHEDULE_VERSIONS),
-            "d_u": check_close(f"schedules {name} Function d u", got[3][2], want[2],
-                               OP_RTOL, OP_ATOL, size_u),
+            "d_u": max(check_close(f"schedules {name} v{v} Function d u", got[v][2], want[2],
+                                   OP_RTOL, OP_ATOL, size_u) for v in SCHEDULE_VERSIONS),
+            "d_u_bits_of_v3": {},
         }
+        d_u[name] = {v: got[v][2] for v in SCHEDULE_VERSIONS}
         del got, want, size_u, w
     launched = counts()
     n_fwd, n_fn = len(shapes), len(SCHEDULE_FUNCTION_SHAPES)
     expected = {k: 0 for k in launched}
     expected.update({k: n_fwd + n_fn for k in SCHEDULE_VERSIONS.values()})
-    expected.update({k: len(SCHEDULE_VERSIONS) * n_fn for k in BWD_KERNELS})
-    expected["posatt_stats"] = (len(SCHEDULE_VERSIONS) - 1) * n_fn
+    expected.update({k: len(SCHEDULE_VERSIONS) * n_fn for k in BWD_KERNELS[1:]})
     if launched != expected:
         fail(f"schedules: the run launched {launched}, expected {expected}")
+    # dU reads M and L, not the output: the bits of version 3's where the
+    # version's M and L are version 3's, else M and L near #2's
+    for name in SCHEDULE_FUNCTION_SHAPES:
+        dist, thr, lmda, u, loc, scale = cases[name]
+        stats = {v: launcher[v](dist, thr, scale, u, stats=True)[1:] for v in SCHEDULE_VERSIONS}
+        M2, L2 = kp.posatt_stats_cuda(dist, thr, scale, u.shape[0], u.shape[-1])
+        torch.cuda.synchronize()
+        for v in (1, 2):
+            same = all(torch.equal(a, b) for a, b in zip(stats[v], stats[3]))
+            fn_errs[name]["d_u_bits_of_v3"][v] = same
+            if same and not torch.equal(d_u[name][v], d_u[name][3]):
+                fail(f"schedules {name}: M and L of version {v} are version 3's, its dU is not")
+            check_close(f"schedules {name} v{v} M against #2's", stats[v][0], M2, OP_RTOL, OP_ATOL)
+            check_close(f"schedules {name} v{v} L against #2's", stats[v][1], L2, OP_RTOL, OP_ATOL)
+        del stats, M2, L2
+    del d_u
     log(f"schedules: launches {json.dumps(launched)}; Function max abs err {json.dumps(fn_errs)}")
 
-    # ---- times and bounds, outside the counted run: each version's
-    # forward, #1 with M and L out, and #2 against its plain version (the
-    # bits #1 writes at the shape)
-    launcher = {v: launchers()[k] for v, k in SCHEDULE_VERSIONS.items()}
+    # ---- M and L, times and bounds, outside the counted run: each
+    # version's forward with and without M and L out, and #2 against its
+    # plain version (the bits #1 writes at the shape)
     rows, stats_rows = [], []
     for name, Lo, Li, B, D, loc, per_forward in shapes:
         dist, thr, lmda, u, loc, scale = cases[name]
         args = (dist, thr, scale, u)
-        versions = {str(v): {"ms": cuda_ms(lambda: launcher[v](*args)), **errs[name][v]}
-                    for v in SCHEDULE_VERSIONS}
-        versions["3"]["ms_with_stats"] = cuda_ms(lambda: kp.posatt_fixed_cuda(*args, stats=True))
-        versions["3"]["splits"] = kp._fwd_plan(True, H, B, Lo, Li, D)[2]
+        Mp, Lp = kp.posatt_stats_reference(dist, thr, scale)
+        versions = {}
+        for v in SCHEDULE_VERSIONS:
+            _, M, L = launcher[v](*args, stats=True)
+            torch.cuda.synchronize()
+            plan = kp._fwd_plan(True, H, B, Lo, Li, D, v)
+            versions[str(v)] = {
+                "ms": cuda_ms(lambda: launcher[v](*args)),
+                "ms_with_stats": cuda_ms(lambda: launcher[v](*args, stats=True)),
+                **errs[name][v],
+                "stats_max_abs_err": max(
+                    check_close(f"schedules {name} v{v} M", M, Mp, OP_RTOL, OP_ATOL),
+                    check_close(f"schedules {name} v{v} L", L, Lp, OP_RTOL, OP_ATOL)),
+                "splits": plan.splits, "warps_a_block": plan.warps,
+                "list_length": fixed_list_lengths(dist, thr, plan.splits),
+            }
+            del M, L
         sdpa, lib_err = fixed_sdpa(*args)
         bound_ms, bound_by, flops, nbytes, kept = bound(dist, thr, H, B, D)
         rows.append({
@@ -2547,7 +2597,6 @@ def schedule_phase():
         log(f"schedules {name}: {json.dumps(rows[-1])}")
         M, L = kp.posatt_stats_cuda(dist, thr, scale, B, D)
         _, M1, L1 = kp.posatt_fixed_cuda(*args, stats=True)
-        Mp, Lp = kp.posatt_stats_reference(dist, thr, scale)
         torch.cuda.synchronize()
         if not (torch.equal(M, M1) and torch.equal(L, L1)):
             fail(f"schedules {name}: #2's M and L are not the bits #1 writes")
@@ -2555,8 +2604,8 @@ def schedule_phase():
         stats_rows.append({
             "shape": name, "H": H, "L_out": Lo, "L_in": Li, "B": B, "D": D,
             "kept_entries": kept, "kept_fraction": kept / (Lo * Li),
-            "splits": kp._fwd_plan(False, H, B, Lo, Li, D)[2],
-            "launches_per_v12_forward": per_forward,
+            "splits": kp._fwd_plan(False, H, B, Lo, Li, D).splits,
+            "count_per_burgers_forward": per_forward,
             "max_abs_err": max(check_close(f"schedules {name} #2 M", M, Mp, OP_RTOL, OP_ATOL),
                                check_close(f"schedules {name} #2 L", L, Lp, OP_RTOL, OP_ATOL)),
             "ms": cuda_ms(lambda: kp.posatt_stats_cuda(dist, thr, scale, B, D)),
@@ -2681,12 +2730,12 @@ def main() -> int:
         return {"ms": step("ms"), "plain_ms": step("plain_ms"), "bound_ms": step("bound_ms"),
                 "bound_by": max(by, key=by.get)}
 
-    # #2: off every model path (the forward writes M and L); launched by
-    # versions 1 and 2 of phase 16. Times and bounds: one Burgers forward at
-    # version 1 or 2 (1 encoder + 5 processor + 1 decoder launches) from
-    # phase 5's rows; "schedule_shapes" adds phase 16's shapes
+    # #2: off every path (every version's forward writes M and L), held
+    # and timed through the kernel API in phases 5 and 16. Times and
+    # bounds: one Burgers forward's shapes (1 encoder + 5 processor + 1
+    # decoder) from phase 5's rows; "schedule_shapes" adds phase 16's shapes
     rows = bwd_rows["posatt_stats"]
-    v12 = per_step(rows, "launches_per_v12_forward")
+    v12 = per_step(rows, "count_per_burgers_forward")
     kernels["kernels"].append({
         "name": "posatt_stats",
         "route": "cuda",
@@ -2694,7 +2743,7 @@ def main() -> int:
         "replaces": replaces["posatt_stats"],
         "launches": s_launched["posatt_stats"],
         "launches_by_path": {"serve": 0, "train": train["launches"]["posatt_stats"],
-                             "kernel_api": s_launched["posatt_stats"]},
+                             "schedules": s_launched["posatt_stats"]},
         "max_abs_err": max(bwd_errs["posatt_stats"], max(r["max_abs_err"] for r in s_stats_rows)),
         **v12,
         "library_ms": None,

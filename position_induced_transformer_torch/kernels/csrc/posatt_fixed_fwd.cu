@@ -2,19 +2,24 @@
 // hand-written for Hopper (sm_90a), float32 throughout.
 //
 // Replaces the TPU kernels of position_induced_transformer_tpu/kernels/
-// posatt_pallas.py that compute the forward and its row statistics:
+// posatt_pallas.py that compute the forward and its row statistics. Three
+// forwards, one per schedule of the TPU kernels' `version`, run one body
+// (fwd_kernel) and differ only in what a block owns; each writes the row
+// statistics M and L beside its output when the caller asks (training):
 // - posatt_fixed_fwd    <- _make_posatt_kernel_v3 (_posatt_fixed_raw_v3,
-//   version 3): the forward of every model path, which also writes the row
-//   statistics M and L when the caller asks (training);
-// - posatt_stats        <- _posatt_stats: M and L alone, for the version 1
-//   and 2 forwards, which do not write them: the same kernel as
-//   posatt_fixed_fwd with the contraction switched off, on the same plan,
-//   so it writes the same bits of M and L as posatt_fixed_fwd at the same
-//   shape (B and D included: they set the plan);
-// - posatt_fixed_fwd_v2 <- _posatt_kernel_v2 (version 2): a block owns one
-//   head, a tile of rows and a tile of the batch-folded value columns;
-// - posatt_fixed_fwd_v1 <- _posatt_kernel (version 1): a block owns one
-//   head, one sample and a tile of rows, with that sample's D columns.
+//   version 3): the forward of every model path; a block owns a group of up
+//   to 8 heads and a tile of the batch-folded value columns;
+// - posatt_fixed_fwd_v2 <- _posatt_kernel_v2 (version 2): one head and a
+//   tile of the batch-folded value columns;
+// - posatt_fixed_fwd_v1 <- _posatt_kernel (version 1): one head and one
+//   sample, with a tile of that sample's D columns only, so that a narrow
+//   D (the Burgers encoder's 2, ZSSR's 3) weights each entry once a sample
+//   (the TPU kernel's schedule);
+// - posatt_stats        <- _posatt_stats: M and L alone, version 3's kernel
+//   with the contraction switched off, on version 3's plan, so it writes
+//   the same bits of M and L as posatt_fixed_fwd at the same shape (B and D
+//   included: they set the plan). No path launches it: every forward
+//   writes M and L itself.
 // Each forward computes, for every output row i, head h and column
 // n = b*D + k of the batch-folded values:
 //
@@ -32,19 +37,20 @@
 // CUDA-core rate bounds it; at 2-2.7 % kept (the Burgers, vorticity and
 // Darcy encoders and decoders) the bytes do.
 //
-// posatt_fixed_fwd and posatt_stats (the pattern of posatt_fixed_bwd.cu,
-// one plan for all four fixed-mesh kernels, posatt_fixed_common.cuh):
-// - A block owns 32 rows, a group of up to 8 heads (ceil(H/8) groups as
-//   even as can be; any head count), a tile of 64-column slabs of the
-//   batch-folded values (a warp per head and slab) and one split of L_in.
+// The body (the pattern of posatt_fixed_bwd.cu, one plan for all the
+// fixed-mesh kernels, posatt_fixed_common.cuh):
+// - A block owns 32 rows, a group of heads (version 3: up to 8, ceil(H/8)
+//   groups as even as can be, any head count; versions 1 and 2: one), a
+//   tile of 64-column slabs of the batch-folded values (version 1: of one
+//   sample's D columns; a warp per head and slab) and one split of L_in.
 //   L_in is dealt to the splits in groups of 16 keys, in turn, so a masked
 //   band is shared by all of them; the split count aims at 8 warps an SM
 //   (the Darcy 421^2 ZSSR encoder, 256 rows by 177,241 keys at B*D = 30:
 //   32 splits; its decoder, 177,241 rows: none).
 // - It works in rounds of RC keys (128 up to two heads a block, 64 up to
-//   four, 32 above). A round's distances arrive in shared memory in one
-//   batch of 16-byte cp.async (4-byte pieces where L_in is not a multiple
-//   of 4).
+//   four, 32 above, RC1 in a block of one warp). A round's distances arrive
+//   in shared memory in one batch of 16-byte cp.async (4-byte pieces where
+//   L_in is not a multiple of 4).
 //   Warp ballots list, in order, the keys that some owned row keeps; the
 //   list's least and largest kept distance per row give the round's max
 //   logit (-scale * least for scale >= 0, -scale * largest below), each
@@ -69,19 +75,41 @@
 //   atomics: two launches give the same bits.
 // - Row statistics out: the combine writes M and L when the caller passes
 //   pointers for them (training saves them for the backward, so no stats
-//   launch is needed); with null pointers (serving) it writes nothing else.
+//   launch is needed; every column tile writes the same bits); with null
+//   pointers (serving) it writes nothing else. Each version writes them on its own plan: where
+//   two versions' blocks have the same warps, rounds and splits (not a row
+//   walk) they are the same bits, elsewhere they differ in the last bits.
+// - Versions 1 and 2 at one 64-column slab or less (version 1 at D <= 64:
+//   every phase-16 shape but vorticity's; version 2 at B*D <= 64) take one
+//   of two block shapes, by the plan:
+//   - Key-split warps (KW = 4): four warps share one head's slab, each
+//     contracting every fourth listed key; the four accumulators are summed
+//     in warp order at the end. Where the tile has more than 32 columns and
+//     the blocks do not fill the card without a split (the Burgers
+//     processor and decoder at version 1).
+//   - The row walk (WK = 4, 16, 32 or 64 columns, one warp): where the tile
+//     has 32 columns or fewer (version 1's encoders at D 2-3, version 2's
+//     B*D 16-30), whose 64-column lane tiles would be mostly idle, or the
+//     blocks fill the card (the ZSSR decoder and slab at version 1). Rounds
+//     of WRC = 32 keys, the next round's distances in flight (two buffers):
+//     lane o finds the keys row o keeps, the warp the keys some row keeps
+//     (an OR of the lanes' masks), whose u rows are staged in shared memory
+//     in one batch, in key order; lane o then walks row o's kept keys: the
+//     round moves its running max once, each kept key adds its weight to
+//     the normaliser and its weighted u row to the accumulator. The rounds'
+//     32-row weights and contraction would cover every listed key for all
+//     32 rows of a block of one head and one sample, where at 2 % kept a
+//     key is kept by one or two of them (phase 16's random points); the
+//     walk does a kept entry's work only. Its record and combine are the
+//     rounds'; one split writes its rows through shared memory, whole lines
+//     at a time (a lane a row would write 16 bytes of each line, which cost
+//     the ZSSR decoder half its time: PERF.md).
 // - A row that keeps no entry (its threshold below its least distance, or
 //   all its distances +inf) has the plain version's softmax over -1e38
 //   everywhere: M = -1e38, L = L_in and the mean of u over all keys, which
 //   the combine computes for such a row alone (a kept list would give 0/0).
 // Tensor cores are not used (TF32 would not hold parity with the f32
 // oracle), there is no fast math, and ragged edges are masked by index.
-//
-// posatt_fixed_fwd_v1 and _v2 keep the first port's body, one head a
-// block: a first pass over each block's rows gives every row's max and
-// normaliser (one warp a row), a second stages final weights and values
-// per L_in step and contracts densely on register tiles; masked entries are
-// multiplied by their zero weights. They are ROADMAP §2's item 10.
 //
 // The functions launch on the caller's stream, allocate nothing, and
 // return cudaGetLastError() after the launch.
@@ -94,231 +122,30 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-// ------------------------------------------------ v1, v2: one head a block
+// keys a round in a block of one warp
+constexpr int RC1 = 64;
+// keys a round of a row walk (two rounds' distances in a block's buffer)
+constexpr int WRC = 32;
+// a row walk's blocks a SM, for the register cap
+constexpr int WALK_MIN_BLOCKS = 16;
 
-// what a v1 or v2 block owns: the TPU kernel version it schedules as
-enum Schedule { HEAD_SAMPLE = 1, HEAD = 2 };
-
-// N consecutive floats from shared memory; 2, 4 or 8 of them as vector loads
-template <int N>
-__device__ __forceinline__ void lds(const float* p, float (&v)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) v[i] = p[i];
-}
-template <>
-__device__ __forceinline__ void lds<2>(const float* p, float (&v)[2]) {
-  const float2 q = *reinterpret_cast<const float2*>(p);
-  v[0] = q.x; v[1] = q.y;
-}
-template <>
-__device__ __forceinline__ void lds<4>(const float* p, float (&v)[4]) {
-  const float4 q = *reinterpret_cast<const float4*>(p);
-  v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
-}
-template <>
-__device__ __forceinline__ void lds<8>(const float* p, float (&v)[8]) {
-  const float4 q = *reinterpret_cast<const float4*>(p);
-  const float4 r = *reinterpret_cast<const float4*>(p + 4);
-  v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
-  v[4] = r.x; v[5] = r.y; v[6] = r.z; v[7] = r.w;
-}
-
-// A v1 or v2 block owns one head h0, TLO = NWARPS*RPT rows and
-// the value columns [col0, col_end) of the batch-folded axis, at most
-// TN = 32*CPL; warp w owns rows [w*RPT, w*RPT + RPT), lane c owns columns
-// [c*CPL, c*CPL + CPL) from col0.
-template <int SCHED, int NWARPS, int RPT, int CPL, int TLI>
-__global__ void __launch_bounds__(NWARPS * 32)
-posatt_fixed_fwd_kernel(const float* __restrict__ dist,   // (Lo, Li)
-                        const float* __restrict__ thr,    // (Lo)
-                        const float* __restrict__ scale,  // (H)
-                        const float* __restrict__ u,      // (B, Li, D)
-                        float* __restrict__ out,          // (B, Lo, H*D)
-                        int H, int Lo, int Li, int D, int N, int HD, int ctiles) {
-  constexpr int HB = 1;  // one head a block
-  constexpr int THREADS = NWARPS * 32;
-  constexpr int TLO = NWARPS * RPT;
-  constexpr int TN = 32 * CPL;
-  static_assert(THREADS % TLO == 0 && THREADS % TN == 0, "tile shape");
-  static_assert(RPT == 1 || RPT == 4, "rows per thread");
-  static_assert((TLI * TN) % THREADS == 0 && (TLI * TLO) % THREADS == 0, "steps");
-  __shared__ __align__(16) float s_p[HB][TLI][TLO];  // final weights
-  __shared__ __align__(16) float s_u[TLI][TN];       // values
-  __shared__ float s_m[HB][TLO];                      // row max
-  __shared__ float s_il[HB][TLO];                     // 1 / row normaliser
-  __shared__ float s_scale[HB];
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int row0 = blockIdx.y * TLO;
-  const int h0 = blockIdx.z;  // the block's head
-  int col0, col_end;
-  if (SCHED == HEAD_SAMPLE) {  // sample b, column tile c of its D columns
-    const int b = blockIdx.x / ctiles;
-    const int c0 = (blockIdx.x - b * ctiles) * TN;
-    col0 = b * D + c0;
-    col_end = b * D + min(D, c0 + TN);
-  } else {
-    col0 = blockIdx.x * TN;
-    col_end = N;
-  }
-
-  if (tid < HB) s_scale[tid] = scale[h0 + tid];
-  __syncthreads();
-
-  // ---- pass 1: each row's softmax max and normaliser, one warp per row
-  for (int r = warp; r < TLO; r += NWARPS) {
-    const int i = row0 + r;
-    if (i >= Lo) {  // never written; keep the weights finite
-      if (lane < HB) { s_m[lane][r] = 0.f; s_il[lane][r] = 0.f; }
-      continue;
-    }
-    const float t = thr[i];
-    const float* drow = dist + (size_t)i * Li;
-    float mx[HB], sm[HB];
-#pragma unroll
-    for (int h = 0; h < HB; ++h) { mx[h] = -INFINITY; sm[h] = 0.f; }
-#pragma unroll 8
-    for (int j = lane; j < Li; j += 32) {
-      const float d = drow[j];
-#pragma unroll
-      for (int h = 0; h < HB; ++h) mx[h] = fmaxf(mx[h], logit(d, t, s_scale[h]));
-    }
-#pragma unroll
-    for (int h = 0; h < HB; ++h) mx[h] = warp_max(mx[h]);
-#pragma unroll 8
-    for (int j = lane; j < Li; j += 32) {
-      const float d = drow[j];
-#pragma unroll
-      for (int h = 0; h < HB; ++h) sm[h] += expf(logit(d, t, s_scale[h]) - mx[h]);
-    }
-#pragma unroll
-    for (int h = 0; h < HB; ++h) {
-      sm[h] = warp_sum(sm[h]);
-      if (lane == 0) { s_m[h][r] = mx[h]; s_il[h][r] = 1.f / sm[h]; }
-    }
-  }
-  __syncthreads();
-
-  // ---- pass 2: stage final weights and values per L_in step, contract
-  const int rp = tid % TLO;  // the row this thread computes weights for
-  const int ip = row0 + rp;
-  const float tp = ip < Lo ? thr[ip] : 0.f;
-  const float* dp = dist + (size_t)(ip < Lo ? ip : 0) * Li;
-  const int cu = tid % TN;  // the value column this thread stages
-  const int nu = col0 + cu;
-  const bool col_ok = nu < col_end;
-  const float* up = u;
-  if (col_ok) {
-    const int b = nu / D, k = nu - b * D;
-    up = u + (size_t)b * Li * D + k;
-  }
-
-  float acc[HB][RPT][CPL];
-#pragma unroll
-  for (int h = 0; h < HB; ++h)
-#pragma unroll
-    for (int r = 0; r < RPT; ++r)
-#pragma unroll
-      for (int c = 0; c < CPL; ++c) acc[h][r][c] = 0.f;
-
-  for (int j0 = 0; j0 < Li; j0 += TLI) {
-    // constant trip counts, fully unrolled: every load of a step is in
-    // flight at once
-#pragma unroll
-    for (int q = 0; q < TLI * TN / THREADS; ++q) {
-      const int jj = tid / TN + q * (THREADS / TN);
-      const int j = j0 + jj;
-      s_u[jj][cu] = (col_ok && j < Li) ? up[(size_t)j * D] : 0.f;
-    }
-#pragma unroll
-    for (int q = 0; q < TLI * TLO / THREADS; ++q) {
-      const int jj = tid / TLO + q * (THREADS / TLO);
-      const int j = j0 + jj;
-      const bool ok = ip < Lo && j < Li;
-      const float d = ok ? dp[j] : 0.f;
-#pragma unroll
-      for (int h = 0; h < HB; ++h)
-        s_p[h][jj][rp] = ok ? expf(logit(d, tp, s_scale[h]) - s_m[h][rp]) * s_il[h][rp] : 0.f;
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int jj = 0; jj < TLI; ++jj) {
-      float uv[CPL];
-      lds<CPL>(&s_u[jj][lane * CPL], uv);
-#pragma unroll
-      for (int h = 0; h < HB; ++h) {
-        float pv[RPT];
-        lds<RPT>(&s_p[h][jj][warp * RPT], pv);
-#pragma unroll
-        for (int r = 0; r < RPT; ++r)
-#pragma unroll
-          for (int c = 0; c < CPL; ++c) acc[h][r][c] = fmaf(pv[r], uv[c], acc[h][r][c]);
-      }
-    }
-    __syncthreads();
-  }
-
-  // ---- write the head-concat layout
-#pragma unroll
-  for (int r = 0; r < RPT; ++r) {
-    const int i = row0 + warp * RPT + r;
-    if (i >= Lo) continue;
-#pragma unroll
-    for (int c = 0; c < CPL; ++c) {
-      const int n = col0 + lane * CPL + c;
-      if (n >= col_end) continue;
-      const int b = n / D, k = n - b * D;
-      float* dst = out + ((size_t)b * Lo + i) * HD + k;
-#pragma unroll
-      for (int h = 0; h < HB; ++h)
-        dst[(h0 + h) * D] = acc[h][r][c];
-    }
-  }
-}
-
-template <int SCHED, int NWARPS, int RPT, int CPL, int TLI>
-void launch_tiles(const float* dist, const float* thr, const float* scale,
-                  const float* u, float* out, int H, int B, int Lo, int Li, int D,
-                  cudaStream_t stream) {
-  constexpr int TLO = NWARPS * RPT, TN = 32 * CPL;
-  const int N = B * D;
-  const int ctiles = (D + TN - 1) / TN;  // column tiles of one sample (v1)
-  const dim3 grid(SCHED == HEAD_SAMPLE ? B * ctiles : (N + TN - 1) / TN,
-                  (Lo + TLO - 1) / TLO, H);
-  posatt_fixed_fwd_kernel<SCHED, NWARPS, RPT, CPL, TLI><<<grid, NWARPS * 32, 0, stream>>>(
-      dist, thr, scale, u, out, H, Lo, Li, D, N, H * D, ctiles);
-}
-
-// v1 and v2: one head a block, the narrowest column tile that holds
-// `cols` columns (at most 256)
-template <int SCHED>
-void launch_per_head(const float* dist, const float* thr, const float* scale,
-                     const float* u, float* out, int H, int B, int Lo, int Li, int D,
-                     int cols, cudaStream_t stream) {
-  if (cols <= 32)  // 8 x 32
-    launch_tiles<SCHED, 8, 1, 1, 128>(dist, thr, scale, u, out, H, B, Lo, Li, D, stream);
-  else if (cols <= 64)  // 16 x 64
-    launch_tiles<SCHED, 4, 4, 2, 32>(dist, thr, scale, u, out, H, B, Lo, Li, D, stream);
-  else if (cols <= 128)  // 16 x 128
-    launch_tiles<SCHED, 4, 4, 4, 32>(dist, thr, scale, u, out, H, B, Lo, Li, D, stream);
-  else  // 32 x 256
-    launch_tiles<SCHED, 8, 4, 8, 32>(dist, thr, scale, u, out, H, B, Lo, Li, D, stream);
-}
-
-// ------------------------------------------------ v3 and the row statistics
-
-// The shape of a v3 (or stats) block: HB heads by NS 64-column slabs, a
-// warp each; RC local keys a round (the round's weights, HB x RC rows of
-// 32, stay within 32 KB), scanned in CH chunks of a thread each.
-template <bool OUT, int HB, int NS>
+// The shape of a forward (or stats) block: HB heads by NS 64-column slabs,
+// KW warps each (KW > 1: one head and one slab, whose warps share the
+// contraction's keys), or (WK > 0: the row walk, one head, one warp) a
+// tile of WK columns; RC local keys a round (the round's weights, HB x RC
+// rows of 32, stay within 32 KB), scanned in CH chunks of a thread each. A
+// lane holds RPT rows by CPT columns of the output: an 8 x 8 tile of a
+// 64-column slab, or (WK) its own row by the tile's WK columns.
+template <bool OUT, int HB, int NS, int WK = 0, int KW = 1>
 struct FShape {
-  static constexpr int NW = HB * NS;
+  static_assert(WK == 0 || (OUT && HB == 1 && NS == 1 && KW == 1), "a row walk: one warp");
+  static_assert(KW == 1 || (OUT && HB == 1 && NS == 1 && SK % KW == 0), "key-split warps");
+  static constexpr int NW = HB * NS * KW;
   static constexpr int THREADS = NW * 32;
-  static constexpr int CW = NS * TN;  // value columns a block
-  static constexpr int RC = HB <= 2 ? 128 : (HB <= 4 ? 64 : 32);
+  static constexpr int CW = WK ? WK : NS * TN;  // value columns a block
+  static constexpr int RPT = WK ? 1 : 8;
+  static constexpr int CPT = WK ? WK : 8;
+  static constexpr int RC = NW == 1 ? RC1 : (HB <= 2 ? 128 : (HB <= 4 ? 64 : 32));
   static constexpr int CH = (RC + THREADS - 1) / THREADS;
   // a row of a round's distances, padded against bank conflicts; at least
   // 64 wide, so that the combine's lists of splits fit in their place
@@ -327,15 +154,21 @@ struct FShape {
   // a split's record: M and L of its rows per head, then (OUT) its
   // un-normalised accumulator HB x TM x CW
   static constexpr int REC = HB * TM * (2 + (OUT ? CW : 0));
-  static constexpr int MAIN = (OUT ? 2 * SK * CW : 0) + HB * RC * TM;  // staged u rows, weights
-  static constexpr int UNI = REC > MAIN ? REC : MAIN;
-  static constexpr int MIN_BLOCKS = SM_WARPS / NW > 0 ? SM_WARPS / NW : 1;
+  // the staged u rows and the weights (none in a row walk)
+  static constexpr int WP = WK + 4;  // a row walk's staged u row, padded against bank conflicts
+  static_assert(WK == 0 || 2 * WRC + 4 <= DP, "a row walk's two distance buffers");
+  static constexpr int MAIN = WK ? WRC * WP : (OUT ? 2 * SK * CW : 0) + HB * RC * TM;
+  static constexpr int PART = (KW - 1) * TM * CW;  // the key-split warps' accumulators
+  static constexpr int UNI = REC > MAIN ? (REC > PART ? REC : PART) : (MAIN > PART ? MAIN : PART);
+  // resident blocks a SM the register cap allows (a row walk: 16, at most
+  // 128 registers a thread)
+  static constexpr int MIN_BLOCKS = WK ? WALK_MIN_BLOCKS : (SM_WARPS / NW > 0 ? SM_WARPS / NW : 1);
 };
 
-// What a v3 block keeps in shared memory (dynamic: above 48 KB).
-template <bool OUT, int HB, int NS>
+// What a forward block keeps in shared memory (dynamic: above 48 KB).
+template <bool OUT, int HB, int NS, int WK, int KW>
 struct FSmem {
-  using S = FShape<OUT, HB, NS>;
+  using S = FShape<OUT, HB, NS, WK, KW>;
   // the staged u rows [2 * SK][CW] (OUT) and the weights [HB * RC][TM];
   // after the rounds, the split's record
   __align__(16) float uni[S::UNI];
@@ -356,22 +189,25 @@ struct FSmem {
   int empty[TM];              // the combine: the row keeps no entry at all
   int nz[TM];                 // the combine: the splits that keep an entry of the row
   float colsum[OUT ? S::CW : 1];  // sum over all keys of u, for empty rows
+  int coff[WK ? WK : 1];      // a row walk: column c of the tile at u0 + coff[c] + key * D
   int last;
 };
 
-// The inputs of one v3 or stats launch.
+// The inputs of one forward or stats launch.
 struct FArgs {
   const float* dist;   // (Lo, Li)
   const float* thr;    // (Lo)
   const float* scale;  // (H)
-  const float* u;      // (B, Li, D); v3 only
-  float* out;          // (B, Lo, H*D); v3 only
+  const float* u;      // (B, Li, D); forward only
+  float* out;          // (B, Lo, H*D); forward only
   float* M;            // (H, Lo) or null
   float* L;            // (H, Lo) or null
   float* scratch;      // splits > MAX_CLUSTER: a record per (tile, split)
   int* counters;       // splits > MAX_CLUSTER: one per tile, zero before and after
-  int H, Lo, Li, D, N;
+  int H, Lo, Li, D;
   int n_ct;            // column tiles (stats: 1)
+  int seg, seg_ct;     // the batch-folded columns in segments of seg (version 1:
+                       // a sample's D; else B*D), seg_ct column tiles each
   int R;               // local keys a split (a multiple of GROUP)
   bool vec4;           // 16-byte pieces of u and out: D % 4 == 0, both aligned
   bool dvec4;          // 16-byte pieces of dist: Li % 4 == 0 and dist aligned
@@ -379,29 +215,36 @@ struct FArgs {
 
 // A block: head group and column tile blockIdx.x, row tile blockIdx.y,
 // split blockIdx.z of the keys (in a cluster of the tile's splits when
-// there are 2 to 8). Lane (og, cg) = (lane / 8, lane % 8) of warp (head wh,
-// slab) owns the rows og*4 + {0..3}, 16 + og*4 + {0..3} and the columns
-// cg*4 + {0..3}, 32 + cg*4 + {0..3} of the slab. In the weighting lane o
+// there are 2 to 8). Column tile ct covers the columns [col0, cend) of
+// segment ct / seg_ct (version 1: a sample; else all B*D columns). Lane
+// (og, cg) = (lane / 8, lane % 8) of warp (head wh, slab) owns the rows
+// og*4 + {0..3}, 16 + og*4 + {0..3} and the columns cg*4 + {0..3},
+// 32 + cg*4 + {0..3} of the slab. In the weighting lane o
 // weights the entries of row o. Without OUT (posatt_stats) the block runs
 // the same rounds, weights and combine and contracts nothing, so it writes
-// the bits of M and L that the forward writes on the same plan.
-template <bool OUT, int HB, int NS>
-__global__ void __launch_bounds__(FShape<OUT, HB, NS>::THREADS, FShape<OUT, HB, NS>::MIN_BLOCKS)
+// the bits of M and L that the forward writes on the same plan. A row walk
+// (WK > 0) replaces the rounds: lane o streams row o's keys of the split
+// and holds row o by the tile's WK columns.
+template <bool OUT, int HB, int NS, int WK, int KW>
+__global__ void __launch_bounds__(FShape<OUT, HB, NS, WK, KW>::THREADS,
+                                  FShape<OUT, HB, NS, WK, KW>::MIN_BLOCKS)
 fwd_kernel(const FArgs a) {
-  using S = FShape<OUT, HB, NS>;
+  using S = FShape<OUT, HB, NS, WK, KW>;
   constexpr int NW = S::NW, THREADS = S::THREADS, CW = S::CW, RC = S::RC, CH = S::CH;
-  constexpr int REC = S::REC;
+  constexpr int REC = S::REC, RPT = S::RPT, CPT = S::CPT;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  FSmem<OUT, HB, NS>& sm = *reinterpret_cast<FSmem<OUT, HB, NS>*>(smem_raw);
+  FSmem<OUT, HB, NS, WK, KW>& sm = *reinterpret_cast<FSmem<OUT, HB, NS, WK, KW>*>(smem_raw);
   float* const sv = sm.uni;                             // staged u rows
   float* const sw = sm.uni + (OUT ? 2 * SK * CW : 0);  // weights [h * RC + k][row]
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int H = a.H, Lo = a.Lo, Li = a.Li, D = a.D, N = a.N;
+  const int H = a.H, Lo = a.Lo, Li = a.Li, D = a.D;
   const int grp = blockIdx.x / a.n_ct, ct = blockIdx.x - grp * a.n_ct;
-  const int col0 = ct * CW, o0 = blockIdx.y * TM, h0 = grp * HB;
+  const int sg = ct / a.seg_ct, sc = (ct - sg * a.seg_ct) * CW;
+  const int col0 = sg * a.seg + sc, cend = sg * a.seg + min(a.seg, sc + CW);
+  const int o0 = blockIdx.y * TM, h0 = grp * HB;
   const int splits = gridDim.z, split = blockIdx.z;
-  const int wh = warp / NS, slab = warp % NS;
+  const int wh = warp / (NS * KW), slab = (warp / KW) % NS, ks = warp % KW;
   // this split's keys: local index t < R is key ((t / GROUP) * splits +
   // split) * GROUP + t % GROUP, below Li, so that a band of kept keys is
   // shared by all splits
@@ -428,7 +271,7 @@ fwd_kernel(const FArgs a) {
 #pragma unroll
   for (int e = 0; e < 4; ++e) {
     const int n = col0 + c4 + e;
-    cok[e] = OUT && n < N;
+    cok[e] = OUT && n < cend;
     const int b = cok[e] ? n / D : 0, k = cok[e] ? n - b * D : 0;
     cb[e] = (size_t)b * Li * D + k;
   }
@@ -511,62 +354,185 @@ fwd_kernel(const FArgs a) {
   };
 
   const int og = lane >> 3, cgp = lane & 7;
-  const int rows[8] = {og * 4, og * 4 + 1, og * 4 + 2, og * 4 + 3,
-                       16 + og * 4, 16 + og * 4 + 1, 16 + og * 4 + 2, 16 + og * 4 + 3};
-  const int cols[8] = {cgp * 4, cgp * 4 + 1, cgp * 4 + 2, cgp * 4 + 3,
-                       32 + cgp * 4, 32 + cgp * 4 + 1, 32 + cgp * 4 + 2, 32 + cgp * 4 + 3};
-  float acc[8][8];
+  int rows[RPT], cols[CPT];  // this lane's rows and columns, in fours
 #pragma unroll
-  for (int r = 0; r < 8; ++r)
+  for (int r = 0; r < RPT; ++r) rows[r] = WK ? lane : (r / 4) * 16 + og * 4 + r % 4;
 #pragma unroll
-    for (int c = 0; c < 8; ++c) acc[r][c] = 0.f;
+  for (int c = 0; c < CPT; ++c) cols[c] = WK ? c : (c / 4) * 32 + cgp * 4 + c % 4;
+  float acc[RPT][CPT];
+#pragma unroll
+  for (int r = 0; r < RPT; ++r)
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) acc[r][c] = 0.f;
 
   // rescale this lane's accumulators by the round's max change, then
   // contract over the listed keys [0, n), whose weights are in shared
   // memory and whose first step's u rows are in flight: while step s is
   // contracted, step s + 1's rows are; one block barrier a step
   auto contract = [&](int n, int cbase) {
-    const int steps = (n + SK - 1) / SK;
-    cp_async_wait_all();
-    __syncthreads();  // the weights, the rescale and the first step's rows are visible
-#pragma unroll
-    for (int r = 0; r < 8; ++r) {
-      const float al = sm.alpha[wh][rows[r]];
-#pragma unroll
-      for (int c = 0; c < 8; ++c) acc[r][c] *= al;
-    }
-    int buf = 0;
-    for (int s = 0; s < steps; ++s, buf ^= 1) {
-      if (s + 1 < steps) stage((s + 1) * SK, n, buf ^ 1, cbase);
-#pragma unroll
-      for (int kk = 0; kk < SK; ++kk) {
-        const float* wr = sw + (size_t)(wh * RC + s * SK + kk) * TM;
-        const float* vr = sv + (size_t)(buf * SK + kk) * CW + slab * TN;
-        float wv[8], vv[8];
-        lds4(wr + og * 4, wv);
-        lds4(wr + 16 + og * 4, wv + 4);
-        lds4(vr + cgp * 4, vv);
-        lds4(vr + 32 + cgp * 4, vv + 4);
-#pragma unroll
-        for (int r = 0; r < 8; ++r)
-#pragma unroll
-          for (int c = 0; c < 8; ++c) acc[r][c] = fmaf(wv[r], vv[c], acc[r][c]);
-      }
+    if constexpr (WK == 0) {  // the rounds' 8 x 8 lane tiles (a row walk has its own)
+      const int steps = (n + SK - 1) / SK;
       cp_async_wait_all();
-      __syncthreads();  // step s's buffer is free, step s + 1's is visible
+      __syncthreads();  // the weights, the rescale and the first step's rows are visible
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        const float al = sm.alpha[wh][rows[r]];
+#pragma unroll
+        for (int c = 0; c < 8; ++c) acc[r][c] *= al;
+      }
+      int buf = 0;
+      for (int s = 0; s < steps; ++s, buf ^= 1) {
+        if (s + 1 < steps) stage((s + 1) * SK, n, buf ^ 1, cbase);
+#pragma unroll
+        for (int q = 0; q < SK / KW; ++q) {  // key-split warps: every KW-th key
+          const int kk = q * KW + ks;
+          const float* wr = sw + (size_t)(wh * RC + s * SK + kk) * TM;
+          const float* vr = sv + (size_t)(buf * SK + kk) * CW + slab * TN;
+          float wv[8], vv[8];
+          lds4(wr + og * 4, wv);
+          lds4(wr + 16 + og * 4, wv + 4);
+          lds4(vr + cgp * 4, vv);
+          lds4(vr + 32 + cgp * 4, vv + 4);
+#pragma unroll
+          for (int r = 0; r < 8; ++r)
+#pragma unroll
+            for (int c = 0; c < 8; ++c) acc[r][c] = fmaf(wv[r], vv[c], acc[r][c]);
+        }
+        cp_async_wait_all();
+        __syncthreads();  // step s's buffer is free, step s + 1's is visible
+      }
     }
   };
 
-  // ---- the rounds of this split: fetch, scan, max, weights,
-  // contraction (a fetch one round ahead was timed and did not pay for its
-  // shared memory: PERF.md). M and L take explicit roundings (__f*_rn), so
-  // that the forward and the stats entry point, two instantiations of this
-  // body, give the same bits.
-  const int nrounds = (a.R + RC - 1) / RC;
+  // ---- the rounds of this split (a row walk's below, then the list
+  // body's): fetch, scan, max, weights, contraction (a fetch one round ahead
+  // was timed for the list body and did not pay for its shared memory:
+  // PERF.md). M and L take explicit roundings (__f*_rn), so that the
+  // forward and the stats entry point, two instantiations of this body,
+  // give the same bits.
   bool listed = false;  // block-uniform: some round listed a key
   float mh[HB];         // the running max of this lane's row per head
 #pragma unroll
   for (int h = 0; h < HB; ++h) mh[h] = -INFINITY;
+  if constexpr (WK > 0) {
+    // ---- the row walk, in rounds of WRC keys: a round's distances arrive
+    // (coalesced, into one of two buffers, the next round's in flight while
+    // this one is walked); lane o finds the keys row o keeps, the warp the
+    // keys some row keeps (an OR of the lanes' masks), whose u rows (the
+    // tile's WK columns) are staged in shared memory in one batch, in key
+    // order; then lane o walks row o's kept keys: the round moves its
+    // running max once, then each kept key adds its weight to the
+    // normaliser and its weighted u row to the accumulator
+    constexpr int WP = S::WP, PR = WK / 4;  // a staged row's floats and 4-column pieces
+    float* const su = sm.uni;                // [WRC][WP]: the staged u rows, in key order
+    const float sc0 = sh[0];
+    const int b0 = col0 / D, live = cend - col0;
+    const float* const u0 = a.u + (size_t)b0 * Li * D;
+    for (int c = tid; c < WK; c += THREADS) {
+      const int n = min(col0 + c, cend - 1), b = n / D;
+      sm.coff[c] = (b - b0) * Li * D + (n - b * D);
+    }
+    // the distances of the keys of local indices [cbase, cbase + WRC) into
+    // buffer buf (columns buf * (WRC + 4) on); keys past Li are zero-filled
+    // (never kept: the walk checks the key)
+    auto wfetch = [&](int cbase, int buf) {
+      if (cbase >= a.R) return;
+      for (int e = tid; e < TM * WRC / 4; e += THREADS) {
+        const int r = e / (WRC / 4), c = (e - r * (WRC / 4)) * 4;
+        const int i = o0 + r, j = global(cbase + c);
+        const bool row_ok = i < Lo;
+        const float* src = a.dist + (size_t)(row_ok ? i : 0) * Li;
+        float* dst = &sm.d[r][buf * (WRC + 4) + c];
+        if (a.dvec4) {
+          const bool ok = row_ok && j < Li;
+          cp_async16(dst, ok ? src + j : a.dist, ok);
+        } else {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const bool ok = row_ok && j + q < Li;
+            cp_async4(dst + q, ok ? src + j + q : a.dist, ok);
+          }
+        }
+      }
+    };
+    float m = -INFINITY, l = 0.f;
+    wfetch(0, 0);
+    cp_async_commit();
+    for (int cbase = 0, buf = 0; cbase < a.R; cbase += WRC, buf ^= 1) {
+      cp_async_wait_all();
+      __syncthreads();  // the round's distances (and the column offsets) are visible
+      const float* const dr = &sm.d[lane][buf * (WRC + 4)];  // this lane's row of the round
+      // this lane's kept keys of the round and their least and largest
+      // distance; the keys some lane keeps
+      unsigned mask = 0;
+      float lo = INFINITY, hi = -INFINITY;
+#pragma unroll
+      for (int g0 = 0; g0 < WRC; g0 += GROUP) {
+        const int key0 = cbase + g0 < a.R ? global(cbase + g0) : Li;
+        float dq[GROUP];
+#pragma unroll
+        for (int q = 0; q < GROUP; q += 4) lds4(dr + g0 + q, dq + q);
+#pragma unroll
+        for (int q = 0; q < GROUP; ++q)
+          if (key0 + q < Li && kept(dq[q], othr)) {
+            mask |= 1u << (g0 + q);
+            lo = fminf(lo, dq[q]);
+            hi = fmaxf(hi, dq[q]);
+          }
+      }
+      const unsigned any = __reduce_or_sync(FULL, mask);
+      const int n = __popc(any);
+      if ((any >> lane) & 1u) sm.list[__popc(any & ((1u << lane) - 1u))] = lane;
+      __syncthreads();  // the list is visible
+      // the listed keys' u rows, 16 bytes (or 4 where D % 4 != 0) a piece;
+      // then the next round's distances
+      for (int e = tid; e < n * PR; e += THREADS) {
+        const int k = e / PR, c = (e - k * PR) * 4;
+        const float* const ur = u0 + (size_t)global(cbase + sm.list[k]) * D;
+        if (a.vec4) {
+          cp_async16(su + k * WP + c, c < live ? ur + sm.coff[c] : a.u, c < live);
+        } else {
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            cp_async4(su + k * WP + c + q, c + q < live ? ur + sm.coff[c + q] : a.u, c + q < live);
+        }
+      }
+      cp_async_commit();
+      wfetch(cbase + WRC, buf ^ 1);
+      cp_async_commit();
+      if (lo <= hi) {  // the lane's row keeps a key of the round
+        const float m_new = fmaxf(m, __fmul_rn(-sc0, sc0 >= 0.f ? lo : hi));
+        if (m_new > m) {  // rescale (exp(-inf) = 0 while nothing was kept)
+          const float al = expf(__fsub_rn(m, m_new));
+          l = __fmul_rn(l, al);
+#pragma unroll
+          for (int c = 0; c < CPT; ++c) acc[0][c] *= al;
+          m = m_new;
+        }
+      }
+      cp_async_wait_one();
+      __syncthreads();  // the staged u rows are visible
+      while (mask != 0) {
+        const int q = __ffs(mask) - 1;
+        mask &= mask - 1;
+        const float p = expf(__fsub_rn(__fmul_rn(-sc0, dr[q]), m));
+        l = __fadd_rn(l, p);
+        const float* const ur = su + __popc(any & ((1u << q) - 1u)) * WP;
+#pragma unroll
+        for (int c = 0; c < CPT; c += 4) {
+          float v[4];
+          lds4(ur + c, v);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[0][c + e] = fmaf(p, v[e], acc[0][c + e]);
+        }
+      }
+      __syncthreads();  // the round's staged rows and list are read
+    }
+    mh[0] = m;
+    sm.lrow[0][lane] = l;
+    listed = __any_sync(FULL, m != -INFINITY);
+  }
+  const int nrounds = WK ? 0 : (a.R + RC - 1) / RC;
   for (int rd = 0; rd < nrounds; ++rd) {
     const int cbase = rd * RC;
     fetch(cbase);
@@ -641,6 +607,30 @@ fwd_kernel(const FArgs a) {
     for (int h = 0; h < HB; ++h) sm.mrow[h][lane] = mh[h];
   cp_async_wait_all();
   __syncthreads();  // the max and last normaliser are written; the staging and weights are free
+  if constexpr (KW > 1) {
+    // the key-split warps' accumulators, summed into warp 0's in warp order
+    float* const part = sm.uni;  // [KW - 1][TM][CW]
+    if (ks > 0)
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+#pragma unroll
+        for (int c = 0; c < 8; c += 4)
+          *reinterpret_cast<float4*>(part + ((size_t)(ks - 1) * TM + rows[r]) * CW + cols[c]) =
+              make_float4(acc[r][c], acc[r][c + 1], acc[r][c + 2], acc[r][c + 3]);
+    __syncthreads();
+    if (ks == 0)
+      for (int k = 0; k < KW - 1; ++k)
+#pragma unroll
+        for (int r = 0; r < 8; ++r)
+#pragma unroll
+          for (int c = 0; c < 8; c += 4) {
+            float v[4];
+            lds4(part + ((size_t)k * TM + rows[r]) * CW + cols[c], v);
+#pragma unroll
+            for (int q = 0; q < 4; ++q) acc[r][c + q] += v[q];
+          }
+    __syncthreads();  // the shared memory is free again
+  }
 
   // Combine the records of the tile's nsrc splits for the rows [r0, r1),
   // in split order: M = max_s M_s, L = sum_s L_s f_s with
@@ -655,7 +645,7 @@ fwd_kernel(const FArgs a) {
   auto combine = [&](auto base, auto ld, auto ld4, int nsrc, int r0, int r1) {
     float* const zf = &sm.d[0][0];             // zf[k * TM + r]: the k-th listed split's f
     int* const zs = reinterpret_cast<int*>(zf + MAX_SPLITS * TM);  // and its index
-    const int live = OUT ? min(CW, N - col0) : 4;  // the tile's columns (OUT)
+    const int live = OUT ? cend - col0 : 4;  // the tile's columns (OUT)
     const int pieces = (live + 3) / 4;
     for (int h = 0; h < HB && h0 + h < H; ++h) {
       if (tid < r1 - r0) {
@@ -767,17 +757,43 @@ fwd_kernel(const FArgs a) {
           a.L[(size_t)(h0 + h) * Lo + i] = sm.lrow[h][r];
         }
       }
-      if (OUT && h0 + wh < H) {
+      if constexpr (WK > 0) {
+        // a row walk: the normalised rows through shared memory (the staged
+        // rows' place), then out with the lanes along the columns, whole
+        // lines of each row (a lane a row would write 16 bytes a line)
+        float* const so = sm.uni;  // [TM][WP]
+        const float il = __frcp_rn(sm.lrow[0][lane]);  // 1 / L
 #pragma unroll
-        for (int r = 0; r < 8; ++r) {
+        for (int c = 0; c < CPT; c += 4)
+          *reinterpret_cast<float4*>(so + lane * S::WP + cols[c]) =
+              make_float4(__fmul_rn(acc[0][c], il), __fmul_rn(acc[0][c + 1], il),
+                          __fmul_rn(acc[0][c + 2], il), __fmul_rn(acc[0][c + 3], il));
+        __syncthreads();
+        const int live = cend - col0, pieces = a.vec4 ? live / 4 : live;
+        for (int e = tid; e < TM * pieces; e += THREADS) {
+          const int r = e / pieces, i = o0 + r;
+          if (i >= Lo) continue;
+          float* const orow = a.out + (size_t)i * H * D + (size_t)h0 * D;
+          if (a.vec4) {  // four columns of one sample: 16 bytes
+            const int c = (e - r * pieces) * 4, n = col0 + c, b = n / D;
+            *reinterpret_cast<float4*>(orow + (size_t)b * Lo * H * D + (n - b * D)) =
+                *reinterpret_cast<const float4*>(so + r * S::WP + c);
+          } else {
+            const int c = e - r * pieces, n = col0 + c, b = n / D;
+            orow[(size_t)b * Lo * H * D + (n - b * D)] = so[r * S::WP + c];
+          }
+        }
+      } else if (OUT && h0 + wh < H && ks == 0) {
+#pragma unroll
+        for (int r = 0; r < RPT; ++r) {
           const int i = o0 + rows[r];
           if (i >= Lo) continue;
           const float il = __frcp_rn(sm.lrow[wh][rows[r]]);  // 1 / L
           float* const orow = a.out + (size_t)i * H * D + (size_t)(h0 + wh) * D;
 #pragma unroll
-          for (int c = 0; c < 8; c += 4) {
+          for (int c = 0; c < CPT; c += 4) {
             const int n0 = col0 + slab * TN + cols[c];
-            if (a.vec4 && n0 + 3 < N) {  // four columns of one sample: 16 bytes
+            if (a.vec4 && n0 + 3 < cend) {  // four columns of one sample: 16 bytes
               const int b = n0 / D;
               *reinterpret_cast<float4*>(orow + (size_t)b * Lo * H * D + (n0 - b * D)) =
                   make_float4(__fmul_rn(acc[r][c], il), __fmul_rn(acc[r][c + 1], il),
@@ -786,7 +802,7 @@ fwd_kernel(const FArgs a) {
 #pragma unroll
               for (int q = 0; q < 4; ++q) {
                 const int n = n0 + q, b = n / D;
-                if (n < N) orow[(size_t)b * Lo * H * D + (n - b * D)] = __fmul_rn(acc[r][c + q], il);
+                if (n < cend) orow[(size_t)b * Lo * H * D + (n - b * D)] = __fmul_rn(acc[r][c + q], il);
               }
             }
           }
@@ -802,11 +818,11 @@ fwd_kernel(const FArgs a) {
       rec[e] = (&sm.mrow[0][0])[e];
       rec[HB * TM + e] = (&sm.lrow[0][0])[e];
     }
-    if (OUT && listed) {
+    if (OUT && listed && ks == 0) {
 #pragma unroll
-      for (int r = 0; r < 8; ++r)
+      for (int r = 0; r < RPT; ++r)
 #pragma unroll
-        for (int c = 0; c < 8; c += 4)
+        for (int c = 0; c < CPT; c += 4)
           *reinterpret_cast<float4*>(rec + 2 * HB * TM + (size_t)(wh * TM + rows[r]) * CW +
                                      slab * TN + cols[c]) =
               make_float4(acc[r][c], acc[r][c + 1], acc[r][c + 2], acc[r][c + 3]);
@@ -850,11 +866,11 @@ fwd_kernel(const FArgs a) {
   cluster.sync();  // no block leaves while another reads its record
 }
 
-template <bool OUT, int HB, int NS>
+template <bool OUT, int HB, int NS, int WK = 0, int KW = 1>
 int launch_fwd_shape(const FArgs& a, const Plan& p, cudaStream_t s) {
-  using S = FShape<OUT, HB, NS>;
-  constexpr int smem = (int)sizeof(FSmem<OUT, HB, NS>);
-  int rc = (int)cudaFuncSetAttribute(fwd_kernel<OUT, HB, NS>,
+  using S = FShape<OUT, HB, NS, WK, KW>;
+  constexpr int smem = (int)sizeof(FSmem<OUT, HB, NS, WK, KW>);
+  int rc = (int)cudaFuncSetAttribute(fwd_kernel<OUT, HB, NS, WK, KW>,
                                      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (rc != 0) return rc;
   const dim3 grid(p.groups * a.n_ct, p.tiles, p.splits);
@@ -871,16 +887,24 @@ int launch_fwd_shape(const FArgs& a, const Plan& p, cudaStream_t s) {
     attr[0].val.clusterDim.z = p.splits;
     cfg.attrs = attr;
     cfg.numAttrs = 1;
-    rc = (int)cudaLaunchKernelEx(&cfg, fwd_kernel<OUT, HB, NS>, a);
+    rc = (int)cudaLaunchKernelEx(&cfg, fwd_kernel<OUT, HB, NS, WK, KW>, a);
     if (rc != 0) return rc;
   } else {
-    fwd_kernel<OUT, HB, NS><<<grid, S::THREADS, smem, s>>>(a);
+    fwd_kernel<OUT, HB, NS, WK, KW><<<grid, S::THREADS, smem, s>>>(a);
   }
   return (int)cudaGetLastError();
 }
 
 template <bool OUT, int HB>
 int launch_fwd_slabs(const FArgs& a, const Plan& p, cudaStream_t s) {
+  if constexpr (HB == 1 && OUT) {  // a row walk over a tile of 4, 16, 32 or 64 columns
+    if (p.walk == 4) return launch_fwd_shape<OUT, 1, 1, 4>(a, p, s);
+    if (p.walk == 16) return launch_fwd_shape<OUT, 1, 1, 16>(a, p, s);
+    if (p.walk == 32) return launch_fwd_shape<OUT, 1, 1, 32>(a, p, s);
+    if (p.walk == 64) return launch_fwd_shape<OUT, 1, 1, 64>(a, p, s);
+    if constexpr (KEY_WARPS > 1)  // key-split warps
+      if (p.kw > 1) return launch_fwd_shape<OUT, 1, 1, 0, KEY_WARPS>(a, p, s);
+  }
   if constexpr (HB == 1)
     if (p.ns == 4) return launch_fwd_shape<OUT, HB, 4>(a, p, s);
   if constexpr (HB <= 2)
@@ -905,51 +929,73 @@ int launch_fwd(const FArgs& a, const Plan& p, cudaStream_t s) {
 // A split's record in floats, and the tiles a launch has (one counter
 // each where the records go to scratch).
 long long record_floats(bool out, const Plan& p) {
-  return (long long)p.hb * TM * (2 + (out ? p.ns * TN : 0));
+  return (long long)p.hb * TM * (2 + (out ? (p.walk ? p.walk : p.ns * TN) : 0));
 }
 
 long long launch_tiles_of(bool out, const Plan& p) {
   return (long long)p.groups * (out ? p.n_ct : 1) * p.tiles;
 }
 
-int run_fwd(bool out, const float* dist, const float* thr, const float* scale, const float* u,
-            float* o, float* M, float* L, float* scratch, int* counters, int H, int B, int Lo,
-            int Li, int D, cudaStream_t s) {
+// version: the forward's schedule (1, 2, 3); the stats kernel takes 3
+int run_fwd(bool out, int version, const float* dist, const float* thr, const float* scale,
+            const float* u, float* o, float* M, float* L, float* scratch, int* counters, int H,
+            int B, int Lo, int Li, int D, cudaStream_t s) {
   if (bad_shape(H, B, Lo, Li, D)) return (int)cudaErrorInvalidValue;
-  const Plan p = plan(FWD, H, B, Lo, Li, D);
+  const Plan p = plan(FWD, H, B, Lo, Li, D, version);
   if (p.splits > MAX_CLUSTER && (scratch == nullptr || counters == nullptr))
     return (int)cudaErrorInvalidValue;
   if ((M == nullptr) != (L == nullptr)) return (int)cudaErrorInvalidValue;
+  const int n_ct = out ? p.n_ct : 1;
+  const int seg = version == 1 ? D : B * D;  // the columns a column tile is cut from
   const FArgs a{dist, thr, scale, u, o, M, L, scratch, counters,
-                H, Lo, Li, D, B * D, out ? p.n_ct : 1, p.R,
+                H, Lo, Li, D, n_ct, seg, version == 1 ? n_ct / B : n_ct, p.R,
                 out && D % 4 == 0 && aligned(u) && aligned(o), Li % 4 == 0 && aligned(dist)};
   return out ? launch_fwd<true>(a, p, s) : launch_fwd<false>(a, p, s);
 }
 
 }  // namespace
 
-// How a launch of posatt_fixed_fwd (out = 1) or posatt_stats (out = 0) at
-// this shape cuts its work: *splits, the splits of L_in; *floats, the
-// scratch of split records it needs (0 up to 8 splits); *tiles, the
-// counters it needs (one int each, zero before the first launch and left
-// zero by each).
-extern "C" int posatt_fwd_plan(int out, int H, int B, int Lo, int Li, int D,
-                               long long* floats, long long* tiles, int* splits) {
-  if (bad_shape(H, B, Lo, Li, D)) return (int)cudaErrorInvalidValue;
-  const Plan p = plan(FWD, H, B, Lo, Li, D);
+// How a launch of a forward (out = 1; version 1, 2 or 3) or of posatt_stats
+// (out = 0, version 3) at this shape cuts its work: *splits, the splits of
+// L_in; *warps, the warps a block; *floats, the scratch of split records it
+// needs (0 up to 8 splits); *tiles, the counters it needs (one int each,
+// zero before the first launch and left zero by each).
+extern "C" int posatt_fwd_plan(int out, int version, int H, int B, int Lo, int Li, int D,
+                               long long* floats, long long* tiles, int* splits, int* warps) {
+  if (bad_shape(H, B, Lo, Li, D) || version < 1 || version > 3 || (!out && version != 3))
+    return (int)cudaErrorInvalidValue;
+  const Plan p = plan(FWD, H, B, Lo, Li, D, version);
   const bool scr = p.splits > MAX_CLUSTER;
   *tiles = scr ? launch_tiles_of(out != 0, p) : 0;
   *floats = scr ? launch_tiles_of(out != 0, p) * p.splits * record_floats(out != 0, p) : 0;
   *splits = p.splits;
+  *warps = p.hb * p.ns * p.kw;
   return 0;
 }
 
-// M and L may both be null (nothing but the output is written).
+// The three forwards: M and L may both be null (nothing but the output is
+// written); scratch and counters as posatt_fwd_plan says for the version.
 extern "C" int posatt_fixed_fwd(const float* dist, const float* thr, const float* scale,
                                 const float* u, float* out, float* M, float* L,
                                 float* scratch, int* counters,
                                 int H, int B, int Lo, int Li, int D, void* stream) {
-  return run_fwd(true, dist, thr, scale, u, out, M, L, scratch, counters, H, B, Lo, Li, D,
+  return run_fwd(true, 3, dist, thr, scale, u, out, M, L, scratch, counters, H, B, Lo, Li, D,
+                 static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int posatt_fixed_fwd_v2(const float* dist, const float* thr, const float* scale,
+                                   const float* u, float* out, float* M, float* L,
+                                   float* scratch, int* counters,
+                                   int H, int B, int Lo, int Li, int D, void* stream) {
+  return run_fwd(true, 2, dist, thr, scale, u, out, M, L, scratch, counters, H, B, Lo, Li, D,
+                 static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int posatt_fixed_fwd_v1(const float* dist, const float* thr, const float* scale,
+                                   const float* u, float* out, float* M, float* L,
+                                   float* scratch, int* counters,
+                                   int H, int B, int Lo, int Li, int D, void* stream) {
+  return run_fwd(true, 1, dist, thr, scale, u, out, M, L, scratch, counters, H, B, Lo, Li, D,
                  static_cast<cudaStream_t>(stream));
 }
 
@@ -958,26 +1004,6 @@ extern "C" int posatt_stats(const float* dist, const float* thr, const float* sc
                             float* M, float* L, float* scratch, int* counters,
                             int H, int B, int Lo, int Li, int D, void* stream) {
   if (M == nullptr) return (int)cudaErrorInvalidValue;
-  return run_fwd(false, dist, thr, scale, nullptr, nullptr, M, L, scratch, counters, H, B, Lo,
-                 Li, D, static_cast<cudaStream_t>(stream));
-}
-
-extern "C" int posatt_fixed_fwd_v2(const float* dist, const float* thr,
-                                   const float* scale, const float* u, float* out,
-                                   int H, int B, int Lo, int Li, int D,
-                                   void* stream) {
-  if (bad_shape(H, B, Lo, Li, D)) return (int)cudaErrorInvalidValue;
-  launch_per_head<HEAD>(dist, thr, scale, u, out, H, B, Lo, Li, D, B * D,
-                        static_cast<cudaStream_t>(stream));
-  return (int)cudaGetLastError();
-}
-
-extern "C" int posatt_fixed_fwd_v1(const float* dist, const float* thr,
-                                   const float* scale, const float* u, float* out,
-                                   int H, int B, int Lo, int Li, int D,
-                                   void* stream) {
-  if (bad_shape(H, B, Lo, Li, D)) return (int)cudaErrorInvalidValue;
-  launch_per_head<HEAD_SAMPLE>(dist, thr, scale, u, out, H, B, Lo, Li, D, D,
-                               static_cast<cudaStream_t>(stream));
-  return (int)cudaGetLastError();
+  return run_fwd(false, 3, dist, thr, scale, nullptr, nullptr, M, L, scratch, counters, H, B,
+                 Lo, Li, D, static_cast<cudaStream_t>(stream));
 }

@@ -6,12 +6,13 @@ keeps that name so that a reader finds it). Six hand-written sm_90a
 kernels, each the port of one TPU kernel:
 
 - ``csrc/posatt_fixed_fwd.cu``: the forward under the three schedules of
-  the JAX ``version`` option, one entry point each: ``posatt_fixed_fwd``
-  (version 3, ``_make_posatt_kernel_v3``, which also writes the row
-  statistics when asked), ``posatt_fixed_fwd_v2`` (``_posatt_kernel_v2``)
-  and ``posatt_fixed_fwd_v1`` (``_posatt_kernel``); and the row statistics
-  ``_posatt_stats`` alone (``posatt_stats``: version 3's kernel without
-  the contraction);
+  the JAX ``version`` option, one entry point each and one kernel body
+  for all three: ``posatt_fixed_fwd`` (version 3,
+  ``_make_posatt_kernel_v3``), ``posatt_fixed_fwd_v2``
+  (``_posatt_kernel_v2``) and ``posatt_fixed_fwd_v1`` (``_posatt_kernel``),
+  each of which also writes the row statistics when asked; and the row
+  statistics ``_posatt_stats`` alone (``posatt_stats``: version 3's kernel
+  without the contraction, which no path launches);
 - ``csrc/posatt_fixed_bwd.cu``: the bandwidth gradient
   ``_posatt_bwd_dscale`` and the value gradient ``_posatt_bwd_du``.
 
@@ -21,11 +22,10 @@ one head, or one head and one sample), so on the CPU every version takes
 the one plain
 version, :func:`posatt_fixed_reference`. :class:`PosAttFixed` mirrors the
 ``_posatt_fixed`` custom VJP with its fused backward: the forward runs the
-chosen version's kernel (version 3's writes the row statistics M and L
-beside its output; versions 1 and 2 add a launch of the stats kernel) and
-saves M, L and its output; the backward recomputes the attention weights from
-(M, L), and its bandwidth gradient reads the output, so that it needs no
-second pass over the rows. The JAX ``fused_bwd=False`` recompute path and
+chosen version's kernel, which writes the row statistics M and L beside
+its output, and saves M, L and its output; the backward recomputes the
+attention weights from (M, L), and its bandwidth gradient reads the output,
+so that it needs no second pass over the rows. The JAX ``fused_bwd=False`` recompute path and
 ``interpret`` switch have no counterpart here.
 
 Dispatch is by the device of the tensors: a CUDA tensor launches the
@@ -39,6 +39,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -195,37 +196,37 @@ def _launch(fn, name, device, *args) -> None:
         raise RuntimeError(f"{name} launch failed with CUDA error {rc}")
 
 
-def _fixed_forward_cuda(name, dist, thr, scale, u):
-    """Launch the named version-1 or -2 forward entry point: (B, L_out, H*D)."""
-    _check(dist, thr, scale, u)
-    _check_cuda(name, dist)
-    H = scale.shape[0]
-    B, L_in, D = u.shape
-    L_out = dist.shape[0]
-    out = torch.empty((B, L_out, H * D), dtype=torch.float32, device=dist.device)
-    _launch(_entry("posatt_fixed_fwd", name, 5, 5), name, dist.device,
-            dist, thr, scale, u, out, H, B, L_out, L_in, D)
-    return out
+class FwdPlan(NamedTuple):
+    """How one forward or stats launch cuts its work: the floats of split
+    records and the tile counters it needs (both 0 up to 8 splits), the
+    splits of L_in and the warps a block."""
+
+    floats: int
+    tiles: int
+    splits: int
+    warps: int
 
 
 @functools.lru_cache(maxsize=256)
-def _fwd_plan(out: bool, H: int, B: int, L_out: int, L_in: int, D: int):
-    """How one version-3 forward (``out`` True) or stats launch cuts its
-    work at this shape, from the library: (floats of split records and
-    tile counters it needs, both 0 up to 8 splits; the splits of L_in)."""
+def _fwd_plan(out: bool, H: int, B: int, L_out: int, L_in: int, D: int, version: int = 3):
+    """How one forward of ``version`` (``out`` True) or stats launch (its
+    plan is version 3's) cuts its work at this shape, from the library."""
     fn = getattr(_build.load("posatt_fixed_fwd"), "posatt_fwd_plan")
-    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_longlong)] * 2 + [
-        ctypes.POINTER(ctypes.c_int)]
+    fn.argtypes = [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_longlong)] * 2 + [
+        ctypes.POINTER(ctypes.c_int)] * 2
     fn.restype = ctypes.c_int
-    floats, tiles, splits = ctypes.c_longlong(0), ctypes.c_longlong(0), ctypes.c_int(0)
-    rc = fn(int(out), H, B, L_out, L_in, D, ctypes.byref(floats), ctypes.byref(tiles),
-            ctypes.byref(splits))
+    floats, tiles = ctypes.c_longlong(0), ctypes.c_longlong(0)
+    splits, warps = ctypes.c_int(0), ctypes.c_int(0)
+    rc = fn(int(out), version, H, B, L_out, L_in, D, ctypes.byref(floats), ctypes.byref(tiles),
+            ctypes.byref(splits), ctypes.byref(warps))
     if rc != 0:
-        raise ValueError(f"posatt_fwd_plan refused H={H} B={B} L_out={L_out} L_in={L_in} D={D}")
-    return floats.value, tiles.value, splits.value
+        raise ValueError(f"posatt_fwd_plan refused version={version} H={H} B={B} "
+                         f"L_out={L_out} L_in={L_in} D={D}")
+    return FwdPlan(floats.value, tiles.value, splits.value, warps.value)
 
 
-# (device, stream) -> the launch counters of #1/#2 (one a tile) and of
+# (device, stream) -> the launch counters of the forwards and #2 (one a
+# tile; a launch of any version takes as many as its own plan has) and of
 # dscale (one): int32 zeros, left zero by every launch, grown (as new
 # zeros) when a launch needs more; kept, not made per call, so that a
 # launch needs no memset
@@ -244,14 +245,38 @@ def _counters(device, n: int):
     return buf
 
 
-def _split_scratch(out, dist, H, B, L_out, L_in, D):
+def _split_scratch(out, dist, H, B, L_out, L_in, D, version=3):
     """The split records and tile counters one launch needs (None, None up
     to 8 splits, where the splits combine inside a cluster)."""
-    floats, tiles, _ = _fwd_plan(out, H, B, L_out, L_in, D)
+    floats, tiles, _, _ = _fwd_plan(out, H, B, L_out, L_in, D, version)
     if not floats:
         return None, None
     scratch = torch.empty(floats, dtype=torch.float32, device=dist.device)
     return scratch, _counters(dist.device, tiles)
+
+
+# the forwards' C entry points, by version
+_FWD_ENTRIES = {1: "posatt_fixed_fwd_v1", 2: "posatt_fixed_fwd_v2", 3: "posatt_fixed_fwd"}
+
+
+def _launch_forward(version, dist, thr, scale, u, stats):
+    """Launch the forward of ``version`` on CUDA tensors: (B, L_out, H*D),
+    and with ``stats`` also M and L (H, L_out, 1) from the same launch."""
+    name = _FWD_ENTRIES[version]
+    _check(dist, thr, scale, u)
+    _check_cuda(name, dist)
+    H = scale.shape[0]
+    B, L_in, D = u.shape
+    L_out = dist.shape[0]
+    out = torch.empty((B, L_out, H * D), dtype=torch.float32, device=dist.device)
+    M = L = None
+    if stats:
+        M = torch.empty((H, L_out, 1), dtype=torch.float32, device=dist.device)
+        L = torch.empty_like(M)
+    scratch, counters = _split_scratch(True, dist, H, B, L_out, L_in, D, version)
+    _launch(_entry("posatt_fixed_fwd", name, 9, 5), name, dist.device,
+            dist, thr, scale, u, out, M, L, scratch, counters, H, B, L_out, L_in, D)
+    return (out, M, L) if stats else out
 
 
 def posatt_fixed_cuda(dist, thr, scale, u, stats=False):
@@ -265,40 +290,34 @@ def posatt_fixed_cuda(dist, thr, scale, u, stats=False):
     Same arguments as :func:`posatt_fixed_reference`. Deterministic. Adds
     one to ``posatt_fixed_cuda.launches`` for each launch.
     """
-    _check(dist, thr, scale, u)
-    _check_cuda("posatt_fixed_cuda", dist)
-    H = scale.shape[0]
-    B, L_in, D = u.shape
-    L_out = dist.shape[0]
-    out = torch.empty((B, L_out, H * D), dtype=torch.float32, device=dist.device)
-    M = L = None
-    if stats:
-        M = torch.empty((H, L_out, 1), dtype=torch.float32, device=dist.device)
-        L = torch.empty_like(M)
-    scratch, counters = _split_scratch(True, dist, H, B, L_out, L_in, D)
-    _launch(_entry("posatt_fixed_fwd", "posatt_fixed_fwd", 9, 5), "posatt_fixed_fwd",
-            dist.device, dist, thr, scale, u, out, M, L, scratch, counters,
-            H, B, L_out, L_in, D)
+    got = _launch_forward(3, dist, thr, scale, u, stats)
     posatt_fixed_cuda.launches += 1
-    return (out, M, L) if stats else out
+    return got
 
 
-def posatt_fixed_v2_cuda(dist, thr, scale, u):
-    """Launch the version-2 forward (a block owns one head and a tile of the
-    batch-folded columns) on CUDA tensors: (B, L_out, H*D), any head
-    count. Adds one to ``posatt_fixed_v2_cuda.launches`` for each launch."""
-    out = _fixed_forward_cuda("posatt_fixed_fwd_v2", dist, thr, scale, u)
+def posatt_fixed_v2_cuda(dist, thr, scale, u, stats=False):
+    """Launch the version-2 forward (a block owns one head, a tile of the
+    batch-folded columns and a split of L_in; version 3's kernel, or its
+    row walk where B*D is 32 or less) on CUDA tensors: (B, L_out, H*D), any
+    head count; with ``stats`` ``(out, M, L)`` from the same launch, on
+    this version's own plan (where its blocks have version 3's warps,
+    rounds and splits, version 3's bits). Adds one to
+    ``posatt_fixed_v2_cuda.launches`` for each launch."""
+    got = _launch_forward(2, dist, thr, scale, u, stats)
     posatt_fixed_v2_cuda.launches += 1
-    return out
+    return got
 
 
-def posatt_fixed_v1_cuda(dist, thr, scale, u):
-    """Launch the version-1 forward (a block owns one head and one sample)
-    on CUDA tensors: (B, L_out, H*D), any head count. Adds one to
+def posatt_fixed_v1_cuda(dist, thr, scale, u, stats=False):
+    """Launch the version-1 forward (a block owns one head, one sample's
+    columns and a split of L_in; version 3's kernel: at D up to 64 its row
+    walk or four warps sharing the keys, as the plan picks) on CUDA
+    tensors: (B, L_out, H*D), any head count; with ``stats`` as
+    :func:`posatt_fixed_v2_cuda`. Adds one to
     ``posatt_fixed_v1_cuda.launches`` for each launch."""
-    out = _fixed_forward_cuda("posatt_fixed_fwd_v1", dist, thr, scale, u)
+    got = _launch_forward(1, dist, thr, scale, u, stats)
     posatt_fixed_v1_cuda.launches += 1
-    return out
+    return got
 
 
 def posatt_stats_cuda(dist, thr, scale, B, D):
@@ -307,8 +326,9 @@ def posatt_stats_cuda(dist, thr, scale, B, D):
     It is the version-3 forward's kernel without the contraction, on the
     plan of a forward of ``B`` samples of ``D`` value columns: it writes
     the bits of M and L that :func:`posatt_fixed_cuda` writes with
-    ``stats`` at that shape. Adds one to ``posatt_stats_cuda.launches`` for
-    each launch."""
+    ``stats`` at that shape. No path launches it (every forward writes M
+    and L); it stays as the port of ``_posatt_stats``. Adds one to
+    ``posatt_stats_cuda.launches`` for each launch."""
     _check_tensors((("dist", dist), ("thr", thr), ("scale", scale)), dist.device)
     _check_cuda("posatt_stats_cuda", dist)
     H = scale.shape[0]
@@ -393,20 +413,13 @@ _FORWARDS = {1: posatt_fixed_v1_cuda, 2: posatt_fixed_v2_cuda, 3: posatt_fixed_c
 
 def _forward(dist, thr, scale, u, version=3, stats=False):
     """The forward on either device: (B, L_out, H*D), or with ``stats``
-    ``(out, M, L)`` with the row statistics (H, L_out, 1): on the card
-    version 3's launch writes them, versions 1 and 2 add a stats launch; on
-    the CPU the plain version, which serves every version, gives them from
-    its own logits. The inputs are validated once, by the launcher or here
-    before the plain version."""
+    ``(out, M, L)`` with the row statistics (H, L_out, 1): on the card the
+    version's one launch writes them; on the CPU the plain version, which
+    serves every version, gives them from its own logits. The inputs are
+    validated once, by the launcher or here before the plain version."""
     _check_version(version)
     if dist.device.type == "cuda":
-        if version == 3:
-            return posatt_fixed_cuda(dist, thr, scale, u, stats=stats)
-        out = _FORWARDS[version](dist, thr, scale, u)
-        if not stats:
-            return out
-        B, _, D = u.shape
-        return (out, *posatt_stats_cuda(dist, thr, scale, B, D))
+        return _FORWARDS[version](dist, thr, scale, u, stats=stats)
     _check(dist, thr, scale, u)
     B, _, D = u.shape
     got = posatt_fixed_reference(dist, thr, scale, u, stats=stats)
@@ -420,10 +433,8 @@ class PosAttFixed(torch.autograd.Function):
     ``apply(dist, thr, scale, u, version=3)`` -> (B, L_out, H*D).
 
     The forward runs the chosen version's forward kernel, which writes the
-    row statistics M and L at version 3 (versions 1 and 2 add a launch of
-    the stats kernel), and saves (dist, thr, scale, u, M, L, out); the
-    backward runs
-    the dscale kernel, which reads the forward's output, when ``scale``
+    row statistics M and L beside its output, and saves (dist, thr, scale,
+    u, M, L, out); the backward runs the dscale kernel, which reads the forward's output, when ``scale``
     needs a gradient and the du kernel when ``u`` does, whatever the
     version. ``dist``, ``thr`` and ``version`` get none. CPU tensors take
     the plain versions of the same four functions, so the CPU tests run
@@ -466,7 +477,7 @@ def position_attention_fixed(dist, lmda, inputs, locality: float, thr=None, *, v
     = one head and a tile of the batch-folded columns, 1 = one head and one
     sample; another value raises ``ValueError`` before anything runs. When
     a gradient is needed the call goes through :class:`PosAttFixed`
-    (the forward kernel writes the row statistics too); otherwise, as under
+    (the forward kernel of any version writes the row statistics too); otherwise, as under
     ``torch.inference_mode``, it launches the forward kernel only. The
     gradient with respect to ``lmda`` flows through ``bandwidth_scale``
     outside the Function.

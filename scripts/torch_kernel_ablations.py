@@ -1,9 +1,11 @@
 """Ablations of the port's kernels on an NVIDIA GPU: what holds each one's
 time. #7 (posatt_batched_fwd), #8 (dscale, du), #9 (posatt_tf_fwd), #11
 (posatt_tf_coord_fwd, which shares #9's source), the fixed-mesh backward
-#3 (dscale) and #4 (du) (posatt_fixed_bwd), and the fixed-mesh forward #1
+#3 (dscale) and #4 (du) (posatt_fixed_bwd), the fixed-mesh forward #1
 with and without its row statistics and #2, the same kernel without the
-contraction (posatt_fixed_fwd).
+contraction (posatt_fixed_fwd), and the schedule variants #5 (v1) and #6
+(v2), #1's body under one head a block (posatt_fixed_fwd_v12, the same
+source).
 
 Each variant is the kernel source with one piece of its work taken out or
 one design choice changed (a text substitution), or, for #9's producer
@@ -22,17 +24,21 @@ held against the plain version at the one shape they take (the served
 processor). Prints one JSON object per (op, kernel, variant) and, last,
 the card's name and power limit.
 
-    python scripts/torch_kernel_ablations.py [--parent CSRC] [source ...]
+    python scripts/torch_kernel_ablations.py [--parent CSRC] [--variants V,...] [target ...]
 
-with sources among posatt_batched_fwd, posatt_batched_bwd, posatt_tf_fwd,
-posatt_fixed_bwd, posatt_fixed_fwd (default: all five). ``--parent CSRC``:
+with targets among posatt_batched_fwd, posatt_batched_bwd, posatt_tf_fwd,
+posatt_fixed_bwd, posatt_fixed_fwd, posatt_fixed_fwd_v12 (default: all
+six; each names its source, but posatt_fixed_fwd_v12, whose source is
+posatt_fixed_fwd.cu). ``--variants base,parent`` times only the variants
+named (base is always timed first and last). ``--parent CSRC``:
 one more variant of each source, the file of the same name in the
 directory CSRC (for example the kernels of a parent commit unpacked with
 ``git archive``), timed in turns with the rest; the fixed-mesh backward's
 parent dscale is called through its own C interface (before it read the
 forward's output and took counters), and so are the parent's #1 (no row
-statistics out) and #2 (then in CSRC's posatt_fixed_bwd.cu; its
-``fwd_stats`` is its #1 and #2 one after the other). A source that
+statistics out), #2 (the same C interfaces; their scratch from the
+parent's plan entry, before it took the version) and its v1 and v2
+(before they took M, L, scratch and counters). A source that
 includes posatt_fixed_common.cuh is built with the header inlined, so a
 variant may change it. Run from the repository root on a machine with the
 card and nvcc.
@@ -103,7 +109,16 @@ COMMON = "posatt_fixed_common.cuh"
 INCLUDE_COMMON = f'#include "{COMMON}"'
 FIXED_DU_SLABS = "  if (du) p.ns = slabs > 8 ? 2 : (slabs >= 3 ? 4 : (slabs >= 2 ? 2 : 1));"
 
-# source -> variant -> substitutions (old text, new text) in the kernel's
+FIXED_RC1 = "constexpr int RC1 = 64;"
+FIXED_HB = "  p.hb = version == 3 ? head_group(H) : 1;"
+WALK_WARPS = "constexpr int WALK_WARPS = 2 * TARGET_WARPS;"
+WALK_COLS = "constexpr int WALK_COLS = 32;"
+WALK_RULE = "  p.walk = kind != FWD || version == 3 || slabs > 1 ? 0"
+WALK_FILL = "(cols > WALK_COLS && (long long)p.groups * n_ct1 * p.tiles < WALK_WARPS)"
+KEY_WARPS = "constexpr int KEY_WARPS = 4;"
+WALK_MIN_BLOCKS = "constexpr int WALK_MIN_BLOCKS = 16;"
+
+# target -> variant -> substitutions (old text, new text) in the kernel's
 # source, or (path, substitutions) in another source built in its place
 VARIANTS = {
     "posatt_batched_fwd": {
@@ -197,8 +212,7 @@ VARIANTS = {
         "steps_of_32": [("constexpr int SK = 16;", "constexpr int SK = 32;")],
         # rounds of 64 keys at one or two heads, not 128 (more blocks fit on
         # a SM, twice the rounds)
-        "rounds_of_64": [("static constexpr int RC = HB <= 2 ? 128 :",
-                          "static constexpr int RC = HB <= 2 ? 64 :")],
+        "rounds_of_64": [("(HB <= 2 ? 128 :", "(HB <= 2 ? 64 :")],
         # the split count: the grid aims at 4 or 16 warps an SM, not 8
         "target_4_warps": [(FIXED_TARGET, FIXED_TARGET.replace("1056", "528"))],
         "target_16_warps": [(FIXED_TARGET, FIXED_TARGET.replace("1056", "2112"))],
@@ -206,10 +220,39 @@ VARIANTS = {
         "one_slab": [("  else p.ns = p.hb == 2 && slabs >= 2 ? 2 : 1;", "  else p.ns = 1;")],
         # a head a block (and four slabs) where the values are 1024 columns
         # or wider: half the exps a block, the distances scanned once a head
-        "one_head_wide": [("  p.hb = head_group(H);\n",
-                           "  p.hb = head_group(H);\n  if (kind == FWD && slabs >= 16) p.hb = 1;\n")],
+        "one_head_wide": [(FIXED_HB, FIXED_HB + "\n  if (kind == FWD && slabs >= 16) p.hb = 1;")],
+    },
+    "posatt_fixed_fwd_v12": {
+        "base": [],
+        "few_fma": [(FMA, FEW_FMA)],
+        # no row walk: every one-slab block of versions 1 and 2 runs the
+        # rounds with key-split warps; or the row walk at every one-slab tile
+        "no_walk": [(WALK_RULE, "  p.walk = true ? 0")],
+        "walk_cols_64": [(WALK_COLS, WALK_COLS.replace("32", "64"))],
+        # the other one-slab blocks: two key-split warps, not four; or one
+        # warp, at rounds of 64 keys (about 27 KB of shared memory, 8 blocks
+        # a SM) or 128 (44 KB, 5 blocks)
+        "key_warps_2": [(KEY_WARPS, KEY_WARPS.replace("4", "2"))],
+        "key_warps_1": [(KEY_WARPS, KEY_WARPS.replace("4", "1"))],
+        "key_warps_1_rc1_128": [(KEY_WARPS, KEY_WARPS.replace("4", "1")),
+                                (FIXED_RC1, FIXED_RC1.replace("64", "128"))],
+        # the row walk's split aiming at 1x or 4x the list body's warps, not 2x
+        "walk_warps_1x": [(WALK_WARPS, WALK_WARPS.replace("2 *", "1 *"))],
+        "walk_warps_4x": [(WALK_WARPS, WALK_WARPS.replace("2 *", "4 *"))],
+        # the row walk's one-split output written a lane a row (16 bytes of
+        # each line a store), not through shared memory
+        "walk_lane_stores": [("      if constexpr (WK > 0) {\n        // a row walk: the normalised rows",
+                              "      if constexpr (false) {\n        // a row walk: the normalised rows")],
+        # the row walk without its staged u rows (timed only)
+        "walk_no_staging": [("          cp_async16(su + k * WP + c, c < live ? ur + sm.coff[c] : a.u, c < live);",
+                             "          (void)ur;")],
+        # v2 at #1's plan: its blocks own version 3's head groups (so its
+        # launches are #1's), against one head a block
+        "v2_at_v3_plan": [(FIXED_HB, "  p.hb = version == 1 ? 1 : head_group(H);")],
     },
 }
+# the source file of a target, where it is not the target's name
+SOURCE = {"posatt_fixed_fwd_v12": "posatt_fixed_fwd"}
 # variants that take only some (op, kernel)s
 ONLY = {("posatt_tf_fwd", v): {("serve_processor", "dist_fwd")}
         for v in ("producer_warp", "producer_warp_rows")}
@@ -225,12 +268,12 @@ def inlined(path: Path) -> str:
 
 
 def build(scratch: Path, sources) -> dict:
-    """Every variant's library, built concurrently: (source, variant) -> path."""
+    """Every variant's library, built concurrently: (target, variant) -> path."""
     from position_induced_transformer_torch.kernels import _build
 
     jobs = {}
     for src in sources:
-        text = inlined(CSRC / f"{src}.cu")
+        text = inlined(CSRC / f"{SOURCE.get(src, src)}.cu")
         for name, subs in VARIANTS[src].items():
             body = text
             if isinstance(subs, tuple):
@@ -305,18 +348,19 @@ def fixed_bwd_calls(c, rng) -> dict:
     return calls
 
 
-def fixed_fwd_calls(c, rng, parent_bwd) -> dict:
+def fixed_fwd_calls(c, rng) -> dict:
     """The fixed-mesh forward's timed calls at the Burgers shapes (the
     model's geometry) and the shapes of phase 16 (``schedule_shapes``):
     (op, kernel) -> {"new": launch, "parent": the parent's launch}; kernel
     ``fwd`` (#1 alone, as serving runs it), ``fwd_stats`` (#1 with M and L
-    out, as training runs it; the parent's: its #1, then its #2) and
-    ``stats`` (#2 alone, as versions 1 and 2 run it). ``parent_bwd``: the
-    parent's posatt_fixed_bwd library, which held its #2, or None."""
+    out, as training runs it) and ``stats`` (#2 alone). The parent's #1 and
+    #2 take the same C interfaces; their scratch comes from the parent's
+    own plan entry (no version, no warps out)."""
     import numpy as np
     import torch
 
     from position_induced_transformer_torch import configs
+    from position_induced_transformer_torch.kernels import _build
     from position_induced_transformer_torch.kernels import posatt_pallas as kp
     from position_induced_transformer_torch.ops import posatt
 
@@ -342,20 +386,35 @@ def fixed_fwd_calls(c, rng, parent_bwd) -> dict:
         out = torch.empty((B, Lo, H * D), device="cuda")
         M, L = torch.empty((H, Lo), device="cuda"), torch.empty((H, Lo), device="cuda")
 
-        def parent_fwd(a=(dist, thr, scale, u, out, H, B, Lo, Li, D)):
-            kp._launch(kp._entry("posatt_fixed_fwd", "posatt_fixed_fwd", 5, 5), "parent #1",
-                       dist.device, *a)
+        def parent_scratch(out_, dims=(H, B, Lo, Li, D), device=dist.device):
+            fn = getattr(_build.load("posatt_fixed_fwd"), "posatt_fwd_plan")
+            fn.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_longlong)] * 2 + [
+                ctypes.POINTER(ctypes.c_int)]
+            floats, tiles, splits = ctypes.c_longlong(0), ctypes.c_longlong(0), ctypes.c_int(0)
+            fn(int(out_), *dims, ctypes.byref(floats), ctypes.byref(tiles), ctypes.byref(splits))
+            if not floats.value:
+                return None, None
+            return (torch.empty(floats.value, device="cuda"),
+                    kp._counters(device, tiles.value))
 
-        def parent_stats(a=(dist, thr, scale, M, L, H, Lo, Li)):
-            fn = parent_bwd.posatt_stats
-            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-            kp._launch(fn, "parent #2", dist.device, *a)
+        # (every name of this op bound as a default: the loop rebinds them)
+        def parent_fwd(stats, a=(dist, thr, scale, u, out), ml=(M, L), dims=(H, B, Lo, Li, D),
+                       scratch=parent_scratch):
+            scr, cnt = scratch(True)
+            kp._launch(kp._entry("posatt_fixed_fwd", "posatt_fixed_fwd", 9, 5), "parent #1",
+                       a[0].device, *a, *(ml if stats else (None, None)), scr, cnt, *dims)
+
+        def parent_stats(a=(dist, thr, scale, M, L), dims=(H, B, Lo, Li, D),
+                         scratch=parent_scratch):
+            scr, cnt = scratch(False)
+            kp._launch(kp._entry("posatt_fixed_fwd", "posatt_stats", 7, 5), "parent #2",
+                       a[0].device, *a, scr, cnt, *dims)
 
         calls[(op, "fwd")] = {"new": lambda a=(dist, thr, scale, u): kp.posatt_fixed_cuda(*a),
-                              "parent": parent_fwd}
+                              "parent": lambda f=parent_fwd: f(False)}
         calls[(op, "fwd_stats")] = {
             "new": lambda a=(dist, thr, scale, u): kp.posatt_fixed_cuda(*a, stats=True),
-            "parent": lambda f=parent_fwd, s=parent_stats: (f(), s())}
+            "parent": lambda f=parent_fwd: f(True)}
         calls[(op, "stats")] = {
             "new": lambda a=(dist, thr, scale), k=dict(B=B, D=D): kp.posatt_stats_cuda(*a, **k),
             "parent": parent_stats}
@@ -363,7 +422,50 @@ def fixed_fwd_calls(c, rng, parent_bwd) -> dict:
     return calls
 
 
-def main(sources, parent=None) -> int:
+def fixed_v12_calls(c, rng) -> dict:
+    """The schedule variants' timed calls at the Burgers shapes (the
+    model's geometry) and the shapes of phase 16: (op, "v1" or "v2") ->
+    {"new": launch, "parent": the parent's launch through its own C
+    interface (no M, L, scratch or counters)}; each without M and L out, as
+    phase 16's "ms"."""
+    import numpy as np
+    import torch
+
+    from position_induced_transformer_torch import configs
+    from position_induced_transformer_torch.kernels import posatt_pallas as kp
+    from position_induced_transformer_torch.ops import posatt
+
+    geom = c.burgers_geometry("cuda")
+    m = configs.BURGERS.model
+    to = lambda a: torch.from_numpy(a.astype(np.float32)).cuda()
+    inf = lambda Lo: torch.full((Lo, 1), float("inf"), device="cuda")
+    ops = [("burgers_encoder", geom.dist_down, geom.thr_down, c.BURGERS_B, m.in_dim + m.space_dim),
+           ("burgers_processor", geom.dist_proc, inf(geom.dist_proc.shape[0]), c.BURGERS_B,
+            m.hid_dim),
+           ("burgers_decoder", geom.dist_up, geom.thr_up, c.BURGERS_B, m.hid_dim)]
+    ops = [(op, dist, thr, to(rng.random((m.n_head, 1, 1))), to(rng.standard_normal(
+        (B, dist.shape[1], D)))) for op, dist, thr, B, D in ops]
+    ops += [(f"phase16_{name}", dist, thr, lmda, u)
+            for name, (dist, thr, lmda, u, _, _) in c.schedule_cases(c.schedule_shapes()).items()]
+    calls = {}
+    for op, dist, thr, lmda, u in ops:
+        H = lmda.shape[0]
+        B, Li, D = u.shape
+        Lo = dist.shape[0]
+        scale = posatt.bandwidth_scale(lmda).reshape(H, 1)
+        out = torch.empty((B, Lo, H * D), device="cuda")
+        for v, launch in ((1, kp.posatt_fixed_v1_cuda), (2, kp.posatt_fixed_v2_cuda)):
+            def parent(a=(dist, thr, scale, u, out, H, B, Lo, Li, D), name=f"posatt_fixed_fwd_v{v}"):
+                kp._launch(kp._entry("posatt_fixed_fwd", name, 5, 5), "parent " + name,
+                           dist.device, *a)
+
+            calls[(op, f"v{v}")] = {"new": lambda f=launch, a=(dist, thr, scale, u): f(*a),
+                                    "parent": parent}
+    torch.cuda.synchronize()
+    return calls
+
+
+def main(sources, parent=None, only=None) -> int:
     import numpy as np
     import torch
 
@@ -417,28 +519,27 @@ def main(sources, parent=None) -> int:
 
     if parent is not None:
         for src in sources:
-            VARIANTS[src]["parent"] = (Path(parent) / f"{src}.cu", [])
+            VARIANTS[src]["parent"] = (Path(parent) / f"{SOURCE.get(src, src)}.cu", [])
+    if only is not None:
+        for src in sources:
+            VARIANTS[src] = {k: v for k, v in VARIANTS[src].items() if k == "base" or k in only}
     with tempfile.TemporaryDirectory() as tmp:
         libs = build(Path(tmp), sources)
-        parent_bwd = None
-        if parent is not None and "posatt_fixed_fwd" in sources:
-            out = Path(tmp) / "parent_posatt_fixed_bwd.so"
-            subprocess.run(_build.nvcc_command(Path(parent) / "posatt_fixed_bwd.cu", out),
-                           check=True, capture_output=True)
-            parent_bwd = ctypes.CDLL(str(out))
-        fixed_fwd = fixed_fwd_calls(c, rng, parent_bwd) if "posatt_fixed_fwd" in sources else {}
+        fixed_fwd = fixed_fwd_calls(c, rng) if "posatt_fixed_fwd" in sources else {}
+        fixed_v12 = fixed_v12_calls(c, rng) if "posatt_fixed_fwd_v12" in sources else {}
         for src in sources:
             variants = list(VARIANTS[src])
             ms: dict = {}
             checked = set()
             for name in ["base"] + variants[1:] + variants[::-1]:
-                _build._loaded[src] = ctypes.CDLL(str(libs[(src, name)]))
+                _build._loaded[SOURCE.get(src, src)] = ctypes.CDLL(str(libs[(src, name)]))
                 kb._entry.cache_clear()
                 kp._entry.cache_clear()
                 kp._bwd_plan.cache_clear()
                 kp._fwd_plan.cache_clear()
-                if src in ("posatt_fixed_bwd", "posatt_fixed_fwd"):
-                    calls = fixed if src == "posatt_fixed_bwd" else fixed_fwd
+                if src in ("posatt_fixed_bwd", "posatt_fixed_fwd", "posatt_fixed_fwd_v12"):
+                    calls = {"posatt_fixed_bwd": fixed, "posatt_fixed_fwd": fixed_fwd,
+                             "posatt_fixed_fwd_v12": fixed_v12}[src]
                     timed[src] = {key: fns["parent" if name == "parent" else "new"]
                                   for key, fns in calls.items()}
                 only = ONLY.get((src, name))
@@ -471,8 +572,10 @@ if __name__ == "__main__":
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", help="a directory of kernel sources to time as one more variant")
-    ap.add_argument("sources", nargs="*", help=f"among {', '.join(VARIANTS)} (default: all)")
+    ap.add_argument("--variants", help="comma-separated variants to time beside base (default: all)")
+    ap.add_argument("sources", nargs="*", help=f"targets among {', '.join(VARIANTS)} (default: all)")
     args = ap.parse_args()
     if set(args.sources) - set(VARIANTS):
         ap.error(f"unknown sources {sorted(set(args.sources) - set(VARIANTS))}")
-    sys.exit(main(args.sources or list(VARIANTS), args.parent))
+    only = set(args.variants.split(",")) if args.variants else None
+    sys.exit(main(args.sources or list(VARIANTS), args.parent, only))

@@ -1,7 +1,7 @@
 """The CUDA kernels against their plain versions, on the card: the
 fixed-mesh kernels #1-#4 and the schedule variants #5 (v1) and #6 (v2) of
-#1, the per-sample-mesh kernels #7 and #8, and the TF-semantics kernels
-#9-#12.
+#1 (one body; each writes its own M and L), the per-sample-mesh kernels #7
+and #8, and the TF-semantics kernels #9-#12.
 
 Every test here is marked ``cuda`` and skips without a CUDA device. The
 file imports no JAX, so that it runs on a machine without it:
@@ -152,12 +152,29 @@ def test_fwd_plan_splits_l_in(cuda):
     """#1 splits L_in until the grid holds about 8 warps an SM: 8 splits of
     the Burgers processor (a cluster, no scratch), 32 at the ZSSR encoder
     (split records in scratch, a counter per tile), none at the ZSSR
-    decoder; the stats entry point takes the same split."""
-    assert kp._fwd_plan(True, 2, 8, 256, 256, 64) == (0, 0, 8)
-    floats, tiles, splits = kp._fwd_plan(True, 2, 10, 256, 177241, 3)
-    assert (tiles, splits) == (8, 32) and floats == 8 * 32 * 2 * 32 * (2 + 64)
-    assert kp._fwd_plan(False, 2, 10, 256, 177241, 3) == (8 * 32 * 2 * 32 * 2, 8, 32)
+    decoder; the stats entry point takes the same split. Versions 2 and 1
+    take the same rule on their own blocks: one head a block (v1: one
+    sample's columns), one warp where those are 64 or fewer."""
+    assert kp._fwd_plan(True, 2, 8, 256, 256, 64)[:3] == (0, 0, 8)
+    floats, tiles, splits, warps = kp._fwd_plan(True, 2, 10, 256, 177241, 3)
+    assert (tiles, splits, warps) == (8, 32, 2) and floats == 8 * 32 * 2 * 32 * (2 + 64)
+    assert kp._fwd_plan(False, 2, 10, 256, 177241, 3)[:3] == (8 * 32 * 2 * 32 * 2, 8, 32)
     assert kp._fwd_plan(True, 2, 10, 177241, 256, 64)[2] == 1
+    # version 2 at the Burgers processor: a head and four slabs a block,
+    # the warps and splits of version 3's two heads by two slabs
+    assert kp._fwd_plan(True, 2, 8, 256, 256, 64, 2) == kp._fwd_plan(True, 2, 8, 256, 256, 64)
+    # the ZSSR encoder: row walks, one warp a block (version 1: a head, a
+    # sample and a 4-column tile of its 3 columns; version 2: a 32-column
+    # tile of B*D = 30), their split aiming at twice #1's warps: 13 and 32
+    # splits through scratch
+    floats, tiles, splits, warps = kp._fwd_plan(True, 2, 10, 256, 177241, 3, 1)
+    assert (tiles, splits, warps) == (160, 13, 1) and floats == 160 * 13 * 32 * (2 + 4)
+    floats, tiles, splits, warps = kp._fwd_plan(True, 2, 10, 256, 177241, 3, 2)
+    assert (tiles, splits, warps) == (16, 32, 1) and floats == 16 * 32 * 32 * (2 + 32)
+    # version 1 at the Burgers processor: four warps sharing a 64-column
+    # slab's keys, 2 splits; at the ZSSR decoder a row walk, no split
+    assert kp._fwd_plan(True, 2, 8, 256, 256, 64, 1) == (0, 0, 2, 4)
+    assert kp._fwd_plan(True, 2, 10, 177241, 256, 64, 1) == (0, 0, 1, 1)
 
 
 @pytest.mark.cuda
@@ -340,12 +357,18 @@ def test_no_grad_forward_launches_the_forward_kernel_only(cuda):
 
 SCHEDULE_SHAPES = [
     # L_out, L_in, B, H, D, locality; no L_out a multiple of a row tile
-    (100, 48, 2, 1, 2, 0.5),  # one head, D 2: 32-column tiles
-    (97, 200, 3, 2, 64, 0.1),  # D 64: 64-column tiles (v1), 256 (v2)
+    (100, 48, 2, 1, 2, 0.5),  # one head, D 2: row walks (v1, v2), 3 splits
+    (97, 200, 3, 2, 64, 0.1),  # D 64: key-split warps (v1, 7 splits), four slabs (v2, 13)
     (33, 65, 2, 3, 5, 1.0),  # three heads, global
     (50, 300, 4, 8, 64, 0.2),  # eight heads
-    (70, 130, 3, 2, 100, 0.3),  # 128-column tiles (v1)
-    (40, 72, 2, 2, 300, 0.2),  # D above 256: v1 splits a sample's columns
+    (70, 130, 3, 2, 100, 0.3),  # two slabs (v1)
+    (40, 72, 2, 2, 300, 0.2),  # D above 256: v1 cuts a sample's columns in two tiles
+    (64, 60000, 10, 2, 3, 0.02),  # row walks, 32 splits: the scratch combine
+    (4003, 100, 4, 2, 8, 0.05),  # row walks: 2 splits (v1, 16-byte u rows), 7 (v2)
+    (4003, 100, 4, 2, 64, 0.05),  # one split: key-split warps (v1), four slabs (v2)
+    (40, 5000, 2, 1, 64, 0.05),  # key-split warps (v1), 32 splits: the scratch combine
+    (8500, 100, 8, 2, 40, 0.05),  # v1: a row walk over 64 columns, 40 live, one split
+    (8500, 100, 8, 2, 33, 0.05),  # the same at D 33: 4-byte u and output pieces
 ]
 SCHEDULE_LAUNCHERS = {1: kp.posatt_fixed_v1_cuda, 2: kp.posatt_fixed_v2_cuda, 3: kp.posatt_fixed_cuda}
 
@@ -370,28 +393,40 @@ def _schedule_inputs(dev, L_out, L_in, B, H, D, loc, inf_row=True):
 @pytest.mark.parametrize("version", [1, 2, 3])
 @pytest.mark.parametrize("L_out,L_in,B,H,D,loc", SCHEDULE_SHAPES)
 def test_cuda_schedule_kernel_matches_plain(cuda, L_out, L_in, B, H, D, loc, version):
+    """Each version's forward against the plain version, and with the row
+    statistics out (one launch, the same output bits) its M and L against
+    the plain version's; rows 6 and 8 keep no entry: the mean of u,
+    M = -1e38 and L = L_in."""
     dist, thr, scale, u, _ = _schedule_inputs(cuda, L_out, L_in, B, H, D, loc)
     launcher = SCHEDULE_LAUNCHERS[version]
-    before = [f.launches for f in SCHEDULE_LAUNCHERS.values()]
+    before = [f.launches for f in (*SCHEDULE_LAUNCHERS.values(), kp.posatt_stats_cuda)]
     got = launcher(dist, thr, scale, u)
+    again, M, L = launcher(dist, thr, scale, u, stats=True)
     torch.cuda.synchronize()
-    after = [f.launches for f in SCHEDULE_LAUNCHERS.values()]
-    assert [a - b for a, b in zip(after, before)] == [int(v == version) for v in SCHEDULE_LAUNCHERS]
-    want = kp.posatt_fixed_reference(dist, thr, scale, u)
+    after = [f.launches for f in (*SCHEDULE_LAUNCHERS.values(), kp.posatt_stats_cuda)]
+    assert [a - b for a, b in zip(after, before)] == [
+        2 * int(v == version) for v in SCHEDULE_LAUNCHERS] + [0]
+    want, M_want, L_want = kp.posatt_fixed_reference(dist, thr, scale, u, stats=True)
     want = want.permute(1, 2, 0, 3).reshape(B, L_out, H * D)
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+    assert torch.equal(got, again)
+    torch.testing.assert_close(M, M_want, rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(L, L_want, rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(got[:, 8], u.mean(1).repeat(1, H), rtol=RTOL, atol=ATOL)
+    assert (M[:, [6, 8]] == -1e38).all() and (L[:, [6, 8]] == L_in).all()
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("L_out,L_in,B,H,D,loc", SCHEDULE_SHAPES)
 def test_schedule_versions_share_one_backward(cuda, L_out, L_in, B, H, D, loc):
     """One forward + backward per version launches that version's forward,
-    #3 and #4 once each, and #2 once under versions 1 and 2 (version 3's
-    forward writes M and L itself, the bits #2 writes); dU never reads the
-    forward's output, so it is the same bits under every version; dscale
-    reads it, so under each version it is held to autograd of the
-    oracle."""
+    #3 and #4 once each and #2 never: every version's forward writes M and
+    L itself, on its own plan. dU reads M and L and not the forward's
+    output, so where a version's M and L are #1's bits its dU is #1's;
+    elsewhere its M and L are held to #2's and its dU to autograd of the
+    oracle on the magnitude of the summed terms. dscale reads the output,
+    so under each version it is held to autograd of the oracle."""
     dist, thr, _, u, w = _schedule_inputs(cuda, L_out, L_in, B, H, D, loc, inf_row=False)
     lmda = torch.from_numpy(np.random.default_rng(3).random((H, 1, 1)).astype(np.float32)).to(cuda)
     backward = (kp.posatt_stats_cuda, kp.posatt_bwd_dscale_cuda, kp.posatt_bwd_du_cuda)
@@ -403,12 +438,23 @@ def test_schedule_versions_share_one_backward(cuda, L_out, L_in, B, H, D, loc):
         torch.cuda.synchronize()
         after = [f.launches for f in (*SCHEDULE_LAUNCHERS.values(), *backward)]
         assert [a - b for a, b in zip(after, before)] == [
-            int(v == version) for v in SCHEDULE_LAUNCHERS] + [int(version != 3), 1, 1]
+            int(v == version) for v in SCHEDULE_LAUNCHERS] + [0, 1, 1]
+    oracle = lambda *a: posatt.position_attention(*a, thr=thr)
+    want = _grads(oracle, dist, lmda, u, loc, w)
+    size = _grads(oracle, dist, lmda, u, loc, w.abs())[2]
+    scale = posatt.bandwidth_scale(lmda).reshape(H, 1)
+    stats = {v: f(dist, thr, scale, u, stats=True)[1:] for v, f in SCHEDULE_LAUNCHERS.items()}
+    M2, L2 = kp.posatt_stats_cuda(dist, thr, scale, B, D)
+    torch.cuda.synchronize()
     for version in (1, 2):
         torch.testing.assert_close(results[version][0], results[3][0], rtol=RTOL, atol=ATOL)
-        assert torch.equal(results[version][2], results[3][2])
-    want = _grads(lambda *a: posatt.position_attention(*a, thr=thr), dist, lmda, u, loc, w)
+        (M, L), (M3, L3) = stats[version], stats[3]
+        if torch.equal(M, M3) and torch.equal(L, L3):
+            assert torch.equal(results[version][2], results[3][2])
+        torch.testing.assert_close(M, M2, rtol=RTOL, atol=ATOL)
+        torch.testing.assert_close(L, L2, rtol=RTOL, atol=ATOL)
     for version in SCHEDULE_LAUNCHERS:
+        assert ((results[version][2] - want[2]).abs() <= ATOL + RTOL * size).all()
         torch.testing.assert_close(results[version][1], want[1], rtol=DS_RTOL,
                                    atol=DS_ATOL * want[1].abs().max().item())
 

@@ -277,18 +277,20 @@ def test_function_gradients_match_jax_fused_backward(L_out, L_in, B, H, D, loc):
     np.testing.assert_allclose(got[0], oracle[0], rtol=RTOL, atol=ATOL)
 
 
+@pytest.mark.parametrize("version", [1, 2, 3])
 @pytest.mark.parametrize("L_out,L_in,B,H,D,loc", BWD_SHAPES)
-def test_function_v3_saves_the_plain_forward_stats(L_out, L_in, B, H, D, loc):
-    """On the CPU, PosAttFixed at version 3 saves the M and L that the plain
-    forward gives beside its output (as the card's #1 writes them, with no
-    stats launch), and its gradients still match jax.grad of the JAX custom
-    VJP with the fused backward in interpret mode."""
+def test_function_v3_saves_the_plain_forward_stats(L_out, L_in, B, H, D, loc, version):
+    """On the CPU, PosAttFixed at every version saves the M and L that the
+    plain forward gives beside its output (as the card's forward of each
+    version writes them, with no stats launch), and its gradients still
+    match jax.grad of the JAX custom VJP of that version with the fused
+    backward in interpret mode."""
     dist, thr, scale, u, w, _ = _bwd_inputs(L_out, L_in, B, H, D, loc)
     t = lambda a: torch.from_numpy(np.array(a))
     before = _launches()
     s = t(scale).requires_grad_(True)
     x = t(u).requires_grad_(True)
-    out = t_k.PosAttFixed.apply(t(dist), t(thr), s, x, 3)
+    out = t_k.PosAttFixed.apply(t(dist), t(thr), s, x, version)
     saved = out.grad_fn.saved_tensors
     (out * t(w)).sum().backward()
     assert _launches() == before
@@ -297,7 +299,7 @@ def test_function_v3_saves_the_plain_forward_stats(L_out, L_in, B, H, D, loc):
     assert torch.equal(out.detach(), ref.permute(1, 2, 0, 3).reshape(B, L_out, H * D))
 
     def loss(sc, xx):
-        o = j_k._posatt_fixed(jnp.asarray(dist), jnp.asarray(thr), sc, xx, True, 3, True)
+        o = j_k._posatt_fixed(jnp.asarray(dist), jnp.asarray(thr), sc, xx, True, version, True)
         return jnp.sum(o * jnp.asarray(w.reshape(B, L_out, H, D).transpose(2, 0, 1, 3)))
 
     jds, jdu = jax.grad(loss, argnums=(0, 1))(jnp.asarray(scale), jnp.asarray(u))
