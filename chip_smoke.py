@@ -39,8 +39,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    records its reply or exception; the main thread fails with every
    request that got no 200, its code and body or traceback and its sample
    range), then warm requests; every
-   reply must be 200 and agree with the same model run with the plain
-   attention on the card and with a CPU run; the forward kernel must have
+   reply must be 200 and agree with ``infer`` on the card, the same model
+   run with the plain attention on the card and a CPU run; the forward kernel must have
    launched exactly 7 times per device batch and no backward kernel at all;
 7. train: ``runner.train`` on full-width, full-depth Burgers on the card
    (synthetic data, 64 training and 16 test samples, 2 epochs of 8 steps);
@@ -130,7 +130,34 @@ Phases, each of which fails the run (non-zero exit, no result line):
     times with and without M and L out, bounds and the SDPA yardstick as
     in phase 4, the kept fraction, each version's splits of L_in, warps a
     block and kept-list length; and #2 at every shape, its M and L the bits
-    #1 writes, against its plain version, timed and bounded.
+    #1 writes, against its plain version, timed and bounded;
+17. Darcy train: ``runner.train("darcy")`` at full width on the 43^2 grid
+    (hid 64, 2 heads, 4 blocks, 16^2 latent; 64 training and 16 test
+    samples, 2 epochs of 8 steps at batch 8), as phase 7: exactly 6/0/6/5
+    launches of #1/#2/#3/#4 a step (the encoder's input needs no
+    gradient) and 6 of #1 per eval batch; losses and weights against a
+    plain-attention card run and a CPU run; time per step, steps/s, the
+    device's busy share; the 43^2 geometry's kept sets on the card against
+    a CPU build. It writes the checkpoint (with the normalizer statistics)
+    that phases 18-19 read;
+18. Darcy ZSSR: ``evaluate("darcy", ckpt, zssr=True)`` at 421^2 (177,241
+    points, ntest 10: one eval batch) on the card, launching #1 6 times
+    and nothing else; its metrics against a plain-attention card run at
+    rtol 1e-4, its predictions on 2 samples against a CPU ``Predictor``;
+    the geometry's build time and kept sets against a CPU build; #1 per
+    launch at the 421^2 encoder (256 x 177,241, D 3) and decoder (177,241 x
+    256, D 64) of this grid-ordered mesh at batch 10 against its plain
+    version, timed, with SDPA's time, the bound from the kept entries and
+    phase 16's random-point time at the same shape;
+19. Darcy serve: ``make_server("darcy")`` answering raw 43^2 grids (1, 10,
+    13 samples, 4 concurrent, 20 warm), then a server built with
+    ``setup_kwargs={"downsampling": 1}`` answering raw 421^2 grids (1, 3,
+    2 concurrent, 4 warm); 6 launches of #1 per device batch and nothing
+    else; every reply against ``infer`` on the card and a plain-attention
+    card run, and a CPU run (at 421^2 on its first 2 samples);
+20. sod serve and train: a seeded random-weight sod model served (1, 8, 13
+    samples, 4 concurrent, 20 warm; 4 launches of #1 per device batch),
+    then ``runner.train("sod")`` as phase 17 (4/0/4/3 a step).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 ``kernels`` record (twelve kernels: #1-#4, the per-sample-mesh #7, #8, the
@@ -237,11 +264,13 @@ def cuda_ms(fn, reps=20, per_rep=10, warmup=5):
     return statistics.median(times)
 
 
-def profile_device(fn, unit, reps=5):
+def profile_device(fn, unit, reps=5, groups=None):
     """Wall time and device busy time of warm calls of ``fn``, from
     torch.profiler: the union of the CUDA activity intervals over the
     host's wall clock, and device time by kernel, per call. None where the
-    trace holds no device activity."""
+    trace holds no device activity. ``groups``: label -> kernel-name
+    prefix; the device time per call of every kernel whose name starts
+    with it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -273,12 +302,26 @@ def profile_device(fn, unit, reps=5):
     busy += cur_e - cur_s
     busy_ms = busy / 1e3 / reps
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-    return {
+    out = {
         f"wall_ms_per_{unit}": wall_ms,
         f"device_busy_ms_per_{unit}": busy_ms,
         "device_idle_share": 1.0 - busy_ms / wall_ms,
         f"device_ms_per_{unit}_by_kernel": {n[:80]: t / 1e3 / reps for n, t in top},
     }
+    if groups:
+        out[f"device_ms_per_{unit}_by_port_kernel"] = {
+            label: sum(t for n, t in by_name.items() if n.startswith(prefix)) / 1e3 / reps
+            for label, prefix in groups.items()}
+    return out
+
+
+# the fixed-mesh kernels' names in a trace: #1 (its versions share the
+# body), #3 (bwd_kernel<DU = false>) and #4 (bwd_kernel<DU = true>)
+FIXED_GROUPS = {
+    "posatt_fixed_fwd": "void (anonymous namespace)::fwd_kernel<",
+    "posatt_bwd_dscale": "void (anonymous namespace)::bwd_kernel<false",
+    "posatt_bwd_du": "void (anonymous namespace)::bwd_kernel<true",
+}
 
 
 def environment():
@@ -818,57 +861,11 @@ def config_shapes():
 
 
 def train_phase():
-    """runner.train on full-width Burgers on the card, with the kernels;
-    again with the plain attention on the card, and on the CPU; then the
-    time per step and the device's busy share of warm steps."""
-    import numpy as np
-    import torch
-
+    """runner.train on full-width, full-depth Burgers on the card (phase 7)."""
     from position_induced_transformer_torch import configs
-    from position_induced_transformer_torch.models import pit
-    from position_induced_transformer_torch.ops.posatt import position_attention
 
     cfg = configs.BURGERS
-    epochs, ntrain, ntest = 2, 64, 16
-    plain = lambda dist, lmda, inputs, locality, thr=None: position_attention(
-        dist, lmda, inputs, locality, thr=thr)
-
-    problem, state, history, losses, weights, launched, seconds = run_training(
-        cfg, "cuda", epochs, ntrain, ntest)
-    steps = state.step
-    eval_batches = epochs * -(-ntest // cfg.batch_size)
-    # the forward writes the row statistics: no #2 launch
-    per_step = {"posatt_fixed_fwd": 7, "posatt_stats": 0, "posatt_bwd_dscale": 7, "posatt_bwd_du": 6}
-    expected = {k: per_step.get(k, 0) * steps for k in launchers()}
-    expected["posatt_fixed_fwd"] += 7 * eval_batches
-    if steps != epochs * ntrain // cfg.batch_size or launched != expected:
-        fail(f"train: {steps} steps, {eval_batches} eval batches launched {launched}; "
-             f"expected {expected} (7/0/7/6 per step, 7 forward per eval batch)")
-    if not torch.isfinite(losses).all() or not all(
-        np.isfinite(v) for row in history for v in row.values()
-    ):
-        fail(f"train: non-finite losses or metrics: {history}")
-
-    report = {
-        "config": cfg.name, "epochs": epochs, "ntrain": ntrain, "ntest": ntest,
-        "steps": steps, "eval_batches": eval_batches, "launches": launched,
-        "seconds_whole_run_cuda": seconds, "history": history,
-        "step_losses_first_last": [losses[0].item(), losses[-1].item()],
-    }
-    patch = mock.patch.object(pit, "position_attention_fixed", plain)
-    for device, p, label in (("cuda", patch, "plain_cuda"), ("cpu", None, "cpu")):
-        _, _, _, ref_losses, ref_weights, ref_launched, ref_s = run_training(
-            cfg, device, epochs, ntrain, ntest, p)
-        if any(ref_launched.values()):
-            fail(f"train: the {label} run launched kernels: {ref_launched}")
-        report[f"max_abs_err_step_loss_vs_{label}"] = check_close(
-            f"train losses vs {label}", losses, ref_losses, LOSS_RTOL, 0.0)
-        report[f"max_abs_err_weights_vs_{label}"] = max(
-            check_close(f"train weight {k} vs {label}", v, ref_weights[k], PARAM_RTOL, PARAM_ATOL)
-            for k, v in weights.items())
-        report[f"seconds_whole_run_{label}"] = ref_s
-    report.update(step_timing(problem, state, cfg.batch_size, ntrain, cfg.lr))
-    return report
+    return fixed_train_phase("train", cfg, 2, 64, 16, per_step_launches(cfg.model.n_blocks))
 
 
 def post(url, body):
@@ -925,102 +922,21 @@ def npy(a):
 
 
 def serve_phase():
-    import numpy as np
+    """A full-width Burgers model (random weights from a seeded generator)
+    behind the port's HTTP server on the card (phase 6)."""
     import torch
 
     from position_induced_transformer_torch import configs
     from position_induced_transformer_torch.data import synthetic
-    from position_induced_transformer_torch.kernels import posatt_pallas as kp
-    from position_induced_transformer_torch.models import pit
-    from position_induced_transformer_torch.ops.posatt import position_attention
     from position_induced_transformer_torch.train import benchmarks, checkpoint
-    from position_induced_transformer_torch.train.evaluate import Predictor
-    from position_induced_transformer_torch.train.serve import make_server
 
     cfg = configs.BURGERS
     model = benchmarks._make_model(cfg, torch.Generator().manual_seed(0))
     ckpt = checkpoint.save(
         str(REPO / "build" / "chip_smoke" / "burgers.pt"), model.state_dict(), cfg.name
     )
-    server = make_server(cfg.name, ckpt, host="127.0.0.1", port=0, verbose=False, device="cuda")
-    thread = threading.Thread(target=server.serve_forever, daemon=True)
-    thread.start()
-    url = f"http://127.0.0.1:{server.server_address[1]}/predict"
     x, _ = synthetic.burgers(n=48, L=cfg.grid[0], seed=1)
-    sent = []  # (input, reply)
-
-    def request(i, j):
-        return post(url, npy(x[i:j]))
-
-    def accept(i, j, code, body):
-        if code != 200:
-            fail(f"serve: HTTP {code} for samples [{i}, {j}): {body[:500]!r}")
-        sent.append((x[i:j], np.load(io.BytesIO(body))))
-
-    def ask(i, j):
-        accept(i, j, *request(i, j))
-
-    try:
-        zero_counts()
-        calls0 = server.batcher.n_calls
-        t0 = time.perf_counter()
-        ask(0, 1)
-        first_ms = (time.perf_counter() - t0) * 1e3
-        ask(1, 9)
-        ask(9, 22)  # 13 samples: one full and one padded batch
-        ranges = [(22 + 3 * i, 25 + 3 * i) for i in range(4)]
-        for (i, j), body in zip(ranges, concurrent("serve", request, ranges)):
-            accept(i, j, 200, body)
-        warm = []
-        for i in range(20):
-            t0 = time.perf_counter()
-            ask(8 * (i % 6), 8 * (i % 6) + 8)
-            warm.append((time.perf_counter() - t0) * 1e3)
-        launched = counts()
-        launches = launched["posatt_fixed_fwd"]
-        device_calls = server.batcher.n_calls - calls0
-    finally:
-        server.shutdown()
-        server.server_close()
-        thread.join(timeout=30)
-
-    if launches != 7 * device_calls or device_calls < 25:
-        fail(f"serve: {launches} kernel launches for {device_calls} device batches "
-             "(expected exactly 7 per batch)")
-    if any(launched[k] for k in launched if k != "posatt_fixed_fwd"):
-        fail(f"serve: other kernels than the forward launched while serving: {launched}")
-
-    # the same model with the plain attention on the card, and on the CPU
-    predictor = server.predictor
-
-    def plain_attention(dist, lmda, inputs, locality, thr=None):
-        return position_attention(dist, lmda, inputs, locality, thr=thr)
-
-    cpu = Predictor(cfg.name, ckpt, device="cpu")
-    err_plain = err_cpu = 0.0
-    with mock.patch.object(pit, "position_attention_fixed", plain_attention):
-        for a, out in sent:
-            before = kp.posatt_fixed_cuda.launches
-            ref = torch.from_numpy(predictor.predict_array({"x": a}))
-            if kp.posatt_fixed_cuda.launches != before:
-                fail("serve: the plain comparison run launched the kernel")
-            got = torch.from_numpy(out)
-            if got.shape != (a.shape[0], cfg.grid[0], cfg.model.out_dim):
-                fail(f"serve: reply shape {tuple(got.shape)}")
-            err_plain = max(err_plain, check_close("serve vs plain on CUDA", got, ref, MODEL_RTOL, MODEL_ATOL))
-            ref_cpu = torch.from_numpy(cpu.predict_array({"x": a}))
-            err_cpu = max(err_cpu, check_close("serve vs CPU", got, ref_cpu, MODEL_RTOL, MODEL_ATOL))
-    report = {
-        "profile_8_samples": profile_device(
-            lambda: predictor.predict_array({"x": x[:BURGERS_B]}), "forward"
-        ),
-        "requests": len(sent), "samples": int(sum(a.shape[0] for a, _ in sent)),
-        "device_batches": device_calls, "kernel_launches": launches,
-        "first_request_ms": first_ms, "warm_median_ms": statistics.median(warm),
-        "warm_requests": len(warm), "warm_samples_per_request": 8,
-        "max_abs_err_vs_plain_cuda": err_plain, "max_abs_err_vs_cpu": err_cpu,
-    }
-    return report
+    return fixed_serve_phase("serve", cfg, ckpt, x, cfg.model.n_blocks + 2, (1, 8, 13), 4, 20)
 
 
 # ------------------------------------------------ elasticity: kernels #7, #8
@@ -1573,10 +1489,11 @@ def elasticity_serve_phase():
     }
 
 
-def run_training(cfg, device, epochs, ntrain, ntest, patch=None):
+def run_training(cfg, device, epochs, ntrain, ntest, patch=None, **train_kw):
     """runner.train with the launch counts zeroed first; returns the
     problem, state, history, per-step losses, final weights, launches and
-    seconds. ``patch``: a context manager around the run."""
+    seconds. ``patch``: a context manager around the run; ``train_kw``:
+    more arguments of runner.train."""
     import torch
 
     from position_induced_transformer_torch.train import runner
@@ -1598,6 +1515,7 @@ def run_training(cfg, device, epochs, ntrain, ntest, patch=None):
     with mock.patch.object(runner, "make_train_epoch", capturing), patch or nullcontext():
         problem, state, history = runner.train(
             cfg, epochs=epochs, ntrain=ntrain, ntest=ntest, seed=0, verbose=False, device=device,
+            **train_kw,
         )
     seconds = time.perf_counter() - t0
     launched = counts()
@@ -1605,9 +1523,10 @@ def run_training(cfg, device, epochs, ntrain, ntest, patch=None):
     return problem, state, history, torch.cat(step_losses).cpu(), weights, launched, seconds
 
 
-def step_timing(problem, state, batch_size, n_rows, lr):
+def step_timing(problem, state, batch_size, n_rows, lr, groups=None):
     """Wall time of synchronised training steps on the trained state at a
-    constant learning rate, steps/s, and the device's busy share."""
+    constant learning rate, steps/s, and the device's busy share (with the
+    device time of the kernels in ``groups``, as profile_device takes it)."""
     import torch
 
     from position_induced_transformer_torch.train import loop
@@ -1641,7 +1560,7 @@ def step_timing(problem, state, batch_size, n_rows, lr):
         "wall_ms_per_step_median": statistics.median(walls),
         "steps_per_s_synchronised_steps": 1e3 / statistics.median(walls),
         "steps_per_s_back_to_back_epoch": perm.shape[0] / statistics.median(epoch_s),
-        "profile_warm_steps": profile_device(one_step, "step"),
+        "profile_warm_steps": profile_device(one_step, "step", groups=groups),
         "batch": batch_size,
     }
 
@@ -2618,6 +2537,391 @@ def schedule_phase():
     return rows, launched, fn_errs, stats_rows
 
 
+# ---------------------- sod and Darcy: #1, #3 and #4 on fixed-mesh paths
+def fixed_train_phase(label, cfg, epochs, ntrain, ntest, per_step, **train_kw):
+    """runner.train on a fixed-mesh configuration on the card, with the
+    kernels: exactly ``per_step`` launches of the forward/stats/dscale/du
+    per step and ``per_step["posatt_fixed_fwd"]`` forward launches per eval
+    batch; the per-step losses and the final weights against the same
+    training with the plain attention on the card and on the CPU; then the
+    time per step, steps/s and the device's busy share of warm steps."""
+    import numpy as np
+    import torch
+
+    from position_induced_transformer_torch.models import pit
+    from position_induced_transformer_torch.ops.posatt import position_attention
+
+    plain = lambda dist, lmda, inputs, locality, thr=None: position_attention(
+        dist, lmda, inputs, locality, thr=thr)
+    problem, state, history, losses, weights, launched, seconds = run_training(
+        cfg, "cuda", epochs, ntrain, ntest, **train_kw)
+    steps = state.step
+    eval_batches = epochs * -(-ntest // (cfg.eval_batch_size or cfg.batch_size))
+    expected = {k: per_step.get(k, 0) * steps for k in launchers()}
+    expected["posatt_fixed_fwd"] += per_step["posatt_fixed_fwd"] * eval_batches
+    if steps != epochs * (ntrain // cfg.batch_size) or launched != expected:
+        fail(f"{label}: {steps} steps, {eval_batches} eval batches launched {launched}; "
+             f"expected {expected} ({per_step} per step, the forward's count per eval batch)")
+    if not torch.isfinite(losses).all() or not all(
+        np.isfinite(v) for row in history for v in row.values()
+    ):
+        fail(f"{label}: non-finite losses or metrics: {history}")
+    report = {
+        "config": cfg.name, "epochs": epochs, "ntrain": ntrain, "ntest": ntest,
+        "steps": steps, "eval_batches": eval_batches, "launches": launched,
+        "launches_per_step": per_step,
+        "seconds_whole_run_cuda": seconds, "history": history,
+        "step_losses_first_last": [losses[0].item(), losses[-1].item()],
+    }
+    patch = mock.patch.object(pit, "position_attention_fixed", plain)
+    for device, p, label_ref in (("cuda", patch, "plain_cuda"), ("cpu", None, "cpu")):
+        _, _, _, ref_losses, ref_weights, ref_launched, ref_s = run_training(
+            cfg, device, epochs, ntrain, ntest, p,
+            **{k: v for k, v in train_kw.items() if k != "checkpoint_path"})
+        if any(ref_launched.values()):
+            fail(f"{label}: the {label_ref} run launched kernels: {ref_launched}")
+        report[f"max_abs_err_step_loss_vs_{label_ref}"] = check_close(
+            f"{label} losses vs {label_ref}", losses, ref_losses, LOSS_RTOL, 0.0)
+        report[f"max_abs_err_weights_vs_{label_ref}"] = max(
+            check_close(f"{label} weight {k} vs {label_ref}", v, ref_weights[k],
+                        PARAM_RTOL, PARAM_ATOL)
+            for k, v in weights.items())
+        report[f"seconds_whole_run_{label_ref}"] = ref_s
+    report.update(step_timing(problem, state, cfg.batch_size, ntrain, cfg.lr, FIXED_GROUPS))
+    return report
+
+
+def fixed_serve_phase(label, cfg, ckpt, x, per_batch, sizes, n_concurrent, n_warm,
+                      cpu_samples=None, setup_kwargs=None):
+    """``make_server(cfg.name)`` on the card answering raw ``.npy``
+    batches of ``x``: one request of each of ``sizes`` samples, then
+    ``n_concurrent`` concurrent requests (as in phase 6), then ``n_warm``
+    warm requests of one device batch; every reply 200; exactly
+    ``per_batch`` launches of #1 per device batch and no other kernel;
+    every reply against ``infer`` on the card and a plain-attention card
+    run, and the first ``cpu_samples`` samples (default: all) against a
+    CPU run."""
+    import numpy as np
+    import torch
+
+    from position_induced_transformer_torch.models import pit
+    from position_induced_transformer_torch.ops.posatt import position_attention
+    from position_induced_transformer_torch.train import evaluate
+    from position_induced_transformer_torch.train.serve import make_server
+
+    plain = lambda dist, lmda, inputs, locality, thr=None: position_attention(
+        dist, lmda, inputs, locality, thr=thr)
+    t0 = time.perf_counter()
+    server = make_server(cfg.name, ckpt, host="127.0.0.1", port=0, verbose=False,
+                         setup_kwargs=setup_kwargs, device="cuda")
+    startup_s = time.perf_counter() - t0
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}/predict"
+    bs = server.predictor._batch_size()
+    sent = []  # (first sample, input, reply)
+
+    def request(i, j):
+        return post(url, npy(x[i:j]))
+
+    def accept(i, j, code, body):
+        if code != 200:
+            fail(f"{label}: HTTP {code} for samples [{i}, {j}): {body[:500]!r}")
+        sent.append((i, x[i:j], np.load(io.BytesIO(body))))
+
+    def ask(i, j):
+        accept(i, j, *request(i, j))
+
+    try:
+        zero_counts()
+        calls0 = server.batcher.n_calls
+        i, first_ms = 0, None
+        for n in sizes:
+            t0 = time.perf_counter()
+            ask(i, i + n)
+            first_ms = first_ms or (time.perf_counter() - t0) * 1e3
+            i += n
+        per = max(1, min(3, (x.shape[0] - i) // n_concurrent))
+        ranges = [(i + per * k, i + per * (k + 1)) for k in range(n_concurrent)]
+        for (a, b), body in zip(ranges, concurrent(label, request, ranges)):
+            accept(a, b, 200, body)
+        warm, span = [], x.shape[0] - x.shape[0] % bs
+        for k in range(n_warm):
+            a = (bs * k) % span
+            t0 = time.perf_counter()
+            ask(a, a + bs)
+            warm.append((time.perf_counter() - t0) * 1e3)
+        launched = counts()
+        device_calls = server.batcher.n_calls - calls0
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    expected = {k: per_batch * device_calls if k == "posatt_fixed_fwd" else 0 for k in launched}
+    if launched != expected:
+        fail(f"{label}: {launched} for {device_calls} device batches "
+             f"(expected {per_batch} forward launches per batch and nothing else)")
+
+    predictor = server.predictor
+    n_all = max(i + len(r) for i, r, _ in sent)
+    path = str(REPO / "build" / "chip_smoke" / f"{label}_inputs.npy")
+    np.save(path, x[:n_all])
+    zero_counts()
+    t0 = time.perf_counter()
+    evaluate.infer(cfg.name, ckpt, path, output_path=path.replace("inputs", "infer"),
+                   setup_kwargs=setup_kwargs, device="cuda")
+    infer_s = time.perf_counter() - t0
+    by_infer = np.load(path.replace("inputs", "infer"))
+    if not counts()["posatt_fixed_fwd"]:
+        fail(f"{label}: infer on the card launched no kernel")
+    cpu_n = n_all if cpu_samples is None else cpu_samples
+    cpu = evaluate.Predictor(cfg.name, ckpt, setup_kwargs=setup_kwargs, device="cpu")
+    by_cpu = cpu.predict_array(
+        {"x": evaluate._prepare_inputs(cpu.problem, x[:cpu_n])}, batch_size=min(cpu_n, bs))
+    errs = {"infer": 0.0, "plain_cuda": 0.0, "cpu": 0.0}
+    for i, a, out in sent:
+        got = torch.from_numpy(out)
+        errs["infer"] = max(errs["infer"], check_close(
+            f"{label} vs infer", got, torch.from_numpy(by_infer[i:i + len(a)]), MODEL_RTOL, MODEL_ATOL))
+        before = counts()
+        with mock.patch.object(pit, "position_attention_fixed", plain):
+            ref = predictor.predict_array({"x": evaluate._prepare_inputs(predictor.problem, a)})
+        if counts() != before:
+            fail(f"{label}: the plain comparison run launched a kernel")
+        errs["plain_cuda"] = max(errs["plain_cuda"], check_close(
+            f"{label} vs plain on CUDA", got, torch.from_numpy(ref), MODEL_RTOL, MODEL_ATOL))
+        k = max(0, min(len(a), cpu_n - i))
+        if k:
+            errs["cpu"] = max(errs["cpu"], check_close(
+                f"{label} vs CPU", got[:k], torch.from_numpy(by_cpu[i:i + k]), MODEL_RTOL, MODEL_ATOL))
+    batch = {"x": evaluate._prepare_inputs(predictor.problem, x[:bs])}
+    return {
+        "config": cfg.name, "setup_kwargs": setup_kwargs, "startup_s": startup_s,
+        "infer_s": infer_s, "reply_shape": list(sent[0][2].shape[1:]),
+        f"profile_{bs}_samples": profile_device(lambda: predictor.predict_array(batch), "forward",
+                                                groups=FIXED_GROUPS),
+        "requests": len(sent), "samples": int(sum(len(a) for _, a, _ in sent)),
+        "device_batches": device_calls, "launches": launched,
+        "first_request_ms": first_ms, "warm_median_ms": statistics.median(warm),
+        "warm_requests": len(warm), "warm_samples_per_request": bs,
+        "samples_vs_cpu": cpu_n,
+        **{f"max_abs_err_vs_{k}": v for k, v in errs.items()},
+    }
+
+
+# a step launches one forward a layer, dscale a layer and du for every layer
+# but the encoder, whose input needs no gradient
+def per_step_launches(n_blocks):
+    n = n_blocks + 2
+    return {"posatt_fixed_fwd": n, "posatt_stats": 0, "posatt_bwd_dscale": n, "posatt_bwd_du": n - 1}
+
+
+def darcy_train_phase():
+    """runner.train on full-width Darcy at 43^2 (64 training and 16 test
+    samples, 2 epochs of 8 steps at batch 8; cut from 1024 / 100 and 30
+    epochs): 6/0/6/5 launches a step; it writes the checkpoint the ZSSR
+    and serve phases read (with the normalizer statistics)."""
+    from position_induced_transformer_torch import configs
+
+    from position_induced_transformer_torch.train import benchmarks
+
+    cfg = configs.DARCY
+    ckpt = str(REPO / "build" / "chip_smoke" / "darcy_trained.pt")
+    report = fixed_train_phase("darcy train", cfg, 2, 64, 16, per_step_launches(cfg.model.n_blocks),
+                               checkpoint_path=ckpt)
+    report["geometry_43"] = kept_difference(benchmarks.darcy_geometry(cfg, 43, device="cuda"),
+                                            benchmarks.darcy_geometry(cfg, 43, device="cpu"))
+    return report, ckpt
+
+
+def fixed_op_rows(label, geom, lmdas, B, dims, random_rows):
+    """#1 at the ops of ``geom`` (encoder ``dist_down`` and decoder
+    ``dist_up``; the model's own bandwidths ``lmdas``, random values of
+    widths ``dims`` at batch B): against the plain version, per-launch
+    time, the plain version's and SDPA's, the bound from this geometry's
+    kept entries, the splits of L_in and the kept lists; beside
+    ``random_rows``: phase 16's times at the same shapes on random points."""
+    import numpy as np
+    import torch
+
+    from position_induced_transformer_torch.kernels import posatt_pallas as kp
+    from position_induced_transformer_torch.ops import posatt
+
+    rows = []
+    rng = np.random.default_rng(5)
+    for (op, dist, thr), lmda, D in zip(
+            (("encoder", geom.dist_down, geom.thr_down), ("decoder", geom.dist_up, geom.thr_up)),
+            lmdas, dims):
+        Lo, Li = dist.shape
+        H = lmda.shape[0]
+        scale = posatt.bandwidth_scale(lmda.cuda()).reshape(H, 1)
+        u = torch.from_numpy(rng.random((B, Li, D)).astype(np.float32)).cuda()
+        args = (dist, thr, scale, u)
+        err = check_close(f"{label} {op} #1 vs plain", kp.posatt_fixed_cuda(*args),
+                          plain_fixed(*args), OP_RTOL, OP_ATOL)
+        plan = kp._fwd_plan(True, H, B, Lo, Li, D)
+        sdpa, lib_err = fixed_sdpa(*args)
+        bound_ms, bound_by, flops, nbytes, kept = bound(dist, thr, H, B, D)
+        rows.append({
+            "shape": f"{label}_{op}", "H": H, "L_out": Lo, "L_in": Li, "B": B, "D": D,
+            "kept_entries": kept, "kept_fraction": kept / (Lo * Li), "max_abs_err": err,
+            "ms": cuda_ms(lambda: kp.posatt_fixed_cuda(*args)),
+            "ms_with_stats": cuda_ms(lambda: kp.posatt_fixed_cuda(*args, stats=True)),
+            "plain_ms": cuda_ms(lambda: plain_fixed(*args)),
+            "library_ms": cuda_ms(sdpa), "library_max_abs_err": lib_err,
+            "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops, "bytes": nbytes,
+            "splits": plan.splits, "warps_a_block": plan.warps,
+            "list_length": fixed_list_lengths(dist, thr, plan.splits),
+            **({"random_points_phase16": random_rows[op]} if op in random_rows else {}),
+        })
+        del sdpa, u
+        log(f"{label} {op}: {json.dumps(rows[-1])}")
+    return rows
+
+
+def kept_difference(gg, gc):
+    """Entries kept on the card and not on the CPU or the other way, by
+    side (the same ops; ties at the cut would show here)."""
+    out = {}
+    for side in ("down", "up"):
+        kg = (getattr(gg, f"dist_{side}") <= getattr(gg, f"thr_{side}")).cpu()
+        kc = getattr(gc, f"dist_{side}") <= getattr(gc, f"thr_{side}")
+        out[f"entries_kept_differently_{side}"] = int((kg != kc).sum())
+        out[f"kept_per_row_{side}_min_max"] = [int(kg.sum(1).min()), int(kg.sum(1).max())]
+    return out
+
+
+def darcy_zssr_phase(ckpt, schedule_rows):
+    """``evaluate("darcy", ckpt, zssr=True)`` on the card at 421^2 (ntest
+    10: one eval batch), with the train phase's weights and statistics:
+    6 launches of #1 and no other kernel; its metrics against a
+    plain-attention card run at rtol 1e-4, its predictions on 2 samples
+    against a CPU run; the geometry's build time and its kept sets against
+    a CPU build; #1 per launch at the 421^2 encoder and decoder of this
+    grid-ordered mesh beside phase 16's random-point times and the bound."""
+    import numpy as np
+    import torch
+    from scipy.io import loadmat
+
+    from position_induced_transformer_torch import configs
+    from position_induced_transformer_torch.data import loaders
+    from position_induced_transformer_torch.models import pit
+    from position_induced_transformer_torch.ops.posatt import position_attention
+    from position_induced_transformer_torch.train import benchmarks, checkpoint, evaluate
+
+    cfg, ntest = configs.DARCY, 10
+    out_dir = REPO / "build" / "chip_smoke"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    geom = benchmarks.darcy_geometry(cfg, 421, device="cuda")
+    torch.cuda.synchronize()
+    geometry_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    geom_cpu = benchmarks.darcy_geometry(cfg, 421, device="cpu")
+    report = {"geometry_build_s_cuda": geometry_s,
+              "geometry_build_s_cpu": time.perf_counter() - t0,
+              **kept_difference(geom, geom_cpu)}
+    del geom_cpu
+    log(f"darcy zssr geometry: {json.dumps(report)}")
+
+    kw = dict(zssr=True, ntest=ntest)
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = evaluate.evaluate("darcy", ckpt, save_pred=str(out_dir / "zssr_cuda.mat"), device="cuda", **kw)
+    torch.cuda.synchronize()
+    report["evaluate_s_cuda"] = time.perf_counter() - t0
+    launched = counts()
+    expected = {k: 6 if k == "posatt_fixed_fwd" else 0 for k in launched}
+    if launched != expected:
+        fail(f"darcy zssr: evaluate launched {launched}, expected {expected}")
+    report["launches"] = launched
+    plain = lambda dist, lmda, inputs, locality, thr=None: position_attention(
+        dist, lmda, inputs, locality, thr=thr)
+    with mock.patch.object(pit, "position_attention_fixed", plain):
+        t0 = time.perf_counter()
+        want = evaluate.evaluate("darcy", ckpt, save_pred=str(out_dir / "zssr_plain.mat"),
+                                 device="cuda", **kw)
+        report["evaluate_s_plain_cuda"] = time.perf_counter() - t0
+    if counts() != launched:
+        fail("darcy zssr: the plain-attention evaluation launched a kernel")
+    for k in ("rel_l1", "rel_l2", "rel_max", "rel_l1_quartiles"):
+        check_close(f"darcy zssr {k} vs plain on CUDA", torch.tensor(got[k], dtype=torch.float64),
+                    torch.tensor(want[k], dtype=torch.float64), 1e-4, 0.0)
+    pred = torch.from_numpy(loadmat(str(out_dir / "zssr_cuda.mat"))["pred"])
+    pred_plain = torch.from_numpy(loadmat(str(out_dir / "zssr_plain.mat"))["pred"])
+    if pred.shape != (ntest, 421, 421, 1):
+        fail(f"darcy zssr: predictions of shape {tuple(pred.shape)}")
+    report["max_abs_err_pred_vs_plain_cuda"] = check_close(
+        "darcy zssr predictions vs plain on CUDA", pred, pred_plain, MODEL_RTOL, MODEL_ATOL)
+    # the raw inputs evaluate read: its test split (ntrain = ntest under
+    # the checkpoint's statistics)
+    x_raw = loaders.darcy(None, None, 1, ntrain=ntest, ntest=ntest)[2][:2]
+    t0 = time.perf_counter()
+    cpu = evaluate.Predictor("darcy", ckpt, setup_kwargs={"downsampling": 1}, device="cpu")
+    ref = cpu.predict_array({"x": evaluate._prepare_inputs(cpu.problem, x_raw)}, batch_size=2)
+    report["cpu_predict_2_samples_s"] = time.perf_counter() - t0
+    report["max_abs_err_pred_vs_cpu_2_samples"] = check_close(
+        "darcy zssr predictions vs CPU", pred[:2], torch.from_numpy(ref), MODEL_RTOL, MODEL_ATOL)
+    del cpu, ref
+    report["metrics"] = got
+    report["metrics_plain_cuda"] = want
+
+    sd = checkpoint.restore(ckpt)["state_dict"]
+    m = cfg.model
+    random_rows = {}
+    for r in schedule_rows:
+        for op in ("encoder", "decoder"):
+            if r["shape"] == f"darcy_zssr_{op}":
+                random_rows[op] = {"ms": r["versions"]["3"]["ms"], "bound_ms": r["bound_ms"],
+                                   "kept_fraction": r["kept_fraction"],
+                                   "list_length": r["versions"]["3"]["list_length"]}
+    report["ops"] = fixed_op_rows("darcy_zssr", geom, (sd["down.lmda"], sd["up.lmda"]),
+                                  cfg.eval_batch_size, (m.in_dim + m.space_dim, m.hid_dim),
+                                  random_rows)
+    return report
+
+
+def darcy_serve_phases(ckpt):
+    """make_server("darcy") on the train phase's checkpoint answering raw
+    43^2 grids (1, 10 and 13 samples, 4 concurrent, 20 warm), then a
+    second server built with ``setup_kwargs={"downsampling": 1}``
+    answering raw 421^2 grids (1 and 3 samples, 2 concurrent, 4 warm;
+    against the CPU on 2 samples): 6 launches of #1 per device batch."""
+    from position_induced_transformer_torch import configs
+    from position_induced_transformer_torch.data import synthetic
+
+    cfg = configs.DARCY
+    per_batch = cfg.model.n_blocks + 2
+    x43 = synthetic.darcy(n=50, s=43, seed=1)[0]
+    at43 = fixed_serve_phase("darcy_serve_43", cfg, ckpt, x43, per_batch, (1, 10, 13), 4, 20)
+    x421 = synthetic.darcy(n=10, s=421, seed=1)[0]
+    at421 = fixed_serve_phase("darcy_serve_421", cfg, ckpt, x421, per_batch, (1, 3), 2, 4,
+                              cpu_samples=2, setup_kwargs={"downsampling": 1})
+    return at43, at421
+
+
+def sod_phases():
+    """sod at full width: a seeded random-weight checkpoint served (1, 8
+    and 13 samples, 4 concurrent, 20 warm; 4 launches of #1 per device
+    batch), then runner.train (64 training and 16 test samples, 2 epochs
+    of 8 steps at batch 8; cut from 1024 / 128 and 500 epochs): 4/0/4/3
+    launches a step."""
+    import torch
+
+    from position_induced_transformer_torch import configs
+    from position_induced_transformer_torch.data import synthetic
+    from position_induced_transformer_torch.train import benchmarks, checkpoint
+
+    cfg = configs.SOD
+    model = benchmarks._make_model(cfg, torch.Generator().manual_seed(0))
+    ckpt = checkpoint.save(str(REPO / "build" / "chip_smoke" / "sod.pt"), model.state_dict(), cfg.name)
+    x = synthetic.sod(n=48, seed=1)[0]
+    serve = fixed_serve_phase("sod_serve", cfg, ckpt, x, cfg.model.n_blocks + 2, (1, 8, 13), 4, 20)
+    train = fixed_train_phase("sod train", cfg, 2, 64, 16, per_step_launches(cfg.model.n_blocks))
+    return serve, train
+
+
 def schedule_entry(version, rows, launched):
     """The kernels-record entry of one schedule: times and bounds summed
     over the seven launches of a Burgers forward (1 encoder + 5 processor
@@ -2689,6 +2993,21 @@ def main() -> int:
         # #1 at this phase's Burgers shapes, beside #5 and #6
         "v3_per_burgers_forward": {k: v3[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
     }))
+    d_train, darcy_ckpt = darcy_train_phase()
+    log("darcy_train " + json.dumps(d_train))
+    d_zssr = darcy_zssr_phase(darcy_ckpt, s_rows)
+    log("darcy_zssr " + json.dumps(d_zssr))
+    d_serve43, d_serve421 = darcy_serve_phases(darcy_ckpt)
+    log("darcy_serve_43 " + json.dumps(d_serve43))
+    log("darcy_serve_421 " + json.dumps(d_serve421))
+    sod_serve, sod_train = sod_phases()
+    log("sod_serve " + json.dumps(sod_serve))
+    log("sod_train " + json.dumps(sod_train))
+    fixed_paths = {  # the fixed-mesh model paths of sod and Darcy: (train, served or evaluated)
+        "darcy_train": d_train["launches"], "darcy_zssr": d_zssr["launches"],
+        "darcy_serve_43": d_serve43["launches"], "darcy_serve_421": d_serve421["launches"],
+        "sod_train": sod_train["launches"], "sod_serve": sod_serve["launches"],
+    }
 
     per = {s["shape"]: s for s in shapes}
     total = lambda key: sum(s[key] * s["launches_per_forward"] for s in shapes)
@@ -2702,9 +3021,10 @@ def main() -> int:
         "route": "cuda",
         "source": "position_induced_transformer_torch/kernels/csrc/posatt_fixed_fwd.cu",
         "replaces": "position_induced_transformer_tpu/kernels/posatt_pallas.py:341",
-        "launches": serve["kernel_launches"],
-        "launches_by_path": {"serve": serve["kernel_launches"],
-                             "train": train["launches"]["posatt_fixed_fwd"]},
+        "launches": serve["launches"]["posatt_fixed_fwd"],
+        "launches_by_path": {"serve": serve["launches"]["posatt_fixed_fwd"],
+                             "train": train["launches"]["posatt_fixed_fwd"],
+                             **{k: v["posatt_fixed_fwd"] for k, v in fixed_paths.items()}},
         "max_abs_err": max_err,
         # times and bounds: one Burgers forward at batch 8, i.e. the sum of
         # 1 encoder + 5 processor + 1 decoder launches; "shapes" splits them
@@ -2714,6 +3034,8 @@ def main() -> int:
         "bound_by": max(by, key=by.get),
         "library_ms": total("library_ms"),
         "shapes": [per[n] for n in ("encoder", "processor", "decoder")],
+        # the Darcy 421^2 ZSSR encoder and decoder on the grid-ordered mesh
+        "darcy_zssr_shapes": d_zssr["ops"],
     }]}
     replaces = {  # the pl.pallas_call of each TPU kernel
         "posatt_stats": "position_induced_transformer_tpu/kernels/posatt_pallas.py:419",
@@ -2743,7 +3065,8 @@ def main() -> int:
         "replaces": replaces["posatt_stats"],
         "launches": s_launched["posatt_stats"],
         "launches_by_path": {"serve": 0, "train": train["launches"]["posatt_stats"],
-                             "schedules": s_launched["posatt_stats"]},
+                             "schedules": s_launched["posatt_stats"],
+                             **{k: v["posatt_stats"] for k, v in fixed_paths.items()}},
         "max_abs_err": max(bwd_errs["posatt_stats"], max(r["max_abs_err"] for r in s_stats_rows)),
         **v12,
         "library_ms": None,
@@ -2760,7 +3083,8 @@ def main() -> int:
             "source": "position_induced_transformer_torch/kernels/csrc/posatt_fixed_bwd.cu",
             "replaces": replaces[name],
             "launches": train["launches"][name],
-            "launches_by_path": {"serve": 0, "train": train["launches"][name]},
+            "launches_by_path": {"serve": 0, "train": train["launches"][name],
+                                 **{k: v[name] for k, v in fixed_paths.items()}},
             "max_abs_err": bwd_errs[name],
             **per_step(rows, "launches_per_step"),
             "library_ms": None,

@@ -119,6 +119,61 @@ def burgers(path=None, ntrain=1024, ntest=128, L=1024) -> Tuple[np.ndarray, ...]
     return x_tr, y_tr, x_te, y_te
 
 
+def sod(path=None, ntrain=1024, ntest=128, L=1024) -> Tuple[np.ndarray, ...]:
+    """``(x_tr, y_tr, x_te, y_te)`` shaped (n, L, 3) in primitive variables
+    (rho, u, p). A real file holds conservative ones (rho, m, E), turned
+    into primitive ones in place: first p = (E - m^2 / (2 rho)) (gamma - 1),
+    then u = m / rho."""
+    gamma = 1.4
+    if _is_real_file(path):
+        data = load_mat(path)
+        x = data["x"].astype(np.float32)
+        y = data["y"].astype(np.float32)
+        for arr in (x, y):
+            arr[..., 2] = (arr[..., 2] - 0.5 * arr[..., 1] ** 2 / arr[..., 0]) * (
+                gamma - 1
+            )
+            arr[..., 1] = arr[..., 1] / arr[..., 0]
+    else:
+        _warn_fallback(path, "sod")
+        x, y = synthetic.sod(n=ntrain + ntest, L=L)
+    x_tr, x_te, y_tr, y_te = _split((x, y), x.shape[0], ntrain, ntest, "sod")
+    return x_tr, y_tr, x_te, y_te
+
+
+def darcy(
+    train_path=None, test_path=None, downsampling=10, ntrain=1024, ntest=100
+) -> Tuple[np.ndarray, ...]:
+    """``(x_tr, y_tr, x_te, y_te)`` shaped (n, s, s, 1) with s = 420 /
+    downsampling + 1: every ``downsampling``-th point of the 421^2 grids
+    (``coeff`` and ``sol``) of the two real files, the training split from
+    the head of the first and the test split from the head of the second;
+    else from the synthetic generator at resolution s."""
+    s = int(((421 - 1) / downsampling) + 1)
+    if _is_real_file(train_path) and _is_real_file(test_path):
+        def slice_file(path, n, what):
+            data = load_mat(path)
+            a = data["coeff"].astype(np.float32)
+            if a.shape[0] < n:
+                raise ValueError(
+                    f"darcy {what} file has {a.shape[0]} samples, "
+                    f"requested {n}"
+                )
+            u = data["sol"].astype(np.float32)
+            return (
+                a[:n, ::downsampling, ::downsampling][:, :s, :s][..., None],
+                u[:n, ::downsampling, ::downsampling][:, :s, :s][..., None],
+            )
+
+        xtr, ytr = slice_file(train_path, ntrain, "train")
+        xte, yte = slice_file(test_path, ntest, "test")
+        return xtr, ytr, xte, yte
+    _warn_fallback(train_path or test_path, "darcy")
+    x, y = synthetic.darcy(n=ntrain + ntest, s=s)
+    x_tr, x_te, y_tr, y_te = _split((x, y), x.shape[0], ntrain, ntest, "darcy")
+    return x_tr, y_tr, x_te, y_te
+
+
 def elasticity(
     dirpath=None, ntrain=1000, ntest=200, n_points=972
 ) -> Tuple[np.ndarray, ...]:

@@ -14,6 +14,19 @@ def grid_1d(n: int, lo: float = 0.0, hi: float = 1.0, endpoint: bool = False):
     return pts.reshape(-1, 1).astype(np.float32)
 
 
+def grid_2d(s: int, endpoint: bool = True):
+    """(s, s, 2) uniform 2-D mesh on [0,1]^2 in the 'xy' meshgrid stacking
+    order. ``endpoint=False`` drops the last point of each axis (the
+    periodic convention)."""
+    if endpoint:
+        xs = np.linspace(0, 1, s)
+    else:
+        xs = np.linspace(0, 1, s + 1)[:-1]
+    xx, yy = np.meshgrid(xs, xs)
+    mesh = np.stack([xx.ravel(), yy.ravel()], axis=-1)
+    return mesh.reshape(s, s, 2).astype(np.float32)
+
+
 def angular_sort_perm(coords):
     """Per-sample permutation ordering a 2-D point cloud by angle around
     its centroid: (n, L, 2) -> (n, L) indices.

@@ -1,4 +1,4 @@
-"""Synthetic dataset generators (numpy).
+"""Synthetic dataset generators (numpy): Burgers, sod, Darcy, elasticity.
 
 Same generators, numpy RNG streams and seeds as the JAX package's
 ``data/synthetic.py``, so that both packages see identical inputs.
@@ -33,6 +33,194 @@ def burgers(n=1152, L=1024, seed=0):
     y = np.take_along_axis(u0, idx, axis=1)
     y = y - 0.2 * y * np.gradient(y, axis=1)
     return u0[..., None], y.astype(np.float32)[..., None]
+
+
+_GAMMA = 1.4  # a diatomic gas
+
+
+def _riemann_star(rl, ul, pl, rr, ur, pr, g=_GAMMA, n_iter=60):
+    """Star-region pressure and velocity of the 1-D Euler Riemann problem:
+    exact, Newton on the standard pressure function (Toro, ch. 4).
+
+    All inputs broadcastable float64 arrays. Returns (p*, u*, c_l, c_r)."""
+    cl = np.sqrt(g * pl / rl)
+    cr = np.sqrt(g * pr / rr)
+
+    def f_and_df(p, rk, pk, ck):
+        # the shock branch (p > pk) and the rarefaction branch, both evaluated
+        ak = 2.0 / ((g + 1.0) * rk)
+        bk = (g - 1.0) / (g + 1.0) * pk
+        root = np.sqrt(ak / (p + bk))
+        f_sh = (p - pk) * root
+        df_sh = root * (1.0 - (p - pk) / (2.0 * (p + bk)))
+        pr_ = p / pk
+        f_ra = 2.0 * ck / (g - 1.0) * (pr_ ** ((g - 1.0) / (2.0 * g)) - 1.0)
+        df_ra = (1.0 / (rk * ck)) * pr_ ** (-(g + 1.0) / (2.0 * g))
+        sh = p > pk
+        return np.where(sh, f_sh, f_ra), np.where(sh, df_sh, df_ra)
+
+    du = ur - ul
+    # the two-rarefaction guess: positive and near the root over the
+    # shock-tube states sampled by sod(), so Newton converges fast
+    z = (g - 1.0) / (2.0 * g)
+    p = ((cl + cr - 0.5 * (g - 1.0) * du)
+         / (cl / pl**z + cr / pr**z)) ** (1.0 / z)
+    p = np.maximum(p, 1e-10)
+    for _ in range(n_iter):
+        fl, dfl = f_and_df(p, rl, pl, cl)
+        fr, dfr = f_and_df(p, rr, pr, cr)
+        p = np.maximum(p - (fl + fr + du) / (dfl + dfr), 1e-10)
+    fl, _ = f_and_df(p, rl, pl, cl)
+    fr, _ = f_and_df(p, rr, pr, cr)
+    us = 0.5 * (ul + ur) + 0.5 * (fr - fl)
+    return p, us, cl, cr
+
+
+def _riemann_sample(rl, ul, pl, rr, ur, pr, ps, us, cl, cr, xi, g=_GAMMA):
+    """The self-similar exact solution W(xi), xi = (x - x0) / t.
+
+    State arrays broadcast against ``xi``; returns (rho, u, p). Every
+    branch (shock, rarefaction fan, star and outer state, on each side) is
+    evaluated densely and selected with nested ``np.where``."""
+    gm1, gp1 = g - 1.0, g + 1.0
+    b = gm1 / gp1
+
+    def one_side(rk, uk, pk, ck, sgn):
+        # sgn = -1 for the left wave, +1 for the right wave
+        pratio = ps / pk
+        csk = ck * pratio ** (gm1 / (2.0 * g))
+        r_star_sh = rk * (pratio + b) / (b * pratio + 1.0)
+        r_star_ra = rk * pratio ** (1.0 / g)
+        s_shock = uk + sgn * ck * np.sqrt(
+            gp1 / (2.0 * g) * pratio + gm1 / (2.0 * g)
+        )
+        s_head = uk + sgn * ck
+        s_tail = us + sgn * csk
+        # inside the rarefaction fan
+        u_fan = 2.0 / gp1 * (-sgn * ck + gm1 / 2.0 * uk + xi)
+        c_fan = 2.0 / gp1 * (ck - sgn * gm1 / 2.0 * (uk - xi))
+        r_fan = rk * (c_fan / ck) ** (2.0 / gm1)
+        p_fan = pk * (c_fan / ck) ** (2.0 * g / gm1)
+        outer = sgn * xi > sgn * s_shock  # a shock: beyond it
+        out_h = sgn * xi > sgn * s_head   # a rarefaction: beyond its head
+        in_star_ra = sgn * xi < sgn * s_tail
+        shock = ps > pk
+        rho = np.where(
+            shock,
+            np.where(outer, rk, r_star_sh),
+            np.where(out_h, rk, np.where(in_star_ra, r_star_ra, r_fan)),
+        )
+        u = np.where(
+            shock,
+            np.where(outer, uk, us),
+            np.where(out_h, uk, np.where(in_star_ra, us, u_fan)),
+        )
+        p = np.where(
+            shock,
+            np.where(outer, pk, ps),
+            np.where(out_h, pk, np.where(in_star_ra, ps, p_fan)),
+        )
+        return rho, u, p
+
+    rho_l, u_l, p_l = one_side(rl, ul, pl, cl, -1.0)
+    rho_r, u_r, p_r = one_side(rr, ur, pr, cr, +1.0)
+    left = xi < us
+    return (
+        np.where(left, rho_l, rho_r),
+        np.where(left, u_l, u_r),
+        np.where(left, p_l, p_r),
+    )
+
+
+def sod(n=1152, L=1024, seed=0, t_final=2.0):
+    """(x, y) shaped (n, L, 3): exact shock-tube solutions of the 1-D Euler
+    equations in primitive variables (rho, u, p) on [-5, 5).
+
+    x is the Riemann initial condition (two constant states, the diaphragm
+    at a random x0 in [-1, 1]) and y the exact self-similar solution at
+    ``t_final``: shock, contact and rarefaction resolved analytically.
+    The states are drawn around the classic Sod values (1, 0, 1) /
+    (0.125, 0, 0.1); at seed 0 and n 1152 every wave stays inside [-5, 5).
+    """
+    rng = np.random.default_rng(seed)
+    s = np.linspace(-5, 5, L, endpoint=False)
+    x0 = rng.uniform(-1, 1, (n, 1))
+    rl = rng.uniform(0.85, 1.15, (n, 1))
+    pl = rng.uniform(0.85, 1.15, (n, 1))
+    rr = rng.uniform(0.100, 0.150, (n, 1))
+    pr = rng.uniform(0.080, 0.120, (n, 1))
+    ul = np.zeros((n, 1))
+    ur = np.zeros((n, 1))
+
+    right0 = s[None, :] >= x0
+    x = np.stack(
+        [
+            np.where(right0, rr, rl) * np.ones_like(s),
+            np.zeros((n, L)),
+            np.where(right0, pr, pl) * np.ones_like(s),
+        ],
+        axis=-1,
+    )
+    ps, us, cl, cr = _riemann_star(rl, ul, pl, rr, ur, pr)
+    xi = (s[None, :] - x0) / t_final
+    rho, u, p = _riemann_sample(rl, ul, pl, rr, ur, pr, ps, us, cl, cr, xi)
+    y = np.stack([rho, u, p], axis=-1)
+    return x.astype(np.float32), y.astype(np.float32)
+
+
+def _grf_modes(rng, n, n_modes=6, decay=2.0):
+    """Random mode amplitudes of a 2-D sine GRF (resolution-independent)."""
+    k = np.arange(1, n_modes + 1)
+    ksq = k[:, None] ** 2 + k[None, :] ** 2
+    return (
+        rng.standard_normal((n, n_modes, n_modes)) / ksq[None] ** (decay / 2)
+    ).astype(np.float32)
+
+
+def _eval_modes(amp, s, extra_damp=0.0, phase_x=None, phase_y=None):
+    """sum_ij amp_ij * sin(i pi x + phi_i) sin(j pi y + psi_j) on an s x s
+    grid, with optional extra (i^2 + j^2)-power damping: the same
+    continuous function at every s. Per-sample phases (phase_x, phase_y
+    shaped (n, m)) leave no pixel pinned across samples."""
+    n_modes = amp.shape[-1]
+    x = np.linspace(0, 1, s)
+    k = np.arange(1, n_modes + 1)
+    if extra_damp:
+        ksq = k[:, None] ** 2 + k[None, :] ** 2
+        amp = amp / ksq[None] ** extra_damp
+    if phase_x is None:
+        sx = np.sin(np.pi * np.outer(x, k))  # (s, m)
+        return np.einsum("nij,xi,yj->nxy", amp, sx, sx).astype(np.float32)
+    arg = np.pi * x[None, :, None] * k[None, None, :]  # (1, s, m)
+    sx = np.sin(arg + phase_x[:, None, :])  # (n, s, m)
+    sy = np.sin(arg + phase_y[:, None, :])
+    return np.einsum(
+        "nij,nxi,nyj->nxy", amp, sx, sy, optimize=True
+    ).astype(np.float32)
+
+
+def darcy(n=1124, s=43, seed=0):
+    """(x, y) shaped (n, s, s, 1): a smoothly thresholded sine-GRF
+    permeability in [4, 12] and a mode-damped solution stand-in under the
+    Dirichlet window 64 x(1-x) y(1-y).
+
+    Both are analytic functions of the same per-sample mode amplitudes and
+    phases, so every resolution samples the same operator:
+    ``darcy(s=43) == darcy(s=421)[:, ::10, ::10]``, which is what makes
+    the zero-shot super-resolution evaluation meaningful on synthetic data.
+    """
+    rng = np.random.default_rng(seed)
+    amp = _grf_modes(rng, n)
+    n_modes = amp.shape[-1]
+    phx = rng.uniform(0, 2 * np.pi, (n, n_modes)).astype(np.float32)
+    phy = rng.uniform(0, 2 * np.pi, (n, n_modes)).astype(np.float32)
+    g = _eval_modes(amp, s, phase_x=phx, phase_y=phy)
+    coeff = (4.0 + 8.0 / (1.0 + np.exp(-6.0 * g))).astype(np.float32)
+    sol = 0.1 * _eval_modes(amp, s, extra_damp=1.0, phase_x=phx, phase_y=phy)
+    t = np.linspace(0, 1, s, dtype=np.float32)
+    w = 4.0 * t * (1.0 - t)
+    sol = sol * (4.0 * w[None, :, None] * w[None, None, :])
+    return coeff[..., None], sol[..., None]
 
 
 def _clamp_void_inside(a, da, radius, dradius):

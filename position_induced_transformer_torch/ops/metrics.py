@@ -1,4 +1,4 @@
-"""Relative-error losses and metrics (the two that training and eval use).
+"""Relative-error losses and metrics (those training and evaluation use).
 
 Per-sample, per-output-variable relative norms over the mesh axis,
 averaged over variables and **summed over the batch** (the caller divides
@@ -60,3 +60,12 @@ def rel_max_norm(
     true_norm = t.abs().amax(dim=1)
     diff_norm = (t - q).abs().amax(dim=1)
     return _weighted_sum((diff_norm / true_norm).mean(dim=-1), weights)
+
+
+def rel_l1_quartiles(true: torch.Tensor, pred: torch.Tensor):
+    """The (25 %, 50 %, 75 %) linear quantiles of the per-sample relative
+    L1 error of the first output variable, over the batch."""
+    t, q = true[..., 0], pred[..., 0]
+    rel = (t - q).abs().sum(dim=1) / t.abs().sum(dim=1)
+    qs = torch.tensor([0.25, 0.5, 0.75], dtype=rel.dtype, device=rel.device)
+    return tuple(torch.quantile(rel, qs, interpolation="linear"))

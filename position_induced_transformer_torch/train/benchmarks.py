@@ -1,14 +1,16 @@
 """Per-benchmark problem setup: data -> meshes -> Geometry -> model -> Task.
 
-Ported: ``burgers`` (a fixed periodic mesh), ``elasticity`` (per-sample
-point clouds) and ``elasticity_tf`` (the TF-semantics point-cloud model);
+Ported: ``burgers`` (a fixed periodic mesh), ``sod`` (a fixed 1-D mesh on
+[-5, 5)), ``darcy`` (a fixed 2-D grid with per-pixel normalization, at
+any ``downsampling`` of the 421^2 grid), ``elasticity`` (per-sample point
+clouds) and ``elasticity_tf`` (the TF-semantics point-cloud model);
 :func:`setup` names the others as not yet ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -23,6 +25,7 @@ from position_induced_transformer_torch.ops.locality import (
     batched_halfdist_percentile_thresholds,
     batched_topk_thresholds,
 )
+from position_induced_transformer_torch.ops.normalization import PixelWiseNormalizer
 from position_induced_transformer_torch.train.loop import Task
 from position_induced_transformer_torch.utils.devices import resolve_device
 
@@ -37,6 +40,11 @@ class Problem:
     test_data: Dict[str, np.ndarray]
     n_train: int
     n_test: int
+    # per-pixel statistics of a normalizing benchmark (darcy): x is
+    # normalized in the data, the Task's postprocess denormalizes outputs
+    x_normalizer: Optional[PixelWiseNormalizer] = None
+    y_normalizer: Optional[PixelWiseNormalizer] = None
+    extras: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
 
 def _make_model(cfg: BenchmarkConfig, generator: Optional[torch.Generator] = None) -> nn.Module:
@@ -105,6 +113,96 @@ def setup_burgers(
     return Problem(
         cfg, model, task, geom,
         {"x": x_tr, "y": y_tr}, {"x": x_te, "y": y_te}, ntrain, ntest,
+    )
+
+
+def setup_sod(
+    cfg: BenchmarkConfig, data_path=None, ntrain=None, ntest=None, *,
+    device="cuda",
+) -> Problem:
+    """The shock tube on a fixed 1-D mesh over ``cfg.domain`` ([-5, 5)),
+    Euclidean distances, inputs and outputs (rho, u, p). Data stay on the
+    host; the geometry and the model live on ``device``."""
+    dev = resolve_device(device)
+    ntrain, ntest = ntrain or cfg.ntrain, ntest or cfg.ntest
+    x_tr, y_tr, x_te, y_te = loaders.sod(
+        data_path, ntrain, ntest, L=(cfg.grid or (1024,))[0]
+    )
+    lo, hi = cfg.domain
+    mesh = meshes.grid_1d(x_tr.shape[1], lo, hi)
+    mesh_ltt = meshes.grid_1d(cfg.latent_grid[0], lo, hi)
+    geom = build_geometry(
+        mesh, mesh_ltt, mesh, metric=cfg.metric,
+        en_loc=cfg.model.en_loc, de_loc=cfg.model.de_loc, device=dev,
+    )
+    model = _make_model(cfg, torch.Generator().manual_seed(cfg.seed)).to(dev)
+    task = Task(
+        model=model, loss_p=cfg.loss_p, out_dim=cfg.model.out_dim,
+        swap_loss_args=cfg.swap_loss_args,
+    )
+    return Problem(
+        cfg, model, task, geom,
+        {"x": x_tr, "y": y_tr}, {"x": x_te, "y": y_te}, ntrain, ntest,
+    )
+
+
+def darcy_geometry(cfg: BenchmarkConfig, s: int, device="cuda") -> Geometry:
+    """The Darcy geometry at resolution s on ``device``: the s x s grid on
+    [0, 1]^2 (endpoints included) to the latent grid and back. Training
+    takes s = 43; the zero-shot super-resolution evaluation rebinds the same
+    weights to s = 421 (177,241 points)."""
+    mesh = meshes.grid_2d(s).reshape(-1, 2)
+    mesh_ltt = meshes.grid_2d(cfg.latent_grid[0]).reshape(-1, 2)
+    return build_geometry(
+        mesh, mesh_ltt, mesh, metric=cfg.metric,
+        en_loc=cfg.model.en_loc, de_loc=cfg.model.de_loc, device=device,
+    )
+
+
+def setup_darcy(
+    cfg: BenchmarkConfig, data_path=None, ntrain=None, ntest=None, downsampling=10,
+    normalizers=None, *, device="cuda",
+) -> Problem:
+    """Darcy flow on the s x s grid, s = 420 / ``downsampling`` + 1 (43 at
+    10, 421 at 1). ``normalizers``: an ``(x_norm, y_norm)`` pair fitted at
+    the training resolution (from a checkpoint); without it both are fitted
+    on this training split. x is normalized on the host, and the Task's
+    postprocess denormalizes the (B, s*s, 1) output as an (B, s, s, 1)
+    grid on the device, with the statistics resized where s differs from
+    theirs. Targets stay raw grids."""
+    dev = resolve_device(device)
+    ntrain, ntest = ntrain or cfg.ntrain, ntest or cfg.ntest
+    train_path = test_path = None
+    if data_path:
+        train_path = f"{data_path}/piececonst_r421_N1024_smooth1.mat"
+        test_path = f"{data_path}/piececonst_r421_N1024_smooth2.mat"
+    x_tr, y_tr, x_te, y_te = loaders.darcy(
+        train_path, test_path, downsampling, ntrain, ntest
+    )
+    s = x_tr.shape[1]
+    if normalizers is not None:
+        x_norm, y_norm = normalizers
+    else:
+        x_norm = PixelWiseNormalizer.fit(torch.from_numpy(x_tr))
+        y_norm = PixelWiseNormalizer.fit(torch.from_numpy(y_tr))
+    x_tr_n, x_te_n = (x_norm.normalize(torch.from_numpy(a)).numpy() for a in (x_tr, x_te))
+
+    geom = darcy_geometry(cfg, s, device=dev)
+    model = _make_model(cfg, torch.Generator().manual_seed(cfg.seed)).to(dev)
+
+    def denorm(out):  # (B, s*s, C) -> a denormalized (B, s, s, C) grid
+        return y_norm.denormalize(out[:, : s * s].reshape(out.shape[0], s, s, -1))
+
+    task = Task(
+        model=model, loss_p=cfg.loss_p, out_dim=cfg.model.out_dim,
+        swap_loss_args=cfg.swap_loss_args, postprocess=denorm,
+    )
+    flat = lambda a: np.ascontiguousarray(a.reshape(a.shape[0], -1, a.shape[-1]))
+    return Problem(
+        cfg, model, task, geom,
+        {"x": flat(x_tr_n), "y": y_tr}, {"x": flat(x_te_n), "y": y_te},
+        ntrain, ntest, x_normalizer=x_norm, y_normalizer=y_norm,
+        extras={"s": s, "downsampling": downsampling},
     )
 
 
@@ -275,6 +373,8 @@ def setup_elasticity_tf(
 
 SETUPS = {
     "burgers": setup_burgers,
+    "sod": setup_sod,
+    "darcy": setup_darcy,
     "elasticity": setup_elasticity,
     "elasticity_tf": setup_elasticity_tf,
 }

@@ -1,9 +1,13 @@
-"""Deployment inference: a restored checkpoint applied to user batches.
+"""Checkpoint evaluation and deployment inference.
 
-:class:`Predictor` holds a checkpoint warm on one device for repeated
-calls; :func:`infer` is the one-shot form. Inputs are ``.npy``, MATLAB
-``.mat`` (v5, or v7.3 through the optional h5py) or HDF5 ``.h5`` files
-laid out like the benchmark's inputs. A benchmark on per-sample meshes
+:func:`evaluate` gives a checkpoint's test metrics, and with ``zssr=True``
+evaluates the same weights zero-shot at a finer resolution (darcy: trained
+on the 43^2 grid, evaluated on the 421^2 one). :class:`Predictor` holds a
+checkpoint warm on one device for repeated calls; :func:`infer` is the
+one-shot form. Inputs are ``.npy``, MATLAB ``.mat`` (v5, or v7.3 through
+the optional h5py) or HDF5 ``.h5`` files laid out like the benchmark's
+inputs, with raw values: a normalizing benchmark (darcy) normalizes them
+with the checkpoint's statistics, resized to the input's own grid. A benchmark on per-sample meshes
 (elasticity) also needs each sample's coordinates: its input is a
 ``.mat`` or ``.h5`` that holds them beside ``x`` (variable ``mesh``).
 elasticity_tf reads them from ``x`` and computes its locality thresholds
@@ -12,16 +16,58 @@ per call, so a bare ``.npy`` serves it.
 
 from __future__ import annotations
 
+import inspect
 from typing import Optional
 
 import numpy as np
 import torch
 
 from position_induced_transformer_torch.configs import get
+from position_induced_transformer_torch.ops.metrics import (
+    rel_l1_quartiles,
+    rel_lp_norm,
+    rel_max_norm,
+)
+from position_induced_transformer_torch.ops.normalization import PixelWiseNormalizer
 from position_induced_transformer_torch.train import benchmarks
 from position_induced_transformer_torch.train import checkpoint as ckpt
+from position_induced_transformer_torch.train import runner
 from position_induced_transformer_torch.train.runner import padded_batches
 from position_induced_transformer_torch.utils.devices import resolve_device
+
+
+def _setup_accepts(cfg, kwarg: str) -> bool:
+    """Whether the benchmark's setup function declares ``kwarg``: found
+    from its signature, not from its name, so that any setup following the
+    darcy pattern opts in (``normalizers``: an ``(x_norm, y_norm)`` pair
+    passed back at evaluation and inference; ``downsampling``: the
+    resolution factor of ``evaluate(zssr=True)``)."""
+    setup_fn = benchmarks.SETUPS.get(cfg.name)
+    if setup_fn is None:
+        return False
+    try:
+        params = inspect.signature(setup_fn).parameters
+    except (TypeError, ValueError):
+        return False
+    return kwarg in params
+
+
+def _checkpoint_normalizers(cfg, restored, setup_kwargs: dict) -> dict:
+    """Pass the training-time normalizer statistics of a restored
+    checkpoint to the benchmark's setup, so that evaluation and inference
+    at any resolution reuse them (resized on apply)."""
+    if _setup_accepts(cfg, "normalizers") and "y_normalizer" in restored:
+        if "x_normalizer" not in restored:
+            raise ValueError(
+                "checkpoint carries y_normalizer but no x_normalizer; "
+                "re-train, or evaluate with freshly fitted statistics by "
+                "removing y_normalizer from the checkpoint"
+            )
+        setup_kwargs["normalizers"] = (
+            PixelWiseNormalizer(**restored["x_normalizer"]),
+            PixelWiseNormalizer(**restored["y_normalizer"]),
+        )
+    return setup_kwargs
 
 
 def _load_input(path: str, key: str = "x"):
@@ -51,14 +97,33 @@ def _load_input(path: str, key: str = "x"):
 
 def _prepare_inputs(problem, x: np.ndarray) -> np.ndarray:
     """Check a raw input batch against the benchmark's model input layout,
-    reshaping when the per-sample element counts agree."""
+    reshaping when the per-sample element counts agree. A normalizing
+    benchmark's inputs are normalized here, on the host: a grid-shaped
+    batch at its own resolution with the statistics resized to it (the
+    problem's grid may differ from the statistics' one), a flattened batch
+    of the statistics' resolution after a reshape to their grid."""
     x = np.asarray(x, np.float32)
+    norm = problem.x_normalizer
+    if norm is not None:
+        gs = tuple(norm.mean.shape[1:])  # the statistics' grid (h, w, C)
+        if x.ndim - 1 == len(gs) and x.shape[-1] == gs[-1]:
+            pass
+        elif int(np.prod(x.shape[1:])) == int(np.prod(gs)):
+            x = x.reshape((x.shape[0],) + gs)
+        else:
+            raise ValueError(
+                f"input sample shape {tuple(x.shape[1:])} is incompatible: "
+                f"expected a grid-shaped batch (..., h, w, {gs[-1]}) or a "
+                f"flattened batch of the training resolution {gs}"
+            )
+        x = norm.normalize(torch.from_numpy(np.ascontiguousarray(x))).numpy()
     expect = tuple(np.shape(problem.test_data["x"])[1:])
     if x.shape[1:] != expect:
         if int(np.prod(x.shape[1:])) != int(np.prod(expect)):
             raise ValueError(
                 f"input sample shape {tuple(x.shape[1:])} does not match "
-                f"the benchmark's model input {expect}"
+                f"the benchmark's model input {expect} (after normalization "
+                "and reshape)"
             )
         x = x.reshape((x.shape[0],) + expect)
     return np.ascontiguousarray(x)
@@ -140,7 +205,11 @@ class Predictor:
     The benchmark problem (geometry on the device, a minimal synthetic data
     split for layouts) is built once, and the batch variables its
     per-sample geometry requires are found once; each ``predict_*`` call
-    moves its batches to the device and back.
+    moves its batches to the device and back. ``setup_kwargs``: extra
+    arguments of the benchmark's setup (darcy at 421^2:
+    ``{"downsampling": 1}``). A normalizing benchmark takes its statistics
+    from the checkpoint; a checkpoint without them refits them on the full
+    training split, as its training did.
     """
 
     def __init__(
@@ -148,19 +217,19 @@ class Predictor:
         config,
         checkpoint_path: str,
         data_path: Optional[str] = None,
+        setup_kwargs: Optional[dict] = None,
         device="cuda",
     ):
         dev = resolve_device(device)
         cfg = get(config) if isinstance(config, str) else config
-        restored = ckpt.restore(checkpoint_path)
-        if restored["config"] != cfg.name:
-            raise ValueError(
-                f"checkpoint {checkpoint_path!r} holds benchmark "
-                f"{restored['config']!r}, not {cfg.name!r}"
-            )
+        restored = _restore(checkpoint_path, cfg)
+        setup_kwargs = _checkpoint_normalizers(cfg, restored, dict(setup_kwargs or {}))
         nmin = max(2, min(cfg.batch_size, 8))
+        # statistics fitted on a minimal split would denormalize wrongly
+        ntrain = None if (_setup_accepts(cfg, "normalizers")
+                          and "normalizers" not in setup_kwargs) else nmin
         problem = benchmarks.setup(
-            cfg, data_path, ntrain=nmin, ntest=nmin, device=dev
+            cfg, data_path, ntrain=ntrain, ntest=nmin, device=dev, **setup_kwargs
         )
         problem.model.load_state_dict(restored["state_dict"])
         problem.model.eval()
@@ -224,15 +293,18 @@ def infer(
     output_path: Optional[str] = None,
     batch_size: Optional[int] = None,
     data_path: Optional[str] = None,
+    setup_kwargs: Optional[dict] = None,
     device="cuda",
 ) -> dict:
     """One-shot inference on an input file; writes ``.npy`` or ``.mat``
-    (variable ``pred``) when ``output_path`` is given."""
+    (variable ``pred``) when ``output_path`` is given. ``setup_kwargs`` as
+    for :class:`Predictor`."""
     if output_path and not output_path.endswith((".npy", ".mat")):
         raise ValueError(
             f"unsupported output format {output_path!r} (expected .npy or .mat)"
         )
-    predictor = Predictor(config, checkpoint_path, data_path=data_path, device=device)
+    predictor = Predictor(config, checkpoint_path, data_path=data_path,
+                          setup_kwargs=setup_kwargs, device=device)
     pred = predictor.predict_file(input_path, input_key, batch_size=batch_size)
     if output_path and output_path.endswith(".npy"):
         np.save(output_path, pred)
@@ -246,3 +318,83 @@ def infer(
         "pred_shape": [int(s) for s in pred.shape],
         "output": output_path,
     }
+
+
+def _restore(checkpoint_path: str, cfg) -> dict:
+    restored = ckpt.restore(checkpoint_path)
+    if restored["config"] != cfg.name:
+        raise ValueError(
+            f"checkpoint {checkpoint_path!r} holds benchmark "
+            f"{restored['config']!r}, not {cfg.name!r}"
+        )
+    return restored
+
+
+def evaluate(
+    config,
+    checkpoint_path: str,
+    data_path: Optional[str] = None,
+    ntest: Optional[int] = None,
+    zssr: bool = False,
+    zssr_downsampling: int = 1,
+    save_pred: Optional[str] = None,
+    plots_dir: Optional[str] = None,
+    setup_kwargs: Optional[dict] = None,
+    mesh=None,
+    model_variant: Optional[str] = None,
+    shuffle_ablation: bool = False,
+    device="cuda",
+) -> dict:
+    """Test metrics of a checkpoint on one device: ``rel_l1``, ``rel_l2``
+    and ``rel_max`` (per-sample means) and the quartiles of the per-sample
+    relative L1 error, over ``ntest`` test samples.
+
+    ``zssr=True``: zero-shot super-resolution, the same weights bound to
+    the grid of ``zssr_downsampling`` (1: darcy's full 421^2 grid), for a
+    benchmark whose setup declares ``downsampling``. Normalizer statistics
+    come from the checkpoint (refitted on the training split where it has
+    none); with them, the training split is cut to ``ntest`` samples,
+    since nothing reads it. ``save_pred``: a ``.mat`` with ``pred`` and
+    ``true``. ``plots_dir``, ``mesh``, ``model_variant``,
+    ``shuffle_ablation`` and rollout benchmarks are not ported.
+    """
+    runner._not_ported("evaluate", plots_dir=plots_dir, mesh=mesh,
+                       model_variant=model_variant, shuffle_ablation=shuffle_ablation)
+    cfg = get(config) if isinstance(config, str) else config
+    if cfg.rollout_steps:
+        raise NotImplementedError("evaluate: rollout evaluation is not ported yet")
+    restored = _restore(checkpoint_path, cfg)
+    setup_kwargs = dict(setup_kwargs or {})
+    if zssr:
+        if not _setup_accepts(cfg, "downsampling"):
+            raise ValueError(
+                "zssr needs a benchmark whose setup declares a "
+                f"'downsampling' argument (darcy); {cfg.name!r} does not"
+            )
+        setup_kwargs["downsampling"] = zssr_downsampling
+    setup_kwargs = _checkpoint_normalizers(cfg, restored, setup_kwargs)
+    ntrain = (ntest or cfg.ntest) if "normalizers" in setup_kwargs else None
+    problem = benchmarks.setup(
+        cfg, data_path, ntrain=ntrain, ntest=ntest, device=device, **setup_kwargs
+    )
+    problem.model.load_state_dict(restored["state_dict"])
+    pred = runner.predict(problem)
+    n = pred.shape[0]
+    true = np.asarray(problem.test_data["y"])[:n]
+    out_dim = cfg.model.out_dim
+    t, p = torch.from_numpy(np.ascontiguousarray(true)), torch.from_numpy(pred)
+    q25, q50, q75 = rel_l1_quartiles(t.reshape(n, -1, out_dim), p.reshape(n, -1, out_dim))
+    result = {
+        "benchmark": cfg.name,
+        "n_test": n,
+        "zssr": zssr,
+        "rel_l1": float(rel_lp_norm(t, p, out_dim, 1)) / n,
+        "rel_l2": float(rel_lp_norm(t, p, out_dim, 2)) / n,
+        "rel_max": float(rel_max_norm(t, p, out_dim)) / n,
+        "rel_l1_quartiles": [float(q25), float(q50), float(q75)],
+    }
+    if save_pred:
+        from scipy.io import savemat
+
+        savemat(save_pred, {"pred": pred, "true": true})
+    return result

@@ -63,10 +63,10 @@ def default_metrics(out_dim: int):
     }
 
 
-def _not_ported(**options):
+def _not_ported(fn="train", **options):
     for name, value in options.items():
         if value:
-            raise NotImplementedError(f"train({name}=...) is not ported yet")
+            raise NotImplementedError(f"{fn}({name}=...) is not ported yet")
 
 
 def train(
@@ -89,6 +89,7 @@ def train(
     mesh=None,
     model_variant: Optional[str] = None,
     grad_accum: int = 1,
+    setup_kwargs: Optional[dict] = None,
     device="cuda",
 ):
     """Train a benchmark end to end on one device; returns
@@ -101,14 +102,17 @@ def train(
     horizon when it differs from ``epochs`` (a run that will be resumed
     decays over the whole intended horizon). ``sync_every``: read the
     epoch's sums back every N epochs (0 = only at the end); with N != 1
-    the ``seconds`` column is the mean over the group. ``mesh``,
-    ``profile_dir``, ``model_variant`` and ``history_plot`` are not ported.
+    the ``seconds`` column is the mean over the group. ``setup_kwargs``:
+    extra arguments of the benchmark's setup (darcy: ``downsampling``).
+    A normalizing benchmark's checkpoints carry its normalizer statistics.
+    ``mesh``, ``profile_dir``, ``model_variant`` and ``history_plot`` are
+    not ported.
     """
     _not_ported(mesh=mesh, profile_dir=profile_dir, model_variant=model_variant,
                 history_plot=history_plot)
     cfg = get(config) if isinstance(config, str) else config
     problem = benchmarks.setup(
-        cfg, data_path, ntrain=ntrain, ntest=ntest, device=device
+        cfg, data_path, ntrain=ntrain, ntest=ntest, device=device, **(setup_kwargs or {})
     )
     dev = next(problem.model.parameters()).device
     epochs = epochs if epochs is not None else cfg.epochs
@@ -140,9 +144,12 @@ def train(
         state.step = restored["step"]
         start_epoch = state.step // n_batches
 
+    norms = {k: n.state() for k, n in (("x_normalizer", problem.x_normalizer),
+                                        ("y_normalizer", problem.y_normalizer)) if n is not None}
+
     def save(path):
         ckpt.save(path, state.model.state_dict(), cfg.name,
-                  optimizer=state.optimizer.state_dict(), step=state.step)
+                  optimizer=state.optimizer.state_dict(), step=state.step, **norms)
 
     to_dev = lambda d: {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for k, v in d.items()}
     train_data, test_data = to_dev(problem.train_data), to_dev(problem.test_data)

@@ -14,7 +14,9 @@
   A benchmark on per-sample meshes (elasticity) takes a ``.mat`` holding
   ``x`` and ``mesh``; a bare ``.npy`` is answered with 400. elasticity_tf
   reads each cloud from its inputs' first two channels and takes a bare
-  ``.npy``.
+  ``.npy``. darcy takes raw (n, s, s, 1) grids at the server's resolution
+  (``setup_kwargs={"downsampling": ...}``), or flattened ones at the
+  training resolution, normalized with the checkpoint's statistics.
 
 Malformed requests are 400s; failures while running the model are 500s.
 Device work runs on one worker thread with dynamic batching: concurrent
@@ -258,9 +260,12 @@ def make_server(
     warmup: bool = True,
     verbose: bool = True,
     data_path: Optional[str] = None,
+    setup_kwargs: Optional[dict] = None,
     device="cuda",
 ) -> PredictServer:
     """Build the server, bound but not yet serving (call ``serve_forever``).
+    ``setup_kwargs``: extra arguments of the benchmark's setup (darcy
+    answering at 421^2: ``{"downsampling": 1}``).
 
     ``warmup=True`` runs one batch at the serving batch size first, so the
     first request does not pay for kernel builds and allocator growth. The
@@ -269,7 +274,8 @@ def make_server(
     """
     from position_induced_transformer_torch.train.evaluate import Predictor
 
-    predictor = Predictor(config, checkpoint_path, data_path=data_path, device=device)
+    predictor = Predictor(config, checkpoint_path, data_path=data_path,
+                          setup_kwargs=setup_kwargs, device=device)
     if warmup:
         keys = {"x"} | set(predictor.required_keys)
         data = {k: np.asarray(v) for k, v in predictor.problem.test_data.items() if k in keys}

@@ -1027,3 +1027,67 @@ def test_tf_model_launches_the_tf_kernels_only(cuda):
             assert [f.launches - b for f, b in zip(counters, before)] == expect
     assert boom.call_count == 0
     assert all(torch.isfinite(p.grad).all() for p in model.parameters())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,per_step", [("darcy", [6, 0, 6, 5]), ("sod", [4, 0, 4, 3])])
+def test_fixed_mesh_training_step_launch_counts(cuda, name, per_step):
+    """Two training steps of full-width Darcy (43^2, 4 blocks) or sod (1
+    head, 2 blocks) on the card launch #1/#2/#3/#4 ``per_step`` times a
+    step (one forward and one dscale a layer, du for every layer but the
+    encoder, whose input needs no gradient; no #2) and agree with the same
+    steps on the CPU at the training bounds of test_torch_train.py."""
+    from position_induced_transformer_torch import configs
+    from position_induced_transformer_torch.train import benchmarks, loop
+
+    cfg = configs.get(name)
+    perm = torch.arange(16).reshape(2, 8)
+    counters = (kp.posatt_fixed_cuda, kp.posatt_stats_cuda,
+                kp.posatt_bwd_dscale_cuda, kp.posatt_bwd_du_cuda)
+    runs = {}
+    for dev in ("cpu", cuda):
+        problem = benchmarks.setup(cfg, ntrain=16, ntest=2, device=dev)
+        if dev != "cpu":
+            problem.model.load_state_dict(runs["cpu"][1])
+        data = {k: torch.as_tensor(v, device=dev) for k, v in problem.train_data.items()}
+        state = loop.TrainState(problem.model, loop.make_optimizer(problem.model.parameters(), 1e-3))
+        epoch = loop.make_train_epoch(problem.task, loop.make_lr_schedule(1e-3, 10))
+        start = {k: v.detach().cpu().clone() for k, v in problem.model.state_dict().items()}
+        before = [f.launches for f in counters]
+        state, losses = epoch(state, problem.geom, data, perm.to(dev))
+        if dev != "cpu":
+            torch.cuda.synchronize()
+        launches = [f.launches - b for f, b in zip(counters, before)]
+        assert launches == ([0, 0, 0, 0] if dev == "cpu" else [2 * n for n in per_step])
+        runs["cpu" if dev == "cpu" else "cuda"] = (
+            losses.cpu(), start, {k: v.cpu() for k, v in problem.model.state_dict().items()})
+    torch.testing.assert_close(runs["cuda"][0], runs["cpu"][0], rtol=2e-4, atol=0.0)
+    for k, v in runs["cpu"][2].items():
+        torch.testing.assert_close(runs["cuda"][2][k], v, rtol=5e-3, atol=2e-5, msg=k)
+
+
+@pytest.mark.cuda
+def test_darcy_zssr_forward_at_421_matches_plain(cuda):
+    """The full-width Darcy model bound to the 421^2 grid (177,241 points):
+    one no-grad forward launches #1 six times (encoder, 4 blocks, decoder)
+    and nothing else, and agrees with the plain attention on the card at
+    rtol 1e-4 / atol 1e-5 (the model-level bound)."""
+    from position_induced_transformer_torch import configs
+    from position_induced_transformer_torch.models import pit
+    from position_induced_transformer_torch.train import benchmarks
+
+    problem = benchmarks.setup(configs.DARCY, ntrain=2, ntest=2, downsampling=1, device=cuda)
+    batch = {"x": torch.from_numpy(problem.test_data["x"]).to(cuda)}
+    counters = (kp.posatt_fixed_cuda, kp.posatt_stats_cuda,
+                kp.posatt_bwd_dscale_cuda, kp.posatt_bwd_du_cuda)
+    before = [f.launches for f in counters]
+    with torch.inference_mode():
+        got = problem.task.forward(problem.geom, batch)
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(counters, before)] == [6, 0, 0, 0]
+    plain = lambda dist, lmda, inputs, locality, thr=None: posatt.position_attention(
+        dist, lmda, inputs, locality, thr=thr)
+    with torch.inference_mode(), mock.patch.object(pit, "position_attention_fixed", plain):
+        want = problem.task.forward(problem.geom, batch)
+    assert got.shape == (2, 421, 421, 1)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
