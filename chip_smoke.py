@@ -61,10 +61,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
    1500 columns past the kernel's 1024-column list); the public wrapper
    against ``ops.posatt.position_attention`` on materialized distances;
    times, bounds, the SDPA yardstick as in phase 4 and each block's
-   compacted list length (mean and max);
+   compacted list length (mean and max); and at the full NACA shapes at
+   B 20, H 1, with thresholds and band starts from ``setup_naca`` on
+   synthetic airfoils: the encoder 728 x 120 (D 2), the global processor
+   728^2 (D 128), the decoder 11,271 x 728 (D 128, 256-row band tiles, L_out
+   no multiple of 256) and the served decoder without a band;
 9. batched backward: kernel #8's dscale (which reads the forward's
    output) and du entry points against their plain versions at the
-   elasticity training shapes and the ragged ones, timed and bounded, with
+   elasticity and NACA training shapes and the ragged ones, timed and bounded, with
    the length of each block's compacted list (mean and max per block);
    dscale twice gives the same bits; the autograd
    Function's gradients against torch.autograd of the oracle, one forward
@@ -157,7 +161,39 @@ Phases, each of which fails the run (non-zero exit, no result line):
     card run, and a CPU run (at 421^2 on its first 2 samples);
 20. sod serve and train: a seeded random-weight sod model served (1, 8, 13
     samples, 4 concurrent, 20 warm; 4 launches of #1 per device batch),
-    then ``runner.train("sod")`` as phase 17 (4/0/4/3 a step).
+    then ``runner.train("sod")`` as phase 17 (4/0/4/3 a step);
+21. NACA train: ``runner.train("naca")`` at full width (1 head, hid 128, 4
+    blocks; 221 x 51 C-grids, 56 x 13 latent slices; 80 training and 20
+    test samples, 2 epochs of 4 steps at batch 20): exactly 6/6/5 launches
+    of #7 and #8's dscale and du a step and 6 of #7 per eval batch; losses
+    and weights against a plain-attention card run, the first two steps
+    against a CPU run; time per step, steps/s, the device's busy time;
+22. NACA serve and shuffle ablation: ``make_server("naca")`` answering
+    ``.mat`` bodies with ``x``, ``mesh_in``, ``mesh_ltt`` and ``mesh_out``
+    (1, 10, 13 samples, 4 concurrent, 20 warm; 6 launches of #7 per device
+    batch; replies against ``infer``, a plain-attention card run and a CPU
+    run on 11 samples; a bare ``.npy`` gets 400); then
+    ``evaluate("naca", ckpt, shuffle_ablation=True)`` against a
+    plain-attention card run at rtol 1e-4;
+23. vorticity train: ``runner.train("vorticity")`` at full width (hid 256,
+    2 heads, 4 blocks; 64^2 grid, 16^2 latent; 160 training and 40 test
+    samples, 2 epochs of 8 steps at batch 20), each step a 20-step rollout
+    backpropagated through, every rollout step checkpointed: exactly
+    240/0/120/119 launches of #1/#2/#3/#4 a step (#1 recomputed in the
+    backward; the first window needs no du) and 120 of #1 per eval batch;
+    losses, the eval ``rel_l2_step`` and weights against a plain-attention
+    card run, the first step against a CPU run; then one step under each
+    remat mode (``full``, ``dots``, ``none``: launches, gradients against
+    ``none``'s, wall and device time, peak memory); #1 per processor launch
+    beside phase 16's time; time per step, steps/s, the device's busy time;
+24. vorticity evaluate and serve: ``evaluate("vorticity", ckpt)`` (40 test
+    samples; 120 launches of #1 per eval batch) against a plain-attention
+    card run at rtol 1e-4; ``make_server("vorticity")`` answering ``.npy``
+    windows (n, 4096, 10) with their (n, 4096, 1, 20) rollouts (1, 8, 13
+    samples, 4 concurrent, 8 warm; 120 launches of #1 per device batch;
+    replies against ``infer``, a plain-attention card run and a CPU run on
+    2 samples), ``?rollout_steps=5`` (30 per device batch) and a horizon
+    past the maximum (400).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 ``kernels`` record (twelve kernels: #1-#4, the per-sample-mesh #7, #8, the
@@ -206,6 +242,18 @@ DS_RTOL, DS_ATOL = 5e-4, 5e-6
 # over these 16 steps.
 LOSS_RTOL = 2e-4
 PARAM_RTOL, PARAM_ATOL = 5e-3, 2e-5
+# 16 Adam steps of vorticity's 20-step BPTT (phase 23): a near-zero
+# gradient's sign decides a move of lr = 1e-3, and the rollout's 20 chained
+# forwards flip more of them. Measured on the CPU, the JAX package against
+# the port over 16 such steps (same weights and batches): weights 2.1e-3
+# apart at hid 64 on a 32^2 grid at batch 4, 2.0e-3 at hid 128 on 64^2 at
+# batch 8 (4.4x PARAM_ATOL + PARAM_RTOL |w|), losses 1.0e-5 relative at the
+# latter. Adam's first step moves each weight by about lr in its
+# gradient's sign, so a gradient within rounding of 0 lands 2 lr away: on
+# the card against the CPU one element was 1.98e-3 apart after the first
+# step. The losses keep LOSS_RTOL, the weights take this absolute bound,
+# and the phase reports how many lie beyond PARAM_ATOL + PARAM_RTOL |w|
+VORTICITY_PARAM_ATOL = 4e-3
 
 BURGERS_B = 8  # the serving batch
 SLEEP_CYCLES = 10_000_000  # ~5 ms of spinning: longer than enqueueing 10 calls
@@ -1103,6 +1151,48 @@ def elasticity_shapes(rng):
     return shapes, info
 
 
+NACA_B = 20  # the training and serving batch
+
+
+def naca_shapes(rng):
+    """The attention calls of full-width NACA (1 head, hid 128) on its
+    first training batch as setup_naca prepares it (synthetic airfoils,
+    setup-time thresholds, the decoder's plain band of 256-row tiles): the
+    encoder 728 x 120 (D 2), the global processor 728^2 (D 128) and the
+    banded decoder 11,271 x 728 (D 128); and the served decoder, whose
+    thresholds come per request and which has no band: name -> (launcher
+    args, wrapper args, launches per forward)."""
+    import numpy as np
+    import torch
+
+    from position_induced_transformer_torch import configs
+    from position_induced_transformer_torch.train import benchmarks
+
+    cfg = configs.NACA
+    m = cfg.model
+    problem = benchmarks.setup_naca(cfg, ntrain=NACA_B, ntest=2, device="cuda")
+    batch = {k: torch.from_numpy(np.asarray(v)).cuda() for k, v in problem.train_data.items()}
+    geom = problem.task.geom_fn(batch)
+    hid = torch.from_numpy(rng.standard_normal((NACA_B, geom.mesh_ltt.shape[1], m.hid_dim))
+                           .astype(np.float32)).cuda()
+    H = m.n_head
+    shapes = {
+        "naca_encoder": (*batched_case(rng, geom.mesh_ltt, geom.mesh_in, batch["x"], m.en_loc,
+                                       geom.thr_down, None, H), 1),
+        "naca_processor": (*batched_case(rng, geom.mesh_ltt, geom.mesh_ltt, hid, 1.0, None, None, H),
+                           m.n_blocks),
+        "naca_decoder": (*batched_case(rng, geom.mesh_out, geom.mesh_ltt, hid, m.de_loc, geom.thr_up,
+                                       geom.band_up, H), 1),
+        "naca_serve_decoder": (*batched_case(rng, geom.mesh_out, geom.mesh_ltt, hid, m.de_loc,
+                                             geom.thr_up, None, H), 1),
+    }
+    band = geom.band_up
+    info = {"band_width": band.width, "band_tiles": band.starts.shape[1],
+            "band_starts_sample0": band.starts[0].tolist(), "L_out": geom.mesh_out.shape[1],
+            "L_latent": geom.mesh_ltt.shape[1], "L_in": geom.mesh_in.shape[1]}
+    return shapes, info
+
+
 def batched_work(args, keep=None):
     """What the forward must do on these inputs: the distances it inspects
     (every column of each row's window), the kept entries, and the bytes it
@@ -1167,6 +1257,9 @@ def batched_kernel_phase():
 
     shapes, info = elasticity_shapes(rng)
     log("elasticity band " + json.dumps(info))
+    n_shapes, n_info = naca_shapes(rng)
+    log("naca band " + json.dumps(n_info))
+    shapes.update(n_shapes)
     rows, errs = [], []
     for name, (args, wargs, per_forward) in shapes.items():
         mq, mk, scale, u, thr, starts, kc, width = args
@@ -1193,7 +1286,8 @@ def batched_kernel_phase():
         flops = 3 * mq.shape[-1] * inspected + 2 * H * D * kept
         bound_ms, bound_by = roofline(flops, nbytes)
         rows.append({
-            "shape": name, "H": H, "B": B, "L_out": Lo, "L_in": Li, "D": D,
+            "shape": name, "config": "naca" if name.startswith("naca") else "elasticity",
+            "H": H, "B": B, "L_out": Lo, "L_in": Li, "D": D,
             "band_width": width, "inspected": inspected, "kept_entries": kept,
             "launches_per_forward": per_forward, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "library_ms": library_ms, "library_max_abs_err": lib_err,
@@ -1231,6 +1325,7 @@ def batched_backward_phase(shapes):
     import torch
 
     from position_induced_transformer_torch.kernels import posatt_batched as kb
+    from position_induced_transformer_torch.ops import posatt
 
     rng = np.random.default_rng(4)
 
@@ -1262,22 +1357,29 @@ def batched_backward_phase(shapes):
         del att, t, nd, dist
         check_close(f"{name} dscale (normalised)", ds / size, want / size, DS_RTOL, DS_ATOL)
         errs["posatt_batched_bwd_dscale"] = (ds - want).abs().max().item()
+        ds_size = size
         if with_du:
             du = kb.posatt_batched_bwd_du_cuda(mq, mk, scale, g, stats, starts, **w)
             torch.cuda.synchronize()
             want = kb.posatt_batched_bwd_du_reference(mq, mk, scale, g, stats, starts, **w)
             size = kb.posatt_batched_bwd_du_reference(mq, mk, scale, g.abs(), stats, starts, **w)
             errs["posatt_batched_bwd_du"] = check_close(f"{name} du", du, want, OP_RTOL, OP_ATOL, size)
-        return errs, out, stats, keep
+        return errs, out, stats, keep, ds_size
 
-    def function_check(name, wargs, need_du):
+    def function_check(name, wargs, need_du, w=None, ds_size=None):
         """One forward + backward through position_attention_batched launches
         the forward and dscale once and du once when the values need a
-        gradient; its gradients match autograd of the oracle."""
+        gradient; its gradients match autograd of the oracle. ``ds_size``:
+        the size of dscale's summed terms (B, H) for the cotangent ``w``,
+        where the bandwidth gradient is held on unit-size terms as dscale
+        is (NACA's shapes: their float32 oracle's bandwidth gradient itself
+        is 0.3-2 % off a float64 one at the encoder, measured on the CPU);
+        else it is held relative to its own largest entry."""
         mq, mk, lmda, u, loc, thr, band = wargs
         H, D = lmda.shape[0], u.shape[-1]
-        w = torch.from_numpy(rng.standard_normal((u.shape[0], mq.shape[1], H * D))
-                             .astype(np.float32)).cuda()
+        if w is None:
+            w = torch.from_numpy(rng.standard_normal((u.shape[0], mq.shape[1], H * D))
+                                 .astype(np.float32)).cuda()
 
         def grads(fn, w):
             lm = lmda.clone().requires_grad_(True)
@@ -1296,19 +1398,26 @@ def batched_backward_phase(shapes):
         if diff != {k: expect.get(k, 0) for k in after}:
             fail(f"{name}: one forward + backward launched {diff}, expected {expect}")
         want = grads(batched_oracle, w)
-        err = max(
-            check_close(f"{name} Function out", got[0], want[0], OP_RTOL, OP_ATOL),
-            check_close(f"{name} Function d lmda", got[1], want[1], DS_RTOL,
-                        DS_ATOL * want[1].abs().max().item()),
-        )
+        err = check_close(f"{name} Function out", got[0], want[0], OP_RTOL, OP_ATOL)
+        if ds_size is None:
+            err = max(err, check_close(f"{name} Function d lmda", got[1], want[1], DS_RTOL,
+                                       DS_ATOL * want[1].abs().max().item()))
+        else:  # d lmda = sum over samples of dscale * d scale / d lmda
+            lm = lmda.clone().requires_grad_(True)
+            dscale_dlmda, = torch.autograd.grad(posatt.bandwidth_scale(lm).sum(), lm)
+            size = (ds_size.sum(0) * dscale_dlmda.abs().reshape(-1)).reshape(want[1].shape)
+            check_close(f"{name} Function d lmda (normalised)", got[1] / size, want[1] / size,
+                        DS_RTOL, DS_ATOL)
+            err = max(err, (got[1] - want[1]).abs().max().item())
         if need_du:
             size_u = grads(batched_oracle, w.abs())[2]
             err = max(err, check_close(f"{name} Function d u", got[2], want[2], OP_RTOL, OP_ATOL, size_u))
         return err
 
     # launches per training step of dscale and du: the encoder's values are
-    # the model input, which needs no gradient
-    per_step = {"encoder": (1, 0), "processor": (4, 4), "decoder": (1, 1)}
+    # the model input, which needs no gradient (elasticity and NACA alike)
+    per_step = {"encoder": (1, 0), "processor": (4, 4), "decoder": (1, 1),
+                "naca_encoder": (1, 0), "naca_processor": (4, 4), "naca_decoder": (1, 1)}
     rows = {k: [] for k in BATCHED_KERNELS[1:]}
     errs = {k: 0.0 for k in ("stats",) + BATCHED_KERNELS[1:]}
     fn_err = 0.0
@@ -1319,7 +1428,7 @@ def batched_backward_phase(shapes):
         B, Lo, d = mq.shape
         Li, D = u.shape[1:]
         g = torch.from_numpy(rng.standard_normal((B, Lo, H * D)).astype(np.float32)).cuda()
-        e, out, stats, keep = compare(name, args, g, with_du=n_du > 0)
+        e, out, stats, keep, ds_size = compare(name, args, g, with_du=n_du > 0)
         for k, v in e.items():
             errs[k] = max(errs[k], v)
         inspected, kept, _ = batched_work(args, keep)
@@ -1347,7 +1456,8 @@ def batched_backward_phase(shapes):
                 continue
             bound_ms, bound_by = roofline(flops, 4 * nwords)
             rows[kernel].append({
-                "shape": name, "H": H, "B": B, "L_out": Lo, "L_in": Li, "D": D,
+                "shape": name, "config": "naca" if name.startswith("naca") else "elasticity",
+                "H": H, "B": B, "L_out": Lo, "L_in": Li, "D": D,
                 "band_width": width, "inspected": inspected, "kept_entries": kept,
                 "launches_per_step": n, "max_abs_err": e[kernel], "ms": cuda_ms(launch),
                 "plain_ms": cuda_ms(plain, reps=10, per_rep=3),
@@ -1356,13 +1466,15 @@ def batched_backward_phase(shapes):
                 "flops": flops, "bytes": 4 * nwords, "list_length": lists,
             })
             log(f"kernel {kernel} {name}: {json.dumps(rows[kernel][-1])}")
-        fn_err = max(fn_err, function_check(name, wargs, need_du=n_du > 0))
+        naca = name.startswith("naca")
+        fn_err = max(fn_err, function_check(name, wargs, need_du=n_du > 0, w=g if naca else None,
+                                            ds_size=ds_size if naca else None))
     for name, *shape in RAGGED_BATCHED:
         args, wargs = ragged_batched(rng, *shape)
         B, Lo = args[0].shape[:2]
         HD = args[2].shape[0] * args[3].shape[-1]
         g = torch.from_numpy(rng.standard_normal((B, Lo, HD)).astype(np.float32)).cuda()
-        e, _, _, _ = compare(name, args, g)
+        e, _, _, _, _ = compare(name, args, g)
         for k, v in e.items():
             errs[k] = max(errs[k], v)
         fn_err = max(fn_err, function_check(name, wargs, need_du=True))
@@ -2200,7 +2312,7 @@ def first_steps(cfg, device, n_steps, ntrain, ntest, epochs):
     schedule = loop.make_lr_schedule(cfg.lr, epochs * n_batches, warmup_steps=cfg.warmup_steps)
     perm = loop.epoch_permutation(0, 0, ntrain, cfg.batch_size)[:n_steps].to(dev)
     zero_counts()
-    state, losses = loop.make_train_epoch(problem.task, schedule)(state, None, data, perm)
+    state, losses = loop.make_train_epoch(problem.task, schedule)(state, problem.geom, data, perm)
     weights = {k: v.detach().cpu() for k, v in state.model.state_dict().items()}
     return losses.cpu(), weights, counts()
 
@@ -2591,6 +2703,14 @@ def fixed_train_phase(label, cfg, epochs, ntrain, ntest, per_step, **train_kw):
     return report
 
 
+def model_atol(cfg, ref):
+    """The model-level absolute bound: MODEL_ATOL, or for a rollout, whose
+    every step's output is fed back through ``cfg.rollout_steps``
+    forwards, MODEL_ATOL per unit of the reference's largest entry (as
+    tests/test_torch_vorticity.py holds a rollout)."""
+    return MODEL_ATOL * (float(ref.abs().max()) if cfg.rollout_steps else 1.0)
+
+
 def fixed_serve_phase(label, cfg, ckpt, x, per_batch, sizes, n_concurrent, n_warm,
                       cpu_samples=None, setup_kwargs=None):
     """``make_server(cfg.name)`` on the card answering raw ``.npy``
@@ -2600,7 +2720,8 @@ def fixed_serve_phase(label, cfg, ckpt, x, per_batch, sizes, n_concurrent, n_war
     ``per_batch`` launches of #1 per device batch and no other kernel;
     every reply against ``infer`` on the card and a plain-attention card
     run, and the first ``cpu_samples`` samples (default: all) against a
-    CPU run."""
+    CPU run. A rollout benchmark answers at its configured horizon, and
+    the comparisons roll out as far."""
     import numpy as np
     import torch
 
@@ -2676,8 +2797,9 @@ def fixed_serve_phase(label, cfg, ckpt, x, per_batch, sizes, n_concurrent, n_war
         fail(f"{label}: infer on the card launched no kernel")
     cpu_n = n_all if cpu_samples is None else cpu_samples
     cpu = evaluate.Predictor(cfg.name, ckpt, setup_kwargs=setup_kwargs, device="cpu")
+    steps = cfg.rollout_steps
     by_cpu = cpu.predict_array(
-        {"x": evaluate._prepare_inputs(cpu.problem, x[:cpu_n])}, batch_size=min(cpu_n, bs))
+        {"x": evaluate._prepare_inputs(cpu.problem, x[:cpu_n])}, steps, batch_size=min(cpu_n, bs))
     errs = {"infer": 0.0, "plain_cuda": 0.0, "cpu": 0.0}
     for i, a, out in sent:
         got = torch.from_numpy(out)
@@ -2685,21 +2807,23 @@ def fixed_serve_phase(label, cfg, ckpt, x, per_batch, sizes, n_concurrent, n_war
             f"{label} vs infer", got, torch.from_numpy(by_infer[i:i + len(a)]), MODEL_RTOL, MODEL_ATOL))
         before = counts()
         with mock.patch.object(pit, "position_attention_fixed", plain):
-            ref = predictor.predict_array({"x": evaluate._prepare_inputs(predictor.problem, a)})
+            ref = predictor.predict_array({"x": evaluate._prepare_inputs(predictor.problem, a)}, steps)
         if counts() != before:
             fail(f"{label}: the plain comparison run launched a kernel")
+        ref = torch.from_numpy(ref)
         errs["plain_cuda"] = max(errs["plain_cuda"], check_close(
-            f"{label} vs plain on CUDA", got, torch.from_numpy(ref), MODEL_RTOL, MODEL_ATOL))
+            f"{label} vs plain on CUDA", got, ref, MODEL_RTOL, model_atol(cfg, ref)))
         k = max(0, min(len(a), cpu_n - i))
         if k:
+            ref = torch.from_numpy(by_cpu[i:i + k])
             errs["cpu"] = max(errs["cpu"], check_close(
-                f"{label} vs CPU", got[:k], torch.from_numpy(by_cpu[i:i + k]), MODEL_RTOL, MODEL_ATOL))
+                f"{label} vs CPU", got[:k], ref, MODEL_RTOL, model_atol(cfg, ref)))
     batch = {"x": evaluate._prepare_inputs(predictor.problem, x[:bs])}
     return {
         "config": cfg.name, "setup_kwargs": setup_kwargs, "startup_s": startup_s,
         "infer_s": infer_s, "reply_shape": list(sent[0][2].shape[1:]),
-        f"profile_{bs}_samples": profile_device(lambda: predictor.predict_array(batch), "forward",
-                                                groups=FIXED_GROUPS),
+        f"profile_{bs}_samples": profile_device(lambda: predictor.predict_array(batch, steps),
+                                                "forward", groups=FIXED_GROUPS),
         "requests": len(sent), "samples": int(sum(len(a) for _, a, _ in sent)),
         "device_batches": device_calls, "launches": launched,
         "first_request_ms": first_ms, "warm_median_ms": statistics.median(warm),
@@ -2922,6 +3046,540 @@ def sod_phases():
     return serve, train
 
 
+# ----------------------------------------- NACA: kernels #7 and #8 on C-grids
+
+# the batched kernels' names in a trace (one library each; the fixed-mesh
+# kernels share the names but run on no NACA path)
+BATCHED_GROUPS = {
+    "posatt_batched_fwd": "void (anonymous namespace)::fwd_kernel<",
+    "posatt_batched_bwd_dscale": "void (anonymous namespace)::bwd_kernel<false",
+    "posatt_batched_bwd_du": "void (anonymous namespace)::bwd_kernel<true",
+}
+
+
+def naca_train_phase():
+    """runner.train on full-width NACA on the card (synthetic airfoils on
+    221 x 51 C-grids; 80 training and 20 test samples, 2 epochs of 4 steps
+    at batch 20, cut from 1000 / 200 and 500 epochs): exactly 6/6/5
+    launches of #7 and #8's dscale and du per step (the encoder's input
+    needs no gradient) and 6 of #7 per eval batch; losses and weights
+    against a plain-attention card run, the first two steps against a CPU
+    run; the time per step, steps/s and the device's busy time. It writes
+    the checkpoint the serve phase reads."""
+    import numpy as np
+    import torch
+
+    from position_induced_transformer_torch import configs
+    from position_induced_transformer_torch.models import pit
+
+    cfg = configs.NACA
+    epochs, ntrain, ntest = 2, 80, 20
+    ckpt = str(REPO / "build" / "chip_smoke" / "naca_trained.pt")
+    problem, state, history, losses, weights, launched, seconds = run_training(
+        cfg, "cuda", epochs, ntrain, ntest, checkpoint_path=ckpt)
+    steps = state.step
+    eval_batches = epochs * -(-ntest // cfg.batch_size)
+    per_step = {"posatt_batched_fwd": 6, "posatt_batched_bwd_dscale": 6, "posatt_batched_bwd_du": 5}
+    expected = {k: per_step.get(k, 0) * steps for k in launched}
+    expected["posatt_batched_fwd"] += 6 * eval_batches
+    if steps != epochs * (ntrain // cfg.batch_size) or launched != expected:
+        fail(f"naca train: {steps} steps, {eval_batches} eval batches launched {launched}; "
+             f"expected {expected} (6/6/5 per step, 6 forward per eval batch)")
+    if not torch.isfinite(losses).all() or not all(
+        np.isfinite(v) for row in history for v in row.values()
+    ):
+        fail(f"naca train: non-finite losses or metrics: {history}")
+    report = {
+        "config": cfg.name, "epochs": epochs, "ntrain": ntrain, "ntest": ntest,
+        "steps": steps, "eval_batches": eval_batches, "launches": launched,
+        "launches_per_step": per_step, "seconds_whole_run_cuda": seconds, "history": history,
+        "step_losses_first_last": [losses[0].item(), losses[-1].item()],
+        "band_width": problem.task.geom_fn(
+            {k: torch.from_numpy(np.asarray(v[:1])).cuda()
+             for k, v in problem.train_data.items()}).band_up.width,
+    }
+    patch = mock.patch.object(pit, "position_attention_batched", plain_batched)
+    _, _, _, ref_losses, ref_weights, ref_launched, ref_s = run_training(
+        cfg, "cuda", epochs, ntrain, ntest, patch)
+    if any(ref_launched.values()):
+        fail(f"naca train: the plain card run launched kernels: {ref_launched}")
+    report["max_abs_err_step_loss_vs_plain_cuda"] = check_close(
+        "naca train losses vs plain_cuda", losses, ref_losses, LOSS_RTOL, 0.0)
+    report["max_abs_err_weights_vs_plain_cuda"] = max(
+        check_close(f"naca train weight {k} vs plain_cuda", v, ref_weights[k], PARAM_RTOL, PARAM_ATOL)
+        for k, v in weights.items())
+    report["seconds_whole_run_plain_cuda"] = ref_s
+    # a full-width step takes seconds on the CPU: the first two steps
+    n = 2
+    card_losses, card_weights, _ = first_steps(cfg, "cuda", n, ntrain, ntest, epochs)
+    check_close("naca first steps vs the full run", card_losses, losses[:n], LOSS_RTOL, 0.0)
+    t0 = time.perf_counter()
+    cpu_losses, cpu_weights, cpu_launched = first_steps(cfg, "cpu", n, ntrain, ntest, epochs)
+    report["seconds_first_steps_cpu"] = time.perf_counter() - t0
+    if any(cpu_launched.values()):
+        fail(f"naca train: the CPU run launched kernels: {cpu_launched}")
+    report["cpu_steps_compared"] = n
+    report["max_abs_err_step_loss_vs_cpu"] = check_close(
+        "naca train losses vs cpu", card_losses, cpu_losses, LOSS_RTOL, 0.0)
+    report["max_abs_err_weights_vs_cpu"] = max(
+        check_close(f"naca train weight {k} vs cpu", v, cpu_weights[k], PARAM_RTOL, PARAM_ATOL)
+        for k, v in card_weights.items())
+    report.update(step_timing(problem, state, cfg.batch_size, ntrain, cfg.lr, BATCHED_GROUPS))
+    return report, ckpt
+
+
+def naca_request(cfg, coords, X, i, j):
+    """A NACA request's variables for samples [i, j): the shape points as
+    ``x`` and ``mesh_in``, the latent slice of each C-grid and the C-grid."""
+    xr, yr = cfg.latent_grid
+    ltt = X[i:j, ::4, ::4][:, :xr, :yr].reshape(j - i, -1, 2)
+    return {"x": coords[i:j], "mesh_in": coords[i:j], "mesh_ltt": ltt,
+            "mesh_out": X[i:j].reshape(j - i, -1, 2)}
+
+
+def naca_serve_phase(ckpt):
+    """make_server("naca") on the train phase's checkpoint: ``.mat`` bodies
+    holding ``x``, ``mesh_in``, ``mesh_ltt`` and ``mesh_out`` (1, 10 and 13
+    samples, 4 concurrent, 20 warm of 20), thresholds computed per
+    request: exactly 6 launches of #7 per device batch and nothing else;
+    every reply against ``infer`` and a plain-attention card run, the first
+    11 samples against a CPU run; a bare ``.npy`` gets 400. Then
+    ``evaluate("naca", ckpt, shuffle_ablation=True)`` (20 test samples)
+    against a plain-attention card run at rtol 1e-4, launching 6 of #7 per
+    eval batch, with true and with shuffled inputs."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from position_induced_transformer_torch import configs
+    from position_induced_transformer_torch.data import synthetic
+    from position_induced_transformer_torch.models import pit
+    from position_induced_transformer_torch.train import evaluate
+    from position_induced_transformer_torch.train.serve import make_server
+
+    cfg = configs.NACA
+    t0 = time.perf_counter()
+    server = make_server(cfg.name, ckpt, host="127.0.0.1", port=0, verbose=False, device="cuda")
+    startup_s = time.perf_counter() - t0
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}/predict"
+    coords, X, _ = synthetic.naca(n=60, nx=cfg.grid[0], ny=cfg.grid[1], seed=1)
+    bs = server.predictor._batch_size()
+    sent = []  # (i, j, reply)
+
+    def request(i, j):
+        return post(url, mat_bytes(**naca_request(cfg, coords, X, i, j)))
+
+    def accept(i, j, code, body):
+        if code != 200:
+            fail(f"naca serve: HTTP {code} for samples [{i}, {j}): {body[:500]!r}")
+        sent.append((i, j, np.load(io.BytesIO(body))))
+
+    def ask(i, j):
+        accept(i, j, *request(i, j))
+
+    try:
+        zero_counts()
+        calls0 = server.batcher.n_calls
+        t0 = time.perf_counter()
+        ask(0, 1)
+        first_ms = (time.perf_counter() - t0) * 1e3
+        ask(1, 11)
+        ask(11, 24)  # 13 samples
+        ranges = [(24 + 3 * k, 27 + 3 * k) for k in range(4)]
+        for (i, j), body in zip(ranges, concurrent("naca serve", request, ranges)):
+            accept(i, j, 200, body)
+        warm = []
+        for k in range(20):
+            a = bs * (k % 3)
+            t0 = time.perf_counter()
+            ask(a, a + bs)
+            warm.append((time.perf_counter() - t0) * 1e3)
+        launched = counts()
+        device_calls = server.batcher.n_calls - calls0
+        code, body = post(url, npy(coords[:2]))
+        if code != 400 or b"mesh_in" not in body:
+            fail(f"naca serve: a bare .npy got HTTP {code}: {body[:300]!r}")
+        if counts() != launched:
+            fail("naca serve: the refused request launched kernels")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    expected = {k: 6 * device_calls if k == "posatt_batched_fwd" else 0 for k in launched}
+    if launched != expected:
+        fail(f"naca serve: {launched} for {device_calls} device batches "
+             "(expected 6 launches of #7 per batch and nothing else)")
+
+    predictor = server.predictor
+    n_all = max(j for _, j, _ in sent)
+    path = str(REPO / "build" / "chip_smoke" / "naca_inputs.mat")
+    from scipy.io import savemat
+
+    savemat(path, naca_request(cfg, coords, X, 0, n_all))
+    t0 = time.perf_counter()
+    evaluate.infer(cfg.name, ckpt, path, output_path=path.replace("inputs.mat", "infer.npy"),
+                   device="cuda")
+    infer_s = time.perf_counter() - t0
+    by_infer = np.load(path.replace("inputs.mat", "infer.npy"))
+    cpu_n = 11
+    cpu = evaluate.Predictor(cfg.name, ckpt, device="cpu")
+    t0 = time.perf_counter()
+    by_cpu = cpu.predict_array(naca_request(cfg, coords, X, 0, cpu_n), batch_size=cpu_n)
+    cpu_s = time.perf_counter() - t0
+    errs = {"infer": 0.0, "plain_cuda": 0.0, "cpu": 0.0}
+    for i, j, out in sent:
+        got = torch.from_numpy(out)
+        if got.shape != (j - i, X.shape[1] * X.shape[2], cfg.model.out_dim):
+            fail(f"naca serve: reply shape {tuple(got.shape)}")
+        errs["infer"] = max(errs["infer"], check_close(
+            "naca serve vs infer", got, torch.from_numpy(by_infer[i:j]), MODEL_RTOL, MODEL_ATOL))
+        before = counts()
+        with mock.patch.object(pit, "position_attention_batched", plain_batched):
+            ref = predictor.predict_array(naca_request(cfg, coords, X, i, j))
+        if counts() != before:
+            fail("naca serve: the plain comparison run launched a kernel")
+        errs["plain_cuda"] = max(errs["plain_cuda"], check_close(
+            "naca serve vs plain on CUDA", got, torch.from_numpy(ref), MODEL_RTOL, MODEL_ATOL))
+        k = max(0, min(j, cpu_n) - i)
+        if k:
+            errs["cpu"] = max(errs["cpu"], check_close(
+                "naca serve vs CPU", got[:k], torch.from_numpy(by_cpu[i:i + k]), MODEL_RTOL,
+                MODEL_ATOL))
+    batch = naca_request(cfg, coords, X, 0, bs)
+    report = {
+        "config": cfg.name, "startup_s": startup_s, "infer_s": infer_s,
+        "cpu_predict_s": cpu_s, "samples_vs_cpu": cpu_n,
+        f"profile_{bs}_samples": profile_device(lambda: predictor.predict_array(batch), "forward",
+                                                groups=BATCHED_GROUPS),
+        "requests": len(sent), "samples": int(sum(j - i for i, j, _ in sent)),
+        "device_batches": device_calls, "launches": launched,
+        "first_request_ms": first_ms, "warm_median_ms": statistics.median(warm),
+        "warm_requests": len(warm), "warm_samples_per_request": bs,
+        **{f"max_abs_err_vs_{k}": v for k, v in errs.items()},
+    }
+
+    # the shuffle ablation on the trained split's size (not the full 1000)
+    ev_cfg = dataclasses.replace(cfg, ntrain=80)
+    ntest = 20
+    zero_counts()
+    t0 = time.perf_counter()
+    got = evaluate.evaluate(ev_cfg, ckpt, ntest=ntest, shuffle_ablation=True, device="cuda")
+    torch.cuda.synchronize()
+    report["shuffle_ablation_evaluate_s"] = time.perf_counter() - t0
+    ablation_launched = counts()
+    n_eval = 2 * -(-ntest // cfg.batch_size)  # the true and the shuffled pairing
+    expected = {k: 6 * n_eval if k == "posatt_batched_fwd" else 0 for k in ablation_launched}
+    if ablation_launched != expected:
+        fail(f"naca shuffle ablation: evaluate launched {ablation_launched}, expected {expected}")
+    with mock.patch.object(pit, "position_attention_batched", plain_batched):
+        want = evaluate.evaluate(ev_cfg, ckpt, ntest=ntest, shuffle_ablation=True, device="cuda")
+    if counts() != ablation_launched:
+        fail("naca shuffle ablation: the plain-attention evaluation launched a kernel")
+    f64 = lambda v: torch.tensor(v, dtype=torch.float64)
+    for k in ("rel_l1", "rel_l2", "rel_max", "rel_l1_quartiles"):
+        check_close(f"naca evaluate {k} vs plain on CUDA", f64(got[k]), f64(want[k]), 1e-4, 0.0)
+    for k, v in got["shuffle_ablation"].items():  # rounded to 6 decimals
+        check_close(f"naca shuffle ablation {k} vs plain on CUDA", f64(v),
+                    f64(want["shuffle_ablation"][k]), 1e-4, 2e-6)
+    report["shuffle_ablation"] = {"launches": ablation_launched, "metrics": got,
+                                  "metrics_plain_cuda": want}
+    return report
+
+
+# ----------------------- vorticity: kernels #1, #3 and #4 under 20-step BPTT
+
+REMAT_MODES = ("full", "dots", "none")
+
+
+def vorticity_launches(cfg, mode):
+    """What one vorticity training step launches: a forward of every
+    attention op in each of the rollout's steps, and as many again when
+    the checkpointed forward is recomputed in the backward (``full``; and
+    ``dots``, which keeps only matmul outputs: a ctypes launch is none);
+    dscale for every op; du for every op but the first step's encoder,
+    whose window is data (every later window holds predicted frames)."""
+    ops = (cfg.model.n_blocks + 2) * cfg.rollout_steps
+    return {"posatt_fixed_fwd": ops * (1 if mode == "none" else 2), "posatt_stats": 0,
+            "posatt_bwd_dscale": ops, "posatt_bwd_du": ops - 1}
+
+
+def remat_mode_phase(problem, batch):
+    """One training step's loss and backward under each remat mode on the
+    same batch and weights: the launches, the gradients (held against
+    ``none``'s), the wall and device busy time, and the peak of
+    ``torch.cuda.max_memory_allocated`` above what was allocated before."""
+    import dataclasses
+
+    import torch
+
+    cfg, model = problem.config, problem.model
+    rows, grads = {}, {}
+    for mode in REMAT_MODES:
+        task = dataclasses.replace(problem.task, remat_rollout=mode)
+
+        def step():
+            model.zero_grad(set_to_none=True)
+            loss = task.loss_fn(problem.geom, batch)
+            loss.backward()
+            return loss
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        zero_counts()
+        t0 = time.perf_counter()
+        loss = step()
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated()
+        launched = counts()
+        want = vorticity_launches(cfg, mode)
+        if launched != {k: want.get(k, 0) for k in launched}:
+            fail(f"vorticity remat {mode}: one step launched {launched}, expected {want}")
+        grads[mode] = {k: p.grad.detach().clone() for k, p in model.named_parameters()}
+        rows[mode] = {"launches": launched, "loss": loss.item(), "first_step_ms": first_ms,
+                      "peak_allocated_above_start_bytes": peak - base,
+                      "max_memory_allocated_bytes": peak,
+                      **profile_device(step, "step", reps=3, groups=FIXED_GROUPS)}
+        log(f"vorticity remat {mode}: " + json.dumps(rows[mode]))
+    for mode in REMAT_MODES[:2]:
+        if rows[mode]["loss"] != rows["none"]["loss"]:
+            fail(f"vorticity remat {mode}: loss {rows[mode]['loss']} != none's {rows['none']['loss']}")
+        rows[mode]["max_abs_err_grad_vs_none"] = max(
+            check_close(f"vorticity remat {mode} grad {k} vs none", g, grads["none"][k],
+                        OP_RTOL, OP_ATOL * grads["none"][k].abs().max().item())
+            for k, g in grads[mode].items())
+    return rows
+
+
+def beyond_one_step_bound(weights, ref):
+    """The weight elements farther from ``ref`` than the one-step training
+    bound (PARAM_ATOL + PARAM_RTOL |w|), of all."""
+    n = sum(int(((v.double() - ref[k].double()).abs()
+                 > PARAM_ATOL + PARAM_RTOL * ref[k].double().abs()).sum()) for k, v in weights.items())
+    return {"elements": n, "of": sum(v.numel() for v in weights.values())}
+
+
+def vorticity_train_phase(schedule_rows):
+    """runner.train on full-width vorticity on the card (synthetic 64^2
+    fields, 160 training and 40 test samples, 2 epochs of 8 steps at batch
+    20, cut from 1000 / 200 and 500 epochs): each step unrolls 20 forwards
+    and backpropagates through all of them, every rollout step's forward
+    checkpointed (remat ``full``): exactly 240/0/120/119 launches of
+    #1/#2/#3/#4 a step and 120 of #1 per eval batch; losses, the eval
+    ``rel_l2_step`` and weights against a plain-attention card run, the
+    first step against a CPU run; the geometry's kept sets on the card
+    against a CPU build; one step under each remat mode (launches,
+    gradients, time, peak memory); #1 per processor launch (256^2, D 256,
+    B 20, every entry kept) beside phase 16's time at that shape; the time
+    per step, steps/s and the device's busy time. It writes the checkpoint
+    the evaluate and serve phases read."""
+    import numpy as np
+    import torch
+
+    from position_induced_transformer_torch import configs
+    from position_induced_transformer_torch.kernels import posatt_pallas as kp
+    from position_induced_transformer_torch.models import pit
+    from position_induced_transformer_torch.ops.posatt import bandwidth_scale, position_attention
+    from position_induced_transformer_torch.train import benchmarks
+
+    cfg = configs.VORTICITY
+    epochs, ntrain, ntest = 2, 160, 40
+    ckpt = str(REPO / "build" / "chip_smoke" / "vorticity_trained.pt")
+    problem, state, history, losses, weights, launched, seconds = run_training(
+        cfg, "cuda", epochs, ntrain, ntest, checkpoint_path=ckpt)
+    steps = state.step
+    eval_batches = epochs * -(-ntest // cfg.batch_size)
+    per_step = vorticity_launches(cfg, "full")
+    per_eval = vorticity_launches(cfg, "none")["posatt_fixed_fwd"]
+    expected = {k: per_step.get(k, 0) * steps for k in launched}
+    expected["posatt_fixed_fwd"] += per_eval * eval_batches
+    if steps != epochs * (ntrain // cfg.batch_size) or launched != expected:
+        fail(f"vorticity train: {steps} steps, {eval_batches} eval batches launched {launched}; "
+             f"expected {expected} ({per_step} per step, {per_eval} of #1 per eval batch)")
+    if not torch.isfinite(losses).all() or not all(
+        np.isfinite(v) for row in history for v in row.values()
+    ):
+        fail(f"vorticity train: non-finite losses or metrics: {history}")
+    report = {
+        "config": cfg.name, "epochs": epochs, "ntrain": ntrain, "ntest": ntest,
+        "rollout_steps": cfg.rollout_steps, "remat": problem.task.remat_mode(),
+        "steps": steps, "eval_batches": eval_batches, "launches": launched,
+        "launches_per_step": per_step, "launches_per_eval_batch": per_eval,
+        "seconds_whole_run_cuda": seconds, "history": history,
+        "step_losses_first_last": [losses[0].item(), losses[-1].item()],
+        "geometry_64": kept_difference(
+            problem.geom, benchmarks.setup_vorticity(cfg, ntrain=1, ntest=1, device="cpu").geom),
+    }
+    plain = lambda dist, lmda, inputs, locality, thr=None: position_attention(
+        dist, lmda, inputs, locality, thr=thr)
+    patch = mock.patch.object(pit, "position_attention_fixed", plain)
+    _, _, ref_history, ref_losses, ref_weights, ref_launched, ref_s = run_training(
+        cfg, "cuda", epochs, ntrain, ntest, patch)
+    if any(ref_launched.values()):
+        fail(f"vorticity train: the plain card run launched kernels: {ref_launched}")
+    report["max_abs_err_step_loss_vs_plain_cuda"] = check_close(
+        "vorticity train losses vs plain_cuda", losses, ref_losses, LOSS_RTOL, 0.0)
+    rel = lambda h: torch.tensor([row["rel_l2_step"] for row in h], dtype=torch.float64)
+    report["max_abs_err_rel_l2_step_vs_plain_cuda"] = check_close(
+        "vorticity eval rel_l2_step vs plain_cuda", rel(history), rel(ref_history), LOSS_RTOL, 0.0)
+    report["max_abs_err_weights_vs_plain_cuda"] = max(
+        check_close(f"vorticity train weight {k} vs plain_cuda", v, ref_weights[k], PARAM_RTOL,
+                    VORTICITY_PARAM_ATOL) for k, v in weights.items())
+    report["weights_beyond_one_step_bound_vs_plain_cuda"] = beyond_one_step_bound(
+        weights, ref_weights)
+    report["seconds_whole_run_plain_cuda"] = ref_s
+    # a full-width 20-step BPTT step takes tens of seconds on the CPU: one
+    n = 1
+    card_losses, card_weights, _ = first_steps(cfg, "cuda", n, ntrain, ntest, epochs)
+    check_close("vorticity first step vs the full run", card_losses, losses[:n], LOSS_RTOL, 0.0)
+    t0 = time.perf_counter()
+    cpu_losses, cpu_weights, cpu_launched = first_steps(cfg, "cpu", n, ntrain, ntest, epochs)
+    report["seconds_first_steps_cpu"] = time.perf_counter() - t0
+    if any(cpu_launched.values()):
+        fail(f"vorticity train: the CPU run launched kernels: {cpu_launched}")
+    report["cpu_steps_compared"] = n
+    report["max_abs_err_step_loss_vs_cpu"] = check_close(
+        "vorticity train losses vs cpu", card_losses, cpu_losses, LOSS_RTOL, 0.0)
+    report["max_abs_err_weights_vs_cpu"] = max(
+        check_close(f"vorticity train weight {k} vs cpu", v, cpu_weights[k], PARAM_RTOL,
+                    VORTICITY_PARAM_ATOL) for k, v in card_weights.items())
+    report["weights_beyond_one_step_bound_vs_cpu"] = beyond_one_step_bound(card_weights, cpu_weights)
+
+    dev = torch.device("cuda")
+    batch = {k: torch.from_numpy(v[: cfg.batch_size]).to(dev) for k, v in problem.train_data.items()}
+    report["remat_modes"] = remat_mode_phase(problem, batch)
+
+    # #1 at the processor (global: every entry kept), the model's geometry
+    # and first block's bandwidths, values of the model's width
+    geom, m = problem.geom, cfg.model
+    rng = np.random.default_rng(9)
+    u = torch.from_numpy(rng.standard_normal((cfg.batch_size, geom.dist_proc.shape[0], m.hid_dim))
+                         .astype(np.float32)).to(dev)
+    thr = torch.full((geom.dist_proc.shape[0], 1), float("inf"), device=dev)
+    scale = bandwidth_scale(weights["conv.0.lmda"].to(dev)).reshape(m.n_head, 1)
+    got = kp.posatt_fixed_cuda(geom.dist_proc, thr, scale, u)
+    want = kp.posatt_fixed_reference(geom.dist_proc, thr, scale, u)
+    want = want.permute(1, 2, 0, 3).reshape(got.shape)
+    phase16 = next(r for r in schedule_rows if r["shape"] == "vorticity_processor")
+    report["processor_launch"] = {
+        "L_out": geom.dist_proc.shape[0], "L_in": geom.dist_proc.shape[1], "B": cfg.batch_size,
+        "H": m.n_head, "D": m.hid_dim,
+        "max_abs_err": check_close("vorticity processor #1", got, want, OP_RTOL, OP_ATOL),
+        "ms": cuda_ms(lambda: kp.posatt_fixed_cuda(geom.dist_proc, thr, scale, u)),
+        "ms_with_stats": cuda_ms(lambda: kp.posatt_fixed_cuda(geom.dist_proc, thr, scale, u,
+                                                             stats=True)),
+        "phase16_random_points_ms": phase16["versions"]["3"]["ms"],
+        "phase16_bound_ms": phase16["bound_ms"],
+        "plan": kp._fwd_plan(True, m.n_head, cfg.batch_size, geom.dist_proc.shape[0],
+                             geom.dist_proc.shape[1], m.hid_dim)._asdict(),
+    }
+    log("vorticity processor #1: " + json.dumps(report["processor_launch"]))
+    report.update(step_timing(problem, state, cfg.batch_size, ntrain, cfg.lr, FIXED_GROUPS))
+    return report, ckpt
+
+
+def vorticity_eval_serve_phases(ckpt):
+    """``evaluate("vorticity", ckpt)`` on the train phase's checkpoint (40
+    test samples: 2 eval batches of 20-step rollouts, 120 launches of #1
+    each and nothing else) against a plain-attention card run at rtol
+    1e-4; then ``make_server("vorticity")`` answering ``.npy`` windows (n,
+    4096, 10) with their 20-step rollouts (1, 8 and 13 samples, 4
+    concurrent, 8 warm of 20; 120 launches of #1 per device batch; replies
+    against ``infer``, a plain-attention card run and, on 2 samples, a CPU
+    run); then ``?rollout_steps=5`` (30 launches per device batch, the
+    first 5 steps of the default reply) and ``?rollout_steps=`` above the
+    maximum (400, no launch)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from position_induced_transformer_torch import configs
+    from position_induced_transformer_torch.data import synthetic
+    from position_induced_transformer_torch.models import pit
+    from position_induced_transformer_torch.ops.posatt import position_attention
+    from position_induced_transformer_torch.train import evaluate
+    from position_induced_transformer_torch.train.serve import make_server
+
+    cfg = configs.VORTICITY
+    ev_cfg = dataclasses.replace(cfg, ntrain=160)  # the trained split's size, not 1000
+    ntest = 40
+    per_batch = vorticity_launches(cfg, "none")["posatt_fixed_fwd"]
+    zero_counts()
+    t0 = time.perf_counter()
+    got = evaluate.evaluate(ev_cfg, ckpt, ntest=ntest, device="cuda")
+    torch.cuda.synchronize()
+    evaluate_s = time.perf_counter() - t0
+    launched = counts()
+    n_batches = -(-ntest // cfg.batch_size)
+    expected = {k: per_batch * n_batches if k == "posatt_fixed_fwd" else 0 for k in launched}
+    if launched != expected:
+        fail(f"vorticity evaluate: launched {launched}, expected {expected}")
+    plain = lambda dist, lmda, inputs, locality, thr=None: position_attention(
+        dist, lmda, inputs, locality, thr=thr)
+    with mock.patch.object(pit, "position_attention_fixed", plain):
+        t0 = time.perf_counter()
+        want = evaluate.evaluate(ev_cfg, ckpt, ntest=ntest, device="cuda")
+        plain_s = time.perf_counter() - t0
+    if counts() != launched:
+        fail("vorticity evaluate: the plain-attention evaluation launched a kernel")
+    f64 = lambda v: torch.tensor(v, dtype=torch.float64)
+    err = max(check_close(f"vorticity evaluate {k} vs plain on CUDA", f64(got[k]), f64(want[k]),
+                          1e-4, 0.0) for k in ("rel_l2_step", "rel_l2_traj", "rel_l2_mean_step"))
+    evaluation = {"launches": launched, "evaluate_s_cuda": evaluate_s,
+                  "evaluate_s_plain_cuda": plain_s, "max_abs_err_vs_plain_cuda": err,
+                  "metrics": got, "metrics_plain_cuda": want}
+
+    x = synthetic.vorticity(n=48, frames=cfg.memory, seed=1).reshape(48, -1, cfg.memory)
+    serve = fixed_serve_phase("vorticity_serve", cfg, ckpt, x, per_batch, (1, 8, 13), 4, 8,
+                              cpu_samples=2)
+
+    server = make_server(cfg.name, ckpt, host="127.0.0.1", port=0, verbose=False, device="cuda")
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}/predict"
+    short = 5
+    try:
+        default = post(url, npy(x[:8]))
+        zero_counts()
+        calls0 = server.batcher.n_calls
+        code, body = post(f"{url}?rollout_steps={short}", npy(x[:8]))
+        short_launched, short_calls = counts(), server.batcher.n_calls - calls0
+        too_far = server.max_rollout_steps + 1
+        bad = post(f"{url}?rollout_steps={too_far}", npy(x[:8]))
+        if counts() != short_launched:
+            fail("vorticity serve: the refused horizon launched kernels")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    if default[0] != 200 or code != 200:
+        fail(f"vorticity serve: HTTP {default[0]} / {code} for the default / {short}-step horizon")
+    per_short = per_batch * short // cfg.rollout_steps
+    want_launched = {k: per_short * short_calls if k == "posatt_fixed_fwd" else 0 for k in short_launched}
+    if short_launched != want_launched or short_calls != 1:
+        fail(f"vorticity serve: {short} steps launched {short_launched} for {short_calls} batches, "
+             f"expected {per_short} of #1 per batch")
+    full, part = np.load(io.BytesIO(default[1])), np.load(io.BytesIO(body))
+    if part.shape != full.shape[:-1] + (short,):
+        fail(f"vorticity serve: {short}-step reply of shape {part.shape}, default {full.shape}")
+    horizon = {
+        "rollout_steps": short, "launches": short_launched, "device_batches": short_calls,
+        "reply_shape": list(part.shape), "default_reply_shape": list(full.shape),
+        "max_abs_err_vs_default_first_steps": check_close(
+            "vorticity serve: the 5-step reply vs the default's first 5 steps",
+            torch.from_numpy(part), torch.from_numpy(full[..., :short]), MODEL_RTOL, MODEL_ATOL),
+        "max_rollout_steps": server.max_rollout_steps, "refused_code": bad[0],
+    }
+    if bad[0] != 400 or b"rollout_steps" not in bad[1]:
+        fail(f"vorticity serve: rollout_steps={too_far} got HTTP {bad[0]}: {bad[1][:300]!r}")
+    return evaluation, serve, horizon
+
+
 def schedule_entry(version, rows, launched):
     """The kernels-record entry of one schedule: times and bounds summed
     over the seven launches of a Burgers forward (1 encoder + 5 processor
@@ -3003,11 +3661,25 @@ def main() -> int:
     sod_serve, sod_train = sod_phases()
     log("sod_serve " + json.dumps(sod_serve))
     log("sod_train " + json.dumps(sod_train))
-    fixed_paths = {  # the fixed-mesh model paths of sod and Darcy: (train, served or evaluated)
+    n_train, naca_ckpt = naca_train_phase()
+    log("naca_train " + json.dumps(n_train))
+    n_serve = naca_serve_phase(naca_ckpt)
+    log("naca_serve " + json.dumps(n_serve))
+    v_train, vorticity_ckpt = vorticity_train_phase(s_rows)
+    log("vorticity_train " + json.dumps(v_train))
+    v_eval, v_serve, v_horizon = vorticity_eval_serve_phases(vorticity_ckpt)
+    log("vorticity_eval " + json.dumps(v_eval))
+    log("vorticity_serve " + json.dumps(v_serve))
+    log("vorticity_serve_horizon " + json.dumps(v_horizon))
+    fixed_paths = {  # the fixed-mesh model paths: (train, served or evaluated)
         "darcy_train": d_train["launches"], "darcy_zssr": d_zssr["launches"],
         "darcy_serve_43": d_serve43["launches"], "darcy_serve_421": d_serve421["launches"],
         "sod_train": sod_train["launches"], "sod_serve": sod_serve["launches"],
+        "vorticity_train": v_train["launches"], "vorticity_serve": v_serve["launches"],
+        "vorticity_eval": v_eval["launches"],
     }
+    naca_paths = {"naca_train": n_train["launches"], "naca_serve": n_serve["launches"],
+                  "naca_shuffle_ablation": n_serve["shuffle_ablation"]["launches"]}
 
     per = {s["shape"]: s for s in shapes}
     total = lambda key: sum(s[key] * s["launches_per_forward"] for s in shapes)
@@ -3094,9 +3766,17 @@ def main() -> int:
         })
     # kernel #7: one elasticity training forward at batch 10 (1 encoder + 4
     # processor + 1 decoder launches); a served forward swaps the banded
-    # encoder and decoder for the band-less serving shapes
-    train_rows = [r for r in b_rows if not r["shape"].startswith("serve_")]
+    # encoder and decoder for the band-less serving shapes. NACA's at batch
+    # 20 apart: its training forward, and its served one (the decoder
+    # without a band)
+    train_rows = [r for r in b_rows if r["config"] == "elasticity"
+                  and not r["shape"].startswith("serve_")]
     serve_rows = [r for r in b_rows if r["shape"] in ("processor", "serve_encoder", "serve_decoder")]
+    naca_rows = {r["shape"]: r for r in b_rows if r["config"] == "naca"}
+    naca_forward = lambda names: {
+        **per_step([naca_rows[n] for n in names], "launches_per_forward"),
+        "library_ms": sum(naca_rows[n]["library_ms"] * naca_rows[n]["launches_per_forward"]
+                          for n in names)}
     fwd = per_step(train_rows, "launches_per_forward")
     n_serve, n_train = (e_serve["launches"]["posatt_batched_fwd"],
                         e_train["launches"]["posatt_batched_fwd"])
@@ -3106,24 +3786,33 @@ def main() -> int:
         "source": "position_induced_transformer_torch/kernels/csrc/posatt_batched_fwd.cu",
         "replaces": "position_induced_transformer_tpu/kernels/posatt_batched.py:278",
         "launches": n_serve + n_train,
-        "launches_by_path": {"serve": n_serve, "train": n_train},
+        "launches_by_path": {"serve": n_serve, "train": n_train,
+                             **{k: v["posatt_batched_fwd"] for k, v in naca_paths.items()}},
         "max_abs_err": b_err,
         **fwd,
         "library_ms": sum(r["library_ms"] * r["launches_per_forward"] for r in train_rows),
         "per_serve_forward": {
             **per_step(serve_rows, "launches_per_forward"),
             "library_ms": sum(r["library_ms"] * r["launches_per_forward"] for r in serve_rows)},
+        "per_naca_train_forward": naca_forward(("naca_encoder", "naca_processor", "naca_decoder")),
+        "per_naca_serve_forward": naca_forward(("naca_encoder", "naca_processor",
+                                                "naca_serve_decoder")),
         "shapes": b_rows,
     })
-    # kernel #8: its two entry points over one elasticity training step
-    entry = {k: per_step(b_bwd_rows[k], "launches_per_step") for k in BATCHED_KERNELS[1:]}
+    # kernel #8: its two entry points over one elasticity training step,
+    # and over one NACA step apart
+    by_config = lambda k, c: [r for r in b_bwd_rows[k] if r["config"] == c]
+    entry = {k: per_step(by_config(k, "elasticity"), "launches_per_step") for k in BATCHED_KERNELS[1:]}
+    naca_entry = {k: per_step(by_config(k, "naca"), "launches_per_step") for k in BATCHED_KERNELS[1:]}
     kernels["kernels"].append({
         "name": "posatt_batched_bwd",
         "route": "cuda",
         "source": "position_induced_transformer_torch/kernels/csrc/posatt_batched_bwd.cu",
         "replaces": "position_induced_transformer_tpu/kernels/posatt_batched.py:415",
         "launches": sum(e_train["launches"][k] for k in BATCHED_KERNELS[1:]),
-        "launches_by_path": {"serve": 0, **{k: e_train["launches"][k] for k in BATCHED_KERNELS[1:]}},
+        "launches_by_path": {"serve": 0, **{k: e_train["launches"][k] for k in BATCHED_KERNELS[1:]},
+                             **{f"{p}_{k}": v[k] for p, v in naca_paths.items()
+                                for k in BATCHED_KERNELS[1:]}},
         "max_abs_err": max(b_bwd_errs[k] for k in BATCHED_KERNELS[1:]),
         "ms": sum(e["ms"] for e in entry.values()),
         "plain_ms": sum(e["plain_ms"] for e in entry.values()),
@@ -3131,6 +3820,7 @@ def main() -> int:
         "bound_by": max(entry.values(), key=lambda e: e["bound_ms"])["bound_by"],
         "library_ms": None,
         "entry_points": entry,
+        "per_naca_step": naca_entry,
         "shapes": b_bwd_rows,
     })
     # the TF kernels: #9 over one served forward (and #10 over one step on

@@ -174,6 +174,33 @@ def darcy(
     return x_tr, y_tr, x_te, y_te
 
 
+def vorticity(
+    path=None, ntrain=1000, ntest=200, memory=10, steps=20
+) -> Tuple[np.ndarray, ...]:
+    """``(x_tr, y_tr, x_te, y_te)``: the first ``memory`` frames of each
+    (n, s, s, T) trajectory (variable ``u`` of a real ``.mat``, else the
+    synthetic generator) as inputs, the next ``steps`` frames as targets.
+    A file with fewer than ``memory + steps`` frames raises."""
+    if _is_real_file(path):
+        flow = load_mat(path)["u"].astype(np.float32)
+        if flow.shape[-1] < memory + steps:
+            raise ValueError(
+                f"vorticity file has {flow.shape[-1]} frames; the "
+                f"configured memory+rollout needs {memory + steps} — "
+                "targets would be silently truncated"
+            )
+    else:
+        _warn_fallback(path, "vorticity")
+        flow = synthetic.vorticity(n=ntrain + ntest, frames=memory + steps)
+    (flow_tr, flow_te) = _split((flow,), flow.shape[0], ntrain, ntest, "vorticity")
+    return (
+        flow_tr[:, :, :, :memory],
+        flow_tr[:, :, :, memory : memory + steps],
+        flow_te[:, :, :, :memory],
+        flow_te[:, :, :, memory : memory + steps],
+    )
+
+
 def elasticity(
     dirpath=None, ntrain=1000, ntest=200, n_points=972
 ) -> Tuple[np.ndarray, ...]:
@@ -200,3 +227,34 @@ def elasticity(
         (X, ext, Y), X.shape[0], ntrain, ntest, "elasticity"
     )
     return X_tr, ext_tr, Y_tr, X_te, ext_te, Y_te
+
+
+_NACA_FILES = ("shape_coords.npy", "NACA_Cylinder_X.npy", "NACA_Cylinder_Y.npy",
+               "NACA_Cylinder_Q.npy")
+
+
+def naca(
+    dirpath=None, ntrain=1000, ntest=200, nx=221, ny=51, n_shape=120,
+) -> Tuple[np.ndarray, ...]:
+    """``(c_tr, X_tr, Y_tr, c_te, X_te, Y_te)``: airfoil shape points (n,
+    n_shape, 2), C-grid vertices (n, nx, ny, 2) and the flow variables
+    (n, nx, ny, 4), channels 0-3 of ``Q`` (the torch family's targets),
+    from the four ``.npy`` files in ``dirpath`` when all are real, else
+    from the synthetic generator. (The single Mach channel of the TF
+    family's targets is not ported.)"""
+    if dirpath is not None and all(
+        _is_real_file(os.path.join(dirpath, f)) for f in _NACA_FILES
+    ):
+        coords = np.load(os.path.join(dirpath, "shape_coords.npy")).astype(np.float32)
+        vx = np.load(os.path.join(dirpath, "NACA_Cylinder_X.npy"))[..., None]
+        vy = np.load(os.path.join(dirpath, "NACA_Cylinder_Y.npy"))[..., None]
+        X = np.concatenate([vx, vy], -1).astype(np.float32)
+        Q = np.load(os.path.join(dirpath, "NACA_Cylinder_Q.npy"))
+        Y = Q[:, :4].transpose(0, 2, 3, 1).astype(np.float32)
+    else:
+        _warn_fallback(dirpath, "naca")
+        coords, X, Y = synthetic.naca(n=ntrain + ntest, n_shape=n_shape, nx=nx, ny=ny)
+    c_tr, c_te, X_tr, X_te, Y_tr, Y_te = _split(
+        (coords, X, Y), X.shape[0], ntrain, ntest, "naca"
+    )
+    return c_tr, X_tr, Y_tr, c_te, X_te, Y_te

@@ -1,4 +1,5 @@
-"""Synthetic dataset generators (numpy): Burgers, sod, Darcy, elasticity.
+"""Synthetic dataset generators (numpy): Burgers, sod, Darcy, vorticity,
+elasticity and NACA.
 
 Same generators, numpy RNG streams and seeds as the JAX package's
 ``data/synthetic.py``, so that both packages see identical inputs.
@@ -289,3 +290,122 @@ def elasticity(n=1200, L=972, seed=0):
     vm = np.sqrt(s_rr**2 - s_rr * s_tt + s_tt**2 + 3 * s_rt**2)
     Y = (vm * (1 + 1.5 * (da / a) ** 2))[..., None].astype(np.float32)
     return X, ext, Y
+
+
+def vorticity(n=1200, s=64, frames=30, seed=0):
+    """(n, s, s, frames) periodic band-limited fields under exact slow
+    spectral advection and viscous decay,
+
+        f_t(x) = damp^t * f_0(x - v t),   f_0 a band-limited Fourier GRF,
+
+    in complex64 arithmetic: 1-periodic, the same continuous function at
+    every resolution, advecting about 0.9 pixel a frame at s = 64."""
+    rng = np.random.default_rng(seed)
+    K = 4  # modes k in [-K, K]^2 \ {0}
+    ks = np.arange(-K, K + 1)
+    kx, ky = np.meshgrid(ks, ks, indexing="ij")
+    nonzero = (kx != 0) | (ky != 0)
+    ksq = kx**2 + ky**2 + (~nonzero)
+    c = (
+        (rng.standard_normal((n,) + kx.shape)
+         + 1j * rng.standard_normal((n,) + kx.shape))
+        * nonzero
+        / ksq**1.2
+    ).astype(np.complex64)
+    v = np.array([0.006, 0.012])  # domain units a frame
+    damp = 0.99
+    x = np.arange(s) / s  # periodic sampling (endpoint excluded)
+    e1 = np.exp(2j * np.pi * np.outer(ks, x)).astype(np.complex64)  # (2K+1, s)
+    traj = np.empty((n, s, s, frames), np.float32)
+    for t in range(frames):
+        ct = (
+            c * np.exp(-2j * np.pi * (kx * v[0] + ky * v[1]) * t) * damp**t
+        ).astype(np.complex64)
+        half = np.einsum("nij,ia->nja", ct, e1)
+        traj[..., t] = np.einsum("nja,jb->nab", half, e1).real
+    return traj
+
+
+def naca(n=1200, n_shape=120, nx=221, ny=51, seed=0):
+    """(coords, X, Y): airfoil shape points (n, n_shape, 2), the C-grid's
+    vertices (n, nx, ny, 2) and a 4-variable flow field (rho, rho u, rho v,
+    E) on it (n, nx, ny, 4).
+
+    The field is a transonic-like closed form in (x, y) and four shape
+    parameters (thickness, camber and two shape harmonics) that only the
+    input shape determines: supersonic pockets closed by smooth shocks on
+    both surfaces, whose position and strength move with the parameters.
+    The C-grid conforms to the airfoil near y = 0, and its far field is
+    fixed."""
+    rng = np.random.default_rng(seed)
+    t = np.linspace(0, 2 * np.pi, n_shape, endpoint=False)
+    thick = rng.uniform(0.08, 0.18, (n, 1))
+    camber = rng.uniform(-0.04, 0.04, (n, 1))
+    a3 = rng.normal(0, 0.01, (n, 1))
+    a4 = rng.normal(0, 0.006, (n, 1))
+    xs = 0.5 * (1 + np.cos(t))[None, :]
+    ys = (
+        thick * np.sin(t)[None, :] * np.sqrt(np.clip(xs, 0, 1))
+        + (camber + a3 * np.sin(2 * t)[None, :] + a4 * np.sin(3 * t)[None, :])
+        * 4 * xs * (1 - xs)
+    )
+    coords = np.stack([xs * np.ones((n, 1)), ys], axis=-1).astype(np.float32)
+
+    # grid lines near y = 0 follow the camber line and the thickness
+    # envelope, decaying into the far field
+    u = np.linspace(-1, 2, nx)
+    v = np.linspace(0, 1, ny)
+    uu, vv = np.meshgrid(u, v, indexing="ij")
+    X = np.empty((n, nx, ny, 2), np.float32)
+    X[..., 0] = uu[None]
+    yb = 1.1 * vv[None] - 0.5  # fixed far-field extent
+    xcg = np.clip(uu[None], 0.0, 1.0)
+    th3, cb3, a33, a43 = (
+        thick[:, :, None], camber[:, :, None], a3[:, :, None], a4[:, :, None]
+    )
+    yt = 2.0 * th3 * np.sqrt(xcg) * (1 - xcg)  # thickness half-envelope
+    yc = (
+        4 * cb3 * xcg * (1 - xcg)
+        + (a33 * np.sin(2 * np.pi * xcg) + a43 * np.sin(3 * np.pi * xcg))
+        * 4 * xcg * (1 - xcg)
+    )
+    s_b = yb / np.sqrt(yb**2 + 0.04)  # a smooth sign: no grid line folds
+    X[..., 1] = yb + (yc + s_b * yt) * np.exp(-(yb**2) / 0.03)
+    Y = _naca_field(
+        X[..., 0], X[..., 1],
+        thick[:, :, None], camber[:, :, None],
+        a3[:, :, None], a4[:, :, None],
+    )
+    return coords, X, Y
+
+
+def _naca_field(x, y, thick, camber, a3, a4):
+    """The transonic-like 4-variable field, closed form in the query
+    coordinates (x, y) and the four shape parameters; any broadcastable
+    shapes."""
+    xc = np.clip(x, 0.0, 1.0)
+    q = 4 * xc * (1 - xc)  # chordwise forcing
+    env = np.exp(-(y**2) / 0.08)  # near-airfoil weight
+    s_y = y / np.sqrt(y**2 + 0.01)  # smooth sign(y)
+    # thickness speeds the flow up symmetrically, camber and the harmonics
+    # asymmetrically
+    u1 = (4.0 * thick + 3.0 * a3) * q * env
+    u2 = (9.0 * camber + 4.0 * a4) * q * env * s_y
+    # supersonic pockets closed by shocks on each surface
+    w = 0.02  # shock half-width
+    env_up = np.exp(-(((y - 0.06) / 0.12) ** 2)) / (1 + np.exp(-y / 0.04))
+    env_lo = np.exp(-(((y + 0.06) / 0.12) ** 2)) / (1 + np.exp(y / 0.04))
+    x_up = 0.55 + 1.8 * camber + 0.5 * thick + 0.6 * a3
+    x_lo = 0.55 - 1.8 * camber + 0.5 * thick - 0.6 * a3
+    A_up = np.maximum(0.0, 5.0 * thick + 15.0 * camber + 4.0 * a3)
+    A_lo = np.maximum(0.0, 5.0 * thick - 15.0 * camber - 4.0 * a3)
+    pocket_up = 1 / (1 + np.exp(-(x - 0.15) / 0.05)) / (1 + np.exp((x - x_up) / w))
+    pocket_lo = 1 / (1 + np.exp(-(x - 0.15) / 0.05)) / (1 + np.exp((x - x_lo) / w))
+    J = A_up * pocket_up * env_up + A_lo * pocket_lo * env_lo
+    M = 0.8  # freestream Mach-like speed scale
+    uvel = M * (1 + u1 + u2 - 0.5 * J)
+    vvel = (6.0 * camber + 3.0 * a4) * q * env * s_y + 2.0 * thick * q * env * s_y * (1 - 2 * xc)
+    rho = 1 - 0.5 * (u1 + u2) + 0.55 * J
+    p = rho**_GAMMA / _GAMMA
+    E = p / (_GAMMA - 1) + 0.5 * rho * (uvel**2 + vvel**2)
+    return np.stack([rho, rho * uvel, rho * vvel, E], axis=-1).astype(np.float32)

@@ -1,4 +1,5 @@
-"""Relative-error losses and metrics (those training and evaluation use).
+"""Relative-error losses and metrics (those training and evaluation use),
+and the stepwise and whole-trajectory errors of rollouts.
 
 Per-sample, per-output-variable relative norms over the mesh axis,
 averaged over variables and **summed over the batch** (the caller divides
@@ -69,3 +70,20 @@ def rel_l1_quartiles(true: torch.Tensor, pred: torch.Tensor):
     rel = (t - q).abs().sum(dim=1) / t.abs().sum(dim=1)
     qs = torch.tensor([0.25, 0.5, 0.75], dtype=rel.dtype, device=rel.device)
     return tuple(torch.quantile(rel, qs, interpolation="linear"))
+
+
+def rel_norm_step(true: torch.Tensor, pred: torch.Tensor) -> torch.Tensor:
+    """Per-rollout-step relative L2 error of (B, ..., steps) trajectories,
+    averaged over the batch: a (steps,) vector."""
+    b, s = true.shape[0], true.shape[-1]
+    t, q = true.reshape(b, -1, s), pred.reshape(b, -1, s)
+    rel = torch.linalg.vector_norm(t - q, dim=1) / torch.linalg.vector_norm(t, dim=1)
+    return rel.mean(dim=0)
+
+
+def rel_norm_traj(true: torch.Tensor, pred: torch.Tensor) -> torch.Tensor:
+    """Whole-trajectory relative L2 error of (B, ..., steps) tensors,
+    averaged over the batch."""
+    t, q = true.reshape(true.shape[0], -1), pred.reshape(pred.shape[0], -1)
+    rel = torch.linalg.vector_norm(t - q, dim=1) / torch.linalg.vector_norm(t, dim=1)
+    return rel.mean()

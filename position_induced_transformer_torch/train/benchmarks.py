@@ -2,9 +2,11 @@
 
 Ported: ``burgers`` (a fixed periodic mesh), ``sod`` (a fixed 1-D mesh on
 [-5, 5)), ``darcy`` (a fixed 2-D grid with per-pixel normalization, at
-any ``downsampling`` of the 421^2 grid), ``elasticity`` (per-sample point
-clouds) and ``elasticity_tf`` (the TF-semantics point-cloud model);
-:func:`setup` names the others as not yet ported.
+any ``downsampling`` of the 421^2 grid), ``vorticity`` (a fixed periodic
+2-D grid, trained by 20-step rollouts), ``elasticity`` (per-sample point
+clouds), ``naca`` (per-sample airfoil shapes onto per-sample C-grids) and
+``elasticity_tf`` (the TF-semantics point-cloud model); :func:`setup`
+names the others as not yet ported.
 """
 
 from __future__ import annotations
@@ -206,6 +208,42 @@ def setup_darcy(
     )
 
 
+def setup_vorticity(
+    cfg: BenchmarkConfig, data_path=None, ntrain=None, ntest=None, *,
+    device="cuda",
+) -> Problem:
+    """Vorticity on the periodic s x s grid (endpoints excluded) down to
+    the periodic latent grid: inputs are windows of ``cfg.memory`` frames,
+    targets the next ``cfg.rollout_steps`` frames, both flattened to (n,
+    s*s, frames). The Task rolls the model out over the targets and sums
+    its per-step losses. Data stay on the host; the geometry and the model
+    live on ``device``."""
+    dev = resolve_device(device)
+    ntrain, ntest = ntrain or cfg.ntrain, ntest or cfg.ntest
+    x_tr, y_tr, x_te, y_te = loaders.vorticity(
+        data_path, ntrain, ntest, cfg.memory, cfg.rollout_steps
+    )
+    s = x_tr.shape[1]
+    mesh = meshes.grid_2d(s, endpoint=False).reshape(-1, 2)
+    mesh_ltt = meshes.grid_2d(cfg.latent_grid[0], endpoint=False).reshape(-1, 2)
+    geom = build_geometry(
+        mesh, mesh_ltt, mesh, metric=cfg.metric,
+        en_loc=cfg.model.en_loc, de_loc=cfg.model.de_loc, device=dev,
+    )
+    model = _make_model(cfg, torch.Generator().manual_seed(cfg.seed)).to(dev)
+    task = Task(
+        model=model, loss_p=cfg.loss_p, out_dim=cfg.model.out_dim,
+        swap_loss_args=cfg.swap_loss_args, rollout_steps=cfg.rollout_steps,
+        trajectory_loss=cfg.trajectory_loss,
+    )
+    flat = lambda a: np.ascontiguousarray(a.reshape(a.shape[0], s * s, a.shape[-1]))
+    return Problem(
+        cfg, model, task, geom,
+        {"x": flat(x_tr), "y": flat(y_tr)}, {"x": flat(x_te), "y": flat(y_te)},
+        ntrain, ntest, extras={"s": s},
+    )
+
+
 def setup_elasticity(
     cfg: BenchmarkConfig, data_path=None, ntrain=None, ntest=None, n_points=972, *,
     device="cuda",
@@ -285,6 +323,81 @@ def setup_elasticity(
         {"x": X_te, "mesh": ext_te, "y": Y_te, **extras_te},
         ntrain, ntest,
     )
+
+
+def setup_naca(
+    cfg: BenchmarkConfig, data_path=None, ntrain=None, ntest=None, *,
+    device="cuda",
+) -> Problem:
+    """NACA on per-sample meshes: each sample's airfoil shape points (``x``,
+    also the encoder's source cloud ``mesh_in``) onto a latent cloud, the
+    strided slice ``X[:, ::4, ::4][:, :56, :13]`` of its own C-grid, and
+    back out to the whole C-grid (``mesh_out``, 221 x 51 = 11,271 points).
+
+    The meshes are constant across training, so the per-row thresholds are
+    data: computed here on ``device`` (``thr_down`` and ``thr_up``). The
+    C-grid's index order is spatially coherent, so each 256-row tile of the
+    decoder keeps a narrow range of latent columns: a plain (not circular)
+    band ``band_up`` with one width shared by both splits. The encoder has
+    no band. A batch without the thresholds (a deployment input) has them
+    computed per step. Data stay on the host; the model lives on
+    ``device``."""
+    dev = resolve_device(device)
+    ntrain, ntest = ntrain or cfg.ntrain, ntest or cfg.ntest
+    c_tr, X_tr, Y_tr, c_te, X_te, Y_te = loaders.naca(
+        data_path, ntrain, ntest, nx=cfg.grid[0], ny=cfg.grid[1]
+    )
+    xd = yd = 4  # the latent slice's strides
+    x_res, y_res = cfg.latent_grid
+    m = cfg.model
+    on_dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def prep(coords, X, Y):
+        ltt = X[:, ::xd, ::yd, :][:, :x_res, :y_res, :].reshape(X.shape[0], -1, 2)
+        d = {"x": coords, "mesh_in": coords,  # one array
+             "mesh_ltt": np.ascontiguousarray(ltt),
+             "mesh_out": np.ascontiguousarray(X.reshape(X.shape[0], -1, 2)), "y": Y}
+        mesh_in, mesh_ltt, mesh_out = (on_dev(d[k]) for k in ("mesh_in", "mesh_ltt", "mesh_out"))
+        thr_down = batched_topk_thresholds(mesh_ltt, mesh_in, m.en_loc, cfg.metric)
+        thr_up = batched_topk_thresholds(mesh_out, mesh_ltt, m.de_loc, cfg.metric, chunk=16)
+        dev_meshes = (mesh_out, mesh_ltt, thr_up)
+        for k, t in (("thr_down", thr_down), ("thr_up", thr_up)):
+            if t is not None:
+                d[k] = t.cpu().numpy()
+        return d, dev_meshes
+
+    (d_tr, m_tr), (d_te, m_te) = prep(c_tr, X_tr, Y_tr), prep(c_te, X_te, Y_te)
+    band_width = None
+    if "thr_up" in d_tr:
+        tlo = band_tile_rows(d_tr["mesh_out"].shape[1])
+        band = lambda mm, width=None: batched_band_starts(
+            *mm, tlo, cfg.metric, chunk=16, width=width)
+        b_tr = band(m_tr)
+        b_te = None if b_tr is None else band(m_te, b_tr[1])
+        if b_te is not None:
+            band_width = max(b_tr[1], b_te[1])
+            if b_tr[1] < band_width:  # re-clamp to the common width
+                b_tr = band(m_tr, band_width)
+            d_tr["band_up"], d_te["band_up"] = b_tr[0].numpy(), b_te[0].numpy()
+    model = _make_model(cfg, torch.Generator().manual_seed(cfg.seed)).to(dev)
+
+    def geom_fn(batch):
+        g = build_geometry(
+            batch["mesh_in"], batch["mesh_ltt"], batch["mesh_out"], metric=cfg.metric,
+            en_loc=m.en_loc, de_loc=m.de_loc, device=batch["mesh_in"].device, lazy=True,
+        )
+        starts = batch.get("band_up")
+        return dataclasses.replace(
+            g, thr_down=batch.get("thr_down"), thr_up=batch.get("thr_up"),
+            band_up=None if starts is None or band_width is None else BandSpec(starts, band_width),
+        )
+
+    task = Task(
+        model=model, loss_p=cfg.loss_p, out_dim=m.out_dim,
+        swap_loss_args=cfg.swap_loss_args, geom_fn=geom_fn,
+        geometry_required_keys=("mesh_in", "mesh_ltt", "mesh_out"),
+    )
+    return Problem(cfg, model, task, None, d_tr, d_te, ntrain, ntest)
 
 
 def setup_elasticity_tf(
@@ -375,7 +488,9 @@ SETUPS = {
     "burgers": setup_burgers,
     "sod": setup_sod,
     "darcy": setup_darcy,
+    "vorticity": setup_vorticity,
     "elasticity": setup_elasticity,
+    "naca": setup_naca,
     "elasticity_tf": setup_elasticity_tf,
 }
 

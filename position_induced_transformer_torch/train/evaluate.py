@@ -11,7 +11,12 @@ with the checkpoint's statistics, resized to the input's own grid. A benchmark o
 (elasticity) also needs each sample's coordinates: its input is a
 ``.mat`` or ``.h5`` that holds them beside ``x`` (variable ``mesh``).
 elasticity_tf reads them from ``x`` and computes its locality thresholds
-per call, so a bare ``.npy`` serves it.
+per call, so a bare ``.npy`` serves it. naca's input is a ``.mat`` holding
+the shape points ``x`` and the three meshes ``mesh_in``, ``mesh_ltt`` and
+``mesh_out``; its thresholds are computed per call where the input has
+none. An autoregressive benchmark (vorticity) rolls each input window
+forward ``rollout_steps`` steps (default: its configured horizon), and its
+:func:`evaluate` gives stepwise rollout errors.
 """
 
 from __future__ import annotations
@@ -23,10 +28,13 @@ import numpy as np
 import torch
 
 from position_induced_transformer_torch.configs import get
+from position_induced_transformer_torch.ops.locality import batched_topk_thresholds
 from position_induced_transformer_torch.ops.metrics import (
     rel_l1_quartiles,
     rel_lp_norm,
     rel_max_norm,
+    rel_norm_step,
+    rel_norm_traj,
 )
 from position_induced_transformer_torch.ops.normalization import PixelWiseNormalizer
 from position_induced_transformer_torch.train import benchmarks
@@ -246,10 +254,14 @@ class Predictor:
             raise ValueError(f"batch_size must be >= 1, got {batch_size}")
         return batch_size or self.cfg.eval_batch_size or self.cfg.batch_size
 
-    def predict_array(self, data: dict, batch_size: Optional[int] = None) -> np.ndarray:
+    def predict_array(
+        self, data: dict, rollout_steps: int = 0, batch_size: Optional[int] = None,
+    ) -> np.ndarray:
         """Predictions over a prepared batch dict (padded-tail batching:
         every sample covered, one batch shape); every variable of the dict
-        is gathered per batch."""
+        is gathered per batch. ``rollout_steps`` > 0: each window rolled
+        forward that many steps, (n, L, out_dim, steps) as
+        :meth:`Task.rollout` lays it out."""
         n = int(np.shape(data["x"])[0])
         bs = self._batch_size(batch_size)
         task, geom = self.problem.task, self.problem.geom
@@ -260,7 +272,11 @@ class Predictor:
                     k: torch.from_numpy(np.ascontiguousarray(np.asarray(v)[idx])).to(self.device)
                     for k, v in data.items()
                 }
-                outs.append(task.forward(geom, batch).cpu().numpy())
+                if rollout_steps:
+                    out = task.rollout(geom, batch["x"], rollout_steps)
+                else:
+                    out = task.forward(geom, batch)
+                outs.append(out.cpu().numpy())
         return np.concatenate(outs, axis=0)[:n]
 
     def prepare_file(self, input_path: str, input_key: str = "x") -> dict:
@@ -280,9 +296,12 @@ class Predictor:
 
     def predict_file(
         self, input_path: str, input_key: str = "x",
-        batch_size: Optional[int] = None,
+        rollout_steps: Optional[int] = None, batch_size: Optional[int] = None,
     ) -> np.ndarray:
-        return self.predict_array(self.prepare_file(input_path, input_key), batch_size)
+        """Predictions for an input file; ``rollout_steps`` defaults to the
+        benchmark's horizon."""
+        steps = self.cfg.rollout_steps if rollout_steps is None else rollout_steps
+        return self.predict_array(self.prepare_file(input_path, input_key), steps, batch_size)
 
 
 def infer(
@@ -292,20 +311,24 @@ def infer(
     input_key: str = "x",
     output_path: Optional[str] = None,
     batch_size: Optional[int] = None,
+    rollout_steps: Optional[int] = None,
     data_path: Optional[str] = None,
     setup_kwargs: Optional[dict] = None,
     device="cuda",
 ) -> dict:
     """One-shot inference on an input file; writes ``.npy`` or ``.mat``
-    (variable ``pred``) when ``output_path`` is given. ``setup_kwargs`` as
-    for :class:`Predictor`."""
+    (variable ``pred``) when ``output_path`` is given. ``rollout_steps``:
+    the horizon of an autoregressive benchmark (default: its configured
+    one). ``setup_kwargs`` as for :class:`Predictor`."""
     if output_path and not output_path.endswith((".npy", ".mat")):
         raise ValueError(
             f"unsupported output format {output_path!r} (expected .npy or .mat)"
         )
     predictor = Predictor(config, checkpoint_path, data_path=data_path,
                           setup_kwargs=setup_kwargs, device=device)
-    pred = predictor.predict_file(input_path, input_key, batch_size=batch_size)
+    steps = predictor.cfg.rollout_steps if rollout_steps is None else rollout_steps
+    pred = predictor.predict_file(input_path, input_key, rollout_steps=steps,
+                                  batch_size=batch_size)
     if output_path and output_path.endswith(".npy"):
         np.save(output_path, pred)
     elif output_path:
@@ -316,6 +339,7 @@ def infer(
         "benchmark": predictor.cfg.name,
         "n": int(pred.shape[0]),
         "pred_shape": [int(s) for s in pred.shape],
+        "rollout_steps": int(steps),
         "output": output_path,
     }
 
@@ -328,6 +352,105 @@ def _restore(checkpoint_path: str, cfg) -> dict:
             f"{restored['config']!r}, not {cfg.name!r}"
         )
     return restored
+
+
+def _shuffle_perm(n: int) -> np.ndarray:
+    """A seeded random n-cycle (no sample keeps its own input): pairings
+    uniform over the test set and reproducible."""
+    if n < 2:
+        raise ValueError(
+            "input_shuffle_ablation needs >= 2 test samples: with n=1 the "
+            "only permutation is the identity, so the probe would compare "
+            "the model against its own true pairing and report zero "
+            "inflation regardless of whether the input is used"
+        )
+    order = np.random.default_rng(0).permutation(n)
+    perm = np.empty(n, dtype=np.int64)
+    perm[order] = np.roll(order, 1)
+    return perm
+
+
+def input_shuffle_ablation(problem, pred_true=None) -> dict:
+    """Whether a one-step model reads its input function: the test rel-L2
+    (per-sample mean) with the true inputs and with the inputs shuffled
+    across test samples by :func:`_shuffle_perm`, targets and geometry
+    fixed.
+
+    - ``naca``: the input shape is also the encoder's source cloud, so it
+      moves with the inputs, and the encoder thresholds are recomputed for
+      the new pairing (the model sees a consistent geometry);
+    - ``elasticity``: only the void-radius channels (2 on) move, the
+      cloud's coordinates stay with their targets;
+    - otherwise the input frame ``x`` moves.
+    """
+    cfg = problem.config
+    data = dict(problem.test_data)
+    n = int(np.shape(data["y"])[0])
+    perm = _shuffle_perm(n)
+    if cfg.name.startswith("naca") and "mesh_in" in data:
+        shuf = np.ascontiguousarray(np.asarray(data["x"])[perm])
+        data["x"] = data["mesh_in"] = shuf
+        if "thr_down" in data:
+            dev = next(problem.model.parameters()).device
+            on = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            data["thr_down"] = batched_topk_thresholds(
+                on(data["mesh_ltt"]), on(shuf), cfg.model.en_loc, cfg.metric
+            ).cpu().numpy()
+    elif cfg.name.startswith("elasticity") and np.ndim(data["x"]) == 3 and data["x"].shape[-1] > 2:
+        x = np.array(data["x"])
+        x[:, :, 2:] = x[perm][:, :, 2:]
+        data["x"] = x
+    else:
+        data["x"] = np.asarray(data["x"])[perm]
+    if pred_true is None:
+        pred_true = runner.predict(problem)
+    pred_shuf = runner.predict(problem, data=data)
+    y = np.asarray(problem.test_data["y"])
+
+    def rl2(p):  # predictions are mesh-flattened, targets may be grids
+        p = np.asarray(p).reshape(y.shape[0], -1, y.shape[-1])
+        yy = y.reshape(y.shape[0], -1, y.shape[-1])
+        num = np.sqrt(((p - yy) ** 2).sum(1))
+        den = np.sqrt((yy**2).sum(1)) + 1e-30
+        return round(float((num / den).mean()), 6)
+
+    return {"true_relL2": rl2(pred_true), "shuffled_inputs_relL2": rl2(pred_shuf)}
+
+
+def _evaluate_rollout(cfg, problem, zssr: bool, save_pred: Optional[str]) -> dict:
+    """The rollout metrics of an autoregressive benchmark: each test
+    window rolled ``cfg.rollout_steps`` steps in padded batches of the eval
+    batch size; the per-step relative L2 error (mean over samples), its
+    mean over steps, and the whole-trajectory error."""
+    steps = cfg.rollout_steps
+    bs = min(cfg.eval_batch_size or cfg.batch_size, problem.n_test)
+    x = np.asarray(problem.test_data["x"])
+    n = x.shape[0]
+    dev = next(problem.model.parameters()).device
+    problem.model.eval()
+    preds = []
+    with torch.inference_mode():
+        for idx in padded_batches(n, bs):
+            xb = torch.from_numpy(np.ascontiguousarray(x[idx])).to(dev)
+            preds.append(problem.task.rollout(problem.geom, xb, steps).cpu().numpy())
+    pred = np.concatenate(preds, axis=0)[:n]  # (n, L, out_dim, steps)
+    true = np.asarray(problem.test_data["y"])[:n]
+    t, p = torch.from_numpy(np.ascontiguousarray(true)), torch.from_numpy(pred)
+    step_err = rel_norm_step(t, p).numpy()
+    result = {
+        "benchmark": cfg.name,
+        "n_test": int(n),
+        "zssr": zssr,
+        "rollout_steps": steps,
+        "rel_l2_step": [float(v) for v in step_err],
+        "rel_l2_traj": float(rel_norm_traj(t, p)),
+        "rel_l2_mean_step": float(step_err.mean()),
+    }
+    if save_pred:
+        from scipy.io import savemat
+
+        savemat(save_pred, {"pred": pred, "true": true})
+    return result
 
 
 def evaluate(
@@ -355,14 +478,24 @@ def evaluate(
     come from the checkpoint (refitted on the training split where it has
     none); with them, the training split is cut to ``ntest`` samples,
     since nothing reads it. ``save_pred``: a ``.mat`` with ``pred`` and
-    ``true``. ``plots_dir``, ``mesh``, ``model_variant``,
-    ``shuffle_ablation`` and rollout benchmarks are not ported.
+    ``true``. ``shuffle_ablation=True`` adds :func:`input_shuffle_ablation`
+    (one-step benchmarks only: a rollout benchmark refuses it).
+
+    An autoregressive benchmark (vorticity) gives its rollout metrics
+    instead: ``rel_l2_step`` per step, ``rel_l2_mean_step`` and
+    ``rel_l2_traj``. ``plots_dir``, ``mesh`` and ``model_variant`` are not
+    ported.
     """
     runner._not_ported("evaluate", plots_dir=plots_dir, mesh=mesh,
-                       model_variant=model_variant, shuffle_ablation=shuffle_ablation)
+                       model_variant=model_variant)
     cfg = get(config) if isinstance(config, str) else config
-    if cfg.rollout_steps:
-        raise NotImplementedError("evaluate: rollout evaluation is not ported yet")
+    if cfg.rollout_steps and shuffle_ablation:
+        raise ValueError(
+            "--shuffle-ablation probes the one-step operator map; "
+            f"{cfg.name!r} evaluates an in-graph rollout (shuffling "
+            "the initial frame would measure trajectory divergence, "
+            "not input use)"
+        )
     restored = _restore(checkpoint_path, cfg)
     setup_kwargs = dict(setup_kwargs or {})
     if zssr:
@@ -378,6 +511,8 @@ def evaluate(
         cfg, data_path, ntrain=ntrain, ntest=ntest, device=device, **setup_kwargs
     )
     problem.model.load_state_dict(restored["state_dict"])
+    if cfg.rollout_steps:
+        return _evaluate_rollout(cfg, problem, zssr, save_pred)
     pred = runner.predict(problem)
     n = pred.shape[0]
     true = np.asarray(problem.test_data["y"])[:n]
@@ -393,6 +528,8 @@ def evaluate(
         "rel_max": float(rel_max_norm(t, p, out_dim)) / n,
         "rel_l1_quartiles": [float(q25), float(q50), float(q75)],
     }
+    if shuffle_ablation:
+        result["shuffle_ablation"] = input_shuffle_ablation(problem, pred_true=pred)
     if save_pred:
         from scipy.io import savemat
 

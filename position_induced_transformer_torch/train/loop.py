@@ -14,20 +14,44 @@ loop sets each step's learning rate from it. ``torch.optim``'s
 ``CosineAnnealingLR`` is not used: its recursive update drifts from the
 closed form.
 
-Ported: non-rollout tasks, the ``adam`` optimizer and the keras Adam of
-the TF family (:class:`KerasAdam`). Rollout training raises "not ported".
+Autoregressive tasks (``rollout_steps > 0``: vorticity) train by
+backpropagation through the whole unrolled rollout, each rollout step's
+forward checkpointed by ``torch.utils.checkpoint`` as ``Task.remat_rollout``
+says. The optimizers: ``adam`` and the keras Adam of the TF family
+(:class:`KerasAdam`).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
 from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
 
 from position_induced_transformer_torch.ops.metrics import rel_lp_norm
+
+_REMAT_MODES = {True: "full", "full": "full", "1": "full", "true": "full",
+                "dots": "dots",
+                False: "none", "none": "none", "0": "none", "false": "none"}
+
+
+def _dots_saveable():
+    """Selective checkpointing that keeps the outputs of the matmuls
+    (``aten.mm``, ``aten.addmm``, ``aten.bmm``) and recomputes everything
+    else, the counterpart of ``jax.checkpoint_policies.dots_saveable``. A
+    kernel launched through ctypes is no aten op: its output is recomputed,
+    as a Pallas output is under ``dots_saveable``."""
+    from torch.utils.checkpoint import CheckpointPolicy, create_selective_checkpoint_contexts
+
+    saved = {torch.ops.aten.mm.default, torch.ops.aten.addmm.default, torch.ops.aten.bmm.default}
+
+    def policy(ctx, op, *args, **kwargs):
+        return CheckpointPolicy.MUST_SAVE if op in saved else CheckpointPolicy.PREFER_RECOMPUTE
+
+    return create_selective_checkpoint_contexts(policy)
 
 
 @dataclasses.dataclass
@@ -59,19 +83,42 @@ class Task:
     # batch's x only, as a deployment input carries no more
     apply_fn: Optional[Callable] = None
     keras_adam: bool = False  # train with KerasAdam (make_optimizer "keras")
+    # BPTT memory against recompute, per rollout step: True / "full"
+    # checkpoints the step's forward and recomputes all of it in the
+    # backward; "dots" keeps the matmul outputs and recomputes the rest;
+    # False / "none" keeps every activation. PIT_ROLLOUT_REMAT overrides it
+    remat_rollout: Any = True
+    # the TF rollout convention: one loss over the trajectory, the mean over
+    # steps of the stepwise error (else the per-step losses are summed)
+    trajectory_loss: bool = False
 
     def _geometry(self, geom, batch):
         return self.geom_fn(batch) if self.geom_fn is not None else geom
 
-    def forward(self, geom, batch):
-        geom = self._geometry(geom, batch)
+    def _apply(self, geom, x):
         if self.apply_fn is not None:
-            out = self.apply_fn(self.model, geom, {"x": batch["x"]})
-        else:
-            out = self.model(geom, batch["x"])
+            return self.apply_fn(self.model, geom, {"x": x})
+        return self.model(geom, x)
+
+    def forward(self, geom, batch):
+        out = self._apply(self._geometry(geom, batch), batch["x"])
         if self.postprocess is not None:
             out = self.postprocess(out)
         return out
+
+    def remat_mode(self) -> str:
+        """``"full"``, ``"dots"`` or ``"none"``, from ``PIT_ROLLOUT_REMAT``
+        when it is set, else from ``remat_rollout``; any other value raises
+        ``ValueError``."""
+        mode = os.environ.get("PIT_ROLLOUT_REMAT") or self.remat_rollout
+        try:
+            return _REMAT_MODES[mode]
+        except (KeyError, TypeError):
+            raise ValueError(
+                f"unrecognized PIT_ROLLOUT_REMAT/remat_rollout value "
+                f"{mode!r}; expected full|dots|none (a typo here would "
+                "silently store all BPTT activations)"
+            ) from None
 
     def _loss(self, true, pred, weights=None):
         """Batch-summed relative-Lp loss; ``weights`` masks padded eval
@@ -86,14 +133,82 @@ class Task:
             loss = loss / denom
         return loss
 
+    def rollout_preds(self, geom, batch):
+        """The unrolled autoregressive predictions, through which gradients
+        flow: ``rollout_steps`` forwards, each fed the window of the last
+        ``memory`` frames with its predecessor's output appended, laid out
+        as ``batch["y"]``. Under autograd each step's forward is
+        checkpointed as :meth:`remat_mode` says (``torch.utils.checkpoint``,
+        non-reentrant); ``postprocess`` applies to each step's output, which
+        is both fed back and scored. The JAX package's ``PIT_ROLLOUT_UNROLL``
+        (the unroll factor of its rollout scan) has no counterpart in this
+        eager loop."""
+        from torch.utils.checkpoint import checkpoint
+
+        g = self._geometry(geom, batch)
+        mode = self.remat_mode()
+        apply = lambda w: self._apply(g, w)
+        if torch.is_grad_enabled() and mode != "none":
+            kw = {"context_fn": _dots_saveable} if mode == "dots" else {}
+            step = lambda w: checkpoint(apply, w, use_reentrant=False, **kw)
+        else:
+            step = apply
+        window, outs = batch["x"], []
+        for _ in range(self.rollout_steps):
+            out = step(window)
+            if self.postprocess is not None:
+                out = self.postprocess(out)
+            window = torch.cat([window[..., 1:], out], dim=-1)
+            outs.append(out)
+        return torch.stack(outs, dim=-1).reshape(batch["y"].shape)
+
+    def stepwise_rel(self, y, pred, swap: bool = False):
+        """The per-sample per-step relative Lp error (B, steps) of (B, ...,
+        steps) trajectories; ``swap`` normalises by the prediction (the
+        reference's (pred, true) argument order)."""
+        b, s = y.shape[0], y.shape[-1]
+        t, q = y.reshape(b, -1, s), pred.reshape(b, -1, s)
+        if swap:
+            t, q = q, t
+        if self.loss_p == 1:
+            return (t - q).abs().sum(dim=1) / t.abs().sum(dim=1)
+        if self.loss_p == 2:
+            return torch.linalg.vector_norm(t - q, dim=1) / torch.linalg.vector_norm(t, dim=1)
+        p = float(self.loss_p)
+        num = ((t - q).abs() ** p).sum(dim=1) ** (1.0 / p)
+        return num / (t.abs() ** p).sum(dim=1) ** (1.0 / p)
+
     def loss_fn(self, geom, batch):
-        """Batch-summed training loss (divide by the sample count outside)."""
-        if self.rollout_steps:
-            raise NotImplementedError(
-                "rollout training is not ported yet (it lands with the other "
-                "fixed-mesh benchmarks)"
-            )
-        return self._loss(batch["y"], self.forward(geom, batch))
+        """Batch-summed training loss (divide by the sample count outside).
+        A rollout task sums its per-step losses (the torch convention), or
+        with ``trajectory_loss`` takes their mean over the steps."""
+        if not self.rollout_steps:
+            return self._loss(batch["y"], self.forward(geom, batch))
+        pred = self.rollout_preds(geom, batch)
+        rel = self.stepwise_rel(batch["y"], pred, swap=self.swap_loss_args)
+        loss = rel.mean(dim=-1).sum() if self.trajectory_loss else rel.sum()
+        if self.batch_mean_loss:
+            loss = loss / rel.shape[0]
+        return loss
+
+    def rollout(self, geom, x, steps: int):
+        """Autoregressive prediction from the windows ``x``: (B, L,
+        out_dim, steps), each step's output stacked on a last axis. A
+        rollout task feeds the window back; a one-step residual model
+        (cylinder: as many outputs as inputs) takes its output as the next
+        input."""
+        g = self._geometry(geom, {"x": x})
+        window, outs = x, []
+        for _ in range(steps):
+            out = self._apply(g, window)
+            if self.postprocess is not None:
+                out = self.postprocess(out)
+            if self.rollout_steps or window.shape[-1] > out.shape[-1]:
+                window = torch.cat([window[..., 1:], out], dim=-1)
+            else:
+                window = out
+            outs.append(out)
+        return torch.stack(outs, dim=-1)
 
 
 def make_lr_schedule(
@@ -224,13 +339,24 @@ def make_eval_epoch(task: Task, metrics: Optional[dict] = None):
     ``torch.inference_mode``. ``metrics`` maps names to
     ``fn(true, pred, weights=...)`` with batch-summed outputs; the default
     is the task loss (batch-summed even for ``batch_mean_loss`` tasks).
-    Positions of ``perm`` at or past ``n_valid`` (default: the dataset
-    size) are the padded tail of :func:`eval_permutation` and weigh 0.
-    Sums stay on the device."""
+    A rollout task ignores ``metrics``: one unroll gives its ``loss``,
+    ``rel_l2_step`` (the mean over steps of the stepwise error) and
+    ``rel_l2_final`` (the last step's). Positions of ``perm`` at or past
+    ``n_valid`` (default: the dataset size) are the padded tail of
+    :func:`eval_permutation` and weigh 0. Sums stay on the device."""
+
+    def rollout_sums(geom, batch, w):
+        pred = task.rollout_preds(geom, batch)
+        rel_loss = task.stepwise_rel(batch["y"], pred, swap=task.swap_loss_args)
+        if task.trajectory_loss:
+            loss = (w * rel_loss.mean(dim=-1)).sum()
+        else:
+            loss = (w[:, None] * rel_loss).sum()
+        rel = task.stepwise_rel(batch["y"], pred)  # the true denominator
+        return {"loss": loss, "rel_l2_step": (w * rel.mean(dim=-1)).sum(),
+                "rel_l2_final": (w * rel[:, -1]).sum()}
 
     def eval_epoch(geom, data, perm, n_valid=None):
-        if task.rollout_steps:
-            raise NotImplementedError("rollout evaluation is not ported yet")
         if n_valid is None:
             n_valid = next(iter(data.values())).shape[0]
         task.model.eval()
@@ -240,13 +366,15 @@ def make_eval_epoch(task: Task, metrics: Optional[dict] = None):
         with torch.inference_mode():
             for idx, w in zip(perm, wts):
                 batch = _gather(data, idx)
-                pred = task.forward(geom, batch)
-                if metrics is None:
-                    loss = task._loss(batch["y"], pred, weights=w)
+                if task.rollout_steps:
+                    vals = rollout_sums(geom, batch, w)
+                elif metrics is None:
+                    loss = task._loss(batch["y"], task.forward(geom, batch), weights=w)
                     if task.batch_mean_loss:
                         loss = loss * w.sum()
                     vals = {"loss": loss}
                 else:
+                    pred = task.forward(geom, batch)
                     vals = {n: fn(batch["y"], pred, weights=w) for n, fn in metrics.items()}
                 for n, v in vals.items():
                     sums[n] = sums[n] + v if n in sums else v

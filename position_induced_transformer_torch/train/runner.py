@@ -154,7 +154,8 @@ def train(
     to_dev = lambda d: {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for k, v in d.items()}
     train_data, test_data = to_dev(problem.train_data), to_dev(problem.test_data)
     train_epoch = make_train_epoch(problem.task, schedule, grad_accum)
-    metrics = default_metrics(cfg.model.out_dim)
+    # a rollout task's eval epoch gives its own stepwise set
+    metrics = None if cfg.rollout_steps else default_metrics(cfg.model.out_dim)
     eval_epoch = make_eval_epoch(problem.task, metrics)
     eval_bs = min(cfg.eval_batch_size or cfg.batch_size, problem.n_test)
     eval_perm = eval_permutation(problem.n_test, eval_bs).to(dev)
@@ -176,6 +177,11 @@ def train(
         for ep, loss, evals in rows:
             row = {"epoch": ep, "seconds": dt, "train_loss": loss / denom,
                    **{k: v / problem.n_test for k, v in evals.items()}}
+            if cfg.rollout_steps and not problem.task.trajectory_loss:
+                # summed per-step losses, reported per step (the stepwise
+                # metrics are means over steps already)
+                row["loss"] /= cfg.rollout_steps
+                row["train_loss"] /= cfg.rollout_steps
             history.append(row)
             if verbose:
                 print(ep, f"{dt:.3f}", f"{row['train_loss']:.6f}",

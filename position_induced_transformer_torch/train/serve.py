@@ -9,14 +9,20 @@
   plain ``.h5`` in native layout (MATLAB v7.3 files start with a v5-style
   header and go the ``.mat`` way); HDF5 needs the optional h5py. Query
   parameters: ``key`` (input variable, default ``x``), ``batch_size``,
-  ``format`` (``npy`` or ``mat``). The reply is the predictions as
-  ``.npy`` bytes, or a ``.mat`` with variable ``pred``.
+  ``format`` (``npy`` or ``mat``), ``rollout_steps`` (the horizon of an
+  autoregressive benchmark, default its configured one; at most
+  ``PIT_SERVE_MAX_ROLLOUT``, default max(100, 4 x the configured one)).
+  The reply is the predictions as ``.npy`` bytes, or a ``.mat`` with
+  variable ``pred``.
   A benchmark on per-sample meshes (elasticity) takes a ``.mat`` holding
   ``x`` and ``mesh``; a bare ``.npy`` is answered with 400. elasticity_tf
   reads each cloud from its inputs' first two channels and takes a bare
   ``.npy``. darcy takes raw (n, s, s, 1) grids at the server's resolution
   (``setup_kwargs={"downsampling": ...}``), or flattened ones at the
   training resolution, normalized with the checkpoint's statistics.
+  naca takes a ``.mat`` holding ``x``, ``mesh_in``, ``mesh_ltt`` and
+  ``mesh_out``; vorticity a window of frames (n, s*s, memory) and answers
+  its rollout (n, s*s, 1, steps).
 
 Malformed requests are 400s; failures while running the model are 500s.
 Device work runs on one worker thread with dynamic batching: concurrent
@@ -27,6 +33,7 @@ from __future__ import annotations
 
 import io
 import json
+import os
 import tempfile
 import threading
 import traceback
@@ -58,18 +65,20 @@ def _sniff_suffix(body: bytes) -> str:
 
 
 class _Request:
-    __slots__ = ("data", "batch_size", "done", "result", "error")
+    __slots__ = ("data", "steps", "batch_size", "done", "result", "error")
 
-    def __init__(self, data, batch_size):
+    def __init__(self, data, steps, batch_size):
         self.data = data
+        self.steps = steps
         self.batch_size = batch_size
         self.done = threading.Event()
         self.result = None
         self.error = None
 
     def key(self):
-        # coalescible iff same batch override and per-sample shapes
+        # coalescible iff same horizon, batch override and per-sample shapes
         return (
+            self.steps,
             self.batch_size,
             tuple((k, tuple(np.shape(v)[1:])) for k, v in sorted(self.data.items())),
         )
@@ -88,8 +97,8 @@ class _Batcher:
         self._thread = threading.Thread(target=self._worker, daemon=True)
         self._thread.start()
 
-    def predict(self, data, batch_size) -> np.ndarray:
-        req = _Request(data, batch_size)
+    def predict(self, data, steps, batch_size) -> np.ndarray:
+        req = _Request(data, steps, batch_size)
         with self._cv:
             self._queue.append(req)
             self._cv.notify()
@@ -125,7 +134,7 @@ class _Batcher:
                     k: np.concatenate([np.asarray(r.data[k]) for r in reqs])
                     for k in reqs[0].data
                 }
-                out = self.predictor.predict_array(data, reqs[0].batch_size)
+                out = self.predictor.predict_array(data, reqs[0].steps, reqs[0].batch_size)
                 bs = self.predictor._batch_size(reqs[0].batch_size)
                 self.n_calls += -(-sum(sizes) // bs)
                 start = 0
@@ -178,6 +187,7 @@ class PredictHandler(BaseHTTPRequestHandler):
                 "n_blocks": m.n_blocks,
                 "in_dim": m.in_dim,
                 "out_dim": m.out_dim,
+                "rollout_steps": cfg.rollout_steps,
                 "batch_size": srv.predictor._batch_size(),
                 "input_shape": [
                     int(s) for s in np.shape(srv.predictor.problem.test_data["x"])[1:]
@@ -203,6 +213,12 @@ class PredictHandler(BaseHTTPRequestHandler):
             body = self.rfile.read(length)
             q = {k: v[-1] for k, v in parse_qs(parsed.query).items()}
             key = q.get("key", "x")
+            steps = int(q.get("rollout_steps", srv.predictor.cfg.rollout_steps))
+            if not 0 <= steps <= srv.max_rollout_steps:
+                raise ValueError(
+                    f"rollout_steps must be in [0, {srv.max_rollout_steps}] "
+                    f"(PIT_SERVE_MAX_ROLLOUT), got {steps}"
+                )
             bs = int(q["batch_size"]) if "batch_size" in q else None
             if bs is not None and bs < 1:
                 raise ValueError(f"batch_size must be >= 1, got {bs}")
@@ -220,7 +236,7 @@ class PredictHandler(BaseHTTPRequestHandler):
             self._reply_json(400, {"error": f"{type(e).__name__}: {e}"})
             return
         try:  # model execution: failures are 500s
-            pred = srv.batcher.predict(data, bs)
+            pred = srv.batcher.predict(data, steps, bs)
             with srv.lock:
                 srv.n_requests += 1
         except Exception as e:
@@ -250,6 +266,8 @@ class PredictServer(ThreadingHTTPServer):
         self.batcher = _Batcher(predictor)
         self.n_requests = 0
         self.verbose = verbose
+        self.max_rollout_steps = int(os.environ.get(
+            "PIT_SERVE_MAX_ROLLOUT", str(max(100, 4 * predictor.cfg.rollout_steps))))
 
 
 def make_server(
@@ -280,7 +298,7 @@ def make_server(
         keys = {"x"} | set(predictor.required_keys)
         data = {k: np.asarray(v) for k, v in predictor.problem.test_data.items() if k in keys}
         idx = np.minimum(np.arange(predictor._batch_size()), data["x"].shape[0] - 1)
-        predictor.predict_array({k: v[idx] for k, v in data.items()})
+        predictor.predict_array({k: v[idx] for k, v in data.items()}, predictor.cfg.rollout_steps)
     return PredictServer((host, port), predictor, verbose=verbose)
 
 

@@ -40,8 +40,10 @@ statistics out), #2 (the same C interfaces; their scratch from the
 parent's plan entry, before it took the version) and its v1 and v2
 (before they took M, L, scratch and counters). A source that
 includes posatt_fixed_common.cuh is built with the header inlined, so a
-variant may change it. Run from the repository root on a machine with the
-card and nvcc.
+variant may change it. ``--old-parent CSRC``: the fixed-mesh forward #1
+of an older tree whose #1 writes no row statistics (``posatt_fixed_fwd.cu``
+in CSRC, its C interface taking dist, thr, scale, u, out and the shape),
+timed as one more variant of posatt_fixed_fwd at the ``fwd`` calls. Run from the repository root on a machine with the card and nvcc.
 """
 
 from __future__ import annotations
@@ -111,6 +113,21 @@ FIXED_DU_SLABS = "  if (du) p.ns = slabs > 8 ? 2 : (slabs >= 3 ? 4 : (slabs >= 2
 
 FIXED_RC1 = "constexpr int RC1 = 64;"
 FIXED_HB = "  p.hb = version == 3 ? head_group(H) : 1;"
+FIXED_SPLIT_FLOOR = "  if (want < 1) want = 1;\n"
+# version 3's forward at a grid of one partial wave: split L_in in two where
+# the blocks a SM gets (the busiest SM's share of the work, in halves of an
+# unsplit block) fall by a tenth or more, against the card's own SM count
+SM_BALANCE = FIXED_SPLIT_FLOOR + """\
+  if (kind == FWD && version == 3 && want == 1 && groups >= 2) {
+    static const long long sms = [] {
+      int dev = 0, n = 0;
+      return cudaGetDevice(&dev) == cudaSuccess &&
+             cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) == cudaSuccess && n > 0
+             ? (long long)n : 132LL;
+    }();
+    if (10 * ((2 * base + sms - 1) / sms) <= 9 * 2 * ((base + sms - 1) / sms)) want = 2;
+  }
+"""
 WALK_WARPS = "constexpr int WALK_WARPS = 2 * TARGET_WARPS;"
 WALK_COLS = "constexpr int WALK_COLS = 32;"
 WALK_RULE = "  p.walk = kind != FWD || version == 3 || slabs > 1 ? 0"
@@ -221,6 +238,9 @@ VARIANTS = {
         # a head a block (and four slabs) where the values are 1024 columns
         # or wider: half the exps a block, the distances scanned once a head
         "one_head_wide": [(FIXED_HB, FIXED_HB + "\n  if (kind == FWD && slabs >= 16) p.hb = 1;")],
+        # two splits of L_in where one wave of blocks leaves the SMs uneven
+        # (the vorticity processor: 320 blocks of 4 warps on 132 SMs)
+        "sm_balance": [(FIXED_SPLIT_FLOOR, SM_BALANCE)],
     },
     "posatt_fixed_fwd_v12": {
         "base": [],
@@ -410,8 +430,12 @@ def fixed_fwd_calls(c, rng) -> dict:
             kp._launch(kp._entry("posatt_fixed_fwd", "posatt_stats", 7, 5), "parent #2",
                        a[0].device, *a, scr, cnt, *dims)
 
+        def old_parent_fwd(a=(dist, thr, scale, u, out), dims=(H, B, Lo, Li, D)):
+            kp._launch(kp._entry("posatt_fixed_fwd", "posatt_fixed_fwd", 5, 5), "old parent #1",
+                       a[0].device, *a, *dims)
+
         calls[(op, "fwd")] = {"new": lambda a=(dist, thr, scale, u): kp.posatt_fixed_cuda(*a),
-                              "parent": lambda f=parent_fwd: f(False)}
+                              "parent": lambda f=parent_fwd: f(False), "old_parent": old_parent_fwd}
         calls[(op, "fwd_stats")] = {
             "new": lambda a=(dist, thr, scale, u): kp.posatt_fixed_cuda(*a, stats=True),
             "parent": lambda f=parent_fwd: f(True)}
@@ -465,7 +489,7 @@ def fixed_v12_calls(c, rng) -> dict:
     return calls
 
 
-def main(sources, parent=None, only=None) -> int:
+def main(sources, parent=None, only=None, old_parent=None) -> int:
     import numpy as np
     import torch
 
@@ -520,9 +544,12 @@ def main(sources, parent=None, only=None) -> int:
     if parent is not None:
         for src in sources:
             VARIANTS[src]["parent"] = (Path(parent) / f"{SOURCE.get(src, src)}.cu", [])
+    if old_parent is not None and "posatt_fixed_fwd" in sources:
+        VARIANTS["posatt_fixed_fwd"]["old_parent"] = (Path(old_parent) / "posatt_fixed_fwd.cu", [])
     if only is not None:
         for src in sources:
-            VARIANTS[src] = {k: v for k, v in VARIANTS[src].items() if k == "base" or k in only}
+            VARIANTS[src] = {k: v for k, v in VARIANTS[src].items()
+                             if k in ("base", "old_parent") or k in only}
     with tempfile.TemporaryDirectory() as tmp:
         libs = build(Path(tmp), sources)
         fixed_fwd = fixed_fwd_calls(c, rng) if "posatt_fixed_fwd" in sources else {}
@@ -540,8 +567,8 @@ def main(sources, parent=None, only=None) -> int:
                 if src in ("posatt_fixed_bwd", "posatt_fixed_fwd", "posatt_fixed_fwd_v12"):
                     calls = {"posatt_fixed_bwd": fixed, "posatt_fixed_fwd": fixed_fwd,
                              "posatt_fixed_fwd_v12": fixed_v12}[src]
-                    timed[src] = {key: fns["parent" if name == "parent" else "new"]
-                                  for key, fns in calls.items()}
+                    pick = name if name in ("parent", "old_parent") else "new"
+                    timed[src] = {key: fns[pick] for key, fns in calls.items() if pick in fns}
                 only = ONLY.get((src, name))
                 if only is not None and name not in checked:
                     got = c.tf_launch(*tf_shapes["serve_processor"][:2])
@@ -573,9 +600,11 @@ if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", help="a directory of kernel sources to time as one more variant")
     ap.add_argument("--variants", help="comma-separated variants to time beside base (default: all)")
+    ap.add_argument("--old-parent", help="a directory holding an older posatt_fixed_fwd.cu whose "
+                    "#1 writes no row statistics, to time through its own C interface")
     ap.add_argument("sources", nargs="*", help=f"targets among {', '.join(VARIANTS)} (default: all)")
     args = ap.parse_args()
     if set(args.sources) - set(VARIANTS):
         ap.error(f"unknown sources {sorted(set(args.sources) - set(VARIANTS))}")
     only = set(args.variants.split(",")) if args.variants else None
-    sys.exit(main(args.sources or list(VARIANTS), args.parent, only))
+    sys.exit(main(args.sources or list(VARIANTS), args.parent, only, args.old_parent))

@@ -1,7 +1,9 @@
 """The CUDA kernels against their plain versions, on the card: the
 fixed-mesh kernels #1-#4 and the schedule variants #5 (v1) and #6 (v2) of
 #1 (one body; each writes its own M and L), the per-sample-mesh kernels #7
-and #8, and the TF-semantics kernels #9-#12.
+and #8, and the TF-semantics kernels #9-#12; and the launches of the
+model paths (Burgers, Darcy, sod, elasticity, vorticity under each remat
+mode, NACA), with #1 recomputed under checkpointing to the same bits.
 
 Every test here is marked ``cuda`` and skips without a CUDA device. The
 file imports no JAX, so that it runs on a machine without it:
@@ -14,6 +16,7 @@ is held at rtol 5e-4 / atol 5e-6 (the bound tests/test_pallas.py holds the
 JAX fused backward to) on terms normalised to unit scale.
 """
 
+import dataclasses
 from unittest import mock
 
 import numpy as np
@@ -1091,3 +1094,171 @@ def test_darcy_zssr_forward_at_421_matches_plain(cuda):
         want = problem.task.forward(problem.geom, batch)
     assert got.shape == (2, 421, 421, 1)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+
+
+# ------------------------------------------------ vorticity and NACA paths
+
+FIXED_COUNTERS = (kp.posatt_fixed_cuda, kp.posatt_stats_cuda,
+                  kp.posatt_bwd_dscale_cuda, kp.posatt_bwd_du_cuda)
+
+
+def _one_step(problem, dev, state_dict=None):
+    """One optimizer step on the first two training samples: the loss, the
+    weights before and after, and each fixed-mesh kernel's launches."""
+    from position_induced_transformer_torch.train import loop
+
+    if state_dict is not None:
+        problem.model.load_state_dict(state_dict)
+    data = {k: torch.as_tensor(v, device=dev) for k, v in problem.train_data.items()}
+    state = loop.TrainState(problem.model, loop.make_optimizer(problem.model.parameters(), 1e-3))
+    epoch = loop.make_train_epoch(problem.task, loop.make_lr_schedule(1e-3, 10))
+    start = {k: v.detach().cpu().clone() for k, v in problem.model.state_dict().items()}
+    before = [f.launches for f in FIXED_COUNTERS]
+    state, losses = epoch(state, problem.geom, data, torch.tensor([[0, 1]], device=dev))
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+    launches = [f.launches - b for f, b in zip(FIXED_COUNTERS, before)]
+    return losses.cpu(), start, {k: v.cpu() for k, v in problem.model.state_dict().items()}, launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["full", "dots", "none"])
+def test_vorticity_rollout_step_launch_counts(cuda, mode):
+    """One BPTT step of a narrow vorticity model (hid 32, 2 blocks: 4
+    attention ops a forward; 3 rollout steps, B 2) on the 64^2 grid under
+    each remat mode: the forward #1 runs 12 times, and 12 more under
+    ``full`` and ``dots`` (the checkpointed forward is recomputed in the
+    backward; a ctypes launch is no matmul ``dots`` could keep); #2 never;
+    #3 12 times; #4 11 times (the first window needs no gradient, so the
+    first encoder takes no du). Loss and weights agree with the CPU at the
+    training bounds."""
+    from position_induced_transformer_torch import configs
+    from position_induced_transformer_torch.train import benchmarks
+
+    cfg = configs.apply_overrides(
+        configs.VORTICITY, ["model.hid_dim=32", "model.n_blocks=2", "rollout_steps=3"])
+    runs = {}
+    for dev in ("cpu", cuda):
+        problem = benchmarks.setup(cfg, ntrain=2, ntest=1, device=dev)
+        problem.task = dataclasses.replace(problem.task, remat_rollout=mode)
+        runs[str(dev)] = _one_step(problem, dev, runs.get("cpu", (None, None))[1])
+    assert runs["cpu"][3] == [0, 0, 0, 0]
+    assert runs["cuda"][3] == [24 if mode != "none" else 12, 0, 12, 11]
+    torch.testing.assert_close(runs["cuda"][0], runs["cpu"][0], rtol=2e-4, atol=0.0)
+    for k, v in runs["cpu"][2].items():
+        torch.testing.assert_close(runs["cuda"][2][k], v, rtol=5e-3, atol=2e-5, msg=k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L_out,L_in,B,H,D,loc", [
+    (256, 4096, 20, 2, 12, 0.02),  # vorticity encoder
+    (256, 256, 20, 2, 256, 1.0),  # vorticity processor
+    (4096, 256, 20, 2, 256, 0.02),  # vorticity decoder
+    (64, 60000, 10, 2, 3, 0.02),  # splits of L_in through scratch
+])
+def test_recomputed_forward_gives_the_first_forwards_bits(cuda, L_out, L_in, B, H, D, loc):
+    """Under ``torch.utils.checkpoint`` the backward reruns #1: the
+    recomputed output, M and L are the first forward's bits (fresh split
+    scratch, the per-stream counters left at zero), and the gradients are
+    those of the same op without a checkpoint."""
+    from torch.utils.checkpoint import checkpoint
+
+    dist, lmda, u = _inputs(cuda, L_out, L_in, B, H, D)
+    thr = locality.quantile_threshold(dist, loc) if loc < 1.0 else None
+    seen = []
+    launch = kp._FORWARDS[3]
+
+    def recording(*a, **kw):
+        got = launch(*a, **kw)
+        seen.append([t.clone() for t in got] if isinstance(got, tuple) else [got.clone()])
+        return got
+
+    w = torch.randn(B, L_out, H * D, device=cuda)
+
+    def grads(wrap):
+        lm, x = lmda.clone().requires_grad_(True), u.clone().requires_grad_(True)
+        f = lambda x: kp.position_attention_fixed(dist, lm, x, loc, thr=thr)
+        out = wrap(f, x)
+        (out * w).sum().backward()
+        return out.detach(), lm.grad, x.grad
+
+    with mock.patch.dict(kp._FORWARDS, {3: recording}):
+        ckpt = grads(lambda f, x: checkpoint(f, x, use_reentrant=False))
+    torch.cuda.synchronize()
+    assert len(seen) == 2 and len(seen[0]) == 3
+    for first, again in zip(*seen):
+        assert torch.equal(first, again)
+    plain = grads(lambda f, x: f(x))
+    for a, b in zip(ckpt, plain):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_naca_step_launch_counts(cuda):
+    """One training step of a narrow NACA model (hid 32, 2 blocks; the full
+    221 x 51 C-grid and 56 x 13 latent, setup-time thresholds and decoder
+    band) on the card launches #7 4 times, #8's dscale 4 and du 3 (the
+    encoder's input needs no gradient), and agrees with the CPU."""
+    from position_induced_transformer_torch import configs
+    from position_induced_transformer_torch.train import benchmarks
+
+    cfg = configs.apply_overrides(configs.NACA, ["model.hid_dim=32", "model.n_blocks=2"])
+    counters = (kb.posatt_batched_cuda, kb.posatt_batched_bwd_dscale_cuda,
+                kb.posatt_batched_bwd_du_cuda)
+    runs = {}
+    for dev in ("cpu", cuda):
+        problem = benchmarks.setup(cfg, ntrain=2, ntest=1, device=dev)
+        assert "band_up" in problem.train_data
+        before = [f.launches for f in counters]
+        runs[str(dev)] = _one_step(problem, dev, runs.get("cpu", (None, None))[1])
+        runs[str(dev)] += ([f.launches - b for f, b in zip(counters, before)],)
+    assert runs["cpu"][4] == [0, 0, 0] and runs["cuda"][4] == [4, 4, 3]
+    torch.testing.assert_close(runs["cuda"][0], runs["cpu"][0], rtol=2e-4, atol=0.0)
+    for k, v in runs["cpu"][2].items():
+        torch.testing.assert_close(runs["cuda"][2][k], v, rtol=5e-3, atol=2e-5, msg=k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["encoder", "processor", "decoder"])
+def test_cuda_batched_kernels_at_the_naca_shapes(cuda, op):
+    """#7 and #8 at NACA's three ops on ``setup_naca``'s synthetic data at
+    B 20, H 1: the encoder 728 x 120 (D 2, thresholds, no band), the
+    processor 728^2 (D 128, global) and the decoder 11,271 x 728 (D 128,
+    thresholds and the plain band of 256-row tiles; L_out is no multiple of
+    256) against their plain versions."""
+    from position_induced_transformer_torch import configs
+    from position_induced_transformer_torch.train import benchmarks
+
+    problem = benchmarks.setup(configs.NACA, ntrain=20, ntest=1, device=cuda)
+    batch = {k: torch.from_numpy(np.asarray(v)).to(cuda) for k, v in problem.train_data.items()}
+    geom = problem.task.geom_fn(batch)
+    rng = np.random.default_rng(5)
+    D = {"encoder": 2, "processor": 128, "decoder": 128}[op]
+    mq, mk = {"encoder": (geom.mesh_ltt, geom.mesh_in), "processor": (geom.mesh_ltt, geom.mesh_ltt),
+              "decoder": (geom.mesh_out, geom.mesh_ltt)}[op]
+    loc = 1.0 if op == "processor" else 0.02
+    thr = {"encoder": geom.thr_down, "processor": None, "decoder": geom.thr_up}[op]
+    band = geom.band_up if op == "decoder" else None
+    u = torch.from_numpy(rng.standard_normal((20, mk.shape[1], D)).astype(np.float32)).to(cuda)
+    if op == "encoder":
+        u = batch["x"]
+    scale = posatt.bandwidth_scale(torch.tensor([[[0.7]]], device=cuda)).reshape(1, 1)
+    starts, width = (None, 0) if band is None else (band.starts, band.width)
+    kw = dict(keep_count=locality.topk_keep_count(mk.shape[1], loc), width=width)
+    out, stats = kb.posatt_batched_cuda(mq, mk, scale, u, thr, starts, stats=True, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, kb.posatt_batched_reference(mq, mk, scale, u, thr, starts, **kw),
+                               rtol=RTOL, atol=ATOL)
+    want = kb.posatt_batched_stats_reference(mq, mk, scale, thr, starts, **kw)
+    assert torch.equal(stats[:, :2], want[:, :2])
+    g = torch.from_numpy(rng.standard_normal((20, mq.shape[1], D)).astype(np.float32)).to(cuda)
+    w = dict(width=width)
+    ds = kb.posatt_batched_bwd_dscale_cuda(mq, mk, scale, u, out, g, stats, starts, **w)
+    du = kb.posatt_batched_bwd_du_cuda(mq, mk, scale, g, stats, starts, **w)
+    torch.cuda.synchronize()
+    want_du = kb.posatt_batched_bwd_du_reference(mq, mk, scale, g, stats, starts, **w)
+    size = kb.posatt_batched_bwd_du_reference(mq, mk, scale, g.abs(), stats, starts, **w)
+    assert ((du - want_du).abs() <= ATOL + RTOL * size).all(), (du - want_du).abs().max()
+    want_ds = kb.posatt_batched_bwd_dscale_reference(mq, mk, scale, u, g, stats, starts, **w)
+    size = _dscale_size(mq, mk, scale, u, g, stats, starts, width)
+    torch.testing.assert_close(ds / size, want_ds / size, rtol=DS_RTOL, atol=DS_ATOL)

@@ -106,8 +106,9 @@ def test_task_loss_conventions_match_jax(swap, batch_mean):
         want = jt._loss(jnp.asarray(true), jnp.asarray(pred),
                         None if weights is None else jnp.asarray(weights))
         np.testing.assert_allclose(float(got), float(want), rtol=1e-6)
-    with pytest.raises(NotImplementedError, match="rollout"):
-        t_loop.Task(model=None, rollout_steps=2).loss_fn(None, {})
+    # an unknown remat mode of a rollout task raises the JAX ValueError
+    with pytest.raises(ValueError, match="unrecognized PIT_ROLLOUT_REMAT/remat_rollout"):
+        t_loop.Task(model=None, rollout_steps=2, remat_rollout="all").loss_fn(None, {"x": None})
 
 
 def _models(cfg_model, L, Lt, seed=0):
