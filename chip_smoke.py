@@ -29,8 +29,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    in phase 4, with each op's kept fraction and the number of ranges the
    kernel splits its streamed index into; dscale and du also, through the
    kernel API, at the vorticity training shapes (encoder 256 x 4096, D 12;
-   processor 256 x 256 and decoder 4096 x 256, D 256; B 20, H 2) and one
-   H 1 shape at sod's widths; the autograd Function's gradients against
+   processor 256 x 256 and decoder 4096 x 256, D 256; B 20, H 2), one
+   H 1 shape at sod's widths and cylinder's three ops (encoder 896 x 4390,
+   D 5; processor 896^2, D 256; decoder 4390 x 896, D 256; B 200, H 1),
+   each row with its launches in one cylinder step; the autograd Function's gradients against
    torch.autograd of the plain oracle, with one forward + backward
    launching the forward, dscale and du exactly once each and #2 never;
 6. serve: a full-width Burgers model (random weights from a seeded
@@ -193,7 +195,31 @@ Phases, each of which fails the run (non-zero exit, no result line):
     samples, 4 concurrent, 8 warm; 120 launches of #1 per device batch;
     replies against ``infer``, a plain-attention card run and a CPU run on
     2 samples), ``?rollout_steps=5`` (30 per device batch) and a horizon
-    past the maximum (400).
+    past the maximum (400);
+25. cylinder train: ``runner.train("cylinder")`` at full width (hid 256,
+    1 head, 4 blocks; 4390 -> 896 -> 4390 points; 800 training and 200
+    test samples, 2 epochs of 4 steps at batch 200): exactly 6/0/6/5
+    launches of #1-#4 a step and 6 of #1 per eval batch; losses and
+    weights against a plain-attention card run; time per step, steps/s,
+    the device's busy time; then #1 at the model's encoder, processor and
+    decoder (its trained bandwidths, B 200) against its plain version,
+    timed beside the plain version and SDPA, and bounded;
+26. cylinder evaluate: ``evaluate("cylinder", ckpt)`` (200 test pairs in
+    one batch, 6 launches of #1; the 20 raw test trajectories rolled out
+    10 steps in one batch, 60 launches) against a plain-attention card run
+    at rtol 1e-4;
+27. cylinder serve: ``make_server("cylinder")`` answering ``.npy`` inputs
+    (n, 4390, 3) one step ahead (1, 10, 13 samples, 4 concurrent, 4 warm
+    of 200; 6 launches of #1 per device batch) and at ``?rollout_steps=10``
+    (1, 3 samples, 2 concurrent, 2 warm; 60 per device batch); replies
+    against ``infer``, a plain-attention card run and a CPU run on 2
+    samples;
+28. the command line: ``python -m position_induced_transformer_torch``
+    as subprocesses on the card, at once: ``train --benchmark cylinder``
+    and, on phase 25's checkpoint, ``evaluate`` (against the in-process
+    ``evaluate``), ``infer --rollout-steps 10``, ``serve`` answering one
+    ``POST /predict`` and stopped, ``describe``, ``benchmarks`` and a
+    ``convert`` round trip through a ``model.pth``; every process exits 0.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 ``kernels`` record (twelve kernels: #1-#4, the per-sample-mesh #7, #8, the
@@ -845,13 +871,14 @@ def backward_kernel_phase(geom):
                 name, dist, lmda, u, loc, None if loc >= 1 else thr))
 
     # dscale and du through the kernel API at other fixed-mesh configs'
-    # training shapes, outside any step: vorticity (its geometry as
-    # build_geometry makes it) and one head at sod's widths
+    # training shapes: vorticity (its geometry as build_geometry makes it),
+    # one head at sod's widths, and cylinder's three ops (their launches in
+    # one cylinder step)
     config_rows = {k: [] for k in BWD_KERNELS[1:]}
-    for name, dist, thr, Bc, Hc, D in config_shapes():
+    for name, dist, thr, Bc, Hc, D, per_step in config_shapes():
         lmda, u, g, scale = inputs(dist, thr, Hc, Bc, D)
-        got = timed_rows(name, dist, thr, lmda, u, g, scale, dict.fromkeys(BWD_KERNELS, 0),
-                         BWD_KERNELS[1:], small_plain=True)
+        got = timed_rows(name, dist, thr, lmda, u, g, scale, per_step, BWD_KERNELS[1:],
+                         small_plain=True)
         for kernel, row in got.items():
             config_rows[kernel].append(row)
         del lmda, u, g, scale, got
@@ -870,13 +897,30 @@ def backward_kernel_phase(geom):
     return rows, errs, config_rows
 
 
+def cylinder_geometry(device):
+    """configs.CYLINDER's geometry as setup_cylinder builds it: the
+    synthetic 4390-point cloud to its 896-point latent cloud and back,
+    Euclidean distances, locality 0.01."""
+    from position_induced_transformer_torch import configs
+    from position_induced_transformer_torch.data import synthetic
+    from position_induced_transformer_torch.models import build_geometry
+
+    cfg = configs.CYLINDER
+    _, mesh, ltt = synthetic.cylinder(n_traj=1)  # the cloud does not depend on n_traj
+    return build_geometry(mesh, ltt, mesh, metric=cfg.metric, en_loc=cfg.model.en_loc,
+                          de_loc=cfg.model.de_loc, device=device)
+
+
 def config_shapes():
     """The fixed-mesh training shapes of configs.VORTICITY (a 64^2 periodic
     grid to a 16^2 latent grid, periodic2d distances and quantile
     thresholds as build_geometry makes them; B 20, H 2: encoder D = in_dim
-    + space_dim, processor and decoder D = hid_dim) and one head at
+    + space_dim, processor and decoder D = hid_dim), one head at
     configs.SOD's widths (its 256-point latent processor, global, D 32,
-    B 8): (name, dist, thr, B, H, D) on the card."""
+    B 8), and configs.CYLINDER's (4390 -> 896 -> 4390 points, B 200, H 1,
+    encoder D 5, processor and decoder D 256): (name, dist, thr, B, H, D,
+    launches per training step by kernel: 0 outside the cylinder step) on
+    the card."""
     import numpy as np
     import torch
 
@@ -899,12 +943,22 @@ def config_shapes():
     B, H = cfg.batch_size, m.n_head
     sod = configs.SOD
     ltt = torch.from_numpy(meshes.grid_1d(sod.latent_grid[0], *sod.domain)).cuda()
+    off = dict.fromkeys(BWD_KERNELS, 0)
+    cyl, cg = configs.CYLINDER, cylinder_geometry("cuda")
+    cm = cyl.model
+    step = lambda n_ds, n_du: {"posatt_stats": 0, "posatt_bwd_dscale": n_ds, "posatt_bwd_du": n_du}
     return [
-        ("vorticity_encoder", geom.dist_down, geom.thr_down, B, H, m.in_dim + m.space_dim),
-        ("vorticity_processor", geom.dist_proc, inf(geom.dist_proc.shape[0]), B, H, m.hid_dim),
-        ("vorticity_decoder", geom.dist_up, geom.thr_up, B, H, m.hid_dim),
+        ("vorticity_encoder", geom.dist_down, geom.thr_down, B, H, m.in_dim + m.space_dim, off),
+        ("vorticity_processor", geom.dist_proc, inf(geom.dist_proc.shape[0]), B, H, m.hid_dim, off),
+        ("vorticity_decoder", geom.dist_up, geom.thr_up, B, H, m.hid_dim, off),
         ("sod_processor", distances.euclidean_sq(ltt, ltt), inf(ltt.shape[0]),
-         sod.batch_size, sod.model.n_head, sod.model.hid_dim),
+         sod.batch_size, sod.model.n_head, sod.model.hid_dim, off),
+        ("cylinder_encoder", cg.dist_down, cg.thr_down, cyl.batch_size, cm.n_head,
+         cm.in_dim + cm.space_dim, step(1, 0)),
+        ("cylinder_processor", cg.dist_proc, inf(cg.dist_proc.shape[0]), cyl.batch_size,
+         cm.n_head, cm.hid_dim, step(cm.n_blocks, cm.n_blocks)),
+        ("cylinder_decoder", cg.dist_up, cg.thr_up, cyl.batch_size, cm.n_head, cm.hid_dim,
+         step(1, 1)),
     ]
 
 
@@ -2650,13 +2704,15 @@ def schedule_phase():
 
 
 # ---------------------- sod and Darcy: #1, #3 and #4 on fixed-mesh paths
-def fixed_train_phase(label, cfg, epochs, ntrain, ntest, per_step, **train_kw):
+def fixed_train_phase(label, cfg, epochs, ntrain, ntest, per_step, refs=("plain_cuda", "cpu"),
+                      **train_kw):
     """runner.train on a fixed-mesh configuration on the card, with the
     kernels: exactly ``per_step`` launches of the forward/stats/dscale/du
     per step and ``per_step["posatt_fixed_fwd"]`` forward launches per eval
     batch; the per-step losses and the final weights against the same
-    training with the plain attention on the card and on the CPU; then the
-    time per step, steps/s and the device's busy share of warm steps."""
+    training with the plain attention on the card and on the CPU (``refs``
+    names the reference runs); then the time per step, steps/s and the
+    device's busy share of warm steps."""
     import numpy as np
     import torch
 
@@ -2687,6 +2743,8 @@ def fixed_train_phase(label, cfg, epochs, ntrain, ntest, per_step, **train_kw):
     }
     patch = mock.patch.object(pit, "position_attention_fixed", plain)
     for device, p, label_ref in (("cuda", patch, "plain_cuda"), ("cpu", None, "cpu")):
+        if label_ref not in refs:
+            continue
         _, _, _, ref_losses, ref_weights, ref_launched, ref_s = run_training(
             cfg, device, epochs, ntrain, ntest, p,
             **{k: v for k, v in train_kw.items() if k != "checkpoint_path"})
@@ -2703,16 +2761,16 @@ def fixed_train_phase(label, cfg, epochs, ntrain, ntest, per_step, **train_kw):
     return report
 
 
-def model_atol(cfg, ref):
-    """The model-level absolute bound: MODEL_ATOL, or for a rollout, whose
-    every step's output is fed back through ``cfg.rollout_steps``
-    forwards, MODEL_ATOL per unit of the reference's largest entry (as
-    tests/test_torch_vorticity.py holds a rollout)."""
-    return MODEL_ATOL * (float(ref.abs().max()) if cfg.rollout_steps else 1.0)
+def model_atol(steps, ref):
+    """The model-level absolute bound: MODEL_ATOL, or for a rollout of
+    ``steps`` steps, each step's output fed back, MODEL_ATOL per unit of
+    the reference's largest entry (as tests/test_torch_vorticity.py holds a
+    rollout)."""
+    return MODEL_ATOL * (float(ref.abs().max()) if steps else 1.0)
 
 
 def fixed_serve_phase(label, cfg, ckpt, x, per_batch, sizes, n_concurrent, n_warm,
-                      cpu_samples=None, setup_kwargs=None):
+                      cpu_samples=None, setup_kwargs=None, rollout_steps=None):
     """``make_server(cfg.name)`` on the card answering raw ``.npy``
     batches of ``x``: one request of each of ``sizes`` samples, then
     ``n_concurrent`` concurrent requests (as in phase 6), then ``n_warm``
@@ -2720,8 +2778,10 @@ def fixed_serve_phase(label, cfg, ckpt, x, per_batch, sizes, n_concurrent, n_war
     ``per_batch`` launches of #1 per device batch and no other kernel;
     every reply against ``infer`` on the card and a plain-attention card
     run, and the first ``cpu_samples`` samples (default: all) against a
-    CPU run. A rollout benchmark answers at its configured horizon, and
-    the comparisons roll out as far."""
+    CPU run. A rollout benchmark answers at its configured horizon, or at
+    ``?rollout_steps=`` ``rollout_steps`` where it is given (a one-step
+    model whose output is its next input rolls out too), and the
+    comparisons roll out as far."""
     import numpy as np
     import torch
 
@@ -2739,6 +2799,9 @@ def fixed_serve_phase(label, cfg, ckpt, x, per_batch, sizes, n_concurrent, n_war
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
     url = f"http://127.0.0.1:{server.server_address[1]}/predict"
+    if rollout_steps is not None:
+        url += f"?rollout_steps={rollout_steps}"
+    steps = cfg.rollout_steps if rollout_steps is None else rollout_steps
     bs = server.predictor._batch_size()
     sent = []  # (first sample, input, reply)
 
@@ -2790,14 +2853,13 @@ def fixed_serve_phase(label, cfg, ckpt, x, per_batch, sizes, n_concurrent, n_war
     zero_counts()
     t0 = time.perf_counter()
     evaluate.infer(cfg.name, ckpt, path, output_path=path.replace("inputs", "infer"),
-                   setup_kwargs=setup_kwargs, device="cuda")
+                   setup_kwargs=setup_kwargs, rollout_steps=steps, device="cuda")
     infer_s = time.perf_counter() - t0
     by_infer = np.load(path.replace("inputs", "infer"))
     if not counts()["posatt_fixed_fwd"]:
         fail(f"{label}: infer on the card launched no kernel")
     cpu_n = n_all if cpu_samples is None else cpu_samples
     cpu = evaluate.Predictor(cfg.name, ckpt, setup_kwargs=setup_kwargs, device="cpu")
-    steps = cfg.rollout_steps
     by_cpu = cpu.predict_array(
         {"x": evaluate._prepare_inputs(cpu.problem, x[:cpu_n])}, steps, batch_size=min(cpu_n, bs))
     errs = {"infer": 0.0, "plain_cuda": 0.0, "cpu": 0.0}
@@ -2812,15 +2874,16 @@ def fixed_serve_phase(label, cfg, ckpt, x, per_batch, sizes, n_concurrent, n_war
             fail(f"{label}: the plain comparison run launched a kernel")
         ref = torch.from_numpy(ref)
         errs["plain_cuda"] = max(errs["plain_cuda"], check_close(
-            f"{label} vs plain on CUDA", got, ref, MODEL_RTOL, model_atol(cfg, ref)))
+            f"{label} vs plain on CUDA", got, ref, MODEL_RTOL, model_atol(steps, ref)))
         k = max(0, min(len(a), cpu_n - i))
         if k:
             ref = torch.from_numpy(by_cpu[i:i + k])
             errs["cpu"] = max(errs["cpu"], check_close(
-                f"{label} vs CPU", got[:k], ref, MODEL_RTOL, model_atol(cfg, ref)))
+                f"{label} vs CPU", got[:k], ref, MODEL_RTOL, model_atol(steps, ref)))
     batch = {"x": evaluate._prepare_inputs(predictor.problem, x[:bs])}
     return {
-        "config": cfg.name, "setup_kwargs": setup_kwargs, "startup_s": startup_s,
+        "config": cfg.name, "setup_kwargs": setup_kwargs, "rollout_steps": steps,
+        "startup_s": startup_s,
         "infer_s": infer_s, "reply_shape": list(sent[0][2].shape[1:]),
         f"profile_{bs}_samples": profile_device(lambda: predictor.predict_array(batch, steps),
                                                 "forward", groups=FIXED_GROUPS),
@@ -2858,13 +2921,14 @@ def darcy_train_phase():
     return report, ckpt
 
 
-def fixed_op_rows(label, geom, lmdas, B, dims, random_rows):
-    """#1 at the ops of ``geom`` (encoder ``dist_down`` and decoder
-    ``dist_up``; the model's own bandwidths ``lmdas``, random values of
-    widths ``dims`` at batch B): against the plain version, per-launch
-    time, the plain version's and SDPA's, the bound from this geometry's
-    kept entries, the splits of L_in and the kept lists; beside
-    ``random_rows``: phase 16's times at the same shapes on random points."""
+def fixed_op_rows(label, geom, lmdas, B, dims, random_rows, ops=("encoder", "decoder")):
+    """#1 at the ``ops`` of ``geom`` (encoder ``dist_down``, processor
+    ``dist_proc`` with every entry kept, decoder ``dist_up``; the model's
+    own bandwidths ``lmdas``, random values of widths ``dims`` at batch B):
+    against the plain version, per-launch time, the plain version's and
+    SDPA's, the bound from this geometry's kept entries, the splits of L_in
+    and the kept lists; beside ``random_rows``: phase 16's times at the
+    same shapes on random points."""
     import numpy as np
     import torch
 
@@ -2873,9 +2937,12 @@ def fixed_op_rows(label, geom, lmdas, B, dims, random_rows):
 
     rows = []
     rng = np.random.default_rng(5)
-    for (op, dist, thr), lmda, D in zip(
-            (("encoder", geom.dist_down, geom.thr_down), ("decoder", geom.dist_up, geom.thr_up)),
-            lmdas, dims):
+    every = lambda d: torch.full((d.shape[0], 1), float("inf"), device=d.device)
+    by_op = {"encoder": (geom.dist_down, geom.thr_down),
+             "processor": (geom.dist_proc, every(geom.dist_proc)),
+             "decoder": (geom.dist_up, geom.thr_up)}
+    for op, lmda, D in zip(ops, lmdas, dims):
+        dist, thr = by_op[op]
         Lo, Li = dist.shape
         H = lmda.shape[0]
         scale = posatt.bandwidth_scale(lmda.cuda()).reshape(H, 1)
@@ -3580,6 +3647,250 @@ def vorticity_eval_serve_phases(ckpt):
     return evaluation, serve, horizon
 
 
+# --------------------------------------- cylinder: #1, #3, #4 at full width
+
+CYLINDER_NTRAIN, CYLINDER_NTEST = 800, 200  # 80 and 20 trajectories
+
+
+def cylinder_train_phase():
+    """runner.train on full-width cylinder (hid 256, 1 head, 4 blocks; 4390
+    -> 896 -> 4390 points; 800 training and 200 test samples, 2 epochs of
+    4 steps at batch 200; cut from 10,000 / 1000 and 500 epochs): exactly
+    6/0/6/5 launches of #1/#2/#3/#4 a step (the encoder's input needs no
+    gradient) and 6 of #1 per eval batch; losses and weights against a
+    plain-attention card run (the CPU tests hold a narrow cylinder to the
+    JAX package); time per step, steps/s, the device's busy time. Writes
+    the checkpoint the next phases read; then #1 per launch at the model's
+    encoder, processor and decoder with its trained bandwidths (B 200)."""
+    import torch
+
+    from position_induced_transformer_torch import configs
+
+    cfg = configs.CYLINDER
+    m = cfg.model
+    ckpt = str(REPO / "build" / "chip_smoke" / "cylinder_trained.pt")
+    report = fixed_train_phase("cylinder train", cfg, 2, CYLINDER_NTRAIN, CYLINDER_NTEST,
+                               per_step_launches(m.n_blocks), refs=("plain_cuda",),
+                               checkpoint_path=ckpt)
+    sd = torch.load(ckpt, weights_only=True)["state_dict"]
+    rows = fixed_op_rows("cylinder", cylinder_geometry("cuda"),
+                         (sd["down.lmda"], sd["conv.0.lmda"], sd["up.lmda"]), cfg.batch_size,
+                         (m.in_dim + m.space_dim, m.hid_dim, m.hid_dim), {},
+                         ops=("encoder", "processor", "decoder"))
+    for row, n in zip(rows, (1, m.n_blocks, 1)):
+        row["launches_per_forward"] = n
+    return report, ckpt, rows
+
+
+CYLINDER_METRICS = ("rel_l1", "rel_l2", "rel_max", "rel_l1_quartiles", "rollout_rel_l2_step",
+                    "rollout_rel_l2_mean")
+
+
+def cylinder_eval_phase(ckpt):
+    """``evaluate("cylinder", ckpt)`` on the card (200 test pairs: one
+    one-step batch of 200, 6 launches of #1; the 20 raw test trajectories
+    rolled out 10 steps in one batch, 60 launches; nothing else) against a
+    plain-attention card run at rtol 1e-4."""
+    import dataclasses
+
+    import torch
+
+    from position_induced_transformer_torch import configs
+    from position_induced_transformer_torch.models import pit
+    from position_induced_transformer_torch.ops.posatt import position_attention
+    from position_induced_transformer_torch.train import evaluate
+
+    cfg = dataclasses.replace(configs.CYLINDER, ntrain=CYLINDER_NTRAIN)  # the trained split
+    per_forward = cfg.model.n_blocks + 2
+    zero_counts()
+    t0 = time.perf_counter()
+    got = evaluate.evaluate(cfg, ckpt, ntest=CYLINDER_NTEST, device="cuda")
+    torch.cuda.synchronize()
+    evaluate_s = time.perf_counter() - t0
+    launched = counts()
+    steps = got["rollout_steps"]
+    expected = {k: per_forward * (1 + steps) if k == "posatt_fixed_fwd" else 0 for k in launched}
+    if launched != expected or steps != 10:
+        fail(f"cylinder evaluate: {steps} rollout steps launched {launched}, expected {expected} "
+             f"({per_forward} for the one-step batch and {per_forward} x {steps} for the rollout)")
+    plain = lambda dist, lmda, inputs, locality, thr=None: position_attention(
+        dist, lmda, inputs, locality, thr=thr)
+    with mock.patch.object(pit, "position_attention_fixed", plain):
+        t0 = time.perf_counter()
+        want = evaluate.evaluate(cfg, ckpt, ntest=CYLINDER_NTEST, device="cuda")
+        plain_s = time.perf_counter() - t0
+    if counts() != launched:
+        fail("cylinder evaluate: the plain-attention evaluation launched a kernel")
+    f64 = lambda v: torch.tensor(v, dtype=torch.float64)
+    err = max(check_close(f"cylinder evaluate {k} vs plain on CUDA", f64(got[k]), f64(want[k]),
+                          1e-4, 0.0) for k in CYLINDER_METRICS)
+    return {"launches": launched, "launches_one_step_batch": per_forward,
+            "launches_rollout_batch": per_forward * steps, "evaluate_s_cuda": evaluate_s,
+            "evaluate_s_plain_cuda": plain_s, "max_abs_err_vs_plain_cuda": err,
+            "metrics": got, "metrics_plain_cuda": want}
+
+
+def cylinder_inputs(n_traj, seed=0):
+    """(n_traj * 10, 4390, 3) one-step inputs: the first 10 frames of
+    synthetic trajectories on configs.CYLINDER's cloud."""
+    import numpy as np
+
+    from position_induced_transformer_torch.data import synthetic
+
+    traj = synthetic.cylinder(n_traj=n_traj, seed=seed)[0]
+    x = traj[..., :-1].transpose(0, 3, 1, 2).reshape(-1, traj.shape[1], traj.shape[2])
+    return np.ascontiguousarray(x)
+
+
+def cylinder_serve_phases(ckpt):
+    """``make_server("cylinder")`` with the trained checkpoint answering
+    ``.npy`` inputs (n, 4390, 3) one step ahead (1, 10, 13 samples, 4
+    concurrent, 4 warm of 200; 6 launches of #1 per device batch of 200)
+    and at ``?rollout_steps=10`` with (n, 4390, 3, 10) rollouts, the
+    model's output fed back (1, 3 samples, 2 concurrent, 2 warm; 60
+    launches per device batch); replies against ``infer``, a
+    plain-attention card run and, on 2 samples, a CPU run."""
+    from position_induced_transformer_torch import configs
+
+    cfg = configs.CYLINDER
+    x = cylinder_inputs(24, seed=1)
+    n = cfg.model.n_blocks + 2
+    one = fixed_serve_phase("cylinder_serve", cfg, ckpt, x, n, (1, 10, 13), 4, 4, cpu_samples=2)
+    roll = fixed_serve_phase("cylinder_serve_rollout", cfg, ckpt, x, 10 * n, (1, 3), 2, 2,
+                             cpu_samples=2, rollout_steps=10)
+    return one, roll
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def cli_phase(ckpt):
+    """The command line, ``python -m position_induced_transformer_torch``,
+    as subprocesses on the card (the default device), all started at once:
+    ``train --benchmark cylinder`` (1 epoch of 2 steps at batch 200,
+    ``--checkpoint``); and on phase 25's checkpoint ``evaluate`` (its
+    metrics against the in-process ``evaluate`` at rtol 1e-4), ``infer
+    --rollout-steps 10`` (against an in-process ``Predictor``), ``serve``
+    on a free port answering one ``POST /predict`` (against the in-process
+    one-step reply) and stopped by SIGINT, ``describe`` (the checkpoint's
+    parameter count), ``benchmarks`` (13 lines) and ``convert
+    --to-torch``; then ``convert --from-torch`` back, the same bits. Every
+    process must exit 0, and every process is stopped when the phase
+    ends."""
+    import dataclasses
+    import signal
+
+    import numpy as np
+    import torch
+
+    from position_induced_transformer_torch import configs
+    from position_induced_transformer_torch.train import checkpoint, evaluate
+
+    out = REPO / "build" / "chip_smoke" / "cli"
+    out.mkdir(parents=True, exist_ok=True)
+    trained, pth, back = (str(out / f) for f in ("cylinder.pt", "cylinder.pth", "back.pt"))
+    procs, seconds = {}, {}
+
+    def start(label, *argv):
+        procs[label] = (subprocess.Popen(
+            [sys.executable, "-m", "position_induced_transformer_torch", *argv], cwd=REPO,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True), time.perf_counter())
+
+    def finish(label, timeout=600):
+        proc, t0 = procs[label]
+        stdout, stderr = proc.communicate(timeout=timeout)
+        seconds[label] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            fail(f"cli {label}: exit {proc.returncode}: {stderr[-3000:]}")
+        return stdout
+
+    cfg = dataclasses.replace(configs.CYLINDER, ntrain=CYLINDER_NTRAIN)
+    x = cylinder_inputs(1, seed=2)[:3]
+    inp, pred_path = str(out / "x.npy"), str(out / "pred.npy")
+    np.save(inp, x)
+    port = free_port()
+    try:
+        start("serve", "serve", "--benchmark", "cylinder", "--checkpoint", ckpt, "--port", str(port))
+        start("train", "train", "--benchmark", "cylinder", "--epochs", "1", "--ntrain", "400",
+              "--ntest", "200", "--checkpoint", trained)
+        start("evaluate", "evaluate", "--benchmark", "cylinder", "--checkpoint", ckpt, "--ntest",
+              str(CYLINDER_NTEST), "--set", f"ntrain={CYLINDER_NTRAIN}")
+        start("infer", "infer", "--benchmark", "cylinder", "--checkpoint", ckpt, "--input", inp,
+              "--output", pred_path, "--rollout-steps", "10")
+        start("describe", "describe", "--benchmark", "cylinder")
+        start("benchmarks", "benchmarks")
+        start("convert_to_torch", "convert", "--benchmark", "cylinder", "--from", ckpt,
+              "--to-torch", pth)
+        results = {k: finish(k) for k in ("train", "evaluate", "infer", "describe", "benchmarks",
+                                          "convert_to_torch")}
+        start("convert_from_torch", "convert", "--benchmark", "cylinder", "--from-torch", pth,
+              "--to", back)
+        results["convert_from_torch"] = finish("convert_from_torch")
+        url = f"http://127.0.0.1:{port}"
+        t0 = time.perf_counter()
+        while True:
+            if procs["serve"][0].poll() is not None:
+                finish("serve")
+                fail("cli serve: the server exited before answering")
+            try:
+                with urllib.request.urlopen(f"{url}/health", timeout=5) as r:
+                    if r.status == 200:
+                        break
+            except (urllib.error.URLError, ConnectionError, TimeoutError):
+                pass
+            if time.perf_counter() - t0 > 300:
+                fail("cli serve: no /health reply within 300 s")
+            time.sleep(0.5)
+        code, body = post(f"{url}/predict", npy(x[:2]))
+        procs["serve"][0].send_signal(signal.SIGINT)
+        finish("serve", timeout=60)
+    finally:
+        for proc, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if code != 200:
+        fail(f"cli serve: HTTP {code}: {body[:500]!r}")
+    served = torch.from_numpy(np.load(io.BytesIO(body)))
+
+    final = json.loads(results["train"].splitlines()[-1])["final"]
+    state = checkpoint.restore(ckpt)["state_dict"]
+    if not all(np.isfinite(v) for v in final.values()) or set(
+            checkpoint.restore(trained)["state_dict"]) != set(state):
+        fail(f"cli train: {final}")
+    got = json.loads(results["evaluate"].splitlines()[-1])
+    want = evaluate.evaluate(cfg, ckpt, ntest=CYLINDER_NTEST, device="cuda")
+    f64 = lambda v: torch.tensor(v, dtype=torch.float64)
+    eval_err = max(check_close(f"cli evaluate {k} vs in-process", f64(got[k]), f64(want[k]),
+                               1e-4, 0.0) for k in CYLINDER_METRICS)
+    predictor = evaluate.Predictor(cfg, ckpt, device="cuda")
+    roll = torch.from_numpy(predictor.predict_array({"x": x}, 10))
+    one = torch.from_numpy(predictor.predict_array({"x": x[:2]}))
+    infer_err = check_close("cli infer --rollout-steps 10 vs in-process", torch.from_numpy(
+        np.load(pred_path)), roll, MODEL_RTOL, model_atol(10, roll))
+    serve_err = check_close("cli serve vs in-process", served, one, MODEL_RTOL, MODEL_ATOL)
+    info = json.loads(results["describe"])
+    if info["params"] != sum(v.numel() for v in state.values()) or info["benchmark"] != "cylinder":
+        fail(f"cli describe: {info}")
+    listed = results["benchmarks"].splitlines()
+    if len(listed) != 13 or not any(line.startswith("cylinder ") for line in listed):
+        fail(f"cli benchmarks: {listed}")
+    round_trip = checkpoint.restore(back)
+    if round_trip["config"] != "cylinder" or set(round_trip["state_dict"]) != set(state) or not all(
+            torch.equal(round_trip["state_dict"][k], v) for k, v in state.items()):
+        fail("cli convert: the model.pth round trip changed the weights")
+    return {"seconds": seconds, "train_final": final, "evaluate": got,
+            "max_abs_err_evaluate_vs_in_process": eval_err,
+            "infer_shape": list(roll.shape), "max_abs_err_infer_vs_in_process": infer_err,
+            "max_abs_err_serve_vs_in_process": serve_err, "describe": info,
+            "convert": [json.loads(results[k]) for k in ("convert_to_torch", "convert_from_torch")]}
+
+
 def schedule_entry(version, rows, launched):
     """The kernels-record entry of one schedule: times and bounds summed
     over the seven launches of a Burgers forward (1 encoder + 5 processor
@@ -3671,15 +3982,35 @@ def main() -> int:
     log("vorticity_eval " + json.dumps(v_eval))
     log("vorticity_serve " + json.dumps(v_serve))
     log("vorticity_serve_horizon " + json.dumps(v_horizon))
+    c_train, cylinder_ckpt, c_rows = cylinder_train_phase()
+    log("cylinder_train " + json.dumps(c_train))
+    c_eval = cylinder_eval_phase(cylinder_ckpt)
+    log("cylinder_eval " + json.dumps(c_eval))
+    c_serve, c_rollout = cylinder_serve_phases(cylinder_ckpt)
+    log("cylinder_serve " + json.dumps(c_serve))
+    log("cylinder_serve_rollout " + json.dumps(c_rollout))
+    cli = cli_phase(cylinder_ckpt)
+    log("cli " + json.dumps(cli))
     fixed_paths = {  # the fixed-mesh model paths: (train, served or evaluated)
         "darcy_train": d_train["launches"], "darcy_zssr": d_zssr["launches"],
         "darcy_serve_43": d_serve43["launches"], "darcy_serve_421": d_serve421["launches"],
         "sod_train": sod_train["launches"], "sod_serve": sod_serve["launches"],
         "vorticity_train": v_train["launches"], "vorticity_serve": v_serve["launches"],
         "vorticity_eval": v_eval["launches"],
+        "cylinder_train": c_train["launches"], "cylinder_eval": c_eval["launches"],
+        "cylinder_serve": c_serve["launches"], "cylinder_serve_rollout": c_rollout["launches"],
     }
     naca_paths = {"naca_train": n_train["launches"], "naca_serve": n_serve["launches"],
                   "naca_shuffle_ablation": n_serve["shuffle_ablation"]["launches"]}
+
+    def per_step(rows, launches_key):
+        """Times and bounds summed over a step's launches, and what bounds
+        the larger share of the bound."""
+        step = lambda key: sum(r[key] * r[launches_key] for r in rows)
+        by = {kind: sum(r["bound_ms"] * r[launches_key] for r in rows if r["bound_by"] == kind)
+              for kind in ("operations", "bytes")}
+        return {"ms": step("ms"), "plain_ms": step("plain_ms"), "bound_ms": step("bound_ms"),
+                "bound_by": max(by, key=by.get)}
 
     per = {s["shape"]: s for s in shapes}
     total = lambda key: sum(s[key] * s["launches_per_forward"] for s in shapes)
@@ -3708,21 +4039,18 @@ def main() -> int:
         "shapes": [per[n] for n in ("encoder", "processor", "decoder")],
         # the Darcy 421^2 ZSSR encoder and decoder on the grid-ordered mesh
         "darcy_zssr_shapes": d_zssr["ops"],
+        # one cylinder forward at batch 200 (1 encoder + 4 processor + 1
+        # decoder launches) on the model's geometry; "cylinder_shapes" splits it
+        "per_cylinder_forward": {
+            **per_step(c_rows, "launches_per_forward"),
+            "library_ms": sum(r["library_ms"] * r["launches_per_forward"] for r in c_rows)},
+        "cylinder_shapes": c_rows,
     }]}
     replaces = {  # the pl.pallas_call of each TPU kernel
         "posatt_stats": "position_induced_transformer_tpu/kernels/posatt_pallas.py:419",
         "posatt_bwd_dscale": "position_induced_transformer_tpu/kernels/posatt_pallas.py:545",
         "posatt_bwd_du": "position_induced_transformer_tpu/kernels/posatt_pallas.py:627",
     }
-
-    def per_step(rows, launches_key):
-        """Times and bounds summed over a step's launches, and what bounds
-        the larger share of the bound."""
-        step = lambda key: sum(r[key] * r[launches_key] for r in rows)
-        by = {kind: sum(r["bound_ms"] * r[launches_key] for r in rows if r["bound_by"] == kind)
-              for kind in ("operations", "bytes")}
-        return {"ms": step("ms"), "plain_ms": step("plain_ms"), "bound_ms": step("bound_ms"),
-                "bound_by": max(by, key=by.get)}
 
     # #2: off every path (every version's forward writes M and L), held
     # and timed through the kernel API in phases 5 and 16. Times and
@@ -3763,6 +4091,10 @@ def main() -> int:
             "shapes": rows,
             # through the kernel API, outside the Burgers step
             **({"config_shapes": bwd_config_rows[name]} if name in bwd_config_rows else {}),
+            # one cylinder step at batch 200 (the config shapes' cylinder rows)
+            "per_cylinder_step": per_step(
+                [r for r in bwd_config_rows[name] if r["shape"].startswith("cylinder_")],
+                "launches_per_step"),
         })
     # kernel #7: one elasticity training forward at batch 10 (1 encoder + 4
     # processor + 1 decoder launches); a served forward swaps the banded

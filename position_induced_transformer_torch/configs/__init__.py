@@ -1,9 +1,9 @@
 """Benchmark configurations: the thirteen PiT experiments as data.
 
 The port's own copy of the JAX package's ``configs`` (same fields, same
-values), so that the port never imports the JAX package. Only ``burgers``
-has a setup in this port so far (``train.benchmarks.setup`` names the
-others as not yet ported).
+values), so that the port never imports the JAX package.
+``train.benchmarks.setup`` names the configurations without a ported setup;
+:func:`register` adds user-defined ones.
 """
 
 from __future__ import annotations
@@ -172,6 +172,7 @@ REGISTRY = {
         BURGERS_TF, SOD_TF, DARCY_TF, VORTICITY_TF, ELASTICITY_TF, NACA_TF,
     )
 }
+BUILTIN = frozenset(REGISTRY)
 
 
 def get(name: str) -> BenchmarkConfig:
@@ -181,6 +182,26 @@ def get(name: str) -> BenchmarkConfig:
         raise ValueError(
             f"unknown benchmark {name!r}; available: {sorted(REGISTRY)}"
         ) from None
+
+
+def register(cfg: BenchmarkConfig, overwrite: bool = False) -> BenchmarkConfig:
+    """Register a user-defined benchmark configuration, which then takes
+    part in every entry point (``runner.train``, ``evaluate``, ``infer``,
+    the server, ``--set`` overrides on the command line) as the built-in
+    thirteen do. Pair it with ``train.benchmarks.register_setup``, or use
+    the one call ``position_induced_transformer_torch.register_benchmark``.
+    """
+    if not isinstance(cfg, BenchmarkConfig):
+        raise TypeError(f"expected a BenchmarkConfig, got {type(cfg).__name__}")
+    if not cfg.name:
+        raise ValueError("benchmark config needs a non-empty name")
+    if cfg.name in REGISTRY and not overwrite:
+        raise ValueError(
+            f"benchmark {cfg.name!r} is already registered; pass "
+            "overwrite=True to replace it"
+        )
+    REGISTRY[cfg.name] = cfg
+    return cfg
 
 
 def apply_overrides(cfg: BenchmarkConfig, overrides) -> BenchmarkConfig:

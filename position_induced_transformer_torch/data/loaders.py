@@ -258,3 +258,61 @@ def naca(
         (coords, X, Y), X.shape[0], ntrain, ntest, "naca"
     )
     return c_tr, X_tr, Y_tr, c_te, X_te, Y_te
+
+
+def cylinder(
+    train_path=None,
+    test_path=None,
+    vertices_path=None,
+    vertices_small_path=None,
+    ntrain=1000,
+    ntest=100,
+    n_points=4390,
+    n_latent=896,
+    elements_path=None,
+) -> Tuple[np.ndarray, ...]:
+    """``(trainX, trainY, testX, testY, mesh, mesh_ltt, test_traj,
+    elements)``: ``ntrain`` and ``ntest`` trajectories (N, L, 3, T) cut
+    into T - 1 one-step pairs each, (N (T - 1), L, 3); the raw test
+    trajectories, kept for the rollout evaluation; the (L, 2) mesh and the
+    latent cloud; and ``elements``, the (M, 3) 0-based triangles of the
+    field plots.
+
+    The trajectories come from ``WakeCylinder_{train,test}.mat`` (variable
+    ``trajectories``) and the meshes from ``vertices.csv`` and
+    ``vertices_small.csv`` when all four are real files, else from the
+    synthetic generator. ``elements.csv`` is 1-based on disk; without it a
+    Delaunay triangulation of the mesh stands in."""
+    paths = (train_path, test_path, vertices_path, vertices_small_path)
+    if all(_is_real_file(p) for p in paths):
+        tr = load_mat(train_path)["trajectories"].astype(np.float32)[:ntrain]
+        te = load_mat(test_path)["trajectories"].astype(np.float32)[:ntest]
+        if tr.shape[0] < ntrain or te.shape[0] < ntest:
+            raise ValueError(
+                f"cylinder files have {tr.shape[0]}/{te.shape[0]} "
+                f"trajectories, requested {ntrain}/{ntest}"
+            )
+        mesh = np.genfromtxt(vertices_path, delimiter=",").astype(np.float32)
+        mesh_ltt = np.genfromtxt(vertices_small_path, delimiter=",").astype(np.float32)
+    else:
+        _warn_fallback(train_path or test_path, "cylinder")
+        traj, mesh, mesh_ltt = synthetic.cylinder(
+            n_traj=ntrain + ntest, L=n_points, n_small=n_latent
+        )
+        tr, te = traj[:ntrain], traj[-ntest:]
+    if _is_real_file(elements_path):
+        elements = np.genfromtxt(elements_path, delimiter=",").astype(np.int32) - 1
+    else:
+        from scipy.spatial import Delaunay
+
+        elements = Delaunay(np.asarray(mesh)).simplices.astype(np.int32)
+    L = tr.shape[1]
+
+    def one_step_pairs(t):
+        x = t[:, :, :, :-1].transpose(0, 3, 1, 2).reshape(-1, L, 3)
+        y = t[:, :, :, 1:].transpose(0, 3, 1, 2).reshape(-1, L, 3)
+        return x, y
+
+    trainX, trainY = one_step_pairs(tr)
+    testX, testY = one_step_pairs(te)
+    return trainX, trainY, testX, testY, mesh, mesh_ltt, te, elements

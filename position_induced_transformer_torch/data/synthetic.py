@@ -1,5 +1,5 @@
 """Synthetic dataset generators (numpy): Burgers, sod, Darcy, vorticity,
-elasticity and NACA.
+elasticity, NACA and cylinder.
 
 Same generators, numpy RNG streams and seeds as the JAX package's
 ``data/synthetic.py``, so that both packages see identical inputs.
@@ -409,3 +409,52 @@ def _naca_field(x, y, thick, camber, a3, a4):
     p = rho**_GAMMA / _GAMMA
     E = p / (_GAMMA - 1) + 0.5 * rho * (uvel**2 + vvel**2)
     return np.stack([rho, rho * uvel, rho * vvel, E], axis=-1).astype(np.float32)
+
+
+def cylinder(n_traj=1100, L=4390, n_small=896, steps=11, seed=0):
+    """``(trajectories, vertices, vertices_small)``: trajectories (n_traj,
+    L, 3, steps) of (u, v, p) on a synthetic 2-D wake point cloud, the
+    latent cloud a subsample of ``n_small`` vertices.
+
+    A von Karman street behind a cylinder at (0.25, 0.2) in the 2.2 x 0.41
+    channel: three incommensurate downstream-travelling harmonics with
+    per-trajectory random amplitudes, phases, wavenumber and advection
+    speed, a meandering wake envelope that widens downstream, a parabolic
+    channel profile and a slowdown at the cylinder. One point's (u, v, p)
+    does not determine the trajectory's parameters, so the one-step map
+    needs spatial aggregation. The fields are a closed form in (x, y, t),
+    so a rollout is scored against exact frames."""
+    rng = np.random.default_rng(seed)
+    verts = np.stack(
+        [rng.uniform(0, 2.2, L), rng.uniform(0, 0.41, L)], axis=-1
+    ).astype(np.float32)
+    # latent cloud: subsample
+    idx = rng.choice(L, n_small, replace=False)
+    verts_small = verts[idx]
+    x0, y0, R = 0.25, 0.2, 0.05
+    kappa = rng.uniform(8.0, 12.0, (n_traj, 1, 1))  # base wavenumber
+    speed = rng.uniform(0.08, 0.12, (n_traj, 1, 1))  # advection / frame
+    amp = 0.3 * rng.uniform(0.5, 1.0, (n_traj, 1, 3)) / np.array([1.0, 1.6, 2.4])
+    phase = rng.uniform(0, 2 * np.pi, (n_traj, 1, 3))
+    kmul = np.array([1.0, 1.53, 2.31])  # incommensurate harmonics
+    xv = verts[None, :, 0:1]
+    yv = verts[None, :, 1:2]
+    # stationary structure
+    prof = 4 * yv * (0.41 - yv) / 0.41**2  # parabolic channel profile
+    slow = 1 - 0.8 * np.exp(-((xv - x0) ** 2 + (yv - y0) ** 2) / (4 * R**2))
+    wake_w = 0.05 + 0.07 * np.maximum(xv - x0, 0.0)
+    onset = 1 / (1 + np.exp(-(xv - x0 - 0.1) / 0.05))
+    traj = np.empty((n_traj, L, 3, steps), np.float32)
+    for t in range(steps):
+        arg = kappa * kmul * (xv - speed * t) + phase  # (n, L, 3)
+        # laterally meandering wake centerline (time-dependent)
+        y_off = 0.03 * np.sin(0.5 * kappa * (xv - speed * t) + phase[..., :1])
+        env = onset * np.exp(-((yv - y0 - y_off) ** 2) / (2 * wake_w**2))
+        su = (amp * np.sin(arg)).sum(-1, keepdims=True)
+        sv = (amp * np.cos(arg)).sum(-1, keepdims=True)
+        sp = (0.6 * amp * np.sin(arg + np.pi / 4)).sum(-1, keepdims=True)
+        u = prof * slow + su * env
+        v = 0.8 * sv * env
+        p = 0.5 * (2.2 - xv) / 2.2 + sp * env
+        traj[..., t] = np.concatenate([u, v, p], axis=-1)
+    return traj, verts, verts_small

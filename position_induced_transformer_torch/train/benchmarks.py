@@ -3,22 +3,24 @@
 Ported: ``burgers`` (a fixed periodic mesh), ``sod`` (a fixed 1-D mesh on
 [-5, 5)), ``darcy`` (a fixed 2-D grid with per-pixel normalization, at
 any ``downsampling`` of the 421^2 grid), ``vorticity`` (a fixed periodic
-2-D grid, trained by 20-step rollouts), ``elasticity`` (per-sample point
-clouds), ``naca`` (per-sample airfoil shapes onto per-sample C-grids) and
-``elasticity_tf`` (the TF-semantics point-cloud model); :func:`setup`
-names the others as not yet ported.
+2-D grid, trained by 20-step rollouts), ``cylinder`` (a fixed 2-D point
+cloud, one-step pairs of wake trajectories, evaluated by closed-loop
+rollouts), ``elasticity`` (per-sample point clouds), ``naca`` (per-sample
+airfoil shapes onto per-sample C-grids) and ``elasticity_tf`` (the
+TF-semantics point-cloud model). :func:`setup` names the others as not
+yet ported; :func:`register_setup` adds user-defined benchmarks.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
 from torch import nn
 
-from position_induced_transformer_torch.configs import REGISTRY, BenchmarkConfig
+from position_induced_transformer_torch.configs import BUILTIN, BenchmarkConfig
 from position_induced_transformer_torch.data import loaders, meshes
 from position_induced_transformer_torch.kernels.posatt_batched import BandSpec, band_tile_rows
 from position_induced_transformer_torch.models import Geometry, PiT, PiTTFPointCloud, build_geometry
@@ -241,6 +243,50 @@ def setup_vorticity(
         cfg, model, task, geom,
         {"x": flat(x_tr), "y": flat(y_tr)}, {"x": flat(x_te), "y": flat(y_te)},
         ntrain, ntest, extras={"s": s},
+    )
+
+
+def setup_cylinder(
+    cfg: BenchmarkConfig, data_path=None, ntrain=None, ntest=None, n_points=4390,
+    n_latent=896, *, device="cuda",
+) -> Problem:
+    """The wake behind a cylinder on one fixed 2-D point cloud (4390
+    vertices down to an 896-point latent cloud), Euclidean distances. Each
+    trajectory gives 10 one-step pairs: trajectories are requested by that
+    count and the pairs trimmed to exactly ``ntrain`` and ``ntest`` (a file
+    with another frame count gives another count per trajectory). The raw
+    test trajectories ride in ``extras["test_trajectories"]`` for
+    :func:`evaluate`'s closed-loop rollout, the plot triangles in
+    ``extras["elements"]``. ``n_points`` and ``n_latent`` size the
+    synthetic cloud. Data stay on the host; the geometry and the model
+    live on ``device``."""
+    dev = resolve_device(device)
+    ntrain_req, ntest_req = ntrain or cfg.ntrain, ntest or cfg.ntest
+    paths, elements_path = (None,) * 4, None
+    if data_path:
+        paths = tuple(f"{data_path}/{f}" for f in (
+            "WakeCylinder_train.mat", "WakeCylinder_test.mat", "vertices.csv",
+            "vertices_small.csv"))
+        elements_path = f"{data_path}/elements.csv"
+    x_tr, y_tr, x_te, y_te, mesh, mesh_ltt, test_traj, elements = loaders.cylinder(
+        *paths, ntrain=max(1, -(-ntrain_req // 10)), ntest=max(1, -(-ntest_req // 10)),
+        n_points=n_points, n_latent=n_latent, elements_path=elements_path,
+    )
+    x_tr, y_tr = x_tr[:ntrain_req], y_tr[:ntrain_req]
+    x_te, y_te = x_te[:ntest_req], y_te[:ntest_req]
+    geom = build_geometry(
+        mesh, mesh_ltt, mesh, metric=cfg.metric,
+        en_loc=cfg.model.en_loc, de_loc=cfg.model.de_loc, device=dev,
+    )
+    model = _make_model(cfg, torch.Generator().manual_seed(cfg.seed)).to(dev)
+    task = Task(
+        model=model, loss_p=cfg.loss_p, out_dim=cfg.model.out_dim,
+        swap_loss_args=cfg.swap_loss_args,
+    )
+    return Problem(
+        cfg, model, task, geom,
+        {"x": x_tr, "y": y_tr}, {"x": x_te, "y": y_te}, x_tr.shape[0], x_te.shape[0],
+        extras={"test_trajectories": test_traj, "elements": elements},
     )
 
 
@@ -491,20 +537,46 @@ SETUPS = {
     "vorticity": setup_vorticity,
     "elasticity": setup_elasticity,
     "naca": setup_naca,
+    "cylinder": setup_cylinder,
     "elasticity_tf": setup_elasticity_tf,
 }
+_PORTED = frozenset(SETUPS)
 
 
 def setup(cfg: BenchmarkConfig, data_path=None, *, device="cuda", **kw) -> Problem:
     try:
         setup_fn = SETUPS[cfg.name]
     except KeyError:
-        if cfg.name in REGISTRY:
+        if cfg.name in BUILTIN:
             raise NotImplementedError(
                 f"benchmark {cfg.name!r} is not ported to the torch package "
-                f"yet; ported: {sorted(SETUPS)}"
+                f"yet; ported: {sorted(_PORTED)}"
             ) from None
         raise ValueError(
-            f"no setup for benchmark {cfg.name!r}; available: {sorted(SETUPS)}"
+            f"no setup registered for benchmark {cfg.name!r}; register one "
+            "with train.benchmarks.register_setup (or "
+            "position_induced_transformer_torch.register_benchmark). "
+            f"Available: {sorted(SETUPS)}"
         ) from None
     return setup_fn(cfg, data_path, device=device, **kw)
+
+
+def register_setup(
+    name: str, setup_fn: Callable[..., Problem], overwrite: bool = False,
+) -> Callable[..., Problem]:
+    """Register a user-defined problem setup under ``name``.
+
+    ``setup_fn(cfg, data_path=None, ntrain=None, ntest=None, *,
+    device="cuda") -> Problem`` is called by every entry point
+    (``runner.train``, ``evaluate``, ``infer``, the server, the command
+    line); it puts the geometry and the model on ``device``. Pair it with
+    :func:`configs.register`, or use the one call
+    ``position_induced_transformer_torch.register_benchmark``.
+    """
+    if name in SETUPS and not overwrite:
+        raise ValueError(
+            f"setup {name!r} is already registered; pass overwrite=True "
+            "to replace it"
+        )
+    SETUPS[name] = setup_fn
+    return setup_fn

@@ -16,7 +16,10 @@ the shape points ``x`` and the three meshes ``mesh_in``, ``mesh_ltt`` and
 ``mesh_out``; its thresholds are computed per call where the input has
 none. An autoregressive benchmark (vorticity) rolls each input window
 forward ``rollout_steps`` steps (default: its configured horizon), and its
-:func:`evaluate` gives stepwise rollout errors.
+:func:`evaluate` gives stepwise rollout errors. A one-step benchmark whose
+problem keeps raw test trajectories (cylinder) is also evaluated by a
+closed-loop rollout from each trajectory's first frame, and its model's
+output fed back as the next input serves ``rollout_steps`` too.
 """
 
 from __future__ import annotations
@@ -40,6 +43,11 @@ from position_induced_transformer_torch.ops.normalization import PixelWiseNormal
 from position_induced_transformer_torch.train import benchmarks
 from position_induced_transformer_torch.train import checkpoint as ckpt
 from position_induced_transformer_torch.train import runner
+from position_induced_transformer_torch.train.plots import (
+    require_matplotlib,
+    save_benchmark_plots,
+    save_step_error_plot,
+)
 from position_induced_transformer_torch.train.runner import padded_batches
 from position_induced_transformer_torch.utils.devices import resolve_device
 
@@ -417,15 +425,13 @@ def input_shuffle_ablation(problem, pred_true=None) -> dict:
     return {"true_relL2": rl2(pred_true), "shuffled_inputs_relL2": rl2(pred_shuf)}
 
 
-def _evaluate_rollout(cfg, problem, zssr: bool, save_pred: Optional[str]) -> dict:
-    """The rollout metrics of an autoregressive benchmark: each test
-    window rolled ``cfg.rollout_steps`` steps in padded batches of the eval
-    batch size; the per-step relative L2 error (mean over samples), its
-    mean over steps, and the whole-trajectory error."""
-    steps = cfg.rollout_steps
-    bs = min(cfg.eval_batch_size or cfg.batch_size, problem.n_test)
-    x = np.asarray(problem.test_data["x"])
+def _rollout_batches(problem, x: np.ndarray, steps: int) -> np.ndarray:
+    """``Task.rollout`` of the windows ``x`` over ``steps`` steps, in padded
+    batches of the eval batch size on the model's device: (n, L, C,
+    steps)."""
+    cfg = problem.config
     n = x.shape[0]
+    bs = min(cfg.eval_batch_size or cfg.batch_size, n)
     dev = next(problem.model.parameters()).device
     problem.model.eval()
     preds = []
@@ -433,7 +439,35 @@ def _evaluate_rollout(cfg, problem, zssr: bool, save_pred: Optional[str]) -> dic
         for idx in padded_batches(n, bs):
             xb = torch.from_numpy(np.ascontiguousarray(x[idx])).to(dev)
             preds.append(problem.task.rollout(problem.geom, xb, steps).cpu().numpy())
-    pred = np.concatenate(preds, axis=0)[:n]  # (n, L, out_dim, steps)
+    return np.concatenate(preds, axis=0)[:n]
+
+
+def _cylinder_rollout(problem) -> dict:
+    """The closed-loop rollout of every raw test trajectory (N, L, C, T)
+    of ``problem.extras["test_trajectories"]``: T - 1 steps from its first
+    frame, the model's output fed back, scored against the true frames by
+    the per-step relative L2 error."""
+    traj = np.asarray(problem.extras["test_trajectories"])
+    steps = traj.shape[-1] - 1
+    pred = _rollout_batches(problem, np.ascontiguousarray(traj[..., 0]), steps)
+    true = torch.from_numpy(np.ascontiguousarray(traj[..., 1:]))
+    step_err = rel_norm_step(true, torch.from_numpy(pred)).numpy()
+    return {
+        "rollout_steps": steps,
+        "rollout_rel_l2_step": [float(v) for v in step_err],
+        "rollout_rel_l2_mean": float(step_err.mean()),
+    }
+
+
+def _evaluate_rollout(cfg, problem, zssr: bool, save_pred: Optional[str],
+                      plots_dir: Optional[str] = None) -> dict:
+    """The rollout metrics of an autoregressive benchmark: each test
+    window rolled ``cfg.rollout_steps`` steps in padded batches of the eval
+    batch size; the per-step relative L2 error (mean over samples), its
+    mean over steps, and the whole-trajectory error."""
+    steps = cfg.rollout_steps
+    pred = _rollout_batches(problem, np.asarray(problem.test_data["x"]), steps)
+    n = pred.shape[0]  # (n, L, out_dim, steps)
     true = np.asarray(problem.test_data["y"])[:n]
     t, p = torch.from_numpy(np.ascontiguousarray(true)), torch.from_numpy(pred)
     step_err = rel_norm_step(t, p).numpy()
@@ -446,6 +480,9 @@ def _evaluate_rollout(cfg, problem, zssr: bool, save_pred: Optional[str]) -> dic
         "rel_l2_traj": float(rel_norm_traj(t, p)),
         "rel_l2_mean_step": float(step_err.mean()),
     }
+    if plots_dir:
+        save_step_error_plot(step_err, plots_dir)
+        save_benchmark_plots(problem, pred, plots_dir)
     if save_pred:
         from scipy.io import savemat
 
@@ -481,13 +518,19 @@ def evaluate(
     ``true``. ``shuffle_ablation=True`` adds :func:`input_shuffle_ablation`
     (one-step benchmarks only: a rollout benchmark refuses it).
 
-    An autoregressive benchmark (vorticity) gives its rollout metrics
+    A problem whose ``extras`` hold raw ``test_trajectories`` (cylinder)
+    adds the closed-loop rollout of each: ``rollout_steps``,
+    ``rollout_rel_l2_step`` and ``rollout_rel_l2_mean``. An
+    autoregressive benchmark (vorticity) gives its rollout metrics
     instead: ``rel_l2_step`` per step, ``rel_l2_mean_step`` and
-    ``rel_l2_traj``. ``plots_dir``, ``mesh`` and ``model_variant`` are not
-    ported.
+    ``rel_l2_traj``. ``plots_dir``: the benchmark's figures
+    (``plots.save_benchmark_plots``) and, with a rollout, the per-step
+    error curve (needs matplotlib, checked first). ``mesh`` and
+    ``model_variant`` are not ported.
     """
-    runner._not_ported("evaluate", plots_dir=plots_dir, mesh=mesh,
-                       model_variant=model_variant)
+    runner._not_ported("evaluate", mesh=mesh, model_variant=model_variant)
+    if plots_dir:
+        require_matplotlib()
     cfg = get(config) if isinstance(config, str) else config
     if cfg.rollout_steps and shuffle_ablation:
         raise ValueError(
@@ -512,7 +555,7 @@ def evaluate(
     )
     problem.model.load_state_dict(restored["state_dict"])
     if cfg.rollout_steps:
-        return _evaluate_rollout(cfg, problem, zssr, save_pred)
+        return _evaluate_rollout(cfg, problem, zssr, save_pred, plots_dir)
     pred = runner.predict(problem)
     n = pred.shape[0]
     true = np.asarray(problem.test_data["y"])[:n]
@@ -530,6 +573,13 @@ def evaluate(
     }
     if shuffle_ablation:
         result["shuffle_ablation"] = input_shuffle_ablation(problem, pred_true=pred)
+    # a capability, not a name: any problem with raw test trajectories
+    if "test_trajectories" in problem.extras:
+        result.update(_cylinder_rollout(problem))
+    if plots_dir:
+        save_benchmark_plots(problem, pred, plots_dir)
+        if "rollout_rel_l2_step" in result:
+            save_step_error_plot(result["rollout_rel_l2_step"], plots_dir)
     if save_pred:
         from scipy.io import savemat
 

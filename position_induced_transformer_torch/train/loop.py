@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from position_induced_transformer_torch.ops.metrics import rel_lp_norm
+from position_induced_transformer_torch.utils import profiling
 
 _REMAT_MODES = {True: "full", "full": "full", "1": "full", "true": "full",
                 "dots": "dots",
@@ -307,6 +308,8 @@ def make_train_epoch(task: Task, schedule: Callable[[int], float], grad_accum: i
     microbatches whose gradients add up before the one optimizer step:
     batch-summed losses add, ``batch_mean_loss`` tasks average (equal
     microbatch sizes). The reported loss keeps the unsplit convention.
+    Under ``utils.profiling.debug_nans`` a step with a non-finite loss or
+    gradient raises ``FloatingPointError`` before its update.
     """
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
@@ -326,6 +329,8 @@ def make_train_epoch(task: Task, schedule: Callable[[int], float], grad_accum: i
                     micro = micro / grad_accum
                 micro.backward()
                 loss = loss + micro.detach()
+            if profiling.debug_nans_enabled():
+                profiling.check_finite(loss, dict(model.named_parameters()))
             opt.step()
             state.step += 1
             losses.append(loss)

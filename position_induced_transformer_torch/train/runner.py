@@ -29,6 +29,8 @@ from position_induced_transformer_torch.train.loop import (
     make_optimizer,
     make_train_epoch,
 )
+from position_induced_transformer_torch.train.plots import require_matplotlib
+from position_induced_transformer_torch.utils.profiling import trace
 
 
 def padded_batches(n: int, batch_size: int):
@@ -105,11 +107,15 @@ def train(
     the ``seconds`` column is the mean over the group. ``setup_kwargs``:
     extra arguments of the benchmark's setup (darcy: ``downsampling``).
     A normalizing benchmark's checkpoints carry its normalizer statistics.
-    ``mesh``, ``profile_dir``, ``model_variant`` and ``history_plot`` are
-    not ported.
+    ``profile_dir``: a ``torch.profiler`` Chrome trace of one epoch (the
+    second one run, the first of a one-epoch run) into that directory.
+    ``history_csv`` / ``history_plot``: the per-epoch rows as CSV and as a
+    log-scale plot (needs matplotlib, checked before training starts).
+    ``mesh`` and ``model_variant`` are not ported.
     """
-    _not_ported(mesh=mesh, profile_dir=profile_dir, model_variant=model_variant,
-                history_plot=history_plot)
+    _not_ported(mesh=mesh, model_variant=model_variant)
+    if history_plot:
+        require_matplotlib()
     cfg = get(config) if isinstance(config, str) else config
     problem = benchmarks.setup(
         cfg, data_path, ntrain=ntrain, ntest=ntest, device=device, **(setup_kwargs or {})
@@ -194,9 +200,16 @@ def train(
 
     last_periodic_save = -1
     try:
+        # the first epoch pays for kernel builds and allocator growth
+        profile_epoch = min(start_epoch + 1, epochs - 1) if profile_dir else -1
         for ep in range(start_epoch, epochs):
             perm = epoch_permutation(seed, ep, problem.n_train, cfg.batch_size).to(dev)
-            state, train_loss = train_epoch(state, problem.geom, train_data, perm)
+            if ep == profile_epoch:
+                with trace(profile_dir):
+                    state, train_loss = train_epoch(state, problem.geom, train_data, perm)
+                    float(train_loss.sum())  # the device finishes inside the trace
+            else:
+                state, train_loss = train_epoch(state, problem.geom, train_data, perm)
             evals = eval_epoch(problem.geom, test_data, eval_perm, problem.n_test)
             pending.append((ep, train_loss.sum(), evals))
             if sync_every and (ep + 1 - start_epoch) % sync_every == 0:
@@ -210,22 +223,37 @@ def train(
     finally:
         if logf:
             logf.close()
-    if history_csv:
-        save_history(history, history_csv)
+    if history_csv or history_plot:
+        save_history(history, history_csv, history_plot)
     if checkpoint_path and last_periodic_save != epochs - 1:
         save(checkpoint_path)
     return problem, state, history
 
 
-def save_history(history, csv_path):
-    """The per-epoch rows as CSV, one column per key."""
+def save_history(history, csv_path=None, plot_path=None):
+    """The per-epoch rows: as CSV, one column per key, and as a log-scale
+    plot of every column but the epoch and its seconds (needs
+    matplotlib)."""
     if not history:
         return
     keys = list(history[0].keys())
-    with open(csv_path, "w") as f:
-        f.write(",".join(keys) + "\n")
-        for row in history:
-            f.write(",".join(str(row.get(k, "")) for k in keys) + "\n")
+    if csv_path:
+        with open(csv_path, "w") as f:
+            f.write(",".join(keys) + "\n")
+            for row in history:
+                f.write(",".join(str(row.get(k, "")) for k in keys) + "\n")
+    if plot_path:
+        plt = require_matplotlib()
+        plt.figure(figsize=(6, 4), dpi=120)
+        epochs = [r["epoch"] for r in history]
+        for k in keys:
+            if k not in ("epoch", "seconds"):
+                plt.semilogy(epochs, [r[k] for r in history], label=k)
+        plt.xlabel("epoch")
+        plt.legend()
+        plt.tight_layout()
+        plt.savefig(plot_path)
+        plt.close()
 
 
 def predict(problem, data=None, batch_size: Optional[int] = None) -> np.ndarray:

@@ -1,5 +1,12 @@
 """Weights from the JAX package's PiT and PiTTFPointCloud params into the
-port's state dicts."""
+port's state dicts, and the reference's ``model.pth`` files in and out.
+
+The port's ``PiT.state_dict()`` uses the reference's parameter names, so a
+reference state dict loads into the benchmark's model as it is:
+:func:`load_torch_checkpoint` reads one (``{'model_state': state_dict}``
+or a bare state dict, ``torch.compile``'s ``_orig_mod.`` prefix removed)
+and :func:`save_torch_checkpoint` writes one.
+"""
 
 from __future__ import annotations
 
@@ -66,3 +73,35 @@ def flax_tf_params_to_state_dict(params) -> Dict[str, torch.Tensor]:
     for key, sub in params.items():
         emit(key, sub)
     return out
+
+
+def _strip_compile_prefix(name: str) -> str:
+    # torch.compile wraps state dicts with an ``_orig_mod.`` prefix
+    return name[len("_orig_mod."):] if name.startswith("_orig_mod.") else name
+
+
+def load_torch_checkpoint(path: str) -> Dict[str, torch.Tensor]:
+    """Read a reference ``model.pth`` into a state dict of CPU tensors.
+    Parameters of a ``norm`` module are refused with ``KeyError``: the
+    reference's ``InstanceNorm1d`` is ``affine=False`` and has none, and an
+    affine norm's scale and shift have no counterpart in the port."""
+    loaded = torch.load(path, map_location="cpu", weights_only=True)
+    state = loaded.get("model_state", loaded)
+    out: Dict[str, torch.Tensor] = {}
+    for raw, value in state.items():
+        name = _strip_compile_prefix(raw)
+        if name.split(".")[0] == "norm":
+            raise KeyError(
+                f"cannot import {name!r}: the reference uses "
+                "InstanceNorm1d(affine=False); an affine norm's parameters "
+                "have no counterpart here"
+            )
+        out[name] = value
+    return out
+
+
+def save_torch_checkpoint(path: str, state) -> None:
+    """Write a reference-compatible ``model.pth``: ``{'model_state':
+    state}`` with contiguous CPU tensors."""
+    torch.save({"model_state": {k: torch.as_tensor(v).detach().cpu().contiguous()
+                                for k, v in state.items()}}, path)

@@ -1033,10 +1033,12 @@ def test_tf_model_launches_the_tf_kernels_only(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name,per_step", [("darcy", [6, 0, 6, 5]), ("sod", [4, 0, 4, 3])])
+@pytest.mark.parametrize("name,per_step", [("darcy", [6, 0, 6, 5]), ("sod", [4, 0, 4, 3]),
+                                           ("cylinder", [6, 0, 6, 5])])
 def test_fixed_mesh_training_step_launch_counts(cuda, name, per_step):
-    """Two training steps of full-width Darcy (43^2, 4 blocks) or sod (1
-    head, 2 blocks) on the card launch #1/#2/#3/#4 ``per_step`` times a
+    """Two training steps of full-width Darcy (43^2, 4 blocks), sod (1
+    head, 2 blocks) or cylinder (4390 -> 896 points, hid 256, 1 head, 4
+    blocks) at batch 8 on the card launch #1/#2/#3/#4 ``per_step`` times a
     step (one forward and one dscale a layer, du for every layer but the
     encoder, whose input needs no gradient; no #2) and agree with the same
     steps on the CPU at the training bounds of test_torch_train.py."""
@@ -1262,3 +1264,95 @@ def test_cuda_batched_kernels_at_the_naca_shapes(cuda, op):
     want_ds = kb.posatt_batched_bwd_dscale_reference(mq, mk, scale, u, g, stats, starts, **w)
     size = _dscale_size(mq, mk, scale, u, g, stats, starts, width)
     torch.testing.assert_close(ds / size, want_ds / size, rtol=DS_RTOL, atol=DS_ATOL)
+
+
+# cylinder's three ops at its training batch (B 200, H 1): the encoder
+# 896 x 4390 (D 5, locality 0.01), the processor 896^2 (every entry kept,
+# D 256) and the decoder 4390 x 896 (D 256), on its own cloud
+CYLINDER_OPS = ["encoder", "processor", "decoder"]
+
+
+def _cylinder_op(dev, op, seed=0):
+    from position_induced_transformer_torch import configs
+    from position_induced_transformer_torch.data import synthetic
+    from position_induced_transformer_torch.models import build_geometry
+
+    cfg = configs.CYLINDER
+    m = cfg.model
+    _, mesh, ltt = synthetic.cylinder(n_traj=1)
+    geom = build_geometry(mesh, ltt, mesh, metric=cfg.metric, en_loc=m.en_loc,
+                          de_loc=m.de_loc, device=dev)
+    dist, thr, D = {
+        "encoder": (geom.dist_down, geom.thr_down, m.in_dim + m.space_dim),
+        "processor": (geom.dist_proc, None, m.hid_dim),
+        "decoder": (geom.dist_up, geom.thr_up, m.hid_dim),
+    }[op]
+    if thr is None:
+        thr = torch.full((dist.shape[0], 1), float("inf"), device=dev)
+    rng = np.random.default_rng(seed)
+    to = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)
+    B, H = cfg.batch_size, m.n_head
+    scale = posatt.bandwidth_scale(to(rng.random((H, 1, 1)))).reshape(H, 1)
+    u = to(rng.random((B, dist.shape[1], D)))
+    g = to(rng.standard_normal((B, dist.shape[0], H * D)))
+    return dist, thr, scale, u, g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", CYLINDER_OPS)
+def test_cuda_fixed_kernels_at_the_cylinder_shapes(cuda, op):
+    """#1 (with M and L), #3 and #4 against their plain versions at one of
+    cylinder's ops, each launched once."""
+    dist, thr, scale, u, g = _cylinder_op(cuda, op)
+    B, L_out, HD = g.shape
+    counters = (kp.posatt_fixed_cuda, kp.posatt_bwd_dscale_cuda, kp.posatt_bwd_du_cuda)
+    before = [f.launches for f in counters]
+    out, M, L = kp.posatt_fixed_cuda(dist, thr, scale, u, stats=True)
+    ds = kp.posatt_bwd_dscale_cuda(dist, thr, scale, M, L, g, u, out)
+    du = kp.posatt_bwd_du_cuda(dist, thr, scale, M, L, g)
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(counters, before)] == [1, 1, 1]
+    want, M_want, L_want = kp.posatt_fixed_reference(dist, thr, scale, u, stats=True)
+    H = scale.shape[0]
+    torch.testing.assert_close(out, want.permute(1, 2, 0, 3).reshape(B, L_out, HD),
+                               rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(M, M_want, rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(L, L_want, rtol=RTOL, atol=ATOL)
+    want_du = kp.posatt_bwd_du_reference(dist, thr, scale, M_want, L_want, g)
+    size = kp.posatt_bwd_du_reference(dist, thr, scale, M_want, L_want, g.abs())
+    assert ((du - want_du).abs() <= ATOL + RTOL * size).all(), (du - want_du).abs().max()
+    want_ds = kp.posatt_bwd_dscale_reference(dist, thr, scale, M_want, L_want, g, u, out)
+    keep = (dist <= thr) & (dist < float("inf"))
+    p = torch.where(keep, torch.exp(-dist[None] * scale[:, :, None] - M_want), 0.0) / L_want
+    t = torch.einsum("bihk,bjk->hij", g.reshape(B, L_out, H, -1), u)
+    d = torch.where(keep, dist, 0.0)
+    size = ((p * t * d).sum(-1).abs() + (p * t).sum(-1).abs() * (p * d).sum(-1)).sum(-1, keepdim=True)
+    torch.testing.assert_close(ds / size, want_ds / size, rtol=DS_RTOL, atol=DS_ATOL)
+
+
+@pytest.mark.cuda
+def test_cli_trains_cylinder_on_the_card(cuda, tmp_path, capsys):
+    """``train --benchmark cylinder`` through the command line with the
+    default device: 2 steps at batch 200 and one eval batch, 6/0/6/5
+    launches of #1-#4 a step and 6 of #1 for the eval batch; finite
+    metrics and a checkpoint that evaluates on the card."""
+    import json
+
+    from position_induced_transformer_torch import cli
+    from position_induced_transformer_torch.train import evaluate
+
+    counters = (kp.posatt_fixed_cuda, kp.posatt_stats_cuda,
+                kp.posatt_bwd_dscale_cuda, kp.posatt_bwd_du_cuda)
+    before = [f.launches for f in counters]
+    ckpt = str(tmp_path / "cylinder.pt")
+    assert cli.main(["train", "--benchmark", "cylinder", "--epochs", "1", "--ntrain", "400",
+                     "--ntest", "200", "--checkpoint", ckpt]) == 0
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(counters, before)] == [2 * 6 + 6, 0, 2 * 6, 2 * 5]
+    final = json.loads(capsys.readouterr().out.splitlines()[-1])["final"]
+    assert np.isfinite([final[k] for k in ("train_loss", "rel_l2")]).all()
+    from position_induced_transformer_torch import configs
+
+    cfg = dataclasses.replace(configs.CYLINDER, ntrain=400)
+    result = evaluate.evaluate(cfg, ckpt, ntest=200)
+    assert len(result["rollout_rel_l2_step"]) == 10 and np.isfinite(result["rollout_rel_l2_mean"])

@@ -310,21 +310,22 @@ def test_evaluate_zssr_matches_jax(problems, tmp_path, monkeypatch):
 def test_evaluate_refusals(tmp_path):
     """ZSSR on a setup without ``downsampling`` is a ValueError, as in JAX,
     and so is the shuffle ablation of a rollout benchmark; the options and
-    benchmarks not ported yet raise NotImplementedError."""
+    benchmarks not ported yet (``mesh``, ``model_variant``; the TF-family
+    fixed-mesh configurations) raise NotImplementedError."""
     cfg = t_configs.apply_overrides(t_configs.BURGERS, ["grid=64", "latent_grid=16",
                                                         "model.hid_dim=8", "model.n_blocks=1"])
     path = t_ckpt.save(str(tmp_path / "b.pt"), t_bench._make_model(cfg).state_dict(), "burgers")
     with pytest.raises(ValueError, match="downsampling"):
         t_eval.evaluate(cfg, path, zssr=True, device="cpu")
-    for option in ("mesh", "model_variant", "plots_dir"):
+    for option in ("mesh", "model_variant"):
         with pytest.raises(NotImplementedError, match=f"evaluate\\({option}=...\\) is not ported"):
             t_eval.evaluate(cfg, path, device="cpu", **{option: "x"})
     with pytest.raises(ValueError, match="one-step operator map"):
         t_eval.evaluate(t_configs.VORTICITY, path, shuffle_ablation=True, device="cpu")
-    cylinder = t_ckpt.save(str(tmp_path / "c.pt"),
-                           t_bench._make_model(t_configs.CYLINDER).state_dict(), "cylinder")
-    with pytest.raises(NotImplementedError, match="'cylinder' is not ported"):
-        t_eval.evaluate(t_configs.CYLINDER, cylinder, device="cpu")
+    burgers_tf = t_ckpt.save(str(tmp_path / "btf.pt"), t_bench._make_model(cfg).state_dict(),
+                             "burgers_tf")
+    with pytest.raises(NotImplementedError, match="'burgers_tf' is not ported"):
+        t_eval.evaluate(t_configs.BURGERS_TF, burgers_tf, device="cpu")
     result = t_eval.evaluate(cfg, path, ntest=3, device="cpu")
     assert result["n_test"] == 3 and not result["zssr"] and len(result["rel_l1_quartiles"]) == 3
 

@@ -167,9 +167,9 @@ def test_model_rejects_other_compute_dtypes():
 
 
 def test_setup_names_unported_benchmarks():
-    ported = ("ported: ['burgers', 'darcy', 'elasticity', 'elasticity_tf', 'naca', 'sod', "
-              "'vorticity']")
+    ported = ("ported: ['burgers', 'cylinder', 'darcy', 'elasticity', 'elasticity_tf', 'naca', "
+              "'sod', 'vorticity']")
     with pytest.raises(NotImplementedError, match=f"not ported.*{re.escape(ported)}"):
-        t_bench.setup(t_configs.CYLINDER, device="cpu")
+        t_bench.setup(t_configs.DARCY_TF, device="cpu")
     with pytest.raises(ValueError, match="unknown benchmark"):
         t_configs.get("nope")

@@ -286,7 +286,7 @@ def test_grad_accum_matches_whole_batches():
         t_runner.train(cfg, grad_accum=3, **kw)
 
 
-@pytest.mark.parametrize("option", ["mesh", "profile_dir", "model_variant", "history_plot"])
+@pytest.mark.parametrize("option", ["mesh", "model_variant"])
 def test_unported_runner_options_raise(option):
     with pytest.raises(NotImplementedError, match="not ported"):
         t_runner.train("burgers", device="cpu", **{option: "x"})

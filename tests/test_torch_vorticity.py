@@ -22,6 +22,7 @@ bounds of test_torch_train.py).
 import dataclasses
 import io
 import json
+import os
 import threading
 import urllib.error
 import urllib.request
@@ -381,7 +382,8 @@ def test_grad_accum_composes_with_rollouts(ns_file):
 def test_evaluate_matches_jax(problems, ns_file, tmp_path):
     """``evaluate`` on the same weights (a JAX checkpoint and a port one):
     the per-step errors, their mean and the trajectory error, and the
-    saved predictions; a rollout benchmark refuses the shuffle ablation."""
+    saved predictions; a rollout benchmark refuses the shuffle ablation;
+    ``plots_dir`` writes the figures (an ImportError without matplotlib)."""
     _, _, params = problems
     jpath = j_ckpt.save(str(tmp_path / "jax_ckpt"), {"params": params})
     tpath = t_ckpt.save(str(tmp_path / "v.pt"), flax_params_to_state_dict(params), "vorticity")
@@ -403,8 +405,17 @@ def test_evaluate_matches_jax(problems, ns_file, tmp_path):
     rollout_close(tm["pred"], jm["pred"])
     with pytest.raises(ValueError, match="one-step operator map"):
         t_eval.evaluate(T, tpath, shuffle_ablation=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="plots_dir"):
-        t_eval.evaluate(T, tpath, plots_dir=str(tmp_path), device="cpu")
+    plots = str(tmp_path / "plots")
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        with pytest.raises(ImportError, match="matplotlib"):
+            t_eval.evaluate(T, tpath, plots_dir=plots, device="cpu", **kw)
+    else:  # the per-step error curve and the frames, as the JAX package writes them
+        again = t_eval.evaluate(T, tpath, plots_dir=plots, device="cpu", **kw)
+        assert again["rel_l2_step"] == got["rel_l2_step"]
+        files = set(os.listdir(plots))
+        assert {"rollout_error.png", "reference_1.pdf", "pred_3.pdf", "err_1.pdf"} <= files
 
 
 def test_task_rollout_matches_jax(problems):
