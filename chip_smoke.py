@@ -87,8 +87,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
     training and 20 test samples, 2 epochs of 8 steps at batch 10); exactly
     6/6/5 launches of the batched forward/dscale/du per step and 6 forward
     launches per eval batch; losses and weights against a plain-attention
-    card run and a CPU run; the time per step, steps/s and the device's
-    busy share;
+    card run, the first two steps against a CPU run; the time per step,
+    steps/s and the device's busy share;
 12. TF kernels: the TF-semantics forwards #9 (pre-built halved distances)
     and #11 (from coordinates) against their plain versions at the full
     elasticity_tf shapes (B 10, L 972, 8 heads of V 64: #11's banded
@@ -219,12 +219,43 @@ Phases, each of which fails the run (non-zero exit, no result line):
     and, on phase 25's checkpoint, ``evaluate`` (against the in-process
     ``evaluate``), ``infer --rollout-steps 10``, ``serve`` answering one
     ``POST /predict`` and stopped, ``describe``, ``benchmarks`` and a
-    ``convert`` round trip through a ``model.pth``; every process exits 0.
+    ``convert`` round trip through a ``model.pth``; every process exits 0;
+29. fixed-mesh TF kernel #13: its forward (with its row statistics m and
+    l), dscale (twice: the same bits) and dv against their plain versions
+    at every attention op of the five fixed-mesh TF configurations at full
+    width, from their setups' geometry (burgers_tf 1024 -> 1024, B 5, H 2,
+    V 32; sod_tf 2048 -> 1024, V 32; darcy_tf 43^2 -> 32^2, V 64;
+    vorticity_tf 64^2 -> 16^2, H 1, V 256; naca_tf 221 x 51 -> 111 x 26,
+    V 128, heads of scale tan(r) negative, zero and positive) and at
+    darcy_tf's 421^2 ZSSR encoder and decoder, each timed beside its plain
+    version, the bound (bytes, or the operations of the kept entries) and,
+    for the forward, SDPA with zero q and k and the masked logits as
+    ``attn_mask``; at ragged shapes (1 to 8 heads, V 4 to 256, 9 and 13
+    samples, rows that keep nothing); the autograd Function's gradients in
+    r (through the bandwidth) and the values against autograd of the plain
+    version, one forward + backward launching each entry point once;
+30. the five fixed-mesh TF configurations (``PiTTF``), each at full width
+    and depth: ``runner.train`` (2 epochs of 2 steps; burgers_tf of 2 at
+    batch 5) with exactly 7/7/7 (burgers_tf, sod_tf) or 6/6/6 launches of
+    #13's forward/dscale/dv a step (vorticity_tf 240/120/120 under remat
+    ``full``) and the forwards of a served batch per eval batch; losses
+    and weights against a plain-attention card run and, for burgers_tf,
+    sod_tf and darcy_tf, a CPU run; naca_tf's bandwidths at or above 0
+    after training; time per step, steps/s, the device's busy share; then
+    ``make_server`` on the trained checkpoint answering raw ``.npy``
+    inputs (1, 3, 5 samples, 2 concurrent, 4 warm whole batches; naca_tf
+    from C-grid coordinates) with 7 or 6 launches of #13's forward per
+    device batch (vorticity_tf 120, rolled out 20 steps) and nothing else,
+    replies against ``infer``, a plain-attention card run and a CPU run;
+31. darcy_tf ``evaluate(zssr=True)`` at 421^2 (6 launches) and
+    vorticity_tf's rollout ``evaluate`` (120 launches), each against a
+    plain-attention card run at rtol 1e-4; vorticity_tf served at
+    ``?rollout_steps=5`` (30 launches per device batch).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
-``kernels`` record (twelve kernels: #1-#4, the per-sample-mesh #7, #8, the
-TF-semantics #9-#12 and the schedule variants #5, #6), and before that the
-phases' records.
+``kernels`` record (the twelve kernels #1-#4, the per-sample-mesh #7, #8,
+the TF-semantics #9-#12, the schedule variants #5, #6, and the three entry
+points of #13), and before that the phases' records.
 """
 
 from __future__ import annotations
@@ -673,13 +704,15 @@ FIXED_TRAIN_KERNELS = ("posatt_fixed_fwd", "posatt_bwd_dscale", "posatt_bwd_du")
 BATCHED_KERNELS = ("posatt_batched_fwd", "posatt_batched_bwd_dscale", "posatt_batched_bwd_du")
 TF_DIST_KERNELS = ("posatt_tf_fwd", "posatt_tf_bwd_dscale", "posatt_tf_bwd_dv")
 TF_COORD_KERNELS = ("posatt_tf_coord_fwd", "posatt_tf_coord_bwd_dscale", "posatt_tf_coord_bwd_dv")
+TF_FIXED_KERNELS = ("posatt_tf_fixed_fwd", "posatt_tf_fixed_bwd_dscale", "posatt_tf_fixed_bwd_dv")
 
 
 def launchers():
-    """The fifteen launchers, by kernel entry point; each counts its
+    """The eighteen launchers, by kernel entry point; each counts its
     launches."""
     from position_induced_transformer_torch.kernels import posatt_batched as kb
     from position_induced_transformer_torch.kernels import posatt_pallas as kp
+    from position_induced_transformer_torch.kernels import posatt_tf_fixed as kf
 
     return {
         "posatt_tf_fwd": kb.posatt_tf_cuda,
@@ -697,6 +730,9 @@ def launchers():
         "posatt_batched_fwd": kb.posatt_batched_cuda,
         "posatt_batched_bwd_dscale": kb.posatt_batched_bwd_dscale_cuda,
         "posatt_batched_bwd_du": kb.posatt_batched_bwd_du_cuda,
+        "posatt_tf_fixed_fwd": kf.posatt_tf_fixed_cuda,
+        "posatt_tf_fixed_bwd_dscale": kf.posatt_tf_fixed_bwd_dscale_cuda,
+        "posatt_tf_fixed_bwd_dv": kf.posatt_tf_fixed_bwd_dv_cuda,
     }
 
 
@@ -1736,7 +1772,8 @@ def elasticity_train_phase():
     80 training and 20 test samples, 2 epochs of 8 steps at batch 10):
     exactly 6/6/5 launches of the batched forward/dscale/du per step and 6
     forward launches per eval batch; losses and weights against a
-    plain-attention card run and a CPU run; then the time per step."""
+    plain-attention card run, the first two steps against a CPU run; then
+    the time per step."""
     import numpy as np
     import torch
 
@@ -1766,18 +1803,34 @@ def elasticity_train_phase():
         "step_losses_first_last": [losses[0].item(), losses[-1].item()],
     }
     patch = mock.patch.object(pit, "position_attention_batched", plain_batched)
-    for device, p, label in (("cuda", patch, "plain_cuda"), ("cpu", None, "cpu")):
-        _, _, _, ref_losses, ref_weights, ref_launched, ref_s = run_training(
-            cfg, device, epochs, ntrain, ntest, p)
-        if any(ref_launched.values()):
-            fail(f"elasticity train: the {label} run launched kernels: {ref_launched}")
-        report[f"max_abs_err_step_loss_vs_{label}"] = check_close(
-            f"elasticity train losses vs {label}", losses, ref_losses, LOSS_RTOL, 0.0)
-        report[f"max_abs_err_weights_vs_{label}"] = max(
-            check_close(f"elasticity train weight {k} vs {label}", v, ref_weights[k],
-                        PARAM_RTOL, PARAM_ATOL)
-            for k, v in weights.items())
-        report[f"seconds_whole_run_{label}"] = ref_s
+    _, _, _, ref_losses, ref_weights, ref_launched, ref_s = run_training(
+        cfg, "cuda", epochs, ntrain, ntest, patch)
+    if any(ref_launched.values()):
+        fail(f"elasticity train: the plain_cuda run launched kernels: {ref_launched}")
+    report["max_abs_err_step_loss_vs_plain_cuda"] = check_close(
+        "elasticity train losses vs plain_cuda", losses, ref_losses, LOSS_RTOL, 0.0)
+    report["max_abs_err_weights_vs_plain_cuda"] = max(
+        check_close(f"elasticity train weight {k} vs plain_cuda", v, ref_weights[k],
+                    PARAM_RTOL, PARAM_ATOL)
+        for k, v in weights.items())
+    report["seconds_whole_run_plain_cuda"] = ref_s
+    # the whole run takes about 100 s on the CPU: its first two steps, as
+    # the card's first two
+    n = 2
+    card_losses, card_weights, _ = first_steps(cfg, "cuda", n, ntrain, ntest, epochs)
+    check_close("elasticity first steps vs the full run", card_losses, losses[:n], LOSS_RTOL, 0.0)
+    t0 = time.perf_counter()
+    cpu_losses, cpu_weights, cpu_launched = first_steps(cfg, "cpu", n, ntrain, ntest, epochs)
+    report["seconds_first_steps_cpu"] = time.perf_counter() - t0
+    if any(cpu_launched.values()):
+        fail(f"elasticity train: the CPU run launched kernels: {cpu_launched}")
+    report["cpu_steps_compared"] = n
+    report["max_abs_err_step_loss_vs_cpu"] = check_close(
+        "elasticity train losses vs cpu", card_losses, cpu_losses, LOSS_RTOL, 0.0)
+    report["max_abs_err_weights_vs_cpu"] = max(
+        check_close(f"elasticity train weight {k} vs cpu", v, cpu_weights[k], PARAM_RTOL,
+                    PARAM_ATOL)
+        for k, v in card_weights.items())
     report.update(step_timing(problem, state, cfg.batch_size, ntrain, cfg.lr))
     return report
 
@@ -2705,14 +2758,17 @@ def schedule_phase():
 
 # ---------------------- sod and Darcy: #1, #3 and #4 on fixed-mesh paths
 def fixed_train_phase(label, cfg, epochs, ntrain, ntest, per_step, refs=("plain_cuda", "cpu"),
-                      **train_kw):
+                      fwd="posatt_fixed_fwd", plain_patch=None, per_eval_batch=None,
+                      groups=None, **train_kw):
     """runner.train on a fixed-mesh configuration on the card, with the
-    kernels: exactly ``per_step`` launches of the forward/stats/dscale/du
-    per step and ``per_step["posatt_fixed_fwd"]`` forward launches per eval
-    batch; the per-step losses and the final weights against the same
-    training with the plain attention on the card and on the CPU (``refs``
-    names the reference runs); then the time per step, steps/s and the
-    device's busy share of warm steps."""
+    kernels: exactly ``per_step`` launches of each kernel per step and
+    ``per_eval_batch`` (default ``per_step[fwd]``) launches of the forward
+    ``fwd`` per eval batch; the per-step losses and the final weights
+    against the same training with the plain attention on the card
+    (``plain_patch()``, default #1's plain version) and on the CPU
+    (``refs`` names the reference runs); then the time per step, steps/s
+    and the device's busy share of warm steps (``groups`` as
+    profile_device takes them, default #1-#4's)."""
     import numpy as np
     import torch
 
@@ -2726,7 +2782,7 @@ def fixed_train_phase(label, cfg, epochs, ntrain, ntest, per_step, refs=("plain_
     steps = state.step
     eval_batches = epochs * -(-ntest // (cfg.eval_batch_size or cfg.batch_size))
     expected = {k: per_step.get(k, 0) * steps for k in launchers()}
-    expected["posatt_fixed_fwd"] += per_step["posatt_fixed_fwd"] * eval_batches
+    expected[fwd] += (per_step[fwd] if per_eval_batch is None else per_eval_batch) * eval_batches
     if steps != epochs * (ntrain // cfg.batch_size) or launched != expected:
         fail(f"{label}: {steps} steps, {eval_batches} eval batches launched {launched}; "
              f"expected {expected} ({per_step} per step, the forward's count per eval batch)")
@@ -2741,7 +2797,8 @@ def fixed_train_phase(label, cfg, epochs, ntrain, ntest, per_step, refs=("plain_
         "seconds_whole_run_cuda": seconds, "history": history,
         "step_losses_first_last": [losses[0].item(), losses[-1].item()],
     }
-    patch = mock.patch.object(pit, "position_attention_fixed", plain)
+    patch = (plain_patch() if plain_patch is not None
+             else mock.patch.object(pit, "position_attention_fixed", plain))
     for device, p, label_ref in (("cuda", patch, "plain_cuda"), ("cpu", None, "cpu")):
         if label_ref not in refs:
             continue
@@ -2757,7 +2814,7 @@ def fixed_train_phase(label, cfg, epochs, ntrain, ntest, per_step, refs=("plain_
                         PARAM_RTOL, PARAM_ATOL)
             for k, v in weights.items())
         report[f"seconds_whole_run_{label_ref}"] = ref_s
-    report.update(step_timing(problem, state, cfg.batch_size, ntrain, cfg.lr, FIXED_GROUPS))
+    report.update(step_timing(problem, state, cfg.batch_size, ntrain, cfg.lr, groups or FIXED_GROUPS))
     return report
 
 
@@ -2770,7 +2827,8 @@ def model_atol(steps, ref):
 
 
 def fixed_serve_phase(label, cfg, ckpt, x, per_batch, sizes, n_concurrent, n_warm,
-                      cpu_samples=None, setup_kwargs=None, rollout_steps=None):
+                      cpu_samples=None, setup_kwargs=None, rollout_steps=None,
+                      fwd="posatt_fixed_fwd", plain_patch=None, groups=None):
     """``make_server(cfg.name)`` on the card answering raw ``.npy``
     batches of ``x``: one request of each of ``sizes`` samples, then
     ``n_concurrent`` concurrent requests (as in phase 6), then ``n_warm``
@@ -2781,7 +2839,9 @@ def fixed_serve_phase(label, cfg, ckpt, x, per_batch, sizes, n_concurrent, n_war
     CPU run. A rollout benchmark answers at its configured horizon, or at
     ``?rollout_steps=`` ``rollout_steps`` where it is given (a one-step
     model whose output is its next input rolls out too), and the
-    comparisons roll out as far."""
+    comparisons roll out as far. ``fwd``: the forward kernel the model
+    launches; ``plain_patch()``: the context that puts its attention on the
+    plain version (default #1's); ``groups`` as profile_device takes them."""
     import numpy as np
     import torch
 
@@ -2792,6 +2852,7 @@ def fixed_serve_phase(label, cfg, ckpt, x, per_batch, sizes, n_concurrent, n_war
 
     plain = lambda dist, lmda, inputs, locality, thr=None: position_attention(
         dist, lmda, inputs, locality, thr=thr)
+    plain_patch = plain_patch or (lambda: mock.patch.object(pit, "position_attention_fixed", plain))
     t0 = time.perf_counter()
     server = make_server(cfg.name, ckpt, host="127.0.0.1", port=0, verbose=False,
                          setup_kwargs=setup_kwargs, device="cuda")
@@ -2841,7 +2902,7 @@ def fixed_serve_phase(label, cfg, ckpt, x, per_batch, sizes, n_concurrent, n_war
         server.shutdown()
         server.server_close()
         thread.join(timeout=30)
-    expected = {k: per_batch * device_calls if k == "posatt_fixed_fwd" else 0 for k in launched}
+    expected = {k: per_batch * device_calls if k == fwd else 0 for k in launched}
     if launched != expected:
         fail(f"{label}: {launched} for {device_calls} device batches "
              f"(expected {per_batch} forward launches per batch and nothing else)")
@@ -2856,7 +2917,7 @@ def fixed_serve_phase(label, cfg, ckpt, x, per_batch, sizes, n_concurrent, n_war
                    setup_kwargs=setup_kwargs, rollout_steps=steps, device="cuda")
     infer_s = time.perf_counter() - t0
     by_infer = np.load(path.replace("inputs", "infer"))
-    if not counts()["posatt_fixed_fwd"]:
+    if not counts()[fwd]:
         fail(f"{label}: infer on the card launched no kernel")
     cpu_n = n_all if cpu_samples is None else cpu_samples
     cpu = evaluate.Predictor(cfg.name, ckpt, setup_kwargs=setup_kwargs, device="cpu")
@@ -2868,7 +2929,7 @@ def fixed_serve_phase(label, cfg, ckpt, x, per_batch, sizes, n_concurrent, n_war
         errs["infer"] = max(errs["infer"], check_close(
             f"{label} vs infer", got, torch.from_numpy(by_infer[i:i + len(a)]), MODEL_RTOL, MODEL_ATOL))
         before = counts()
-        with mock.patch.object(pit, "position_attention_fixed", plain):
+        with plain_patch():
             ref = predictor.predict_array({"x": evaluate._prepare_inputs(predictor.problem, a)}, steps)
         if counts() != before:
             fail(f"{label}: the plain comparison run launched a kernel")
@@ -2886,7 +2947,7 @@ def fixed_serve_phase(label, cfg, ckpt, x, per_batch, sizes, n_concurrent, n_war
         "startup_s": startup_s,
         "infer_s": infer_s, "reply_shape": list(sent[0][2].shape[1:]),
         f"profile_{bs}_samples": profile_device(lambda: predictor.predict_array(batch, steps),
-                                                "forward", groups=FIXED_GROUPS),
+                                                "forward", groups=groups or FIXED_GROUPS),
         "requests": len(sent), "samples": int(sum(len(a) for _, a, _ in sent)),
         "device_batches": device_calls, "launches": launched,
         "first_request_ms": first_ms, "warm_median_ms": statistics.median(warm),
@@ -3891,6 +3952,484 @@ def cli_phase(ckpt):
             "convert": [json.loads(results[k]) for k in ("convert_to_torch", "convert_from_torch")]}
 
 
+# ------------------- the fixed-mesh TF family: kernel #13 on five configs
+
+# the configurations of the fixed-mesh TF family (PiTTF), in phase order
+TF_FIXED_CONFIGS = ("burgers_tf", "sod_tf", "darcy_tf", "vorticity_tf", "naca_tf")
+# #13's kernels' names in a trace
+TF_FIXED_GROUPS = {
+    "posatt_tf_fixed_fwd": "(anonymous namespace)::fwd_kernel(",
+    "posatt_tf_fixed_stats": "(anonymous namespace)::stats_kernel(",
+    "posatt_tf_fixed_bwd_dv": "(anonymous namespace)::dv_kernel(",
+    "posatt_tf_fixed_bwd_dscale": "(anonymous namespace)::dscale_kernel(",
+    "posatt_tf_fixed_sum_splits": "tffixed::sum_splits_kernel(",
+}
+# naca_tf's heads take the scales tan(r) of these r, op by op: negative,
+# zero and positive heads (r of either sign before keras' NonNeg projection)
+NACA_TF_R = {"down": (-0.35, 0.25), "processor": (0.0, -0.2), "up": (0.3, 0.0)}
+RAGGED_TF_FIXED = [  # name, L_out, L_in, B, H, V, bandwidth, locality, r of each head
+    ("tff_h1_v4", 37, 53, 3, 1, 4, "tan_sin", 10.0, None),
+    ("tff_h3_v33_tan", 130, 77, 2, 3, 33, "tan", 20.0, (-0.5, 0.0, 0.4)),
+    ("tff_h8_v16_global_b9", 100, 300, 9, 8, 16, "square", 200.0, None),
+    ("tff_h5_v256_tan", 260, 129, 4, 5, 256, "tan", 5.0, (0.3, -0.3, 0.0, -0.1, 0.6)),
+    ("tff_h4_v7_b13", 300, 257, 13, 4, 7, "tan_sin", 5.0, None),
+    ("tff_h2_v100_tan_global", 64, 1100, 2, 2, 100, "tan", 200.0, (-0.4, 0.5)),
+    # rows that keep nothing (thresholds below every distance): uniform weights
+    ("tff_h2_v12_empty_rows", 64, 64, 2, 2, 12, "square", 1.0, None),
+]
+
+
+def plain_tf_fixed(dist, thr, scales, values, kind, locality):
+    """Kernel #13's public function on its plain version: no kernel."""
+    from position_induced_transformer_torch.kernels import posatt_tf_fixed as kf
+
+    if locality > 100:
+        thr = None
+    elif thr is None:
+        thr = kf.percentile_thresholds(dist, locality)
+    return kf.posatt_tf_fixed_reference(dist, thr, scales, values, kf.KINDS[kind])
+
+
+def plain_tf_fixed_attention():
+    """PiTTF's attention ops on #13's plain version."""
+    from position_induced_transformer_torch.models import pit_tf
+
+    return mock.patch.object(pit_tf, "position_attention_tf_fixed", plain_tf_fixed)
+
+
+def tf_fixed_ops(cfg, geom):
+    """The attention ops of one PiTTF forward: name -> (dist, thr, locality,
+    launches per forward)."""
+    from position_induced_transformer_torch.train import benchmarks
+
+    m = cfg.model
+    ops = {"down": (geom.m_cross_t, geom.thr_down, m.en_loc, 1),
+           "processor": (geom.m_ltt, None, 200.0, m.n_blocks),
+           "up": (geom.m_cross, geom.thr_up, m.de_loc, 1)}
+    if benchmarks.TF_FIXED[cfg.name][1]:
+        ops["up2"] = (geom.m_qry, geom.thr_qry, m.de_loc, 1)
+    return ops
+
+
+def tf_fixed_case(rng, dist, thr, locality, B, H, V, kind, r=None):
+    """One #13 op's arguments on the card: (dist, thr or None, scales (H,
+    1), r, values, g, mode); scales are the bandwidth ``kind`` of r, drawn
+    from the glorot range of a (H, 1, 1) parameter unless given."""
+    import numpy as np
+    import torch
+
+    from position_induced_transformer_torch.kernels import posatt_tf_fixed as kf
+    from position_induced_transformer_torch.models import pit_tf
+
+    if r is None:
+        lim = float(np.sqrt(6.0 / (2 * H)))
+        r = rng.uniform(-lim, lim, H)
+    r = torch.tensor(np.asarray(r, np.float32).reshape(H, 1), device="cuda")
+    scales = pit_tf._bandwidth(r, kind)
+    Lo, Li = dist.shape
+    to = lambda a: torch.from_numpy(a.astype(np.float32)).cuda()
+    values = to(rng.standard_normal((B, Li, H * V)))
+    g = to(rng.standard_normal((B, Lo, H * V)))
+    thr = None if locality > 100 else thr
+    return dist, thr, scales, r, values, g, kf.KINDS[kind]
+
+
+def tf_fixed_work(case):
+    """Kept entries over the heads, and the bytes each entry point must
+    move: every input read once, every output written once."""
+    from position_induced_transformer_torch.kernels import posatt_tf_fixed as kf
+
+    dist, thr, scales, _, values, g, mode = case
+    _, keep = kf._scaled_keep(dist, thr, scales, mode)
+    H = scales.shape[0]
+    Lo, Li = dist.shape
+    kept = H * Lo * Li if keep is None else int(keep.sum())
+    B, HV = values.shape[0], values.shape[2]
+    geo = Lo * Li + (2 * Lo if thr is not None else 0) + H  # distances, thresholds, scales
+    stats = 2 * H * Lo
+    return kept, {
+        "fwd": 4 * (geo + B * Li * HV + B * Lo * HV + stats),
+        "dv": 4 * (geo + stats + B * Lo * HV + B * Li * HV),
+        "dscale": 4 * (geo + stats + B * Li * HV + 2 * B * Lo * HV + H),
+    }
+
+
+def tf_fixed_sdpa(case):
+    """One SDPA call computing the forward: zero q and k, per-head values
+    and the masked logits as ``attn_mask``."""
+    import torch
+    import torch.nn.functional as F
+
+    from position_induced_transformer_torch.kernels import posatt_tf_fixed as kf
+
+    dist, thr, scales, _, values, _, mode = case
+    scaled, keep = kf._scaled_keep(dist, thr, scales, mode)
+    logits = -scaled if keep is None else torch.where(keep, -scaled, float("-inf"))
+    # a row that keeps nothing: JAX's sentinel makes it uniform
+    logits = torch.where(torch.isinf(logits).all(-1, keepdim=True), 0.0, logits)[None]
+    H, Lo, Li = scaled.shape
+    B = values.shape[0]
+    V = values.shape[2] // H
+    q = torch.zeros((B, H, Lo, V), device=dist.device)
+    k = torch.zeros((B, H, Li, V), device=dist.device)
+    vv = values.reshape(B, Li, H, V).permute(0, 2, 1, 3).contiguous()
+    return lambda: F.scaled_dot_product_attention(q, k, vv, attn_mask=logits)
+
+
+def tf_fixed_dscale_size(case, out):
+    """The size of dscale's summed terms per head, sum_ij att |T d| + att d
+    |r| (``out`` the forward's output): its float32 rounding scales with
+    these, not with the cancelled sum."""
+    import torch
+
+    from position_induced_transformer_torch.kernels import posatt_tf_fixed as kf
+
+    dist, thr, scales, _, values, g, mode = case
+    att, keep = kf._attention(dist, thr, scales, mode)
+    H, Lo, Li = att.shape
+    B = values.shape[0]
+    gh = g.reshape(B, Lo, H, -1)
+    t = torch.einsum("bihv,bjhv->hij", gh, values.reshape(B, Li, H, -1))
+    r = torch.einsum("bihv,bihv->hi", gh, out.reshape(B, Lo, H, -1))
+    d = dist if keep is None else torch.where(keep, dist, 0.0)
+    return (att * (t * d).abs()).sum((-1, -2)) + ((att * d).sum(-1) * r.abs()).sum(-1) + 1e-30
+
+
+def tf_fixed_check(name, case, timed, reps=5, per_rep=4):
+    """#13's three entry points against their plain versions on one op:
+    the forward with its statistics, dv, and dscale (twice: the same bits),
+    at the op tolerances (dv on its terms' magnitude, dscale normalised);
+    with ``timed``, each timed beside its plain version, the bound and, for
+    the forward, SDPA. Returns the row."""
+    import torch
+
+    from position_induced_transformer_torch.kernels import posatt_tf_fixed as kf
+
+    dist, thr, scales, _, values, g, mode = case
+    out, stats = kf.posatt_tf_fixed_cuda(dist, thr, scales, values, mode)
+    dv = kf.posatt_tf_fixed_bwd_dv_cuda(dist, thr, scales, g, stats, mode)
+    ds = kf.posatt_tf_fixed_bwd_dscale_cuda(dist, thr, scales, values, out, g, stats, mode)
+    again = kf.posatt_tf_fixed_bwd_dscale_cuda(dist, thr, scales, values, out, g, stats, mode)
+    torch.cuda.synchronize()
+    if not torch.equal(ds, again):
+        fail(f"{name}: two dscale runs on the same inputs differ")
+    want = kf.posatt_tf_fixed_reference(dist, thr, scales, values, mode)
+    errs = {"fwd": check_close(f"{name} forward", out, want, OP_RTOL, OP_ATOL)}
+    want_stats = kf.posatt_tf_fixed_stats_reference(dist, thr, scales, mode)
+    empty = torch.isinf(want_stats)  # m of a row that keeps nothing
+    if not torch.equal(torch.isinf(stats), empty):
+        fail(f"{name} stats: the rows that keep nothing differ from the plain version's")
+    errs["stats"] = check_close(f"{name} stats", torch.where(empty, 0.0, stats),
+                                torch.where(empty, 0.0, want_stats), OP_RTOL, OP_ATOL)
+    errs["dv"] = check_close(
+        f"{name} dv", dv, kf.posatt_tf_fixed_bwd_dv_reference(dist, thr, scales, g, mode),
+        OP_RTOL, OP_ATOL, kf.posatt_tf_fixed_bwd_dv_reference(dist, thr, scales, g.abs(), mode))
+    want_ds = kf.posatt_tf_fixed_bwd_dscale_reference(dist, thr, scales, values, want, g, mode)
+    size = tf_fixed_dscale_size(case, want)
+    check_close(f"{name} dscale (normalised)", ds / size, want_ds / size, DS_RTOL, DS_ATOL)
+    errs["dscale"] = (ds - want_ds).abs().max().item()
+    Lo, Li = dist.shape
+    B, H = values.shape[0], scales.shape[0]
+    row = {"shape": name, "L_out": Lo, "L_in": Li, "B": B, "H": H, "V": values.shape[2] // H,
+           "mode": mode, "scales": scales.flatten().tolist(), "max_abs_err": errs}
+    if not timed:
+        return row
+    kept, nbytes = tf_fixed_work(case)
+    V = values.shape[2] // H
+    flops = {"fwd": 2 * B * V * kept, "dv": 2 * B * V * kept,
+             "dscale": 2 * B * V * kept + 2 * B * Lo * H * V}
+    launch = {
+        "fwd": lambda: kf.posatt_tf_fixed_cuda(dist, thr, scales, values, mode),
+        "dv": lambda: kf.posatt_tf_fixed_bwd_dv_cuda(dist, thr, scales, g, stats, mode),
+        "dscale": lambda: kf.posatt_tf_fixed_bwd_dscale_cuda(dist, thr, scales, values, out, g,
+                                                             stats, mode),
+    }
+    plain = {
+        "fwd": lambda: kf.posatt_tf_fixed_reference(dist, thr, scales, values, mode),
+        "dv": lambda: kf.posatt_tf_fixed_bwd_dv_reference(dist, thr, scales, g, mode),
+        "dscale": lambda: kf.posatt_tf_fixed_bwd_dscale_reference(dist, thr, scales, values, out,
+                                                                  g, mode),
+    }
+    row["kept_entries"] = kept
+    for part in ("fwd", "dv", "dscale"):
+        bound_ms, bound_by = roofline(flops[part], nbytes[part])
+        row[part] = {"ms": cuda_ms(launch[part], reps=reps, per_rep=per_rep),
+                     "plain_ms": cuda_ms(plain[part], reps=reps, per_rep=per_rep),
+                     "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops[part],
+                     "bytes": nbytes[part]}
+    sdpa = tf_fixed_sdpa(case)
+    row["fwd"]["library_max_abs_err"] = (
+        sdpa().permute(0, 2, 1, 3).reshape(B, Lo, -1) - want).abs().max().item()
+    row["fwd"]["library_ms"] = cuda_ms(sdpa, reps=reps, per_rep=per_rep)
+    del sdpa
+    return row
+
+
+def tf_fixed_function_check(name, case):
+    """One forward + backward through the public function (r -> the
+    bandwidth -> PosAttTFFixed) launches each entry point once; its
+    gradients in r and the values against torch.autograd of the plain
+    version."""
+    import torch
+
+    from position_induced_transformer_torch.kernels import posatt_tf_fixed as kf
+    from position_induced_transformer_torch.models import pit_tf
+
+    dist, thr, _, r0, values, g, mode = case
+    kind = {0: "tan_sin", 1: "tan"}[mode]
+    locality = 200.0 if thr is None else 50.0
+
+    def grads(fn, w):
+        r = r0.clone().requires_grad_(True)
+        x = values.clone().requires_grad_(True)
+        out = fn(dist, thr, pit_tf._bandwidth(r, kind).reshape(-1, 1), x, kind, locality)
+        (out * w).sum().backward()
+        return out.detach(), r.grad, x.grad
+
+    before = counts()
+    got = grads(kf.position_attention_tf_fixed, g)
+    torch.cuda.synchronize()
+    diff = {k: v - before[k] for k, v in counts().items()}
+    if diff != {k: int(k in TF_FIXED_KERNELS) for k in diff}:
+        fail(f"{name}: one forward + backward launched {diff}, expected 1 each of {TF_FIXED_KERNELS}")
+    want = grads(plain_tf_fixed, g)
+    size_x = grads(plain_tf_fixed, g.abs())[2]
+    # d r = dscale * d bandwidth / d r: normalised by the terms' size
+    r = r0.clone().requires_grad_(True)
+    pit_tf._bandwidth(r, kind).sum().backward()
+    size_r = tf_fixed_dscale_size(case[:2] + (pit_tf._bandwidth(r0, kind),) + case[3:],
+                                  want[0]).reshape(r0.shape) * r.grad.abs() + 1e-30
+    check_close(f"{name} Function d r (normalised)", got[1] / size_r, want[1] / size_r,
+                DS_RTOL, DS_ATOL)
+    return max(
+        check_close(f"{name} Function out", got[0], want[0], OP_RTOL, OP_ATOL),
+        (got[1] - want[1]).abs().max().item(),
+        check_close(f"{name} Function d values", got[2], want[2], OP_RTOL, OP_ATOL, size_x),
+    )
+
+
+def tf_fixed_kernel_phase():
+    """#13's forward, dscale and dv against their plain versions at every
+    attention op of the five fixed-mesh TF configurations at full width
+    (their setups' geometry; naca_tf's heads of scale tan(r) negative, zero
+    and positive), darcy_tf's 421^2 ZSSR encoder and decoder, and ragged
+    shapes (1 to 8 heads, V 4 to 256, batches past 8 samples, rows that
+    keep nothing); each timed beside its plain version, the bound and SDPA;
+    the autograd Function's gradients against autograd of the plain
+    version, one forward + backward launching each entry point once."""
+    import numpy as np
+    import torch
+
+    from position_induced_transformer_torch import configs
+    from position_induced_transformer_torch.kernels import posatt_tf_fixed as kf
+    from position_induced_transformer_torch.train import benchmarks
+
+    rng = np.random.default_rng(13)
+    rows, fn_err = [], 0.0
+    for name in TF_FIXED_CONFIGS:
+        cfg = configs.get(name)
+        m = cfg.model
+        problem = benchmarks.setup(cfg, ntrain=cfg.batch_size, ntest=2, device="cuda")
+        kind = benchmarks.TF_FIXED[name][0]
+        V = m.hid_dim // m.n_head
+        for op, (dist, thr, loc, per_forward) in tf_fixed_ops(cfg, problem.geom).items():
+            r = NACA_TF_R[op] if name == "naca_tf" else None
+            case = tf_fixed_case(rng, dist, thr, loc, cfg.batch_size, m.n_head, V, kind, r)
+            row = tf_fixed_check(f"{name} {op}", case, timed=True)
+            row.update(config=name, op=op, launches_per_forward=per_forward)
+            rows.append(row)
+            log(f"kernel posatt_tf_fixed {name} {op}: {json.dumps(row)}")
+            if op in ("down", "processor"):
+                fn_err = max(fn_err, tf_fixed_function_check(f"{name} {op}", case))
+            del case
+        del problem
+    # darcy_tf's zero-shot 421^2 encoder and decoder
+    cfg = configs.DARCY_TF
+    problem = benchmarks.setup(cfg, ntrain=cfg.batch_size, ntest=2, downsampling=1, device="cuda")
+    ops = tf_fixed_ops(cfg, problem.geom)
+    m = cfg.model
+    for op in ("down", "up"):
+        dist, thr, loc, _ = ops[op]
+        case = tf_fixed_case(rng, dist, thr, loc, cfg.batch_size, m.n_head, m.hid_dim // m.n_head,
+                             "tan_sin")
+        row = tf_fixed_check(f"darcy_tf_zssr {op}", case, timed=True, reps=3, per_rep=2)
+        row.update(config="darcy_tf_zssr", op=op, launches_per_forward=1)
+        rows.append(row)
+        log(f"kernel posatt_tf_fixed darcy_tf_zssr {op}: {json.dumps(row)}")
+        del case
+    del problem, ops
+    torch.cuda.empty_cache()
+    ragged_err = {}
+    for name, Lo, Li, B, H, V, kind, loc, r in RAGGED_TF_FIXED:
+        dist = torch.from_numpy(rng.random((Lo, Li)).astype(np.float32)).cuda()
+        thr = kf.percentile_thresholds(dist, loc) if loc <= 100 else None
+        if name.endswith("empty_rows"):  # half the rows below their minimum
+            thr = thr.clone()
+            thr[::2] = dist[::2].amin(-1, keepdim=True) * 0.5
+        case = tf_fixed_case(rng, dist, thr, loc, B, H, V, kind, r)
+        row = tf_fixed_check(name, case, timed=False)
+        ragged_err[name] = row["max_abs_err"]
+        fn_err = max(fn_err, tf_fixed_function_check(name, case))
+        log(f"kernel posatt_tf_fixed {name}: {json.dumps(row)}")
+    log(f"PosAttTFFixed: gradients match autograd of the plain version, max abs err {fn_err:.3e}")
+    return rows, ragged_err, fn_err
+
+
+def tf_fixed_launches(cfg):
+    """#13's launches per training step and per served or evaluated batch
+    of a PiTTF configuration: one forward, dscale and dv per attention op
+    (every op's values need a gradient); a rollout runs its ops once a
+    step and, under remat ``full``, its forwards again in the backward."""
+    from position_induced_transformer_torch.train import benchmarks
+
+    n = cfg.model.n_blocks + 2 + int(benchmarks.TF_FIXED[cfg.name][1])
+    steps = cfg.rollout_steps or 1
+    per_batch = n * steps
+    per_step = {"posatt_tf_fixed_fwd": per_batch * (2 if cfg.rollout_steps else 1),
+                "posatt_tf_fixed_bwd_dscale": per_batch, "posatt_tf_fixed_bwd_dv": per_batch}
+    return per_step, per_batch
+
+
+# name -> (training split, test split, reference runs): 2 epochs each; the
+# CPU runs where the width allows (vorticity_tf's 20-step BPTT and naca_tf's
+# 11,271 x 2,886 ops take minutes a step on the card machine's CPU)
+TF_FIXED_TRAIN = {
+    "burgers_tf": (10, 10, ("plain_cuda", "cpu")),
+    "sod_tf": (16, 8, ("plain_cuda", "cpu")),
+    "darcy_tf": (16, 8, ("plain_cuda", "cpu")),
+    "vorticity_tf": (16, 8, ("plain_cuda",)),
+    "naca_tf": (16, 8, ("plain_cuda",)),
+}
+
+
+def tf_fixed_train_phase(name):
+    """runner.train on one PiTTF configuration at full width and depth
+    (synthetic data, 2 epochs of 2 steps; cut from ~1000 samples and 500
+    epochs): exactly the launches of :func:`tf_fixed_launches` per step and
+    per eval batch; losses and weights against a plain-attention card run
+    and, where the width allows, a CPU run; the time per step, steps/s and
+    the device's busy share. Returns the report and the checkpoint."""
+    from position_induced_transformer_torch import configs
+
+    cfg = configs.get(name)
+    ntrain, ntest, refs = TF_FIXED_TRAIN[name]
+    per_step, per_batch = tf_fixed_launches(cfg)
+    ckpt = str(REPO / "build" / "chip_smoke" / f"{name}.pt")
+    report = fixed_train_phase(
+        f"{name} train", cfg, 2, ntrain, ntest, per_step, refs=refs, fwd="posatt_tf_fixed_fwd",
+        plain_patch=plain_tf_fixed_attention, per_eval_batch=per_batch, groups=TF_FIXED_GROUPS,
+        checkpoint_path=ckpt)
+    if name == "naca_tf":  # keras' NonNeg projection after every update
+        from position_induced_transformer_torch.train import checkpoint
+
+        sd = checkpoint.restore(ckpt)["state_dict"]
+        low = min(float(v.min()) for k, v in sd.items() if k.endswith("band_width"))
+        if low < 0:
+            fail(f"naca_tf train: a band_width of {low} after the NonNeg projection")
+        report["min_band_width"] = low
+    return report, ckpt
+
+
+def tf_fixed_inputs(cfg, n):
+    """``n`` raw inputs of a PiTTF configuration, as a request carries
+    them (seed 1: not the training data)."""
+    from position_induced_transformer_torch.data import synthetic
+
+    if cfg.name == "burgers_tf":
+        return synthetic.burgers(n=n, L=cfg.grid[0], seed=1)[0]
+    if cfg.name == "sod_tf":
+        return synthetic.sod(n=n, L=cfg.grid[0], seed=1)[0]
+    if cfg.name == "darcy_tf":
+        return synthetic.darcy(n=n, s=43, seed=1)[0]
+    if cfg.name == "vorticity_tf":
+        return synthetic.vorticity(n=n, frames=cfg.memory, seed=1).reshape(n, -1, cfg.memory)
+    return synthetic.naca(n=n, nx=cfg.grid[0], ny=cfg.grid[1], seed=1)[1]  # C-grid vertices
+
+
+def tf_fixed_serve_phase(name, ckpt, rollout_steps=None):
+    """make_server(name) on the train phase's checkpoint answering raw
+    ``.npy`` inputs (1, 3 and 5 samples, 2 concurrent, 4 warm; vorticity_tf
+    rolls them out, at ``?rollout_steps=`` where given): #13's forward
+    exactly as often as :func:`tf_fixed_launches` says per device batch and
+    no other kernel; replies against ``infer``, a plain-attention card run
+    and, on the first samples, a CPU run."""
+    from position_induced_transformer_torch import configs
+
+    cfg = configs.get(name)
+    _, per_batch = tf_fixed_launches(cfg)
+    if rollout_steps is not None:
+        per_batch = per_batch * rollout_steps // cfg.rollout_steps
+    x = tf_fixed_inputs(cfg, (cfg.eval_batch_size or cfg.batch_size) + 12)  # warm: whole batches
+    label = f"{name}_serve" + (f"_rollout_{rollout_steps}" if rollout_steps else "")
+    return fixed_serve_phase(label, cfg, ckpt, x, per_batch, (1, 3, 5), 2, 4,
+                             cpu_samples=1 if name in ("vorticity_tf", "naca_tf") else 2,
+                             rollout_steps=rollout_steps, fwd="posatt_tf_fixed_fwd",
+                             plain_patch=plain_tf_fixed_attention, groups=TF_FIXED_GROUPS)
+
+
+def tf_fixed_evaluate_phase(name, ckpt, **kw):
+    """``evaluate(name, ckpt, **kw)`` on the card (darcy_tf: ``zssr=True``,
+    the 421^2 grid; vorticity_tf: its 20-step rollouts) on one eval batch:
+    #13's forward exactly as often as :func:`tf_fixed_launches` says and no
+    other kernel; its metrics against a plain-attention card run at rtol
+    1e-4."""
+    import dataclasses
+
+    import torch
+
+    from position_induced_transformer_torch import configs
+    from position_induced_transformer_torch.train import evaluate
+
+    cfg = configs.get(name)
+    ntrain, ntest, _ = TF_FIXED_TRAIN[name]
+    ev_cfg = dataclasses.replace(cfg, ntrain=ntrain)  # the trained split's size
+    _, per_batch = tf_fixed_launches(cfg)
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = evaluate.evaluate(ev_cfg, ckpt, ntest=ntest, device="cuda", **kw)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launched = counts()
+    expected = {k: per_batch if k == "posatt_tf_fixed_fwd" else 0 for k in launched}
+    if launched != expected:
+        fail(f"{name} evaluate: launched {launched}, expected {expected}")
+    with plain_tf_fixed_attention():
+        t0 = time.perf_counter()
+        want = evaluate.evaluate(ev_cfg, ckpt, ntest=ntest, device="cuda", **kw)
+        plain_s = time.perf_counter() - t0
+    if counts() != launched:
+        fail(f"{name} evaluate: the plain-attention evaluation launched a kernel")
+    keys = [k for k, v in got.items() if isinstance(v, (float, list)) and k != "rel_l1_quartiles"]
+    f64 = lambda v: torch.tensor(v, dtype=torch.float64)
+    err = max(check_close(f"{name} evaluate {k} vs plain on CUDA", f64(got[k]), f64(want[k]),
+                          1e-4, 0.0) for k in keys)
+    return {"config": name, "options": kw, "launches": launched, "evaluate_s_cuda": seconds,
+            "evaluate_s_plain_cuda": plain_s, "max_abs_err_vs_plain_cuda": err,
+            "metrics": got, "metrics_plain_cuda": want}
+
+
+def tf_fixed_phases():
+    """The five PiTTF configurations: train, serve, and evaluate darcy_tf
+    at 421^2 and vorticity_tf by rollout; name -> report."""
+    reports = {}
+    for name in TF_FIXED_CONFIGS:
+        train, ckpt = tf_fixed_train_phase(name)
+        log(f"{name}_train " + json.dumps(train))
+        serve = tf_fixed_serve_phase(name, ckpt)
+        log(f"{name}_serve " + json.dumps(serve))
+        reports[name] = {"train": train, "serve": serve}
+        if name == "darcy_tf":
+            reports[name]["zssr"] = tf_fixed_evaluate_phase(name, ckpt, zssr=True)
+            log(f"{name}_zssr " + json.dumps(reports[name]["zssr"]))
+        if name == "vorticity_tf":
+            reports[name]["evaluate"] = tf_fixed_evaluate_phase(name, ckpt)
+            log(f"{name}_evaluate " + json.dumps(reports[name]["evaluate"]))
+            reports[name]["serve_rollout_5"] = tf_fixed_serve_phase(name, ckpt, rollout_steps=5)
+            log(f"{name}_serve_rollout_5 " + json.dumps(reports[name]["serve_rollout_5"]))
+    return reports
+
+
 def schedule_entry(version, rows, launched):
     """The kernels-record entry of one schedule: times and bounds summed
     over the seven launches of a Burgers forward (1 encoder + 5 processor
@@ -3991,6 +4530,8 @@ def main() -> int:
     log("cylinder_serve_rollout " + json.dumps(c_rollout))
     cli = cli_phase(cylinder_ckpt)
     log("cli " + json.dumps(cli))
+    tff_rows, tff_ragged_errs, tff_fn_err = tf_fixed_kernel_phase()
+    tff = tf_fixed_phases()
     fixed_paths = {  # the fixed-mesh model paths: (train, served or evaluated)
         "darcy_train": d_train["launches"], "darcy_zssr": d_zssr["launches"],
         "darcy_serve_43": d_serve43["launches"], "darcy_serve_421": d_serve421["launches"],
@@ -4196,6 +4737,38 @@ def main() -> int:
         kernels["kernels"].append(entry)
     # #5 and #6, the schedule variants of #1: phase 16
     kernels["kernels"] += [schedule_entry(v, s_rows, s_launched) for v in (1, 2)]
+    # #13, three entry points: times and bounds summed over one naca_tf
+    # forward (the forward) or training step (dscale, dv) at batch 8, the
+    # largest of the five configurations; "per_config" the same for each
+    tff_paths = {f"{n}_{phase}": r["launches"] for n, rep in tff.items() for phase, r in rep.items()}
+    for name, part, source in (("posatt_tf_fixed_fwd", "fwd", "posatt_tf_fixed_fwd.cu"),
+                               ("posatt_tf_fixed_bwd_dscale", "dscale", "posatt_tf_fixed_bwd.cu"),
+                               ("posatt_tf_fixed_bwd_dv", "dv", "posatt_tf_fixed_bwd.cu")):
+        def summed(config, part=part):
+            rows = [r for r in tff_rows if r["config"] == config]
+            total = lambda key: sum(r[part][key] * r["launches_per_forward"] for r in rows)
+            by = {kind: sum(r[part]["bound_ms"] * r["launches_per_forward"] for r in rows
+                            if r[part]["bound_by"] == kind) for kind in ("operations", "bytes")}
+            out = {"ms": total("ms"), "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
+                   "bound_by": max(by, key=by.get)}
+            out["library_ms"] = total("library_ms") if part == "fwd" else None
+            return out
+        by_path = {p: v[name] for p, v in tff_paths.items()}
+        kernels["kernels"].append({
+            "name": name,
+            "route": "cuda",
+            "source": f"position_induced_transformer_torch/kernels/csrc/{source}",
+            "replaces": "position_induced_transformer_tpu/models/pit_tf.py:129 (XLA, no pallas_call)",
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
+            "max_abs_err": max([r["max_abs_err"][part] for r in tff_rows]
+                               + [e[part] for e in tff_ragged_errs.values()]),
+            **summed("naca_tf"),
+            "per_config": {c: summed(c) for c in TF_FIXED_CONFIGS + ("darcy_tf_zssr",)},
+            "function_max_abs_err": tff_fn_err,
+            "shapes": [{k: v for k, v in r.items() if k not in ("fwd", "dscale", "dv")} | r[part]
+                       for r in tff_rows],
+        })
     log(json.dumps(kernels))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,8 +9,8 @@ The commands are the JAX package's: ``train``, ``evaluate``, ``infer``,
 ``serve``, ``convert``, ``benchmarks`` and ``describe``, with its options.
 They run on the card; ``--device cpu`` runs them on the CPU, and without a
 card and without it they raise. ``--mesh``, ``--multihost`` and
-``--model-variant`` are accepted and raise ``NotImplementedError`` (not
-ported); the port has no counterpart of ``--fused-mode``, since a CUDA
+``--model-variant`` other than ``pit`` are accepted and raise
+``NotImplementedError`` (not ported); the port has no counterpart of ``--fused-mode``, since a CUDA
 tensor always runs the hand-written kernels. Data default to the synthetic
 generators; ``--data-path`` or ``PIT_REAL_DATA_DIR`` selects real
 datasets (``data/catalog.py``). ``convert`` moves checkpoints between the
@@ -40,7 +40,7 @@ def _add_common(p):
     p.add_argument(
         "--model-variant", default=None,
         choices=["pit", "lite", "transformer", "selfpit"],
-        help="ablation model of the TF family (not ported)",
+        help="ablation model of the TF family (only 'pit' is ported)",
     )
     p.add_argument("--mesh", default=None, help="multi-device mesh (not ported)")
     p.add_argument(
@@ -96,8 +96,9 @@ def _load_problem_modules(args):
 
 def _refuse_not_ported(args):
     for opt in _NOT_PORTED:
-        if getattr(args, opt, None):
-            raise NotImplementedError(f"--{opt.replace('_', '-')} is not ported yet")
+        value = getattr(args, opt, None)
+        if value and not (opt == "model_variant" and value == "pit"):
+            raise NotImplementedError(f"--{opt.replace('_', '-')} {value!r} is not ported yet")
 
 
 def _convert(args):

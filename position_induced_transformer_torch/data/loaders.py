@@ -234,14 +234,15 @@ _NACA_FILES = ("shape_coords.npy", "NACA_Cylinder_X.npy", "NACA_Cylinder_Y.npy",
 
 
 def naca(
-    dirpath=None, ntrain=1000, ntest=200, nx=221, ny=51, n_shape=120,
+    dirpath=None, ntrain=1000, ntest=200, nx=221, ny=51, n_shape=120, mach=False,
 ) -> Tuple[np.ndarray, ...]:
     """``(c_tr, X_tr, Y_tr, c_te, X_te, Y_te)``: airfoil shape points (n,
     n_shape, 2), C-grid vertices (n, nx, ny, 2) and the flow variables
     (n, nx, ny, 4), channels 0-3 of ``Q`` (the torch family's targets),
     from the four ``.npy`` files in ``dirpath`` when all are real, else
-    from the synthetic generator. (The single Mach channel of the TF
-    family's targets is not ported.)"""
+    from the synthetic generator. ``mach=True``: the TF family's target,
+    the Mach field ``Q[:, 4]`` as (n, nx, ny, 1), for which the synthetic
+    generator's first channel stands in."""
     if dirpath is not None and all(
         _is_real_file(os.path.join(dirpath, f)) for f in _NACA_FILES
     ):
@@ -250,10 +251,15 @@ def naca(
         vy = np.load(os.path.join(dirpath, "NACA_Cylinder_Y.npy"))[..., None]
         X = np.concatenate([vx, vy], -1).astype(np.float32)
         Q = np.load(os.path.join(dirpath, "NACA_Cylinder_Q.npy"))
-        Y = Q[:, :4].transpose(0, 2, 3, 1).astype(np.float32)
+        if mach:
+            Y = Q[:, 4][..., None].astype(np.float32)
+        else:
+            Y = Q[:, :4].transpose(0, 2, 3, 1).astype(np.float32)
     else:
         _warn_fallback(dirpath, "naca")
         coords, X, Y = synthetic.naca(n=ntrain + ntest, n_shape=n_shape, nx=nx, ny=ny)
+        if mach:
+            Y = Y[..., :1]
     c_tr, c_te, X_tr, X_te, Y_tr, Y_te = _split(
         (coords, X, Y), X.shape[0], ntrain, ntest, "naca"
     )

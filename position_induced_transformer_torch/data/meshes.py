@@ -27,6 +27,18 @@ def grid_2d(s: int, endpoint: bool = True):
     return mesh.reshape(s, s, 2).astype(np.float32)
 
 
+def grid_2d_rect(s0: int, s1: int, endpoint: bool = False):
+    """(s0*s1, 2) structured-index grid on [0, 1)^2 (``endpoint=False``),
+    axis 0 outer: the row-major flattening of an (s0, s1, C) field. The
+    TF-family NACA experiment measures distances on it."""
+    def axis(n):
+        pts = np.linspace(0, 1, n if endpoint else n + 1)
+        return pts if endpoint else pts[:-1]
+
+    aa, bb = np.meshgrid(axis(s0), axis(s1), indexing="ij")
+    return np.stack([aa.ravel(), bb.ravel()], axis=-1).astype(np.float32)
+
+
 def angular_sort_perm(coords):
     """Per-sample permutation ordering a 2-D point cloud by angle around
     its centroid: (n, L, 2) -> (n, L) indices.

@@ -1,5 +1,5 @@
-"""PiT models (the torch-semantics family and the TF-semantics point-cloud
-model) and the mesh geometry."""
+"""PiT models (the torch-semantics family and the TF-semantics fixed-mesh
+and point-cloud models) and the mesh geometry."""
 
 from position_induced_transformer_torch.models.geometry import (  # noqa: F401
     Geometry,
@@ -13,9 +13,15 @@ from position_induced_transformer_torch.models.pit import (  # noqa: F401
     TorchLinear,
 )
 from position_induced_transformer_torch.models.pit_tf import (  # noqa: F401
+    MultiHeadPosAtt,
     MultiHeadPosAttBatched,
+    PiTTF,
     PiTTFPointCloud,
     TFDense,
+    TFGeometry,
     TFMlp,
     pairwise_dist_half,
+    pairwise_dist_periodic_1d,
+    pairwise_dist_periodic_2d,
+    tf_precompute_thresholds,
 )

@@ -1,5 +1,6 @@
-"""TF-semantics point-cloud PiT (the JAX package's ``models/pit_tf.py``,
-its point-cloud half) as ``nn.Module``s.
+"""TF-semantics PiT (the JAX package's ``models/pit_tf.py``) as
+``nn.Module``s: the fixed-mesh model ``PiTTF`` and the point-cloud model
+``PiTTFPointCloud``.
 
 The reference's older TensorFlow implementation differs from the torch one
 (reference: tensorflow/5_Elasticity/utils.py:60-188): the value projection
@@ -13,16 +14,26 @@ Every attention op takes a hand-written kernel: with a threshold for each
 local op (precomputed at setup) the coordinate kernel #11, which computes
 the distances itself; otherwise the model builds the (B, L, L) halved
 distances once, takes the missing thresholds from them, and all six ops
-read them through kernel #9. Submodule names follow the JAX parameter tree
+read them through kernel #9.
+
+``PiTTF`` (burgers_tf, sod_tf, darcy_tf, vorticity_tf, naca_tf) runs over
+precomputed distance matrices that every sample shares (:class:`TFGeometry`),
+with a bandwidth that varies by experiment (``tan_sin``, ``square`` or
+``tan``, the last of either sign before keras' NonNeg projection) and
+every attention op through kernel #13 (``kernels/posatt_tf_fixed.py``).
+Its processor adds ``MLP(PA(x)) + W(x)``; the 1-D experiments add a
+decoder self-attention ``up2``. Submodule names follow the JAX parameter tree
 (``en_layer``, ``down``, ``mlp1``, ``w1``, ``PA_<i>``, ``MLP_<i>``,
-``W_<i>``, ``up``, ``mlp2``, ``w2``, ``de_layer``), so that
+``W_<i>``, ``up``, ``mlp2``, ``w2``, ``de_layer``; ``PiTTF``'s ``MHPA_<i>``,
+``up2``, ``mlp`` and ``w``), so that
 ``utils.torch_compat.flax_tf_params_to_state_dict`` carries JAX weights
 over. Only ``"position"`` attention and float32 are ported.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import math
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -31,6 +42,10 @@ from torch import nn
 from position_induced_transformer_torch.kernels.posatt_batched import (
     position_attention_batched_dist,
     position_attention_batched_tf_coords,
+)
+from position_induced_transformer_torch.kernels.posatt_tf_fixed import (
+    percentile_thresholds,
+    position_attention_tf_fixed,
 )
 from position_induced_transformer_torch.ops.initializers import glorot_uniform, he_normal_tf
 from position_induced_transformer_torch.ops.locality import quantile_threshold
@@ -201,4 +216,187 @@ class PiTTFPointCloud(nn.Module):
             x = gelu(getattr(self, f"MLP_{i}")(pa) + getattr(self, f"W_{i}")(x))
         a = self.up(m_dist, x, thr[loc_de], coords=pass_coords, band=band[loc_de])
         de = gelu(self.mlp2(a) + self.w2(x))
+        return self.de_layer(de)
+
+
+# ------------------------------------------------------------ fixed meshes
+
+
+class TFGeometry(NamedTuple):
+    """The precomputed distance matrices of a fixed-mesh PiTTF: ``m_qry``
+    (L_qry, L_qry, only the decoder self-attention reads it), ``m_cross``
+    (L_qry, L_ltt) and ``m_ltt`` (L_ltt, L_ltt), and the thresholds of the
+    local ops, (rows, 2) each: the quantiles at p and at 1 - p of each row
+    of ``m_cross.T`` (``thr_down``), ``m_cross`` (``thr_up``) and ``m_qry``
+    (``thr_qry``). ``m_cross_t``: ``m_cross.T`` stored contiguous for the
+    encoder's kernel. Built by :func:`tf_precompute_thresholds`."""
+
+    m_qry: Optional[torch.Tensor]
+    m_cross: torch.Tensor
+    m_ltt: Optional[torch.Tensor] = None
+    thr_down: Optional[torch.Tensor] = None
+    thr_up: Optional[torch.Tensor] = None
+    thr_qry: Optional[torch.Tensor] = None
+    m_cross_t: Optional[torch.Tensor] = None
+
+    def to(self, device) -> "TFGeometry":
+        return TFGeometry(*(None if t is None else t.to(device) for t in self))
+
+
+def tf_precompute_thresholds(geom: TFGeometry, en_loc: float, de_loc: float) -> TFGeometry:
+    """Fill the thresholds for percentile localities (0-100; above 100 the
+    op is global and has none), and ``m_cross_t``. Both quantiles of each
+    row are stored, so that a head's sign-aware keep threshold is a
+    rescale: ``quantile(s d, p)`` is ``s quantile(d, p)`` for ``s >= 0`` and
+    ``s quantile(d, 1 - p)`` for ``s < 0``."""
+    cross_t = geom.m_cross.T.contiguous()
+    thr = lambda m, loc: None if m is None else percentile_thresholds(m, loc)
+    return geom._replace(
+        thr_down=thr(cross_t, en_loc), thr_up=thr(geom.m_cross, de_loc),
+        thr_qry=thr(geom.m_qry, de_loc), m_cross_t=cross_t,
+    )
+
+
+def pairwise_dist_periodic_1d(res1: int, res2: int, device="cpu") -> torch.Tensor:
+    """Squared distance on the periodic unit grids of ``res1`` and ``res2``
+    points, over its largest value 0.25: the minimum over the direct and
+    the two unit-shifted differences, in the JAX package's op order."""
+    g1 = torch.linspace(0, 1, res1 + 1, dtype=torch.float32, device=device)[:-1].reshape(-1, 1)
+    g2 = torch.linspace(0, 1, res2 + 1, dtype=torch.float32, device=device)[:-1].reshape(1, -1)
+    d2 = (g1 - g2) ** 2
+    d2 = torch.minimum(d2, (g1 + 1 - g2) ** 2)
+    d2 = torch.minimum(d2, (g1 - 1 - g2) ** 2)
+    return d2 / 0.25
+
+
+def pairwise_dist_periodic_2d(mesh1: torch.Tensor, mesh2: torch.Tensor) -> torch.Tensor:
+    """Squared distance on the unit torus: the smallest norm over the direct
+    image and the four unit shifts (no diagonal ones), squared."""
+    shifts = torch.tensor(
+        [[0.0, 0.0], [1.0, 0.0], [-1.0, 0.0], [0.0, 1.0], [0.0, -1.0]],
+        dtype=torch.float32, device=mesh1.device,
+    )
+    diff = mesh1[:, None, :] - mesh2[None, :, :]
+    x = diff[None] + shifts[:, None, None, :]
+    d = torch.sqrt(torch.sum(x * x, dim=-1))
+    return torch.amin(d, dim=0) ** 2
+
+
+# 0.25 pi (1 - 1e-7), a Python double that JAX rounds to float32 once
+_TAN_SIN = torch.tensor(0.25 * math.pi * (1 - 1e-7), dtype=torch.float32)
+
+
+def _bandwidth(r: torch.Tensor, kind: str) -> torch.Tensor:
+    """The scale of each head from its parameter r: ``tan_sin``
+    (tan(0.25 pi (1 - 1e-7) (1 + sin r)), never negative), ``square`` (r^2)
+    or ``tan`` (tan r, of either sign: keras' NonNeg projection of r follows
+    each optimizer update, ``train.benchmarks.nonneg_bandwidths``; a clamp
+    here would stop the gradient at r < 0)."""
+    if kind == "tan_sin":
+        return torch.tan(_TAN_SIN.to(r.device) * (1.0 + torch.sin(r)))
+    if kind == "square":
+        return r * r
+    if kind == "tan":
+        return torch.tan(r)
+    raise ValueError(f"unknown bandwidth kind {kind!r}")
+
+
+class MultiHeadPosAtt(nn.Module):
+    """Fixed-mesh position attention with per-head value projections:
+    ``band_width`` r (H, 1, 1), the bandwidth ``bandwidth`` of it,
+    ``weight`` (H, in, V) with V = hid / H. ``locality``: a percentile,
+    above 100 global."""
+
+    def __init__(self, in_features: int, n_head: int, hid_dim: int, locality: float,
+                 bandwidth: str = "tan_sin", generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.n_head = n_head
+        self.hid_dim = hid_dim
+        self.locality = locality
+        self.bandwidth = bandwidth
+        v_dim = round(hid_dim / n_head)
+        self.band_width = nn.Parameter(glorot_uniform((n_head, 1, 1), generator))
+        self.weight = nn.Parameter(he_normal_tf((n_head, in_features, v_dim), generator))
+
+    def forward(self, dist, inputs, thr=None):
+        """``dist`` (L_out, L_in), ``inputs`` (B, L_in, in), ``thr`` (L_out,
+        2): the quantiles at p and 1 - p of each row, computed from ``dist``
+        when a local op has none."""
+        scales = _bandwidth(self.band_width, self.bandwidth).reshape(self.n_head, 1)
+        B, L = inputs.shape[:2]
+        values = torch.einsum("bnj,hjk->bnhk", inputs, self.weight).reshape(B, L, self.hid_dim)
+        out = position_attention_tf_fixed(dist, thr, scales, values, self.bandwidth, self.locality)
+        return F.gelu(out, approximate="none")
+
+
+class PiTTF(nn.Module):
+    """``forward(geom, mesh, inputs)``: ``geom`` a :class:`TFGeometry`,
+    ``mesh`` (L, d) or (B, L, d) the query mesh, ``inputs`` (B, L, c) ->
+    (B, L, out_dim); ``in_dim`` = d + c.
+
+    - encoder: GELU(Dense([mesh, inputs])) -> attention ``down`` over
+      ``m_cross.T``
+    - processor: n_blocks x [MLP(global attention over ``m_ltt``) + Dense ->
+      GELU]
+    - decoder: attention ``up`` over ``m_cross`` [-> ``up2`` over ``m_qry``,
+      MLP of it + Dense -> GELU] -> MLP head
+    """
+
+    def __init__(
+        self,
+        in_dim: int,
+        out_dim: int,
+        hid_dim: int,
+        n_head: int,
+        locality_encoder: float,
+        locality_decoder: float,
+        n_blocks: int = 4,
+        bandwidth: str = "tan_sin",
+        use_decoder_selfatt: bool = True,
+        processor_attention: str = "position",
+        coder_attention: str = "position",
+        compute_dtype: str = "float32",
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        for kind in (processor_attention, coder_attention):
+            if kind != "position":
+                raise NotImplementedError(
+                    f"{kind!r} attention is not ported; PiTTF takes 'position' attention only"
+                )
+        if compute_dtype != "float32":
+            raise NotImplementedError(
+                f"compute_dtype {compute_dtype!r}: the port computes in float32 only"
+            )
+        self.n_blocks = n_blocks
+        self.use_decoder_selfatt = use_decoder_selfatt
+        g = generator
+        att = lambda loc: MultiHeadPosAtt(hid_dim, n_head, hid_dim, loc, bandwidth, g)
+        self.en_layer = TFDense(in_dim, hid_dim, g)
+        self.down = att(locality_encoder)
+        for i in range(n_blocks):
+            self.add_module(f"MHPA_{i}", att(200.0))
+            self.add_module(f"MLP_{i}", TFMlp(hid_dim, hid_dim, hid_dim, g))
+            self.add_module(f"W_{i}", TFDense(hid_dim, hid_dim, g))
+        self.up = att(locality_decoder)
+        if use_decoder_selfatt:
+            self.up2 = att(locality_decoder)
+            self.mlp = TFMlp(hid_dim, hid_dim, hid_dim, g)
+            self.w = TFDense(hid_dim, hid_dim, g)
+        self.de_layer = TFMlp(hid_dim, hid_dim, out_dim, g)
+
+    def forward(self, geom: TFGeometry, mesh: torch.Tensor, inputs: torch.Tensor):
+        gelu = lambda t: F.gelu(t, approximate="none")
+        if mesh.ndim == 2:
+            mesh = mesh.expand(inputs.shape[0], *mesh.shape)
+        en = gelu(self.en_layer(torch.cat([mesh, inputs], dim=-1)))
+        down = geom.m_cross_t if geom.m_cross_t is not None else geom.m_cross.T.contiguous()
+        x = self.down(down, en, geom.thr_down)
+        for i in range(self.n_blocks):
+            pa = getattr(self, f"MHPA_{i}")(geom.m_ltt, x)
+            x = gelu(getattr(self, f"MLP_{i}")(pa) + getattr(self, f"W_{i}")(x))
+        de = self.up(geom.m_cross, x, geom.thr_up)
+        if self.use_decoder_selfatt:
+            de2 = self.up2(geom.m_qry, de, geom.thr_qry)
+            de = gelu(self.mlp(de2) + self.w(de))
         return self.de_layer(de)

@@ -6,9 +6,11 @@ any ``downsampling`` of the 421^2 grid), ``vorticity`` (a fixed periodic
 2-D grid, trained by 20-step rollouts), ``cylinder`` (a fixed 2-D point
 cloud, one-step pairs of wake trajectories, evaluated by closed-loop
 rollouts), ``elasticity`` (per-sample point clouds), ``naca`` (per-sample
-airfoil shapes onto per-sample C-grids) and ``elasticity_tf`` (the
-TF-semantics point-cloud model). :func:`setup` names the others as not
-yet ported; :func:`register_setup` adds user-defined benchmarks.
+airfoil shapes onto per-sample C-grids), ``elasticity_tf`` (the
+TF-semantics point-cloud model) and the TF-semantics fixed-mesh family
+(``burgers_tf``, ``sod_tf``, ``darcy_tf``, ``vorticity_tf``, ``naca_tf``:
+``PiTTF`` over precomputed distance matrices, keras Adam, the batch-mean
+loss). :func:`register_setup` adds user-defined benchmarks.
 """
 
 from __future__ import annotations
@@ -20,10 +22,22 @@ import numpy as np
 import torch
 from torch import nn
 
-from position_induced_transformer_torch.configs import BUILTIN, BenchmarkConfig
+from position_induced_transformer_torch.configs import BenchmarkConfig
 from position_induced_transformer_torch.data import loaders, meshes
 from position_induced_transformer_torch.kernels.posatt_batched import BandSpec, band_tile_rows
-from position_induced_transformer_torch.models import Geometry, PiT, PiTTFPointCloud, build_geometry
+from position_induced_transformer_torch.models import (
+    Geometry,
+    PiT,
+    PiTTF,
+    PiTTFPointCloud,
+    TFGeometry,
+    build_geometry,
+    pairwise_dist_half,
+    pairwise_dist_periodic_1d,
+    pairwise_dist_periodic_2d,
+    tf_precompute_thresholds,
+)
+from position_induced_transformer_torch.ops.distances import euclidean_sq
 from position_induced_transformer_torch.ops.locality import (
     batched_band_starts,
     batched_halfdist_percentile_thresholds,
@@ -51,24 +65,55 @@ class Problem:
     extras: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
 
+# the TF family's model variants (the reference's ablation baselines: each
+# experiment's PiT with attention modules swapped); only "pit" is ported
+_VARIANTS = ("pit", "lite", "transformer", "selfpit")
+
+# the fixed-mesh TF family: (bandwidth, decoder self-attention)
+TF_FIXED = {
+    "burgers_tf": ("tan_sin", True),
+    "sod_tf": ("square", True),
+    "darcy_tf": ("tan_sin", False),
+    "vorticity_tf": ("tan_sin", False),
+    "naca_tf": ("tan", False),
+}
+
+
+def _variant_attention(cfg: BenchmarkConfig) -> dict:
+    """The attention kinds and compute type of a TF-family model, from the
+    config's ``model_variant``: only ``"pit"`` (position attention
+    everywhere) is ported."""
+    v = cfg.model_variant or "pit"
+    if v not in _VARIANTS:
+        raise ValueError(f"unknown model variant {v!r}; available: {sorted(_VARIANTS)}")
+    if v != "pit":
+        raise NotImplementedError(
+            f"model variant {v!r} is not ported ('lite', 'transformer' and 'selfpit' "
+            "need the dot-product and hybrid attention); only 'pit' is"
+        )
+    return {"processor_attention": "position", "coder_attention": "position",
+            "compute_dtype": cfg.model.compute_dtype}
+
+
 def _make_model(cfg: BenchmarkConfig, generator: Optional[torch.Generator] = None) -> nn.Module:
     """The benchmark's model on the CPU, weights drawn from ``generator``:
-    the TF-semantics point-cloud model for ``elasticity_tf``, PiT for the
-    torch family."""
+    the TF-semantics point-cloud model for ``elasticity_tf``, ``PiTTF`` for
+    the fixed-mesh TF family, PiT for the torch family."""
     m = cfg.model
     if cfg.name == "elasticity_tf":
-        if (cfg.model_variant or "pit") != "pit":
-            raise NotImplementedError(
-                f"model variant {cfg.model_variant!r}: only 'pit' (position "
-                "attention) is ported for the TF family"
-            )
         return PiTTFPointCloud(
             in_dim=m.in_dim, out_dim=m.out_dim, hid_dim=m.hid_dim, n_head=m.n_head,
             locality_encoder=m.en_loc, locality_decoder=m.de_loc, n_blocks=m.n_blocks,
-            compute_dtype=m.compute_dtype, generator=generator,
+            generator=generator, **_variant_attention(cfg),
         )
-    if cfg.name.endswith("_tf"):
-        raise NotImplementedError(f"the TF-family model of {cfg.name!r} is not ported yet")
+    if cfg.name in TF_FIXED:
+        bandwidth, selfatt = TF_FIXED[cfg.name]
+        return PiTTF(
+            in_dim=m.space_dim + m.in_dim, out_dim=m.out_dim, hid_dim=m.hid_dim,
+            n_head=m.n_head, locality_encoder=m.en_loc, locality_decoder=m.de_loc,
+            n_blocks=m.n_blocks, bandwidth=bandwidth, use_decoder_selfatt=selfatt,
+            generator=generator, **_variant_attention(cfg),
+        )
     if (cfg.model_variant or "pit") != "pit":
         raise ValueError(
             f"model variant {cfg.model_variant!r} exists for the TF-family "
@@ -89,6 +134,16 @@ def _make_model(cfg: BenchmarkConfig, generator: Optional[torch.Generator] = Non
         compute_dtype=m.compute_dtype,
         generator=generator,
     )
+
+
+def nonneg_bandwidths(model: nn.Module) -> None:
+    """Project every ``band_width`` parameter onto [0, inf) in place: keras'
+    NonNeg constraint, which the TF family's NACA experiment puts on its
+    ``tan`` bandwidth, applied after each optimizer update
+    (``Task.param_constraint``)."""
+    for name, p in model.named_parameters():
+        if name.rsplit(".", 1)[-1] == "band_width":
+            p.clamp_(min=0.0)
 
 
 def setup_burgers(
@@ -530,6 +585,177 @@ def setup_elasticity_tf(
     return Problem(cfg, model, task, None, data[0], data[1], ntrain, ntest)
 
 
+def _tf_fixed_problem(
+    cfg: BenchmarkConfig, dists, mesh: np.ndarray, train_data, test_data,
+    ntrain, ntest, dev, *, extras=None, x_normalizer=None, y_normalizer=None, **task_kw,
+) -> Problem:
+    """The Problem of a fixed-mesh TF benchmark: the geometry of ``dists``
+    (``m_qry`` or None, ``m_cross``, ``m_ltt``) with its thresholds, its
+    PiTTF (weights from ``torch.Generator`` seeded with ``cfg.seed``) on
+    ``dev``, called as ``model(geom, mesh, x)`` on the query ``mesh``,
+    keras Adam and the batch-mean loss. ``task_kw``: the Task's other
+    fields (a postprocess, a parameter constraint, and a rollout's)."""
+    geom = tf_precompute_thresholds(TFGeometry(*dists), cfg.model.en_loc, cfg.model.de_loc)
+    model = _make_model(cfg, torch.Generator().manual_seed(cfg.seed)).to(dev)
+    mesh_dev = torch.from_numpy(np.ascontiguousarray(mesh)).to(dev)
+
+    def apply_fn(model, geom, batch):
+        return model(geom, mesh_dev, batch["x"])
+
+    task = Task(
+        model=model, loss_p=cfg.loss_p, out_dim=cfg.model.out_dim,
+        swap_loss_args=cfg.swap_loss_args, batch_mean_loss=True, keras_adam=True,
+        apply_fn=apply_fn, **task_kw,
+    )
+    return Problem(cfg, model, task, geom, train_data, test_data, ntrain, ntest,
+                   x_normalizer=x_normalizer, y_normalizer=y_normalizer, extras=extras or {})
+
+
+def setup_burgers_tf(
+    cfg: BenchmarkConfig, data_path=None, ntrain=None, ntest=None, *, device="cuda",
+) -> Problem:
+    """TF-family Burgers: PiTTF (``tan_sin`` bandwidth, decoder
+    self-attention) over the periodic 1-D distances over 0.25, on the
+    data's grid (``cfg.grid`` sizes the synthetic fallback only) and the
+    latent grid. The geometry and model live on ``device``."""
+    dev = resolve_device(device)
+    ntrain, ntest = ntrain or cfg.ntrain, ntest or cfg.ntest
+    Lt = (cfg.latent_grid or (1024,))[0]
+    x_tr, y_tr, x_te, y_te = loaders.burgers(
+        data_path, ntrain, ntest, L=(cfg.grid or (1024,))[0]
+    )
+    L = x_tr.shape[1]
+    dists = (pairwise_dist_periodic_1d(L, L, dev), pairwise_dist_periodic_1d(L, Lt, dev),
+             pairwise_dist_periodic_1d(Lt, Lt, dev))
+    return _tf_fixed_problem(cfg, dists, meshes.grid_1d(L), {"x": x_tr, "y": y_tr},
+                             {"x": x_te, "y": y_te}, ntrain, ntest, dev)
+
+
+def setup_sod_tf(
+    cfg: BenchmarkConfig, data_path=None, ntrain=None, ntest=None, *, device="cuda",
+) -> Problem:
+    """TF-family shock tube: PiTTF (``r^2`` bandwidth, decoder
+    self-attention) over squared distances on the unit 1-D grids of the
+    data's length and the latent one; the target is the first variable
+    alone. The geometry and model live on ``device``."""
+    dev = resolve_device(device)
+    ntrain, ntest = ntrain or cfg.ntrain, ntest or cfg.ntest
+    Lt = (cfg.latent_grid or (1024,))[0]
+    x_tr, y_tr, x_te, y_te = loaders.sod(
+        data_path, ntrain, ntest, L=(cfg.grid or (2048,))[0]
+    )
+    L = x_tr.shape[1]
+    y_tr, y_te = y_tr[..., :1], y_te[..., :1]
+    g = lambda n: torch.from_numpy(meshes.grid_1d(n)).to(dev)
+    dists = (euclidean_sq(g(L), g(L)), euclidean_sq(g(L), g(Lt)), euclidean_sq(g(Lt), g(Lt)))
+    c = np.ascontiguousarray
+    return _tf_fixed_problem(cfg, dists, meshes.grid_1d(L), {"x": x_tr, "y": c(y_tr)},
+                             {"x": x_te, "y": c(y_te)}, ntrain, ntest, dev)
+
+
+def setup_darcy_tf(
+    cfg: BenchmarkConfig, data_path=None, ntrain=None, ntest=None, downsampling=10,
+    normalizers=None, *, device="cuda",
+) -> Problem:
+    """TF-family Darcy: PiTTF (``tan_sin``, no decoder self-attention) over
+    halved squared distances between the s x s grid without its endpoints,
+    s = 420 / ``downsampling`` + 1 (43 at 10; 421 at 1, the zero-shot
+    super-resolution: a 177,241 x 1,024 ``m_cross``), and the latent grid.
+    ``normalizers``: an ``(x_norm, y_norm)`` pair fitted at the training
+    resolution (from a checkpoint), else both fitted on this training
+    split; x is normalized on the host and the Task's postprocess
+    denormalizes the output as an (B, s, s, 1) grid. ``m_qry`` is not built:
+    only a decoder self-attention reads it. The geometry and model live on
+    ``device``."""
+    dev = resolve_device(device)
+    ntrain, ntest = ntrain or cfg.ntrain, ntest or cfg.ntest
+    train_path = test_path = None
+    if data_path:
+        train_path = f"{data_path}/piececonst_r421_N1024_smooth1.mat"
+        test_path = f"{data_path}/piececonst_r421_N1024_smooth2.mat"
+    x_tr, y_tr, x_te, y_te = loaders.darcy(
+        train_path, test_path, downsampling, ntrain, ntest
+    )
+    s = x_tr.shape[1]
+    grid_q = meshes.grid_2d(s, endpoint=False).reshape(-1, 2)
+    grid_l = torch.from_numpy(
+        meshes.grid_2d(cfg.latent_grid[0], endpoint=False).reshape(-1, 2)).to(dev)
+    dists = (None, pairwise_dist_half(torch.from_numpy(grid_q).to(dev), grid_l),
+             pairwise_dist_half(grid_l, grid_l))
+    if normalizers is not None:
+        x_norm, y_norm = normalizers
+    else:
+        x_norm = PixelWiseNormalizer.fit(torch.from_numpy(x_tr))
+        y_norm = PixelWiseNormalizer.fit(torch.from_numpy(y_tr))
+    x_tr_n, x_te_n = (x_norm.normalize(torch.from_numpy(a)).numpy() for a in (x_tr, x_te))
+
+    def denorm(out):  # (B, s*s, C) -> a denormalized (B, s, s, C) grid
+        return y_norm.denormalize(out[:, : s * s].reshape(out.shape[0], s, s, -1))
+
+    flat = lambda a: np.ascontiguousarray(a.reshape(a.shape[0], -1, a.shape[-1]))
+    return _tf_fixed_problem(
+        cfg, dists, grid_q, {"x": flat(x_tr_n), "y": y_tr}, {"x": flat(x_te_n), "y": y_te},
+        ntrain, ntest, dev, postprocess=denorm, x_normalizer=x_norm, y_normalizer=y_norm,
+        extras={"s": s, "downsampling": downsampling},
+    )
+
+
+def setup_vorticity_tf(
+    cfg: BenchmarkConfig, data_path=None, ntrain=None, ntest=None, *, device="cuda",
+) -> Problem:
+    """TF-family vorticity: PiTTF (``tan_sin``, no decoder self-attention)
+    over torus distances (the smallest of five images, squared) between
+    the periodic s x s grid and the latent one; windows of ``cfg.memory``
+    frames rolled ``cfg.rollout_steps`` steps, one loss over the
+    trajectory. The geometry and model live on ``device``."""
+    dev = resolve_device(device)
+    ntrain, ntest = ntrain or cfg.ntrain, ntest or cfg.ntest
+    x_tr, y_tr, x_te, y_te = loaders.vorticity(
+        data_path, ntrain, ntest, cfg.memory, cfg.rollout_steps
+    )
+    s = x_tr.shape[1]
+    grid_q = meshes.grid_2d(s, endpoint=False).reshape(-1, 2)
+    on = lambda a: torch.from_numpy(a).to(dev)
+    grid_l = on(meshes.grid_2d(cfg.latent_grid[0], endpoint=False).reshape(-1, 2))
+    dists = (None, pairwise_dist_periodic_2d(on(grid_q), grid_l),
+             pairwise_dist_periodic_2d(grid_l, grid_l))
+    flat = lambda a: np.ascontiguousarray(a.reshape(a.shape[0], s * s, a.shape[-1]))
+    return _tf_fixed_problem(
+        cfg, dists, grid_q, {"x": flat(x_tr), "y": flat(y_tr)},
+        {"x": flat(x_te), "y": flat(y_te)}, ntrain, ntest, dev,
+        rollout_steps=cfg.rollout_steps, trajectory_loss=cfg.trajectory_loss,
+        extras={"s": s},
+    )
+
+
+def setup_naca_tf(
+    cfg: BenchmarkConfig, data_path=None, ntrain=None, ntest=None, *, device="cuda",
+) -> Problem:
+    """TF-family NACA: PiTTF (``tan`` bandwidth, projected onto r >= 0 after
+    each update by :func:`nonneg_bandwidths`; no decoder self-attention)
+    over halved squared distances between index-space grids, the C-grid's
+    (``meshes.grid_2d_rect``, 221 x 51) and the latent one's (111 x 26).
+    Inputs are the C-grid's vertex coordinates, the target its Mach field.
+    Both quantiles of each row are stored, so the heads' scales may take
+    either sign. The geometry and model live on ``device``."""
+    dev = resolve_device(device)
+    ntrain, ntest = ntrain or cfg.ntrain, ntest or cfg.ntest
+    _, X_tr, Y_tr, _, X_te, Y_te = loaders.naca(
+        data_path, ntrain, ntest, nx=cfg.grid[0], ny=cfg.grid[1], mach=True
+    )
+    nx, ny = X_tr.shape[1], X_tr.shape[2]
+    grid_q = meshes.grid_2d_rect(nx, ny)
+    grid_l = torch.from_numpy(meshes.grid_2d_rect(*cfg.latent_grid)).to(dev)
+    dists = (None, pairwise_dist_half(torch.from_numpy(grid_q).to(dev), grid_l),
+             pairwise_dist_half(grid_l, grid_l))
+    flat = lambda a: np.ascontiguousarray(a.reshape(a.shape[0], -1, a.shape[-1]))
+    return _tf_fixed_problem(
+        cfg, dists, grid_q, {"x": flat(X_tr), "y": flat(Y_tr)},
+        {"x": flat(X_te), "y": flat(Y_te)}, ntrain, ntest, dev,
+        param_constraint=nonneg_bandwidths,
+    )
+
+
 SETUPS = {
     "burgers": setup_burgers,
     "sod": setup_sod,
@@ -539,19 +765,16 @@ SETUPS = {
     "naca": setup_naca,
     "cylinder": setup_cylinder,
     "elasticity_tf": setup_elasticity_tf,
+    "burgers_tf": setup_burgers_tf,
+    "sod_tf": setup_sod_tf,
+    "darcy_tf": setup_darcy_tf,
+    "vorticity_tf": setup_vorticity_tf,
+    "naca_tf": setup_naca_tf,
 }
-_PORTED = frozenset(SETUPS)
-
-
 def setup(cfg: BenchmarkConfig, data_path=None, *, device="cuda", **kw) -> Problem:
     try:
         setup_fn = SETUPS[cfg.name]
     except KeyError:
-        if cfg.name in BUILTIN:
-            raise NotImplementedError(
-                f"benchmark {cfg.name!r} is not ported to the torch package "
-                f"yet; ported: {sorted(_PORTED)}"
-            ) from None
         raise ValueError(
             f"no setup registered for benchmark {cfg.name!r}; register one "
             "with train.benchmarks.register_setup (or "

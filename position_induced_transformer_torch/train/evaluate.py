@@ -525,8 +525,8 @@ def evaluate(
     instead: ``rel_l2_step`` per step, ``rel_l2_mean_step`` and
     ``rel_l2_traj``. ``plots_dir``: the benchmark's figures
     (``plots.save_benchmark_plots``) and, with a rollout, the per-step
-    error curve (needs matplotlib, checked first). ``mesh`` and
-    ``model_variant`` are not ported.
+    error curve (needs matplotlib, checked first). ``mesh`` is not
+    ported, nor a ``model_variant`` other than ``"pit"``.
     """
     runner._not_ported("evaluate", mesh=mesh, model_variant=model_variant)
     if plots_dir:

@@ -18,7 +18,8 @@ Autoregressive tasks (``rollout_steps > 0``: vorticity) train by
 backpropagation through the whole unrolled rollout, each rollout step's
 forward checkpointed by ``torch.utils.checkpoint`` as ``Task.remat_rollout``
 says. The optimizers: ``adam`` and the keras Adam of the TF family
-(:class:`KerasAdam`).
+(:class:`KerasAdam`), after whose update a task's ``param_constraint``
+projects the weights (keras' constraints).
 """
 
 from __future__ import annotations
@@ -92,6 +93,9 @@ class Task:
     # the TF rollout convention: one loss over the trajectory, the mean over
     # steps of the stepwise error (else the per-step losses are summed)
     trajectory_loss: bool = False
+    # model -> None, applied under torch.no_grad() after every optimizer
+    # update: keras' constraint semantics (naca_tf's NonNeg bandwidth)
+    param_constraint: Optional[Callable] = None
 
     def _geometry(self, geom, batch):
         return self.geom_fn(batch) if self.geom_fn is not None else geom
@@ -332,6 +336,9 @@ def make_train_epoch(task: Task, schedule: Callable[[int], float], grad_accum: i
             if profiling.debug_nans_enabled():
                 profiling.check_finite(loss, dict(model.named_parameters()))
             opt.step()
+            if task.param_constraint is not None:
+                with torch.no_grad():
+                    task.param_constraint(model)
             state.step += 1
             losses.append(loss)
         return state, torch.stack(losses)

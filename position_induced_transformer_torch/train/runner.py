@@ -67,8 +67,8 @@ def default_metrics(out_dim: int):
 
 def _not_ported(fn="train", **options):
     for name, value in options.items():
-        if value:
-            raise NotImplementedError(f"{fn}({name}=...) is not ported yet")
+        if value and not (name == "model_variant" and value == "pit"):
+            raise NotImplementedError(f"{fn}({name}=...) is not ported yet: {value!r}")
 
 
 def train(
@@ -111,7 +111,7 @@ def train(
     second one run, the first of a one-epoch run) into that directory.
     ``history_csv`` / ``history_plot``: the per-epoch rows as CSV and as a
     log-scale plot (needs matplotlib, checked before training starts).
-    ``mesh`` and ``model_variant`` are not ported.
+    ``mesh`` is not ported, nor a ``model_variant`` other than ``"pit"``.
     """
     _not_ported(mesh=mesh, model_variant=model_variant)
     if history_plot:

@@ -1,5 +1,6 @@
-"""Weights from the JAX package's PiT and PiTTFPointCloud params into the
-port's state dicts, and the reference's ``model.pth`` files in and out.
+"""Weights from the JAX package's PiT, PiTTF and PiTTFPointCloud params
+into the port's state dicts, and the reference's ``model.pth`` files in
+and out.
 
 The port's ``PiT.state_dict()`` uses the reference's parameter names, so a
 reference state dict loads into the benchmark's model as it is:
@@ -47,14 +48,16 @@ def flax_params_to_state_dict(params) -> Dict[str, torch.Tensor]:
 
 
 def flax_tf_params_to_state_dict(params) -> Dict[str, torch.Tensor]:
-    """Convert JAX ``PiTTFPointCloud`` params to the port's
-    ``PiTTFPointCloud.state_dict()`` layout.
+    """Convert JAX ``PiTTF`` or ``PiTTFPointCloud`` params to the port's
+    ``state_dict()`` layout of the same model.
 
-    Attention subtrees (``down``, ``up``, ``PA_<i>``) carry ``band_width``
-    (1, H, 1, 1) and ``weight`` (H, in, V) unchanged; ``Dense`` subtrees
-    (``en_layer``, ``w1``, ``w2``, ``W_<i>``) and the ``mlp1``/``mlp2``
-    pairs of the ``TFMlp`` subtrees (``mlp1``, ``mlp2``, ``MLP_<i>``,
-    ``de_layer``) carry ``kernel`` transposed to ``(out, in)`` and ``bias``.
+    Attention subtrees (``down``, ``up``, ``PA_<i>``; ``PiTTF``'s
+    ``MHPA_<i>`` and ``up2``) carry ``band_width`` ((1, H, 1, 1) in the
+    point-cloud model, (H, 1, 1) in ``PiTTF``) and ``weight`` (H, in, V)
+    unchanged; ``Dense`` subtrees (``en_layer``, ``w1``, ``w2``, ``W_<i>``,
+    ``w``) and the ``mlp1``/``mlp2`` pairs of the ``TFMlp`` subtrees
+    (``mlp1``, ``mlp2``, ``MLP_<i>``, ``mlp``, ``de_layer``) carry
+    ``kernel`` transposed to ``(out, in)`` and ``bias``.
     """
     out: Dict[str, torch.Tensor] = {}
     as_tensor = lambda a: torch.from_numpy(np.array(a, dtype=np.float32))

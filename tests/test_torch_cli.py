@@ -9,7 +9,9 @@ port's forward from the imported checkpoint equal to JAX's; the catalog's
 data paths equal to the JAX CLI's; the options that are not ported; and
 ``--problem-module`` with a problem defined here on the port's API (file
 and dotted forms, duplicates, the atomic registration, a failed module not
-cached, a registered benchmark trained and served).
+cached, a registered benchmark trained and served); the five fixed-mesh
+TF benchmarks through ``describe``, ``train``, ``evaluate``, ``infer`` and
+``serve`` (a subprocess answering one request) at CPU sizes.
 """
 
 import argparse
@@ -17,8 +19,11 @@ import dataclasses
 import io
 import json
 import os
+import socket
+import subprocess
 import sys
 import threading
+import time
 import urllib.request
 
 import jax
@@ -385,3 +390,90 @@ def test_problem_module_failure_is_not_cached_and_shadows_nothing(capsys, tmp_pa
     shadow.write_text("REGISTERED = True\n")
     _out(capsys, t_cli.main, ["benchmarks", "--problem-module", str(shadow)])
     assert sys.modules["json"] is json and hasattr(json, "dumps")
+
+
+# the fixed-mesh TF benchmarks at CPU sizes: overrides, a raw input batch's
+# shape, and the evaluate / infer options
+TF_FIXED_CLI = {
+    "burgers_tf": (["grid=64", "latent_grid=32", "batch_size=5"], (3, 64, 1), [], []),
+    "sod_tf": (["grid=64", "latent_grid=32"], (3, 64, 3), [], []),
+    "darcy_tf": (["latent_grid=4,4"], (3, 22, 22, 1), ["--zssr", "--zssr-downsampling", "20"],
+                 ["--zssr-downsampling", "20"]),
+    "vorticity_tf": (["latent_grid=4,4", "rollout_steps=2"], (3, 4096, 10), [],
+                     ["--rollout-steps", "3"]),
+    "naca_tf": (["grid=23,11", "latent_grid=12,6"], (3, 23, 11, 2), [], []),
+}
+
+
+def _free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+@pytest.mark.parametrize("name", list(TF_FIXED_CLI))
+def test_tf_fixed_benchmarks_run_through_every_command(capsys, tmp_path, name):
+    """describe, train --checkpoint, evaluate (darcy_tf zero-shot at 22^2),
+    infer (a raw .npy; darcy_tf at 22^2, vorticity_tf rolled out 3 steps)
+    and serve (the command in a subprocess answering one POST as infer
+    does; darcy_tf at its 43^2 training grid) on the CPU; ``--model-variant
+    pit`` is accepted, another variant is not."""
+    overrides, shape, eval_opts, infer_opts = TF_FIXED_CLI[name]
+    shrink = [a for o in overrides + ["model.hid_dim=8", "model.n_blocks=1"] for a in ("--set", o)]
+    sizes = ["--ntrain", "10" if name == "burgers_tf" else "16", "--ntest", "4"]
+    info = json.loads(_out(capsys, t_cli.main, ["describe", "--benchmark", name, *sizes, *shrink,
+                                                *CPU]))
+    assert info["benchmark"] == name and info["model"] == "PiTTF" and info["params"] > 0
+    ckpt = str(tmp_path / f"{name}.pt")
+    out = _out(capsys, t_cli.main, ["train", "--benchmark", name, "--epochs", "1", *sizes,
+                                    "--checkpoint", ckpt, "--model-variant", "pit", *shrink, *CPU])
+    final = json.loads(out.splitlines()[-1])["final"]
+    assert final["epoch"] == 0 and np.isfinite(final["train_loss"])
+    res = json.loads(_out(capsys, t_cli.main, ["evaluate", "--benchmark", name, "--checkpoint", ckpt,
+                                               "--ntest", "4", *eval_opts, *shrink, *CPU,
+                                               "--set", f"ntrain={sizes[1]}"]).splitlines()[-1])
+    assert res["benchmark"] == name and res["zssr"] == ("--zssr" in eval_opts)
+    assert all(np.isfinite(v).all() for k, v in res.items() if k.startswith("rel_"))
+    x = np.random.default_rng(0).random(shape).astype(np.float32)
+    inp, pred = str(tmp_path / "x.npy"), str(tmp_path / "pred.npy")
+    np.save(inp, x)
+    argv = ["infer", "--benchmark", name, "--checkpoint", ckpt, "--input", inp, "--output", pred,
+            *infer_opts, *shrink, *CPU, "--set", f"ntrain={sizes[1]}"]
+    res = json.loads(_out(capsys, t_cli.main, argv).splitlines()[-1])
+    got = np.load(pred)
+    assert res["n"] == 3 and got.shape[0] == 3 and np.isfinite(got).all()
+    if name == "vorticity_tf":
+        assert got.shape == (3, 4096, 1, 3)
+    port = _free_port()
+    cmd = [sys.executable, "-m", "position_induced_transformer_torch", "serve", "--benchmark", name,
+           "--checkpoint", ckpt, "--port", str(port), *shrink, *CPU, "--set", f"ntrain={sizes[1]}"]
+    proc = subprocess.Popen(cmd, cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            env=dict(os.environ, JAX_PLATFORMS="cpu"))
+    try:
+        url = f"http://127.0.0.1:{port}/predict"
+        if name == "vorticity_tf":
+            url += "?rollout_steps=3"
+        if name == "darcy_tf":  # the server answers at its own 43^2 grid
+            x = np.random.default_rng(0).random((3, 43, 43, 1)).astype(np.float32)
+        buf = io.BytesIO()
+        np.save(buf, x)
+        served = None
+        for _ in range(300):
+            if proc.poll() is not None:
+                break
+            try:
+                req = urllib.request.Request(url, data=buf.getvalue(), method="POST")
+                with urllib.request.urlopen(req, timeout=60) as r:
+                    served = np.load(io.BytesIO(r.read()))
+                break
+            except OSError:
+                time.sleep(0.2)
+    finally:
+        proc.terminate()
+        log = proc.communicate(timeout=60)[0].decode(errors="replace")
+    assert served is not None, log[-2000:]
+    if name != "darcy_tf":
+        np.testing.assert_allclose(served, got, rtol=1e-6, atol=1e-6)
+    with pytest.raises(NotImplementedError, match="'selfpit' is not ported"):
+        t_cli.main(["train", "--benchmark", name, "--model-variant", "selfpit", *CPU])

@@ -1,9 +1,10 @@
 """The CUDA kernels against their plain versions, on the card: the
 fixed-mesh kernels #1-#4 and the schedule variants #5 (v1) and #6 (v2) of
 #1 (one body; each writes its own M and L), the per-sample-mesh kernels #7
-and #8, and the TF-semantics kernels #9-#12; and the launches of the
-model paths (Burgers, Darcy, sod, elasticity, vorticity under each remat
-mode, NACA), with #1 recomputed under checkpointing to the same bits.
+and #8, the TF-semantics kernels #9-#12 and the fixed-mesh TF kernel #13;
+and the launches of the model paths (Burgers, Darcy, sod, elasticity,
+vorticity under each remat mode, NACA, the five fixed-mesh TF
+configurations), with #1 recomputed under checkpointing to the same bits.
 
 Every test here is marked ``cuda`` and skips without a CUDA device. The
 file imports no JAX, so that it runs on a machine without it:
@@ -1356,3 +1357,158 @@ def test_cli_trains_cylinder_on_the_card(cuda, tmp_path, capsys):
     cfg = dataclasses.replace(configs.CYLINDER, ntrain=400)
     result = evaluate.evaluate(cfg, ckpt, ntest=200)
     assert len(result["rollout_rel_l2_step"]) == 10 and np.isfinite(result["rollout_rel_l2_mean"])
+
+
+# ------------------------------------- #13: the fixed-mesh TF family
+
+# L_out, L_in, B, H, V, bandwidth, locality, r of each head (None: drawn)
+TF_FIXED_SHAPES = [
+    (1024, 1024, 5, 2, 32, "tan_sin", 1.0, None),  # burgers_tf's encoder
+    (256, 4096, 8, 1, 256, "tan_sin", 1.0, None),  # vorticity_tf's encoder: L_in split
+    (4096, 256, 8, 1, 256, "tan_sin", 8.0, None),  # its decoder: dv splits L_out
+    (300, 700, 3, 2, 64, "tan", 2.0, (-0.35, 0.25)),  # naca_tf's signs
+    (130, 77, 2, 3, 33, "tan", 20.0, (-0.5, 0.0, 0.4)),  # a zero-scale head
+    (100, 300, 9, 8, 16, "square", 200.0, None),  # nine samples: two tiles
+    (64, 64, 2, 2, 12, "square", 1.0, None),  # rows that keep nothing
+]
+
+
+def _tf_fixed_case(dev, L_out, L_in, B, H, V, kind, loc, r, seed=0):
+    from position_induced_transformer_torch.kernels import posatt_tf_fixed as kf
+    from position_induced_transformer_torch.models import pit_tf
+
+    rng = np.random.default_rng(seed)
+    dist = torch.from_numpy(rng.random((L_out, L_in)).astype(np.float32)).to(dev)
+    thr = kf.percentile_thresholds(dist, loc)
+    if thr is not None and loc == 1.0 and kind == "square":  # half the rows below their minimum
+        thr[::2] = dist[::2].amin(-1, keepdim=True) * 0.5
+    if r is None:
+        r = rng.uniform(-0.8, 0.8, H)
+    r = torch.tensor(np.asarray(r, np.float32).reshape(H, 1), device=dev)
+    values = torch.from_numpy(rng.standard_normal((B, L_in, H * V)).astype(np.float32)).to(dev)
+    g = torch.from_numpy(rng.standard_normal((B, L_out, H * V)).astype(np.float32)).to(dev)
+    return dist, thr, r, pit_tf._bandwidth(r, kind), values, g, kf.KINDS[kind]
+
+
+def _tf_fixed_ds_size(dist, thr, scale, values, out, g, mode):
+    """The size of dscale's summed terms per head, sum_ij att |T d| + att d
+    |r|: the float32 rounding of the cancelling sum scales with these."""
+    from position_induced_transformer_torch.kernels import posatt_tf_fixed as kf
+
+    att, keep = kf._attention(dist, thr, scale, mode)
+    H, L_out, L_in = att.shape
+    B = values.shape[0]
+    gh = g.reshape(B, L_out, H, -1)
+    t = torch.einsum("bihv,bjhv->hij", gh, values.reshape(B, L_in, H, -1))
+    rr = torch.einsum("bihv,bihv->hi", gh, out.reshape(B, L_out, H, -1))
+    d = dist if keep is None else torch.where(keep, dist, 0.0)
+    return (att * (t * d).abs()).sum((-1, -2)) + ((att * d).sum(-1) * rr.abs()).sum(-1) + 1e-30
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L_out,L_in,B,H,V,kind,loc,r", TF_FIXED_SHAPES)
+def test_cuda_tf_fixed_kernels_match_plain(cuda, L_out, L_in, B, H, V, kind, loc, r):
+    """#13's forward (and its row statistics), dv and dscale against their
+    plain versions, each launched once; dscale twice gives the same bits."""
+    from position_induced_transformer_torch.kernels import posatt_tf_fixed as kf
+
+    dist, thr, _, scale, values, g, mode = _tf_fixed_case(cuda, L_out, L_in, B, H, V, kind, loc, r)
+    counters = (kf.posatt_tf_fixed_cuda, kf.posatt_tf_fixed_bwd_dscale_cuda,
+                kf.posatt_tf_fixed_bwd_dv_cuda)
+    before = [f.launches for f in counters]
+    out, stats = kf.posatt_tf_fixed_cuda(dist, thr, scale, values, mode)
+    ds = kf.posatt_tf_fixed_bwd_dscale_cuda(dist, thr, scale, values, out, g, stats, mode)
+    dv = kf.posatt_tf_fixed_bwd_dv_cuda(dist, thr, scale, g, stats, mode)
+    again = kf.posatt_tf_fixed_bwd_dscale_cuda(dist, thr, scale, values, out, g, stats, mode)
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(counters, before)] == [1, 2, 1]
+    assert torch.equal(ds, again)
+    want = kf.posatt_tf_fixed_reference(dist, thr, scale, values, mode)
+    torch.testing.assert_close(out, want, rtol=RTOL, atol=ATOL)
+    want_stats = kf.posatt_tf_fixed_stats_reference(dist, thr, scale, mode)
+    assert torch.equal(torch.isinf(stats), torch.isinf(want_stats))
+    finite = ~torch.isinf(want_stats)
+    torch.testing.assert_close(stats[finite], want_stats[finite], rtol=RTOL, atol=ATOL)
+    want_dv = kf.posatt_tf_fixed_bwd_dv_reference(dist, thr, scale, g, mode)
+    size = kf.posatt_tf_fixed_bwd_dv_reference(dist, thr, scale, g.abs(), mode)
+    assert ((dv - want_dv).abs() <= ATOL + RTOL * size).all(), (dv - want_dv).abs().max()
+    want_ds = kf.posatt_tf_fixed_bwd_dscale_reference(dist, thr, scale, values, want, g, mode)
+    size = _tf_fixed_ds_size(dist, thr, scale, values, want, g, mode)
+    torch.testing.assert_close(ds / size, want_ds / size, rtol=DS_RTOL, atol=DS_ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L_out,L_in,B,H,V,kind,loc,r", TF_FIXED_SHAPES[:5])
+def test_tf_fixed_function_gradients_match_plain_autograd(cuda, L_out, L_in, B, H, V, kind, loc, r):
+    """One forward + backward of ``position_attention_tf_fixed`` with r
+    through the bandwidth launches each entry point once; the gradients in
+    r and the values against torch.autograd of the plain version."""
+    from position_induced_transformer_torch.kernels import posatt_tf_fixed as kf
+    from position_induced_transformer_torch.models import pit_tf
+
+    dist, thr, r0, scale, values, g, mode = _tf_fixed_case(cuda, L_out, L_in, B, H, V, kind, loc, r)
+
+    def grads(fn, w=g):
+        rr = r0.clone().requires_grad_(True)
+        x = values.clone().requires_grad_(True)
+        out = fn(dist, thr, pit_tf._bandwidth(rr, kind), x, kind, loc)
+        (out * w).sum().backward()
+        return out.detach(), rr.grad, x.grad
+
+    def plain(dist, thr, s, x, kind, loc):
+        return kf.posatt_tf_fixed_reference(dist, None if loc > 100 else thr, s, x, kf.KINDS[kind])
+
+    counters = (kf.posatt_tf_fixed_cuda, kf.posatt_tf_fixed_bwd_dscale_cuda,
+                kf.posatt_tf_fixed_bwd_dv_cuda)
+    before = [f.launches for f in counters]
+    got = grads(kf.position_attention_tf_fixed)
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(counters, before)] == [1, 1, 1]
+    want = grads(plain)
+    torch.testing.assert_close(got[0], want[0], rtol=RTOL, atol=ATOL)
+    # d r = dscale * |d scale / d r|, normalised by dscale's terms' size
+    rr = r0.clone().requires_grad_(True)
+    pit_tf._bandwidth(rr, kind).sum().backward()
+    thr_used = None if loc > 100 else thr
+    size_r = _tf_fixed_ds_size(dist, thr_used, scale, values, want[0], g, mode).reshape(H, 1)
+    size_r = size_r * rr.grad.abs() + 1e-30
+    torch.testing.assert_close(got[1] / size_r, want[1] / size_r, rtol=DS_RTOL, atol=DS_ATOL)
+    size_x = grads(plain, g.abs())[2]
+    assert ((got[2] - want[2]).abs() <= ATOL + RTOL * size_x).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,overrides,per_step", [
+    ("burgers_tf", ["grid=256", "latent_grid=128", "model.hid_dim=32"], 7),
+    ("naca_tf", ["grid=45,11", "latent_grid=23,6", "model.hid_dim=32"], 6),
+])
+def test_tf_fixed_training_step_and_forward_launch_counts(cuda, name, overrides, per_step):
+    """A training step of a narrow PiTTF configuration launches #13's
+    forward, dscale and dv once per attention op and nothing else, and a
+    served forward the forward alone; naca_tf's bandwidths stay at or
+    above 0 after the step (keras' NonNeg projection)."""
+    from position_induced_transformer_torch import configs
+    from position_induced_transformer_torch.kernels import posatt_tf_fixed as kf
+    from position_induced_transformer_torch.train import benchmarks, loop, runner
+
+    cfg = configs.apply_overrides(configs.get(name), overrides)
+    problem = benchmarks.setup(cfg, ntrain=cfg.batch_size, ntest=2, device=cuda)
+    state = runner.init_state(problem, 0)
+    data = {k: torch.from_numpy(np.ascontiguousarray(v)).to(cuda) for k, v in problem.train_data.items()}
+    perm = torch.arange(cfg.batch_size, device=cuda).reshape(1, -1)
+    counters = (kf.posatt_tf_fixed_cuda, kf.posatt_tf_fixed_bwd_dscale_cuda,
+                kf.posatt_tf_fixed_bwd_dv_cuda, kp.posatt_fixed_cuda, kb.posatt_tf_cuda)
+    before = [f.launches for f in counters]
+    _, losses = loop.make_train_epoch(problem.task, lambda step: 1e-2)(state, problem.geom, data, perm)
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(counters, before)] == [per_step] * 3 + [0, 0]
+    assert torch.isfinite(losses).all()
+    if name == "naca_tf":
+        bw = [p for k, p in problem.model.named_parameters() if k.endswith("band_width")]
+        assert min(float(p.detach().min()) for p in bw) >= 0.0
+    before = [f.launches for f in counters]
+    with torch.inference_mode():
+        out = problem.task.forward(problem.geom, {"x": data["x"]})
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(counters, before)] == [per_step, 0, 0, 0, 0]
+    assert torch.isfinite(out).all()

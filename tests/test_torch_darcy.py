@@ -310,8 +310,8 @@ def test_evaluate_zssr_matches_jax(problems, tmp_path, monkeypatch):
 def test_evaluate_refusals(tmp_path):
     """ZSSR on a setup without ``downsampling`` is a ValueError, as in JAX,
     and so is the shuffle ablation of a rollout benchmark; the options and
-    benchmarks not ported yet (``mesh``, ``model_variant``; the TF-family
-    fixed-mesh configurations) raise NotImplementedError."""
+    models not ported yet (``mesh``, ``model_variant``; a TF-family config
+    of another variant than 'pit') raise NotImplementedError."""
     cfg = t_configs.apply_overrides(t_configs.BURGERS, ["grid=64", "latent_grid=16",
                                                         "model.hid_dim=8", "model.n_blocks=1"])
     path = t_ckpt.save(str(tmp_path / "b.pt"), t_bench._make_model(cfg).state_dict(), "burgers")
@@ -324,8 +324,9 @@ def test_evaluate_refusals(tmp_path):
         t_eval.evaluate(t_configs.VORTICITY, path, shuffle_ablation=True, device="cpu")
     burgers_tf = t_ckpt.save(str(tmp_path / "btf.pt"), t_bench._make_model(cfg).state_dict(),
                              "burgers_tf")
-    with pytest.raises(NotImplementedError, match="'burgers_tf' is not ported"):
-        t_eval.evaluate(t_configs.BURGERS_TF, burgers_tf, device="cpu")
+    lite = dataclasses.replace(t_configs.BURGERS_TF, model_variant="lite")
+    with pytest.raises(NotImplementedError, match="'lite' is not ported"):
+        t_eval.evaluate(lite, burgers_tf, device="cpu")
     result = t_eval.evaluate(cfg, path, ntest=3, device="cpu")
     assert result["n_test"] == 3 and not result["zssr"] and len(result["rel_l1_quartiles"]) == 3
 

@@ -450,7 +450,7 @@ def test_build_command_targets_sm90a():
     assert _build.library_path("posatt_fixed_fwd").name.startswith("libposatt_fixed_fwd-")
     assert set(_build.KERNELS) == {
         "posatt_fixed_fwd", "posatt_fixed_bwd", "posatt_batched_fwd", "posatt_batched_bwd",
-        "posatt_tf_fwd", "posatt_tf_bwd",
+        "posatt_tf_fwd", "posatt_tf_bwd", "posatt_tf_fixed_fwd", "posatt_tf_fixed_bwd",
     }
     for name in _build.KERNELS:
         assert (_build.CSRC / f"{name}.cu").exists()

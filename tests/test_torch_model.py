@@ -167,9 +167,10 @@ def test_model_rejects_other_compute_dtypes():
 
 
 def test_setup_names_unported_benchmarks():
-    ported = ("ported: ['burgers', 'cylinder', 'darcy', 'elasticity', 'elasticity_tf', 'naca', "
-              "'sod', 'vorticity']")
-    with pytest.raises(NotImplementedError, match=f"not ported.*{re.escape(ported)}"):
-        t_bench.setup(t_configs.DARCY_TF, device="cpu")
+    # every built-in benchmark is ported; a TF-family model variant is not
+    assert set(t_bench.SETUPS) >= set(t_configs.BUILTIN)
+    lite = dataclasses.replace(t_configs.DARCY_TF, model_variant="lite")
+    with pytest.raises(NotImplementedError, match=re.escape("model variant 'lite' is not ported")):
+        t_bench.setup(lite, ntrain=8, ntest=2, device="cpu")
     with pytest.raises(ValueError, match="unknown benchmark"):
         t_configs.get("nope")

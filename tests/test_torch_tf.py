@@ -597,4 +597,5 @@ def test_unported_variants_and_dtypes_raise():
     with pytest.raises(NotImplementedError):
         t_bench._make_model(dataclasses.replace(t_configs.ELASTICITY_TF, model_variant="lite"))
     with pytest.raises(NotImplementedError, match="not ported"):
-        t_bench.setup(t_configs.BURGERS_TF, device="cpu")
+        t_bench.setup(dataclasses.replace(t_configs.BURGERS_TF, model_variant="transformer"),
+                      device="cpu")
