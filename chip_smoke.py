@@ -3958,9 +3958,10 @@ def cli_phase(ckpt):
 TF_FIXED_CONFIGS = ("burgers_tf", "sod_tf", "darcy_tf", "vorticity_tf", "naca_tf")
 # #13's kernels' names in a trace
 TF_FIXED_GROUPS = {
-    "posatt_tf_fixed_fwd": "(anonymous namespace)::fwd_kernel(",
-    "posatt_tf_fixed_stats": "(anonymous namespace)::stats_kernel(",
-    "posatt_tf_fixed_bwd_dv": "(anonymous namespace)::dv_kernel(",
+    "posatt_tf_fixed_fwd": "void (anonymous namespace)::fwd_kernel<",
+    "posatt_tf_fixed_scan": "(anonymous namespace)::scan_kernel(",
+    "posatt_tf_fixed_lists": "(anonymous namespace)::lists_kernel(",
+    "posatt_tf_fixed_bwd_dv": "void (anonymous namespace)::dv_kernel<",
     "posatt_tf_fixed_bwd_dscale": "(anonymous namespace)::dscale_kernel(",
     "posatt_tf_fixed_sum_splits": "tffixed::sum_splits_kernel(",
 }
@@ -3976,6 +3977,11 @@ RAGGED_TF_FIXED = [  # name, L_out, L_in, B, H, V, bandwidth, locality, r of eac
     ("tff_h2_v100_tan_global", 64, 1100, 2, 2, 100, "tan", 200.0, (-0.4, 0.5)),
     # rows that keep nothing (thresholds below every distance): uniform weights
     ("tff_h2_v12_empty_rows", 64, 64, 2, 2, 12, "square", 1.0, None),
+    # one such row in a row tile: that tile lists every step
+    ("tff_h2_v16_one_empty_row", 300, 1100, 4, 2, 16, "tan_sin", 2.0, None),
+    ("tff_h2_v8_zero_negative", 520, 333, 8, 2, 8, "tan", 3.0, (0.0, -0.2)),
+    # few row tiles: the forward's splits cut each tile's list
+    ("tff_h2_v20_split_lists", 301, 5003, 2, 2, 20, "tan", 0.5, (0.3, 0.6)),
 ]
 
 
@@ -4095,24 +4101,73 @@ def tf_fixed_dscale_size(case, out):
     return (att * (t * d).abs()).sum((-1, -2)) + ((att * d).sum(-1) * r.abs()).sum(-1) + 1e-30
 
 
+def tf_fixed_lists(case, steps):
+    """The kept-step lists of one op: the steps the forward and dv walk
+    summed over their tiles and heads, their share of the dense walk, the
+    share of dscale's tiles it contracts, and the forward's and dv's
+    splits."""
+    from position_induced_transformer_torch.kernels import posatt_tf_fixed as kf
+
+    dist, _, scales, _, values, _, _ = case
+    Lo, Li = dist.shape
+    H, B = scales.shape[0], values.shape[0]
+    V = values.shape[2] // H
+    ft, dt = kf._row_tile(B, Lo, H, V), kf._row_tile(B, Li, H, V)
+    nT, nU = -(-Li // 16), -(-Lo // 16)
+    dense = {"fwd": H * -(-Lo // ft) * nT, "dv": H * -(-Li // dt) * nU,
+             "tiles": H * -(-Lo // 128) * -(-Li // 128)}
+    walked = dense if steps is None else {"fwd": int(steps.fwd_cnt.sum()),
+                                          "dv": int(steps.dv_cnt.sum()),
+                                          "tiles": int(steps.tiles.sum())}
+    return {"fwd_steps": walked["fwd"], "fwd_share": walked["fwd"] / dense["fwd"],
+            "dv_steps": walked["dv"], "dv_share": walked["dv"] / dense["dv"],
+            "dscale_tile_share": walked["tiles"] / dense["tiles"],
+            "fwd_rows_a_block": ft, "dv_columns_a_block": dt,
+            "fwd_splits": kf._split_plan(B, Lo, Li, H, V)[0],
+            "dv_splits": kf._split_plan(B, Li, Lo, H, V)[0],
+            "dscale_splits": kf._dscale_plan(B, Lo, Li, H, V)[0]}
+
+
+def tf_fixed_lists_equal(dist, thr, scales, mode, steps):
+    """Whether the forward's kept-step lists equal the plain version's at
+    the same tiles (both None for a global op)."""
+    import torch
+
+    from position_induced_transformer_torch.kernels import posatt_tf_fixed as kf
+
+    if steps is None:
+        return thr is None
+    want = kf.posatt_tf_fixed_lists_reference(dist, thr, scales, mode, steps.fwd_tile,
+                                              steps.dv_tile)
+    return all(torch.equal(a, b) if torch.is_tensor(a) else a == b for a, b in zip(steps, want))
+
+
 def tf_fixed_check(name, case, timed, reps=5, per_rep=4):
     """#13's three entry points against their plain versions on one op:
-    the forward with its statistics, dv, and dscale (twice: the same bits),
-    at the op tolerances (dv on its terms' magnitude, dscale normalised);
-    with ``timed``, each timed beside its plain version, the bound and, for
-    the forward, SDPA. Returns the row."""
+    the forward with its statistics and kept-step lists (the plain
+    version's, exactly), dv and dscale on those lists, each run twice to
+    the same bits, at the op tolerances (dv on its terms' magnitude, dscale
+    normalised); with ``timed``, each timed beside its plain version, the
+    bound and, for the forward, SDPA. Returns the row, with the lists'
+    length and share of the steps."""
     import torch
 
     from position_induced_transformer_torch.kernels import posatt_tf_fixed as kf
 
     dist, thr, scales, _, values, g, mode = case
-    out, stats = kf.posatt_tf_fixed_cuda(dist, thr, scales, values, mode)
-    dv = kf.posatt_tf_fixed_bwd_dv_cuda(dist, thr, scales, g, stats, mode)
-    ds = kf.posatt_tf_fixed_bwd_dscale_cuda(dist, thr, scales, values, out, g, stats, mode)
-    again = kf.posatt_tf_fixed_bwd_dscale_cuda(dist, thr, scales, values, out, g, stats, mode)
+    out, stats, steps = kf.posatt_tf_fixed_cuda(dist, thr, scales, values, mode)
+    dv = kf.posatt_tf_fixed_bwd_dv_cuda(dist, thr, scales, g, stats, mode, steps)
+    ds = kf.posatt_tf_fixed_bwd_dscale_cuda(dist, thr, scales, values, out, g, stats, mode, steps)
+    again = (kf.posatt_tf_fixed_cuda(dist, thr, scales, values, mode)[0],
+             kf.posatt_tf_fixed_bwd_dv_cuda(dist, thr, scales, g, stats, mode, steps),
+             kf.posatt_tf_fixed_bwd_dscale_cuda(dist, thr, scales, values, out, g, stats, mode,
+                                                steps))
     torch.cuda.synchronize()
-    if not torch.equal(ds, again):
-        fail(f"{name}: two dscale runs on the same inputs differ")
+    for part, first, second in zip(("forward", "dv", "dscale"), (out, dv, ds), again):
+        if not torch.equal(first, second):
+            fail(f"{name}: two {part} runs on the same inputs differ")
+    if not tf_fixed_lists_equal(dist, thr, scales, mode, steps):
+        fail(f"{name}: the kept-step lists differ from the plain version's")
     want = kf.posatt_tf_fixed_reference(dist, thr, scales, values, mode)
     errs = {"fwd": check_close(f"{name} forward", out, want, OP_RTOL, OP_ATOL)}
     want_stats = kf.posatt_tf_fixed_stats_reference(dist, thr, scales, mode)
@@ -4131,18 +4186,19 @@ def tf_fixed_check(name, case, timed, reps=5, per_rep=4):
     Lo, Li = dist.shape
     B, H = values.shape[0], scales.shape[0]
     row = {"shape": name, "L_out": Lo, "L_in": Li, "B": B, "H": H, "V": values.shape[2] // H,
-           "mode": mode, "scales": scales.flatten().tolist(), "max_abs_err": errs}
+           "mode": mode, "scales": scales.flatten().tolist(), "max_abs_err": errs,
+           "lists": tf_fixed_lists(case, steps)}
     if not timed:
         return row
     kept, nbytes = tf_fixed_work(case)
     V = values.shape[2] // H
     flops = {"fwd": 2 * B * V * kept, "dv": 2 * B * V * kept,
              "dscale": 2 * B * V * kept + 2 * B * Lo * H * V}
-    launch = {
+    launch = {  # as the autograd Function runs them: the backward on the forward's lists
         "fwd": lambda: kf.posatt_tf_fixed_cuda(dist, thr, scales, values, mode),
-        "dv": lambda: kf.posatt_tf_fixed_bwd_dv_cuda(dist, thr, scales, g, stats, mode),
+        "dv": lambda: kf.posatt_tf_fixed_bwd_dv_cuda(dist, thr, scales, g, stats, mode, steps),
         "dscale": lambda: kf.posatt_tf_fixed_bwd_dscale_cuda(dist, thr, scales, values, out, g,
-                                                             stats, mode),
+                                                             stats, mode, steps),
     }
     plain = {
         "fwd": lambda: kf.posatt_tf_fixed_reference(dist, thr, scales, values, mode),
@@ -4163,6 +4219,18 @@ def tf_fixed_check(name, case, timed, reps=5, per_rep=4):
     row["fwd"]["library_ms"] = cuda_ms(sdpa, reps=reps, per_rep=per_rep)
     del sdpa
     return row
+
+
+def log_tf_fixed_times(label, row):
+    """One line per op: each entry point's time beside its plain version
+    and bound, and the lists' length and share of the steps."""
+    li = row["lists"]
+    log(f"#13 {label} ({row['L_out']} x {row['L_in']}): " + "; ".join(
+        f"{p} {row[p]['ms']:.4f} ms (plain {row[p]['plain_ms']:.4f}, bound {row[p]['bound_ms']:.4f})"
+        for p in ("fwd", "dscale", "dv"))
+        + f"; SDPA {row['fwd']['library_ms']:.4f}; lists fwd {li['fwd_steps']} steps"
+        f" ({li['fwd_share']:.4f}), dv {li['dv_steps']} ({li['dv_share']:.4f}),"
+        f" dscale tiles {li['dscale_tile_share']:.4f}")
 
 
 def tf_fixed_function_check(name, case):
@@ -4239,6 +4307,7 @@ def tf_fixed_kernel_phase():
             row.update(config=name, op=op, launches_per_forward=per_forward)
             rows.append(row)
             log(f"kernel posatt_tf_fixed {name} {op}: {json.dumps(row)}")
+            log_tf_fixed_times(f"{name} {op}", row)
             if op in ("down", "processor"):
                 fn_err = max(fn_err, tf_fixed_function_check(f"{name} {op}", case))
             del case
@@ -4256,6 +4325,7 @@ def tf_fixed_kernel_phase():
         row.update(config="darcy_tf_zssr", op=op, launches_per_forward=1)
         rows.append(row)
         log(f"kernel posatt_tf_fixed darcy_tf_zssr {op}: {json.dumps(row)}")
+        log_tf_fixed_times(f"darcy_tf_zssr {op}", row)
         del case
     del problem, ops
     torch.cuda.empty_cache()
@@ -4266,6 +4336,9 @@ def tf_fixed_kernel_phase():
         if name.endswith("empty_rows"):  # half the rows below their minimum
             thr = thr.clone()
             thr[::2] = dist[::2].amin(-1, keepdim=True) * 0.5
+        elif name.endswith("one_empty_row"):  # row 130, in the second row tile
+            thr = thr.clone()
+            thr[130] = torch.stack([dist[130].amin() * 0.5, dist[130].amax() * 2.0])
         case = tf_fixed_case(rng, dist, thr, loc, B, H, V, kind, r)
         row = tf_fixed_check(name, case, timed=False)
         ragged_err[name] = row["max_abs_err"]

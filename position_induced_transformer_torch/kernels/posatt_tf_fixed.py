@@ -18,17 +18,19 @@ shares:
   elsewhere (JAX's float-max sentinel; a row that keeps nothing is uniform);
 - ``out[b, i, h*V:(h+1)*V] = sum_j att_hij values[b, j, h*V:(h+1)*V]``.
 
-Two hand-written sm_90a sources: ``csrc/posatt_tf_fixed_fwd.cu`` (the
-forward, which also writes the row statistics m and l, (H, 2, L_out)) and
+Two hand-written sm_90a sources: ``csrc/posatt_tf_fixed_fwd.cu`` (a
+pre-pass that writes the row statistics m and l, (H, 2, L_out), and for a
+local op the kept-step lists, then the forward) and
 ``csrc/posatt_tf_fixed_bwd.cu`` (the gradients of the scales, (H,) summed
-over the batch, and of the values). Dispatch is by device: a CUDA tensor
-launches the kernel or raises, a CPU tensor takes the plain version
+over the batch, and of the values). The kernels contract over the listed
+16-wide steps only (:class:`KeptSteps`). Dispatch is by device: a CUDA
+tensor launches the kernel or raises, a CPU tensor takes the plain version
 (``*_reference``). There is no fallback and no switch.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -38,7 +40,33 @@ from position_induced_transformer_torch.ops.locality import quantile_threshold
 
 KINDS = {"tan_sin": 0, "square": 0, "tan": 1}  # bandwidth -> the kernels' keep mode
 _BLOCK = 128  # rows and columns of the kernels' tiles
+_STEP = 16  # depth of the kernels' steps, and the lists' granularity
 _FULL = 264  # two blocks a SM: a launch of fewer splits its reduction axis
+
+
+class KeptSteps(NamedTuple):
+    """The kept-step lists of a local op, per head (``csrc/posatt_tf_fixed.cuh``):
+    each list ascending, -1 after its count.
+
+    - ``fwd_idx`` (H, nF, nT), ``fwd_cnt`` (H, nF): for each tile of
+      ``fwd_tile`` rows (the forward's blocks), the 16-column steps holding
+      a kept entry of one of its rows (every step where one of its rows
+      keeps nothing);
+    - ``dv_idx`` (H, nD, nU), ``dv_cnt`` (H, nD): for each tile of
+      ``dv_tile`` columns (dv's blocks), the 16-row steps holding a kept
+      entry in its columns or a row that keeps nothing;
+    - ``tiles`` (H, nI, nJ): 1 where a 128 x 128 tile keeps an entry;
+
+    nF = ceil(L_out / fwd_tile), nU = ceil(L_out / 16), nI = ceil(L_out /
+    128); nD, nT and nJ the same of L_in. The tensors are int32."""
+
+    fwd_idx: torch.Tensor
+    fwd_cnt: torch.Tensor
+    dv_idx: torch.Tensor
+    dv_cnt: torch.Tensor
+    tiles: torch.Tensor
+    fwd_tile: int = _BLOCK
+    dv_tile: int = _BLOCK
 
 # ------------------------------------------------------------ plain versions
 
@@ -99,6 +127,45 @@ def posatt_tf_fixed_stats_reference(dist, thr, scale, mode):
     empty = torch.isinf(m)
     l = torch.where(empty, float(dist.shape[1]), p.sum(dim=-1, keepdim=True))
     return torch.cat([m, l], dim=-1).transpose(1, 2).contiguous()
+
+
+def _compact(flags):
+    """Each row of the bool ``flags`` (..., n) as its true indices,
+    ascending, -1 after them; and their counts."""
+    n = flags.shape[-1]
+    pos = torch.arange(n, dtype=torch.int32, device=flags.device).expand_as(flags)
+    idx = torch.where(flags, pos, n).sort(dim=-1).values
+    return torch.where(idx < n, idx, -1), flags.sum(-1, dtype=torch.int32)
+
+
+def posatt_tf_fixed_lists_reference(dist, thr, scale, mode, fwd_tile=_BLOCK,
+                                    dv_tile=_BLOCK) -> Optional[KeptSteps]:
+    """Plain version of the kept-step lists that the forward's pre-pass
+    writes (:class:`KeptSteps`) for blocks of ``fwd_tile`` rows and dv's
+    of ``dv_tile`` columns (128, 64 or 32); None for a global op (``thr``
+    None), which walks every step."""
+    if thr is None:
+        return None
+    _, keep = _scaled_keep(dist, thr, scale, mode)
+    H, L_out, L_in = keep.shape
+    nU, nT = -(-L_out // _STEP), -(-L_in // _STEP)
+    nI, nJ = -(-L_out // _BLOCK), -(-L_in // _BLOCK)
+    empty = ~keep.any(-1)  # (H, L_out): rows that keep nothing
+    pad = torch.zeros((H, nI * _BLOCK, nJ * _BLOCK), dtype=torch.bool, device=dist.device)
+    pad[:, :L_out, :L_in] = keep
+    blocks = pad.reshape(H, nI * 8, _STEP, nJ * 8, _STEP).any(-1).any(2)  # (H, 8 nI, 8 nJ)
+    epad = torch.zeros((H, nI * _BLOCK), dtype=torch.bool, device=dist.device)
+    epad[:, :L_out] = empty
+    f, d = fwd_tile // _STEP, dv_tile // _STEP  # 16-wide blocks a tile
+    nF, nD = -(-L_out // fwd_tile), -(-L_in // dv_tile)
+    fwd = blocks.reshape(H, nI * 8 // f, f, nJ * 8).any(2)[:, :nF, :nT]
+    fwd |= epad.reshape(H, nI * 8 // f, fwd_tile).any(-1, keepdim=True)[:, :nF]
+    dv = blocks.reshape(H, nI * 8, nJ * 8 // d, d).any(-1)[:, :nU, :nD].transpose(1, 2)
+    dv = dv | epad.reshape(H, nI * 8, _STEP).any(-1)[:, None, :nU]
+    tiles = blocks.reshape(H, nI, 8, nJ, 8).any(-1).any(2)
+    fwd_idx, fwd_cnt = _compact(fwd)
+    dv_idx, dv_cnt = _compact(dv)
+    return KeptSteps(fwd_idx, fwd_cnt, dv_idx, dv_cnt, tiles.to(torch.int32), fwd_tile, dv_tile)
 
 
 def posatt_tf_fixed_bwd_dv_reference(dist, thr, scale, g, mode):
@@ -175,20 +242,56 @@ def _check_bwd(name, dist, thr, scale, g, stats, values=None, out=None):
     return B, L_out, L_in, H, HV // H
 
 
-def _split_plan(B, rows, K, H, V):
-    """How the forward (rows L_out, reduction L_in) or dv (rows L_in,
-    reduction L_out) splits its reduction axis: ``(splits, kchunk)``, as
-    ``csrc/posatt_tf_fixed.cuh`` reads them. A launch of fewer than two
-    blocks a SM takes up to enough splits to fill the card, each at least
-    512 long (kchunk a multiple of the 8-deep step)."""
+def _col_plan(B, V):
+    """``col_plan`` of ``csrc/posatt_tf_fixed.cuh``: samples and value
+    columns of a column tile, the tiles of a head and of a row block."""
     bt = min(B, 8)
     cw = min(_BLOCK // bt, V)
     nct = -(-V // cw)
-    blocks = -(-rows // _BLOCK) * -(-B // bt) * nct * H
+    cw = -(-V // nct)
+    return bt, cw, nct, -(-B // bt) * nct
+
+
+def _row_tile(B, rows, H, V):
+    """Rows a forward block owns (columns a dv block): 128, or 64 or 32
+    where 128-row blocks would be fewer than two a SM. Each output still
+    sums its terms in one thread, in order: the tile changes no bit."""
+    tiles = _col_plan(B, V)[3] * H
+    return next((bm for bm in (128, 64) if -(-rows // bm) * tiles >= _FULL), 32)
+
+
+def _split_plan(B, rows, K, H, V):
+    """How the forward (rows L_out, reduction ``K`` = L_in) or dv (rows L_in,
+    reduction L_out) cuts its reduction: ``(splits, chunk)``, ranges of
+    ``chunk`` 16-wide steps, each block walking the listed steps of its
+    range. A launch of fewer than two blocks a SM takes up to enough splits
+    to fill the card, each at least 512 long (a shorter reduction is left
+    whole: a split changes the order of its sums)."""
+    blocks = -(-rows // _BLOCK) * _col_plan(B, V)[3] * H
     splits = max(1, min(-(-_FULL // blocks), K // 512))
+    chunk = -(-(-(-K // splits)) // _STEP)  # ceil(ceil(K / splits) / 16) steps
+    return -(-K // (chunk * _STEP)), chunk
+
+
+def _dscale_plan(B, L_out, L_in, H, V):
+    """``(splits, kchunk)``: the B*V contraction of dscale cut into ranges
+    of ``kchunk`` (a multiple of 16, at least 64) until a launch has two
+    blocks a SM."""
+    K = B * V
+    blocks = -(-L_out // _BLOCK) * -(-L_in // _BLOCK) * H
+    splits = max(1, min(-(-_FULL // blocks), -(-K // 64)))
     kchunk = -(-K // splits)
-    kchunk = -(-kchunk // 8) * 8
+    kchunk = -(-kchunk // _STEP) * _STEP
     return -(-K // kchunk), kchunk
+
+
+def _aligned(*ts) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in ts)
+
+
+def _vec_cols(B, V, *ts) -> int:
+    """Whether value (or cotangent) columns go in 16-byte fours."""
+    return int(V % 4 == 0 and _col_plan(B, V)[1] % 4 == 0 and _aligned(*ts))
 
 
 def _partials(splits, B, rows, HV, device):
@@ -197,10 +300,34 @@ def _partials(splits, B, rows, HV, device):
     return torch.empty((splits, B, rows, HV), dtype=torch.float32, device=device)
 
 
+def _lists_cuda(dist, thr, scale, mode, fwd_tile, dv_tile):
+    """The forward's pre-pass: ``(stats, steps)``, the row statistics (H,
+    2, L_out) of :func:`posatt_tf_fixed_stats_reference` and the
+    :class:`KeptSteps` of :func:`posatt_tf_fixed_lists_reference` for its
+    own and dv's tiles (None for a global op)."""
+    L_out, L_in = dist.shape
+    H, dev = scale.shape[0], dist.device
+    stats = torch.empty((H, 2, L_out), dtype=torch.float32, device=dev)
+    steps = bits = None
+    if thr is not None:
+        nU, nT = -(-L_out // _STEP), -(-L_in // _STEP)
+        nI, nJ = -(-L_out // _BLOCK), -(-L_in // _BLOCK)
+        nF, nD = -(-L_out // fwd_tile), -(-L_in // dv_tile)
+        ints = lambda *shape: torch.empty(shape, dtype=torch.int32, device=dev)
+        bits = ints(H, nU, -(-nT // 32))
+        steps = KeptSteps(ints(H, nF, nT), ints(H, nF), ints(H, nD, nU), ints(H, nD),
+                          ints(H, nI, nJ), fwd_tile, dv_tile)
+    fn = _entry("posatt_tf_fixed_fwd", "posatt_tf_fixed_plan", 10, 6)
+    _launch(fn, "posatt_tf_fixed_plan", dev, dist, thr, scale, stats, bits,
+            *(steps[:5] if steps else (None,) * 5), L_out, L_in, H, mode, fwd_tile, dv_tile)
+    return stats, steps
+
+
 def posatt_tf_fixed_cuda(dist, thr, scale, values, mode):
-    """Launch the forward on CUDA tensors: ``(out, stats)``, out (B, L_out,
-    H*V) and the row statistics (H, 2, L_out) of
-    :func:`posatt_tf_fixed_stats_reference`. Arguments as
+    """Launch the forward on CUDA tensors: ``(out, stats, steps)``, out (B,
+    L_out, H*V), the row statistics (H, 2, L_out) of
+    :func:`posatt_tf_fixed_stats_reference` and the :class:`KeptSteps` it
+    walked (None for a global op), which the backward entry points take. Arguments as
     :func:`posatt_tf_fixed_reference`'s. Adds one to
     ``posatt_tf_fixed_cuda.launches`` for each launch."""
     _check(dist, thr, scale, values)
@@ -208,47 +335,58 @@ def posatt_tf_fixed_cuda(dist, thr, scale, values, mode):
     L_out, L_in = dist.shape
     B, H = values.shape[0], scale.shape[0]
     dev = dist.device
-    out = torch.empty((B, L_out, values.shape[2]), dtype=torch.float32, device=dev)
-    stats = torch.empty((H, 2, L_out), dtype=torch.float32, device=dev)
     V = values.shape[2] // H
-    splits, kchunk = _split_plan(B, L_out, L_in, H, V)
+    tile = _row_tile(B, L_out, H, V)
+    stats, steps = _lists_cuda(dist, thr, scale, mode, tile, _row_tile(B, L_in, H, V))
+    out = torch.empty((B, L_out, values.shape[2]), dtype=torch.float32, device=dev)
+    splits, chunk = _split_plan(B, L_out, L_in, H, V)
     part = _partials(splits, B, L_out, H * V, dev)
-    fn = _entry("posatt_tf_fixed_fwd", "posatt_tf_fixed_fwd", 7, 8)
-    _launch(fn, "posatt_tf_fixed_fwd", dev, dist, thr, scale, values, out, stats, part,
-            B, L_out, L_in, H, V, mode, splits, kchunk)
+    fn = _entry("posatt_tf_fixed_fwd", "posatt_tf_fixed_fwd", 9, 11)
+    _launch(fn, "posatt_tf_fixed_fwd", dev, dist, thr, scale, values, stats,
+            *(steps[:2] if steps else (None, None)), out, part, B, L_out, L_in, H, V, mode,
+            tile, splits, chunk, int(L_in % 4 == 0 and _aligned(dist)), _vec_cols(B, V, values))
     posatt_tf_fixed_cuda.launches += 1
-    return out, stats
+    return out, stats, steps
 
 
-def posatt_tf_fixed_bwd_dscale_cuda(dist, thr, scale, values, out, g, stats, mode):
+def posatt_tf_fixed_bwd_dscale_cuda(dist, thr, scale, values, out, g, stats, mode, steps=None):
     """Launch the dscale entry point: (H,), from the forward's inputs, its
-    output ``out`` and row statistics and a cotangent ``g``. Deterministic:
-    per-block partials summed per head in a fixed order. Adds one to
+    output ``out``, row statistics and lists ``steps`` (None: every tile,
+    the same bits) and a cotangent ``g``. Deterministic: per-block partials
+    summed per head in a fixed order. Adds one to
     ``posatt_tf_fixed_bwd_dscale_cuda.launches``."""
     B, L_out, L_in, H, V = _check_bwd("posatt_tf_fixed_bwd_dscale_cuda", dist, thr, scale, g,
                                       stats, values, out)
     dev = dist.device
+    splits, kchunk = _dscale_plan(B, L_out, L_in, H, V)
     rvec = torch.empty((H, L_out), dtype=torch.float32, device=dev)
     blocks = -(-L_out // _BLOCK) * -(-L_in // _BLOCK)
-    partial = torch.empty((H, blocks), dtype=torch.float32, device=dev)
+    partial = torch.empty((H, splits * blocks), dtype=torch.float32, device=dev)
     ds = torch.empty((H,), dtype=torch.float32, device=dev)
-    fn = _entry("posatt_tf_fixed_bwd", "posatt_tf_fixed_bwd_dscale", 10, 6)
+    fn = _entry("posatt_tf_fixed_bwd", "posatt_tf_fixed_bwd_dscale", 11, 8)
     _launch(fn, "posatt_tf_fixed_bwd_dscale", dev, dist, thr, scale, values, out, g, stats,
-            rvec, partial, ds, B, L_out, L_in, H, V, mode)
+            steps.tiles if steps else None, rvec, partial, ds, B, L_out, L_in, H, V, mode,
+            splits, kchunk)
     posatt_tf_fixed_bwd_dscale_cuda.launches += 1
     return ds
 
 
-def posatt_tf_fixed_bwd_dv_cuda(dist, thr, scale, g, stats, mode):
-    """Launch the dv entry point: (B, L_in, H*V). Adds one to
-    ``posatt_tf_fixed_bwd_dv_cuda.launches``."""
+def posatt_tf_fixed_bwd_dv_cuda(dist, thr, scale, g, stats, mode, steps=None):
+    """Launch the dv entry point: (B, L_in, H*V), from the forward's row
+    statistics and lists ``steps`` (None: every step, the same bits). Adds
+    one to ``posatt_tf_fixed_bwd_dv_cuda.launches``."""
     B, L_out, L_in, H, V = _check_bwd("posatt_tf_fixed_bwd_dv_cuda", dist, thr, scale, g, stats)
-    dv = torch.empty((B, L_in, g.shape[2]), dtype=torch.float32, device=dist.device)
-    splits, kchunk = _split_plan(B, L_in, L_out, H, V)
-    part = _partials(splits, B, L_in, H * V, dist.device)
-    fn = _entry("posatt_tf_fixed_bwd", "posatt_tf_fixed_bwd_dv", 7, 8)
-    _launch(fn, "posatt_tf_fixed_bwd_dv", dist.device, dist, thr, scale, g, stats, dv, part,
-            B, L_out, L_in, H, V, mode, splits, kchunk)
+    tile = _row_tile(B, L_in, H, V)
+    if steps is not None and steps.dv_tile != tile:
+        raise ValueError(f"steps are cut to {steps.dv_tile}-column tiles, dv runs {tile}")
+    dev = dist.device
+    dv = torch.empty((B, L_in, g.shape[2]), dtype=torch.float32, device=dev)
+    splits, chunk = _split_plan(B, L_in, L_out, H, V)
+    part = _partials(splits, B, L_in, H * V, dev)
+    fn = _entry("posatt_tf_fixed_bwd", "posatt_tf_fixed_bwd_dv", 9, 11)
+    _launch(fn, "posatt_tf_fixed_bwd_dv", dev, dist, thr, scale, g, stats,
+            *(steps[2:4] if steps else (None, None)), dv, part, B, L_out, L_in, H, V, mode,
+            tile, splits, chunk, int(L_in % 4 == 0 and _aligned(dist)), _vec_cols(B, V, g))
     posatt_tf_fixed_bwd_dv_cuda.launches += 1
     return dv
 
@@ -263,20 +401,21 @@ posatt_tf_fixed_bwd_dv_cuda.launches = 0
 
 class PosAttTFFixed(torch.autograd.Function):
     """The forward with its backward: ``apply(dist, thr, scale, values,
-    mode)`` -> (B, L_out, H*V). The forward saves its output and row
-    statistics; the backward runs the dscale entry point when ``scale``
+    mode)`` -> (B, L_out, H*V). The forward saves its output, row
+    statistics and kept-step lists; the backward runs the dscale entry point when ``scale``
     needs a gradient and the dv one when ``values`` does; ``dist`` and
     ``thr`` get none. CPU tensors take the plain versions."""
 
     @staticmethod
     def forward(ctx, dist, thr, scale, values, mode):
+        steps = None
         if dist.device.type == "cuda":
-            out, stats = posatt_tf_fixed_cuda(dist, thr, scale, values, mode)
+            out, stats, steps = posatt_tf_fixed_cuda(dist, thr, scale, values, mode)
         else:
             _check(dist, thr, scale, values)
             out, stats = posatt_tf_fixed_reference(dist, thr, scale, values, mode), None
         ctx.save_for_backward(dist, thr, scale, values, out, stats)
-        ctx.mode = mode
+        ctx.mode, ctx.steps = mode, steps
         return out
 
     @staticmethod
@@ -287,12 +426,13 @@ class PosAttTFFixed(torch.autograd.Function):
         mode, cuda = ctx.mode, dist.device.type == "cuda"
         ds = dv = None
         if ctx.needs_input_grad[2]:
-            ds = (posatt_tf_fixed_bwd_dscale_cuda(dist, thr, scale, values, out, g, stats, mode)
+            ds = (posatt_tf_fixed_bwd_dscale_cuda(dist, thr, scale, values, out, g, stats, mode,
+                                                  ctx.steps)
                   if cuda else
                   posatt_tf_fixed_bwd_dscale_reference(dist, thr, scale, values, out, g, mode))
             ds = ds.reshape(scale.shape)
         if ctx.needs_input_grad[3]:
-            dv = (posatt_tf_fixed_bwd_dv_cuda(dist, thr, scale, g, stats, mode) if cuda
+            dv = (posatt_tf_fixed_bwd_dv_cuda(dist, thr, scale, g, stats, mode, ctx.steps) if cuda
                   else posatt_tf_fixed_bwd_dv_reference(dist, thr, scale, g, mode))
         return None, None, ds, dv, None
 

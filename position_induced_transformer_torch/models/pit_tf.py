@@ -269,17 +269,33 @@ def pairwise_dist_periodic_1d(res1: int, res2: int, device="cpu") -> torch.Tenso
     return d2 / 0.25
 
 
+def _sqrt_rn(y: torch.Tensor) -> torch.Tensor:
+    """The square root of a float32 ``y`` >= 0, correctly rounded to float32
+    on every device, as XLA's is. torch's CPU sqrt calls MKL's vector math,
+    which is not correctly rounded, and in some processes keeps only about
+    half the bits; three Newton steps in float64 from its result reach the
+    float64 root, which rounds to the float32 one."""
+    y64 = y.double()
+    r = torch.sqrt(y64)
+    r = torch.where(r > 0, r, 1.0)
+    for _ in range(3):
+        r = 0.5 * (r + y64 / r)
+    return torch.where(y64 > 0, r, 0.0).float()
+
+
 def pairwise_dist_periodic_2d(mesh1: torch.Tensor, mesh2: torch.Tensor) -> torch.Tensor:
     """Squared distance on the unit torus: the smallest norm over the direct
-    image and the four unit shifts (no diagonal ones), squared."""
+    image and the four unit shifts (no diagonal ones), squared. The root is
+    taken once, of the smallest squared norm (a correctly rounded root is
+    monotone, so the value is the same), by :func:`_sqrt_rn`: a local op's
+    kept set jumps with these distances, which tie on a regular grid."""
     shifts = torch.tensor(
         [[0.0, 0.0], [1.0, 0.0], [-1.0, 0.0], [0.0, 1.0], [0.0, -1.0]],
         dtype=torch.float32, device=mesh1.device,
     )
     diff = mesh1[:, None, :] - mesh2[None, :, :]
     x = diff[None] + shifts[:, None, None, :]
-    d = torch.sqrt(torch.sum(x * x, dim=-1))
-    return torch.amin(d, dim=0) ** 2
+    return _sqrt_rn(torch.amin(torch.sum(x * x, dim=-1), dim=0)) ** 2
 
 
 # 0.25 pi (1 - 1e-7), a Python double that JAX rounds to float32 once

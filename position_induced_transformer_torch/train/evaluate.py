@@ -24,6 +24,7 @@ output fed back as the next input serves ``rollout_steps`` too.
 
 from __future__ import annotations
 
+import hashlib
 import inspect
 from typing import Optional
 
@@ -251,6 +252,8 @@ class Predictor:
         problem.model.eval()
         problem.train_data = {}
         self.cfg = cfg
+        with open(checkpoint_path, "rb") as f:  # the checkpoint's identity, not its path
+            self.checkpoint_sha256 = hashlib.file_digest(f, "sha256").hexdigest()
         self.problem = problem
         self.device = dev
         self.required_keys = frozenset(_required_geometry_keys(problem))

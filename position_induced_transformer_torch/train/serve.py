@@ -2,7 +2,8 @@
 
 - ``GET  /health``  -> ``{"status": "ok", "benchmark": ..., "requests": N,
   "device_calls": M}``
-- ``GET  /info``    -> benchmark and model configuration summary
+- ``GET  /info``    -> benchmark, the checkpoint's SHA-256 and model
+  configuration summary
 - ``POST /predict`` -> the body is a ``.npy``, MATLAB ``.mat`` or HDF5
   input batch (raw values, the layout ``infer`` takes), sniffed from its
   magic bytes and read as ``infer`` reads the file: an HDF5 body is a
@@ -181,6 +182,7 @@ class PredictHandler(BaseHTTPRequestHandler):
             m = cfg.model
             self._reply_json(200, {
                 "benchmark": cfg.name,
+                "checkpoint_sha256": srv.predictor.checkpoint_sha256,
                 "device": str(srv.predictor.device),
                 "hid_dim": m.hid_dim,
                 "n_head": m.n_head,

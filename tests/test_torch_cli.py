@@ -16,14 +16,14 @@ TF benchmarks through ``describe``, ``train``, ``evaluate``, ``infer`` and
 
 import argparse
 import dataclasses
+import hashlib
 import io
 import json
 import os
-import socket
+import re
 import subprocess
 import sys
 import threading
-import time
 import urllib.request
 
 import jax
@@ -405,10 +405,32 @@ TF_FIXED_CLI = {
 }
 
 
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+_SERVING = re.compile(r"serving benchmark '([^']*)' on http://([^:\s]+):(\d+) ")
+
+
+def _start_server(cmd, timeout=300):
+    """Start ``serve --port 0`` in a subprocess and wait until it prints the
+    address it bound: (process, base URL, its output lines so far and to
+    come, the thread that reads them). The port is the server's own from
+    the moment it is reported, so no other process can answer on it."""
+    proc = subprocess.Popen(cmd, cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                            errors="replace", env=dict(os.environ, JAX_PLATFORMS="cpu"))
+    lines, bound, found = [], threading.Event(), {}
+
+    def read():
+        for line in proc.stdout:
+            lines.append(line)
+            match = _SERVING.search(line)
+            if match and not bound.is_set():
+                found["url"] = f"http://{match.group(2)}:{match.group(3)}"
+                bound.set()
+        bound.set()  # the process ended
+
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+    bound.wait(timeout)
+    return proc, found.get("url"), lines, reader
 
 
 @pytest.mark.parametrize("name", list(TF_FIXED_CLI))
@@ -444,35 +466,34 @@ def test_tf_fixed_benchmarks_run_through_every_command(capsys, tmp_path, name):
     assert res["n"] == 3 and got.shape[0] == 3 and np.isfinite(got).all()
     if name == "vorticity_tf":
         assert got.shape == (3, 4096, 1, 3)
-    port = _free_port()
     cmd = [sys.executable, "-m", "position_induced_transformer_torch", "serve", "--benchmark", name,
-           "--checkpoint", ckpt, "--port", str(port), *shrink, *CPU, "--set", f"ntrain={sizes[1]}"]
-    proc = subprocess.Popen(cmd, cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                            env=dict(os.environ, JAX_PLATFORMS="cpu"))
+           "--checkpoint", ckpt, "--port", "0", *shrink, *CPU, "--set", f"ntrain={sizes[1]}"]
+    proc, base, lines, reader = _start_server(cmd)
+    served = info = None
     try:
-        url = f"http://127.0.0.1:{port}/predict"
-        if name == "vorticity_tf":
-            url += "?rollout_steps=3"
-        if name == "darcy_tf":  # the server answers at its own 43^2 grid
-            x = np.random.default_rng(0).random((3, 43, 43, 1)).astype(np.float32)
-        buf = io.BytesIO()
-        np.save(buf, x)
-        served = None
-        for _ in range(300):
-            if proc.poll() is not None:
-                break
-            try:
-                req = urllib.request.Request(url, data=buf.getvalue(), method="POST")
-                with urllib.request.urlopen(req, timeout=60) as r:
-                    served = np.load(io.BytesIO(r.read()))
-                break
-            except OSError:
-                time.sleep(0.2)
+        if base is not None:
+            with urllib.request.urlopen(base + "/info", timeout=60) as r:
+                info = json.loads(r.read())
+            url = base + "/predict"
+            if name == "vorticity_tf":
+                url += "?rollout_steps=3"
+            if name == "darcy_tf":  # the server answers at its own 43^2 grid
+                x = np.random.default_rng(0).random((3, 43, 43, 1)).astype(np.float32)
+            buf = io.BytesIO()
+            np.save(buf, x)
+            req = urllib.request.Request(url, data=buf.getvalue(), method="POST")
+            with urllib.request.urlopen(req, timeout=120) as r:
+                served = np.load(io.BytesIO(r.read()))
     finally:
         proc.terminate()
-        log = proc.communicate(timeout=60)[0].decode(errors="replace")
+        proc.wait(timeout=60)
+        reader.join(timeout=60)
+        log = "".join(lines)
     assert served is not None, log[-2000:]
+    # the reply came from this test's server, on this test's checkpoint
+    with open(ckpt, "rb") as f:
+        digest = hashlib.file_digest(f, "sha256").hexdigest()
+    assert info["benchmark"] == name and info["checkpoint_sha256"] == digest, (info, log[-2000:])
     if name != "darcy_tf":
         np.testing.assert_allclose(served, got, rtol=1e-6, atol=1e-6)
     with pytest.raises(NotImplementedError, match="'selfpit' is not ported"):

@@ -1361,27 +1361,42 @@ def test_cli_trains_cylinder_on_the_card(cuda, tmp_path, capsys):
 
 # ------------------------------------- #13: the fixed-mesh TF family
 
-# L_out, L_in, B, H, V, bandwidth, locality, r of each head (None: drawn)
+# L_out, L_in, B, H, V, bandwidth, locality, r of each head (None: drawn),
+# rows that keep nothing ("half": every other row; "one": one row of one
+# tile)
 TF_FIXED_SHAPES = [
-    (1024, 1024, 5, 2, 32, "tan_sin", 1.0, None),  # burgers_tf's encoder
-    (256, 4096, 8, 1, 256, "tan_sin", 1.0, None),  # vorticity_tf's encoder: L_in split
-    (4096, 256, 8, 1, 256, "tan_sin", 8.0, None),  # its decoder: dv splits L_out
-    (300, 700, 3, 2, 64, "tan", 2.0, (-0.35, 0.25)),  # naca_tf's signs
-    (130, 77, 2, 3, 33, "tan", 20.0, (-0.5, 0.0, 0.4)),  # a zero-scale head
-    (100, 300, 9, 8, 16, "square", 200.0, None),  # nine samples: two tiles
-    (64, 64, 2, 2, 12, "square", 1.0, None),  # rows that keep nothing
+    (1024, 1024, 5, 2, 32, "tan_sin", 1.0, None, None),  # burgers_tf's encoder
+    (256, 4096, 8, 1, 256, "tan_sin", 1.0, None, None),  # vorticity_tf's encoder: L_in split
+    (4096, 256, 8, 1, 256, "tan_sin", 8.0, None, None),  # its decoder: dv splits L_out
+    (300, 700, 3, 2, 64, "tan", 2.0, (-0.35, 0.25), None),  # naca_tf's signs
+    (130, 77, 2, 3, 33, "tan", 20.0, (-0.5, 0.0, 0.4), None),  # a zero-scale head
+    (100, 300, 9, 8, 16, "square", 200.0, None, None),  # nine samples: two tiles
+    (64, 64, 2, 2, 12, "square", 1.0, None, "half"),  # rows that keep nothing
+    (300, 1100, 4, 2, 16, "tan_sin", 2.0, None, "one"),  # one such row in a tile
+    (520, 333, 8, 2, 8, "tan", 3.0, (0.0, -0.2), None),  # zero and negative heads
+    (301, 5003, 2, 2, 20, "tan", 0.5, (0.3, 0.6), "one"),  # a split cuts ragged lists
 ]
 
 
-def _tf_fixed_case(dev, L_out, L_in, B, H, V, kind, loc, r, seed=0):
+def _tf_fixed_case(dev, L_out, L_in, B, H, V, kind, loc, r, empty=None, seed=0, ordered=False):
+    """One op's arguments: random distances or, ``ordered``, those between
+    two sorted point sets on a line (a row keeps a band of neighbouring
+    columns, as on a grid)."""
     from position_induced_transformer_torch.kernels import posatt_tf_fixed as kf
     from position_induced_transformer_torch.models import pit_tf
 
     rng = np.random.default_rng(seed)
-    dist = torch.from_numpy(rng.random((L_out, L_in)).astype(np.float32)).to(dev)
+    if ordered:
+        a, b = np.sort(rng.random(L_out)), np.sort(rng.random(L_in))
+        dist = np.abs(a[:, None] - b[None, :]).astype(np.float32)
+    else:
+        dist = rng.random((L_out, L_in)).astype(np.float32)
+    dist = torch.from_numpy(dist).to(dev)
     thr = kf.percentile_thresholds(dist, loc)
-    if thr is not None and loc == 1.0 and kind == "square":  # half the rows below their minimum
+    if empty == "half":  # half the rows below their minimum
         thr[::2] = dist[::2].amin(-1, keepdim=True) * 0.5
+    elif empty == "one":  # one row of the second row tile, every head
+        thr[130] = torch.stack([dist[130].amin() * 0.5, dist[130].amax() * 2.0])
     if r is None:
         r = rng.uniform(-0.8, 0.8, H)
     r = torch.tensor(np.asarray(r, np.float32).reshape(H, 1), device=dev)
@@ -1405,24 +1420,33 @@ def _tf_fixed_ds_size(dist, thr, scale, values, out, g, mode):
     return (att * (t * d).abs()).sum((-1, -2)) + ((att * d).sum(-1) * rr.abs()).sum(-1) + 1e-30
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("L_out,L_in,B,H,V,kind,loc,r", TF_FIXED_SHAPES)
-def test_cuda_tf_fixed_kernels_match_plain(cuda, L_out, L_in, B, H, V, kind, loc, r):
-    """#13's forward (and its row statistics), dv and dscale against their
-    plain versions, each launched once; dscale twice gives the same bits."""
+def _check_tf_fixed(dist, thr, scale, values, g, mode):
+    """#13's forward (its row statistics and kept-step lists), dv and
+    dscale against their plain versions, each launched once with the
+    forward's lists and run again to the same bits; returns the lists."""
     from position_induced_transformer_torch.kernels import posatt_tf_fixed as kf
 
-    dist, thr, _, scale, values, g, mode = _tf_fixed_case(cuda, L_out, L_in, B, H, V, kind, loc, r)
     counters = (kf.posatt_tf_fixed_cuda, kf.posatt_tf_fixed_bwd_dscale_cuda,
                 kf.posatt_tf_fixed_bwd_dv_cuda)
     before = [f.launches for f in counters]
-    out, stats = kf.posatt_tf_fixed_cuda(dist, thr, scale, values, mode)
-    ds = kf.posatt_tf_fixed_bwd_dscale_cuda(dist, thr, scale, values, out, g, stats, mode)
-    dv = kf.posatt_tf_fixed_bwd_dv_cuda(dist, thr, scale, g, stats, mode)
-    again = kf.posatt_tf_fixed_bwd_dscale_cuda(dist, thr, scale, values, out, g, stats, mode)
+    out, stats, steps = kf.posatt_tf_fixed_cuda(dist, thr, scale, values, mode)
+    ds = kf.posatt_tf_fixed_bwd_dscale_cuda(dist, thr, scale, values, out, g, stats, mode, steps)
+    dv = kf.posatt_tf_fixed_bwd_dv_cuda(dist, thr, scale, g, stats, mode, steps)
     torch.cuda.synchronize()
-    assert [f.launches - b for f, b in zip(counters, before)] == [1, 2, 1]
-    assert torch.equal(ds, again)
+    assert [f.launches - b for f, b in zip(counters, before)] == [1, 1, 1]
+    # the same bits again, the backward without lists walking every step
+    # (an unlisted step's weights are all 0: skipping it changes no bit)
+    assert torch.equal(out, kf.posatt_tf_fixed_cuda(dist, thr, scale, values, mode)[0])
+    assert torch.equal(ds, kf.posatt_tf_fixed_bwd_dscale_cuda(dist, thr, scale, values, out, g,
+                                                              stats, mode))
+    assert torch.equal(dv, kf.posatt_tf_fixed_bwd_dv_cuda(dist, thr, scale, g, stats, mode))
+    if thr is None:
+        assert steps is None
+    else:
+        want_steps = kf.posatt_tf_fixed_lists_reference(dist, thr, scale, mode, steps.fwd_tile,
+                                                        steps.dv_tile)
+        for name, got_l, want_l in zip(kf.KeptSteps._fields, steps, want_steps):
+            assert torch.equal(got_l, want_l) if torch.is_tensor(got_l) else got_l == want_l, name
     want = kf.posatt_tf_fixed_reference(dist, thr, scale, values, mode)
     torch.testing.assert_close(out, want, rtol=RTOL, atol=ATOL)
     want_stats = kf.posatt_tf_fixed_stats_reference(dist, thr, scale, mode)
@@ -1435,18 +1459,92 @@ def test_cuda_tf_fixed_kernels_match_plain(cuda, L_out, L_in, B, H, V, kind, loc
     want_ds = kf.posatt_tf_fixed_bwd_dscale_reference(dist, thr, scale, values, want, g, mode)
     size = _tf_fixed_ds_size(dist, thr, scale, values, want, g, mode)
     torch.testing.assert_close(ds / size, want_ds / size, rtol=DS_RTOL, atol=DS_ATOL)
+    return steps
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("L_out,L_in,B,H,V,kind,loc,r", TF_FIXED_SHAPES[:5])
-def test_tf_fixed_function_gradients_match_plain_autograd(cuda, L_out, L_in, B, H, V, kind, loc, r):
+@pytest.mark.parametrize("L_out,L_in,B,H,V,kind,loc,r,empty", TF_FIXED_SHAPES)
+def test_cuda_tf_fixed_kernels_match_plain(cuda, L_out, L_in, B, H, V, kind, loc, r, empty):
+    """#13's forward (its row statistics and kept-step lists, equal to the
+    plain version's), dv and dscale against their plain versions, each
+    launched once; each run twice gives the same bits."""
+    dist, thr, _, scale, values, g, mode = _tf_fixed_case(cuda, L_out, L_in, B, H, V, kind, loc, r,
+                                                          empty)
+    _check_tf_fixed(dist, thr, scale, values, g, mode)
+
+
+@pytest.mark.cuda
+def test_tf_fixed_split_cuts_the_lists(cuda):
+    """On ordered points (1024 rows, 8192 columns, 1 % kept) the forward
+    splits its reduction into ranges, each block walking the listed steps
+    of its range, and the lists hold a small share of the steps; the splits
+    still sum to the plain version."""
+    from position_induced_transformer_torch.kernels import posatt_tf_fixed as kf
+
+    shape = (1024, 8192, 8, 1, 64, "tan_sin", 1.0, None)
+    dist, thr, _, scale, values, g, mode = _tf_fixed_case(cuda, *shape, ordered=True)
+    assert kf._split_plan(8, 1024, 8192, 1, 64)[0] > 1
+    steps = _check_tf_fixed(dist, thr, scale, values, g, mode)
+    assert 0 < steps.fwd_cnt.sum() < steps.fwd_idx.numel() // 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [TF_FIXED_SHAPES[0], TF_FIXED_SHAPES[3], TF_FIXED_SHAPES[5]])
+def test_tf_fixed_row_tile_changes_no_bit(cuda, shape):
+    """The forward and dv give the same bits whether a block owns 128, 64
+    or 32 rows (columns): each output sums its terms in one thread, in
+    order."""
+    from position_induced_transformer_torch.kernels import posatt_tf_fixed as kf
+
+    dist, thr, _, scale, values, g, mode = _tf_fixed_case(cuda, *shape)
+    runs = []
+    for bm in (128, 64, 32):
+        with mock.patch.object(kf, "_row_tile", lambda *a, bm=bm: bm):
+            out, stats, steps = kf.posatt_tf_fixed_cuda(dist, thr, scale, values, mode)
+            runs.append((out, kf.posatt_tf_fixed_bwd_dv_cuda(dist, thr, scale, g, stats, mode, steps)))
+    for out, dv in runs[1:]:
+        assert torch.equal(out, runs[0][0]) and torch.equal(dv, runs[0][1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op,r", [("down", (-0.35, 0.25)), ("up", (0.3, 0.0))])
+def test_tf_fixed_on_the_naca_tf_cgrid(cuda, op, r):
+    """#13 at naca_tf's encoder (0.5 % of a row kept) and decoder (2 %) on
+    its C-grid-ordered geometry at full size, with heads of either sign and
+    of scale 0; a positive head lists a small share of the steps."""
+    from position_induced_transformer_torch import configs
+    from position_induced_transformer_torch.kernels import posatt_tf_fixed as kf
+    from position_induced_transformer_torch.models import pit_tf
+    from position_induced_transformer_torch.train import benchmarks
+
+    cfg = configs.NACA_TF
+    problem = benchmarks.setup(cfg, ntrain=cfg.batch_size, ntest=2, device=cuda)
+    geom = problem.geom
+    dist, thr = (geom.m_cross_t, geom.thr_down) if op == "down" else (geom.m_cross, geom.thr_up)
+    rng = np.random.default_rng(5)
+    H, V = 2, 32
+    rr = torch.tensor(np.asarray(r, np.float32).reshape(H, 1), device=cuda)
+    to = lambda a: torch.from_numpy(a.astype(np.float32)).to(cuda)
+    values = to(rng.standard_normal((cfg.batch_size, dist.shape[1], H * V)))
+    g = to(rng.standard_normal((cfg.batch_size, dist.shape[0], H * V)))
+    steps = _check_tf_fixed(dist, thr, pit_tf._bandwidth(rr, "tan"), values, g, 1)
+    positive = int(np.argmax(r))
+    share = steps.fwd_cnt[positive].sum().item() / steps.fwd_idx[positive].numel()
+    assert share < 0.25, share
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L_out,L_in,B,H,V,kind,loc,r,empty", TF_FIXED_SHAPES[:5])
+def test_tf_fixed_function_gradients_match_plain_autograd(cuda, L_out, L_in, B, H, V, kind, loc, r,
+                                                          empty):
     """One forward + backward of ``position_attention_tf_fixed`` with r
     through the bandwidth launches each entry point once; the gradients in
     r and the values against torch.autograd of the plain version."""
     from position_induced_transformer_torch.kernels import posatt_tf_fixed as kf
     from position_induced_transformer_torch.models import pit_tf
 
-    dist, thr, r0, scale, values, g, mode = _tf_fixed_case(cuda, L_out, L_in, B, H, V, kind, loc, r)
+    dist, thr, r0, scale, values, g, mode = _tf_fixed_case(cuda, L_out, L_in, B, H, V, kind, loc, r,
+                                                           empty)
 
     def grads(fn, w=g):
         rr = r0.clone().requires_grad_(True)

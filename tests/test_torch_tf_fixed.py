@@ -194,6 +194,105 @@ def test_public_function_dispatch_and_refusals():
         kf.position_attention_tf_fixed(t(dist), t(thr[:, :1]), s, values, "tan", 10.0)
 
 
+# ------------------------------------------------- the kernels' kept-step lists
+
+# the geometry of three configurations at CPU sizes (several 128-row and
+# 128-column tiles each): overrides, setup kwargs
+LIST_GEOMETRIES = {
+    "naca_tf": (["grid=89,21", "latent_grid=45,11"], {}),  # C-grid order, 0.5 % and 2 %
+    "darcy_tf": (["latent_grid=16,16"], {"downsampling": 20}),
+    "vorticity_tf": (["latent_grid=16,16", "rollout_steps=2"], {}),
+}
+# r of each head: negative, zero and positive scales under ``tan``
+LIST_HEADS = (-0.3, 0.0, 0.4)
+
+
+@pytest.fixture(scope="module")
+def list_geometries(tmp_path_factory):
+    """name -> the port's TFGeometry at the sizes of LIST_GEOMETRIES
+    (vorticity_tf on a 32^2 file: its loader takes the grid from the data)."""
+    ns32 = tmp_path_factory.mktemp("ns") / "ns_32.mat"
+    savemat(ns32, {"u": t_syn.vorticity(n=4, s=32, frames=12, seed=2)})
+    out = {}
+    for name, (overrides, kw) in LIST_GEOMETRIES.items():
+        cfg = t_configs.apply_overrides(t_configs.get(name), overrides)
+        path = str(ns32) if name == "vorticity_tf" else None
+        out[name] = t_bench.setup(cfg, path, ntrain=2, ntest=2, device="cpu", **kw).geom
+    return out
+
+
+def _brute_lists(keep, ft, dt):
+    """By brute force over a keep mask (H, L_out, L_in): for each head the
+    (ft-row tile, 16-column step) pairs, (dt-column tile, 16-row step)
+    pairs and 128 x 128 tiles that hold a kept entry, and the rows that
+    keep nothing."""
+    fwd, dv, tiles = set(), set(), set()
+    for h, i, j in zip(*np.nonzero(keep)):
+        fwd.add((h, i // ft, j // 16))
+        dv.add((h, j // dt, i // 16))
+        tiles.add((h, i // 128, j // 128))
+    return fwd, dv, tiles, ~keep.any(-1)
+
+
+@pytest.mark.parametrize("empty_row", [False, True], ids=["", "empty_row"])
+@pytest.mark.parametrize("mode", [0, 1], ids=["tan_sin", "tan"])
+@pytest.mark.parametrize("tile", [(128, 128), (32, 64)], ids=["tiles128", "tiles32_64"])
+@pytest.mark.parametrize("op", ["down", "up"])
+@pytest.mark.parametrize("name", list(LIST_GEOMETRIES))
+def test_kept_step_lists_match_a_brute_force_count(list_geometries, name, op, tile, mode,
+                                                   empty_row):
+    """The plain version of the forward pre-pass's kept-step lists on a
+    configuration's encoder (down) or decoder (up) geometry, cut to the
+    forward's and dv's tiles (128 rows and columns, or 32 and 64), heads of
+    scale < 0, = 0 and > 0, either keep rule, with or without a row that
+    keeps nothing: every kept entry lies in a listed step, every listed
+    step holds a kept entry or a row that keeps nothing (whose row tile
+    then lists every step, and whose 16-row step every dv list), and a
+    128 x 128 tile is flagged exactly where it keeps an entry; lists
+    ascending, -1 after their counts."""
+    geom = list_geometries[name]
+    dist, thr = (geom.m_cross_t, geom.thr_down) if op == "down" else (geom.m_cross, geom.thr_up)
+    thr = thr.clone()
+    if empty_row:  # row 130 keeps nothing for every head of nonzero scale
+        thr[130] = torch.stack([torch.tensor(-1.0), dist[130].max() * 2.0 + 1.0])
+    scale = t_tf._bandwidth(torch.tensor(LIST_HEADS).reshape(3, 1), "tan")
+    ft, dt = tile
+    steps = kf.posatt_tf_fixed_lists_reference(dist, thr, scale, mode, ft, dt)
+    assert (steps.fwd_tile, steps.dv_tile) == tile
+    _, keep = kf._scaled_keep(dist, thr, scale, mode)
+    keep = keep.numpy()
+    fwd, dv, tiles, empty = _brute_lists(keep, ft, dt)
+    assert empty[:, 130].any() == empty_row
+    H, Lo, Li = keep.shape
+    nT, nU = -(-Li // 16), -(-Lo // 16)
+    for idx, cnt, n in ((steps.fwd_idx, steps.fwd_cnt, nT), (steps.dv_idx, steps.dv_cnt, nU)):
+        assert idx.shape[-1] == n and idx.dtype == cnt.dtype == torch.int32
+        for lst, c in zip(idx.reshape(-1, n).tolist(), cnt.reshape(-1).tolist()):
+            assert lst[:c] == sorted(set(lst[:c])) and all(v >= 0 for v in lst[:c])
+            assert lst[c:] == [-1] * (n - c)
+    listed_fwd = {(h, I, v) for h in range(H) for I in range(steps.fwd_idx.shape[1])
+                  for v in steps.fwd_idx[h, I, :steps.fwd_cnt[h, I]].tolist()}
+    listed_dv = {(h, J, v) for h in range(H) for J in range(steps.dv_idx.shape[1])
+                 for v in steps.dv_idx[h, J, :steps.dv_cnt[h, J]].tolist()}
+    # every kept entry lies in a listed step
+    assert fwd <= listed_fwd and dv <= listed_dv
+    # every listed step holds a kept entry or a row that keeps nothing
+    for h, I, v in listed_fwd - fwd:
+        assert empty[h, ft * I:ft * I + ft].any()
+    for h, J, u in listed_dv - dv:
+        assert empty[h, 16 * u:16 * u + 16].any()
+    # such a row's tile lists every step, its step is in every dv list
+    for h, i in zip(*np.nonzero(empty)):
+        assert steps.fwd_cnt[h, i // ft] == nT
+        assert all((h, J, i // 16) in listed_dv for J in range(steps.dv_idx.shape[1]))
+    assert {tuple(v) for v in np.argwhere(steps.tiles.numpy())} == tiles
+    # under tan a head of scale 0 keeps every entry, and a positive head
+    # lists a small share of a local op's steps
+    if mode == 1:
+        assert steps.fwd_cnt[1].sum() == steps.fwd_idx[1].numel()
+        assert empty_row or steps.fwd_cnt[2].sum() < 0.6 * steps.fwd_idx[2].numel()
+
+
 # ------------------------------------------------------------- geometry
 
 
@@ -211,6 +310,43 @@ def test_periodic_distances_and_grids_match_jax():
                                rtol=1e-6, atol=0)
     for s0, s1 in ((221, 51), (111, 26), (5, 3)):
         np.testing.assert_array_equal(t_meshes.grid_2d_rect(s0, s1), j_meshes.grid_2d_rect(s0, s1))
+
+
+def _torus_grids(s1, s2):
+    return (t_meshes.grid_2d(s1, endpoint=False).reshape(-1, 2),
+            t_meshes.grid_2d(s2, endpoint=False).reshape(-1, 2))
+
+
+@pytest.mark.parametrize("s1,s2", [(16, 4), (64, 4), (64, 16), (32, 32)])
+def test_periodic_2d_distances_equal_jax_to_the_bit(s1, s2):
+    """The torus distances equal JAX's bit for bit (its root is correctly
+    rounded), vorticity_tf's 64^2 x 4^2 command-line geometry among them,
+    where torch's CPU sqrt alone is off by an ulp at 26 entries."""
+    g1, g2 = _torus_grids(s1, s2)
+    np.testing.assert_array_equal(
+        t_tf.pairwise_dist_periodic_2d(t(g1), t(g2)).numpy(),
+        np.asarray(j_tf.pairwise_dist_periodic_2d(jnp.asarray(g1), jnp.asarray(g2))))
+
+
+@pytest.mark.parametrize("rel", [2.0 ** -12, -(2.0 ** -11), 2.0 ** -30])
+def test_periodic_2d_distances_and_kept_sets_hold_under_an_inexact_library_sqrt(
+        monkeypatch, rel):
+    """A process whose library sqrt keeps only about half the bits (MKL's
+    vector math does so in some processes) still builds the
+    exact torus distances, so vorticity_tf's kept sets are JAX's: a served
+    reply once differed from ``infer``'s by 0.02 through such distances."""
+    g1, g2 = _torus_grids(64, 4)
+    want = np.asarray(j_tf.pairwise_dist_periodic_2d(jnp.asarray(g1), jnp.asarray(g2)))
+    exact_sqrt = torch.sqrt
+    monkeypatch.setattr(torch, "sqrt", lambda y: exact_sqrt(y) * (1.0 + rel))
+    m = t_tf.pairwise_dist_periodic_2d(t(g1), t(g2))
+    np.testing.assert_array_equal(m.numpy(), want)
+    for loc in (1.0, 8.0):  # vorticity_tf's encoder and decoder localities
+        rows = (m.T.contiguous(), want.T) if loc == 1.0 else (m, want)
+        thr = t_tf.percentile_thresholds(rows[0], loc)
+        j_thr = np.quantile(rows[1], [loc / 100.0, 1 - loc / 100.0], axis=-1).T
+        keep = (rows[0] <= thr[:, :1]).numpy()
+        np.testing.assert_array_equal(keep, rows[1] <= j_thr[:, :1].astype(np.float32))
 
 
 @pytest.mark.parametrize("en_loc,de_loc", [(1.0, 8.0), (0.5, 2.0), (200.0, 5.0)])
