@@ -250,12 +250,47 @@ Phases, each of which fails the run (non-zero exit, no result line):
 31. darcy_tf ``evaluate(zssr=True)`` at 421^2 (6 launches) and
     vorticity_tf's rollout ``evaluate`` (120 launches), each against a
     plain-attention card run at rtol 1e-4; vorticity_tf served at
-    ``?rollout_steps=5`` (30 launches per device batch).
+    ``?rollout_steps=5`` (30 launches per device batch);
+32. dot-product attention kernel #14 (the TF ablation variants' ``self``
+    and ``hybrid`` ops): its forward (with its row statistics), dq (with
+    each row's delta and, hybrid, dscale) and dk/dv against their plain
+    versions, each twice to the same bits, at every self and hybrid op of
+    the variants at full width (burgers_tf B 5, L 1024, 2 heads of V 32,
+    selfpit's hybrid ops on its own distances with in-call thresholds;
+    sod_tf L 1024 and 2048; darcy_tf L 1024 and 1849, V 64; vorticity_tf
+    L 256 and 4096, 1 head of V 256; naca_tf L 2886 at B 8 and the largest,
+    L 11,271 at B 1, V 128; elasticity_tf L 972, 8 heads of V 64, B 10),
+    each timed beside its plain version, the bound (the operations of the
+    kept entries, or bytes) and, for the forward, SDPA; and at ragged
+    shapes (L 1 to 1849, V 16 to 256 and 21, 1 to 8 heads, rows that keep
+    nothing); the autograd Function's gradients against autograd of the
+    plain version, one forward + backward launching each entry point once;
+33. the variants trained, evaluated and served at full width through
+    ``runner.train(model_variant=)``, ``evaluate``, ``make_server`` and
+    ``infer``: burgers_tf lite (#13 3/3/3 and #14 4/4/4 a step),
+    transformer (#14 7/7/7) and selfpit (hybrid #14 7/7/7; every
+    band_width at or above 0 after every step), each 2 epochs of 2 steps
+    against a plain-attention card run and a CPU run; elasticity_tf lite
+    (#11/#12 2/2/2 and #14 4/4/4 a step, #9 at its served coders) and
+    transformer (#14 6/6/6, no distances), 2 epochs of 2 steps, against a
+    plain-attention card run and, on its first step, a CPU run; every
+    served reply equal to ``infer``'s to the bit;
+34. darcy_tf lite trained at 43^2 (#13 2/2/2, #14 4/4/4) and evaluated with
+    ``zssr=True`` at 421^2 (#13 at the coders, #14 at the 32^2 processor);
+35. sod_tf, vorticity_tf (BPTT cut to 3 rollout steps) and naca_tf, lite
+    and transformer: one training step and one served batch each, with
+    their launches, against a plain-attention card run (naca_tf's
+    transformer at batch 8, 11,271 tokens, without one: its plain version
+    cannot hold the weights; its parity rests on phase 32's batch-1 op),
+    with each step's peak device memory;
+36. the command line with ``--model-variant selfpit``: ``train``,
+    ``infer`` and ``serve`` on burgers_tf as subprocesses, the served reply
+    equal to infer's to the bit.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 ``kernels`` record (the twelve kernels #1-#4, the per-sample-mesh #7, #8,
-the TF-semantics #9-#12, the schedule variants #5, #6, and the three entry
-points of #13), and before that the phases' records.
+the TF-semantics #9-#12, the schedule variants #5, #6, the three entry
+points of #13 and the three of #14), and before that the phases' records.
 """
 
 from __future__ import annotations
@@ -705,11 +740,13 @@ BATCHED_KERNELS = ("posatt_batched_fwd", "posatt_batched_bwd_dscale", "posatt_ba
 TF_DIST_KERNELS = ("posatt_tf_fwd", "posatt_tf_bwd_dscale", "posatt_tf_bwd_dv")
 TF_COORD_KERNELS = ("posatt_tf_coord_fwd", "posatt_tf_coord_bwd_dscale", "posatt_tf_coord_bwd_dv")
 TF_FIXED_KERNELS = ("posatt_tf_fixed_fwd", "posatt_tf_fixed_bwd_dscale", "posatt_tf_fixed_bwd_dv")
+DOTATT_KERNELS = ("dotatt_fwd", "dotatt_bwd_dq", "dotatt_bwd_dkdv")
 
 
 def launchers():
-    """The eighteen launchers, by kernel entry point; each counts its
+    """The twenty-one launchers, by kernel entry point; each counts its
     launches."""
+    from position_induced_transformer_torch.kernels import dotatt as kd
     from position_induced_transformer_torch.kernels import posatt_batched as kb
     from position_induced_transformer_torch.kernels import posatt_pallas as kp
     from position_induced_transformer_torch.kernels import posatt_tf_fixed as kf
@@ -733,6 +770,9 @@ def launchers():
         "posatt_tf_fixed_fwd": kf.posatt_tf_fixed_cuda,
         "posatt_tf_fixed_bwd_dscale": kf.posatt_tf_fixed_bwd_dscale_cuda,
         "posatt_tf_fixed_bwd_dv": kf.posatt_tf_fixed_bwd_dv_cuda,
+        "dotatt_fwd": kd.dotatt_cuda,
+        "dotatt_bwd_dq": kd.dotatt_bwd_dq_cuda,
+        "dotatt_bwd_dkdv": kd.dotatt_bwd_dkdv_cuda,
     }
 
 
@@ -2759,16 +2799,18 @@ def schedule_phase():
 # ---------------------- sod and Darcy: #1, #3 and #4 on fixed-mesh paths
 def fixed_train_phase(label, cfg, epochs, ntrain, ntest, per_step, refs=("plain_cuda", "cpu"),
                       fwd="posatt_fixed_fwd", plain_patch=None, per_eval_batch=None,
-                      groups=None, **train_kw):
+                      groups=None, timing=True, **train_kw):
     """runner.train on a fixed-mesh configuration on the card, with the
     kernels: exactly ``per_step`` launches of each kernel per step and
     ``per_eval_batch`` (default ``per_step[fwd]``) launches of the forward
-    ``fwd`` per eval batch; the per-step losses and the final weights
+    ``fwd`` per eval batch (a dict: launches of each forward); the per-step
+    losses and the final weights
     against the same training with the plain attention on the card
     (``plain_patch()``, default #1's plain version) and on the CPU
     (``refs`` names the reference runs); then the time per step, steps/s
     and the device's busy share of warm steps (``groups`` as
-    profile_device takes them, default #1-#4's)."""
+    profile_device takes them, default #1-#4's) unless ``timing`` is
+    False."""
     import numpy as np
     import torch
 
@@ -2782,7 +2824,10 @@ def fixed_train_phase(label, cfg, epochs, ntrain, ntest, per_step, refs=("plain_
     steps = state.step
     eval_batches = epochs * -(-ntest // (cfg.eval_batch_size or cfg.batch_size))
     expected = {k: per_step.get(k, 0) * steps for k in launchers()}
-    expected[fwd] += (per_step[fwd] if per_eval_batch is None else per_eval_batch) * eval_batches
+    if not isinstance(per_eval_batch, dict):
+        per_eval_batch = {fwd: per_step[fwd] if per_eval_batch is None else per_eval_batch}
+    for k, n in per_eval_batch.items():
+        expected[k] += n * eval_batches
     if steps != epochs * (ntrain // cfg.batch_size) or launched != expected:
         fail(f"{label}: {steps} steps, {eval_batches} eval batches launched {launched}; "
              f"expected {expected} ({per_step} per step, the forward's count per eval batch)")
@@ -2814,7 +2859,9 @@ def fixed_train_phase(label, cfg, epochs, ntrain, ntest, per_step, refs=("plain_
                         PARAM_RTOL, PARAM_ATOL)
             for k, v in weights.items())
         report[f"seconds_whole_run_{label_ref}"] = ref_s
-    report.update(step_timing(problem, state, cfg.batch_size, ntrain, cfg.lr, groups or FIXED_GROUPS))
+    if timing:
+        report.update(step_timing(problem, state, cfg.batch_size, ntrain, cfg.lr,
+                                  groups or FIXED_GROUPS))
     return report
 
 
@@ -2828,7 +2875,8 @@ def model_atol(steps, ref):
 
 def fixed_serve_phase(label, cfg, ckpt, x, per_batch, sizes, n_concurrent, n_warm,
                       cpu_samples=None, setup_kwargs=None, rollout_steps=None,
-                      fwd="posatt_fixed_fwd", plain_patch=None, groups=None):
+                      fwd="posatt_fixed_fwd", plain_patch=None, groups=None, model_variant=None,
+                      bitwise=False):
     """``make_server(cfg.name)`` on the card answering raw ``.npy``
     batches of ``x``: one request of each of ``sizes`` samples, then
     ``n_concurrent`` concurrent requests (as in phase 6), then ``n_warm``
@@ -2841,7 +2889,10 @@ def fixed_serve_phase(label, cfg, ckpt, x, per_batch, sizes, n_concurrent, n_war
     model whose output is its next input rolls out too), and the
     comparisons roll out as far. ``fwd``: the forward kernel the model
     launches; ``plain_patch()``: the context that puts its attention on the
-    plain version (default #1's); ``groups`` as profile_device takes them."""
+    plain version (default #1's); ``groups`` as profile_device takes them.
+    ``per_batch`` may be a dict: launches of each forward. ``model_variant``
+    goes to ``make_server``, ``infer`` and the CPU ``Predictor``; with
+    ``bitwise`` every reply must equal ``infer``'s to the bit."""
     import numpy as np
     import torch
 
@@ -2855,7 +2906,7 @@ def fixed_serve_phase(label, cfg, ckpt, x, per_batch, sizes, n_concurrent, n_war
     plain_patch = plain_patch or (lambda: mock.patch.object(pit, "position_attention_fixed", plain))
     t0 = time.perf_counter()
     server = make_server(cfg.name, ckpt, host="127.0.0.1", port=0, verbose=False,
-                         setup_kwargs=setup_kwargs, device="cuda")
+                         setup_kwargs=setup_kwargs, device="cuda", model_variant=model_variant)
     startup_s = time.perf_counter() - t0
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
@@ -2902,7 +2953,8 @@ def fixed_serve_phase(label, cfg, ckpt, x, per_batch, sizes, n_concurrent, n_war
         server.shutdown()
         server.server_close()
         thread.join(timeout=30)
-    expected = {k: per_batch * device_calls if k == fwd else 0 for k in launched}
+    per_batch = per_batch if isinstance(per_batch, dict) else {fwd: per_batch}
+    expected = {k: per_batch.get(k, 0) * device_calls for k in launched}
     if launched != expected:
         fail(f"{label}: {launched} for {device_calls} device batches "
              f"(expected {per_batch} forward launches per batch and nothing else)")
@@ -2914,18 +2966,22 @@ def fixed_serve_phase(label, cfg, ckpt, x, per_batch, sizes, n_concurrent, n_war
     zero_counts()
     t0 = time.perf_counter()
     evaluate.infer(cfg.name, ckpt, path, output_path=path.replace("inputs", "infer"),
-                   setup_kwargs=setup_kwargs, rollout_steps=steps, device="cuda")
+                   setup_kwargs=setup_kwargs, rollout_steps=steps, device="cuda",
+                   model_variant=model_variant)
     infer_s = time.perf_counter() - t0
     by_infer = np.load(path.replace("inputs", "infer"))
-    if not counts()[fwd]:
-        fail(f"{label}: infer on the card launched no kernel")
+    if not all(counts()[k] for k in per_batch):
+        fail(f"{label}: infer on the card launched {counts()}, not each of {sorted(per_batch)}")
     cpu_n = n_all if cpu_samples is None else cpu_samples
-    cpu = evaluate.Predictor(cfg.name, ckpt, setup_kwargs=setup_kwargs, device="cpu")
+    cpu = evaluate.Predictor(cfg.name, ckpt, setup_kwargs=setup_kwargs, device="cpu",
+                             model_variant=model_variant)
     by_cpu = cpu.predict_array(
         {"x": evaluate._prepare_inputs(cpu.problem, x[:cpu_n])}, steps, batch_size=min(cpu_n, bs))
     errs = {"infer": 0.0, "plain_cuda": 0.0, "cpu": 0.0}
     for i, a, out in sent:
         got = torch.from_numpy(out)
+        if bitwise and not np.array_equal(out, by_infer[i:i + len(a)]):
+            fail(f"{label}: the reply for samples [{i}, {i + len(a)}) differs from infer's bits")
         errs["infer"] = max(errs["infer"], check_close(
             f"{label} vs infer", got, torch.from_numpy(by_infer[i:i + len(a)]), MODEL_RTOL, MODEL_ATOL))
         before = counts()
@@ -2952,7 +3008,8 @@ def fixed_serve_phase(label, cfg, ckpt, x, per_batch, sizes, n_concurrent, n_war
         "device_batches": device_calls, "launches": launched,
         "first_request_ms": first_ms, "warm_median_ms": statistics.median(warm),
         "warm_requests": len(warm), "warm_samples_per_request": bs,
-        "samples_vs_cpu": cpu_n,
+        "samples_vs_cpu": cpu_n, "model_variant": model_variant or cfg.model_variant,
+        "replies_equal_infer_bitwise": bool(bitwise),
         **{f"max_abs_err_vs_{k}": v for k, v in errs.items()},
     }
 
@@ -4503,6 +4560,827 @@ def tf_fixed_phases():
     return reports
 
 
+# ------------- the TF ablation variants: dot-product attention kernel #14
+
+# #14's kernels' names in a trace
+DOTATT_GROUPS = {
+    "dotatt_fwd": "void dotatt::fwd_kernel<",
+    "dotatt_bwd_dq": "void dotatt::dq_kernel<",
+    "dotatt_bwd_dscale_sum": "dotatt::reduce_kernel(",
+    "dotatt_bwd_dkdv": "void dotatt::dkv_kernel<",
+}
+# the self and hybrid ops of the variants at full width: name -> (config,
+# variant, kind, B, launches a forward); L, H and V from the config, the
+# hybrid ops' distances from its setup (burgers_tf selfpit: 1024 -> 1024)
+DOTATT_OPS = {
+    "burgers_tf_self": ("burgers_tf", "transformer", "self", 5, 7),
+    "burgers_tf_selfpit_down": ("burgers_tf", "selfpit", "down", 5, 1),
+    "burgers_tf_selfpit_processor": ("burgers_tf", "selfpit", "processor", 5, 4),
+    "burgers_tf_selfpit_up": ("burgers_tf", "selfpit", "up", 5, 2),  # up and up2
+    "sod_tf_lite": ("sod_tf", "lite", "self", 8, 4),
+    "sod_tf_transformer": ("sod_tf", "transformer", "self", 8, 7),
+    "darcy_tf_lite": ("darcy_tf", "lite", "self", 8, 4),
+    "darcy_tf_transformer": ("darcy_tf", "transformer", "self", 8, 6),
+    "vorticity_tf_lite": ("vorticity_tf", "lite", "self", 8, 4),
+    "vorticity_tf_transformer": ("vorticity_tf", "transformer", "self", 8, 6),
+    "naca_tf_lite": ("naca_tf", "lite", "self", 8, 4),
+    # the largest: the plain version holds one (2, 11271, 11271) logit
+    # tensor (1 GB) at batch 1; the model trains at batch 8
+    "naca_tf_transformer": ("naca_tf", "transformer", "self", 1, 6),
+    "elasticity_tf_self": ("elasticity_tf", "transformer", "self", 10, 6),
+}
+DOTATT_RAGGED = [  # name, B, L, H, V, kind: self, local / global (hybrid), empty (local,
+    # every second row keeping nothing: uniform weights)
+    ("dot_l1_h1_v16", 2, 1, 1, 16, "self"),
+    ("dot_l17_h3_v16_local", 3, 17, 3, 16, "local"),
+    ("dot_l972_h8_v16", 2, 972, 8, 16, "self"),
+    ("dot_l1849_h1_v256_global", 1, 1849, 1, 256, "global"),
+    ("dot_l300_h3_v256_local", 2, 300, 3, 256, "local"),
+    ("dot_l100_h3_v21", 2, 100, 3, 21, "self"),  # V % 4 != 0: 4-byte copies
+    ("dot_l130_h8_v128_empty", 2, 130, 8, 128, "empty"),
+]
+
+
+def plain_dotatt(q, k, v, dist=None, thr=None, scale=None):
+    """Kernel #14's public function on its plain version: no kernel."""
+    from position_induced_transformer_torch.kernels import dotatt as kd
+
+    return kd.dotatt_reference(q.contiguous(), k.contiguous(), v.contiguous(), dist, thr, scale)
+
+
+@contextmanager
+def plain_variant_attention():
+    """Every attention op of the TF models on its plain version: #13's
+    and #14's public functions, and #9/#11's (the point-cloud coders)."""
+    from position_induced_transformer_torch.models import pit_tf
+
+    with plain_tf_fixed_attention(), plain_tf_attention(), \
+            mock.patch.object(pit_tf, "dot_attention", plain_dotatt):
+        yield
+
+
+def dotatt_case(rng, B, L, H, V, kind, dist=None, locality=None):
+    """One #14 op's arguments on the card: (q, k, v, g, dist, thr, scale);
+    hybrid scales tan(r) of r from the glorot range of a (H, 1, 1)
+    parameter, thresholds the per-head row quantile of the scaled
+    distances at ``locality`` (as the model takes them), random distances
+    unless given."""
+    import numpy as np
+    import torch
+
+    from position_induced_transformer_torch.ops.locality import quantile_threshold
+
+    to = lambda a: torch.from_numpy(np.asarray(a, np.float32)).cuda()
+    q, k, v = (to(rng.standard_normal((B, L, H, V))) for _ in range(3))
+    g = to(rng.standard_normal((B, L, H * V)))
+    thr = scale = None
+    if kind != "self":
+        lim = float(np.sqrt(6.0 / (2 * H)))
+        scale = torch.tan(to(rng.uniform(-lim, lim, H)))
+        dist = to(rng.random((L, L))) if dist is None else dist
+        if kind in ("local", "empty"):
+            locality = 10.0 if locality is None else locality
+        if locality is not None and locality <= 100:
+            thr = quantile_threshold(dist * scale.reshape(-1, 1, 1), locality / 100.0)[..., 0]
+        if kind == "empty":
+            thr[:, ::2] = -1e30
+    return q, k, v, g, dist, thr, scale
+
+
+def dotatt_work(case):
+    """Kept entries over the batch and heads, and the bytes each entry
+    point must move: every input read once, every output written once."""
+    import torch
+
+    q, k, v, g, dist, thr, scale = case
+    B, L, H, V = q.shape
+    kept = H * L * L if thr is None else int((dist * scale.reshape(-1, 1, 1) <= thr[:, :, None]).sum())
+    kept *= B
+    act = B * L * H * V  # one of q, k, v, out, g and each gradient
+    geo = 0 if dist is None else L * L + H + (H * L if thr is not None else 0)
+    stats, delta = 2 * B * H * L, B * H * L
+    return kept, {
+        "fwd": 4 * (3 * act + act + stats + geo),
+        "dq": 4 * (5 * act + stats + geo + act + delta + (H if dist is not None else 0)),
+        "dkdv": 4 * (4 * act + stats + delta + geo + 2 * act),
+    }
+
+
+def dotatt_sdpa(case):
+    """One SDPA call computing the forward: (B, H, L, V) q, k, v and, for a
+    hybrid op, the distance bias (masked entries -inf) as ``attn_mask``."""
+    import torch
+    import torch.nn.functional as F
+
+    q, k, v, _, dist, thr, scale = case
+    qs, ks, vs = (t.permute(0, 2, 1, 3).contiguous() for t in (q, k, v))
+    mask = None
+    if dist is not None:
+        scaled = dist * scale.reshape(-1, 1, 1)
+        mask = -scaled if thr is None else torch.where(scaled <= thr[:, :, None], -scaled,
+                                                       float("-inf"))
+        mask = torch.where(torch.isinf(mask).all(-1, keepdim=True), 0.0, mask)[None]
+    return lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask)
+
+
+def dotatt_check(name, case, timed, reps=5, per_rep=4):
+    """#14's three entry points against their plain versions on one op:
+    the forward with its statistics, dq with delta and (hybrid) dscale,
+    dk and dv, each run twice to the same bits; outputs at the op
+    tolerances, dq, dk and dv on their terms' magnitude, dscale normalised.
+    With ``timed``, each timed beside its plain version, the bound (the
+    operations of the kept entries, or bytes) and, for the forward, SDPA.
+    Returns the row."""
+    import torch
+
+    from position_induced_transformer_torch.kernels import dotatt as kd
+
+    q, k, v, g, dist, thr, scale = case
+    out, stats = kd.dotatt_cuda(q, k, v, dist, thr, scale)
+    dq, delta, ds = kd.dotatt_bwd_dq_cuda(q, k, v, out, g, stats, dist, thr, scale)
+    dk, dv = kd.dotatt_bwd_dkdv_cuda(q, k, v, g, stats, delta, dist, thr, scale)
+    again = (kd.dotatt_cuda(q, k, v, dist, thr, scale)[0],
+             *kd.dotatt_bwd_dq_cuda(q, k, v, out, g, stats, dist, thr, scale)[::2],
+             *kd.dotatt_bwd_dkdv_cuda(q, k, v, g, stats, delta, dist, thr, scale))
+    torch.cuda.synchronize()
+    for part, first, second in zip(("forward", "dq", "dscale", "dk", "dv"), (out, dq, ds, dk, dv),
+                                   again):
+        if not (first is None and second is None) and not torch.equal(first, second):
+            fail(f"{name}: two {part} runs on the same inputs differ")
+    args = (q, k, v, g, dist, thr, scale)
+    B, L, H, V = q.shape
+    want = kd.dotatt_reference(q, k, v, dist, thr, scale)
+    errs = {"fwd": check_close(f"{name} forward", out, want, OP_RTOL, OP_ATOL)}
+    st = kd.dotatt_stats_reference(q, k, dist, thr, scale)
+    errs["stats"] = max(check_close(f"{name} stats m", stats[0], st[0], OP_RTOL, OP_ATOL),
+                        check_close(f"{name} stats l", stats[1], st[1], OP_RTOL, OP_ATOL))
+    errs["delta"] = check_close(f"{name} delta", delta, kd.dotatt_bwd_delta_reference(want, g, H),
+                                OP_RTOL, OP_ATOL,
+                                kd.dotatt_bwd_delta_reference(want.abs(), g.abs(), H))
+    sizes = kd.dotatt_bwd_term_sizes(*args)
+    for part, got, ref, size in zip(("dq", "dk", "dv"), (dq, dk, dv),
+                                    (kd.dotatt_bwd_dq_reference, kd.dotatt_bwd_dk_reference,
+                                     kd.dotatt_bwd_dv_reference), sizes):
+        errs[part] = check_close(f"{name} {part}", got, ref(*args), OP_RTOL, OP_ATOL, size)
+    del sizes
+    if dist is not None:
+        want_ds = kd.dotatt_bwd_dscale_reference(*args)
+        norm = want_ds.abs().max() + 1.0
+        check_close(f"{name} dscale (normalised)", ds / norm, want_ds / norm, DS_RTOL, DS_ATOL)
+        errs["dscale"] = (ds - want_ds).abs().max().item()
+    row = {"shape": name, "B": B, "L": L, "H": H, "V": V,
+           "kind": "self" if dist is None else ("local" if thr is not None else "global"),
+           "max_abs_err": errs}
+    if not timed:
+        return row
+    kept, nbytes = dotatt_work(case)
+    flops = {"fwd": 4 * V * kept, "dq": 6 * V * kept + 2 * B * L * H * V,
+             "dkdv": 8 * V * kept}
+    launch = {
+        "fwd": lambda: kd.dotatt_cuda(q, k, v, dist, thr, scale),
+        "dq": lambda: kd.dotatt_bwd_dq_cuda(q, k, v, out, g, stats, dist, thr, scale),
+        "dkdv": lambda: kd.dotatt_bwd_dkdv_cuda(q, k, v, g, stats, delta, dist, thr, scale),
+    }
+
+    def plain_dkdv():
+        kd.dotatt_bwd_dk_reference(*args)
+        kd.dotatt_bwd_dv_reference(*args)
+
+    plain = {
+        "fwd": lambda: kd.dotatt_reference(q, k, v, dist, thr, scale),
+        "dq": lambda: (kd.dotatt_bwd_dq_reference(*args),
+                       None if dist is None else kd.dotatt_bwd_dscale_reference(*args)),
+        "dkdv": plain_dkdv,
+    }
+    row["kept_entries"] = kept
+    for part in ("fwd", "dq", "dkdv"):
+        bound_ms, bound_by = roofline(flops[part], nbytes[part])
+        row[part] = {"ms": cuda_ms(launch[part], reps=reps, per_rep=per_rep),
+                     "plain_ms": cuda_ms(plain[part], reps=reps, per_rep=per_rep),
+                     "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops[part],
+                     "bytes": nbytes[part], "library_ms": None}
+        row[part]["tflops"] = flops[part] / row[part]["ms"] / 1e9
+    sdpa = dotatt_sdpa(case)
+    row["fwd"]["library_max_abs_err"] = (
+        sdpa().permute(0, 2, 1, 3).reshape(B, L, -1) - want).abs().max().item()
+    row["fwd"]["library_ms"] = cuda_ms(sdpa, reps=reps, per_rep=per_rep)
+    del sdpa
+    return row
+
+
+def dotatt_function_check(name, case):
+    """One forward + backward through ``dot_attention`` launches each entry
+    point once; its gradients in q, k, v and the scales against
+    torch.autograd of the plain version (normalised as dscale)."""
+    import torch
+
+    from position_induced_transformer_torch.kernels import dotatt as kd
+
+    q, k, v, g, dist, thr, scale = case
+
+    def grads(fn):
+        leaves = [a.clone().requires_grad_(True) for a in (q, k, v)]
+        s = None if scale is None else scale.clone().requires_grad_(True)
+        out = fn(*leaves, dist, thr, s)
+        (out * g).sum().backward()
+        return [out.detach()] + [a.grad for a in leaves] + ([] if s is None else [s.grad])
+
+    before = counts()
+    got = grads(kd.dot_attention)
+    torch.cuda.synchronize()
+    diff = {k_: n - before[k_] for k_, n in counts().items()}
+    if diff != {k_: int(k_ in DOTATT_KERNELS) for k_ in diff}:
+        fail(f"{name}: one forward + backward launched {diff}, expected 1 each of {DOTATT_KERNELS}")
+    want = grads(plain_dotatt)
+    err = 0.0
+    for part, a, b in zip(("out", "dq", "dk", "dv", "dscale"), got, want):
+        norm = b.abs().max() + 1.0
+        check_close(f"{name} Function {part} (normalised)", a / norm, b / norm, DS_RTOL, DS_ATOL)
+        err = max(err, (a - b).abs().max().item())
+    return err
+
+
+def dotatt_op_case(rng, name, problems):
+    """The arguments of one of DOTATT_OPS: the config's widths, the hybrid
+    ops' distances from its setup (``problems``: config -> Problem)."""
+    from position_induced_transformer_torch import configs
+
+    config, variant, op, B, _ = DOTATT_OPS[name]
+    m = configs.get(config).model
+    H, V = m.n_head, m.hid_dim // m.n_head
+    if op == "self":
+        if config == "elasticity_tf":
+            L = 972
+        else:
+            geom = problems[config].geom
+            L = (geom.m_ltt if variant == "lite" else geom.m_cross).shape[0]
+        return dotatt_case(rng, B, L, H, V, "self")
+    geom = problems[config].geom
+    dist, loc = {"down": (geom.m_cross_t, m.en_loc), "processor": (geom.m_ltt, 200.0),
+                 "up": (geom.m_cross, m.de_loc)}[op]
+    return dotatt_case(rng, B, dist.shape[0], H, V, "local" if loc <= 100 else "global", dist, loc)
+
+
+def dotatt_kernel_phase():
+    """#14's forward, dq (with delta and dscale) and dk/dv against their
+    plain versions at every self and hybrid op of the variants at full
+    width (DOTATT_OPS: the hybrid ops on burgers_tf's own distances and
+    in-call thresholds) and at ragged shapes (L 1 to 1849, V 16 to 256 and
+    21, 1 to 8 heads, rows that keep nothing); each full-width op timed
+    beside its plain version, the bound and SDPA; the autograd Function's
+    gradients against autograd of the plain version, one forward +
+    backward launching each entry point once."""
+    import numpy as np
+    import torch
+
+    from position_induced_transformer_torch import configs
+    from position_induced_transformer_torch.train import benchmarks
+
+    rng = np.random.default_rng(14)
+    problems = {}
+    for name in TF_FIXED_CONFIGS:
+        cfg = configs.get(name)
+        problems[name] = benchmarks.setup(cfg, ntrain=cfg.batch_size, ntest=2, device="cuda")
+    rows, fn_err = [], 0.0
+    for name in DOTATT_OPS:
+        config, variant, op, _, per_forward = DOTATT_OPS[name]
+        case = dotatt_op_case(rng, name, problems)
+        big = name == "naca_tf_transformer"
+        row = dotatt_check(name, case, timed=True, reps=3 if big else 5, per_rep=2 if big else 4)
+        row.update(config=config, variant=variant, op=op, launches_per_forward=per_forward)
+        rows.append(row)
+        log(f"kernel dotatt {name}: {json.dumps(row)}")
+        log(f"#14 {name} (B {row['B']}, L {row['L']}, H {row['H']}, V {row['V']}, {row['kind']}): "
+            + "; ".join(f"{p} {row[p]['ms']:.4f} ms (plain {row[p]['plain_ms']:.4f}, bound "
+                        f"{row[p]['bound_ms']:.4f}, {row[p]['tflops']:.2f} TFLOP/s)"
+                        for p in ("fwd", "dq", "dkdv"))
+            + f"; SDPA {row['fwd']['library_ms']:.4f}")
+        if name in ("burgers_tf_self", "burgers_tf_selfpit_down", "burgers_tf_selfpit_processor"):
+            fn_err = max(fn_err, dotatt_function_check(name, case))
+        del case
+        torch.cuda.empty_cache()
+    del problems
+    ragged_err = {}
+    for name, B, L, H, V, kind in DOTATT_RAGGED:
+        case = dotatt_case(rng, B, L, H, V, kind)
+        row = dotatt_check(name, case, timed=False)
+        ragged_err[name] = row["max_abs_err"]
+        if name in ("dot_l17_h3_v16_local", "dot_l100_h3_v21"):
+            fn_err = max(fn_err, dotatt_function_check(name, case))
+        log(f"kernel dotatt {name}: {json.dumps(row)}")
+    log(f"DotAtt: gradients match autograd of the plain version, max abs err {fn_err:.3e}")
+    return rows, ragged_err, fn_err
+
+
+def variant_launches(name, variant, mode="step"):
+    """Launches of #13 (or the point-cloud coders' kernels) and #14 by a
+    TF configuration's variant per training step (``mode`` "step"), per
+    evaluated batch ("eval") or per served batch ("serve"): each entry
+    point once per op of its kind; a rollout runs its ops once a rollout
+    step and, in training under remat ``full``, its forwards twice.
+    elasticity_tf's coders take #11/#12 where the batch carries
+    thresholds (training, evaluation) and #9 where it does not (serving)."""
+    from position_induced_transformer_torch import configs
+    from position_induced_transformer_torch.train import benchmarks
+
+    cfg = configs.get(name)
+    pa, ca = benchmarks._VARIANT_ATTENTION[variant]
+    coders = 2 if name == "elasticity_tf" else 2 + int(benchmarks.TF_FIXED[name][1])
+    ops = {"position": 0, "self": 0, "hybrid": 0}
+    ops[pa] += cfg.model.n_blocks
+    ops[ca] += coders
+    steps = VARIANT_ROLLOUT if name == "vorticity_tf" else 1
+    fwd_again = 2 if name == "vorticity_tf" and mode == "step" else 1
+    kinds = TF_FIXED_KERNELS
+    if name == "elasticity_tf":
+        kinds = ("posatt_tf_fwd",) if mode == "serve" else TF_COORD_KERNELS
+    out = {}
+    for n, names in ((ops["position"] * steps, kinds),
+                     ((ops["self"] + ops["hybrid"]) * steps, DOTATT_KERNELS)):
+        if n:
+            out[names[0]] = n * fwd_again
+            if mode == "step":
+                out.update({k: n for k in names[1:]})
+    return out
+
+
+# vorticity_tf's variants train by BPTT cut to 3 rollout steps (of 20)
+VARIANT_ROLLOUT = 3
+
+
+def nonneg_recorder():
+    """A patch of ``benchmarks.nonneg_bandwidths`` recording the smallest
+    band_width after each projection (each optimizer step), and that
+    list."""
+    from position_induced_transformer_torch.train import benchmarks
+
+    project, lows = benchmarks.nonneg_bandwidths, []
+
+    def recording(model):
+        project(model)
+        lows.append(min(float(p.detach().min()) for n, p in model.named_parameters()
+                        if n.endswith("band_width")))
+
+    return mock.patch.object(benchmarks, "nonneg_bandwidths", recording), lows
+
+
+def variant_train_phase(name, variant, epochs, ntrain, ntest, refs, timing=True):
+    """runner.train(name, model_variant=variant) at full width and depth
+    through fixed_train_phase: the variant's launches per step and per eval
+    batch, losses and weights against a plain-attention card run (and a
+    CPU run where ``refs`` names it); selfpit's band_widths at or above 0
+    after every step; with ``timing``, the time per step and the device's
+    busy share. Returns the report and the checkpoint."""
+    from position_induced_transformer_torch import configs
+
+    cfg = configs.get(name)
+    ckpt = str(REPO / "build" / "chip_smoke" / f"{name}_{variant}.pt")
+    patch, lows = nonneg_recorder()
+    with patch:
+        report = fixed_train_phase(
+            f"{name} {variant} train", cfg, epochs, ntrain, ntest, variant_launches(name, variant),
+            refs=refs, plain_patch=plain_variant_attention,
+            per_eval_batch=variant_launches(name, variant, "eval"),
+            groups={**TF_FIXED_GROUPS, **DOTATT_GROUPS}, timing=timing, checkpoint_path=ckpt,
+            model_variant=variant)
+    if variant == "selfpit":
+        steps = report["steps"]
+        if len(lows) < steps or min(lows[:steps]) < 0:
+            fail(f"{name} selfpit train: band_width minima after the steps {lows[:steps]}")
+        report["min_band_width_after_each_step"] = lows[:steps]
+    report["model_variant"] = variant
+    return report, ckpt
+
+
+def variant_evaluate_phase(name, variant, ckpt, ntrain, ntest, **kw):
+    """``evaluate(name, ckpt, model_variant=variant, **kw)`` on the card:
+    the variant's forwards per evaluated batch and no other kernel; its
+    metrics against a plain-attention card run at rtol 1e-4."""
+    import dataclasses
+
+    import torch
+
+    from position_induced_transformer_torch import configs
+    from position_induced_transformer_torch.train import evaluate
+
+    cfg = configs.get(name)
+    ev_cfg = dataclasses.replace(cfg, ntrain=ntrain)  # the trained split's size
+    per_batch = variant_launches(name, variant, "eval")
+    batches = -(-ntest // (cfg.eval_batch_size or cfg.batch_size))
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = evaluate.evaluate(ev_cfg, ckpt, ntest=ntest, device="cuda", model_variant=variant, **kw)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launched = counts()
+    expected = {k: per_batch.get(k, 0) * batches for k in launched}
+    if launched != expected:
+        fail(f"{name} {variant} evaluate: launched {launched}, expected {expected}")
+    with plain_variant_attention():
+        t0 = time.perf_counter()
+        want = evaluate.evaluate(ev_cfg, ckpt, ntest=ntest, device="cuda", model_variant=variant,
+                                 **kw)
+        plain_s = time.perf_counter() - t0
+    if counts() != launched:
+        fail(f"{name} {variant} evaluate: the plain-attention evaluation launched a kernel")
+    keys = [k for k, v in got.items() if isinstance(v, (float, list)) and k != "rel_l1_quartiles"]
+    f64 = lambda v: torch.tensor(v, dtype=torch.float64)
+    err = max(check_close(f"{name} {variant} evaluate {k} vs plain on CUDA", f64(got[k]),
+                          f64(want[k]), 1e-4, 0.0) for k in keys)
+    return {"config": name, "model_variant": variant, "options": kw, "launches": launched,
+            "evaluate_s_cuda": seconds, "evaluate_s_plain_cuda": plain_s,
+            "max_abs_err_vs_plain_cuda": err, "metrics": got}
+
+
+def variant_inputs(cfg, n):
+    """``n`` raw inputs of a TF configuration, as a request carries them."""
+    if cfg.name == "elasticity_tf":
+        from position_induced_transformer_torch.data import synthetic
+
+        return synthetic.elasticity(n=n, seed=1)[0]
+    return tf_fixed_inputs(cfg, n)
+
+
+def variant_serve_phase(name, variant, ckpt, bitwise=True):
+    """make_server(name, model_variant=variant) on the trained checkpoint
+    through fixed_serve_phase (1, 3, 5 samples, 2 concurrent, 4 warm whole
+    batches): the variant's forwards per device batch and nothing else,
+    every reply equal to ``infer``'s to the bit and within the model
+    bounds of a plain-attention card run and (2 samples) a CPU run."""
+    from position_induced_transformer_torch import configs
+
+    cfg = configs.get(name)
+    x = variant_inputs(cfg, (cfg.eval_batch_size or cfg.batch_size) + 12)
+    return fixed_serve_phase(f"{name}_{variant}_serve", cfg, ckpt, x,
+                             variant_launches(name, variant, "serve"), (1, 3, 5), 2, 4,
+                             cpu_samples=2, plain_patch=plain_variant_attention,
+                             groups={**TF_FIXED_GROUPS, **DOTATT_GROUPS}, model_variant=variant,
+                             bitwise=bitwise)
+
+
+def variant_step_serve_phase(name, variant):
+    """One training step of a TF configuration's variant at full width and
+    depth (vorticity_tf's BPTT cut to VARIANT_ROLLOUT rollout steps) and one
+    served batch of its checkpoint through make_server: the variant's
+    launches for each; the step's loss and weights and the served reply
+    against a plain-attention card run (vorticity_tf's weights at
+    VORTICITY_PARAM_ATOL: one Adam step of BPTT moves a near-zero gradient's
+    weight by up to 2 lr, the gap scripts/torch_bptt_gap.py measures between
+    two float32 programs), except naca_tf's transformer at batch 8, whose
+    plain version cannot hold its (8, 2, 11271, 11271) weights: its parity
+    rests on the batch-1 kernel phase; the step's peak device memory. A
+    served rollout (vorticity_tf) is held to a float64 run of the plain
+    version on the card: at most twice as far from it as the plain float32
+    card run is, or the model bounds where they are larger. The
+    random-weight self-attention's logits reach a few thousand, whose
+    float32 rounding alone moves a weight by about 1e-4, and the 3 fed-back
+    steps amplify it: the plain card run and a plain CPU run of the same
+    weights parted by 0.105 (lite) and 2.74 (transformer) on one sample
+    of 8 and by under 0.005 on most (an NVIDIA H100 80GB HBM3 at 700 W)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from position_induced_transformer_torch import configs
+    from position_induced_transformer_torch.train import benchmarks, checkpoint, evaluate, loop, runner
+    from position_induced_transformer_torch.train.serve import make_server
+
+    cfg = dataclasses.replace(configs.get(name), model_variant=variant)
+    if name == "vorticity_tf":
+        cfg = dataclasses.replace(cfg, rollout_steps=VARIANT_ROLLOUT)
+    dev = torch.device("cuda")
+    plain_ok = not (name == "naca_tf" and variant == "transformer")
+    label = f"{name} {variant}"
+
+    def one_step(patch=None):
+        problem = benchmarks.setup(cfg, ntrain=cfg.batch_size, ntest=2, device=dev)
+        state = runner.init_state(problem, 0)
+        data = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+                for k, v in problem.train_data.items()}
+        perm = torch.arange(cfg.batch_size, device=dev).reshape(1, -1)
+        zero_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with patch or nullcontext():
+            _, losses = loop.make_train_epoch(problem.task, lambda step: cfg.lr)(
+                state, problem.geom, data, perm)
+        torch.cuda.synchronize()
+        return (problem, losses.cpu(), {k: v.detach().cpu() for k, v in state.model.state_dict().items()},
+                counts(), time.perf_counter() - t0, torch.cuda.max_memory_allocated())
+
+    problem, losses, weights, launched, step_s, peak = one_step()
+    expected = {k: variant_launches(name, variant).get(k, 0) for k in launched}
+    if launched != expected or not torch.isfinite(losses).all():
+        fail(f"{label} step: launched {launched}, expected {expected}; loss {losses.tolist()}")
+    report = {"config": name, "model_variant": variant, "rollout_steps": cfg.rollout_steps,
+              "batch": cfg.batch_size, "launches_step": launched, "step_s_first": step_s,
+              "max_memory_allocated_step_bytes": peak, "loss": losses.tolist()}
+    if plain_ok:
+        _, ref_losses, ref_weights, ref_launched, ref_s, ref_peak = one_step(plain_variant_attention())
+        if any(ref_launched.values()):
+            fail(f"{label} step: the plain card run launched kernels: {ref_launched}")
+        atol = VORTICITY_PARAM_ATOL if name == "vorticity_tf" else PARAM_ATOL
+        report["max_abs_err_step_loss_vs_plain_cuda"] = check_close(
+            f"{label} step loss vs plain_cuda", losses, ref_losses, LOSS_RTOL, 0.0)
+        report["max_abs_err_weights_vs_plain_cuda"] = max(
+            check_close(f"{label} step weight {k} vs plain_cuda", v, ref_weights[k], PARAM_RTOL, atol)
+            for k, v in weights.items())
+        report["max_memory_allocated_step_bytes_plain_cuda"] = ref_peak
+    ckpt = checkpoint.save(str(REPO / "build" / "chip_smoke" / f"{name}_{variant}_step.pt"),
+                           weights, cfg.name)
+    del problem
+    torch.cuda.empty_cache()
+    server = make_server(cfg, ckpt, host="127.0.0.1", port=0, verbose=False, device="cuda",
+                         model_variant=variant)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    bs = server.predictor._batch_size()
+    x = variant_inputs(cfg, bs)
+    try:
+        zero_counts()
+        calls0 = server.batcher.n_calls
+        t0 = time.perf_counter()
+        code, body = post(f"http://127.0.0.1:{server.server_address[1]}/predict", npy(x))
+        serve_ms = (time.perf_counter() - t0) * 1e3
+        served_launched = counts()
+        device_calls = server.batcher.n_calls - calls0
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    if code != 200:
+        fail(f"{label} serve: HTTP {code}: {body[:500]!r}")
+    per_batch = variant_launches(name, variant, "serve")
+    expected = {k: per_batch.get(k, 0) * device_calls for k in served_launched}
+    if served_launched != expected or device_calls != 1:
+        fail(f"{label} serve: {served_launched} for {device_calls} device batches, expected {expected}")
+    got = torch.from_numpy(np.load(io.BytesIO(body)))
+    if not torch.isfinite(got).all():
+        fail(f"{label} serve: non-finite reply")
+    report.update(serve_samples=int(x.shape[0]), serve_ms=serve_ms, launches_serve=served_launched)
+    if plain_ok:
+        predictor = server.predictor
+        with plain_variant_attention():
+            ref = torch.from_numpy(predictor.predict_array(
+                {"x": evaluate._prepare_inputs(predictor.problem, x)}, cfg.rollout_steps))
+        if cfg.rollout_steps:
+            exact = float64_rollout(predictor, x, cfg.rollout_steps).cpu()
+            per_sample = lambda a: (a.double() - exact).abs().flatten(1).amax(1)
+            plain_gap, kernel_gap = per_sample(ref), per_sample(got)
+            atol = max(2.0 * plain_gap.max().item(), model_atol(cfg.rollout_steps, exact))
+            report.update(plain_cuda_vs_float64_per_sample=plain_gap.tolist(),
+                          kernel_vs_float64_per_sample=kernel_gap.tolist())
+            report["max_abs_err_serve_vs_float64"] = check_close(
+                f"{label} serve vs float64 plain on CUDA", got, exact, MODEL_RTOL, atol)
+        else:
+            report["max_abs_err_serve_vs_plain_cuda"] = check_close(
+                f"{label} serve vs plain on CUDA", got, ref, MODEL_RTOL,
+                model_atol(cfg.rollout_steps, ref))
+    del server
+    torch.cuda.empty_cache()
+    return report
+
+
+def float64_rollout(predictor, x, steps):
+    """The predictor's model rolled out ``steps`` steps from the raw inputs
+    ``x`` in float64 on its device (weights, geometry and inputs converted,
+    each exactly), every attention op on its plain version: (n, L, out,
+    steps)."""
+    import copy
+    import dataclasses
+
+    import torch
+
+    from position_induced_transformer_torch.train import evaluate
+
+    problem = predictor.problem
+    task = dataclasses.replace(problem.task, model=copy.deepcopy(problem.model).double())
+    geom = type(problem.geom)(*(None if t is None else t.double() for t in problem.geom))
+    xx = torch.from_numpy(evaluate._prepare_inputs(problem, x)).double().to(predictor.device)
+    with torch.no_grad(), plain_variant_attention():
+        out = task.rollout(geom, xx, steps)
+    del task
+    return out
+
+
+def variant_cli_phase(ckpt):
+    """The command line with ``--model-variant selfpit`` as subprocesses on
+    the card, started at once: ``train --benchmark burgers_tf`` (1 epoch of
+    2 steps, ``--checkpoint``), and on the selfpit checkpoint of the
+    burgers_tf phase ``infer`` of a raw .npy and ``serve`` answering one
+    ``POST /predict`` (its /info naming the variant); the served reply
+    equal to infer's to the bit and both within the model bounds of an
+    in-process Predictor. Every process exits 0 and is stopped when the
+    phase ends."""
+    import signal
+
+    import numpy as np
+    import torch
+
+    from position_induced_transformer_torch import configs
+    from position_induced_transformer_torch.train import checkpoint, evaluate
+
+    out = REPO / "build" / "chip_smoke" / "cli_variant"
+    out.mkdir(parents=True, exist_ok=True)
+    trained, inp, pred_path = (str(out / f) for f in ("selfpit.pt", "x.npy", "pred.npy"))
+    cfg = configs.BURGERS_TF
+    x = tf_fixed_inputs(cfg, 3)
+    np.save(inp, x)
+    variant = ["--model-variant", "selfpit"]
+    common = ["--benchmark", "burgers_tf", *variant, "--set", "ntrain=10"]
+    procs, seconds = {}, {}
+
+    def start(label, *argv):
+        procs[label] = (subprocess.Popen(
+            [sys.executable, "-m", "position_induced_transformer_torch", *argv], cwd=REPO,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True), time.perf_counter())
+
+    def finish(label, timeout=600):
+        proc, t0 = procs[label]
+        stdout, stderr = proc.communicate(timeout=timeout)
+        seconds[label] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            fail(f"cli {label}: exit {proc.returncode}: {stderr[-3000:]}")
+        return stdout
+
+    port = free_port()
+    try:
+        start("serve", "serve", *common, "--checkpoint", ckpt, "--port", str(port))
+        start("train", "train", "--benchmark", "burgers_tf", *variant, "--epochs", "1",
+              "--ntrain", "10", "--ntest", "10", "--checkpoint", trained)
+        start("infer", "infer", *common, "--checkpoint", ckpt, "--input", inp, "--output",
+              pred_path)
+        results = {k: finish(k) for k in ("train", "infer")}
+        url = f"http://127.0.0.1:{port}"
+        t0 = time.perf_counter()
+        while True:
+            if procs["serve"][0].poll() is not None:
+                finish("serve")
+                fail("cli serve: the server exited before answering")
+            try:
+                with urllib.request.urlopen(f"{url}/info", timeout=5) as r:
+                    info = json.loads(r.read())
+                    break
+            except (urllib.error.URLError, ConnectionError, TimeoutError):
+                pass
+            if time.perf_counter() - t0 > 300:
+                fail("cli serve: no /info reply within 300 s")
+            time.sleep(0.5)
+        code, body = post(f"{url}/predict", npy(x))
+        procs["serve"][0].send_signal(signal.SIGINT)
+        finish("serve", timeout=60)
+    finally:
+        for proc, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if code != 200:
+        fail(f"cli selfpit serve: HTTP {code}: {body[:500]!r}")
+    if info.get("model_variant") != "selfpit":
+        fail(f"cli selfpit serve: /info {info}")
+    served = np.load(io.BytesIO(body))
+    by_infer = np.load(pred_path)
+    if not np.array_equal(served, by_infer):
+        fail("cli selfpit: the served reply differs from infer's bits")
+    final = json.loads(results["train"].splitlines()[-1])["final"]
+    state = checkpoint.restore(ckpt)["state_dict"]
+    if not all(np.isfinite(v) for v in final.values()) or set(
+            checkpoint.restore(trained)["state_dict"]) != set(state):
+        fail(f"cli selfpit train: {final}")
+    predictor = evaluate.Predictor("burgers_tf", ckpt, device="cuda", model_variant="selfpit")
+    want = torch.from_numpy(predictor.predict_array({"x": x}))
+    err = check_close("cli selfpit infer vs in-process", torch.from_numpy(by_infer), want,
+                      MODEL_RTOL, MODEL_ATOL)
+    return {"seconds": seconds, "train_final": final, "info": info,
+            "served_equals_infer_bitwise": True, "max_abs_err_infer_vs_in_process": err}
+
+
+# name -> (variants, training split, test split, reference runs, step timing):
+# 2 epochs each at full width (cut from ~1000 samples and 500 epochs)
+VARIANT_TRAIN = {
+    "burgers_tf": (("lite", "transformer", "selfpit"), 10, 10, ("plain_cuda", "cpu")),
+    "elasticity_tf": (("lite", "transformer"), 20, 10, ("plain_cuda",)),
+    "darcy_tf": (("lite",), 16, 8, ("plain_cuda", "cpu")),
+}
+# one step and one served batch each
+VARIANT_STEP = (("sod_tf", "lite"), ("sod_tf", "transformer"), ("vorticity_tf", "lite"),
+                ("vorticity_tf", "transformer"), ("naca_tf", "lite"), ("naca_tf", "transformer"))
+
+
+def variant_phases():
+    """The TF ablation variants at full width: burgers_tf lite /
+    transformer / selfpit and elasticity_tf lite / transformer trained,
+    evaluated and served; darcy_tf lite trained at 43^2 and evaluated at
+    421^2 (ZSSR); sod_tf, vorticity_tf and naca_tf lite / transformer one
+    step and one served batch each; the selfpit command line. Returns
+    path -> report."""
+    import dataclasses
+
+    from position_induced_transformer_torch import configs
+
+    reports, ckpts = {}, {}
+    for name, (variants, ntrain, ntest, refs) in VARIANT_TRAIN.items():
+        for variant in variants:
+            label = f"{name}_{variant}"
+            timing = variant == "transformer"  # the step the kernel record sums
+            train, ckpt = variant_train_phase(name, variant, 2, ntrain, ntest, refs, timing=timing)
+            ckpts[label] = ckpt
+            if name == "elasticity_tf":  # the CPU takes seconds a full-width step
+                cfg = dataclasses.replace(configs.ELASTICITY_TF, model_variant=variant)
+                card_losses, card_weights, _ = first_steps(cfg, "cuda", 1, ntrain, ntest, 2)
+                check_close(f"{label} first step vs the full run", card_losses,
+                            card_losses.new_tensor(train["step_losses_first_last"][:1]),
+                            LOSS_RTOL, 0.0)
+                cpu_losses, cpu_weights, cpu_launched = first_steps(cfg, "cpu", 1, ntrain, ntest, 2)
+                if any(cpu_launched.values()):
+                    fail(f"{label}: the CPU run launched kernels: {cpu_launched}")
+                train["max_abs_err_step_loss_vs_cpu"] = check_close(
+                    f"{label} first step loss vs cpu", card_losses, cpu_losses, LOSS_RTOL, 0.0)
+                train["max_abs_err_weights_vs_cpu"] = max(
+                    check_close(f"{label} weight {k} vs cpu", v, cpu_weights[k], PARAM_RTOL,
+                                PARAM_ATOL) for k, v in card_weights.items())
+                train["cpu_steps_compared"] = 1
+            log(f"{label}_train " + json.dumps(train))
+            reports[f"{label}_train"] = train
+            if name == "darcy_tf":
+                ev = variant_evaluate_phase(name, variant, ckpt, ntrain, ntest, zssr=True)
+            else:
+                ev = variant_evaluate_phase(name, variant, ckpt, ntrain, ntest)
+            log(f"{label}_evaluate " + json.dumps(ev))
+            reports[f"{label}_evaluate"] = ev
+            if name != "darcy_tf":
+                serve = variant_serve_phase(name, variant, ckpt)
+                log(f"{label}_serve " + json.dumps(serve))
+                reports[f"{label}_serve"] = serve
+    for name, variant in VARIANT_STEP:
+        rep = variant_step_serve_phase(name, variant)
+        log(f"{name}_{variant}_step_serve " + json.dumps(rep))
+        reports[f"{name}_{variant}_step_serve"] = rep
+    cli = variant_cli_phase(ckpts["burgers_tf_selfpit"])
+    log("cli_selfpit " + json.dumps(cli))
+    reports["cli_selfpit"] = cli
+    return reports
+
+
+# each entry point's outputs in a check's errors
+ERR_KEYS = {"fwd": ("fwd", "stats"), "dq": ("dq", "delta", "dscale"), "dkdv": ("dk", "dv")}
+
+
+def variant_launch_paths(reports):
+    """path -> the launches counted on it, from the variant phases'
+    reports (a step-and-serve report gives two paths)."""
+    by_path = {}
+    for path, rep in reports.items():
+        for key in ("launches", "launches_step", "launches_serve"):
+            if key in rep:
+                by_path[path + ("" if key == "launches" else key[len("launches"):])] = rep[key]
+    return by_path
+
+
+def dotatt_entries(rows, ragged_err, fn_err, reports):
+    """The kernels-record entries of #14's three entry points: launches by
+    path (the variant phases' reports), the largest error, and times,
+    bounds, plain and SDPA times summed over one burgers_tf transformer
+    training step (7 launches of each at batch 5); ``per_config`` the same
+    over one elasticity_tf transformer step (6 at batch 10) and each
+    variant op's forward, ``shapes`` each op's row."""
+    by_path = variant_launch_paths(reports)
+    entries = []
+    for name, part in zip(DOTATT_KERNELS, ("fwd", "dq", "dkdv")):
+        def summed(op_names, part=part):
+            ops = [r for r in rows if r["shape"] in op_names]
+            total = lambda key: sum(r[part][key] * r["launches_per_forward"] for r in ops)
+            by = {kind: sum(r[part]["bound_ms"] * r["launches_per_forward"] for r in ops
+                            if r[part]["bound_by"] == kind) for kind in ("operations", "bytes")}
+            return {"ms": total("ms"), "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
+                    "bound_by": max(by, key=by.get),
+                    "library_ms": total("library_ms") if part == "fwd" else None}
+
+        launches = {p: v.get(name, 0) for p, v in by_path.items() if v.get(name, 0)}
+        entries.append({
+            "name": name,
+            "route": "cuda",
+            "source": "position_induced_transformer_torch/kernels/csrc/"
+                      + ("dotatt_fwd.cu" if part == "fwd" else "dotatt_bwd.cu"),
+            "replaces": "position_induced_transformer_tpu/models/pit_tf.py:181 and :254 "
+                        "(XLA, no pallas_call)",
+            "launches": sum(launches.values()),
+            "launches_by_path": launches,
+            "max_abs_err": max(e.get(key, 0.0) for e in [r["max_abs_err"] for r in rows]
+                               + list(ragged_err.values()) for key in ERR_KEYS[part]),
+            **summed(("burgers_tf_self",)),
+            "per_config": {"elasticity_tf_transformer_step": summed(("elasticity_tf_self",)),
+                           **{r["shape"]: summed((r["shape"],)) for r in rows}},
+            "function_max_abs_err": fn_err,
+            "shapes": [{k: v for k, v in r.items() if k not in ("fwd", "dq", "dkdv")} | r[part]
+                       for r in rows],
+        })
+    return entries
+
+
 def schedule_entry(version, rows, launched):
     """The kernels-record entry of one schedule: times and bounds summed
     over the seven launches of a Burgers forward (1 encoder + 5 processor
@@ -4546,8 +5424,11 @@ def main() -> int:
     if Path(port.__file__).resolve().parents[1] != REPO:
         fail(f"the port was imported from {port.__file__}, not from this checkout")
 
+    t_start = time.perf_counter()
+    stamp = lambda label: log(f"phase {label} done at {time.perf_counter() - t_start:.1f} s")
     environment()
     build()
+    stamp("build")
     geom = geometry_phase()
     shapes, max_err = kernel_phase(geom)
     bwd_rows, bwd_errs, bwd_config_rows = backward_kernel_phase(geom)
@@ -4555,18 +5436,21 @@ def main() -> int:
     log("serve " + json.dumps(serve))
     train = train_phase()
     log("train " + json.dumps(train))
+    stamp("1-7 (burgers)")
     b_shapes, b_rows, b_err = batched_kernel_phase()
     b_bwd_rows, b_bwd_errs = batched_backward_phase(b_shapes)
     e_serve = elasticity_serve_phase()
     log("elasticity_serve " + json.dumps(e_serve))
     e_train = elasticity_train_phase()
     log("elasticity_train " + json.dumps(e_train))
+    stamp("8-11 (elasticity)")
     tf_shapes, tf_fwd_rows, tf_errs = tf_kernel_phase()
     tf_bwd_rows, tf_bwd_errs = tf_backward_phase(tf_shapes)
     t_serve = elasticity_tf_serve_phase()
     log("elasticity_tf_serve " + json.dumps(t_serve))
     t_train = elasticity_tf_train_phase()
     log("elasticity_tf_train " + json.dumps(t_train))
+    stamp("12-15 (elasticity_tf)")
     s_rows, s_launched, s_fn_errs, s_stats_rows = schedule_phase()
     v3 = schedule_entry(3, s_rows, s_launched)
     log("schedules " + json.dumps({
@@ -4574,6 +5458,7 @@ def main() -> int:
         # #1 at this phase's Burgers shapes, beside #5 and #6
         "v3_per_burgers_forward": {k: v3[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
     }))
+    stamp("16 (schedules)")
     d_train, darcy_ckpt = darcy_train_phase()
     log("darcy_train " + json.dumps(d_train))
     d_zssr = darcy_zssr_phase(darcy_ckpt, s_rows)
@@ -4584,6 +5469,7 @@ def main() -> int:
     sod_serve, sod_train = sod_phases()
     log("sod_serve " + json.dumps(sod_serve))
     log("sod_train " + json.dumps(sod_train))
+    stamp("17-20 (darcy, sod)")
     n_train, naca_ckpt = naca_train_phase()
     log("naca_train " + json.dumps(n_train))
     n_serve = naca_serve_phase(naca_ckpt)
@@ -4594,6 +5480,7 @@ def main() -> int:
     log("vorticity_eval " + json.dumps(v_eval))
     log("vorticity_serve " + json.dumps(v_serve))
     log("vorticity_serve_horizon " + json.dumps(v_horizon))
+    stamp("21-24 (naca, vorticity)")
     c_train, cylinder_ckpt, c_rows = cylinder_train_phase()
     log("cylinder_train " + json.dumps(c_train))
     c_eval = cylinder_eval_phase(cylinder_ckpt)
@@ -4603,8 +5490,15 @@ def main() -> int:
     log("cylinder_serve_rollout " + json.dumps(c_rollout))
     cli = cli_phase(cylinder_ckpt)
     log("cli " + json.dumps(cli))
+    stamp("25-28 (cylinder, cli)")
     tff_rows, tff_ragged_errs, tff_fn_err = tf_fixed_kernel_phase()
+    stamp("29 (#13)")
     tff = tf_fixed_phases()
+    stamp("30-31 (tf fixed)")
+    dot_rows, dot_ragged_errs, dot_fn_err = dotatt_kernel_phase()
+    stamp("32 (#14)")
+    variants = variant_phases()
+    stamp("33-36 (variants)")
     fixed_paths = {  # the fixed-mesh model paths: (train, served or evaluated)
         "darcy_train": d_train["launches"], "darcy_zssr": d_zssr["launches"],
         "darcy_serve_43": d_serve43["launches"], "darcy_serve_421": d_serve421["launches"],
@@ -4773,19 +5667,26 @@ def main() -> int:
     # a batch without thresholds), #11 over one training forward and #12
     # over one training step, at batch 10; "shapes" splits them
     bare = t_train["launches_step_without_thresholds"]
+    # the variants' position-attention coders (lite: #13, elasticity_tf #9, #11, #12)
+    v_paths = variant_launch_paths(variants)
+    v_launched = lambda names: {f"{p}_{k}" if len(names) > 1 else p: n[k]
+                                for p, n in v_paths.items() for k in names if n.get(k)}
     tf = {
         # name: (source, pallas_call, rows, launches key, launches by path, error)
         "posatt_tf_fwd": ("posatt_tf_fwd.cu", 733, tf_fwd_rows["dist"], "launches_per_forward",
                           {"serve": t_serve["launches"]["posatt_tf_fwd"],
-                           "train_without_thresholds": bare["posatt_tf_fwd"]}, tf_errs["dist"]),
+                           "train_without_thresholds": bare["posatt_tf_fwd"],
+                           **v_launched(("posatt_tf_fwd",))}, tf_errs["dist"]),
         "posatt_tf_bwd": ("posatt_tf_bwd.cu", 779, tf_bwd_rows["dist"], "launches_per_step",
                           {"serve": 0, **{k: bare[k] for k in TF_DIST_KERNELS[1:]}},
                           max(tf_bwd_errs["dist"].values())),
         "posatt_tf_coord_fwd": ("posatt_tf_fwd.cu", 1175, tf_fwd_rows["coord"], "launches_per_forward",
-                                {"serve": 0, "train": t_train["launches"]["posatt_tf_coord_fwd"]},
+                                {"serve": 0, "train": t_train["launches"]["posatt_tf_coord_fwd"],
+                                 **v_launched(("posatt_tf_coord_fwd",))},
                                 tf_errs["coord"]),
         "posatt_tf_coord_bwd": ("posatt_tf_bwd.cu", 1236, tf_bwd_rows["coord"], "launches_per_step",
-                                {"serve": 0, **{k: t_train["launches"][k] for k in TF_COORD_KERNELS[1:]}},
+                                {"serve": 0, **{k: t_train["launches"][k] for k in TF_COORD_KERNELS[1:]},
+                                 **v_launched(TF_COORD_KERNELS[1:])},
                                 max(tf_bwd_errs["coord"].values())),
     }
     for name, (source, line, rows, key, by_path, err) in tf.items():
@@ -4827,6 +5728,7 @@ def main() -> int:
             out["library_ms"] = total("library_ms") if part == "fwd" else None
             return out
         by_path = {p: v[name] for p, v in tff_paths.items()}
+        by_path.update({p: v[name] for p, v in v_paths.items() if v.get(name)})
         kernels["kernels"].append({
             "name": name,
             "route": "cuda",
@@ -4842,6 +5744,9 @@ def main() -> int:
             "shapes": [{k: v for k, v in r.items() if k not in ("fwd", "dscale", "dv")} | r[part]
                        for r in tff_rows],
         })
+    # #14, three entry points: times and bounds summed over one burgers_tf
+    # transformer training step (7 launches each at batch 5)
+    kernels["kernels"] += dotatt_entries(dot_rows, dot_ragged_errs, dot_fn_err, variants)
     log(json.dumps(kernels))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,8 +8,9 @@
 The commands are the JAX package's: ``train``, ``evaluate``, ``infer``,
 ``serve``, ``convert``, ``benchmarks`` and ``describe``, with its options.
 They run on the card; ``--device cpu`` runs them on the CPU, and without a
-card and without it they raise. ``--mesh``, ``--multihost`` and
-``--model-variant`` other than ``pit`` are accepted and raise
+card and without it they raise. ``--model-variant`` (``lite``,
+``transformer``, ``selfpit``: the TF family's ablation models) reaches
+every command; ``--mesh`` and ``--multihost`` are accepted and raise
 ``NotImplementedError`` (not ported); the port has no counterpart of ``--fused-mode``, since a CUDA
 tensor always runs the hand-written kernels. Data default to the synthetic
 generators; ``--data-path`` or ``PIT_REAL_DATA_DIR`` selects real
@@ -23,7 +24,7 @@ import argparse
 import json
 import sys
 
-_NOT_PORTED = ("mesh", "multihost", "model_variant")
+_NOT_PORTED = ("mesh", "multihost")
 
 
 def _add_common(p):
@@ -40,7 +41,10 @@ def _add_common(p):
     p.add_argument(
         "--model-variant", default=None,
         choices=["pit", "lite", "transformer", "selfpit"],
-        help="ablation model of the TF family (only 'pit' is ported)",
+        help="ablation model for TF-family benchmarks (the reference swaps one "
+        "constructor line per experiment, tensorflow/*/train.py): 'lite' = "
+        "self-attention processor, 'transformer' = all self-attention, "
+        "'selfpit' = hybrid dot-product + distance-bias attention",
     )
     p.add_argument("--mesh", default=None, help="multi-device mesh (not ported)")
     p.add_argument(
@@ -97,7 +101,7 @@ def _load_problem_modules(args):
 def _refuse_not_ported(args):
     for opt in _NOT_PORTED:
         value = getattr(args, opt, None)
-        if value and not (opt == "model_variant" and value == "pit"):
+        if value:
             raise NotImplementedError(f"--{opt.replace('_', '-')} {value!r} is not ported yet")
 
 
@@ -342,6 +346,10 @@ def main(argv=None):
     if args.overrides:
         args.benchmark = apply_overrides(get(args.benchmark), args.overrides)
     cfg = get(args.benchmark) if isinstance(args.benchmark, str) else args.benchmark
+    if args.model_variant:
+        import dataclasses
+
+        cfg = dataclasses.replace(cfg, model_variant=args.model_variant)
 
     if args.command == "describe":
         import numpy as np

@@ -25,6 +25,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 KERNELS = (
     "posatt_fixed_fwd", "posatt_fixed_bwd", "posatt_batched_fwd", "posatt_batched_bwd",
     "posatt_tf_fwd", "posatt_tf_bwd", "posatt_tf_fixed_fwd", "posatt_tf_fixed_bwd",
+    "dotatt_fwd", "dotatt_bwd",
 )
 
 # no --use_fast_math: expf and the divisions must round as the f32 oracle's

@@ -10,24 +10,31 @@ a trailing GELU, the bandwidth is ``r^2``, locality is a percentile in [0,
 a linear map of its input. Distances are ``|x_i - x_j|^2 / 2`` between the
 first two input channels of each sample.
 
-Every attention op takes a hand-written kernel: with a threshold for each
-local op (precomputed at setup) the coordinate kernel #11, which computes
-the distances itself; otherwise the model builds the (B, L, L) halved
-distances once, takes the missing thresholds from them, and all six ops
-read them through kernel #9.
+Every position attention op takes a hand-written kernel: with a threshold
+for each local op (precomputed at setup) the coordinate kernel #11, which
+computes the distances itself; otherwise the model builds the (B, L, L)
+halved distances once, takes the missing thresholds from them, and every
+position op reads them through kernel #9.
 
 ``PiTTF`` (burgers_tf, sod_tf, darcy_tf, vorticity_tf, naca_tf) runs over
 precomputed distance matrices that every sample shares (:class:`TFGeometry`),
 with a bandwidth that varies by experiment (``tan_sin``, ``square`` or
 ``tan``, the last of either sign before keras' NonNeg projection) and
-every attention op through kernel #13 (``kernels/posatt_tf_fixed.py``).
+every position attention op through kernel #13 (``kernels/posatt_tf_fixed.py``).
 Its processor adds ``MLP(PA(x)) + W(x)``; the 1-D experiments add a
 decoder self-attention ``up2``. Submodule names follow the JAX parameter tree
 (``en_layer``, ``down``, ``mlp1``, ``w1``, ``PA_<i>``, ``MLP_<i>``,
 ``W_<i>``, ``up``, ``mlp2``, ``w2``, ``de_layer``; ``PiTTF``'s ``MHPA_<i>``,
 ``up2``, ``mlp`` and ``w``), so that
 ``utils.torch_compat.flax_tf_params_to_state_dict`` carries JAX weights
-over. Only ``"position"`` attention and float32 are ported.
+over.
+
+The ablation variants swap attention kinds per role (``processor_attention``
+and ``coder_attention``): ``"position"`` (PiT), ``"self"``
+(:class:`MultiHeadSelfAtt`, dot-product attention) or, in ``PiTTF``,
+``"hybrid"`` (:class:`SelfMultiHeadPosAtt`, dot-product logits minus the
+scaled distances). Both take kernel #14 (``kernels/dotatt.py``). Only
+float32 is ported.
 """
 
 from __future__ import annotations
@@ -39,6 +46,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from position_induced_transformer_torch.kernels.dotatt import dot_attention
 from position_induced_transformer_torch.kernels.posatt_batched import (
     position_attention_batched_dist,
     position_attention_batched_tf_coords,
@@ -122,6 +130,66 @@ class MultiHeadPosAttBatched(nn.Module):
         return F.gelu(out, approximate="none")
 
 
+class MultiHeadSelfAtt(nn.Module):
+    """Dot-product self-attention with per-head projections ``query``,
+    ``key`` and ``value``, (H, in, V) each with V = hid / H, he-normal, and
+    a trailing exact GELU (the ``lite`` and ``transformer`` variants'
+    attention); the attention itself is kernel #14."""
+
+    def __init__(self, in_features: int, n_head: int, hid_dim: int,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        shape = (n_head, in_features, round(hid_dim / n_head))
+        self.query = nn.Parameter(he_normal_tf(shape, generator))
+        self.key = nn.Parameter(he_normal_tf(shape, generator))
+        self.value = nn.Parameter(he_normal_tf(shape, generator))
+
+    def forward(self, inputs):
+        proj = lambda w: torch.einsum("bnj,hjk->bnhk", inputs, w)
+        out = dot_attention(proj(self.query), proj(self.key), proj(self.value))
+        return F.gelu(out, approximate="none")
+
+
+class SelfMultiHeadPosAtt(nn.Module):
+    """Hybrid attention (the ``selfpit`` variant's): logits ``q.k / sqrt(V)
+    - tan(r_h) d`` over one (L, L) distance matrix, masked above each
+    head's row quantile of ``tan(r_h) d`` for a ``locality`` of 100 or
+    less. ``band_width`` r (H, 1, 1), ``query`` and ``key`` glorot-uniform
+    (keras' default), ``weight`` (the values) he-normal; a trailing exact
+    GELU. ``tan(r)`` takes either sign: keras' NonNeg projection follows
+    each update (``train.benchmarks.nonneg_bandwidths``). The attention is
+    kernel #14."""
+
+    def __init__(self, in_features: int, n_head: int, hid_dim: int, locality: float,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.locality = locality
+        shape = (n_head, in_features, round(hid_dim / n_head))
+        self.band_width = nn.Parameter(glorot_uniform((n_head, 1, 1), generator))
+        self.query = nn.Parameter(glorot_uniform(shape, generator))
+        self.key = nn.Parameter(glorot_uniform(shape, generator))
+        self.weight = nn.Parameter(he_normal_tf(shape, generator))
+
+    def thresholds(self, dist, sc):
+        """The heads' keep thresholds (H, L) on ``dist * sc`` (None for a
+        global op): the per-head row quantile of the scaled distances, each
+        forward, as the JAX package takes it where it is given none. No
+        gradient flows through a threshold."""
+        if self.locality > 100:
+            return None
+        with torch.no_grad():
+            scaled = dist * sc.detach().reshape(-1, 1, 1)
+            return quantile_threshold(scaled, self.locality / 100.0)[..., 0].contiguous()
+
+    def forward(self, dist, inputs):
+        """``dist`` (L, L), ``inputs`` (B, L, in)."""
+        sc = torch.tan(self.band_width).reshape(-1)
+        proj = lambda w: torch.einsum("bnj,hjk->bnhk", inputs, w)
+        out = dot_attention(proj(self.query), proj(self.key), proj(self.weight), dist,
+                            self.thresholds(dist, sc), sc)
+        return F.gelu(out, approximate="none")
+
+
 def _given_thresholds(loc_en, loc_de, thr_en, thr_de):
     """Distinct locality -> given threshold, the first one not None: with
     ``loc_en == loc_de`` either threshold serves both ops."""
@@ -142,7 +210,10 @@ class PiTTFPointCloud(nn.Module):
 
     ``thr_en`` / ``thr_de``: per-sample thresholds (B, L, 1) on the halved
     distances (setup computes them once for the constant clouds), and
-    ``band_en`` / ``band_de`` their kept-column bands.
+    ``band_en`` / ``band_de`` their kept-column bands. ``processor_attention``
+    and ``coder_attention``: ``"position"`` or ``"self"`` (the ``lite`` and
+    ``transformer`` variants); a self op reads neither distances nor
+    thresholds, and with no position op the model builds none.
     """
 
     def __init__(
@@ -161,10 +232,9 @@ class PiTTFPointCloud(nn.Module):
     ):
         super().__init__()
         for kind in (processor_attention, coder_attention):
-            if kind != "position":
-                raise NotImplementedError(
-                    f"{kind!r} attention is not ported; the point-cloud model takes "
-                    "'position' attention only"
+            if kind not in ("position", "self"):
+                raise ValueError(
+                    f"unknown point-cloud attention kind {kind!r} (position | self)"
                 )
         if compute_dtype != "float32":
             raise NotImplementedError(
@@ -173,17 +243,23 @@ class PiTTFPointCloud(nn.Module):
         self.locality_encoder = locality_encoder
         self.locality_decoder = locality_decoder
         self.n_blocks = n_blocks
+        self.coder_attention = coder_attention
         g = generator
-        att = lambda loc: MultiHeadPosAttBatched(hid_dim, n_head, hid_dim, loc, g)
+
+        def att(kind, loc):
+            if kind == "self":
+                return MultiHeadSelfAtt(hid_dim, n_head, hid_dim, g)
+            return MultiHeadPosAttBatched(hid_dim, n_head, hid_dim, loc, g)
+
         self.en_layer = TFDense(in_dim, hid_dim, g)
-        self.down = att(locality_encoder)
+        self.down = att(coder_attention, locality_encoder)
         self.mlp1 = TFMlp(hid_dim, hid_dim, hid_dim, g)
         self.w1 = TFDense(hid_dim, hid_dim, g)
         for i in range(n_blocks):
-            self.add_module(f"PA_{i}", att(200.0))
+            self.add_module(f"PA_{i}", att(processor_attention, 200.0))
             self.add_module(f"MLP_{i}", TFMlp(hid_dim, hid_dim, hid_dim, g))
             self.add_module(f"W_{i}", TFDense(hid_dim, hid_dim, g))
-        self.up = att(locality_decoder)
+        self.up = att(coder_attention, locality_decoder)
         self.mlp2 = TFMlp(hid_dim, hid_dim, hid_dim, g)
         self.w2 = TFDense(hid_dim, hid_dim, g)
         self.de_layer = TFMlp(hid_dim, hid_dim, out_dim, g)
@@ -192,14 +268,16 @@ class PiTTFPointCloud(nn.Module):
         coords = inputs[..., :2].contiguous()
         loc_en, loc_de = self.locality_encoder, self.locality_decoder
         given = _given_thresholds(loc_en, loc_de, thr_en, thr_de)
-        # the (B, L, L) distances exist only to give a local op its missing
-        # thresholds; then every op reads them (kernel #9), else every op
-        # computes its own from the coordinates (kernel #11)
+        # the (B, L, L) distances exist only to give a local position op its
+        # missing thresholds; then every position op reads them (kernel #9),
+        # else each computes its own from the coordinates (kernel #11)
+        need_thr = self.coder_attention == "position"
         m_dist = None
-        if any(t is None and loc <= 100 for loc, t in given.items()):
+        if need_thr and any(t is None and loc <= 100 for loc, t in given.items()):
             m_dist = pairwise_dist_half(coords, coords)
         thr = {
-            loc: t if t is not None or loc > 100 else quantile_threshold(m_dist, loc / 100.0)
+            loc: (t if t is not None or loc > 100 or not need_thr
+                  else quantile_threshold(m_dist, loc / 100.0))
             for loc, t in given.items()
         }
         band = {loc_en: band_en, loc_de: band_de}
@@ -208,14 +286,19 @@ class PiTTFPointCloud(nn.Module):
         pass_coords = coords if m_dist is None else None
         gelu = lambda t: F.gelu(t, approximate="none")
 
+        def att(op, x, loc=None):
+            if isinstance(op, MultiHeadSelfAtt):
+                return op(x)
+            if loc is None:
+                return op(m_dist, x, coords=pass_coords)
+            return op(m_dist, x, thr[loc], coords=pass_coords, band=band[loc])
+
         en = gelu(self.en_layer(inputs))
-        a = self.down(m_dist, en, thr[loc_en], coords=pass_coords, band=band[loc_en])
-        x = gelu(self.mlp1(a) + self.w1(en))
+        x = gelu(self.mlp1(att(self.down, en, loc_en)) + self.w1(en))
         for i in range(self.n_blocks):
-            pa = getattr(self, f"PA_{i}")(m_dist, x, coords=pass_coords)
+            pa = att(getattr(self, f"PA_{i}"), x)
             x = gelu(getattr(self, f"MLP_{i}")(pa) + getattr(self, f"W_{i}")(x))
-        a = self.up(m_dist, x, thr[loc_de], coords=pass_coords, band=band[loc_de])
-        de = gelu(self.mlp2(a) + self.w2(x))
+        de = gelu(self.mlp2(att(self.up, x, loc_de)) + self.w2(x))
         return self.de_layer(de)
 
 
@@ -241,6 +324,10 @@ class TFGeometry(NamedTuple):
 
     def to(self, device) -> "TFGeometry":
         return TFGeometry(*(None if t is None else t.to(device) for t in self))
+
+    def cross_t(self) -> torch.Tensor:
+        """``m_cross.T``, contiguous: the encoder's distances."""
+        return self.m_cross_t if self.m_cross_t is not None else self.m_cross.T.contiguous()
 
 
 def tf_precompute_thresholds(geom: TFGeometry, en_loc: float, de_loc: float) -> TFGeometry:
@@ -356,6 +443,12 @@ class PiTTF(nn.Module):
       GELU]
     - decoder: attention ``up`` over ``m_cross`` [-> ``up2`` over ``m_qry``,
       MLP of it + Dense -> GELU] -> MLP head
+
+    ``processor_attention`` / ``coder_attention``: the kind of the processor's
+    and of the coders' ops (:func:`tf_attention`): ``lite`` is ``("self",
+    "position")``, ``transformer`` ``("self", "self")``, ``selfpit``
+    ``("hybrid", "hybrid")``. Only position ops read the precomputed
+    thresholds.
     """
 
     def __init__(
@@ -375,11 +468,6 @@ class PiTTF(nn.Module):
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
-        for kind in (processor_attention, coder_attention):
-            if kind != "position":
-                raise NotImplementedError(
-                    f"{kind!r} attention is not ported; PiTTF takes 'position' attention only"
-                )
         if compute_dtype != "float32":
             raise NotImplementedError(
                 f"compute_dtype {compute_dtype!r}: the port computes in float32 only"
@@ -387,16 +475,17 @@ class PiTTF(nn.Module):
         self.n_blocks = n_blocks
         self.use_decoder_selfatt = use_decoder_selfatt
         g = generator
-        att = lambda loc: MultiHeadPosAtt(hid_dim, n_head, hid_dim, loc, bandwidth, g)
+        pa_kind, ca_kind = processor_attention, coder_attention
+        att = lambda kind, loc: tf_attention(kind, hid_dim, n_head, hid_dim, loc, bandwidth, g)
         self.en_layer = TFDense(in_dim, hid_dim, g)
-        self.down = att(locality_encoder)
+        self.down = att(ca_kind, locality_encoder)
         for i in range(n_blocks):
-            self.add_module(f"MHPA_{i}", att(200.0))
+            self.add_module(f"MHPA_{i}", att(pa_kind, 200.0))
             self.add_module(f"MLP_{i}", TFMlp(hid_dim, hid_dim, hid_dim, g))
             self.add_module(f"W_{i}", TFDense(hid_dim, hid_dim, g))
-        self.up = att(locality_decoder)
+        self.up = att(ca_kind, locality_decoder)
         if use_decoder_selfatt:
-            self.up2 = att(locality_decoder)
+            self.up2 = att(ca_kind, locality_decoder)
             self.mlp = TFMlp(hid_dim, hid_dim, hid_dim, g)
             self.w = TFDense(hid_dim, hid_dim, g)
         self.de_layer = TFMlp(hid_dim, hid_dim, out_dim, g)
@@ -406,13 +495,38 @@ class PiTTF(nn.Module):
         if mesh.ndim == 2:
             mesh = mesh.expand(inputs.shape[0], *mesh.shape)
         en = gelu(self.en_layer(torch.cat([mesh, inputs], dim=-1)))
-        down = geom.m_cross_t if geom.m_cross_t is not None else geom.m_cross.T.contiguous()
-        x = self.down(down, en, geom.thr_down)
+        x = apply_attention(self.down, geom.cross_t(), en, geom.thr_down)
         for i in range(self.n_blocks):
-            pa = getattr(self, f"MHPA_{i}")(geom.m_ltt, x)
+            pa = apply_attention(getattr(self, f"MHPA_{i}"), geom.m_ltt, x)
             x = gelu(getattr(self, f"MLP_{i}")(pa) + getattr(self, f"W_{i}")(x))
-        de = self.up(geom.m_cross, x, geom.thr_up)
+        de = apply_attention(self.up, geom.m_cross, x, geom.thr_up)
         if self.use_decoder_selfatt:
-            de2 = self.up2(geom.m_qry, de, geom.thr_qry)
+            de2 = apply_attention(self.up2, geom.m_qry, de, geom.thr_qry)
             de = gelu(self.mlp(de2) + self.w(de))
         return self.de_layer(de)
+
+
+def tf_attention(kind: str, in_features: int, n_head: int, hid_dim: int, locality: float,
+                 bandwidth: str = "tan_sin", generator: Optional[torch.Generator] = None):
+    """The fixed-mesh attention op of one kind: ``"position"``
+    (:class:`MultiHeadPosAtt`), ``"self"`` (:class:`MultiHeadSelfAtt`) or
+    ``"hybrid"`` (:class:`SelfMultiHeadPosAtt`)."""
+    if kind == "position":
+        return MultiHeadPosAtt(in_features, n_head, hid_dim, locality, bandwidth, generator)
+    if kind == "self":
+        return MultiHeadSelfAtt(in_features, n_head, hid_dim, generator)
+    if kind == "hybrid":
+        return SelfMultiHeadPosAtt(in_features, n_head, hid_dim, locality, generator)
+    raise ValueError(f"unknown attention kind {kind!r}")
+
+
+def apply_attention(op: nn.Module, dist, x, thr=None):
+    """One fixed-mesh attention op on ``x``: a position op over ``dist``
+    with the thresholds ``thr``; a self op reads neither; a hybrid op reads
+    ``dist`` and takes its thresholds in the call, as the JAX package's
+    PiTTF passes none."""
+    if isinstance(op, MultiHeadSelfAtt):
+        return op(x)
+    if isinstance(op, SelfMultiHeadPosAtt):
+        return op(dist, x)
+    return op(dist, x, thr)

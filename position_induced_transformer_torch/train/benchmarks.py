@@ -65,9 +65,15 @@ class Problem:
     extras: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
 
-# the TF family's model variants (the reference's ablation baselines: each
-# experiment's PiT with attention modules swapped); only "pit" is ported
-_VARIANTS = ("pit", "lite", "transformer", "selfpit")
+# model_variant -> (processor_attention, coder_attention) of the TF family:
+# the reference's ablation baselines, each experiment's PiT with attention
+# modules swapped (reference: tensorflow/1_InviscidBurgers/train.py:38-40)
+_VARIANT_ATTENTION = {
+    "pit": ("position", "position"),
+    "lite": ("self", "position"),
+    "transformer": ("self", "self"),
+    "selfpit": ("hybrid", "hybrid"),
+}
 
 # the fixed-mesh TF family: (bandwidth, decoder self-attention)
 TF_FIXED = {
@@ -79,19 +85,31 @@ TF_FIXED = {
 }
 
 
-def _variant_attention(cfg: BenchmarkConfig) -> dict:
+def _variant_attention(cfg: BenchmarkConfig, point_cloud: bool = False) -> dict:
     """The attention kinds and compute type of a TF-family model, from the
-    config's ``model_variant``: only ``"pit"`` (position attention
-    everywhere) is ported."""
+    config's ``model_variant``, checked against the benchmark: ``selfpit``
+    needs a fixed mesh whose latent grid is its query grid."""
     v = cfg.model_variant or "pit"
-    if v not in _VARIANTS:
-        raise ValueError(f"unknown model variant {v!r}; available: {sorted(_VARIANTS)}")
-    if v != "pit":
-        raise NotImplementedError(
-            f"model variant {v!r} is not ported ('lite', 'transformer' and 'selfpit' "
-            "need the dot-product and hybrid attention); only 'pit' is"
+    if v not in _VARIANT_ATTENTION:
+        raise ValueError(
+            f"unknown model variant {v!r}; available: {sorted(_VARIANT_ATTENTION)}"
         )
-    return {"processor_attention": "position", "coder_attention": "position",
+    if point_cloud and v == "selfpit":
+        raise ValueError(
+            "the 'selfpit' variant is not defined for the point-cloud "
+            "family (the reference has no SelfPiT in 5_Elasticity)"
+        )
+    if v == "selfpit" and (
+        cfg.grid is None or cfg.latent_grid is None or tuple(cfg.grid) != tuple(cfg.latent_grid)
+    ):
+        raise ValueError(
+            "the 'selfpit' variant requires latent == query resolution "
+            "(its hybrid attention mixes dot-product logits with the "
+            "distance bias; reference SelfPiT lives in "
+            "tensorflow/1_InviscidBurgers where ltt_res == qry_res)"
+        )
+    pa, ca = _VARIANT_ATTENTION[v]
+    return {"processor_attention": pa, "coder_attention": ca,
             "compute_dtype": cfg.model.compute_dtype}
 
 
@@ -104,7 +122,7 @@ def _make_model(cfg: BenchmarkConfig, generator: Optional[torch.Generator] = Non
         return PiTTFPointCloud(
             in_dim=m.in_dim, out_dim=m.out_dim, hid_dim=m.hid_dim, n_head=m.n_head,
             locality_encoder=m.en_loc, locality_decoder=m.de_loc, n_blocks=m.n_blocks,
-            generator=generator, **_variant_attention(cfg),
+            generator=generator, **_variant_attention(cfg, point_cloud=True),
         )
     if cfg.name in TF_FIXED:
         bandwidth, selfatt = TF_FIXED[cfg.name]
@@ -139,11 +157,20 @@ def _make_model(cfg: BenchmarkConfig, generator: Optional[torch.Generator] = Non
 def nonneg_bandwidths(model: nn.Module) -> None:
     """Project every ``band_width`` parameter onto [0, inf) in place: keras'
     NonNeg constraint, which the TF family's NACA experiment puts on its
-    ``tan`` bandwidth, applied after each optimizer update
-    (``Task.param_constraint``)."""
+    ``tan`` bandwidth and the ``selfpit`` variant on its hybrid attention's
+    (reference: tensorflow/1_InviscidBurgers/utils.py:437), applied after
+    each optimizer update (``Task.param_constraint``)."""
     for name, p in model.named_parameters():
         if name.rsplit(".", 1)[-1] == "band_width":
             p.clamp_(min=0.0)
+
+
+def _task_kwargs(cfg: BenchmarkConfig) -> dict:
+    """The Task fields that a TF-family model variant sets: ``selfpit``'s
+    NonNeg projection of every ``band_width``."""
+    if (cfg.model_variant or "pit") == "selfpit":
+        return {"param_constraint": nonneg_bandwidths}
+    return {}
 
 
 def setup_burgers(
@@ -594,7 +621,8 @@ def _tf_fixed_problem(
     PiTTF (weights from ``torch.Generator`` seeded with ``cfg.seed``) on
     ``dev``, called as ``model(geom, mesh, x)`` on the query ``mesh``,
     keras Adam and the batch-mean loss. ``task_kw``: the Task's other
-    fields (a postprocess, a parameter constraint, and a rollout's)."""
+    fields (a postprocess, a parameter constraint, and a rollout's), over
+    the model variant's (:func:`_task_kwargs`)."""
     geom = tf_precompute_thresholds(TFGeometry(*dists), cfg.model.en_loc, cfg.model.de_loc)
     model = _make_model(cfg, torch.Generator().manual_seed(cfg.seed)).to(dev)
     mesh_dev = torch.from_numpy(np.ascontiguousarray(mesh)).to(dev)
@@ -605,7 +633,7 @@ def _tf_fixed_problem(
     task = Task(
         model=model, loss_p=cfg.loss_p, out_dim=cfg.model.out_dim,
         swap_loss_args=cfg.swap_loss_args, batch_mean_loss=True, keras_adam=True,
-        apply_fn=apply_fn, **task_kw,
+        apply_fn=apply_fn, **{**_task_kwargs(cfg), **task_kw},
     )
     return Problem(cfg, model, task, geom, train_data, test_data, ntrain, ntest,
                    x_normalizer=x_normalizer, y_normalizer=y_normalizer, extras=extras or {})

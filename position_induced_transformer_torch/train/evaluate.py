@@ -31,7 +31,6 @@ from typing import Optional
 import numpy as np
 import torch
 
-from position_induced_transformer_torch.configs import get
 from position_induced_transformer_torch.ops.locality import batched_topk_thresholds
 from position_induced_transformer_torch.ops.metrics import (
     rel_l1_quartiles,
@@ -226,7 +225,8 @@ class Predictor:
     arguments of the benchmark's setup (darcy at 421^2:
     ``{"downsampling": 1}``). A normalizing benchmark takes its statistics
     from the checkpoint; a checkpoint without them refits them on the full
-    training split, as its training did.
+    training split, as its training did. ``model_variant``: the TF family's
+    ablation model the checkpoint holds.
     """
 
     def __init__(
@@ -236,9 +236,10 @@ class Predictor:
         data_path: Optional[str] = None,
         setup_kwargs: Optional[dict] = None,
         device="cuda",
+        model_variant: Optional[str] = None,
     ):
         dev = resolve_device(device)
-        cfg = get(config) if isinstance(config, str) else config
+        cfg = runner.with_variant(config, model_variant)
         restored = _restore(checkpoint_path, cfg)
         setup_kwargs = _checkpoint_normalizers(cfg, restored, dict(setup_kwargs or {}))
         nmin = max(2, min(cfg.batch_size, 8))
@@ -326,17 +327,19 @@ def infer(
     data_path: Optional[str] = None,
     setup_kwargs: Optional[dict] = None,
     device="cuda",
+    model_variant: Optional[str] = None,
 ) -> dict:
     """One-shot inference on an input file; writes ``.npy`` or ``.mat``
     (variable ``pred``) when ``output_path`` is given. ``rollout_steps``:
     the horizon of an autoregressive benchmark (default: its configured
-    one). ``setup_kwargs`` as for :class:`Predictor`."""
+    one). ``setup_kwargs`` and ``model_variant`` as for
+    :class:`Predictor`."""
     if output_path and not output_path.endswith((".npy", ".mat")):
         raise ValueError(
             f"unsupported output format {output_path!r} (expected .npy or .mat)"
         )
     predictor = Predictor(config, checkpoint_path, data_path=data_path,
-                          setup_kwargs=setup_kwargs, device=device)
+                          setup_kwargs=setup_kwargs, device=device, model_variant=model_variant)
     steps = predictor.cfg.rollout_steps if rollout_steps is None else rollout_steps
     pred = predictor.predict_file(input_path, input_key, rollout_steps=steps,
                                   batch_size=batch_size)
@@ -528,13 +531,14 @@ def evaluate(
     instead: ``rel_l2_step`` per step, ``rel_l2_mean_step`` and
     ``rel_l2_traj``. ``plots_dir``: the benchmark's figures
     (``plots.save_benchmark_plots``) and, with a rollout, the per-step
-    error curve (needs matplotlib, checked first). ``mesh`` is not
-    ported, nor a ``model_variant`` other than ``"pit"``.
+    error curve (needs matplotlib, checked first). ``model_variant``: the
+    TF family's ablation model the checkpoint holds. ``mesh`` is not
+    ported.
     """
-    runner._not_ported("evaluate", mesh=mesh, model_variant=model_variant)
+    runner._not_ported("evaluate", mesh=mesh)
     if plots_dir:
         require_matplotlib()
-    cfg = get(config) if isinstance(config, str) else config
+    cfg = runner.with_variant(config, model_variant)
     if cfg.rollout_steps and shuffle_ablation:
         raise ValueError(
             "--shuffle-ablation probes the one-step operator map; "

@@ -8,6 +8,7 @@ conventions shared by prediction and serving.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import json
 import time
@@ -67,8 +68,16 @@ def default_metrics(out_dim: int):
 
 def _not_ported(fn="train", **options):
     for name, value in options.items():
-        if value and not (name == "model_variant" and value == "pit"):
+        if value:
             raise NotImplementedError(f"{fn}({name}=...) is not ported yet: {value!r}")
+
+
+def with_variant(config, model_variant: Optional[str] = None):
+    """The benchmark's config (a name or a config), with ``model_variant``
+    (``pit``, ``lite``, ``transformer``, ``selfpit``: the TF family's
+    ablation models) where one is given."""
+    cfg = get(config) if isinstance(config, str) else config
+    return dataclasses.replace(cfg, model_variant=model_variant) if model_variant else cfg
 
 
 def train(
@@ -111,12 +120,14 @@ def train(
     second one run, the first of a one-epoch run) into that directory.
     ``history_csv`` / ``history_plot``: the per-epoch rows as CSV and as a
     log-scale plot (needs matplotlib, checked before training starts).
-    ``mesh`` is not ported, nor a ``model_variant`` other than ``"pit"``.
+    ``model_variant``: the TF family's ablation model (``lite``,
+    ``transformer``, ``selfpit``; default the config's). ``mesh`` is not
+    ported.
     """
-    _not_ported(mesh=mesh, model_variant=model_variant)
+    _not_ported(mesh=mesh)
     if history_plot:
         require_matplotlib()
-    cfg = get(config) if isinstance(config, str) else config
+    cfg = with_variant(config, model_variant)
     problem = benchmarks.setup(
         cfg, data_path, ntrain=ntrain, ntest=ntest, device=device, **(setup_kwargs or {})
     )

@@ -2,7 +2,7 @@
 
 - ``GET  /health``  -> ``{"status": "ok", "benchmark": ..., "requests": N,
   "device_calls": M}``
-- ``GET  /info``    -> benchmark, the checkpoint's SHA-256 and model
+- ``GET  /info``    -> benchmark, model variant, the checkpoint's SHA-256 and model
   configuration summary
 - ``POST /predict`` -> the body is a ``.npy``, MATLAB ``.mat`` or HDF5
   input batch (raw values, the layout ``infer`` takes), sniffed from its
@@ -182,6 +182,7 @@ class PredictHandler(BaseHTTPRequestHandler):
             m = cfg.model
             self._reply_json(200, {
                 "benchmark": cfg.name,
+                "model_variant": cfg.model_variant or "pit",
                 "checkpoint_sha256": srv.predictor.checkpoint_sha256,
                 "device": str(srv.predictor.device),
                 "hid_dim": m.hid_dim,
@@ -282,10 +283,12 @@ def make_server(
     data_path: Optional[str] = None,
     setup_kwargs: Optional[dict] = None,
     device="cuda",
+    model_variant: Optional[str] = None,
 ) -> PredictServer:
     """Build the server, bound but not yet serving (call ``serve_forever``).
     ``setup_kwargs``: extra arguments of the benchmark's setup (darcy
-    answering at 421^2: ``{"downsampling": 1}``).
+    answering at 421^2: ``{"downsampling": 1}``); ``model_variant``: the TF
+    family's ablation model the checkpoint holds.
 
     ``warmup=True`` runs one batch at the serving batch size first, so the
     first request does not pay for kernel builds and allocator growth. The
@@ -295,7 +298,7 @@ def make_server(
     from position_induced_transformer_torch.train.evaluate import Predictor
 
     predictor = Predictor(config, checkpoint_path, data_path=data_path,
-                          setup_kwargs=setup_kwargs, device=device)
+                          setup_kwargs=setup_kwargs, device=device, model_variant=model_variant)
     if warmup:
         keys = {"x"} | set(predictor.required_keys)
         data = {k: np.asarray(v) for k, v in predictor.problem.test_data.items() if k in keys}

@@ -48,13 +48,16 @@ def flax_params_to_state_dict(params) -> Dict[str, torch.Tensor]:
 
 
 def flax_tf_params_to_state_dict(params) -> Dict[str, torch.Tensor]:
-    """Convert JAX ``PiTTF`` or ``PiTTFPointCloud`` params to the port's
-    ``state_dict()`` layout of the same model.
+    """Convert JAX ``PiTTF``, ``PiTTFPointCloud`` or baseline
+    (``LiteTransformer``, ``Transformer``, ``SelfPiT``) params to the
+    port's ``state_dict()`` layout of the same model.
 
     Attention subtrees (``down``, ``up``, ``PA_<i>``; ``PiTTF``'s
-    ``MHPA_<i>`` and ``up2``) carry ``band_width`` ((1, H, 1, 1) in the
-    point-cloud model, (H, 1, 1) in ``PiTTF``) and ``weight`` (H, in, V)
-    unchanged; ``Dense`` subtrees (``en_layer``, ``w1``, ``w2``, ``W_<i>``,
+    ``MHPA_<i>`` and ``up2``) carry their arrays unchanged: a position op's
+    ``band_width`` ((1, H, 1, 1) in the point-cloud model, (H, 1, 1) in
+    ``PiTTF``) and ``weight`` (H, in, V), a self op's ``query``, ``key`` and
+    ``value``, a hybrid op's ``band_width``, ``query``, ``key`` and
+    ``weight``. ``Dense`` subtrees (``en_layer``, ``w1``, ``w2``, ``W_<i>``,
     ``w``) and the ``mlp1``/``mlp2`` pairs of the ``TFMlp`` subtrees
     (``mlp1``, ``mlp2``, ``MLP_<i>``, ``mlp``, ``de_layer``) carry
     ``kernel`` transposed to ``(out, in)`` and ``bias``.
@@ -63,15 +66,15 @@ def flax_tf_params_to_state_dict(params) -> Dict[str, torch.Tensor]:
     as_tensor = lambda a: torch.from_numpy(np.array(a, dtype=np.float32))
 
     def emit(prefix: str, tree):
-        if "band_width" in tree:
-            out[f"{prefix}.band_width"] = as_tensor(tree["band_width"])
-            out[f"{prefix}.weight"] = as_tensor(tree["weight"])
-        elif "kernel" in tree:
+        if "kernel" in tree:
             out[f"{prefix}.weight"] = as_tensor(np.asarray(tree["kernel"]).T)
             out[f"{prefix}.bias"] = as_tensor(tree["bias"])
-        else:
-            for name, sub in tree.items():
+            return
+        for name, sub in tree.items():
+            if hasattr(sub, "items"):  # a subtree, else an array
                 emit(f"{prefix}.{name}", sub)
+            else:
+                out[f"{prefix}.{name}"] = as_tensor(sub)
 
     for key, sub in params.items():
         emit(key, sub)

@@ -199,10 +199,20 @@ def test_convert_structure_mismatch_is_clean_error(tmp_path):
 @pytest.mark.parametrize("option,value", [("--mesh", "data=2"), ("--model-variant", "lite"),
                                           ("--multihost", "auto")])
 def test_options_not_ported_raise(option, value):
+    """--mesh and --multihost raise as not ported; --model-variant is
+    ported and reaches the model, which on a benchmark of the torch family
+    raises with the JAX package's words (the variants exist for the TF
+    family only)."""
     for command in ("train", "evaluate", "describe"):
         argv = [command, "--benchmark", "burgers", option, value, *CPU]
         if command == "evaluate":
             argv += ["--checkpoint", "missing.pt"]
+        if option == "--model-variant":
+            if command == "evaluate":  # the checkpoint is read before the model is built
+                continue
+            with pytest.raises(ValueError, match="exists for the TF-family benchmarks only"):
+                t_cli.main(argv + ["--ntrain", "4", "--ntest", "2", *SHRINK])
+            continue
         with pytest.raises(NotImplementedError, match="not ported"):
             t_cli.main(argv)
     with pytest.raises(SystemExit):  # no --fused-mode: the port has no such switch
@@ -439,7 +449,8 @@ def test_tf_fixed_benchmarks_run_through_every_command(capsys, tmp_path, name):
     infer (a raw .npy; darcy_tf at 22^2, vorticity_tf rolled out 3 steps)
     and serve (the command in a subprocess answering one POST as infer
     does; darcy_tf at its 43^2 training grid) on the CPU; ``--model-variant
-    pit`` is accepted, another variant is not."""
+    pit`` is accepted, and ``selfpit`` is refused with the JAX package's
+    words where the latent grid is not the query grid."""
     overrides, shape, eval_opts, infer_opts = TF_FIXED_CLI[name]
     shrink = [a for o in overrides + ["model.hid_dim=8", "model.n_blocks=1"] for a in ("--set", o)]
     sizes = ["--ntrain", "10" if name == "burgers_tf" else "16", "--ntest", "4"]
@@ -494,7 +505,56 @@ def test_tf_fixed_benchmarks_run_through_every_command(capsys, tmp_path, name):
     with open(ckpt, "rb") as f:
         digest = hashlib.file_digest(f, "sha256").hexdigest()
     assert info["benchmark"] == name and info["checkpoint_sha256"] == digest, (info, log[-2000:])
+    assert info["model_variant"] == "pit"
     if name != "darcy_tf":
         np.testing.assert_allclose(served, got, rtol=1e-6, atol=1e-6)
-    with pytest.raises(NotImplementedError, match="'selfpit' is not ported"):
-        t_cli.main(["train", "--benchmark", name, "--model-variant", "selfpit", *CPU])
+    # selfpit needs the latent grid to be the query grid: none of these is
+    with pytest.raises(ValueError, match="latent == query"):
+        t_cli.main(["train", "--benchmark", name, "--model-variant", "selfpit", *sizes, *shrink,
+                    *CPU])
+
+
+def test_model_variant_runs_through_train_infer_and_serve(capsys, tmp_path):
+    """``--model-variant lite`` (burgers_tf at a CPU size) through train
+    --checkpoint, infer of a raw .npy and serve (the command in a
+    subprocess answering one POST as infer does); ``/info`` reports the
+    variant, and the pit model refuses the lite checkpoint."""
+    shrink = [a for o in ["grid=64", "latent_grid=32", "batch_size=5", "model.hid_dim=8",
+                          "model.n_blocks=1"] for a in ("--set", o)]
+    lite = ["--model-variant", "lite"]
+    ckpt = str(tmp_path / "lite.pt")
+    out = _out(capsys, t_cli.main, ["train", "--benchmark", "burgers_tf", "--epochs", "1",
+                                    "--ntrain", "10", "--ntest", "4", "--checkpoint", ckpt, *lite,
+                                    *shrink, *CPU])
+    assert np.isfinite(json.loads(out.splitlines()[-1])["final"]["train_loss"])
+    x = np.random.default_rng(0).random((3, 64, 1)).astype(np.float32)
+    inp, pred = str(tmp_path / "x.npy"), str(tmp_path / "pred.npy")
+    np.save(inp, x)
+    common = ["--benchmark", "burgers_tf", "--checkpoint", ckpt, *shrink, *CPU, "--set", "ntrain=10"]
+    res = json.loads(_out(capsys, t_cli.main, ["infer", *common, "--input", inp, "--output", pred,
+                                               *lite]).splitlines()[-1])
+    got = np.load(pred)
+    assert res["n"] == 3 and got.shape == (3, 64, 1) and np.isfinite(got).all()
+    with pytest.raises(RuntimeError, match="state_dict"):
+        t_cli.main(["infer", *common, "--input", inp])
+    cmd = [sys.executable, "-m", "position_induced_transformer_torch", "serve", *common, *lite,
+           "--port", "0"]
+    proc, base, lines, reader = _start_server(cmd)
+    served = info = None
+    try:
+        if base is not None:
+            with urllib.request.urlopen(base + "/info", timeout=60) as r:
+                info = json.loads(r.read())
+            buf = io.BytesIO()
+            np.save(buf, x)
+            req = urllib.request.Request(base + "/predict", data=buf.getvalue(), method="POST")
+            with urllib.request.urlopen(req, timeout=120) as r:
+                served = np.load(io.BytesIO(r.read()))
+    finally:
+        proc.terminate()
+        proc.wait(timeout=60)
+        reader.join(timeout=60)
+        log = "".join(lines)
+    assert served is not None, log[-2000:]
+    assert info["benchmark"] == "burgers_tf" and info["model_variant"] == "lite", info
+    np.testing.assert_allclose(served, got, rtol=1e-6, atol=1e-6)

@@ -2,9 +2,11 @@
 fixed-mesh kernels #1-#4 and the schedule variants #5 (v1) and #6 (v2) of
 #1 (one body; each writes its own M and L), the per-sample-mesh kernels #7
 and #8, the TF-semantics kernels #9-#12 and the fixed-mesh TF kernel #13;
+kernel #14 (dot-product attention of the TF ablation variants);
 and the launches of the model paths (Burgers, Darcy, sod, elasticity,
 vorticity under each remat mode, NACA, the five fixed-mesh TF
-configurations), with #1 recomputed under checkpointing to the same bits.
+configurations, burgers_tf's lite and selfpit variants), with #1 recomputed
+under checkpointing to the same bits.
 
 Every test here is marked ``cuda`` and skips without a CUDA device. The
 file imports no JAX, so that it runs on a machine without it:
@@ -1609,4 +1611,162 @@ def test_tf_fixed_training_step_and_forward_launch_counts(cuda, name, overrides,
         out = problem.task.forward(problem.geom, {"x": data["x"]})
     torch.cuda.synchronize()
     assert [f.launches - b for f, b in zip(counters, before)] == [per_step, 0, 0, 0, 0]
+    assert torch.isfinite(out).all()
+
+
+# ------------------------------------------------- #14: dot-product attention
+
+# B, L, H, V, kind: "self", hybrid "local" / "global", or "empty" (local,
+# every second row keeping nothing); L no tile multiple, V 16 to 256 (21: 4-byte copies)
+DOTATT_SHAPES = [
+    (2, 1, 1, 16, "self"),
+    (3, 17, 3, 16, "local"),
+    (2, 972, 8, 64, "self"),
+    (1, 1849, 2, 64, "global"),
+    (2, 300, 1, 256, "local"),
+    (1, 1024, 2, 32, "local"),
+    (2, 100, 3, 21, "self"),
+    (2, 130, 2, 128, "empty"),
+]
+
+
+def _dotatt_case(dev, B, L, H, V, kind, seed=0):
+    rng = np.random.default_rng(seed)
+    to = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+    q, k, v = (to(rng.standard_normal((B, L, H, V))) for _ in range(3))
+    g = to(rng.standard_normal((B, L, H * V)))
+    dist = thr = scale = None
+    if kind != "self":
+        dist, scale = to(rng.random((L, L))), to(rng.uniform(-0.8, 0.8, H))
+    if kind in ("local", "empty"):
+        thr = torch.quantile(dist * scale.reshape(-1, 1, 1), 0.1, dim=-1)
+    if kind == "empty":
+        thr[:, ::2] = -1e30
+    return q, k, v, g, dist, thr, scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L,H,V,kind", DOTATT_SHAPES)
+def test_cuda_dotatt_kernels_match_plain(cuda, B, L, H, V, kind):
+    """#14's forward (and row statistics), dq (and delta), dk, dv and the
+    hybrid's dscale against their plain versions; every entry point twice
+    gives the same bits."""
+    from position_induced_transformer_torch.kernels import dotatt as kd
+
+    q, k, v, g, dist, thr, scale = _dotatt_case(cuda, B, L, H, V, kind)
+    out, stats = kd.dotatt_cuda(q, k, v, dist, thr, scale)
+    dq, delta, ds = kd.dotatt_bwd_dq_cuda(q, k, v, out, g, stats, dist, thr, scale)
+    dk, dv = kd.dotatt_bwd_dkdv_cuda(q, k, v, g, stats, delta, dist, thr, scale)
+    again = (kd.dotatt_cuda(q, k, v, dist, thr, scale)[0],
+             *kd.dotatt_bwd_dq_cuda(q, k, v, out, g, stats, dist, thr, scale)[::2],
+             *kd.dotatt_bwd_dkdv_cuda(q, k, v, g, stats, delta, dist, thr, scale))
+    torch.cuda.synchronize()
+    for first, second in zip((out, dq, ds, dk, dv), again):
+        assert (first is None and second is None) or torch.equal(first, second)
+    args = (q, k, v, g, dist, thr, scale)
+    want = kd.dotatt_reference(q, k, v, dist, thr, scale)
+    assert ((out - want).abs() <= ATOL + RTOL * want.abs()).all()
+    st = kd.dotatt_stats_reference(q, k, dist, thr, scale)
+    assert ((stats - st).abs() <= ATOL + RTOL * st.abs()).all()
+    assert ((delta - kd.dotatt_bwd_delta_reference(want, g, H)).abs()
+            <= ATOL + RTOL * kd.dotatt_bwd_delta_reference(want.abs(), g.abs(), H)).all()
+    # on the magnitude of the terms each sums
+    sizes = kd.dotatt_bwd_term_sizes(*args)
+    for got, ref, size in zip((dq, dk, dv), (kd.dotatt_bwd_dq_reference, kd.dotatt_bwd_dk_reference,
+                                             kd.dotatt_bwd_dv_reference), sizes):
+        assert ((got - ref(*args)).abs() <= ATOL + RTOL * size).all(), ref.__name__
+    if dist is not None:
+        want_ds = kd.dotatt_bwd_dscale_reference(*args)
+        norm = want_ds.abs().max() + 1.0
+        assert ((ds - want_ds).abs() / norm <= DS_ATOL + DS_RTOL * want_ds.abs() / norm).all()
+
+
+@pytest.mark.cuda
+def test_dotatt_without_a_library_raises(cuda, monkeypatch):
+    """A CUDA tensor launches #14 or raises: with no library to load the
+    public function raises, with and without a gradient, and no plain
+    version runs in its place."""
+    from position_induced_transformer_torch.kernels import dotatt as kd
+
+    q, k, v, _, dist, thr, scale = _dotatt_case(cuda, 2, 40, 2, 16, "local")
+
+    def no_library(name):
+        raise RuntimeError(f"no library {name}")
+
+    monkeypatch.setattr(kd._build, "load", no_library)
+    monkeypatch.setattr(kd, "dotatt_reference", None)  # a fallback would call it
+    with pytest.raises(RuntimeError, match="no library dotatt_fwd"):
+        kd.dot_attention(q, k, v, dist, thr, scale)
+    with pytest.raises(RuntimeError, match="no library dotatt_fwd"):
+        kd.dot_attention(q.requires_grad_(True), k, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L,H,V,kind", [DOTATT_SHAPES[1], DOTATT_SHAPES[4], DOTATT_SHAPES[6]])
+def test_dotatt_function_gradients_match_plain_autograd(cuda, B, L, H, V, kind):
+    """One forward + backward through dot_attention launches #14's
+    forward, dq and dk/dv once each; its gradients in q, k, v and the
+    scales against torch.autograd of the plain version."""
+    from position_induced_transformer_torch.kernels import dotatt as kd
+
+    q, k, v, g, dist, thr, scale = _dotatt_case(cuda, B, L, H, V, kind)
+    counters = (kd.dotatt_cuda, kd.dotatt_bwd_dq_cuda, kd.dotatt_bwd_dkdv_cuda)
+
+    def grads(fn):
+        leaves = [a.clone().requires_grad_(True) for a in (q, k, v)]
+        s = None if scale is None else scale.clone().requires_grad_(True)
+        out = fn(*leaves, dist, thr, s)
+        (out * g).sum().backward()
+        return [out.detach()] + [a.grad for a in leaves] + ([] if s is None else [s.grad])
+
+    before = [f.launches for f in counters]
+    got = grads(kd.dot_attention)
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(counters, before)] == [1, 1, 1]
+    want = grads(kd.dotatt_reference)
+    for i, (a, b) in enumerate(zip(got, want)):
+        norm = b.abs().max() + 1.0
+        assert ((a - b).abs() / norm <= DS_ATOL + DS_RTOL * b.abs() / norm).all(), i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant,overrides,per_step", [
+    ("lite", ["grid=256", "latent_grid=128", "model.hid_dim=32"], (3, 4)),
+    ("selfpit", ["grid=256", "latent_grid=256", "model.hid_dim=32"], (0, 7)),
+])
+def test_variant_training_step_launch_counts(cuda, variant, overrides, per_step):
+    """A burgers_tf training step of the lite variant launches #13 at its
+    three position ops and #14 at its four self ops, once per entry point
+    each; selfpit #14 at all seven (hybrid) and keeps every band_width at
+    or above 0 (keras' NonNeg projection); a served forward launches the
+    forwards alone."""
+    import dataclasses as dc
+
+    from position_induced_transformer_torch import configs
+    from position_induced_transformer_torch.kernels import dotatt as kd
+    from position_induced_transformer_torch.kernels import posatt_tf_fixed as kf
+    from position_induced_transformer_torch.train import benchmarks, loop, runner
+
+    cfg = dc.replace(configs.apply_overrides(configs.BURGERS_TF, overrides), model_variant=variant)
+    problem = benchmarks.setup(cfg, ntrain=cfg.batch_size, ntest=2, device=cuda)
+    state = runner.init_state(problem, 0)
+    data = {k: torch.from_numpy(np.ascontiguousarray(v)).to(cuda) for k, v in problem.train_data.items()}
+    perm = torch.arange(cfg.batch_size, device=cuda).reshape(1, -1)
+    counters = (kf.posatt_tf_fixed_cuda, kf.posatt_tf_fixed_bwd_dscale_cuda,
+                kf.posatt_tf_fixed_bwd_dv_cuda, kd.dotatt_cuda, kd.dotatt_bwd_dq_cuda,
+                kd.dotatt_bwd_dkdv_cuda)
+    before = [f.launches for f in counters]
+    _, losses = loop.make_train_epoch(problem.task, lambda step: 1e-2)(state, problem.geom, data, perm)
+    torch.cuda.synchronize()
+    n13, n14 = per_step
+    assert [f.launches - b for f, b in zip(counters, before)] == [n13] * 3 + [n14] * 3
+    assert torch.isfinite(losses).all()
+    if variant == "selfpit":
+        bw = [p for k, p in problem.model.named_parameters() if k.endswith("band_width")]
+        assert len(bw) == 7 and min(float(p.detach().min()) for p in bw) >= 0.0
+    before = [f.launches for f in counters]
+    with torch.inference_mode():
+        out = problem.task.forward(problem.geom, {"x": data["x"]})
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(counters, before)] == [n13, 0, 0, n14, 0, 0]
     assert torch.isfinite(out).all()

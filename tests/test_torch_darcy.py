@@ -309,24 +309,28 @@ def test_evaluate_zssr_matches_jax(problems, tmp_path, monkeypatch):
 
 def test_evaluate_refusals(tmp_path):
     """ZSSR on a setup without ``downsampling`` is a ValueError, as in JAX,
-    and so is the shuffle ablation of a rollout benchmark; the options and
-    models not ported yet (``mesh``, ``model_variant``; a TF-family config
-    of another variant than 'pit') raise NotImplementedError."""
+    and so is the shuffle ablation of a rollout benchmark; ``mesh`` is not
+    ported yet and raises NotImplementedError. ``model_variant`` is ported:
+    on the torch family it raises with the JAX package's words, and a
+    TF-family variant refuses a checkpoint of another model."""
     cfg = t_configs.apply_overrides(t_configs.BURGERS, ["grid=64", "latent_grid=16",
                                                         "model.hid_dim=8", "model.n_blocks=1"])
     path = t_ckpt.save(str(tmp_path / "b.pt"), t_bench._make_model(cfg).state_dict(), "burgers")
     with pytest.raises(ValueError, match="downsampling"):
         t_eval.evaluate(cfg, path, zssr=True, device="cpu")
-    for option in ("mesh", "model_variant"):
-        with pytest.raises(NotImplementedError, match=f"evaluate\\({option}=...\\) is not ported"):
-            t_eval.evaluate(cfg, path, device="cpu", **{option: "x"})
+    with pytest.raises(NotImplementedError, match="evaluate\\(mesh=...\\) is not ported"):
+        t_eval.evaluate(cfg, path, device="cpu", mesh="x")
+    with pytest.raises(ValueError, match="exists for the TF-family benchmarks only"):
+        t_eval.evaluate(cfg, path, device="cpu", model_variant="x")
     with pytest.raises(ValueError, match="one-step operator map"):
         t_eval.evaluate(t_configs.VORTICITY, path, shuffle_ablation=True, device="cpu")
     burgers_tf = t_ckpt.save(str(tmp_path / "btf.pt"), t_bench._make_model(cfg).state_dict(),
                              "burgers_tf")
-    lite = dataclasses.replace(t_configs.BURGERS_TF, model_variant="lite")
-    with pytest.raises(NotImplementedError, match="'lite' is not ported"):
-        t_eval.evaluate(lite, burgers_tf, device="cpu")
+    lite = dataclasses.replace(t_configs.apply_overrides(t_configs.BURGERS_TF, [
+        "grid=64", "latent_grid=32", "model.hid_dim=8", "model.n_blocks=1", "ntrain=10"]),
+        model_variant="lite")
+    with pytest.raises(RuntimeError, match="state_dict"):  # a PiT's weights
+        t_eval.evaluate(lite, burgers_tf, ntest=2, device="cpu")
     result = t_eval.evaluate(cfg, path, ntest=3, device="cpu")
     assert result["n_test"] == 3 and not result["zssr"] and len(result["rel_l1_quartiles"]) == 3
 

@@ -167,10 +167,14 @@ def test_model_rejects_other_compute_dtypes():
 
 
 def test_setup_names_unported_benchmarks():
-    # every built-in benchmark is ported; a TF-family model variant is not
+    # every built-in benchmark is ported, and every TF-family model variant:
+    # darcy_tf's lite model takes dot-product attention in its processor
     assert set(t_bench.SETUPS) >= set(t_configs.BUILTIN)
     lite = dataclasses.replace(t_configs.DARCY_TF, model_variant="lite")
-    with pytest.raises(NotImplementedError, match=re.escape("model variant 'lite' is not ported")):
-        t_bench.setup(lite, ntrain=8, ntest=2, device="cpu")
+    problem = t_bench.setup(lite, ntrain=8, ntest=2, device="cpu")
+    assert type(problem.model.MHPA_0).__name__ == "MultiHeadSelfAtt"
+    with pytest.raises(ValueError, match=re.escape("unknown model variant 'nope'")):
+        t_bench.setup(dataclasses.replace(lite, model_variant="nope"), ntrain=8, ntest=2,
+                      device="cpu")
     with pytest.raises(ValueError, match="unknown benchmark"):
         t_configs.get("nope")

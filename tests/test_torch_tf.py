@@ -590,12 +590,18 @@ def test_runner_trains_and_serves_bare_npy(problems, tmp_path):
 
 
 def test_unported_variants_and_dtypes_raise():
-    with pytest.raises(NotImplementedError, match="not ported"):
-        t_tf.PiTTFPointCloud(4, 1, 8, 2, 2.0, 2.0, processor_attention="self")
+    """Only float32 is ported. The point-cloud model takes position and
+    self attention (the lite and transformer variants) and refuses another
+    kind; selfpit on the point cloud raises with the JAX package's words."""
+    assert type(t_tf.PiTTFPointCloud(4, 1, 8, 2, 2.0, 2.0, processor_attention="self").PA_0
+                ).__name__ == "MultiHeadSelfAtt"
+    with pytest.raises(ValueError, match="unknown point-cloud attention kind 'hybrid'"):
+        t_tf.PiTTFPointCloud(4, 1, 8, 2, 2.0, 2.0, coder_attention="hybrid")
     with pytest.raises(NotImplementedError, match="float32"):
         t_tf.PiTTFPointCloud(4, 1, 8, 2, 2.0, 2.0, compute_dtype="bfloat16")
-    with pytest.raises(NotImplementedError):
-        t_bench._make_model(dataclasses.replace(t_configs.ELASTICITY_TF, model_variant="lite"))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        t_bench.setup(dataclasses.replace(t_configs.BURGERS_TF, model_variant="transformer"),
-                      device="cpu")
+    lite = t_bench._make_model(dataclasses.replace(t_configs.ELASTICITY_TF, model_variant="lite"))
+    assert type(lite.down).__name__ == "MultiHeadPosAttBatched"
+    with pytest.raises(ValueError, match="point-cloud"):
+        t_bench._make_model(dataclasses.replace(t_configs.ELASTICITY_TF, model_variant="selfpit"))
+    model = t_bench._make_model(dataclasses.replace(t_configs.BURGERS_TF, model_variant="transformer"))
+    assert type(model.up2).__name__ == "MultiHeadSelfAtt"

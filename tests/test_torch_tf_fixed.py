@@ -589,15 +589,20 @@ def test_state_dict_carries_the_full_width_tree(name):
 
 
 def test_unported_variants_and_dtypes_raise():
-    """Only position attention in float32 is ported; a model variant other
-    than 'pit' names itself as not ported."""
-    with pytest.raises(NotImplementedError, match="not ported"):
-        t_tf.PiTTF(3, 1, 8, 2, 1.0, 8.0, coder_attention="hybrid")
+    """Only float32 is ported. Every model variant is: naca_tf builds its
+    lite and transformer models and refuses selfpit with the JAX package's
+    words (its latent grid is not its query grid); an unknown attention
+    kind or variant raises."""
+    assert type(t_tf.PiTTF(3, 1, 8, 2, 1.0, 8.0, coder_attention="hybrid").down).__name__ == (
+        "SelfMultiHeadPosAtt")
+    with pytest.raises(ValueError, match="unknown attention kind"):
+        t_tf.PiTTF(3, 1, 8, 2, 1.0, 8.0, coder_attention="cosine")
     with pytest.raises(NotImplementedError, match="float32"):
         t_tf.PiTTF(3, 1, 8, 2, 1.0, 8.0, compute_dtype="bfloat16")
-    for variant in ("lite", "transformer", "selfpit"):
+    for variant, processor in (("lite", "MultiHeadSelfAtt"), ("transformer", "MultiHeadSelfAtt")):
         cfg = dataclasses.replace(t_configs.NACA_TF, model_variant=variant)
-        with pytest.raises(NotImplementedError, match=f"'{variant}' is not ported"):
-            t_bench._make_model(cfg)
+        assert type(t_bench._make_model(cfg).MHPA_0).__name__ == processor
+    with pytest.raises(ValueError, match="latent == query"):
+        t_bench._make_model(dataclasses.replace(t_configs.NACA_TF, model_variant="selfpit"))
     with pytest.raises(ValueError, match="unknown model variant"):
         t_bench._make_model(dataclasses.replace(t_configs.SOD_TF, model_variant="nope"))

@@ -288,8 +288,18 @@ def test_grad_accum_matches_whole_batches():
 
 @pytest.mark.parametrize("option", ["mesh", "model_variant"])
 def test_unported_runner_options_raise(option):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        t_runner.train("burgers", device="cpu", **{option: "x"})
+    """``mesh`` is not ported; ``model_variant`` is, and reaches the model:
+    an unknown one raises, and on the torch family any raises with the JAX
+    package's words."""
+    if option == "mesh":
+        with pytest.raises(NotImplementedError, match="not ported"):
+            t_runner.train("burgers", device="cpu", **{option: "x"})
+        return
+    with pytest.raises(ValueError, match="exists for the TF-family benchmarks only"):
+        t_runner.train(_small_cfg(), device="cpu", ntrain=4, ntest=2, model_variant="x")
+    with pytest.raises(ValueError, match="unknown model variant 'x'"):
+        t_runner.train(dataclasses.replace(t_configs.BURGERS_TF, grid=(64,), latent_grid=(32,)),
+                       device="cpu", ntrain=5, ntest=2, model_variant="x")
 
 
 def test_permutations():
