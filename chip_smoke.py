@@ -260,11 +260,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
     sod_tf L 1024 and 2048; darcy_tf L 1024 and 1849, V 64; vorticity_tf
     L 256 and 4096, 1 head of V 256; naca_tf L 2886 at B 8 and the largest,
     L 11,271 at B 1, V 128; elasticity_tf L 972, 8 heads of V 64, B 10),
-    each timed beside its plain version, the bound (the operations of the
-    kept entries, or bytes) and, for the forward, SDPA; and at ragged
-    shapes (L 1 to 1849, V 16 to 256 and 21, 1 to 8 heads, rows that keep
-    nothing); the autograd Function's gradients against autograd of the
-    plain version, one forward + backward launching each entry point once;
+    each timed beside its plain version, two bounds (the operations of the
+    kept entries at the f32 CUDA-core rate and, as the kernels run them,
+    3xTF32 at the tensor cores' rate, or bytes), SDPA's forward and SDPA's
+    backward (dq, dk and dv together, with the backend its trace shows);
+    and at ragged shapes (L 1 to 2100, V 16 to 256 and 21, 1 to 8 heads,
+    the tile edges L 15, 17, 63, 65, 130, rows that keep nothing, the
+    split-4 path of few-block ops and split 1 at every padded width); the
+    autograd Function's gradients against autograd of the plain version,
+    one forward + backward launching each entry point once;
 33. the variants trained, evaluated and served at full width through
     ``runner.train(model_variant=)``, ``evaluate``, ``make_server`` and
     ``infer``: burgers_tf lite (#13 3/3/3 and #14 4/4/4 a step),
@@ -315,6 +319,7 @@ REPO = Path(__file__).resolve().parent
 
 # the H100 SXM's published peaks (NVIDIA data sheet, dense, at 700 W)
 PEAK_F32_FLOPS = 67e12  # float32 outside the tensor cores
+PEAK_TF32_FLOPS = 495e12  # TF32 on the tensor cores
 PEAK_BYTES = 3.35e12  # HBM3
 
 # kernel vs plain version, one op: both float32, sums in another order
@@ -544,6 +549,14 @@ def roofline(flops, nbytes):
     """Least time in ms for ``flops`` f32 operations and ``nbytes`` bytes of
     device memory traffic, and which of the two bounds it."""
     t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def roofline_tf32(flops, nbytes):
+    """Least time in ms for ``flops`` float32 operations run as 3xTF32 (three
+    tensor-core operations each, kernel #14's products) and ``nbytes`` bytes,
+    and which of the two bounds it."""
+    t_ops, t_bytes = 3 * flops / PEAK_TF32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -4590,7 +4603,9 @@ DOTATT_OPS = {
     "elasticity_tf_self": ("elasticity_tf", "transformer", "self", 10, 6),
 }
 DOTATT_RAGGED = [  # name, B, L, H, V, kind: self, local / global (hybrid), empty (local,
-    # every second row keeping nothing: uniform weights)
+    # every second row keeping nothing: uniform weights). cdiv(L, 64) * H * B
+    # under the card's 132 SMs takes the split-4 path, at or above it split 1
+    # (split 2, eight warps a block, where the width leaves one block an SM)
     ("dot_l1_h1_v16", 2, 1, 1, 16, "self"),
     ("dot_l17_h3_v16_local", 3, 17, 3, 16, "local"),
     ("dot_l972_h8_v16", 2, 972, 8, 16, "self"),
@@ -4598,6 +4613,21 @@ DOTATT_RAGGED = [  # name, B, L, H, V, kind: self, local / global (hybrid), empt
     ("dot_l300_h3_v256_local", 2, 300, 3, 256, "local"),
     ("dot_l100_h3_v21", 2, 100, 3, 21, "self"),  # V % 4 != 0: 4-byte copies
     ("dot_l130_h8_v128_empty", 2, 130, 8, 128, "empty"),
+    # tile edges: 16-row warps, 8-row n-tiles, 64-row blocks
+    ("dot_l15_h4_v32", 1, 15, 4, 32, "self"),
+    ("dot_l63_h5_v16_global", 2, 63, 5, 16, "global"),
+    ("dot_l65_h6_v32_local", 2, 65, 6, 32, "local"),
+    ("dot_l130_h7_v256", 2, 130, 7, 256, "self"),
+    ("dot_l17_h8_v256_empty", 1, 17, 8, 256, "empty"),
+    ("dot_l65_h2_v64_empty", 3, 65, 2, 64, "empty"),
+    # few blocks: vorticity_tf lite's processor at batch 1 (split 4)
+    ("dot_l256_h1_v256_few", 1, 256, 1, 256, "self"),
+    # split 1 (2 where one block fills an SM) at every padded width
+    ("dot_l1100_h3_v16_split1", 3, 1100, 3, 16, "self"),
+    ("dot_l2100_h2_v32_local_split1", 2, 2100, 2, 32, "local"),
+    ("dot_l1100_h8_v64_global_split1", 2, 1100, 8, 64, "global"),
+    ("dot_l1500_h3_v128_split1", 2, 1500, 3, 128, "self"),
+    ("dot_l2100_h1_v256_local_split1", 4, 2100, 1, 256, "local"),
 ]
 
 
@@ -4666,21 +4696,54 @@ def dotatt_work(case):
     }
 
 
-def dotatt_sdpa(case):
-    """One SDPA call computing the forward: (B, H, L, V) q, k, v and, for a
-    hybrid op, the distance bias (masked entries -inf) as ``attn_mask``."""
+def dotatt_sdpa_args(case, grad=False):
+    """SDPA's arguments for one op: (B, H, L, V) q, k, v (leaves needing a
+    gradient with ``grad``) and, for a hybrid op, the distance bias (masked
+    entries -inf, a row that keeps nothing 0) as ``attn_mask``."""
     import torch
-    import torch.nn.functional as F
 
     q, k, v, _, dist, thr, scale = case
-    qs, ks, vs = (t.permute(0, 2, 1, 3).contiguous() for t in (q, k, v))
+    qs, ks, vs = (t.permute(0, 2, 1, 3).contiguous().requires_grad_(grad) for t in (q, k, v))
     mask = None
     if dist is not None:
         scaled = dist * scale.reshape(-1, 1, 1)
         mask = -scaled if thr is None else torch.where(scaled <= thr[:, :, None], -scaled,
                                                        float("-inf"))
         mask = torch.where(torch.isinf(mask).all(-1, keepdim=True), 0.0, mask)[None]
+    return qs, ks, vs, mask
+
+
+def dotatt_sdpa(case):
+    """One SDPA call computing the forward on ``dotatt_sdpa_args``."""
+    import torch.nn.functional as F
+
+    qs, ks, vs, mask = dotatt_sdpa_args(case)
     return lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask)
+
+
+def dotatt_sdpa_backward(case, want_grads):
+    """SDPA's backward on one op: ``torch.autograd.grad`` of its forward for
+    the cotangent g, dq, dk and dv together. Returns the call, its largest
+    error against the plain gradients (``want_grads``: dq, dk, dv, (B, L,
+    H*V) each) and the kernels its trace shows (the backend SDPA took)."""
+    import torch
+    import torch.nn.functional as F
+
+    g = case[3]
+    B, L, H, V = case[0].shape
+    qs, ks, vs, mask = dotatt_sdpa_args(case, grad=True)
+    out = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask)
+    gs = g.reshape(B, L, H, V).permute(0, 2, 1, 3).contiguous()
+    call = lambda: torch.autograd.grad(out, (qs, ks, vs), gs, retain_graph=True)
+    got = [d.permute(0, 2, 1, 3).reshape(B, L, H * V) for d in call()]
+    err = max((a - b).abs().max().item() for a, b in zip(got, want_grads))
+    for _ in range(2):  # the first profile of a process can miss kernels
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask).backward(gs)
+            torch.cuda.synchronize()
+    device_ms = lambda e: getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+    names = sorted({e.key[:120] for e in prof.key_averages() if device_ms(e) > 0})
+    return call, err, names
 
 
 def dotatt_check(name, case, timed, reps=5, per_rep=4):
@@ -4688,9 +4751,12 @@ def dotatt_check(name, case, timed, reps=5, per_rep=4):
     the forward with its statistics, dq with delta and (hybrid) dscale,
     dk and dv, each run twice to the same bits; outputs at the op
     tolerances, dq, dk and dv on their terms' magnitude, dscale normalised.
-    With ``timed``, each timed beside its plain version, the bound (the
-    operations of the kept entries, or bytes) and, for the forward, SDPA.
-    Returns the row."""
+    With ``timed``, each timed beside its plain version, two bounds (the
+    operations of the kept entries at the f32 CUDA-core rate, and as 3xTF32
+    on the tensor cores, or bytes), SDPA's forward (the forward's
+    library time) and SDPA's backward (dq, dk and dv together: dk/dv's
+    library time, with its error and the kernels its trace shows). The
+    row records which split the entry points took. Returns the row."""
     import torch
 
     from position_induced_transformer_torch.kernels import dotatt as kd
@@ -4730,7 +4796,7 @@ def dotatt_check(name, case, timed, reps=5, per_rep=4):
         errs["dscale"] = (ds - want_ds).abs().max().item()
     row = {"shape": name, "B": B, "L": L, "H": H, "V": V,
            "kind": "self" if dist is None else ("local" if thr is not None else "global"),
-           "max_abs_err": errs}
+           "split": kd.dotatt_split(L, H, B, V), "max_abs_err": errs}
     if not timed:
         return row
     kept, nbytes = dotatt_work(case)
@@ -4755,9 +4821,11 @@ def dotatt_check(name, case, timed, reps=5, per_rep=4):
     row["kept_entries"] = kept
     for part in ("fwd", "dq", "dkdv"):
         bound_ms, bound_by = roofline(flops[part], nbytes[part])
+        tf32_ms, tf32_by = roofline_tf32(flops[part], nbytes[part])
         row[part] = {"ms": cuda_ms(launch[part], reps=reps, per_rep=per_rep),
                      "plain_ms": cuda_ms(plain[part], reps=reps, per_rep=per_rep),
-                     "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops[part],
+                     "bound_ms": bound_ms, "bound_by": bound_by, "bound_tf32_ms": tf32_ms,
+                     "bound_tf32_by": tf32_by, "flops": flops[part],
                      "bytes": nbytes[part], "library_ms": None}
         row[part]["tflops"] = flops[part] / row[part]["ms"] / 1e9
     sdpa = dotatt_sdpa(case)
@@ -4765,6 +4833,14 @@ def dotatt_check(name, case, timed, reps=5, per_rep=4):
         sdpa().permute(0, 2, 1, 3).reshape(B, L, -1) - want).abs().max().item()
     row["fwd"]["library_ms"] = cuda_ms(sdpa, reps=reps, per_rep=per_rep)
     del sdpa
+    want_grads = [ref(*args) for ref in (kd.dotatt_bwd_dq_reference, kd.dotatt_bwd_dk_reference,
+                                         kd.dotatt_bwd_dv_reference)]
+    sdpa_bwd, bwd_err, backend = dotatt_sdpa_backward(case, want_grads)
+    del want_grads
+    row["dkdv"]["library_ms"] = cuda_ms(sdpa_bwd, reps=reps, per_rep=per_rep)
+    row["dkdv"].update(library_covers="dq, dk and dv (SDPA's backward)",
+                       library_max_abs_err=bwd_err, library_kernels=backend)
+    del sdpa_bwd
     return row
 
 
@@ -4825,9 +4901,11 @@ def dotatt_kernel_phase():
     """#14's forward, dq (with delta and dscale) and dk/dv against their
     plain versions at every self and hybrid op of the variants at full
     width (DOTATT_OPS: the hybrid ops on burgers_tf's own distances and
-    in-call thresholds) and at ragged shapes (L 1 to 1849, V 16 to 256 and
-    21, 1 to 8 heads, rows that keep nothing); each full-width op timed
-    beside its plain version, the bound and SDPA; the autograd Function's
+    in-call thresholds) and at ragged shapes (DOTATT_RAGGED: L 1 to 2100,
+    V 16 to 256 and 21, 1 to 8 heads, the tile edges, rows that keep
+    nothing, both splits at every padded width); each full-width op timed
+    beside its plain version, both bounds, SDPA's forward and backward;
+    the autograd Function's
     gradients against autograd of the plain version, one forward +
     backward launching each entry point once."""
     import numpy as np
@@ -4850,11 +4928,14 @@ def dotatt_kernel_phase():
         row.update(config=config, variant=variant, op=op, launches_per_forward=per_forward)
         rows.append(row)
         log(f"kernel dotatt {name}: {json.dumps(row)}")
-        log(f"#14 {name} (B {row['B']}, L {row['L']}, H {row['H']}, V {row['V']}, {row['kind']}): "
+        log(f"#14 {name} (B {row['B']}, L {row['L']}, H {row['H']}, V {row['V']}, {row['kind']}, "
+            f"split {row['split']}): "
             + "; ".join(f"{p} {row[p]['ms']:.4f} ms (plain {row[p]['plain_ms']:.4f}, bound "
-                        f"{row[p]['bound_ms']:.4f}, {row[p]['tflops']:.2f} TFLOP/s)"
+                        f"{row[p]['bound_ms']:.4f}, 3xTF32 bound {row[p]['bound_tf32_ms']:.4f}, "
+                        f"{row[p]['tflops']:.2f} TFLOP/s)"
                         for p in ("fwd", "dq", "dkdv"))
-            + f"; SDPA {row['fwd']['library_ms']:.4f}")
+            + f"; SDPA {row['fwd']['library_ms']:.4f}, SDPA backward "
+            f"{row['dkdv']['library_ms']:.4f} ({', '.join(row['dkdv']['library_kernels'])})")
         if name in ("burgers_tf_self", "burgers_tf_selfpit_down", "burgers_tf_selfpit_processor"):
             fn_err = max(fn_err, dotatt_function_check(name, case))
         del case
@@ -5356,8 +5437,8 @@ def dotatt_entries(rows, ragged_err, fn_err, reports):
             by = {kind: sum(r[part]["bound_ms"] * r["launches_per_forward"] for r in ops
                             if r[part]["bound_by"] == kind) for kind in ("operations", "bytes")}
             return {"ms": total("ms"), "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
-                    "bound_by": max(by, key=by.get),
-                    "library_ms": total("library_ms") if part == "fwd" else None}
+                    "bound_by": max(by, key=by.get), "bound_tf32_ms": total("bound_tf32_ms"),
+                    "library_ms": total("library_ms") if part != "dq" else None}
 
         launches = {p: v.get(name, 0) for p, v in by_path.items() if v.get(name, 0)}
         entries.append({
@@ -5369,6 +5450,7 @@ def dotatt_entries(rows, ragged_err, fn_err, reports):
                         "(XLA, no pallas_call)",
             "launches": sum(launches.values()),
             "launches_by_path": launches,
+            **({"library_covers": "dq, dk and dv: SDPA's backward"} if part == "dkdv" else {}),
             "max_abs_err": max(e.get(key, 0.0) for e in [r["max_abs_err"] for r in rows]
                                + list(ragged_err.values()) for key in ERR_KEYS[part]),
             **summed(("burgers_tf_self",)),

@@ -19,7 +19,9 @@ variants (``lite``, ``transformer``, ``selfpit``). For head h, with
 Two hand-written sm_90a sources: ``csrc/dotatt_fwd.cu`` (the forward,
 writing each row's max m and sum l, (2, B, H, L)) and
 ``csrc/dotatt_bwd.cu`` (dq with each row's ``delta = sum g * out`` and,
-hybrid, dscale (H,); then dk and dv, which read delta). Dispatch is by
+hybrid, dscale (H,); then dk and dv, which read delta). Their products run
+on the tensor cores as 3xTF32 (``mma.sync`` with each float32 operand split
+into two TF32 halves; ``csrc/dotatt.cuh``). Dispatch is by
 device: a CUDA tensor launches the kernel or raises, a CPU tensor takes the
 plain version (``*_reference``). There is no fallback and no switch.
 """
@@ -265,9 +267,21 @@ def dotatt_bwd_dq_cuda(q, k, v, out, g, stats, dist=None, thr=None, scale=None):
 
 
 def _bwd_rows(vp: int) -> int:
+    """The fewest query rows a dq block owns: sizes dscale's partials."""
     fn = getattr(_build.load("dotatt_bwd"), "dotatt_bwd_rows")
     fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
     return fn(vp)
+
+
+def dotatt_split(L: int, H: int, B: int, V: int) -> Tuple[int, int, int]:
+    """The splits the forward, dq and dk/dv take at this shape on the
+    current card, from the library: 1 (four warps, each owning 16 rows of a
+    64-row block and reading every streamed row), 2 (eight warps, two on
+    each 16 rows, each reading half of every streamed tile) or 4 (few
+    blocks: four warps owning the same 16 rows, each reading a quarter)."""
+    fn = getattr(_build.load("dotatt_fwd"), "dotatt_split")
+    fn.argtypes, fn.restype = [ctypes.c_int] * 5, ctypes.c_int
+    return tuple(fn(L, H, B, _width(V), entry) for entry in range(3))
 
 
 def dotatt_bwd_dkdv_cuda(q, k, v, g, stats, delta, dist=None, thr=None, scale=None):

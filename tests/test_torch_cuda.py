@@ -1617,7 +1617,10 @@ def test_tf_fixed_training_step_and_forward_launch_counts(cuda, name, overrides,
 # ------------------------------------------------- #14: dot-product attention
 
 # B, L, H, V, kind: "self", hybrid "local" / "global", or "empty" (local,
-# every second row keeping nothing); L no tile multiple, V 16 to 256 (21: 4-byte copies)
+# every second row keeping nothing); L no tile multiple, V 16 to 256 (21: 4-byte copies).
+# cdiv(L, 64) * H * B under the card's 132 SMs takes the split-4 path (the
+# four warps of a block own the same 16 rows), at or above it split 1 (or 2:
+# eight warps, two on each 16 rows, where the width leaves one block an SM).
 DOTATT_SHAPES = [
     (2, 1, 1, 16, "self"),
     (3, 17, 3, 16, "local"),
@@ -1627,6 +1630,19 @@ DOTATT_SHAPES = [
     (1, 1024, 2, 32, "local"),
     (2, 100, 3, 21, "self"),
     (2, 130, 2, 128, "empty"),
+    # tile edges (16-row warps, 8-key tiles, 64-row blocks)
+    (1, 15, 4, 32, "self"),
+    (2, 63, 5, 16, "global"),
+    (2, 65, 6, 32, "local"),
+    (2, 130, 7, 256, "self"),
+    (1, 17, 8, 256, "empty"),
+    # few blocks: vorticity_tf lite's processor at batch 1, split 4
+    (1, 256, 1, 256, "self"),
+    # split 1 (2 where one block fills an SM) at every padded width
+    (3, 1100, 3, 16, "self"),
+    (2, 2100, 2, 32, "local"),
+    (2, 1500, 3, 128, "global"),
+    (4, 2100, 1, 256, "self"),
 ]
 
 
