@@ -143,14 +143,17 @@ Phases, each of which fails the run (non-zero exit, no result line):
     launches of #1/#2/#3/#4 a step (the encoder's input needs no
     gradient) and 6 of #1 per eval batch; losses and weights against a
     plain-attention card run and a CPU run; time per step, steps/s, the
-    device's busy share; the 43^2 geometry's kept sets on the card against
-    a CPU build. It writes the checkpoint (with the normalizer statistics)
-    that phases 18-19 read;
+    device's busy share; the kept sets of the setup's 43^2 geometry (the
+    host builder, as every fixed-mesh setup's) against the device
+    builder's on the card. It writes the checkpoint (with the normalizer
+    statistics) that phases 18-19 read;
 18. Darcy ZSSR: ``evaluate("darcy", ckpt, zssr=True)`` at 421^2 (177,241
     points, ntest 10: one eval batch) on the card, launching #1 6 times
     and nothing else; its metrics against a plain-attention card run at
     rtol 1e-4, its predictions on 2 samples against a CPU ``Predictor``;
-    the geometry's build time and kept sets against a CPU build; #1 per
+    the 421^2 geometry's set-up time on the host builder (with its
+    upload) and on the device builder, twice each, and the entries their
+    kept sets differ in (the device quantile's ties); #1 per
     launch at the 421^2 encoder (256 x 177,241, D 3) and decoder (177,241 x
     256, D 64) of this grid-ordered mesh at batch 10 against its plain
     version, timed, with SDPA's time, the bound from the kept entries and
@@ -289,12 +292,34 @@ Phases, each of which fails the run (non-zero exit, no result line):
     with each step's peak device memory;
 36. the command line with ``--model-variant selfpit``: ``train``,
     ``infer`` and ``serve`` on burgers_tf as subprocesses, the served reply
-    equal to infer's to the bit.
+    equal to infer's to the bit;
+37. kernels #9/#10 on the torch-semantics route over materialized (B,
+    L_out, L_in) distances (``kernels.position_attention_dist``, the route
+    of batched non-lazy geometry): against its plain version
+    (``ops.posatt.position_attention``) at ragged shapes (L 33 to 1500,
+    the 32-row and 64-column tile edges, 1 to 8 heads, locality 1 and
+    below, rows that keep nothing: the uniform mean of u), one launch of
+    #9 without a gradient and one each of #9, #10's dscale and dv with
+    one, gradients against autograd of the plain version (dlmda on its
+    terms' magnitude); at the dense elasticity model's three ops on a
+    batch of 10 clouds, each timed with its parts (the value copy, #9, the
+    empty-row select), the plain version's and SDPA's times (the masked
+    logits as ``attn_mask``) and the bound; #10's entry points timed
+    beside the plain backward;
+38. the elasticity configuration on batched non-lazy geometry
+    (``elasticity_dense``, registered through ``register_benchmark``):
+    ``runner.train`` (1 epoch of 4 steps at batch 10) with exactly 6/6/5
+    launches of #9 and #10's dscale and dv a step and 6 of #9 an eval
+    batch, losses and weights against a plain-route card run, its first
+    step against a CPU run, the time per step; ``Predictor`` serving one
+    batch of 10 (6 launches of #9) against a plain-route card run and a
+    CPU run.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 ``kernels`` record (the twelve kernels #1-#4, the per-sample-mesh #7, #8,
-the TF-semantics #9-#12, the schedule variants #5, #6, the three entry
-points of #13 and the three of #14), and before that the phases' records.
+the TF-semantics #9-#12 (#9 and #10 with their torch-semantics route),
+the schedule variants #5, #6, the three entry points of #13 and the three
+of #14), and before that the phases' records.
 """
 
 from __future__ import annotations
@@ -3047,9 +3072,22 @@ def darcy_train_phase():
     ckpt = str(REPO / "build" / "chip_smoke" / "darcy_trained.pt")
     report = fixed_train_phase("darcy train", cfg, 2, 64, 16, per_step_launches(cfg.model.n_blocks),
                                checkpoint_path=ckpt)
-    report["geometry_43"] = kept_difference(benchmarks.darcy_geometry(cfg, 43, device="cuda"),
-                                            benchmarks.darcy_geometry(cfg, 43, device="cpu"))
+    # the setup's host-built geometry against the device builder's, both on the card
+    report["geometry_43_host_vs_device_builder"] = kept_difference(
+        benchmarks.darcy_geometry(cfg, 43, device="cuda"), darcy_device_geometry(cfg, 43))
     return report, ckpt
+
+
+def darcy_device_geometry(cfg, s):
+    """The Darcy geometry at s x s from the device builder on the card
+    (``build_geometry``), which the setups took before the host builder."""
+    from position_induced_transformer_torch.data import meshes
+    from position_induced_transformer_torch.models import build_geometry
+
+    mesh = meshes.grid_2d(s).reshape(-1, 2)
+    ltt = meshes.grid_2d(cfg.latent_grid[0]).reshape(-1, 2)
+    return build_geometry(mesh, ltt, mesh, metric=cfg.metric, en_loc=cfg.model.en_loc,
+                          de_loc=cfg.model.de_loc, device="cuda")
 
 
 def fixed_op_rows(label, geom, lmdas, B, dims, random_rows, ops=("encoder", "decoder")):
@@ -3102,12 +3140,12 @@ def fixed_op_rows(label, geom, lmdas, B, dims, random_rows, ops=("encoder", "dec
 
 
 def kept_difference(gg, gc):
-    """Entries kept on the card and not on the CPU or the other way, by
-    side (the same ops; ties at the cut would show here)."""
+    """Entries kept by one geometry and not by the other, by side (ties at
+    the cut would show here)."""
     out = {}
     for side in ("down", "up"):
         kg = (getattr(gg, f"dist_{side}") <= getattr(gg, f"thr_{side}")).cpu()
-        kc = getattr(gc, f"dist_{side}") <= getattr(gc, f"thr_{side}")
+        kc = (getattr(gc, f"dist_{side}") <= getattr(gc, f"thr_{side}")).cpu()
         out[f"entries_kept_differently_{side}"] = int((kg != kc).sum())
         out[f"kept_per_row_{side}_min_max"] = [int(kg.sum(1).min()), int(kg.sum(1).max())]
     return out
@@ -3118,9 +3156,11 @@ def darcy_zssr_phase(ckpt, schedule_rows):
     10: one eval batch), with the train phase's weights and statistics:
     6 launches of #1 and no other kernel; its metrics against a
     plain-attention card run at rtol 1e-4, its predictions on 2 samples
-    against a CPU run; the geometry's build time and its kept sets against
-    a CPU build; #1 per launch at the 421^2 encoder and decoder of this
-    grid-ordered mesh beside phase 16's random-point times and the bound."""
+    against a CPU run; the geometry's set-up time both ways (the host
+    builder the setup takes, with its upload, and the device builder), and
+    the entries their kept sets differ in; #1 per launch at the 421^2
+    encoder and decoder of this grid-ordered mesh beside phase 16's
+    random-point times and the bound."""
     import numpy as np
     import torch
     from scipy.io import loadmat
@@ -3133,17 +3173,22 @@ def darcy_zssr_phase(ckpt, schedule_rows):
 
     cfg, ntest = configs.DARCY, 10
     out_dir = REPO / "build" / "chip_smoke"
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    geom = benchmarks.darcy_geometry(cfg, 421, device="cuda")
-    torch.cuda.synchronize()
-    geometry_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    geom_cpu = benchmarks.darcy_geometry(cfg, 421, device="cpu")
-    report = {"geometry_build_s_cuda": geometry_s,
-              "geometry_build_s_cpu": time.perf_counter() - t0,
-              **kept_difference(geom, geom_cpu)}
-    del geom_cpu
+    def timed(build):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        g = build()
+        torch.cuda.synchronize()
+        return g, time.perf_counter() - t0
+
+    host_s, device_s = [], []
+    for _ in range(2):  # the library is loaded by then: set-up time, warm
+        geom, t = timed(lambda: benchmarks.darcy_geometry(cfg, 421, device="cuda"))
+        host_s.append(t)
+        geom_dev, t = timed(lambda: darcy_device_geometry(cfg, 421))
+        device_s.append(t)
+    report = {"geometry_build_s_host_builder": host_s, "geometry_build_s_device_builder": device_s,
+              "host_vs_device_builder": kept_difference(geom, geom_dev)}
+    del geom_dev
     log(f"darcy zssr geometry: {json.dumps(report)}")
 
     kw = dict(zssr=True, ntest=ntest)
@@ -5406,6 +5451,409 @@ def variant_phases():
     return reports
 
 
+# ------------- batched non-lazy meshes: #9/#10 on the torch-semantics route
+
+# the 3-D ``dist`` route at ragged shapes: B, L_out, L_in, H, D, locality
+# and the rows that keep nothing (their threshold below the row's least
+# distance); a local op without such rows takes the wrapper's own quantile
+RAGGED_DIST = [
+    ("dist_h1_global", 2, 33, 47, 1, 5, 1.0, 0),
+    ("dist_h2_quantile", 2, 64, 64, 2, 16, 0.1, 0),
+    ("dist_h3_tile_edges", 3, 97, 129, 3, 33, 0.05, 0),
+    ("dist_h4_v130_empty", 2, 37, 1025, 4, 130, 0.3, 3),
+    ("dist_h5_global_L1500", 1, 40, 1500, 5, 64, 1.0, 0),
+    ("dist_h6_quantile", 2, 70, 90, 6, 20, 0.2, 0),
+    ("dist_h7_empty", 2, 45, 61, 7, 9, 0.5, 2),
+    ("dist_h8_empty", 2, 100, 70, 8, 7, 0.2, 5),
+]
+DENSE_NAME = "elasticity_dense"
+# #9 and #10's entry points in a trace (#9: tf_kernel<HG, DIST = true>;
+# #10: tf_bwd_kernel<COORDS = false, DV, HG>)
+DIST_GROUPS = {"posatt_tf_fwd": "void (anonymous namespace)::tf_kernel<",
+               "posatt_tf_bwd_dscale": "void (anonymous namespace)::tf_bwd_kernel<false, false",
+               "posatt_tf_bwd_dv": "void (anonymous namespace)::tf_bwd_kernel<false, true"}
+
+
+def elasticity_dense_setup(cfg, data_path=None, ntrain=None, ntest=None, n_points=972, *,
+                           device="cuda"):
+    """The elasticity problem (angle-sorted clouds of ``n_points``) on
+    batched non-lazy geometry: each batch's ``geom_fn`` materializes the
+    (B, L, L) distances with ``build_geometry(m, m, m)`` and the quantile
+    thresholds at the configuration's localities, so every attention op
+    takes the 3-D ``dist`` route (#9, and #10 under autograd)."""
+    import dataclasses
+
+    from position_induced_transformer_torch.models import build_geometry
+    from position_induced_transformer_torch.train import benchmarks
+
+    problem = benchmarks.setup_elasticity(cfg, data_path, ntrain, ntest, n_points, device=device)
+    m = cfg.model
+
+    def geom_fn(batch):
+        mesh = batch["mesh"]
+        return build_geometry(mesh, mesh, mesh, metric=cfg.metric, en_loc=m.en_loc,
+                              de_loc=m.de_loc, device=mesh.device)
+
+    keep = lambda data: {k: v for k, v in data.items() if k in ("x", "mesh", "y")}
+    return dataclasses.replace(
+        problem, train_data=keep(problem.train_data), test_data=keep(problem.test_data),
+        task=dataclasses.replace(problem.task, geom_fn=geom_fn, geometry_required_keys=("mesh",)))
+
+
+def register_elasticity_dense(cfg=None):
+    """Register the elasticity configuration (or ``cfg``) under
+    ``elasticity_dense`` with :func:`elasticity_dense_setup`, through the
+    port's ``register_benchmark``; returns the configuration."""
+    import dataclasses
+
+    import position_induced_transformer_torch as port
+    from position_induced_transformer_torch import configs
+
+    cfg = dataclasses.replace(cfg or configs.ELASTICITY, name=DENSE_NAME)
+    return port.register_benchmark(cfg, elasticity_dense_setup, overwrite=True)
+
+
+def plain_dist_route(dist, lmda, inputs, locality, thr=None):
+    from position_induced_transformer_torch.ops.posatt import position_attention
+
+    return position_attention(dist, lmda, inputs, locality, thr=thr)
+
+
+def dist_route_case(rng, B, Lo, Li, H, D, locality, n_empty):
+    """dist, lmda, u, thr of one op: thresholds None (global, or the
+    wrapper's quantile) or the row quantile with ``n_empty`` rows lowered
+    below their least distance."""
+    import numpy as np
+    import torch
+
+    from position_induced_transformer_torch.ops import locality as loc
+
+    to = lambda a: torch.from_numpy(np.asarray(a, np.float32)).cuda()
+    dist = to(4 * rng.random((B, Lo, Li)))
+    lmda = to(rng.uniform(-1, 1, (H, 1, 1)))
+    u = to(rng.standard_normal((B, Li, D)))
+    thr = None
+    if n_empty:
+        thr = loc.quantile_threshold(dist, locality)
+        for k in range(n_empty):
+            b, i = k % B, (7 * k + 3) % Lo
+            thr[b, i, 0] = dist[b, i].min() * 0.5 - 0.1 * k
+    return dist, lmda, u, thr
+
+
+def dist_route_check(name, dist, lmda, u, locality, thr, g):
+    """The route's wrapper against its plain version: without a gradient
+    one launch of #9; a forward + backward one launch each of #9 and #10's
+    dscale and dv (dv only where ``u`` needs a gradient); the output and du
+    at OP_RTOL / OP_ATOL (du on its terms' magnitude), dlmda at DS_RTOL /
+    DS_ATOL on the magnitude of its cancelling terms. Returns the largest
+    errors by part."""
+    import torch
+
+    from position_induced_transformer_torch.kernels import posatt_batched as kb
+    from position_induced_transformer_torch.ops import posatt
+
+    before = counts()
+    with torch.no_grad():
+        got = kb.position_attention_dist(dist, lmda, u, locality, thr)
+    torch.cuda.synchronize()
+    diff = {k: v - before[k] for k, v in counts().items()}
+    if diff != {k: int(k == "posatt_tf_fwd") for k in diff}:
+        fail(f"{name}: the route without a gradient launched {diff}, expected #9 once")
+    want = plain_dist_route(dist, lmda, u, locality, thr)
+    errs = {"fwd": check_close(f"{name} route vs plain", got, want, OP_RTOL, OP_ATOL)}
+
+    def grads(fn, w):
+        lm = lmda.clone().requires_grad_(True)
+        x = u.clone().requires_grad_(True)
+        out = fn(dist, lm, x, locality, thr)
+        (out * w).sum().backward()
+        return out.detach(), lm.grad, x.grad
+
+    before = counts()
+    got = grads(kb.position_attention_dist, g)
+    torch.cuda.synchronize()
+    diff = {k: v - before[k] for k, v in counts().items()}
+    if diff != {k: int(k in TF_DIST_KERNELS) for k in diff}:
+        fail(f"{name}: one forward + backward launched {diff}, expected 1 each of {TF_DIST_KERNELS}")
+    want = grads(plain_dist_route, g)
+    size_u = grads(plain_dist_route, g.abs())[2]
+    # dlmda = dscale * ds/dlmda, dscale a sum over (b, i) of
+    # sum_j P T (-d) - r_i sum_j P (-d), T = g_h u^T: held on those terms' sizes
+    H, D = lmda.shape[0], u.shape[-1]
+    att = posatt.attention_weights(dist, lmda, locality, thr=thr)
+    B, _, Lo, Li = att.shape
+    t = torch.einsum("bihd,bjd->bhij", g.reshape(B, Lo, H, D), u)
+    nd = dist[:, None]
+    size = ((att * t * nd).sum(-1).abs() + (att * t).sum(-1).abs() * (att * nd).sum(-1)).sum((0, 2))
+    lm = lmda.detach().clone().requires_grad_(True)
+    posatt.bandwidth_scale(lm).sum().backward()
+    size = (size * lm.grad.reshape(H).abs()).reshape(lmda.shape)
+    del att, t, nd
+    errs["out"] = check_close(f"{name} Function out", got[0], want[0], OP_RTOL, OP_ATOL)
+    errs["du"] = check_close(f"{name} Function du", got[2], want[2], OP_RTOL, OP_ATOL, size_u)
+    check_close(f"{name} Function dlmda (normalised)", got[1] / size, want[1] / size,
+                DS_RTOL, DS_ATOL)
+    errs["dlmda"] = (got[1] - want[1]).abs().max().item()
+    return errs
+
+
+def dist_route_sdpa(dist, lmda, u, thr):
+    """One SDPA call computing the route's function: zero q and k, the
+    masked logits as ``attn_mask`` and ``u`` for every head (built outside
+    the timing). Returns the call and its output as (B, L_out, H*D)."""
+    import torch
+    import torch.nn.functional as F
+
+    from position_induced_transformer_torch.ops import posatt
+
+    B, Lo, Li = dist.shape
+    H, D = lmda.shape[0], u.shape[-1]
+    scale = posatt.bandwidth_scale(lmda).reshape(1, H, 1, 1)
+    keep = dist <= thr if thr is not None else torch.ones_like(dist, dtype=torch.bool)
+    logits = torch.where(keep[:, None], -dist[:, None] * scale, -1e38)
+    q = torch.zeros((B, H, Lo, D), device=dist.device)
+    k = torch.zeros((B, H, Li, D), device=dist.device)
+    v = u[:, None].expand(B, H, Li, D).contiguous()
+    call = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=logits)
+    return call, call().permute(0, 2, 1, 3).reshape(B, Lo, H * D)
+
+
+def dist_route_rows(geom, lmdas, dims, rng):
+    """The route at the dense elasticity model's three ops on one batch's
+    geometry (encoder with its thresholds, the 4 global processor blocks,
+    decoder): per launch, the route's time (the value copy, #9 with its
+    statistics and the empty-row select), #9's alone, the copy's and the
+    select's, the plain version's and SDPA's; #10's dscale and dv and the
+    plain backward; bounds from this run's inputs (the function's own:
+    dist, thr, u once, the output; #10 as the kernels read it)."""
+    import numpy as np
+    import torch
+
+    from position_induced_transformer_torch.kernels import posatt_batched as kb
+    from position_induced_transformer_torch.ops import posatt
+
+    rows = []
+    ops = (("encoder", geom.dist_down, geom.thr_down, 0.02, 1),
+           ("processor", geom.dist_proc, None, 1.0, 4),
+           ("decoder", geom.dist_up, geom.thr_up, 0.02, 1))
+    for (op, dist, thr, loc, per), lmda, D in zip(ops, lmdas, dims):
+        B, Lo, Li = dist.shape
+        H = lmda.shape[0]
+        u = torch.from_numpy(rng.standard_normal((B, Li, D)).astype(np.float32)).cuda()
+        g = torch.from_numpy(rng.standard_normal((B, Lo, H * D)).astype(np.float32)).cuda()
+        route = lambda: kb.position_attention_dist(dist, lmda, u, loc, thr)
+        err = dist_route_check(f"dense {op}", dist, lmda, u, loc, thr, g)
+        scale = posatt.bandwidth_scale(lmda).reshape(H, 1)
+        values = u.repeat(1, 1, H)
+        out, stats = kb.posatt_tf_cuda(dist, thr, scale, values, stats=True)
+        copy = lambda: u.repeat(1, 1, H)
+        mean = u.mean(dim=1, keepdim=True).repeat(1, 1, H)
+        empty = (stats[:, 0] > stats[:, 1]).unsqueeze(-1)
+        select = lambda: torch.where(empty, mean, out)
+        sdpa, lib_out = dist_route_sdpa(dist, lmda, u, thr)
+        with torch.no_grad():
+            want = plain_dist_route(dist, lmda, u, loc, thr)
+            lib_err = (lib_out - want).abs().max().item()
+            kept = int((dist <= thr).sum()) if thr is not None else B * Lo * Li
+            n_empty = int(empty.sum()) if thr is not None else 0
+            words = B * Lo * Li + (B * Lo if thr is not None else 0) + B * Li * D + B * Lo * H * D
+            flops = 2 * H * D * kept
+            bound_ms, bound_by = roofline(flops, 4 * words)
+            row = {"shape": f"dense_{op}", "B": B, "L_out": Lo, "L_in": Li, "H": H, "D": D,
+                   "locality": loc, "kept_entries": kept, "rows_keeping_nothing": n_empty,
+                   "launches_per_forward": per, "max_abs_err": err,
+                   "ms": cuda_ms(route), "kernel_ms": cuda_ms(
+                       lambda: kb.posatt_tf_cuda(dist, thr, scale, values, stats=True)),
+                   "value_copy_ms": cuda_ms(copy),
+                   "empty_row_select_ms": cuda_ms(select) if thr is not None else 0.0,
+                   "plain_ms": cuda_ms(lambda: plain_dist_route(dist, lmda, u, loc, thr),
+                                       reps=10, per_rep=3),
+                   "library_ms": cuda_ms(sdpa), "library_max_abs_err": lib_err,
+                   "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops, "bytes": 4 * words}
+            # #10 as the kernels read it: dist, stats, g and (dscale) the
+            # per-head values; dscale writes (B, H), dv the per-head dV
+            # summed over heads into du by the copy's adjoint
+            bwd_words = B * Lo * Li + B * (H + 2) * Lo + B * Lo * H * D
+            parts = {
+                "dscale": (lambda: kb.posatt_tf_bwd_dscale_cuda(dist, scale, values, out, g, stats),
+                           bwd_words + B * Li * H * D + B * H),
+                "dv": (lambda: kb.posatt_tf_bwd_dv_cuda(dist, scale, g, stats),
+                       bwd_words + B * Li * H * D),
+            }
+            bwd = {"launches_per_step": {"dscale": per, "dv": per if op != "encoder" else 0}}
+            for part, (launch, nwords) in parts.items():
+                b_ms, b_by = roofline(flops, 4 * nwords)
+                bwd[part] = {"ms": cuda_ms(launch), "bound_ms": b_ms, "bound_by": b_by,
+                             "flops": flops, "bytes": 4 * nwords}
+            dv = kb.posatt_tf_bwd_dv_cuda(dist, scale, g, stats)
+            bwd["head_sum_ms"] = cuda_ms(lambda: dv.reshape(B, Li, H, D).sum(2))
+            bwd["plain_ms"] = cuda_ms(lambda: kb.posatt_tf_bwd_reference(dist, thr, scale, values, g),
+                                      reps=5, per_rep=2)
+            row["backward"] = bwd
+        rows.append(row)
+        log(f"dist route {op}: {json.dumps(row)}")
+        del u, g, values, out, stats, dv, mean
+    return rows
+
+
+def dist_route_phase():
+    """Phase 37: the torch-semantics route over materialized distances
+    (``kernels.position_attention_dist``: #9, and #10 under autograd)
+    against its plain version (``ops.posatt.position_attention``) at
+    ragged shapes (L 33 to 1500, the 32-row and 64-column tile edges, 1 to
+    8 heads, locality 1 and below, rows that keep nothing) and at the dense
+    elasticity model's ops on one batch of 10 clouds, with times, bounds,
+    SDPA's time and the shares of the value copy and the empty-row select."""
+    import numpy as np
+    import torch
+
+    from position_induced_transformer_torch.train import benchmarks
+
+    rng = np.random.default_rng(11)
+    ragged_err = {}
+    for name, *shape in RAGGED_DIST:
+        dist, lmda, u, thr = dist_route_case(rng, *shape)
+        B, Lo, _, H, D = shape[:5]
+        g = torch.from_numpy(rng.standard_normal((B, Lo, H * D)).astype(np.float32)).cuda()
+        e = dist_route_check(name, dist, lmda, u, shape[5], thr, g)
+        if shape[6]:  # the rows that keep nothing: the uniform mean of u
+            with torch.no_grad():
+                from position_induced_transformer_torch.kernels import posatt_batched as kb
+
+                out = kb.position_attention_dist(dist, lmda, u, shape[5], thr)
+            empty = (dist.amin(-1, keepdim=True) > thr)[..., 0]
+            mean = u.mean(dim=1, keepdim=True).repeat(1, 1, H).expand(B, Lo, H * D)
+            if int(empty.sum()) != shape[6]:
+                fail(f"{name}: {int(empty.sum())} rows keep nothing, expected {shape[6]}")
+            e["empty_rows"] = check_close(f"{name} empty rows", out[empty], mean[empty],
+                                          OP_RTOL, OP_ATOL)
+        for k, v in e.items():
+            ragged_err[k] = max(ragged_err.get(k, 0.0), v)
+        log(f"dist route {name}: {shape} max_abs_err={json.dumps(e)}")
+    cfg = register_elasticity_dense()
+    problem = benchmarks.setup(cfg, ntrain=ELASTICITY_B, ntest=2, device="cuda")
+    batch = {k: torch.from_numpy(v).cuda() for k, v in problem.train_data.items()}
+    geom = problem.task.geom_fn(batch)
+    model = problem.model
+    m = cfg.model
+    lmdas = (model.down.lmda.detach(), model.conv[0].lmda.detach(), model.up.lmda.detach())
+    rows = dist_route_rows(geom, lmdas, (m.in_dim, m.hid_dim, m.hid_dim), rng)
+    del geom, batch, problem
+    errs = dict(ragged_err)
+    for r in rows:
+        for k, v in r["max_abs_err"].items():
+            errs[k] = max(errs.get(k, 0.0), v)
+    return rows, errs
+
+
+def dense_launches(steps, eval_batches, n_blocks):
+    """What the dense elasticity run launches: per step one #9 and one
+    dscale a layer and dv at every layer but the encoder (its input needs
+    no gradient); per eval batch one #9 a layer."""
+    per_forward = n_blocks + 2
+    return {"posatt_tf_fwd": per_forward * (steps + eval_batches),
+            "posatt_tf_bwd_dscale": per_forward * steps,
+            "posatt_tf_bwd_dv": (per_forward - 1) * steps}
+
+
+def elasticity_dense_phases():
+    """Phase 38: the elasticity configuration (hid 256, 2 heads, 4 blocks,
+    972-point clouds, batch 10) on batched non-lazy geometry, registered
+    through ``register_benchmark``: ``runner.train`` (40 training and 10
+    test samples, 1 epoch of 4 steps) with exactly 6/6/5 launches of #9 and
+    #10's dscale and dv a step and 6 of #9 an eval batch, its losses and
+    weights against a plain-route card run and its first step against a
+    CPU run; the time per step; then ``Predictor`` on the trained
+    checkpoint serving one batch of 10 (6 launches of #9, nothing else)
+    against a plain-route card run and a CPU run."""
+    import numpy as np
+    import torch
+
+    from position_induced_transformer_torch.data import synthetic
+    from position_induced_transformer_torch.models import pit
+    from position_induced_transformer_torch.train.evaluate import Predictor
+
+    cfg = register_elasticity_dense()
+    epochs, ntrain, ntest = 1, 40, 10
+    ckpt = str(REPO / "build" / "chip_smoke" / "elasticity_dense.pt")
+    problem, state, history, losses, weights, launched, seconds = run_training(
+        cfg, "cuda", epochs, ntrain, ntest, checkpoint_path=ckpt)
+    steps = state.step
+    eval_batches = epochs * -(-ntest // cfg.batch_size)
+    expected = {k: 0 for k in launched}
+    expected.update(dense_launches(steps, eval_batches, cfg.model.n_blocks))
+    if steps != epochs * (ntrain // cfg.batch_size) or launched != expected:
+        fail(f"elasticity_dense train: {steps} steps, {eval_batches} eval batches launched "
+             f"{launched}; expected {expected}")
+    if not torch.isfinite(losses).all() or not all(
+        np.isfinite(v) for row in history for v in row.values()
+    ):
+        fail(f"elasticity_dense train: non-finite losses or metrics: {history}")
+    train = {"config": cfg.name, "epochs": epochs, "ntrain": ntrain, "ntest": ntest,
+             "steps": steps, "eval_batches": eval_batches, "launches": launched,
+             "launches_per_step": dense_launches(1, 0, cfg.model.n_blocks),
+             "seconds_whole_run_cuda": seconds, "history": history,
+             "step_losses_first_last": [losses[0].item(), losses[-1].item()]}
+    patch = mock.patch.object(pit, "position_attention_dist", plain_dist_route)
+    _, _, _, ref_losses, ref_weights, ref_launched, ref_s = run_training(
+        cfg, "cuda", epochs, ntrain, ntest, patch)
+    if any(ref_launched.values()):
+        fail(f"elasticity_dense train: the plain_cuda run launched kernels: {ref_launched}")
+    train["max_abs_err_step_loss_vs_plain_cuda"] = check_close(
+        "elasticity_dense losses vs plain_cuda", losses, ref_losses, LOSS_RTOL, 0.0)
+    train["max_abs_err_weights_vs_plain_cuda"] = max(
+        check_close(f"elasticity_dense weight {k} vs plain_cuda", v, ref_weights[k],
+                    PARAM_RTOL, PARAM_ATOL) for k, v in weights.items())
+    train["seconds_whole_run_plain_cuda"] = ref_s
+    card_losses, card_weights, _ = first_steps(cfg, "cuda", 1, ntrain, ntest, epochs)
+    check_close("elasticity_dense first step vs the full run", card_losses, losses[:1],
+                LOSS_RTOL, 0.0)
+    t0 = time.perf_counter()
+    cpu_losses, cpu_weights, cpu_launched = first_steps(cfg, "cpu", 1, ntrain, ntest, epochs)
+    train["seconds_first_step_cpu"] = time.perf_counter() - t0
+    if any(cpu_launched.values()):
+        fail(f"elasticity_dense train: the CPU run launched kernels: {cpu_launched}")
+    train["max_abs_err_step_loss_vs_cpu"] = check_close(
+        "elasticity_dense first step loss vs cpu", card_losses, cpu_losses, LOSS_RTOL, 0.0)
+    train["max_abs_err_weights_vs_cpu"] = max(
+        check_close(f"elasticity_dense weight {k} vs cpu", v, cpu_weights[k], PARAM_RTOL,
+                    PARAM_ATOL) for k, v in card_weights.items())
+    train.update(step_timing(problem, state, cfg.batch_size, ntrain, cfg.lr, groups=DIST_GROUPS))
+    del problem, state
+
+    X, ext, _ = synthetic.elasticity(n=ELASTICITY_B, seed=1)
+    request = {"x": X, "mesh": ext}
+    predictor = Predictor(cfg.name, ckpt, device="cuda")
+    zero_counts()
+    t0 = time.perf_counter()
+    got = torch.from_numpy(predictor.predict_array(request))
+    first_ms = (time.perf_counter() - t0) * 1e3
+    launched = counts()
+    expected = {k: 0 for k in launched}
+    expected["posatt_tf_fwd"] = cfg.model.n_blocks + 2
+    if launched != expected:
+        fail(f"elasticity_dense serve: one batch launched {launched}, expected {expected}")
+    if got.shape != (ELASTICITY_B, X.shape[1], cfg.model.out_dim) or not torch.isfinite(got).all():
+        fail(f"elasticity_dense serve: reply of shape {tuple(got.shape)} or not finite")
+    with patch:
+        ref = torch.from_numpy(predictor.predict_array(request))
+    if counts() != launched:
+        fail("elasticity_dense serve: the plain comparison run launched a kernel")
+    cpu = Predictor(cfg.name, ckpt, device="cpu")
+    t0 = time.perf_counter()
+    ref_cpu = torch.from_numpy(cpu.predict_array(request))
+    serve = {"config": cfg.name, "samples": ELASTICITY_B, "launches": launched,
+             "first_batch_ms": first_ms, "seconds_cpu_batch": time.perf_counter() - t0,
+             "max_abs_err_vs_plain_cuda": check_close(
+                 "elasticity_dense serve vs plain on CUDA", got, ref, MODEL_RTOL, MODEL_ATOL),
+             "max_abs_err_vs_cpu": check_close(
+                 "elasticity_dense serve vs CPU", got, ref_cpu, MODEL_RTOL, MODEL_ATOL),
+             "profile_10_samples": profile_device(lambda: predictor.predict_array(request),
+                                                  "forward", groups=DIST_GROUPS)}
+    return train, serve
+
+
 # each entry point's outputs in a check's errors
 ERR_KEYS = {"fwd": ("fwd", "stats"), "dq": ("dq", "delta", "dscale"), "dkdv": ("dk", "dv")}
 
@@ -5581,6 +6029,12 @@ def main() -> int:
     stamp("32 (#14)")
     variants = variant_phases()
     stamp("33-36 (variants)")
+    dist_rows, dist_ragged_err = dist_route_phase()
+    stamp("37 (#9/#10 on the torch-semantics route)")
+    dense_train, dense_serve = elasticity_dense_phases()
+    log("elasticity_dense_train " + json.dumps(dense_train))
+    log("elasticity_dense_serve " + json.dumps(dense_serve))
+    stamp("38 (elasticity_dense)")
     fixed_paths = {  # the fixed-mesh model paths: (train, served or evaluated)
         "darcy_train": d_train["launches"], "darcy_zssr": d_zssr["launches"],
         "darcy_serve_43": d_serve43["launches"], "darcy_serve_421": d_serve421["launches"],
@@ -5758,10 +6212,16 @@ def main() -> int:
         "posatt_tf_fwd": ("posatt_tf_fwd.cu", 733, tf_fwd_rows["dist"], "launches_per_forward",
                           {"serve": t_serve["launches"]["posatt_tf_fwd"],
                            "train_without_thresholds": bare["posatt_tf_fwd"],
-                           **v_launched(("posatt_tf_fwd",))}, tf_errs["dist"]),
+                           **v_launched(("posatt_tf_fwd",)),
+                           "elasticity_dense_train": dense_train["launches"]["posatt_tf_fwd"],
+                           "elasticity_dense_serve": dense_serve["launches"]["posatt_tf_fwd"]},
+                          max(tf_errs["dist"], *(dist_ragged_err[k] for k in
+                                                 ("fwd", "out", "empty_rows")))),
         "posatt_tf_bwd": ("posatt_tf_bwd.cu", 779, tf_bwd_rows["dist"], "launches_per_step",
-                          {"serve": 0, **{k: bare[k] for k in TF_DIST_KERNELS[1:]}},
-                          max(tf_bwd_errs["dist"].values())),
+                          {"serve": 0, **{k: bare[k] for k in TF_DIST_KERNELS[1:]},
+                           **{f"elasticity_dense_train_{k[len('posatt_tf_bwd_'):]}":
+                              dense_train["launches"][k] for k in TF_DIST_KERNELS[1:]}},
+                          max(*tf_bwd_errs["dist"].values(), dist_ragged_err["du"])),
         "posatt_tf_coord_fwd": ("posatt_tf_fwd.cu", 1175, tf_fwd_rows["coord"], "launches_per_forward",
                                 {"serve": 0, "train": t_train["launches"]["posatt_tf_coord_fwd"],
                                  **v_launched(("posatt_tf_coord_fwd",))},
@@ -5791,6 +6251,26 @@ def main() -> int:
                        "bound_ms": sum(r[part]["bound_ms"] * r[key] for r in rows)}
                 for part in ("dscale", "dv")}
         kernels["kernels"].append(entry)
+    # #9 and #10 on the torch-semantics route (phases 37-38): one dense
+    # elasticity forward (1 encoder + 4 processor + 1 decoder launches) and
+    # step (dscale 6, dv 5) at batch 10; "shapes" splits them
+    fwd_sum = lambda key: sum(r[key] * r["launches_per_forward"] for r in dist_rows)
+    bwd_sum = lambda part, key: sum(r["backward"][part][key] * r["backward"]["launches_per_step"][part]
+                                    for r in dist_rows)
+    route = {e["name"]: e for e in kernels["kernels"]}
+    route["posatt_tf_fwd"]["torch_semantics_route"] = {
+        "per_elasticity_dense_forward": {
+            k: fwd_sum(k) for k in ("ms", "kernel_ms", "value_copy_ms", "empty_row_select_ms",
+                                    "plain_ms", "bound_ms", "library_ms")},
+        "max_abs_err_by_part": dist_ragged_err, "shapes": dist_rows}
+    route["posatt_tf_bwd"]["torch_semantics_route"] = {
+        "per_elasticity_dense_step": {
+            **{f"{part}_{k}": bwd_sum(part, k) for part in ("dscale", "dv")
+               for k in ("ms", "bound_ms")},
+            "head_sum_ms": sum(r["backward"]["head_sum_ms"] * r["backward"]["launches_per_step"]["dv"]
+                               for r in dist_rows),
+            "plain_ms": sum(r["backward"]["plain_ms"] * r["launches_per_forward"] for r in dist_rows)},
+        "dlmda_max_abs_err": dist_ragged_err["dlmda"]}
     # #5 and #6, the schedule variants of #1: phase 16
     kernels["kernels"] += [schedule_entry(v, s_rows, s_launched) for v in (1, 2)]
     # #13, three entry points: times and bounds summed over one naca_tf

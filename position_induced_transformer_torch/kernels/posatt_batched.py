@@ -44,6 +44,11 @@ head, ``values`` (B, L_in, H*V) with head h reading only its own columns
 ``[h*V, (h+1)*V)``, so that ``out[b, i, h*V:(h+1)*V] = sum_j p_hij
 values[b, j, h*V:(h+1)*V] / max(sum_j p_hij, 1e-30)``.
 
+:func:`position_attention_dist` runs #9 and #10 for the torch-semantics
+PiT on a batched non-lazy Geometry, whose (B, L_out, L_in) distances are
+materialized: the values copied once per head, and a row that keeps
+nothing given the uniform mean of the values, as the reference gives it.
+
 Dispatch is by device: a CUDA tensor launches the kernel or raises, a CPU
 tensor takes the plain version (``*_reference``). There is no fallback and
 no switch.
@@ -64,6 +69,7 @@ from position_induced_transformer_torch.kernels.posatt_pallas import (
 )
 from position_induced_transformer_torch.ops.distances import euclidean_sq
 from position_induced_transformer_torch.ops.locality import (
+    quantile_threshold,
     robust_topk_threshold,
     topk_keep_count,
 )
@@ -779,29 +785,34 @@ def _tf_grad_outputs(ctx, scale, ds, dv):
     return dscale, dv if ctx.needs_input_grad[3] else None
 
 
+def _tf_forward(dist, thr, scale, values):
+    """Kernel #9 with its row statistics on either device: (out, stats)."""
+    if dist.device.type == "cuda":
+        return posatt_tf_cuda(dist, thr, scale, values, stats=True)
+    _check_tf(dist, thr, scale, values)
+    return posatt_tf_reference(dist, thr, scale, values), posatt_tf_stats_reference(dist, thr, scale)
+
+
 class PosAttTF(torch.autograd.Function):
     """Kernel #9 with its backward #10: ``apply(dist, thr, scale, values)``
-    -> (B, L_out, H*V), the ``_posatt_tf`` custom VJP. The forward saves
-    its output and row statistics (B, H + 2, L_out) on either device: the
-    dscale entry point reads both. The backward runs the
+    -> (out (B, L_out, H*V), row statistics (B, H + 2, L_out)), the
+    ``_posatt_tf`` custom VJP; the statistics take no gradient. The forward
+    saves its output and statistics on either device: the dscale entry
+    point reads both. The backward runs the
     dscale entry point when ``scale`` needs a gradient (summing its
     per-sample (B, H) result over B) and the dv one when ``values`` does;
     ``dist`` and ``thr`` get none. CPU tensors take the plain versions."""
 
     @staticmethod
     def forward(ctx, dist, thr, scale, values):
-        if dist.device.type == "cuda":
-            out, stats = posatt_tf_cuda(dist, thr, scale, values, stats=True)
-        else:
-            _check_tf(dist, thr, scale, values)
-            out = posatt_tf_reference(dist, thr, scale, values)
-            stats = posatt_tf_stats_reference(dist, thr, scale)
+        out, stats = _tf_forward(dist, thr, scale, values)
         ctx.save_for_backward(dist, thr, scale, values, out, stats)
-        return out
+        ctx.mark_non_differentiable(stats)
+        return out, stats
 
     @staticmethod
     @once_differentiable
-    def backward(ctx, g):
+    def backward(ctx, g, _g_stats):
         dist, thr, scale, values, out, stats = ctx.saved_tensors
         g = g.contiguous()
         if dist.device.type != "cuda":
@@ -869,11 +880,60 @@ def position_attention_batched_dist(
     if dist.device.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dist.device}")
     if _needs_grad(scales, values):
-        return PosAttTF.apply(dist, thr, scales, values)
+        return PosAttTF.apply(dist, thr, scales, values)[0]
     if dist.device.type == "cuda":
         return posatt_tf_cuda(dist, thr, scales, values)
     _check_tf(dist, thr, scales, values)
     return posatt_tf_reference(dist, thr, scales, values)
+
+
+def position_attention_dist(
+    dist: torch.Tensor,
+    lmda: torch.Tensor,
+    u: torch.Tensor,
+    locality: float,
+    thr: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Torch-semantics position attention over materialized per-sample
+    distances, through kernel #9 and, under autograd, #10: ``dist`` (B,
+    L_out, L_in), ``lmda`` (H, 1, 1), values ``u`` (B, L_in, D) -> (B,
+    L_out, H*D), the contract of ``ops.posatt.position_attention`` on a
+    batched ``dist`` (the route of a batched non-lazy Geometry).
+
+    ``thr`` (B, L_out, 1): per-row thresholds on ``dist``; with ``locality
+    < 1`` and none given, the row quantile (``keep_mask``'s) is taken here
+    first; with ``locality >= 1`` every column is kept and ``thr`` is not
+    read. #9 and #10 take per-head values, so ``u`` is copied once per head
+    (``[u | u | ...]``): autograd sums the copies' gradients into ``du``,
+    and carries the batch-summed dScale to ``lmda`` through
+    ``bandwidth_scale``. A row that keeps nothing (``thr`` below the row's
+    least distance) gives the uniform mean of ``u``, as the reference's
+    softmax over logits that are all ``-F32_MAX`` does; #9 writes 0 there,
+    and the wrapper finds those rows from the least distance #9 writes
+    among its row statistics. CPU tensors take the plain versions.
+    """
+    if dist.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dist.device}")
+    if dist.ndim != 3 or u.ndim != 3:
+        raise ValueError(
+            f"dist must be (B, L_out, L_in) and u (B, L_in, D), got {tuple(dist.shape)} "
+            f"and {tuple(u.shape)}"
+        )
+    H = lmda.shape[0]
+    if locality >= 1.0:
+        thr = None
+    elif thr is None:
+        thr = quantile_threshold(dist, locality)
+    scales = bandwidth_scale(lmda).reshape(H, 1)
+    values = u.repeat(1, 1, H)
+    if _needs_grad(scales, values):
+        out, stats = PosAttTF.apply(dist, thr, scales, values)
+    else:
+        out, stats = _tf_forward(dist, thr, scales, values)
+    if thr is None:
+        return out
+    empty = (stats[:, 0] > stats[:, 1]).unsqueeze(-1)  # the least distance above thr
+    return torch.where(empty, u.mean(dim=1, keepdim=True).repeat(1, 1, H), out)
 
 
 def position_attention_batched_tf_coords(

@@ -19,6 +19,7 @@ from torch import nn
 
 from position_induced_transformer_torch.kernels.posatt_batched import (
     position_attention_batched,
+    position_attention_dist,
 )
 from position_induced_transformer_torch.kernels.posatt_pallas import (
     position_attention_fixed,
@@ -77,17 +78,17 @@ def _dispatch_posatt(dist, lmda, inputs, locality, thr, mesh_q=None, mesh_k=None
     per-sample geometry (``dist`` None, raw coordinates ``mesh_q`` and
     ``mesh_k``) takes the batched kernel; without precomputed thresholds a
     local op first computes the robust wide-gap ones from the distances,
-    so that its kept sets match every other path's.
+    so that its kept sets match every other path's. Batched non-lazy
+    geometry (a 3-D ``dist``) takes kernels #9/#10 over the materialized
+    distances, with the row quantile where no threshold is given, as the
+    reference's ``keep_mask``.
     """
     if dist is None:
         if locality < 1.0 and thr is None:
             thr = robust_topk_threshold(pairwise_sq_dist(mesh_q, mesh_k), locality)
         return position_attention_batched(mesh_q, mesh_k, lmda, inputs, locality, thr, band)
-    if dist.ndim != 2:
-        raise NotImplementedError(
-            "batched (B, L_out, L_in) distances are not ported; per-sample "
-            "meshes take a lazy Geometry"
-        )
+    if dist.ndim == 3:
+        return position_attention_dist(dist, lmda, inputs, locality, thr)
     return position_attention_fixed(dist, lmda, inputs, locality, thr=thr)
 
 

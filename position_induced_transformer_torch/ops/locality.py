@@ -105,6 +105,17 @@ def robust_topk_threshold(
     return thr
 
 
+def midpoint_to_next(dist: torch.Tensor, thr: torch.Tensor) -> torch.Tensor:
+    """Move each row's threshold halfway to the row's next strictly greater
+    distance: the kept set ``d <= thr`` stays, but the threshold sits half
+    a gap away from every distance, so a recomputation of the distances
+    that differs by an ulp keeps the same entries. A row with nothing
+    greater keeps its threshold."""
+    inf = torch.tensor(float("inf"), dtype=dist.dtype, device=dist.device)
+    nxt = torch.where(dist > thr, dist, inf).amin(dim=-1, keepdim=True)
+    return torch.where(torch.isfinite(nxt), thr + 0.5 * (nxt - thr), thr)
+
+
 def batched_topk_thresholds(
     mesh_q: torch.Tensor, mesh_k: torch.Tensor, locality: float,
     metric: str = "euclidean", chunk: int = 32,

@@ -3,7 +3,9 @@ and the stepwise and whole-trajectory errors of rollouts.
 
 Per-sample, per-output-variable relative norms over the mesh axis,
 averaged over variables and **summed over the batch** (the caller divides
-by the dataset size), as the JAX package's ``ops/metrics.py`` does.
+by the dataset size), as the JAX package's ``ops/metrics.py`` does; the
+TF-side :func:`rel_norm_mean` takes the norm over each flattened sample
+and **means** over the batch.
 """
 
 from __future__ import annotations
@@ -61,6 +63,19 @@ def rel_max_norm(
     true_norm = t.abs().amax(dim=1)
     diff_norm = (t - q).abs().amax(dim=1)
     return _weighted_sum((diff_norm / true_norm).mean(dim=-1), weights)
+
+
+def rel_norm_mean(true: torch.Tensor, pred: torch.Tensor, p: float = 1) -> torch.Tensor:
+    """TF-side loss: the relative Lp error of each flattened sample,
+    averaged over the batch (``p == 1``: sums of absolute values; any
+    other ``p``: the vector p-norm)."""
+    t, q = true.reshape(true.shape[0], -1), pred.reshape(pred.shape[0], -1)
+    if p == 1:
+        rel = (t - q).abs().sum(dim=1) / t.abs().sum(dim=1)
+    else:
+        rel = (torch.linalg.vector_norm(t - q, ord=p, dim=1)
+               / torch.linalg.vector_norm(t, ord=p, dim=1))
+    return rel.mean()
 
 
 def rel_l1_quartiles(true: torch.Tensor, pred: torch.Tensor):

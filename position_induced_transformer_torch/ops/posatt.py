@@ -45,12 +45,16 @@ def attention_weights(
     keep: torch.Tensor | None = None,
     *,
     thr: torch.Tensor | None = None,
+    exact_torch_quantile: bool = False,
 ) -> torch.Tensor:
     """Distance matrix -> masked softmax attention weights.
 
     Returns (H, L_out, L_in) for a fixed mesh (``dist.ndim == 2``) or
     (B, H, L_out, L_in) for batched meshes. ``keep`` is an optional
     precomputed mask, ``thr`` an optional per-row threshold (..., L_out, 1).
+    ``exact_torch_quantile`` takes the reference's mask instead: a per-head
+    quantile over the *scaled* distances, ``keep`` and ``thr`` unread (a
+    slow path for parity tests; no model path takes it).
     """
     scale = bandwidth_scale(lmda)  # (H, 1, 1)
     if dist.ndim == 2:
@@ -60,9 +64,13 @@ def attention_weights(
         scaled = dist[:, None, :, :] * scale
         expand = lambda m: m[:, None, :, :]
     if locality < 1.0:
-        if keep is None:
-            keep = (dist <= thr) if thr is not None else keep_mask(dist, locality)
-        scaled = scaled.masked_fill(~expand(keep), _F32_MAX)
+        if exact_torch_quantile:
+            q = torch.quantile(scaled, locality, dim=-1, keepdim=True, interpolation="linear")
+            scaled = torch.where(scaled <= q, scaled, _F32_MAX)
+        else:
+            if keep is None:
+                keep = (dist <= thr) if thr is not None else keep_mask(dist, locality)
+            scaled = scaled.masked_fill(~expand(keep), _F32_MAX)
     # locality >= 1 keeps every entry (the quantile at 1 is the row max)
     return torch.softmax(-scaled, dim=-1)
 
@@ -84,6 +92,10 @@ def position_attention(
     keep: torch.Tensor | None = None,
     *,
     thr: torch.Tensor | None = None,
+    exact_torch_quantile: bool = False,
 ) -> torch.Tensor:
     """Full op: distances -> attention -> value contraction."""
-    return convolve(attention_weights(dist, lmda, locality, keep, thr=thr), inputs)
+    att = attention_weights(
+        dist, lmda, locality, keep, thr=thr, exact_torch_quantile=exact_torch_quantile
+    )
+    return convolve(att, inputs)

@@ -32,6 +32,7 @@ from position_induced_transformer_torch.models import (
     PiTTFPointCloud,
     TFGeometry,
     build_geometry,
+    build_geometry_host,
     pairwise_dist_half,
     pairwise_dist_periodic_1d,
     pairwise_dist_periodic_2d,
@@ -178,8 +179,9 @@ def setup_burgers(
     device="cuda",
 ) -> Problem:
     """Burgers on a periodic 1-D mesh. Data stay on the host; the geometry
-    and the model (weights from ``torch.Generator`` seeded with
-    ``cfg.seed``) live on ``device``."""
+    (built on the host, as every fixed-mesh setup builds it:
+    ``build_geometry_host``) and the model (weights from
+    ``torch.Generator`` seeded with ``cfg.seed``) live on ``device``."""
     dev = resolve_device(device)
     ntrain, ntest = ntrain or cfg.ntrain, ntest or cfg.ntest
     x_tr, y_tr, x_te, y_te = loaders.burgers(
@@ -187,7 +189,7 @@ def setup_burgers(
     )
     mesh = meshes.grid_1d(x_tr.shape[1])
     mesh_ltt = meshes.grid_1d(cfg.latent_grid[0])
-    geom = build_geometry(
+    geom = build_geometry_host(
         mesh, mesh_ltt, mesh, metric=cfg.metric,
         en_loc=cfg.model.en_loc, de_loc=cfg.model.de_loc, device=dev,
     )
@@ -217,7 +219,7 @@ def setup_sod(
     lo, hi = cfg.domain
     mesh = meshes.grid_1d(x_tr.shape[1], lo, hi)
     mesh_ltt = meshes.grid_1d(cfg.latent_grid[0], lo, hi)
-    geom = build_geometry(
+    geom = build_geometry_host(
         mesh, mesh_ltt, mesh, metric=cfg.metric,
         en_loc=cfg.model.en_loc, de_loc=cfg.model.de_loc, device=dev,
     )
@@ -233,13 +235,14 @@ def setup_sod(
 
 
 def darcy_geometry(cfg: BenchmarkConfig, s: int, device="cuda") -> Geometry:
-    """The Darcy geometry at resolution s on ``device``: the s x s grid on
-    [0, 1]^2 (endpoints included) to the latent grid and back. Training
-    takes s = 43; the zero-shot super-resolution evaluation rebinds the same
-    weights to s = 421 (177,241 points)."""
+    """The Darcy geometry at resolution s, built on the host and uploaded to
+    ``device``: the s x s grid on [0, 1]^2 (endpoints included) to the
+    latent grid and back. Training takes s = 43; the zero-shot
+    super-resolution evaluation rebinds the same weights to s = 421
+    (177,241 points)."""
     mesh = meshes.grid_2d(s).reshape(-1, 2)
     mesh_ltt = meshes.grid_2d(cfg.latent_grid[0]).reshape(-1, 2)
-    return build_geometry(
+    return build_geometry_host(
         mesh, mesh_ltt, mesh, metric=cfg.metric,
         en_loc=cfg.model.en_loc, de_loc=cfg.model.de_loc, device=device,
     )
@@ -310,7 +313,7 @@ def setup_vorticity(
     s = x_tr.shape[1]
     mesh = meshes.grid_2d(s, endpoint=False).reshape(-1, 2)
     mesh_ltt = meshes.grid_2d(cfg.latent_grid[0], endpoint=False).reshape(-1, 2)
-    geom = build_geometry(
+    geom = build_geometry_host(
         mesh, mesh_ltt, mesh, metric=cfg.metric,
         en_loc=cfg.model.en_loc, de_loc=cfg.model.de_loc, device=dev,
     )
@@ -356,7 +359,7 @@ def setup_cylinder(
     )
     x_tr, y_tr = x_tr[:ntrain_req], y_tr[:ntrain_req]
     x_te, y_te = x_te[:ntest_req], y_te[:ntest_req]
-    geom = build_geometry(
+    geom = build_geometry_host(
         mesh, mesh_ltt, mesh, metric=cfg.metric,
         en_loc=cfg.model.en_loc, de_loc=cfg.model.de_loc, device=dev,
     )

@@ -2,7 +2,9 @@
 fixed-mesh kernels #1-#4 and the schedule variants #5 (v1) and #6 (v2) of
 #1 (one body; each writes its own M and L), the per-sample-mesh kernels #7
 and #8, the TF-semantics kernels #9-#12 and the fixed-mesh TF kernel #13;
-kernel #14 (dot-product attention of the TF ablation variants);
+kernel #14 (dot-product attention of the TF ablation variants); #9/#10
+on the torch-semantics route over materialized distances (batched
+non-lazy geometry); the host geometry builder's upload;
 and the launches of the model paths (Burgers, Darcy, sod, elasticity,
 vorticity under each remat mode, NACA, the five fixed-mesh TF
 configurations, burgers_tf's lite and selfpit variants), with #1 recomputed
@@ -1786,3 +1788,108 @@ def test_variant_training_step_launch_counts(cuda, variant, overrides, per_step)
     torch.cuda.synchronize()
     assert [f.launches - b for f, b in zip(counters, before)] == [n13, 0, 0, n14, 0, 0]
     assert torch.isfinite(out).all()
+
+
+# the torch-semantics route over materialized distances (#9, #10 under
+# autograd): B, L_out, L_in, H, D, locality, rows that keep nothing
+DIST_ROUTE = [
+    (2, 33, 47, 1, 5, 1.0, 0),
+    (3, 97, 129, 3, 33, 0.05, 0),
+    (2, 37, 1025, 4, 130, 0.3, 3),
+    (2, 100, 70, 8, 7, 0.2, 5),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L_out,L_in,H,D,loc,n_empty", DIST_ROUTE)
+def test_dist_route_matches_plain(cuda, B, L_out, L_in, H, D, loc, n_empty):
+    """``position_attention_dist`` on the card against
+    ``ops.posatt.position_attention``: one launch of #9 without a
+    gradient, one each of #9 and #10's entry points with one; the output
+    (rows that keep nothing: the uniform mean of u) and du at rtol 2e-5 /
+    atol 2e-6 (du on its terms' magnitude), dlmda at rtol 5e-4 of its
+    largest element."""
+    rng = np.random.default_rng(B * L_out + H)
+    to = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(cuda)
+    dist = to(4 * rng.random((B, L_out, L_in)))
+    lmda, u = to(rng.uniform(-1, 1, (H, 1, 1))), to(rng.standard_normal((B, L_in, D)))
+    g = to(rng.standard_normal((B, L_out, H * D)))
+    thr = None
+    if n_empty:
+        thr = locality.quantile_threshold(dist, loc)
+        for k in range(n_empty):
+            thr[k % B, (7 * k + 3) % L_out, 0] = -1.0
+    counters = (kb.posatt_tf_cuda, kb.posatt_tf_bwd_dscale_cuda, kb.posatt_tf_bwd_dv_cuda)
+    before = [f.launches for f in counters]
+    with torch.no_grad():
+        out = kb.position_attention_dist(dist, lmda, u, loc, thr)
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(counters, before)] == [1, 0, 0]
+    want = posatt.position_attention(dist, lmda, u, loc, thr=thr)
+    torch.testing.assert_close(out, want, rtol=RTOL, atol=ATOL)
+    if n_empty:
+        empty = (dist.amin(-1) > thr[..., 0])
+        assert int(empty.sum()) == n_empty
+        mean = u.mean(1, keepdim=True).repeat(1, 1, H).expand(B, L_out, H * D)
+        torch.testing.assert_close(out[empty], mean[empty], rtol=RTOL, atol=ATOL)
+
+    def grads(fn, w):
+        lm, x = lmda.clone().requires_grad_(True), u.clone().requires_grad_(True)
+        (fn(dist, lm, x, loc, thr) * w).sum().backward()
+        return lm.grad, x.grad
+
+    plain = lambda d, lm, x, loc, thr: posatt.position_attention(d, lm, x, loc, thr=thr)
+    before = [f.launches for f in counters]
+    got = grads(kb.position_attention_dist, g)
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(counters, before)] == [1, 1, 1]
+    want = grads(plain, g)
+    size_u = grads(plain, g.abs())[1]
+    assert ((got[1] - want[1]).abs() <= ATOL + RTOL * size_u).all()
+    assert ((got[0] - want[0]).abs() <= DS_RTOL * want[0].abs().max() + DS_ATOL).all()
+
+
+@pytest.mark.cuda
+def test_batched_nonlazy_pit_runs_the_dist_route(cuda):
+    """A narrow PiT (hid 32, 2 heads, 2 blocks, no mesh concat) on batched
+    non-lazy geometry of 4 random 300-point clouds: a forward launches #9
+    at each of its 4 ops and matches the plain route at rtol 1e-4 / atol
+    1e-5; a training step launches 4/4/3 of #9 and #10's dscale and dv."""
+    from position_induced_transformer_torch.models import PiT, build_geometry, pit
+
+    rng = np.random.default_rng(0)
+    mesh = rng.random((4, 300, 2)).astype(np.float32)
+    x = torch.from_numpy(rng.standard_normal((4, 300, 3)).astype(np.float32)).to(cuda)
+    model = PiT(2, 3, 1, 32, 2, 2, 0.05, 0.05, concat_mesh=False,
+                generator=torch.Generator().manual_seed(0)).to(cuda)
+    geom = build_geometry(mesh, mesh, mesh, en_loc=0.05, de_loc=0.05, device=cuda)
+    assert geom.dist_proc.shape == (4, 300, 300) and geom.thr_down.shape == (4, 300, 1)
+    counters = (kb.posatt_tf_cuda, kb.posatt_tf_bwd_dscale_cuda, kb.posatt_tf_bwd_dv_cuda)
+    before = [f.launches for f in counters]
+    with torch.no_grad():
+        out = model(geom, x)
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(counters, before)] == [4, 0, 0]
+    plain = lambda d, lm, u, loc, thr=None: posatt.position_attention(d, lm, u, loc, thr=thr)
+    with torch.no_grad(), mock.patch.object(pit, "position_attention_dist", plain):
+        want = model(geom, x)
+    torch.testing.assert_close(out, want, rtol=1e-4, atol=1e-5)
+    before = [f.launches for f in counters]
+    model(geom, x).square().sum().backward()
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(counters, before)] == [4, 4, 3]
+    assert all(torch.isfinite(p.grad).all() for p in model.parameters())
+
+
+@pytest.mark.cuda
+def test_host_geometry_uploads_the_host_build(cuda):
+    """``build_geometry_host(device="cuda")``: the host builder's arrays,
+    uploaded once, equal to the bit to its CPU build (Darcy at 43^2)."""
+    from position_induced_transformer_torch import configs
+    from position_induced_transformer_torch.train import benchmarks
+
+    gc = benchmarks.darcy_geometry(configs.DARCY, 43, device=cuda)
+    gh = benchmarks.darcy_geometry(configs.DARCY, 43, device="cpu")
+    for name in ("mesh_in", "dist_down", "dist_proc", "dist_up", "thr_down", "thr_up"):
+        assert getattr(gc, name).device.type == "cuda"
+        assert torch.equal(getattr(gc, name).cpu(), getattr(gh, name))

@@ -7,10 +7,11 @@ rollout of the raw test trajectories, and ``Predictor``'s one-step and
 
 The model runs narrow (hid 32, 2 blocks; 1 head, locality 0.01/0.01 and
 the residual output as configured) on a 300-point synthetic cloud down to
-a 64-point latent cloud, batch 10. The JAX setup builds its geometry with
-``build_geometry_host`` (the native builder): its distances differ from
-the port's by an ulp, and the kept sets are equal (0 flips here and at the
-full 4390 -> 896). Predictions hold at rtol 1e-4 / atol 1e-5 (a rollout:
+a 64-point latent cloud, batch 10. Both setups build their geometry with
+their package's ``build_geometry_host`` (the native builder, equal to the
+bit: test_torch_host_geometry.py); the port's device builder's distances
+differ from it by an ulp, and its kept sets are equal (0 flips here and at
+the full 4390 -> 896). Predictions hold at rtol 1e-4 / atol 1e-5 (a rollout:
 atol 1e-5 per unit of its largest entry), training at losses rtol 2e-4
 and weights rtol 5e-3 / atol 2e-5, metrics at rtol 1e-4.
 """
@@ -123,8 +124,9 @@ def test_loader_reads_the_real_files(tmp_path):
 
 @pytest.mark.parametrize("L,small", [(300, 64), (4390, 896)])
 def test_geometry_keeps_the_native_builders_sets(L, small):
-    """``setup_cylinder``'s geometry (the port's ``build_geometry``,
-    Euclidean, locality 0.01) against ``build_geometry_host``: distances
+    """The port's device builder ``build_geometry`` on the cylinder
+    setup's clouds (Euclidean, locality 0.01) against the JAX package's
+    ``build_geometry_host``: distances
     within an ulp, thresholds within 1e-8, the kept sets equal."""
     _, mesh, ltt = t_syn.cylinder(1, L, small)
     tg = t_build(mesh, ltt, mesh, metric="euclidean", en_loc=0.01, de_loc=0.01, device="cpu")

@@ -78,9 +78,16 @@ def test_burgers_geometry_bit_equal(jax_route):
 
 
 def test_geometry_rejects_batched_meshes():
+    """Batched (B, L, d) meshes take the Euclidean metric only, and all
+    three meshes must be batched alike (batched non-lazy meshes themselves
+    are held against the JAX package in test_torch_ops_core.py)."""
     m = np.zeros((2, 8, 1), np.float32)
+    with pytest.raises(ValueError, match="euclidean"):
+        t_build(m, m, m, metric="periodic1d", device="cpu")
     with pytest.raises(ValueError, match="fixed"):
-        t_build(m, m, m, device="cpu")
+        t_build(m, m[0], m, device="cpu")
+    with pytest.raises(ValueError, match="fixed"):
+        t_build(m[None], m[None], m[None], device="cpu")
 
 
 def test_entry_points_need_cuda_or_explicit_cpu():

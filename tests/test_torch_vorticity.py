@@ -144,8 +144,8 @@ def test_rollout_metrics_match_jax(shape):
 
 @pytest.mark.parametrize("s,latent", [(16, 8), (64, 16)])
 def test_geometry_matches_the_native_builder(s, latent):
-    """``setup_vorticity``'s geometry (the port's ``build_geometry`` on the
-    periodic grids) against the JAX setup's ``build_geometry_host``:
+    """The port's device builder ``build_geometry`` on the vorticity
+    setup's periodic grids against the JAX setup's ``build_geometry_host``:
     distances and thresholds equal to the bit, so the kept sets are equal
     (0 flips; the Darcy grid's ties do not arise here)."""
     mesh = t_meshes.grid_2d(s, endpoint=False).reshape(-1, 2)
