@@ -313,13 +313,39 @@ Phases, each of which fails the run (non-zero exit, no result line):
     batch, losses and weights against a plain-route card run, its first
     step against a CPU run, the time per step; ``Predictor`` serving one
     batch of 10 (6 launches of #9) against a plain-route card run and a
-    CPU run.
+    CPU run;
+39. mixed precision (``model.compute_dtype="bfloat16"``: bf16
+    activations, float32 parameters, softmax and output; every kernel
+    takes and gives float32), Burgers at the flagship configuration:
+    phase 6's model served (1, 8, 13 samples, 4 concurrent, 8 warm) with
+    7 launches of #1 per device batch as at float32, every reply equal to
+    ``infer``'s to the bit and within BF16_REL (relative L2) of a plain
+    card run and a CPU run; phase 7's training with its launches (7/0/7/6
+    a step) equal to phase 7's and its losses within BF16_LOSS_RTOL of a
+    plain card run and a CPU run; every kernel call of a served batch and
+    of the first training forward and backward held against its plain
+    version on the same float32 values at the float32 tolerances; bf16 out
+    of every Linear layer, float32 parameters; the wall, busy and GEMM time beside phases 6 and 7's;
+40. one bf16 run per kernel family at full width, each a step (vorticity
+    two 20-step BPTT steps) from the seed-0 weights: elasticity (#7/#8,
+    6/6/5), elasticity_tf (#11/#12, 6/6/6; then served, 6 of #9 a batch,
+    replies equal to ``infer``'s to the bit), burgers_tf (#13 7/7/7), its
+    ``transformer`` variant (#14 7/7/7) and vorticity (#1/#3/#4,
+    240/0/120/119 a step under remat ``full``, then one step under each
+    remat mode with its peak memory beside phase 23's float32 step's): the
+    launches equal to the float32 run's, the kernel calls held against
+    their plain versions, the losses within BF16_LOSS_RTOL (a rollout's
+    BF16_ROLLOUT_REL) of a plain card run, the output and loss of two
+    training samples against a plain card run and a CPU run; steps/s,
+    busy time and peak memory, bf16 beside float32 (vorticity's float32
+    step from phase 23).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 ``kernels`` record (the twelve kernels #1-#4, the per-sample-mesh #7, #8,
 the TF-semantics #9-#12 (#9 and #10 with their torch-semantics route),
 the schedule variants #5, #6, the three entry points of #13 and the three
-of #14), and before that the phases' records.
+of #14, with their launches on the bf16 paths of phases 39-40), and
+before that the phases' records.
 """
 
 from __future__ import annotations
@@ -410,6 +436,30 @@ def check_close(name, got, want, rtol, atol, size=None):
     return err.max().item()
 
 
+def rel_l2(got, want):
+    """The relative L2 distance |got - want| / |want|."""
+    import torch
+
+    got, want = got.double().cpu(), want.double().cpu()
+    return (torch.linalg.vector_norm(got - want) / torch.linalg.vector_norm(want)).item()
+
+
+def check_rel(name, got, want, tol):
+    """The relative L2 distance of two whole results (a reply, a run's
+    losses); fails beyond ``tol``, on another shape or on non-finite
+    values."""
+    import torch
+
+    if tuple(got.shape) != tuple(want.shape):
+        fail(f"{name}: shape {tuple(got.shape)} != {tuple(want.shape)}")
+    if not torch.isfinite(got).all():
+        fail(f"{name}: non-finite values")
+    d = rel_l2(got, want)
+    if not d <= tol:
+        fail(f"{name}: relative L2 distance {d:.3e} above {tol}")
+    return d
+
+
 def cuda_ms(fn, reps=20, per_rep=10, warmup=5):
     """Median device time of one call, from CUDA events around ``per_rep``
     back-to-back calls. A spin kernel (``torch.cuda._sleep``) holds the
@@ -478,11 +528,18 @@ def profile_device(fn, unit, reps=5, groups=None):
         "device_idle_share": 1.0 - busy_ms / wall_ms,
         f"device_ms_per_{unit}_by_kernel": {n[:80]: t / 1e3 / reps for n, t in top},
     }
+    gemm = sum(t for n, t in by_name.items() if any(g in n.lower() for g in GEMM_NAMES))
+    out[f"device_ms_per_{unit}_gemm"] = gemm / 1e3 / reps
     if groups:
         out[f"device_ms_per_{unit}_by_port_kernel"] = {
             label: sum(t for n, t in by_name.items() if n.startswith(prefix)) / 1e3 / reps
             for label, prefix in groups.items()}
     return out
+
+
+# what a library matrix product's kernel name holds (cuBLAS, cuBLASLt and
+# its nvJet kernels, CUTLASS)
+GEMM_NAMES = ("gemm", "cutlass", "xmma", "cublas", "nvjet")
 
 
 # the fixed-mesh kernels' names in a trace: #1 (its versions share the
@@ -2837,7 +2894,8 @@ def schedule_phase():
 # ---------------------- sod and Darcy: #1, #3 and #4 on fixed-mesh paths
 def fixed_train_phase(label, cfg, epochs, ntrain, ntest, per_step, refs=("plain_cuda", "cpu"),
                       fwd="posatt_fixed_fwd", plain_patch=None, per_eval_batch=None,
-                      groups=None, timing=True, **train_kw):
+                      groups=None, timing=True, loss_rtol=LOSS_RTOL,
+                      param_tol=(PARAM_RTOL, PARAM_ATOL), **train_kw):
     """runner.train on a fixed-mesh configuration on the card, with the
     kernels: exactly ``per_step`` launches of each kernel per step and
     ``per_eval_batch`` (default ``per_step[fwd]``) launches of the forward
@@ -2848,7 +2906,8 @@ def fixed_train_phase(label, cfg, epochs, ntrain, ntest, per_step, refs=("plain_
     (``refs`` names the reference runs); then the time per step, steps/s
     and the device's busy share of warm steps (``groups`` as
     profile_device takes them, default #1-#4's) unless ``timing`` is
-    False."""
+    False. ``loss_rtol`` holds the losses; ``param_tol`` (rtol, atol) the
+    weights, or None to report their distance only (bf16 runs)."""
     import numpy as np
     import torch
 
@@ -2879,6 +2938,7 @@ def fixed_train_phase(label, cfg, epochs, ntrain, ntest, per_step, refs=("plain_
         "launches_per_step": per_step,
         "seconds_whole_run_cuda": seconds, "history": history,
         "step_losses_first_last": [losses[0].item(), losses[-1].item()],
+        "step_losses": losses.tolist(),
     }
     patch = (plain_patch() if plain_patch is not None
              else mock.patch.object(pit, "position_attention_fixed", plain))
@@ -2891,10 +2951,11 @@ def fixed_train_phase(label, cfg, epochs, ntrain, ntest, per_step, refs=("plain_
         if any(ref_launched.values()):
             fail(f"{label}: the {label_ref} run launched kernels: {ref_launched}")
         report[f"max_abs_err_step_loss_vs_{label_ref}"] = check_close(
-            f"{label} losses vs {label_ref}", losses, ref_losses, LOSS_RTOL, 0.0)
+            f"{label} losses vs {label_ref}", losses, ref_losses, loss_rtol, 0.0)
+        report[f"rel_l2_step_losses_vs_{label_ref}"] = rel_l2(losses, ref_losses)
         report[f"max_abs_err_weights_vs_{label_ref}"] = max(
-            check_close(f"{label} weight {k} vs {label_ref}", v, ref_weights[k],
-                        PARAM_RTOL, PARAM_ATOL)
+            check_close(f"{label} weight {k} vs {label_ref}", v, ref_weights[k], *param_tol)
+            if param_tol else (v - ref_weights[k]).abs().max().item()
             for k, v in weights.items())
         report[f"seconds_whole_run_{label_ref}"] = ref_s
     if timing:
@@ -2914,7 +2975,7 @@ def model_atol(steps, ref):
 def fixed_serve_phase(label, cfg, ckpt, x, per_batch, sizes, n_concurrent, n_warm,
                       cpu_samples=None, setup_kwargs=None, rollout_steps=None,
                       fwd="posatt_fixed_fwd", plain_patch=None, groups=None, model_variant=None,
-                      bitwise=False):
+                      bitwise=False, reply_rel=None):
     """``make_server(cfg.name)`` on the card answering raw ``.npy``
     batches of ``x``: one request of each of ``sizes`` samples, then
     ``n_concurrent`` concurrent requests (as in phase 6), then ``n_warm``
@@ -2930,7 +2991,10 @@ def fixed_serve_phase(label, cfg, ckpt, x, per_batch, sizes, n_concurrent, n_war
     plain version (default #1's); ``groups`` as profile_device takes them.
     ``per_batch`` may be a dict: launches of each forward. ``model_variant``
     goes to ``make_server``, ``infer`` and the CPU ``Predictor``; with
-    ``bitwise`` every reply must equal ``infer``'s to the bit."""
+    ``bitwise`` every reply must equal ``infer``'s to the bit. ``cfg`` may
+    be a configuration or its name. ``reply_rel``: hold the replies to the
+    plain card run and the CPU run at this relative L2 distance instead of
+    the float32 bounds (bf16 runs)."""
     import numpy as np
     import torch
 
@@ -2943,7 +3007,7 @@ def fixed_serve_phase(label, cfg, ckpt, x, per_batch, sizes, n_concurrent, n_war
         dist, lmda, inputs, locality, thr=thr)
     plain_patch = plain_patch or (lambda: mock.patch.object(pit, "position_attention_fixed", plain))
     t0 = time.perf_counter()
-    server = make_server(cfg.name, ckpt, host="127.0.0.1", port=0, verbose=False,
+    server = make_server(cfg, ckpt, host="127.0.0.1", port=0, verbose=False,
                          setup_kwargs=setup_kwargs, device="cuda", model_variant=model_variant)
     startup_s = time.perf_counter() - t0
     thread = threading.Thread(target=server.serve_forever, daemon=True)
@@ -3003,7 +3067,7 @@ def fixed_serve_phase(label, cfg, ckpt, x, per_batch, sizes, n_concurrent, n_war
     np.save(path, x[:n_all])
     zero_counts()
     t0 = time.perf_counter()
-    evaluate.infer(cfg.name, ckpt, path, output_path=path.replace("inputs", "infer"),
+    evaluate.infer(cfg, ckpt, path, output_path=path.replace("inputs", "infer"),
                    setup_kwargs=setup_kwargs, rollout_steps=steps, device="cuda",
                    model_variant=model_variant)
     infer_s = time.perf_counter() - t0
@@ -3011,11 +3075,20 @@ def fixed_serve_phase(label, cfg, ckpt, x, per_batch, sizes, n_concurrent, n_war
     if not all(counts()[k] for k in per_batch):
         fail(f"{label}: infer on the card launched {counts()}, not each of {sorted(per_batch)}")
     cpu_n = n_all if cpu_samples is None else cpu_samples
-    cpu = evaluate.Predictor(cfg.name, ckpt, setup_kwargs=setup_kwargs, device="cpu",
+    cpu = evaluate.Predictor(cfg, ckpt, setup_kwargs=setup_kwargs, device="cpu",
                              model_variant=model_variant)
     by_cpu = cpu.predict_array(
         {"x": evaluate._prepare_inputs(cpu.problem, x[:cpu_n])}, steps, batch_size=min(cpu_n, bs))
     errs = {"infer": 0.0, "plain_cuda": 0.0, "cpu": 0.0}
+    rels = {"plain_cuda": 0.0, "cpu": 0.0}
+
+    def against(name, ref_label, got, ref):
+        rels[ref_label] = max(rels[ref_label], rel_l2(got, ref))
+        if reply_rel is not None:
+            check_rel(name, got, ref, reply_rel)
+            return (got - ref).abs().max().item()
+        return check_close(name, got, ref, MODEL_RTOL, model_atol(steps, ref))
+
     for i, a, out in sent:
         got = torch.from_numpy(out)
         if bitwise and not np.array_equal(out, by_infer[i:i + len(a)]):
@@ -3028,17 +3101,16 @@ def fixed_serve_phase(label, cfg, ckpt, x, per_batch, sizes, n_concurrent, n_war
         if counts() != before:
             fail(f"{label}: the plain comparison run launched a kernel")
         ref = torch.from_numpy(ref)
-        errs["plain_cuda"] = max(errs["plain_cuda"], check_close(
-            f"{label} vs plain on CUDA", got, ref, MODEL_RTOL, model_atol(steps, ref)))
+        errs["plain_cuda"] = max(errs["plain_cuda"], against(
+            f"{label} vs plain on CUDA", "plain_cuda", got, ref))
         k = max(0, min(len(a), cpu_n - i))
         if k:
             ref = torch.from_numpy(by_cpu[i:i + k])
-            errs["cpu"] = max(errs["cpu"], check_close(
-                f"{label} vs CPU", got[:k], ref, MODEL_RTOL, model_atol(steps, ref)))
+            errs["cpu"] = max(errs["cpu"], against(f"{label} vs CPU", "cpu", got[:k], ref))
     batch = {"x": evaluate._prepare_inputs(predictor.problem, x[:bs])}
     return {
-        "config": cfg.name, "setup_kwargs": setup_kwargs, "rollout_steps": steps,
-        "startup_s": startup_s,
+        "config": cfg.name, "compute_dtype": cfg.model.compute_dtype,
+        "setup_kwargs": setup_kwargs, "rollout_steps": steps, "startup_s": startup_s,
         "infer_s": infer_s, "reply_shape": list(sent[0][2].shape[1:]),
         f"profile_{bs}_samples": profile_device(lambda: predictor.predict_array(batch, steps),
                                                 "forward", groups=groups or FIXED_GROUPS),
@@ -3049,6 +3121,7 @@ def fixed_serve_phase(label, cfg, ckpt, x, per_batch, sizes, n_concurrent, n_war
         "samples_vs_cpu": cpu_n, "model_variant": model_variant or cfg.model_variant,
         "replies_equal_infer_bitwise": bool(bitwise),
         **{f"max_abs_err_vs_{k}": v for k, v in errs.items()},
+        **{f"rel_l2_vs_{k}": v for k, v in rels.items()},
     }
 
 
@@ -3549,11 +3622,12 @@ def vorticity_launches(cfg, mode):
             "posatt_bwd_dscale": ops, "posatt_bwd_du": ops - 1}
 
 
-def remat_mode_phase(problem, batch):
+def remat_mode_phase(problem, batch, profile=True):
     """One training step's loss and backward under each remat mode on the
     same batch and weights: the launches, the gradients (held against
-    ``none``'s), the wall and device busy time, and the peak of
-    ``torch.cuda.max_memory_allocated`` above what was allocated before."""
+    ``none``'s), the wall and (``profile``) device busy time, and the peak
+    of ``torch.cuda.max_memory_allocated`` above what was allocated
+    before."""
     import dataclasses
 
     import torch
@@ -3586,7 +3660,8 @@ def remat_mode_phase(problem, batch):
         rows[mode] = {"launches": launched, "loss": loss.item(), "first_step_ms": first_ms,
                       "peak_allocated_above_start_bytes": peak - base,
                       "max_memory_allocated_bytes": peak,
-                      **profile_device(step, "step", reps=3, groups=FIXED_GROUPS)}
+                      **(profile_device(step, "step", reps=3, groups=FIXED_GROUPS) if profile
+                         else {})}
         log(f"vorticity remat {mode}: " + json.dumps(rows[mode]))
     for mode in REMAT_MODES[:2]:
         if rows[mode]["loss"] != rows["none"]["loss"]:
@@ -5855,6 +5930,482 @@ def elasticity_dense_phases():
 
 
 # each entry point's outputs in a check's errors
+# ----------------------------------------- mixed precision (bf16): 39-40
+
+# A bf16 run against the same bf16 model with the plain attention on the
+# card and against a CPU run (PERF.md §2). bf16 keeps 8 bits: a kernel's
+# float32 result and its plain version's (and the CPU's matrix products
+# and erfc against the card's) differ by float32 rounding, which moves the
+# bf16 rounding of some elements of an op's output by an ulp (2^-8
+# relative), and those moves spread through the later layers: on the
+# card a whole bf16 output lies about half as far from the plain run's as
+# from the float32 model's (on an H100 80GB HBM3 at 700 W: Burgers
+# 2.5e-3 against 5.2e-3, elasticity 7.2e-3 against 1.7e-2, elasticity_tf
+# 6.0e-3 against 8.0e-3). So the kernels are held to their plain versions
+# call by call at the float32 tolerances (check_recorded_calls), and whole
+# outputs and replies by their relative L2 distance; losses, which average
+# the outputs, each relative to the reference's; a rollout feeds each
+# output back
+BF16_REL = 3e-2
+BF16_LOSS_RTOL = 2e-3
+BF16_ROLLOUT_REL = 3e-2
+
+
+def bf16_config(cfg):
+    """``cfg`` with ``model.compute_dtype="bfloat16"``."""
+    import dataclasses
+
+    return dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, compute_dtype="bfloat16"))
+
+
+def model_wrappers():
+    """The kernel wrappers the models call, by family: (module, attribute,
+    plain version, argument positions of the bandwidths and of the values).
+    #14's (q, k, v, scale) are all held as phase 32 holds them."""
+    from position_induced_transformer_torch.models import pit, pit_tf
+    from position_induced_transformer_torch.ops.posatt import position_attention
+
+    fixed = lambda dist, lmda, u, locality, thr=None: position_attention(dist, lmda, u, locality,
+                                                                         thr=thr)
+    return {
+        "fixed": (pit, "position_attention_fixed", fixed, (1,), (2,)),
+        "batched": (pit, "position_attention_batched", plain_batched, (2,), (3,)),
+        "dist": (pit, "position_attention_dist", plain_dist_route, (1,), (2,)),
+        "tf_dist": (pit_tf, "position_attention_batched_dist", plain_tf_dist, (1,), (2,)),
+        "tf_coord": (pit_tf, "position_attention_batched_tf_coords", tf_oracle, (2,), (3,)),
+        "tf_fixed": (pit_tf, "position_attention_tf_fixed", plain_tf_fixed, (2,), (3,)),
+        "dot": (pit_tf, "dot_attention", plain_dotatt, (), ()),
+    }
+
+
+@contextmanager
+def recorded_kernel_calls(per_family=7):
+    """Every call the models make of a kernel wrapper fails unless each
+    floating-point tensor it passes is float32 (a bf16 model casts at the
+    boundary); the first ``per_family`` calls on the card of each wrapper
+    are recorded: copies of their arguments and of the cotangent their
+    output receives in the backward. Yields the records."""
+    import contextlib
+
+    import torch
+
+    calls = []
+
+    def recording(family, real):
+        def call(*args, **kw):
+            tensors = [a for a in (*args, *kw.values()) if torch.is_tensor(a)]
+            low = sorted({str(a.dtype) for a in tensors
+                          if a.is_floating_point() and a.dtype != torch.float32})
+            if low:
+                fail(f"a model handed the {family} kernel wrapper {low} tensors")
+            out = real(*args, **kw)
+            if tensors[0].is_cuda and sum(c["family"] == family for c in calls) < per_family:
+                copy = lambda a: a.detach().clone() if torch.is_tensor(a) else a
+                rec = {"family": family, "real": real, "args": [copy(a) for a in args],
+                       "kw": {k: copy(v) for k, v in kw.items()},
+                       "grad": [torch.is_tensor(a) and a.requires_grad for a in args], "g": None}
+                calls.append(rec)
+                if out.requires_grad:
+                    out.register_hook(lambda g, rec=rec: rec.__setitem__("g", g.detach().clone()))
+            return out
+        return call
+
+    with contextlib.ExitStack() as stack:
+        for family, (module, attr, *_) in model_wrappers().items():
+            stack.enter_context(mock.patch.object(module, attr, recording(family, getattr(module, attr))))
+        yield calls
+
+
+def check_recorded_calls(label, calls):
+    """Each recorded call again on its float32 arguments, through the
+    wrapper (the kernels) and its plain version: the output at OP_RTOL /
+    OP_ATOL and, where the model's backward reached the call, the
+    gradients for a seeded random cotangent of the recorded one's shape,
+    as the function checks of phases 5, 9, 13, 29 and 32 take them: the
+    values' on their terms' magnitude at OP_RTOL / OP_ATOL (the plain
+    version's gradient for |cotangent|), the bandwidths' at DS_RTOL and
+    DS_ATOL of the larger of their own largest entry and a bound on the
+    terms their sums cancel (bandwidth_terms), #14's normalised as in
+    phase 32. Returns the calls checked, forward and backward, and the
+    largest errors by family."""
+    import torch
+
+    wrappers = model_wrappers()
+    gen = torch.Generator(device=calls[0]["args"][0].device if calls else "cpu").manual_seed(0)
+    out = {"calls": {}, "with_backward": {}, "max_abs_err": {}}
+    for rec in calls:
+        family, g = rec["family"], rec["g"]
+        if g is not None:
+            g = torch.randn(g.shape, generator=gen, device=g.device)
+        plain, bandwidths, values = wrappers[family][2:]
+        leaves = [i for i, need in enumerate(rec["grad"]) if need] if g is not None else []
+
+        def run(fn, g):
+            args = [a.clone().requires_grad_(True) if i in leaves else a
+                    for i, a in enumerate(rec["args"])]
+            with torch.set_grad_enabled(bool(leaves)):
+                y = fn(*args, **rec["kw"])
+                if leaves:
+                    torch.autograd.backward(y, g)
+            return y.detach(), [args[i].grad for i in leaves]
+
+        name = f"{label}: {family} call {out['calls'].get(family, 0)}"
+        got, want = run(rec["real"], g), run(plain, g)
+        err = check_close(f"{name} out", got[0], want[0], OP_RTOL, OP_ATOL)
+        size = run(plain, g.abs())[1] if leaves and values else None
+        for k, i in enumerate(leaves):
+            a, b = got[1][k], want[1][k]
+            if i in values:
+                err = max(err, check_close(f"{name} d values", a, b, OP_RTOL, OP_ATOL, size[k]))
+                continue
+            if i in bandwidths:
+                scale = max(b.abs().max().item(), bandwidth_terms(family, rec["args"], g))
+                check_close(f"{name} d bandwidth", a, b, DS_RTOL, DS_ATOL * scale)
+            else:
+                norm = b.abs().max() + 1.0
+                check_close(f"{name} d argument {i} (normalised)", a / norm, b / norm, DS_RTOL, DS_ATOL)
+            err = max(err, (a - b).abs().max().item())
+        out["calls"][family] = out["calls"].get(family, 0) + 1
+        out["with_backward"][family] = out["with_backward"].get(family, 0) + int(bool(leaves))
+        out["max_abs_err"][family] = max(out["max_abs_err"].get(family, 0.0), err)
+    if not calls:
+        fail(f"{label}: no kernel call was recorded")
+    return out
+
+
+def bandwidth_terms(family, args, g):
+    """A bound on the terms a bandwidth gradient sums, which cancel: d out
+    / d s_h = sum_j P_ij (d_ij - dbar_i) u_j, so each head's sum over
+    rows, columns and values is at most 2 max(d) sum |g| max |u|; times
+    d s / d lmda where the wrapper takes lmda."""
+    import torch
+
+    from position_induced_transformer_torch.models import pit_tf
+    from position_induced_transformer_torch.ops import distances, posatt
+
+    bw, vals = model_wrappers()[family][3:]
+    if family == "batched":
+        dmax = distances.euclidean_sq(args[0], args[1]).max()
+    elif family == "tf_coord":
+        dmax = pit_tf.pairwise_dist_half(args[0], args[1]).max()
+    else:
+        dmax = args[0].max()
+    bound = 2 * dmax * g.abs().sum() * args[vals[0]].abs().max()
+    if family in ("fixed", "batched", "dist"):
+        lm = args[bw[0]].clone().requires_grad_(True)
+        slope, = torch.autograd.grad(posatt.bandwidth_scale(lm).sum(), lm)
+        bound = bound * slope.abs().max()
+    return bound.item()
+
+
+@contextmanager
+def bf16_activations(name, model):
+    """Fails unless every Linear layer of ``model`` (``TorchLinear``,
+    ``TFDense``) gives bf16 and every parameter is float32 in the run
+    inside; yields the output dtypes seen."""
+    import torch
+
+    seen = []
+    hooks = [m.register_forward_hook(lambda m, i, o: seen.append(o.dtype))
+             for m in model.modules() if type(m).__name__ in ("TorchLinear", "TFDense")]
+    try:
+        yield seen
+    finally:
+        for h in hooks:
+            h.remove()
+    if not seen or set(seen) != {torch.bfloat16}:
+        fail(f"{name}: the Linear layers gave {sorted(map(str, set(seen)))}, not bf16 only")
+    if {p.dtype for p in model.parameters()} != {torch.float32}:
+        fail(f"{name}: parameters of {sorted({str(p.dtype) for p in model.parameters()})}")
+
+
+def bf16_against(name, got, plain, f32):
+    """A bf16 output against the plain bf16 run's, within BF16_REL, and
+    its distance from the float32 model's."""
+    return {"rel_l2_vs_plain_cuda": check_rel(f"{name} vs the plain run", got, plain, BF16_REL),
+            "rel_l2_vs_float32": rel_l2(got, f32)}
+
+
+def served_batch_checks(label, cfg, cfg32, ckpt, x, per_batch, plain_patch):
+    """One device batch of ``x`` through a bf16 ``Predictor`` on the card:
+    exactly ``per_batch`` launches, bf16 out of every Linear layer, every
+    kernel call held against its plain version (check_recorded_calls),
+    the reply against the plain run and the float32 model's
+    (bf16_against)."""
+    import torch
+
+    from position_induced_transformer_torch.train import evaluate
+
+    pred = evaluate.Predictor(cfg, ckpt, device="cuda")
+    batch = {"x": evaluate._prepare_inputs(pred.problem, x)}
+    zero_counts()
+    with recorded_kernel_calls() as calls, bf16_activations(label, pred.problem.model):
+        got = torch.from_numpy(pred.predict_array(batch))
+    launched = counts()
+    if launched != {k: per_batch.get(k, 0) for k in launched}:
+        fail(f"{label}: a served batch launched {launched}, expected {per_batch}")
+    report = {"launches": launched, "kernels_vs_plain": check_recorded_calls(label, calls)}
+    with plain_patch():
+        plain = torch.from_numpy(pred.predict_array(batch))
+    f32 = torch.from_numpy(evaluate.Predictor(cfg32, ckpt, device="cuda").predict_array(batch))
+    report.update(bf16_against(label, got, plain, f32))
+    return report
+
+
+def beside(bf16, f32, *keys):
+    """The entry at ``keys`` of a bf16 report and of its float32
+    counterpart, as [bf16, float32] (None where one lacks it)."""
+    def get(report):
+        for k in keys:
+            report = report.get(k) if isinstance(report, dict) else None
+        return report
+    return [get(bf16), get(f32)]
+
+
+def bf16_burgers_phase(f32_serve, f32_train):
+    """Burgers at the flagship configuration in bf16 (phase 39): phase 6's
+    model served by ``make_server`` (1, 8, 13 samples, 4 concurrent, 8
+    warm) with 7 launches of #1 per device batch as at float32, every
+    reply equal to ``infer``'s to the bit and within BF16_REL of a plain
+    card run and (8 samples) a CPU run; a served batch's kernel calls held
+    against their plain versions; then phase 7's training (2 epochs of 8
+    steps) with its launches, 7/0/7/6 a step, equal to phase 7's, the
+    losses within BF16_LOSS_RTOL of a plain card run and a CPU run, the
+    first forward and backward's kernel calls held against their plain
+    versions; the wall and busy time beside phases 6 and 7's."""
+    import torch
+
+    from position_induced_transformer_torch import configs
+    from position_induced_transformer_torch.data import synthetic
+    from position_induced_transformer_torch.models import pit
+    from position_induced_transformer_torch.train import benchmarks, checkpoint
+
+    cfg32 = configs.BURGERS
+    cfg = bf16_config(cfg32)
+    n_ops = cfg.model.n_blocks + 2
+    plain = lambda: mock.patch.object(pit, "position_attention_fixed", model_wrappers()["fixed"][2])
+    model = benchmarks._make_model(cfg, torch.Generator().manual_seed(0))
+    ckpt = checkpoint.save(str(REPO / "build" / "chip_smoke" / "burgers_bf16.pt"),
+                           model.state_dict(), cfg.name)
+    x, _ = synthetic.burgers(n=48, L=cfg.grid[0], seed=1)
+    serve = fixed_serve_phase("burgers_bf16_serve", cfg, ckpt, x, n_ops, (1, 8, 13), 4, 8,
+                              cpu_samples=8, bitwise=True, reply_rel=BF16_REL)
+    serve["batch"] = served_batch_checks("burgers bf16 served batch", cfg, cfg32, ckpt,
+                                         x[:BURGERS_B], {"posatt_fixed_fwd": n_ops}, plain)
+    with recorded_kernel_calls() as calls:
+        train = fixed_train_phase("burgers_bf16_train", cfg, 2, 64, 16,
+                                  per_step_launches(cfg.model.n_blocks),
+                                  loss_rtol=BF16_LOSS_RTOL, param_tol=None)
+    train["kernels_vs_plain"] = check_recorded_calls("burgers bf16 train", calls)
+    if train["launches"] != f32_train["launches"]:
+        fail(f"burgers bf16 train launched {train['launches']}, float32 {f32_train['launches']}")
+    train["rel_l2_step_losses_vs_float32"] = rel_l2(torch.tensor(train["step_losses"]),
+                                                    torch.tensor(f32_train["step_losses"]))
+    prof = ("profile_warm_steps",)
+    return {
+        "serve": serve, "train": train,
+        "bf16_beside_float32": {
+            "serve_warm_median_ms": beside(serve, f32_serve, "warm_median_ms"),
+            "serve_busy_ms_per_batch": beside(serve, f32_serve, "profile_8_samples",
+                                              "device_busy_ms_per_forward"),
+            "serve_gemm_ms_per_batch": beside(serve, f32_serve, "profile_8_samples",
+                                              "device_ms_per_forward_gemm"),
+            "train_wall_ms_per_step": beside(train, f32_train, "wall_ms_per_step_median"),
+            "train_steps_per_s": beside(train, f32_train, "steps_per_s_synchronised_steps"),
+            "train_busy_ms_per_step": beside(train, f32_train, *prof, "device_busy_ms_per_step"),
+            "train_gemm_ms_per_step": beside(train, f32_train, *prof, "device_ms_per_step_gemm"),
+            "train_idle_share": beside(train, f32_train, *prof, "device_idle_share"),
+        },
+    }
+
+
+def bf16_runs():
+    """Phase 40's runs: label -> (configuration, model variant, training
+    steps, launches a step, plain patch, trace groups)."""
+    from position_induced_transformer_torch import configs
+    from position_induced_transformer_torch.models import pit
+
+    batched = {"posatt_batched_fwd": 6, "posatt_batched_bwd_dscale": 6, "posatt_batched_bwd_du": 5}
+    return {
+        "elasticity": ("elasticity", None, 1, batched,
+                       lambda: mock.patch.object(pit, "position_attention_batched", plain_batched),
+                       BATCHED_GROUPS),
+        "elasticity_tf": ("elasticity_tf", None, 1, {k: 6 for k in TF_COORD_KERNELS},
+                          plain_tf_attention, None),
+        "burgers_tf": ("burgers_tf", None, 1, tf_fixed_launches(configs.BURGERS_TF)[0],
+                       plain_tf_fixed_attention, TF_FIXED_GROUPS),
+        "burgers_tf_transformer": ("burgers_tf", "transformer", 1,
+                                   variant_launches("burgers_tf", "transformer"),
+                                   plain_variant_attention, DOTATT_GROUPS),
+        "vorticity": ("vorticity", None, 2, vorticity_launches(configs.VORTICITY, "full"),
+                      lambda: mock.patch.object(pit, "position_attention_fixed",
+                                                model_wrappers()["fixed"][2]), FIXED_GROUPS),
+    }
+
+
+def bf16_step_phase(label, name, variant, n_steps, per_step, plain_patch, groups, n_compare=2,
+                    f32_timing=None):
+    """One kernel family's bf16 run at full width (phase 40): ``n_steps``
+    optimizer steps from the seed-0 weights with exactly ``per_step``
+    launches a step, the same as the float32 run's; the first step's
+    kernel calls held against their plain versions; bf16 out of every
+    Linear layer; the losses within BF16_LOSS_RTOL (a rollout's
+    BF16_ROLLOUT_REL) of a plain card run; the forward output of the first
+    ``n_compare`` training samples within BF16_REL of a plain card run and
+    a CPU run, their loss as the losses, and the output's distance from
+    the float32 model's; the wall time, device busy time and peak memory
+    of a warm step, bf16 beside float32 (``f32_timing``: the float32 step's,
+    measured by an earlier phase at the same configuration, in place of a
+    second measurement). A rollout's steps are profiled once: tracing
+    their thousands of launches takes seconds a step."""
+    import numpy as np
+    import torch
+
+    from position_induced_transformer_torch import configs
+    from position_induced_transformer_torch.train import benchmarks, loop, runner
+
+    t_start = time.perf_counter()
+    cfg32 = runner.with_variant(configs.get(name), variant)
+    cfg = bf16_config(cfg32)
+    ntrain = cfg.batch_size * n_steps
+    setup = lambda c, device: benchmarks.setup(c, ntrain=ntrain, ntest=2, device=device)
+    p16, p32, pcpu = setup(cfg, "cuda"), setup(cfg32, "cuda"), setup(cfg, "cpu")
+    loss_rel = BF16_ROLLOUT_REL if cfg.rollout_steps else BF16_LOSS_RTOL
+
+    def first(p, patch=None):
+        """The forward output and the loss of the first samples, seed-0 weights."""
+        runner.init_state(p, 0)
+        dev = next(p.model.parameters()).device
+        b = {k: torch.from_numpy(np.ascontiguousarray(v[:n_compare])).to(dev)
+             for k, v in p.train_data.items()}
+        with torch.no_grad(), patch or nullcontext():
+            return p.task.forward(p.geom, b).float().cpu(), p.task.loss_fn(p.geom, b).float().cpu()
+
+    zero_counts()
+    with bf16_activations(label, p16.model):
+        out16, loss16 = first(p16)
+    outp, lossp = first(p16, plain_patch())
+    out32, loss32 = first(p32)
+    outc, lossc = first(pcpu)
+    report = {"config": name, "model_variant": variant or "pit", "steps": n_steps,
+              "batch": cfg.batch_size, "samples_compared": n_compare,
+              "output_rel_l2_vs_cpu": check_rel(f"{label} output vs CPU", out16, outc, BF16_REL),
+              **bf16_against(f"{label} output", out16, outp, out32),
+              "loss": loss16.item(), "loss_float32": loss32.item()}
+    for ref, ref_loss in (("plain_cuda", lossp), ("cpu", lossc)):
+        report[f"loss_rel_vs_{ref}"] = check_rel(f"{label} loss vs {ref}", loss16.reshape(1),
+                                                 ref_loss.reshape(1), loss_rel)
+
+    def steps(p, patch=None):
+        state = runner.init_state(p, 0)
+        dev = next(p.model.parameters()).device
+        data = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for k, v in p.train_data.items()}
+        perm = loop.epoch_permutation(0, 0, ntrain, cfg.batch_size).to(dev)
+        epoch = loop.make_train_epoch(p.task, lambda step: cfg.lr)
+        zero_counts()
+        with patch or nullcontext():
+            state, losses = epoch(state, p.geom, data, perm)
+        torch.cuda.synchronize()
+        return state, losses.cpu(), counts(), (lambda i: epoch(state, p.geom, data, perm[i:i + 1]))
+
+    with recorded_kernel_calls() as calls, bf16_activations(label, p16.model):
+        _, losses, launched, step16 = steps(p16)
+    expected = {k: per_step.get(k, 0) * n_steps for k in launched}
+    if launched != expected:
+        fail(f"{label}: {n_steps} steps launched {launched}, expected {per_step} a step")
+    report["launches"] = launched
+    report["kernels_vs_plain"] = check_recorded_calls(label, calls)
+    _, plain_losses, plain_launched, _ = steps(p16, plain_patch())
+    _, losses32, launched32, step32 = steps(p32)
+    if any(plain_launched.values()) or launched32 != launched:
+        fail(f"{label}: the plain run launched {plain_launched}; float32 {launched32}, bf16 {launched}")
+    report["step_losses"] = [losses.tolist(), losses32.tolist()]
+    report["max_rel_step_loss_vs_plain_cuda"] = check_rel(
+        f"{label} losses vs plain", losses, plain_losses, loss_rel)
+
+    def timing(step, p):
+        step(0)
+        torch.cuda.synchronize()
+        walls = []
+        for i in range(4):
+            t0 = time.perf_counter()
+            step(i % n_steps)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        step(0)
+        torch.cuda.synchronize()
+        return {"wall_ms_per_step_median": statistics.median(walls),
+                "steps_per_s": 1e3 / statistics.median(walls),
+                "peak_allocated_above_start_bytes": torch.cuda.max_memory_allocated() - base,
+                **profile_device(lambda: step(0), "step", reps=1 if cfg.rollout_steps else 3,
+                                 groups=groups)}
+
+    report["timing"] = {"bfloat16": timing(step16, p16),
+                        "float32": f32_timing or timing(step32, p32)}
+    report["seconds"] = time.perf_counter() - t_start
+    log(f"{label}: " + json.dumps(report))
+    return report, p16
+
+
+def bf16_kernel_families_phase(f32_vorticity):
+    """Phase 40: one bf16 run per kernel family at full width (bf16_runs,
+    bf16_step_phase); elasticity_tf also served by ``make_server`` (1, 10
+    samples, 2 concurrent, 2 warm; 6 launches of #9 per device batch as at
+    float32, replies equal to ``infer``'s to the bit, within BF16_REL of a
+    plain card run and a CPU run) with a served batch's kernel calls held
+    against their plain versions; vorticity also one step under each remat
+    mode (remat_mode_phase) with its peak memory beside phase 23's float32
+    step's; vorticity's float32 step time, busy time and peak memory are
+    phase 23's (``f32_vorticity``, its report), at the same configuration."""
+    import numpy as np
+    import torch
+
+    from position_induced_transformer_torch import configs
+    from position_induced_transformer_torch.data import synthetic
+    from position_induced_transformer_torch.train import checkpoint
+
+    reports, t_start = {}, time.perf_counter()
+    f32_remat = f32_vorticity["remat_modes"]
+    f32_timing = {"wall_ms_per_step_median": f32_vorticity["wall_ms_per_step_median"],
+                  "steps_per_s": f32_vorticity["steps_per_s_synchronised_steps"],
+                  "peak_allocated_above_start_bytes":
+                      f32_remat["full"]["peak_allocated_above_start_bytes"],
+                  **f32_vorticity["profile_warm_steps"], "from": "phase 23"}
+    for label, (name, variant, n, per_step, plain_patch, groups) in bf16_runs().items():
+        reports[label], problem = bf16_step_phase(
+            label, name, variant, n, per_step, plain_patch, groups,
+            f32_timing=f32_timing if name == "vorticity" else None)
+        if name == "elasticity_tf":
+            cfg = bf16_config(configs.ELASTICITY_TF)
+            ckpt = checkpoint.save(str(REPO / "build" / "chip_smoke" / "elasticity_tf_bf16.pt"),
+                                   problem.model.state_dict(), cfg.name)
+            X, _, _ = synthetic.elasticity(n=24, seed=1)
+            serve = fixed_serve_phase("elasticity_tf_bf16_serve", cfg, ckpt, X, 6, (1, 10), 2, 2,
+                                      cpu_samples=2, fwd="posatt_tf_fwd",
+                                      plain_patch=plain_tf_attention, bitwise=True,
+                                      reply_rel=BF16_REL)
+            serve["batch"] = served_batch_checks(
+                "elasticity_tf bf16 served batch", cfg, configs.ELASTICITY_TF, ckpt,
+                X[:cfg.batch_size], {"posatt_tf_fwd": 6}, plain_tf_attention)
+            reports["elasticity_tf_serve"] = serve
+            log(f"elasticity_tf bf16 served at {time.perf_counter() - t_start:.1f} s")
+        if name == "vorticity":
+            dev = torch.device("cuda")
+            batch = {k: torch.from_numpy(np.ascontiguousarray(v[:problem.config.batch_size])).to(dev)
+                     for k, v in problem.train_data.items()}
+            modes = remat_mode_phase(problem, batch, profile=False)
+            reports["vorticity"]["remat_modes"] = {
+                mode: {"peak_allocated_above_start_bytes": beside(
+                           modes[mode], f32_remat[mode], "peak_allocated_above_start_bytes"),
+                       "first_step_ms": beside(modes[mode], f32_remat[mode], "first_step_ms"),
+                       "launches": modes[mode]["launches"]}
+                for mode in REMAT_MODES}
+        log(f"bf16 {label} done at {time.perf_counter() - t_start:.1f} s")
+    return reports
+
+
 ERR_KEYS = {"fwd": ("fwd", "stats"), "dq": ("dq", "delta", "dscale"), "dkdv": ("dk", "dv")}
 
 
@@ -6035,6 +6586,12 @@ def main() -> int:
     log("elasticity_dense_train " + json.dumps(dense_train))
     log("elasticity_dense_serve " + json.dumps(dense_serve))
     stamp("38 (elasticity_dense)")
+    bf16_burgers = bf16_burgers_phase(serve, train)
+    log("bf16_burgers " + json.dumps(bf16_burgers))
+    stamp("39 (bf16 burgers)")
+    bf16_families = bf16_kernel_families_phase(v_train)
+    log("bf16_kernel_families " + json.dumps(bf16_families))
+    stamp("40 (bf16 kernel families)")
     fixed_paths = {  # the fixed-mesh model paths: (train, served or evaluated)
         "darcy_train": d_train["launches"], "darcy_zssr": d_zssr["launches"],
         "darcy_serve_43": d_serve43["launches"], "darcy_serve_421": d_serve421["launches"],
@@ -6309,6 +6866,16 @@ def main() -> int:
     # #14, three entry points: times and bounds summed over one burgers_tf
     # transformer training step (7 launches each at batch 5)
     kernels["kernels"] += dotatt_entries(dot_rows, dot_ragged_errs, dot_fn_err, variants)
+    # the bf16 paths (phases 39-40): each kernel's launches there, by entry point
+    bf16_paths = {"bf16_burgers_serve": bf16_burgers["serve"]["launches"],
+                  "bf16_burgers_train": bf16_burgers["train"]["launches"],
+                  **{f"bf16_{k}": r["launches"] for k, r in bf16_families.items()}}
+    for entry in kernels["kernels"]:
+        name = entry["name"]
+        for path, launched in bf16_paths.items():
+            for k, n in launched.items():
+                if n and (k == name or k.startswith(name + "_")):
+                    entry["launches_by_path"][path + k[len(name):]] = n
     log(json.dumps(kernels))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -25,7 +25,9 @@ class ModelConfig:
     concat_mesh: bool = True
     use_instance_norm: bool = False
     residual_output: bool = False
-    # the port computes in float32 only; models/pit.py rejects other values
+    # mixed precision: 'bfloat16' runs the activations in bf16; parameters,
+    # distances, masks, the softmax, norm statistics and the output stay
+    # float32 (models/pit.py); opt in via --set model.compute_dtype=bfloat16
     compute_dtype: str = "float32"
 
 

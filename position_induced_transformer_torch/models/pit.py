@@ -7,10 +7,21 @@ Geometry. Submodule names follow the reference torch state dict (``down``,
 ``en_layer.mlp1/mlp2``, ``conv.<i>``, ``mlp.<i>``, ``up``, ``de``), so
 weights carried over from the JAX package with
 ``utils.torch_compat.flax_params_to_state_dict`` load unchanged.
+
+Mixed precision (``compute_dtype``, e.g. ``"bfloat16"``): the activations
+run in that dtype; the parameters stay float32 master weights, cast at use,
+and distances, thresholds, masks, the softmax, instance-norm statistics and
+the model's output stay float32. Every attention kernel is a float32
+program: an op casts its values to float32, calls the kernel wrapper and
+casts the result back, on every device. The JAX package takes that route
+only where it runs a Pallas kernel; its XLA path (the CPU, and fixed meshes
+on the TPU by default) rounds the attention weights to bf16 and contracts
+in bf16 instead.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -35,9 +46,59 @@ from position_induced_transformer_torch.ops.locality import robust_topk_threshol
 from position_induced_transformer_torch.ops.normalization import instance_norm
 
 
+def resolve_compute_dtype(name: str) -> torch.dtype:
+    """The torch dtype a ``compute_dtype`` name gives the activations
+    (``"float32"``, ``"bfloat16"``, ``"float16"``, ...); a name that is not
+    a floating-point dtype raises ``ValueError``."""
+    dtype = getattr(torch, name, None) if isinstance(name, str) else None
+    if not isinstance(dtype, torch.dtype) or not dtype.is_floating_point:
+        raise ValueError(
+            f"compute_dtype {name!r} is not a floating-point dtype name "
+            "(float32, bfloat16, float16, ...)"
+        )
+    return dtype
+
+
+def to_compute_dtype(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The model's input in its compute dtype. float32, the default, leaves
+    the input's dtype, so that a model converted to float64 computes in
+    float64 (the plain versions' float64 references)."""
+    return x if dtype == torch.float32 else x.to(dtype)
+
+
+def at_least_f32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in float32 where it is of a lower precision (bf16, float16),
+    else as it is: the values an attention kernel takes (the kernels are
+    float32 programs) and the model's output."""
+    return x.float() if x.dtype.itemsize < 4 else x
+
+
+def linear_at(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """``x @ weight.T + bias`` with float32 parameters cast to ``x``'s
+    dtype at use. Below float32 the product is rounded, then the bias added
+    and rounded again, as the JAX package's ``x @ W + b`` rounds (one fused
+    ``F.linear`` would round once)."""
+    if x.dtype == weight.dtype:
+        return F.linear(x, weight, bias)
+    return F.linear(x, weight.to(x.dtype)) + bias.to(x.dtype)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """The exact (erf) GELU. Below float32 it is computed as
+    ``jax.nn.gelu(x, approximate=False)`` computes it in ``x``'s dtype, op
+    by op: ``0.5 x erfc(-x sqrt(1/2))`` with ``sqrt(1/2)`` rounded to the
+    dtype and each product rounded, so that the activations round where the
+    JAX package's do (``F.gelu`` would round once)."""
+    if x.dtype in (torch.float32, torch.float64):
+        return F.gelu(x, approximate="none")
+    sqrt_half = torch.tensor(math.sqrt(0.5), dtype=x.dtype).item()
+    return 0.5 * x * torch.erfc(-x * sqrt_half)
+
+
 class TorchLinear(nn.Module):
     """``nn.Linear`` with kaiming-normal weights and the default uniform
-    bias, drawn from ``generator``."""
+    bias, drawn from ``generator``; the parameters are cast to the
+    activations' dtype at use (:func:`linear_at`)."""
 
     def __init__(
         self, in_features: int, out_features: int,
@@ -52,7 +113,7 @@ class TorchLinear(nn.Module):
         )
 
     def forward(self, x):
-        return F.linear(x, self.weight, self.bias)
+        return linear_at(x, self.weight, self.bias)
 
 
 class KaimingMLP(nn.Module):
@@ -67,7 +128,7 @@ class KaimingMLP(nn.Module):
         self.mlp2 = TorchLinear(hidden, features, generator)
 
     def forward(self, x):
-        return self.mlp2(F.gelu(self.mlp1(x), approximate="none"))
+        return self.mlp2(gelu(self.mlp1(x)))
 
 
 def _dispatch_posatt(dist, lmda, inputs, locality, thr, mesh_q=None, mesh_k=None, band=None):
@@ -82,14 +143,20 @@ def _dispatch_posatt(dist, lmda, inputs, locality, thr, mesh_q=None, mesh_k=None
     geometry (a 3-D ``dist``) takes kernels #9/#10 over the materialized
     distances, with the row quantile where no threshold is given, as the
     reference's ``keep_mask``.
+
+    The kernels are float32 programs: values of a lower compute dtype go
+    in as float32 and the result comes back in their dtype.
     """
+    u = at_least_f32(inputs)
     if dist is None:
         if locality < 1.0 and thr is None:
             thr = robust_topk_threshold(pairwise_sq_dist(mesh_q, mesh_k), locality)
-        return position_attention_batched(mesh_q, mesh_k, lmda, inputs, locality, thr, band)
-    if dist.ndim == 3:
-        return position_attention_dist(dist, lmda, inputs, locality, thr)
-    return position_attention_fixed(dist, lmda, inputs, locality, thr=thr)
+        out = position_attention_batched(mesh_q, mesh_k, lmda, u, locality, thr, band)
+    elif dist.ndim == 3:
+        out = position_attention_dist(dist, lmda, u, locality, thr)
+    else:
+        out = position_attention_fixed(dist, lmda, u, locality, thr=thr)
+    return out.to(inputs.dtype)
 
 
 class PosAtt(nn.Module):
@@ -137,6 +204,11 @@ class PiT(nn.Module):
     - processor: n_blocks x [global self attention (concat residual) ->
       MLP((1+H)*hid -> hid -> hid) -> GELU]
     - decoder: cross attention up -> MLP(H*hid -> hid -> out_dim)
+
+    ``compute_dtype``: the activations' dtype from the encoder's input
+    (after the mesh concat, so the coordinates taken as values are rounded
+    too; the distances are not) to the decoder's output, which is cast to
+    float32 before ``residual_output`` adds the float32 input.
     """
 
     def __init__(
@@ -156,11 +228,7 @@ class PiT(nn.Module):
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
-        if compute_dtype != "float32":
-            raise NotImplementedError(
-                f"compute_dtype {compute_dtype!r}: the port computes in "
-                "float32 only"
-            )
+        self.compute_dtype = resolve_compute_dtype(compute_dtype)
         self.concat_mesh = concat_mesh
         self.use_instance_norm = use_instance_norm
         self.residual_output = residual_output
@@ -182,16 +250,17 @@ class PiT(nn.Module):
             if mesh.ndim == 2:  # fixed mesh: broadcast over the batch
                 mesh = mesh.expand(func_in.shape[0], -1, -1)
             func_in = torch.cat([mesh, func_in], dim=-1)
+        func_in = to_compute_dtype(func_in, self.compute_dtype)
         f = self.down(
             geom.dist_down, func_in, geom.thr_down,
             mesh_q=geom.mesh_ltt, mesh_k=geom.mesh_in, band=geom.band_down,
         )
-        return F.gelu(self.en_layer(f), approximate="none")
+        return gelu(self.en_layer(f))
 
     def processor(self, geom: Geometry, f: torch.Tensor) -> torch.Tensor:
         for a, w in zip(self.conv, self.mlp):
             f = a(geom.dist_proc, f, mesh_q=geom.mesh_ltt, mesh_k=geom.mesh_ltt)
-            f = F.gelu(w(f), approximate="none")
+            f = gelu(w(f))
         return f
 
     def decoder(self, geom: Geometry, f: torch.Tensor) -> torch.Tensor:
@@ -208,7 +277,7 @@ class PiT(nn.Module):
         f = self.processor(geom, f)
         if self.use_instance_norm:
             f = instance_norm(f)
-        out = self.decoder(geom, f)
+        out = at_least_f32(self.decoder(geom, f))
         if self.residual_output:
             out = out + func_in
         return out

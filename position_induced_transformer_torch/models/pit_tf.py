@@ -33,8 +33,16 @@ The ablation variants swap attention kinds per role (``processor_attention``
 and ``coder_attention``): ``"position"`` (PiT), ``"self"``
 (:class:`MultiHeadSelfAtt`, dot-product attention) or, in ``PiTTF``,
 ``"hybrid"`` (:class:`SelfMultiHeadPosAtt`, dot-product logits minus the
-scaled distances). Both take kernel #14 (``kernels/dotatt.py``). Only
-float32 is ported.
+scaled distances). Both take kernel #14 (``kernels/dotatt.py``).
+
+``compute_dtype`` (e.g. ``"bfloat16"``) runs the activations in that dtype,
+as ``models.pit.PiT``'s does: the Dense layers, the value, query and key
+projections and the GELUs; the parameters stay float32 master weights,
+cast at use, and distances, thresholds, the bandwidths, the softmax and the
+model's output stay float32. Each attention op hands its projections to
+its kernel as float32 and casts the result back (the kernels are float32
+programs, on the CPU as on the card), where the JAX package's XLA path
+rounds the attention weights to bf16 and contracts in bf16.
 """
 
 from __future__ import annotations
@@ -43,7 +51,6 @@ import math
 from typing import NamedTuple, Optional
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from position_induced_transformer_torch.kernels.dotatt import dot_attention
@@ -54,6 +61,13 @@ from position_induced_transformer_torch.kernels.posatt_batched import (
 from position_induced_transformer_torch.kernels.posatt_tf_fixed import (
     percentile_thresholds,
     position_attention_tf_fixed,
+)
+from position_induced_transformer_torch.models.pit import (
+    at_least_f32,
+    gelu,
+    linear_at,
+    resolve_compute_dtype,
+    to_compute_dtype,
 )
 from position_induced_transformer_torch.ops.initializers import glorot_uniform, he_normal_tf
 from position_induced_transformer_torch.ops.locality import quantile_threshold
@@ -68,7 +82,8 @@ def pairwise_dist_half(mesh1: torch.Tensor, mesh2: torch.Tensor) -> torch.Tensor
 
 class TFDense(nn.Module):
     """A keras/flax ``Dense``: he-normal weight (stored ``(out, in)``),
-    zero bias."""
+    zero bias; cast to the activations' dtype at use, as flax's ``Dense(dtype=)``
+    (:func:`~.pit.linear_at`)."""
 
     def __init__(self, in_features: int, out_features: int,
                  generator: Optional[torch.Generator] = None):
@@ -77,7 +92,7 @@ class TFDense(nn.Module):
         self.bias = nn.Parameter(torch.zeros(out_features))
 
     def forward(self, x):
-        return F.linear(x, self.weight, self.bias)
+        return linear_at(x, self.weight, self.bias)
 
 
 class TFMlp(nn.Module):
@@ -90,7 +105,7 @@ class TFMlp(nn.Module):
         self.mlp2 = TFDense(width1, width2, generator)
 
     def forward(self, x):
-        return self.mlp2(F.gelu(self.mlp1(x), approximate="none"))
+        return self.mlp2(gelu(self.mlp1(x)))
 
 
 class MultiHeadPosAttBatched(nn.Module):
@@ -122,12 +137,12 @@ class MultiHeadPosAttBatched(nn.Module):
             thr = quantile_threshold(dist, self.locality / 100.0)
         scales = (self.band_width * self.band_width).reshape(self.n_head, 1)
         B, L = inputs.shape[:2]
-        values = torch.einsum("bnj,hjk->bnhk", inputs, self.weight).reshape(B, L, self.hid_dim)
+        values = at_least_f32(project(inputs, self.weight).reshape(B, L, self.hid_dim))
         if dist is None:
             out = position_attention_batched_tf_coords(coords, coords, scales, values, thr, band)
         else:
             out = position_attention_batched_dist(dist, scales, values, thr)
-        return F.gelu(out, approximate="none")
+        return gelu(out.to(inputs.dtype))
 
 
 class MultiHeadSelfAtt(nn.Module):
@@ -145,9 +160,9 @@ class MultiHeadSelfAtt(nn.Module):
         self.value = nn.Parameter(he_normal_tf(shape, generator))
 
     def forward(self, inputs):
-        proj = lambda w: torch.einsum("bnj,hjk->bnhk", inputs, w)
+        proj = lambda w: at_least_f32(project(inputs, w))
         out = dot_attention(proj(self.query), proj(self.key), proj(self.value))
-        return F.gelu(out, approximate="none")
+        return gelu(out.to(inputs.dtype))
 
 
 class SelfMultiHeadPosAtt(nn.Module):
@@ -184,10 +199,17 @@ class SelfMultiHeadPosAtt(nn.Module):
     def forward(self, dist, inputs):
         """``dist`` (L, L), ``inputs`` (B, L, in)."""
         sc = torch.tan(self.band_width).reshape(-1)
-        proj = lambda w: torch.einsum("bnj,hjk->bnhk", inputs, w)
+        proj = lambda w: at_least_f32(project(inputs, w))
         out = dot_attention(proj(self.query), proj(self.key), proj(self.weight), dist,
                             self.thresholds(dist, sc), sc)
-        return F.gelu(out, approximate="none")
+        return gelu(out.to(inputs.dtype))
+
+
+def project(inputs: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """The per-head projections ``inputs @ weight[h]`` (B, L, H, V) of
+    ``inputs`` (B, L, in) by ``weight`` (H, in, V), in the inputs' dtype
+    (the float32 weight cast at use)."""
+    return torch.einsum("bnj,hjk->bnhk", inputs, weight.to(inputs.dtype))
 
 
 def _given_thresholds(loc_en, loc_de, thr_en, thr_de):
@@ -214,6 +236,9 @@ class PiTTFPointCloud(nn.Module):
     and ``coder_attention``: ``"position"`` or ``"self"`` (the ``lite`` and
     ``transformer`` variants); a self op reads neither distances nor
     thresholds, and with no position op the model builds none.
+    ``compute_dtype``: the activations' dtype; the distances and thresholds
+    are built from the float32 coordinates before the inputs are cast, and
+    the output is float32.
     """
 
     def __init__(
@@ -236,10 +261,7 @@ class PiTTFPointCloud(nn.Module):
                 raise ValueError(
                     f"unknown point-cloud attention kind {kind!r} (position | self)"
                 )
-        if compute_dtype != "float32":
-            raise NotImplementedError(
-                f"compute_dtype {compute_dtype!r}: the port computes in float32 only"
-            )
+        self.compute_dtype = resolve_compute_dtype(compute_dtype)
         self.locality_encoder = locality_encoder
         self.locality_decoder = locality_decoder
         self.n_blocks = n_blocks
@@ -284,7 +306,6 @@ class PiTTFPointCloud(nn.Module):
         if loc_en == loc_de:
             band[loc_en] = band_en if band_en is not None else band_de
         pass_coords = coords if m_dist is None else None
-        gelu = lambda t: F.gelu(t, approximate="none")
 
         def att(op, x, loc=None):
             if isinstance(op, MultiHeadSelfAtt):
@@ -293,13 +314,13 @@ class PiTTFPointCloud(nn.Module):
                 return op(m_dist, x, coords=pass_coords)
             return op(m_dist, x, thr[loc], coords=pass_coords, band=band[loc])
 
-        en = gelu(self.en_layer(inputs))
+        en = gelu(self.en_layer(to_compute_dtype(inputs, self.compute_dtype)))
         x = gelu(self.mlp1(att(self.down, en, loc_en)) + self.w1(en))
         for i in range(self.n_blocks):
             pa = att(getattr(self, f"PA_{i}"), x)
             x = gelu(getattr(self, f"MLP_{i}")(pa) + getattr(self, f"W_{i}")(x))
         de = gelu(self.mlp2(att(self.up, x, loc_de)) + self.w2(x))
-        return self.de_layer(de)
+        return at_least_f32(self.de_layer(de))
 
 
 # ------------------------------------------------------------ fixed meshes
@@ -427,9 +448,9 @@ class MultiHeadPosAtt(nn.Module):
         when a local op has none."""
         scales = _bandwidth(self.band_width, self.bandwidth).reshape(self.n_head, 1)
         B, L = inputs.shape[:2]
-        values = torch.einsum("bnj,hjk->bnhk", inputs, self.weight).reshape(B, L, self.hid_dim)
+        values = at_least_f32(project(inputs, self.weight).reshape(B, L, self.hid_dim))
         out = position_attention_tf_fixed(dist, thr, scales, values, self.bandwidth, self.locality)
-        return F.gelu(out, approximate="none")
+        return gelu(out.to(inputs.dtype))
 
 
 class PiTTF(nn.Module):
@@ -448,7 +469,8 @@ class PiTTF(nn.Module):
     and of the coders' ops (:func:`tf_attention`): ``lite`` is ``("self",
     "position")``, ``transformer`` ``("self", "self")``, ``selfpit``
     ``("hybrid", "hybrid")``. Only position ops read the precomputed
-    thresholds.
+    thresholds. ``compute_dtype``: the activations' dtype from the
+    encoder's input (the mesh concat) on; the output is float32.
     """
 
     def __init__(
@@ -468,10 +490,7 @@ class PiTTF(nn.Module):
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
-        if compute_dtype != "float32":
-            raise NotImplementedError(
-                f"compute_dtype {compute_dtype!r}: the port computes in float32 only"
-            )
+        self.compute_dtype = resolve_compute_dtype(compute_dtype)
         self.n_blocks = n_blocks
         self.use_decoder_selfatt = use_decoder_selfatt
         g = generator
@@ -491,10 +510,10 @@ class PiTTF(nn.Module):
         self.de_layer = TFMlp(hid_dim, hid_dim, out_dim, g)
 
     def forward(self, geom: TFGeometry, mesh: torch.Tensor, inputs: torch.Tensor):
-        gelu = lambda t: F.gelu(t, approximate="none")
         if mesh.ndim == 2:
             mesh = mesh.expand(inputs.shape[0], *mesh.shape)
-        en = gelu(self.en_layer(torch.cat([mesh, inputs], dim=-1)))
+        en = gelu(self.en_layer(to_compute_dtype(torch.cat([mesh, inputs], dim=-1),
+                                                 self.compute_dtype)))
         x = apply_attention(self.down, geom.cross_t(), en, geom.thr_down)
         for i in range(self.n_blocks):
             pa = apply_attention(getattr(self, f"MHPA_{i}"), geom.m_ltt, x)
@@ -503,7 +522,7 @@ class PiTTF(nn.Module):
         if self.use_decoder_selfatt:
             de2 = apply_attention(self.up2, geom.m_qry, de, geom.thr_qry)
             de = gelu(self.mlp(de2) + self.w(de))
-        return self.de_layer(de)
+        return at_least_f32(self.de_layer(de))
 
 
 def tf_attention(kind: str, in_features: int, n_head: int, hid_dim: int, locality: float,

@@ -111,7 +111,10 @@ class PixelWiseNormalizer:
 
 def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """InstanceNorm over the mesh axis of a (B, L, C) tensor: per (sample,
-    channel) statistics over L, biased variance, no affine parameters."""
-    mean = torch.mean(x, dim=1, keepdim=True)
-    var = torch.var(x, dim=1, keepdim=True, unbiased=False)
-    return (x - mean) * torch.rsqrt(var + eps)
+    channel) statistics over L, biased variance, no affine parameters.
+    The statistics and the normalisation are float32 whatever ``x``'s
+    dtype; the result comes back in ``x``'s dtype."""
+    x32 = x.float()
+    mean = torch.mean(x32, dim=1, keepdim=True)
+    var = torch.var(x32, dim=1, keepdim=True, unbiased=False)
+    return ((x32 - mean) * torch.rsqrt(var + eps)).to(x.dtype)

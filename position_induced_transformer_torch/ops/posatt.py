@@ -76,12 +76,16 @@ def attention_weights(
 
 
 def convolve(att: torch.Tensor, inputs: torch.Tensor) -> torch.Tensor:
-    """Value contraction and head concat -> (B, L_out, H*D)."""
+    """Value contraction and head concat -> (B, L_out, H*D). Values of a
+    lower compute dtype (bf16) are contracted in float32 with the float32
+    weights and the result rounded to their dtype, as the models' kernels
+    take them: the CPU path and the card path compute one function."""
+    u = inputs.to(att.dtype)
     if att.ndim == 3:
-        out = torch.einsum("hnj,bjd->bnhd", att, inputs)
+        out = torch.einsum("hnj,bjd->bnhd", att, u)
     else:
-        out = torch.einsum("bhnj,bjd->bnhd", att, inputs)
-    return out.reshape(out.shape[0], out.shape[1], -1)
+        out = torch.einsum("bhnj,bjd->bnhd", att, u)
+    return out.reshape(out.shape[0], out.shape[1], -1).to(inputs.dtype)
 
 
 def position_attention(

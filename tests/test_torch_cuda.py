@@ -8,7 +8,9 @@ non-lazy geometry); the host geometry builder's upload;
 and the launches of the model paths (Burgers, Darcy, sod, elasticity,
 vorticity under each remat mode, NACA, the five fixed-mesh TF
 configurations, burgers_tf's lite and selfpit variants), with #1 recomputed
-under checkpointing to the same bits.
+under checkpointing to the same bits; and bf16 models (``compute_dtype``)
+launching what their float32 counterparts launch, with float32 at every
+kernel.
 
 Every test here is marked ``cuda`` and skips without a CUDA device. The
 file imports no JAX, so that it runs on a machine without it:
@@ -21,6 +23,7 @@ is held at rtol 5e-4 / atol 5e-6 (the bound tests/test_pallas.py holds the
 JAX fused backward to) on terms normalised to unit scale.
 """
 
+import contextlib
 import dataclasses
 from unittest import mock
 
@@ -1893,3 +1896,107 @@ def test_host_geometry_uploads_the_host_build(cuda):
     for name in ("mesh_in", "dist_down", "dist_proc", "dist_up", "thr_down", "thr_up"):
         assert getattr(gc, name).device.type == "cuda"
         assert torch.equal(getattr(gc, name).cpu(), getattr(gh, name))
+
+
+# ------------------------------------------- mixed precision (bf16)
+
+# config, overrides, model variant: one per kernel family (#1/#3/#4,
+# #7/#8, #11/#12, #13, #14; vorticity with instance norm and BPTT)
+BF16_CASES = {
+    "burgers": ("burgers", ["grid=256", "latent_grid=64", "model.hid_dim=32"], None),
+    "elasticity": ("elasticity", ["model.hid_dim=32"], None),
+    "elasticity_tf": ("elasticity_tf", ["model.hid_dim=32"], None),
+    "burgers_tf": ("burgers_tf", ["grid=256", "latent_grid=128", "model.hid_dim=32"], None),
+    "burgers_tf_transformer": ("burgers_tf", ["grid=256", "latent_grid=128", "model.hid_dim=32"],
+                               "transformer"),
+    "vorticity": ("vorticity", ["latent_grid=8,8", "model.hid_dim=32", "rollout_steps=2"], None),
+}
+# a bf16 forward against the same model on the plain attention: the kernels'
+# float32 rounding moves a few bf16 roundings by an ulp (2^-8 relative)
+BF16_REL = 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(BF16_CASES))
+def test_bf16_step_launches_what_float32_does(cuda, case):
+    """compute_dtype="bfloat16" at narrow widths: a training step launches
+    every kernel as often as the float32 step does, each kernel wrapper
+    takes float32 tensors only, the parameters stay float32, and a
+    forward gives float32 within BF16_REL (relative L2) of the same bf16
+    model on the plain attention, and not the float32 model's."""
+    from position_induced_transformer_torch import configs
+    from position_induced_transformer_torch.kernels import dotatt as kd
+    from position_induced_transformer_torch.kernels import posatt_tf_fixed as kf
+    from position_induced_transformer_torch.models import pit, pit_tf
+    from position_induced_transformer_torch.train import benchmarks, loop, runner
+
+    name, overrides, variant = BF16_CASES[case]
+    cfg32 = dataclasses.replace(configs.apply_overrides(configs.get(name), overrides),
+                                model_variant=variant or "pit")
+    cfg16 = configs.apply_overrides(cfg32, ["model.compute_dtype=bfloat16"])
+    counters = (kp.posatt_fixed_cuda, kp.posatt_bwd_dscale_cuda, kp.posatt_bwd_du_cuda,
+                kb.posatt_batched_cuda, kb.posatt_batched_bwd_dscale_cuda,
+                kb.posatt_batched_bwd_du_cuda, kb.posatt_tf_cuda, kb.posatt_tf_coord_cuda,
+                kb.posatt_tf_coord_bwd_dscale_cuda, kb.posatt_tf_coord_bwd_dv_cuda,
+                kf.posatt_tf_fixed_cuda, kf.posatt_tf_fixed_bwd_dscale_cuda,
+                kf.posatt_tf_fixed_bwd_dv_cuda, kd.dotatt_cuda, kd.dotatt_bwd_dq_cuda,
+                kd.dotatt_bwd_dkdv_cuda)
+    wrappers = [(pit, "position_attention_fixed"), (pit, "position_attention_batched"),
+                (pit, "position_attention_dist"), (pit_tf, "position_attention_batched_dist"),
+                (pit_tf, "position_attention_batched_tf_coords"),
+                (pit_tf, "position_attention_tf_fixed"), (pit_tf, "dot_attention")]
+    dtypes = set()
+
+    def spy(fn):
+        def call(*args, **kw):
+            dtypes.update(a.dtype for a in (*args, *kw.values())
+                          if torch.is_tensor(a) and a.is_floating_point())
+            return fn(*args, **kw)
+        return call
+
+    launched, outs = {}, {}
+    for cfg in (cfg32, cfg16):
+        problem = benchmarks.setup(cfg, ntrain=cfg.batch_size, ntest=2, device=cuda)
+        state = runner.init_state(problem, 0)
+        data = {k: torch.from_numpy(np.ascontiguousarray(v)).to(cuda)
+                for k, v in problem.train_data.items()}
+        batch = {k: v[:2] for k, v in data.items()}
+        with torch.inference_mode():
+            outs[cfg.model.compute_dtype] = problem.task.forward(problem.geom, batch)
+            if cfg is cfg16:
+                with mock.patch.object(pit, "position_attention_fixed",
+                                       lambda d, lm, u, loc, thr=None: posatt.position_attention(
+                                           d, lm, u, loc, thr=thr)), \
+                        mock.patch.object(pit, "position_attention_batched",
+                                          lambda mq, mk, lm, u, loc, thr=None, band=None:
+                                          posatt.position_attention(
+                                              distances.euclidean_sq(mq, mk), lm, u, loc,
+                                              thr=thr)), \
+                        mock.patch.object(pit_tf, "position_attention_batched_tf_coords",
+                                          lambda mq, mk, s, v, thr=None, band=None:
+                                          kb.posatt_tf_reference(pit_tf.pairwise_dist_half(mq, mk),
+                                                                 thr, s, v)), \
+                        mock.patch.object(pit_tf, "position_attention_tf_fixed",
+                                          lambda d, thr, s, v, kind, loc: kf.posatt_tf_fixed_reference(
+                                              d, None if loc > 100 else thr, s, v, kf.KINDS[kind])), \
+                        mock.patch.object(pit_tf, "dot_attention",
+                                          lambda q, k, v, d=None, t=None, s=None: kd.dotatt_reference(
+                                              q.contiguous(), k.contiguous(), v.contiguous(), d, t, s)):
+                    plain = problem.task.forward(problem.geom, batch)
+        before = [f.launches for f in counters]
+        with contextlib.ExitStack() as stack:
+            for module, attr in wrappers:
+                stack.enter_context(mock.patch.object(module, attr, spy(getattr(module, attr))))
+            _, losses = loop.make_train_epoch(problem.task, lambda step: 1e-3)(
+                state, problem.geom, data, torch.arange(cfg.batch_size, device=cuda)[None])
+        torch.cuda.synchronize()
+        launched[cfg.model.compute_dtype] = [f.launches - b for f, b in zip(counters, before)]
+        assert torch.isfinite(losses).all()
+    assert launched["bfloat16"] == launched["float32"] and sum(launched["float32"]) > 0
+    assert dtypes == {torch.float32}
+    assert all(p.dtype == torch.float32 for p in problem.model.parameters())
+    got = outs["bfloat16"]
+    assert got.dtype == torch.float32
+    rel = lambda a, b: float(torch.linalg.vector_norm((a - b).double())
+                             / torch.linalg.vector_norm(b.double()))
+    assert rel(got, plain) <= BF16_REL and not torch.equal(got, outs["float32"])

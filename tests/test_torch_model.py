@@ -169,8 +169,19 @@ def test_state_dict_keys_match_reference_names():
 
 
 def test_model_rejects_other_compute_dtypes():
-    with pytest.raises(NotImplementedError, match="float32"):
-        TPiT(1, 1, 1, 8, 2, 1, 0.1, 0.1, compute_dtype="bfloat16")
+    """bf16 builds and runs (activations bf16, output float32); a name
+    that is not a floating-point dtype raises."""
+    model = TPiT(1, 1, 1, 8, 2, 1, 0.1, 0.1, compute_dtype="bfloat16",
+                 generator=torch.Generator().manual_seed(0))
+    mesh = np.linspace(0, 1, 33, dtype=np.float32)[:-1, None]
+    geom = t_build(mesh, mesh[::4], mesh, metric="periodic1d", en_loc=0.1, de_loc=0.1,
+                   device="cpu")
+    out = model(geom, torch.ones(2, 32, 1))
+    assert out.dtype == torch.float32 and out.shape == (2, 32, 1)
+    assert torch.isfinite(out).all()
+    for name in ("int32", "bool", "nonsense"):
+        with pytest.raises(ValueError, match="not a floating-point dtype"):
+            TPiT(1, 1, 1, 8, 2, 1, 0.1, 0.1, compute_dtype=name)
 
 
 def test_setup_names_unported_benchmarks():

@@ -590,15 +590,20 @@ def test_runner_trains_and_serves_bare_npy(problems, tmp_path):
 
 
 def test_unported_variants_and_dtypes_raise():
-    """Only float32 is ported. The point-cloud model takes position and
-    self attention (the lite and transformer variants) and refuses another
-    kind; selfpit on the point cloud raises with the JAX package's words."""
+    """The point-cloud model takes position and self attention (the lite
+    and transformer variants) and refuses another kind; selfpit on the
+    point cloud raises with the JAX package's words. bf16 builds and runs
+    (output float32); a name that is not a floating-point dtype raises."""
     assert type(t_tf.PiTTFPointCloud(4, 1, 8, 2, 2.0, 2.0, processor_attention="self").PA_0
                 ).__name__ == "MultiHeadSelfAtt"
     with pytest.raises(ValueError, match="unknown point-cloud attention kind 'hybrid'"):
         t_tf.PiTTFPointCloud(4, 1, 8, 2, 2.0, 2.0, coder_attention="hybrid")
-    with pytest.raises(NotImplementedError, match="float32"):
-        t_tf.PiTTFPointCloud(4, 1, 8, 2, 2.0, 2.0, compute_dtype="bfloat16")
+    bf16 = t_tf.PiTTFPointCloud(4, 1, 8, 2, 2.0, 2.0, compute_dtype="bfloat16",
+                                generator=torch.Generator().manual_seed(0))
+    out = bf16(torch.rand(2, 16, 4))
+    assert out.dtype == torch.float32 and out.shape == (2, 16, 1) and torch.isfinite(out).all()
+    with pytest.raises(ValueError, match="not a floating-point dtype"):
+        t_tf.PiTTFPointCloud(4, 1, 8, 2, 2.0, 2.0, compute_dtype="int8")
     lite = t_bench._make_model(dataclasses.replace(t_configs.ELASTICITY_TF, model_variant="lite"))
     assert type(lite.down).__name__ == "MultiHeadPosAttBatched"
     with pytest.raises(ValueError, match="point-cloud"):

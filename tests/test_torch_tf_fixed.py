@@ -589,16 +589,23 @@ def test_state_dict_carries_the_full_width_tree(name):
 
 
 def test_unported_variants_and_dtypes_raise():
-    """Only float32 is ported. Every model variant is: naca_tf builds its
-    lite and transformer models and refuses selfpit with the JAX package's
-    words (its latent grid is not its query grid); an unknown attention
-    kind or variant raises."""
+    """Every model variant is ported: naca_tf builds its lite and
+    transformer models and refuses selfpit with the JAX package's words
+    (its latent grid is not its query grid); an unknown attention kind or
+    variant raises. bf16 builds and runs (output float32); a name that is
+    not a floating-point dtype raises."""
     assert type(t_tf.PiTTF(3, 1, 8, 2, 1.0, 8.0, coder_attention="hybrid").down).__name__ == (
         "SelfMultiHeadPosAtt")
     with pytest.raises(ValueError, match="unknown attention kind"):
         t_tf.PiTTF(3, 1, 8, 2, 1.0, 8.0, coder_attention="cosine")
-    with pytest.raises(NotImplementedError, match="float32"):
-        t_tf.PiTTF(3, 1, 8, 2, 1.0, 8.0, compute_dtype="bfloat16")
+    bf16 = t_tf.PiTTF(3, 1, 8, 2, 200.0, 200.0, compute_dtype="bfloat16",
+                      generator=torch.Generator().manual_seed(0))
+    d = t_tf.pairwise_dist_periodic_1d(16, 16)
+    geom = t_tf.TFGeometry(m_qry=d, m_cross=d, m_ltt=d)
+    out = bf16(geom, torch.linspace(0, 1, 17)[:-1, None], torch.rand(2, 16, 2))
+    assert out.dtype == torch.float32 and out.shape == (2, 16, 1) and torch.isfinite(out).all()
+    with pytest.raises(ValueError, match="not a floating-point dtype"):
+        t_tf.PiTTF(3, 1, 8, 2, 1.0, 8.0, compute_dtype="complex")
     for variant, processor in (("lite", "MultiHeadSelfAtt"), ("transformer", "MultiHeadSelfAtt")):
         cfg = dataclasses.replace(t_configs.NACA_TF, model_variant=variant)
         assert type(t_bench._make_model(cfg).MHPA_0).__name__ == processor
