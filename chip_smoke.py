@@ -338,13 +338,28 @@ Phases, each of which fails the run (non-zero exit, no result line):
     BF16_ROLLOUT_REL) of a plain card run, the output and loss of two
     training samples against a plain card run and a CPU run; steps/s,
     busy time and peak memory, bf16 beside float32 (vorticity's float32
-    step from phase 23).
+    step from phase 23);
+41. data parallel on ``torch.distributed``: a world of one under NCCL in
+    this process, Burgers at the flagship configuration trained with
+    ``mesh="data=1"`` (phase 7's run: the same 7/0/7/6 launches a step,
+    the same losses and weights as without a mesh); then two gloo ranks
+    sharing the card, each its own process: Burgers (4 samples a rank) and
+    elasticity (5 clouds a rank, 6/6/5 of #7/#8 a step) trained at
+    ``data=2`` against one process at the training gates, Darcy's 421^2
+    ZSSR ``evaluate(mesh="data=2")`` (#1's decoder on 88,621-row slabs, 6
+    launches a rank) against the unsharded metrics at rtol 1e-5, and
+    ``make_server(mesh="data=2")`` answering 8 and 13 Burgers samples (7
+    launches a device batch a rank), every reply equal to
+    ``infer(mesh="data=2")``'s to the bit and within rtol 1e-4 / atol 1e-5
+    of the single-process server's; each world's Burgers step wall, busy
+    time and all-reduce share.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 ``kernels`` record (the twelve kernels #1-#4, the per-sample-mesh #7, #8,
 the TF-semantics #9-#12 (#9 and #10 with their torch-semantics route),
 the schedule variants #5, #6, the three entry points of #13 and the three
-of #14, with their launches on the bf16 paths of phases 39-40), and
+of #14, with their launches on the bf16 paths of phases 39-40 and the
+data-parallel paths of phase 41), and
 before that the phases' records.
 """
 
@@ -6493,6 +6508,373 @@ def schedule_entry(version, rows, launched):
     }
 
 
+# ------------------------------------------- phase 41: data parallel
+
+DP_WORLD = 2  # two gloo ranks on the one card
+DP_BURGERS = (2, 64, 16)  # epochs, ntrain, ntest: phase 7's run
+DP_ELASTICITY = (1, 20, 10)  # 2 steps of 5 clouds a rank
+DP_SERVE_SIZES = (8, 13)  # one and two device batches of 8
+DP_SERVE_RTOL, DP_SERVE_ATOL = 1e-4, 1e-5
+
+
+def union_ms(intervals):
+    """The length of the union of (start, end) intervals in microseconds,
+    in milliseconds."""
+    total, cur_s, cur_e = 0.0, None, None
+    for s0, e0 in sorted(intervals):
+        if cur_e is None or s0 > cur_e:
+            if cur_e is not None:
+                total += cur_e - cur_s
+            cur_s, cur_e = s0, e0
+        else:
+            cur_e = max(cur_e, e0)
+    if cur_e is not None:
+        total += cur_e - cur_s
+    return total / 1e3
+
+
+def dp_step_timing(problem, state, mesh, reps=10):
+    """Warm Burgers training steps of ``mesh`` (None: one process), each
+    rank on its shard: the wall and device busy ms per step
+    (profile_device), and the all-reduce's share of the step, two ways:
+    torch.profiler's CPU events of the collective (``c10d::allreduce_``,
+    gloo's and NCCL's own records) and device time of NCCL's kernels, per
+    step; and the host clock around each ``all_reduce`` (synchronised
+    before and after) over the wall of the same steps. Every rank runs the
+    same steps: they are collectives."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from position_induced_transformer_torch.parallel import sharding
+    from position_induced_transformer_torch.train import loop
+
+    cfg = problem.config
+    dev = next(state.model.parameters()).device
+    data = {k: torch.from_numpy(v).to(dev) for k, v in problem.train_data.items()}
+    perm = loop.epoch_permutation(0, 99, problem.n_train, cfg.batch_size).to(dev)
+    train_epoch = loop.make_train_epoch(problem.task, lambda step: cfg.lr, mesh=mesh)
+    rows = itertools.cycle(range(perm.shape[0]))
+
+    def one_step():
+        i = next(rows)
+        train_epoch(state, problem.geom, data, perm[i:i + 1])
+
+    for _ in range(5):
+        one_step()
+    out = profile_device(one_step, "step", reps=reps)
+    if mesh is None:
+        return out
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            one_step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+    squash = lambda name: name.lower().replace("_", "")
+    events = list(prof.events())
+    host = [(e.time_range.start, e.time_range.end) for e in events
+            if e.device_type == torch.autograd.DeviceType.CPU and "allreduce" in squash(e.name)]
+    nccl = [(e.time_range.start, e.time_range.end) for e in events
+            if e.device_type == torch.autograd.DeviceType.CUDA and "nccl" in e.name.lower()]
+    out["profiler_all_reduce_host_ms_per_step"] = union_ms(host) / reps
+    out["profiler_all_reduce_device_ms_per_step"] = union_ms(nccl) / reps
+    out["profiler_wall_ms_per_step"] = wall_ms
+    out["profiler_all_reduce_host_share"] = union_ms(host) / reps / wall_ms
+    out["all_reduce_event_names"] = sorted({e.name for e in events
+                                            if "allreduce" in squash(e.name)
+                                            or "nccl" in e.name.lower()})[:8]
+    spent, inner = [], sharding.all_reduce
+
+    def timed(m, t):
+        torch.cuda.synchronize()
+        s0 = time.perf_counter()
+        r = inner(m, t)
+        torch.cuda.synchronize()
+        spent.append(time.perf_counter() - s0)
+        return r
+
+    with mock.patch.object(sharding, "all_reduce", timed):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            one_step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    out["clocked_all_reduce_ms_per_step"] = sum(spent) * 1e3 / reps
+    out["clocked_wall_ms_per_step"] = wall * 1e3 / reps
+    out["clocked_all_reduce_share"] = sum(spent) / wall
+    return out
+
+
+def dp_expected(cfg, per_step, epochs, ntrain, ntest, n_ranks=1):
+    """Each rank's launches of a training run: ``per_step`` a step, and the
+    forwards of a batch per eval batch (the eval batch rounded to a
+    multiple of the ranks)."""
+    from position_induced_transformer_torch.train.runner import round_batch
+
+    steps = epochs * (ntrain // cfg.batch_size)
+    eval_bs = round_batch(min(cfg.eval_batch_size or cfg.batch_size, ntest), n_ranks)
+    fwd = next(k for k in per_step if k.endswith("_fwd"))
+    out = {k: 0 for k in launchers()}
+    out.update({k: n * steps for k, n in per_step.items()})
+    out[fwd] += per_step[fwd] * epochs * -(-ntest // eval_bs)
+    return out
+
+
+def compare_training(label, got_losses, got_weights, want_losses, want_weights):
+    """Losses and weights of a data-parallel run against one process: the
+    largest differences, whether they are equal to the bit, and the
+    training gates (losses LOSS_RTOL, weights PARAM_RTOL / PARAM_ATOL)."""
+    import torch
+
+    bitwise = torch.equal(got_losses, want_losses) and all(
+        torch.equal(v, want_weights[k]) for k, v in got_weights.items())
+    return {
+        "bitwise_equal": bitwise,
+        "max_abs_err_step_loss": check_close(f"{label} losses", got_losses, want_losses,
+                                             LOSS_RTOL, 0.0),
+        "max_abs_err_weights": max(
+            check_close(f"{label} weight {k}", v, want_weights[k], PARAM_RTOL, PARAM_ATOL)
+            for k, v in got_weights.items()),
+    }
+
+
+def data_parallel_rank(rank, world, store, out_dir, darcy_ckpt):
+    """One of phase 41's gloo ranks on the shared card (a process of its
+    own, started by data_parallel_phase): Burgers training at
+    ``mesh="data=2"``, its step timing, elasticity training, Darcy's 421^2
+    ZSSR evaluation split by query rows, then a served Burgers reply and
+    ``infer`` on it; each part's launches, results and reply under
+    ``out_dir``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(REPO))
+    from position_induced_transformer_torch import configs
+    from position_induced_transformer_torch.parallel import parse_mesh_spec
+    from position_induced_transformer_torch.train import evaluate
+    from position_induced_transformer_torch.train.serve import make_server
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
+                            world_size=world)
+    out = Path(out_dir)
+    try:
+        mesh = parse_mesh_spec(f"data={world}")
+        report = {"rank": rank, "world": world}
+        ckpt = str(out / "burgers_dp.pt")
+        problem, state, history, losses, weights, launched, seconds = run_training(
+            configs.BURGERS, "cuda", *DP_BURGERS, mesh=mesh, checkpoint_path=ckpt)
+        report["burgers"] = {"launches": launched, "seconds_whole_run": seconds,
+                             "history": history,
+                             "timing": dp_step_timing(problem, state, mesh)}
+        torch.save({"losses": losses, "weights": weights}, out / f"burgers_rank{rank}.pt")
+        del problem, state
+        problem, state, history, losses, weights, launched, seconds = run_training(
+            configs.ELASTICITY, "cuda", *DP_ELASTICITY, mesh=mesh)
+        report["elasticity"] = {"launches": launched, "seconds_whole_run": seconds}
+        torch.save({"losses": losses, "weights": weights}, out / f"elasticity_rank{rank}.pt")
+        del problem, state
+        zero_counts()
+        t0 = time.perf_counter()
+        report["darcy_zssr"] = {
+            "metrics": evaluate.evaluate("darcy", darcy_ckpt, zssr=True, ntest=10, device="cuda",
+                                         mesh=mesh)}
+        torch.cuda.synchronize()
+        report["darcy_zssr"].update(seconds=time.perf_counter() - t0, launches=counts())
+        x = np.load(out / "burgers_x.npy")
+        zero_counts()
+        server = make_server("burgers", ckpt, port=0, verbose=False, device="cuda", mesh=mesh)
+        warm = counts()
+        replies = {}
+        if rank == 0:
+            thread = threading.Thread(target=server.serve_forever, daemon=True)
+            thread.start()
+            url = f"http://127.0.0.1:{server.server_address[1]}/predict"
+            for n in DP_SERVE_SIZES:
+                code, body = post(url, npy(x[:n]))
+                if code != 200:
+                    fail(f"data parallel serve: HTTP {code}: {body[:2000]!r}")
+                replies[n] = np.load(io.BytesIO(body))
+            server.shutdown()
+        else:
+            server.serve_forever()  # until rank 0 closes
+        server.server_close()
+        report["serve"] = {"warmup_launches": warm, "launches": counts()}
+        for n in DP_SERVE_SIZES:
+            np.save(out / f"in{n}_rank{rank}.npy", x[:n])
+            evaluate.infer("burgers", ckpt, str(out / f"in{n}_rank{rank}.npy"),
+                           output_path=str(out / f"infer{n}.npy"), device="cuda", mesh=mesh)
+            if rank == 0:
+                np.save(out / f"served{n}.npy", replies[n])
+        with open(out / f"report_rank{rank}.json", "w") as f:
+            json.dump(report, f)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def data_parallel_phase(darcy_ckpt):
+    """Phase 41: the data axis on torch.distributed. (a) A world of one
+    under NCCL in this process (a FileStore in a temporary directory):
+    Burgers at the flagship configuration trained by ``runner.train(mesh=
+    "data=1")`` as phase 7 trains it, against the same run without a mesh:
+    the same launches (7/0/7/6 a step) and the same losses and weights;
+    each world's step wall, busy time and all-reduce share. (b) Two ranks
+    sharing the card under gloo (NCCL refuses two ranks on one GPU), each
+    a process (data_parallel_rank): Burgers (4 samples a rank) and
+    elasticity (5 clouds a rank) training against one process at the
+    training gates with each rank's launches as one process's per step;
+    Darcy's 421^2 ZSSR ``evaluate(mesh="data=2")`` (kernel #1's decoder on
+    88,621-row slabs) against the unsharded metrics at rtol 1e-5; and
+    ``make_server(mesh="data=2")``'s Burgers replies against the
+    single-process server's (rtol 1e-4 / atol 1e-5) and ``infer(mesh=
+    "data=2")``'s to the bit."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from position_induced_transformer_torch import configs
+    from position_induced_transformer_torch.parallel import parse_mesh_spec
+    from position_induced_transformer_torch.train import evaluate
+    from position_induced_transformer_torch.train.serve import make_server
+
+    t_phase = time.perf_counter()
+    cfg, ecfg = configs.BURGERS, configs.ELASTICITY
+    per_step = per_step_launches(cfg.model.n_blocks)
+    e_per_step = {"posatt_batched_fwd": 6, "posatt_batched_bwd_dscale": 6,
+                  "posatt_batched_bwd_du": 5}
+    report = {}
+    problem, state, _, losses, weights, launched, seconds = run_training(cfg, "cuda", *DP_BURGERS)
+    expected = dp_expected(cfg, per_step, *DP_BURGERS)
+    if launched != expected:
+        fail(f"data parallel: the single-process Burgers run launched {launched}, "
+             f"expected {expected}")
+    report["burgers_single"] = {"seconds_whole_run": seconds,
+                                "timing": dp_step_timing(problem, state, None)}
+    del problem, state
+    with tempfile.TemporaryDirectory() as d:
+        dist.init_process_group("nccl", store=dist.FileStore(os.path.join(d, "store"), 1),
+                                rank=0, world_size=1)
+        try:
+            mesh = parse_mesh_spec("data=1")
+            problem, state, _, one_losses, one_weights, one_launched, one_s = run_training(
+                cfg, "cuda", *DP_BURGERS, mesh=mesh)
+            if one_launched != launched:
+                fail(f"data parallel: the NCCL world of one launched {one_launched}, one "
+                     f"process {launched}")
+            report["burgers_nccl_world_1"] = {
+                "launches": one_launched, "seconds_whole_run": one_s,
+                **compare_training("data=1 under NCCL vs one process", one_losses, one_weights,
+                                   losses, weights),
+                "timing": dp_step_timing(problem, state, mesh)}
+            del problem, state
+        finally:
+            dist.destroy_process_group()
+    log("data_parallel nccl world of one " + json.dumps(report))
+
+    # (b) two gloo ranks on the one card
+    _, _, _, e_losses, e_weights, e_launched, _ = run_training(ecfg, "cuda", *DP_ELASTICITY)
+    if e_launched != dp_expected(ecfg, e_per_step, *DP_ELASTICITY):
+        fail(f"data parallel: the single-process elasticity run launched {e_launched}")
+    report["elasticity_single_launches"] = e_launched
+    torch.cuda.empty_cache()  # the ranks share the card with this process
+    out = REPO / "build" / "chip_smoke" / "data_parallel"
+    out.mkdir(parents=True, exist_ok=True)
+    for f in out.iterdir():
+        f.unlink()
+    from position_induced_transformer_torch.data import synthetic
+
+    np.save(out / "burgers_x.npy", synthetic.burgers(n=max(DP_SERVE_SIZES), L=cfg.grid[0],
+                                                     seed=1)[0])
+    store = out / "store"
+    procs, logs = [], []
+    t0 = time.perf_counter()
+    try:
+        for r in range(DP_WORLD):
+            logs.append(open(out / f"rank{r}.log", "wb"))
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", "import sys, chip_smoke; sys.exit(chip_smoke."
+                 f"data_parallel_rank({r}, {DP_WORLD}, {str(store)!r}, {str(out)!r}, "
+                 f"{str(darcy_ckpt)!r}))"],
+                cwd=REPO, stdout=logs[-1], stderr=subprocess.STDOUT))
+        deadline = time.perf_counter() + 600
+        # a rank that fails leaves the other waiting in a collective: stop both
+        while any(p.poll() is None for p in procs) and time.perf_counter() < deadline:
+            if any(p.poll() not in (None, 0) for p in procs):
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    report["gloo_ranks_seconds"] = time.perf_counter() - t0
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            text = "\n".join(f"rank {q}:\n" + (out / f"rank{q}.log").read_text(
+                errors="replace")[-5000:] for q in range(DP_WORLD))
+            fail(f"data parallel: gloo rank {r} exited {p.returncode}:\n{text}")
+    ranks = [json.loads((out / f"report_rank{r}.json").read_text()) for r in range(DP_WORLD)]
+    e_expected = dp_expected(ecfg, e_per_step, *DP_ELASTICITY, DP_WORLD)
+    b_expected = dp_expected(cfg, per_step, *DP_BURGERS, DP_WORLD)
+    zssr_single = evaluate.evaluate("darcy", darcy_ckpt, zssr=True, ntest=10, device="cuda")
+    served_single = {}
+    server = make_server("burgers", str(out / "burgers_dp.pt"), port=0, verbose=False,
+                         device="cuda")
+    try:
+        for n in DP_SERVE_SIZES:
+            served_single[n] = server.predictor.predict_array(
+                {"x": np.load(out / f"in{n}_rank0.npy")})
+    finally:
+        server.server_close()
+    for r, rep in enumerate(ranks):
+        if rep["burgers"]["launches"] != b_expected:
+            fail(f"data parallel: gloo rank {r}'s Burgers run launched "
+                 f"{rep['burgers']['launches']}, expected {b_expected}")
+        if rep["elasticity"]["launches"] != e_expected:
+            fail(f"data parallel: gloo rank {r}'s elasticity run launched "
+                 f"{rep['elasticity']['launches']}, expected {e_expected}")
+        z = rep["darcy_zssr"]["launches"]
+        if z != {k: 6 if k == "posatt_fixed_fwd" else 0 for k in z}:
+            fail(f"data parallel: gloo rank {r}'s ZSSR evaluation launched {z}")
+        b = torch.load(out / f"burgers_rank{r}.pt")
+        rep["burgers"].update(compare_training(f"gloo rank {r} Burgers vs one process",
+                                               b["losses"], b["weights"], losses, weights))
+        e = torch.load(out / f"elasticity_rank{r}.pt")
+        rep["elasticity"].update(compare_training(f"gloo rank {r} elasticity vs one process",
+                                                  e["losses"], e["weights"], e_losses, e_weights))
+        rep["darcy_zssr"]["max_rel_err_metrics_vs_one_process"] = max(
+            check_close(f"gloo rank {r} ZSSR {k}", got, want, 1e-5, 0.0) / want.abs().max().item()
+            for k in ("rel_l1", "rel_l2", "rel_max", "rel_l1_quartiles")
+            for got, want in [(torch.tensor(rep["darcy_zssr"]["metrics"][k], dtype=torch.float64),
+                               torch.tensor(zssr_single[k], dtype=torch.float64))])
+        per_batch = {k: 7 if k == "posatt_fixed_fwd" else 0 for k in launchers()}
+        served_batches = sum(-(-n // BURGERS_B) for n in DP_SERVE_SIZES)
+        want_serve = {k: v * (1 + served_batches) for k, v in per_batch.items()}  # + warmup
+        if rep["serve"]["launches"] != want_serve:
+            fail(f"data parallel: gloo rank {r}'s server launched {rep['serve']['launches']}, "
+                 f"expected {want_serve} (7 a device batch, warm-up included)")
+    for n in DP_SERVE_SIZES:
+        got = torch.from_numpy(np.load(out / f"served{n}.npy"))
+        if not torch.equal(got, torch.from_numpy(np.load(out / f"infer{n}.npy"))):
+            fail(f"data parallel: the served reply of {n} differs from infer(mesh) on it")
+        ranks[0].setdefault("serve", {})[f"max_abs_err_reply_{n}_vs_single_server"] = check_close(
+            f"data parallel served reply of {n} vs one process", got,
+            torch.from_numpy(served_single[n]), DP_SERVE_RTOL, DP_SERVE_ATOL)
+    report["gloo_ranks"] = ranks
+    report["phase_seconds"] = time.perf_counter() - t_phase
+    return report
+
+
 def main() -> int:
     import torch
 
@@ -6592,6 +6974,9 @@ def main() -> int:
     bf16_families = bf16_kernel_families_phase(v_train)
     log("bf16_kernel_families " + json.dumps(bf16_families))
     stamp("40 (bf16 kernel families)")
+    dp = data_parallel_phase(darcy_ckpt)
+    log("data_parallel " + json.dumps(dp))
+    stamp("41 (data parallel)")
     fixed_paths = {  # the fixed-mesh model paths: (train, served or evaluated)
         "darcy_train": d_train["launches"], "darcy_zssr": d_zssr["launches"],
         "darcy_serve_43": d_serve43["launches"], "darcy_serve_421": d_serve421["launches"],
@@ -6870,9 +7255,14 @@ def main() -> int:
     bf16_paths = {"bf16_burgers_serve": bf16_burgers["serve"]["launches"],
                   "bf16_burgers_train": bf16_burgers["train"]["launches"],
                   **{f"bf16_{k}": r["launches"] for k, r in bf16_families.items()}}
+    # the data-parallel paths (phase 41): each rank's launches
+    dp_rank0 = dp["gloo_ranks"][0]
+    more_paths = {"dp_nccl_world_1_burgers_train": dp["burgers_nccl_world_1"]["launches"],
+                  **{f"dp_gloo_rank0_{k}": dp_rank0[k]["launches"]
+                     for k in ("burgers", "elasticity", "darcy_zssr", "serve")}}
     for entry in kernels["kernels"]:
         name = entry["name"]
-        for path, launched in bf16_paths.items():
+        for path, launched in {**bf16_paths, **more_paths}.items():
             for k, n in launched.items():
                 if n and (k == name or k.startswith(name + "_")):
                     entry["launches_by_path"][path + k[len(name):]] = n

@@ -10,9 +10,13 @@ The commands are the JAX package's: ``train``, ``evaluate``, ``infer``,
 They run on the card; ``--device cpu`` runs them on the CPU, and without a
 card and without it they raise. ``--model-variant`` (``lite``,
 ``transformer``, ``selfpit``: the TF family's ablation models) reaches
-every command; ``--mesh`` and ``--multihost`` are accepted and raise
-``NotImplementedError`` (not ported); the port has no counterpart of ``--fused-mode``, since a CUDA
-tensor always runs the hand-written kernels. Data default to the synthetic
+every command. ``--multihost`` joins a ``torch.distributed`` world (one
+process per rank, started by torchrun or by the user) before anything
+touches the device, and ``--mesh data=N`` (or ``dcn=K,data=N``, ``auto``)
+then runs the command data-parallel over its ranks, rank 0 alone printing
+and writing files; ``--mesh model=M`` and ``stage=K`` are not ported yet.
+The port has no counterpart of ``--fused-mode``, since a CUDA tensor
+always runs the hand-written kernels. Data default to the synthetic
 generators; ``--data-path`` or ``PIT_REAL_DATA_DIR`` selects real
 datasets (``data/catalog.py``). ``convert`` moves checkpoints between the
 reference's ``model.pth`` and this package's format.
@@ -23,8 +27,6 @@ from __future__ import annotations
 import argparse
 import json
 import sys
-
-_NOT_PORTED = ("mesh", "multihost")
 
 
 def _add_common(p):
@@ -46,14 +48,29 @@ def _add_common(p):
         "self-attention processor, 'transformer' = all self-attention, "
         "'selfpit' = hybrid dot-product + distance-bias attention",
     )
-    p.add_argument("--mesh", default=None, help="multi-device mesh (not ported)")
+    p.add_argument(
+        "--mesh", default=None,
+        help="data-parallel mesh over the ranks of the torch.distributed world "
+        "(--multihost or torchrun): 'auto' (every rank on the data axis, one "
+        "slice per host), 'data=N' or 'dcn=K,data=N' (K slices of N ranks; "
+        "N x K = the world size). train: batch sharded, gradients summed over "
+        "the ranks. evaluate: data-parallel batches; with --zssr the decoder's "
+        "query rows are split over the ranks instead. 'model=M' and 'stage=K' "
+        "are not ported yet",
+    )
     p.add_argument(
         "--set", action="append", default=None, metavar="KEY=VALUE",
         dest="overrides",
         help="override any config field, repeatable: e.g. "
         "--set model.hid_dim=128 --set lr=3e-4 --set latent_grid=16,16",
     )
-    p.add_argument("--multihost", default=None, help="multi-process cluster (not ported)")
+    p.add_argument(
+        "--multihost", default=None,
+        help="join a torch.distributed world before anything else, one process "
+        "per rank: 'auto' (torchrun's environment) or 'coordinator=HOST:PORT,"
+        "num_processes=N,process_id=I'. Every rank runs the SAME command; "
+        "NCCL on CUDA, gloo with --device cpu; rank 0 prints and writes files",
+    )
     _add_problem_module(p)
 
 
@@ -96,13 +113,6 @@ def _load_problem_modules(args):
             importlib.reload(sys.modules[mod])
         else:
             importlib.import_module(mod)
-
-
-def _refuse_not_ported(args):
-    for opt in _NOT_PORTED:
-        value = getattr(args, opt, None)
-        if value:
-            raise NotImplementedError(f"--{opt.replace('_', '-')} {value!r} is not ported yet")
 
 
 def _convert(args):
@@ -318,10 +328,17 @@ def _parser():
 
 
 def main(argv=None):
+    from position_induced_transformer_torch.parallel import multihost
+    from position_induced_transformer_torch.parallel.sharding import parse_mesh_spec
+
     args = _parser().parse_args(argv)
+    if getattr(args, "multihost", None):
+        multihost.initialize(args.multihost, device=args.device)  # before any device work
+    # resolved once: the entry points take the mesh as it is
+    mesh = parse_mesh_spec(getattr(args, "mesh", None))
+    main_rank = multihost.is_main()
     if getattr(args, "data_path", None) is not None or getattr(args, "benchmark", None):
         args.data_path = _resolve_data_path(args)
-    _refuse_not_ported(args)
     _load_problem_modules(args)
 
     if args.command == "convert":
@@ -370,7 +387,8 @@ def main(argv=None):
             "rollout_steps": cfg.rollout_steps,
             "train_shape": {k: list(np.shape(v)) for k, v in problem.train_data.items()},
         }
-        print(json.dumps(info, indent=1))
+        if main_rank:
+            print(json.dumps(info, indent=1))
         return 0
 
     if args.command == "train":
@@ -395,17 +413,19 @@ def main(argv=None):
                 resume_from=args.resume,
                 checkpoint_every=args.checkpoint_every,
                 sync_every=args.sync_every,
+                mesh=mesh,
                 grad_accum=args.grad_accum,
                 device=args.device,
             )
         finally:
             profiling.debug_nans(was)
-        print(json.dumps({"final": history[-1] if history else {}}))
+        if main_rank:
+            print(json.dumps({"final": history[-1] if history else {}}))
         if args.save_pred or args.plots:
             import numpy as np
 
-            pred = runner.predict(problem)
-            if args.save_pred:
+            pred = runner.predict(problem, mesh=mesh)  # every rank: a collective
+            if args.save_pred and main_rank:
                 from scipy.io import savemat
 
                 savemat(args.save_pred, {
@@ -413,7 +433,7 @@ def main(argv=None):
                     "trueX": np.asarray(problem.test_data["x"]),
                     "trueY": np.asarray(problem.test_data["y"]),
                 })
-            if args.plots:
+            if args.plots and main_rank:
                 from position_induced_transformer_torch.train.plots import save_benchmark_plots
 
                 save_benchmark_plots(problem, pred, args.plots)
@@ -436,8 +456,10 @@ def main(argv=None):
             data_path=args.data_path,
             setup_kwargs=setup_kwargs,
             device=args.device,
+            mesh=mesh,
         )
-        print(json.dumps(result))
+        if main_rank:
+            print(json.dumps(result))
         return 0
 
     if args.command == "serve":
@@ -451,6 +473,7 @@ def main(argv=None):
             warmup=not args.no_warmup,
             data_path=args.data_path,
             device=args.device,
+            mesh=mesh,
         )
         return 0
 
@@ -468,8 +491,10 @@ def main(argv=None):
             plots_dir=args.plots,
             shuffle_ablation=args.shuffle_ablation,
             device=args.device,
+            mesh=mesh,
         )
-        print(json.dumps(result))
+        if main_rank:
+            print(json.dumps(result))
         return 0
 
     return 1

@@ -4,8 +4,10 @@
 evaluates the same weights zero-shot at a finer resolution (darcy: trained
 on the 43^2 grid, evaluated on the 421^2 one). :class:`Predictor` holds a
 checkpoint warm on one device for repeated calls; :func:`infer` is the
-one-shot form. Inputs are ``.npy``, MATLAB ``.mat`` (v5, or v7.3 through
-the optional h5py) or HDF5 ``.h5`` files laid out like the benchmark's
+one-shot form. With a ``mesh`` each rank of a ``torch.distributed`` world
+runs its shard of every batch, or, for a ZSSR evaluation, its slab of the
+decoder's query rows, and every rank gets the whole result. Inputs are
+``.npy``, MATLAB ``.mat`` (v5, or v7.3 through the optional h5py) or HDF5 ``.h5`` files laid out like the benchmark's
 inputs, with raw values: a normalizing benchmark (darcy) normalizes them
 with the checkpoint's statistics, resized to the input's own grid. A benchmark on per-sample meshes
 (elasticity) also needs each sample's coordinates: its input is a
@@ -24,6 +26,7 @@ output fed back as the next input serves ``rollout_steps`` too.
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import inspect
 from typing import Optional
@@ -40,6 +43,16 @@ from position_induced_transformer_torch.ops.metrics import (
     rel_norm_traj,
 )
 from position_induced_transformer_torch.ops.normalization import PixelWiseNormalizer
+from position_induced_transformer_torch.parallel import multihost
+from position_induced_transformer_torch.parallel.sharding import (
+    all_gather,
+    data_axis_size,
+    parse_mesh_spec,
+    sequence_gather,
+    sequence_shard_geometry,
+    sequence_shard_tf_geometry,
+    shard_rows,
+)
 from position_induced_transformer_torch.train import benchmarks
 from position_induced_transformer_torch.train import checkpoint as ckpt
 from position_induced_transformer_torch.train import runner
@@ -48,7 +61,7 @@ from position_induced_transformer_torch.train.plots import (
     save_benchmark_plots,
     save_step_error_plot,
 )
-from position_induced_transformer_torch.train.runner import padded_batches
+from position_induced_transformer_torch.train.runner import padded_batches, round_batch
 from position_induced_transformer_torch.utils.devices import resolve_device
 
 
@@ -226,7 +239,10 @@ class Predictor:
     ``{"downsampling": 1}``). A normalizing benchmark takes its statistics
     from the checkpoint; a checkpoint without them refits them on the full
     training split, as its training did. ``model_variant``: the TF family's
-    ablation model the checkpoint holds.
+    ablation model the checkpoint holds. ``mesh``: data-parallel inference,
+    every rank building its Predictor and calling it with the same inputs;
+    each runs its shard of every device batch (the batch size rounded to a
+    multiple of the ranks) and every rank returns the whole prediction.
     """
 
     def __init__(
@@ -237,7 +253,9 @@ class Predictor:
         setup_kwargs: Optional[dict] = None,
         device="cuda",
         model_variant: Optional[str] = None,
+        mesh=None,
     ):
+        self.mesh = parse_mesh_spec(mesh)
         dev = resolve_device(device)
         cfg = runner.with_variant(config, model_variant)
         restored = _restore(checkpoint_path, cfg)
@@ -264,7 +282,8 @@ class Predictor:
         at one shape."""
         if batch_size is not None and batch_size < 1:
             raise ValueError(f"batch_size must be >= 1, got {batch_size}")
-        return batch_size or self.cfg.eval_batch_size or self.cfg.batch_size
+        bs = batch_size or self.cfg.eval_batch_size or self.cfg.batch_size
+        return round_batch(bs, data_axis_size(self.mesh))
 
     def predict_array(
         self, data: dict, rollout_steps: int = 0, batch_size: Optional[int] = None,
@@ -276,10 +295,12 @@ class Predictor:
         :meth:`Task.rollout` lays it out."""
         n = int(np.shape(data["x"])[0])
         bs = self._batch_size(batch_size)
-        task, geom = self.problem.task, self.problem.geom
+        task, geom, mesh = self.problem.task, self.problem.geom, self.mesh
         outs = []
         with torch.inference_mode():
             for idx in padded_batches(n, bs):
+                if mesh is not None:
+                    idx = shard_rows(mesh, idx)
                 batch = {
                     k: torch.from_numpy(np.ascontiguousarray(np.asarray(v)[idx])).to(self.device)
                     for k, v in data.items()
@@ -288,6 +309,8 @@ class Predictor:
                     out = task.rollout(geom, batch["x"], rollout_steps)
                 else:
                     out = task.forward(geom, batch)
+                if mesh is not None:
+                    out = all_gather(mesh.group, out)
                 outs.append(out.cpu().numpy())
         return np.concatenate(outs, axis=0)[:n]
 
@@ -328,27 +351,29 @@ def infer(
     setup_kwargs: Optional[dict] = None,
     device="cuda",
     model_variant: Optional[str] = None,
+    mesh=None,
 ) -> dict:
     """One-shot inference on an input file; writes ``.npy`` or ``.mat``
     (variable ``pred``) when ``output_path`` is given. ``rollout_steps``:
     the horizon of an autoregressive benchmark (default: its configured
-    one). ``setup_kwargs`` and ``model_variant`` as for
-    :class:`Predictor`."""
+    one). ``setup_kwargs``, ``model_variant`` and ``mesh`` as for
+    :class:`Predictor`; under a mesh only rank 0 writes the output."""
     if output_path and not output_path.endswith((".npy", ".mat")):
         raise ValueError(
             f"unsupported output format {output_path!r} (expected .npy or .mat)"
         )
-    predictor = Predictor(config, checkpoint_path, data_path=data_path,
-                          setup_kwargs=setup_kwargs, device=device, model_variant=model_variant)
+    predictor = Predictor(config, checkpoint_path, data_path=data_path, setup_kwargs=setup_kwargs,
+                          device=device, model_variant=model_variant, mesh=mesh)
     steps = predictor.cfg.rollout_steps if rollout_steps is None else rollout_steps
     pred = predictor.predict_file(input_path, input_key, rollout_steps=steps,
                                   batch_size=batch_size)
-    if output_path and output_path.endswith(".npy"):
-        np.save(output_path, pred)
-    elif output_path:
-        from scipy.io import savemat
+    if output_path and multihost.is_main():
+        if output_path.endswith(".npy"):
+            np.save(output_path, pred)
+        else:
+            from scipy.io import savemat
 
-        savemat(output_path, {"pred": pred})
+            savemat(output_path, {"pred": pred})
     return {
         "benchmark": predictor.cfg.name,
         "n": int(pred.shape[0]),
@@ -384,7 +409,7 @@ def _shuffle_perm(n: int) -> np.ndarray:
     return perm
 
 
-def input_shuffle_ablation(problem, pred_true=None) -> dict:
+def input_shuffle_ablation(problem, pred_true=None, mesh=None) -> dict:
     """Whether a one-step model reads its input function: the test rel-L2
     (per-sample mean) with the true inputs and with the inputs shuffled
     across test samples by :func:`_shuffle_perm`, targets and geometry
@@ -396,6 +421,8 @@ def input_shuffle_ablation(problem, pred_true=None) -> dict:
     - ``elasticity``: only the void-radius channels (2 on) move, the
       cloud's coordinates stay with their targets;
     - otherwise the input frame ``x`` moves.
+
+    ``mesh``: both predictions data-parallel (:func:`runner.predict`).
     """
     cfg = problem.config
     data = dict(problem.test_data)
@@ -417,8 +444,8 @@ def input_shuffle_ablation(problem, pred_true=None) -> dict:
     else:
         data["x"] = np.asarray(data["x"])[perm]
     if pred_true is None:
-        pred_true = runner.predict(problem)
-    pred_shuf = runner.predict(problem, data=data)
+        pred_true = runner.predict(problem, mesh=mesh)
+    pred_shuf = runner.predict(problem, data=data, mesh=mesh)
     y = np.asarray(problem.test_data["y"])
 
     def rl2(p):  # predictions are mesh-flattened, targets may be grids
@@ -431,20 +458,26 @@ def input_shuffle_ablation(problem, pred_true=None) -> dict:
     return {"true_relL2": rl2(pred_true), "shuffled_inputs_relL2": rl2(pred_shuf)}
 
 
-def _rollout_batches(problem, x: np.ndarray, steps: int) -> np.ndarray:
+def _rollout_batches(problem, x: np.ndarray, steps: int, mesh=None) -> np.ndarray:
     """``Task.rollout`` of the windows ``x`` over ``steps`` steps, in padded
     batches of the eval batch size on the model's device: (n, L, C,
-    steps)."""
+    steps). ``mesh``: each rank rolls out its shard of every batch (the
+    batch size rounded to a multiple of the ranks), gathered."""
     cfg = problem.config
     n = x.shape[0]
-    bs = min(cfg.eval_batch_size or cfg.batch_size, n)
+    bs = round_batch(min(cfg.eval_batch_size or cfg.batch_size, n), data_axis_size(mesh))
     dev = next(problem.model.parameters()).device
     problem.model.eval()
     preds = []
     with torch.inference_mode():
         for idx in padded_batches(n, bs):
+            if mesh is not None:
+                idx = shard_rows(mesh, idx)
             xb = torch.from_numpy(np.ascontiguousarray(x[idx])).to(dev)
-            preds.append(problem.task.rollout(problem.geom, xb, steps).cpu().numpy())
+            out = problem.task.rollout(problem.geom, xb, steps)
+            if mesh is not None:
+                out = all_gather(mesh.group, out)
+            preds.append(out.cpu().numpy())
     return np.concatenate(preds, axis=0)[:n]
 
 
@@ -466,13 +499,14 @@ def _cylinder_rollout(problem) -> dict:
 
 
 def _evaluate_rollout(cfg, problem, zssr: bool, save_pred: Optional[str],
-                      plots_dir: Optional[str] = None) -> dict:
+                      plots_dir: Optional[str] = None, mesh=None) -> dict:
     """The rollout metrics of an autoregressive benchmark: each test
     window rolled ``cfg.rollout_steps`` steps in padded batches of the eval
-    batch size; the per-step relative L2 error (mean over samples), its
-    mean over steps, and the whole-trajectory error."""
+    batch size (sharded over the ranks of ``mesh``); the per-step relative
+    L2 error (mean over samples), its mean over steps, and the
+    whole-trajectory error."""
     steps = cfg.rollout_steps
-    pred = _rollout_batches(problem, np.asarray(problem.test_data["x"]), steps)
+    pred = _rollout_batches(problem, np.asarray(problem.test_data["x"]), steps, mesh)
     n = pred.shape[0]  # (n, L, out_dim, steps)
     true = np.asarray(problem.test_data["y"])[:n]
     t, p = torch.from_numpy(np.ascontiguousarray(true)), torch.from_numpy(pred)
@@ -486,10 +520,10 @@ def _evaluate_rollout(cfg, problem, zssr: bool, save_pred: Optional[str],
         "rel_l2_traj": float(rel_norm_traj(t, p)),
         "rel_l2_mean_step": float(step_err.mean()),
     }
-    if plots_dir:
+    if plots_dir and multihost.is_main():
         save_step_error_plot(step_err, plots_dir)
         save_benchmark_plots(problem, pred, plots_dir)
-    if save_pred:
+    if save_pred and multihost.is_main():
         from scipy.io import savemat
 
         savemat(save_pred, {"pred": pred, "true": true})
@@ -532,12 +566,19 @@ def evaluate(
     ``rel_l2_traj``. ``plots_dir``: the benchmark's figures
     (``plots.save_benchmark_plots``) and, with a rollout, the per-step
     error curve (needs matplotlib, checked first). ``model_variant``: the
-    TF family's ablation model the checkpoint holds. ``mesh`` is not
-    ported.
+    TF family's ablation model the checkpoint holds.
+
+    ``mesh`` (as ``runner.train`` takes it; every rank calls with the same
+    arguments): the metrics data-parallel, each rank running its shard of
+    every batch; with ``zssr=True`` on a fixed mesh the decode is sequence
+    parallel instead: each rank decodes its slab of the query rows (padded
+    to a multiple of the ranks) against the whole latent cloud, on the
+    whole batch, and the slabs are gathered. Only rank 0 writes plots and
+    ``save_pred``.
     """
-    runner._not_ported("evaluate", mesh=mesh)
     if plots_dir:
         require_matplotlib()
+    mesh = parse_mesh_spec(mesh)
     cfg = runner.with_variant(config, model_variant)
     if cfg.rollout_steps and shuffle_ablation:
         raise ValueError(
@@ -561,9 +602,12 @@ def evaluate(
         cfg, data_path, ntrain=ntrain, ntest=ntest, device=device, **setup_kwargs
     )
     problem.model.load_state_dict(restored["state_dict"])
+    if mesh is not None and zssr and problem.geom is not None:
+        _sequence_parallel(problem, mesh)
+        mesh = None  # the batch stays whole: rows are the long axis here
     if cfg.rollout_steps:
-        return _evaluate_rollout(cfg, problem, zssr, save_pred, plots_dir)
-    pred = runner.predict(problem)
+        return _evaluate_rollout(cfg, problem, zssr, save_pred, plots_dir, mesh)
+    pred = runner.predict(problem, mesh=mesh)
     n = pred.shape[0]
     true = np.asarray(problem.test_data["y"])[:n]
     out_dim = cfg.model.out_dim
@@ -579,16 +623,36 @@ def evaluate(
         "rel_l1_quartiles": [float(q25), float(q50), float(q75)],
     }
     if shuffle_ablation:
-        result["shuffle_ablation"] = input_shuffle_ablation(problem, pred_true=pred)
+        result["shuffle_ablation"] = input_shuffle_ablation(problem, pred_true=pred, mesh=mesh)
     # a capability, not a name: any problem with raw test trajectories
     if "test_trajectories" in problem.extras:
         result.update(_cylinder_rollout(problem))
-    if plots_dir:
+    if plots_dir and multihost.is_main():
         save_benchmark_plots(problem, pred, plots_dir)
         if "rollout_rel_l2_step" in result:
             save_step_error_plot(result["rollout_rel_l2_step"], plots_dir)
-    if save_pred:
+    if save_pred and multihost.is_main():
         from scipy.io import savemat
 
         savemat(save_pred, {"pred": pred, "true": true})
     return result
+
+
+def _sequence_parallel(problem, mesh) -> None:
+    """Put ``problem`` on this rank's slab of the decoder's query rows
+    (``parallel.sharding.sequence_shard_geometry``, or
+    ``sequence_shard_tf_geometry`` for the TF family), padded to a multiple
+    of the ranks; its task's model call gathers every rank's slab and trims
+    the padding before the postprocess (a denormalizer that reshapes the
+    rows to the grid) sees the output."""
+    geom = problem.geom
+    if hasattr(geom, "m_cross"):
+        n_rows = geom.m_cross.shape[0]
+        problem.geom = sequence_shard_tf_geometry(mesh, geom)
+    else:
+        n_rows = geom.dist_up.shape[0]
+        problem.geom = sequence_shard_geometry(mesh, geom, pad=True)
+    whole = problem.task
+    problem.task = dataclasses.replace(
+        whole, apply_fn=lambda model, g, batch: sequence_gather(
+            mesh, whole._apply(g, batch["x"]), n_rows))

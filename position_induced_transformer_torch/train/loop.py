@@ -301,7 +301,8 @@ def _gather(data, idx):
     return {k: v[idx] for k, v in data.items()}
 
 
-def make_train_epoch(task: Task, schedule: Callable[[int], float], grad_accum: int = 1):
+def make_train_epoch(task: Task, schedule: Callable[[int], float], grad_accum: int = 1,
+                     mesh=None):
     """``train_epoch(state, geom, data, perm) -> (state, losses)``: one
     optimizer step per row of the (n_batches, B) index matrix ``perm``;
     ``data`` maps names to tensors on the model's device. ``losses`` holds
@@ -312,11 +313,20 @@ def make_train_epoch(task: Task, schedule: Callable[[int], float], grad_accum: i
     microbatches whose gradients add up before the one optimizer step:
     batch-summed losses add, ``batch_mean_loss`` tasks average (equal
     microbatch sizes). The reported loss keeps the unsplit convention.
+    ``mesh`` (a ``parallel.DataMesh``): every rank runs its shard of each
+    microbatch and the gradients are summed over the ranks once per
+    optimizer step (``parallel.sharding.all_reduce_grads``), so every rank
+    takes the global batch's step and reports its loss.
     Under ``utils.profiling.debug_nans`` a step with a non-finite loss or
     gradient raises ``FloatingPointError`` before its update.
     """
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
+    if mesh is not None:
+        from position_induced_transformer_torch.parallel.sharding import (
+            all_reduce_grads,
+            shard_rows,
+        )
 
     def train_epoch(state: TrainState, geom, data, perm):
         model, opt = state.model, state.optimizer
@@ -328,11 +338,16 @@ def make_train_epoch(task: Task, schedule: Callable[[int], float], grad_accum: i
             opt.zero_grad(set_to_none=True)
             loss = 0.0
             for midx in idx.reshape(grad_accum, -1):
+                if mesh is not None:
+                    midx = shard_rows(mesh, midx)
                 micro = task.loss_fn(geom, _gather(data, midx))
                 if task.batch_mean_loss:
                     micro = micro / grad_accum
                 micro.backward()
                 loss = loss + micro.detach()
+            if mesh is not None:
+                loss = all_reduce_grads(mesh, list(model.parameters()), loss,
+                                        task.batch_mean_loss)
             if profiling.debug_nans_enabled():
                 profiling.check_finite(loss, dict(model.named_parameters()))
             opt.step()
@@ -346,7 +361,7 @@ def make_train_epoch(task: Task, schedule: Callable[[int], float], grad_accum: i
     return train_epoch
 
 
-def make_eval_epoch(task: Task, metrics: Optional[dict] = None):
+def make_eval_epoch(task: Task, metrics: Optional[dict] = None, mesh=None):
     """``eval_epoch(geom, data, perm, n_valid=None) -> {name: sum}`` under
     ``torch.inference_mode``. ``metrics`` maps names to
     ``fn(true, pred, weights=...)`` with batch-summed outputs; the default
@@ -355,7 +370,11 @@ def make_eval_epoch(task: Task, metrics: Optional[dict] = None):
     ``rel_l2_step`` (the mean over steps of the stepwise error) and
     ``rel_l2_final`` (the last step's). Positions of ``perm`` at or past
     ``n_valid`` (default: the dataset size) are the padded tail of
-    :func:`eval_permutation` and weigh 0. Sums stay on the device."""
+    :func:`eval_permutation` and weigh 0. Sums stay on the device. With a
+    ``mesh`` every rank sums its shard of each batch, and the sums are
+    added over the ranks at the end of the epoch."""
+    if mesh is not None:
+        from position_induced_transformer_torch.parallel.sharding import all_reduce, shard_rows
 
     def rollout_sums(geom, batch, w):
         pred = task.rollout_preds(geom, batch)
@@ -377,19 +396,25 @@ def make_eval_epoch(task: Task, metrics: Optional[dict] = None):
         sums: dict = {}
         with torch.inference_mode():
             for idx, w in zip(perm, wts):
+                if mesh is not None:
+                    idx, w = shard_rows(mesh, idx), shard_rows(mesh, w)
                 batch = _gather(data, idx)
                 if task.rollout_steps:
                     vals = rollout_sums(geom, batch, w)
                 elif metrics is None:
                     loss = task._loss(batch["y"], task.forward(geom, batch), weights=w)
                     if task.batch_mean_loss:
-                        loss = loss * w.sum()
+                        # a rank's shard of the padded tail may weigh 0 in all
+                        loss = torch.where(w.sum() > 0, loss * w.sum(), 0.0)
                     vals = {"loss": loss}
                 else:
                     pred = task.forward(geom, batch)
                     vals = {n: fn(batch["y"], pred, weights=w) for n, fn in metrics.items()}
                 for n, v in vals.items():
                     sums[n] = sums[n] + v if n in sums else v
+        if mesh is not None:
+            total = all_reduce(mesh, torch.stack(list(sums.values())))
+            sums = dict(zip(sums, total))
         return sums
 
     return eval_epoch

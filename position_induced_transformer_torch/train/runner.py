@@ -1,4 +1,5 @@
-"""The benchmark runner: train, evaluate and predict on one device.
+"""The benchmark runner: train, evaluate and predict on one device, or
+data-parallel over the ranks of a ``torch.distributed`` world.
 
 Per epoch it runs the train epoch and the eval epoch, prints the columns
 the JAX package's runner prints (epoch, seconds, train loss, the test
@@ -19,6 +20,14 @@ import torch
 
 from position_induced_transformer_torch.configs import BenchmarkConfig, get
 from position_induced_transformer_torch.ops.metrics import rel_lp_norm, rel_max_norm
+from position_induced_transformer_torch.parallel import multihost
+from position_induced_transformer_torch.parallel.sharding import (
+    all_gather,
+    data_axis_size,
+    parse_mesh_spec,
+    replicate_tree,
+    shard_rows,
+)
 from position_induced_transformer_torch.train import benchmarks
 from position_induced_transformer_torch.train import checkpoint as ckpt
 from position_induced_transformer_torch.train.loop import (
@@ -66,12 +75,6 @@ def default_metrics(out_dim: int):
     }
 
 
-def _not_ported(fn="train", **options):
-    for name, value in options.items():
-        if value:
-            raise NotImplementedError(f"{fn}({name}=...) is not ported yet: {value!r}")
-
-
 def with_variant(config, model_variant: Optional[str] = None):
     """The benchmark's config (a name or a config), with ``model_variant``
     (``pit``, ``lite``, ``transformer``, ``selfpit``: the TF family's
@@ -103,8 +106,8 @@ def train(
     setup_kwargs: Optional[dict] = None,
     device="cuda",
 ):
-    """Train a benchmark end to end on one device; returns
-    ``(problem, state, history)``.
+    """Train a benchmark end to end on one device, or data-parallel over a
+    ``mesh``; returns ``(problem, state, history)``.
 
     The training data move to the device once. ``resume_from``: restore
     weights, optimizer state and step from a training checkpoint and go
@@ -121,12 +124,23 @@ def train(
     ``history_csv`` / ``history_plot``: the per-epoch rows as CSV and as a
     log-scale plot (needs matplotlib, checked before training starts).
     ``model_variant``: the TF family's ablation model (``lite``,
-    ``transformer``, ``selfpit``; default the config's). ``mesh`` is not
-    ported.
+    ``transformer``, ``selfpit``; default the config's).
+
+    ``mesh`` (``'auto'``, ``'data=N'``, ``'dcn=K,data=N'`` or a
+    ``parallel.DataMesh``; ``parallel.sharding.parse_mesh_spec``): this
+    process is one rank of an initialized process group, and every rank
+    calls ``train`` with the same arguments. Each takes its shard of every
+    batch (which must divide over the ranks, as must a grad-accum
+    microbatch), the gradients are summed over the ranks each step, and
+    every rank returns the same weights and history. Only rank 0 prints and
+    writes the log, the history files and the checkpoints, which hold the
+    model's own state dict and restore in one process.
     """
-    _not_ported(mesh=mesh)
     if history_plot:
         require_matplotlib()
+    mesh = parse_mesh_spec(mesh)
+    main = multihost.is_main()
+    verbose = verbose and main
     cfg = with_variant(config, model_variant)
     problem = benchmarks.setup(
         cfg, data_path, ntrain=ntrain, ntest=ntest, device=device, **(setup_kwargs or {})
@@ -145,6 +159,18 @@ def train(
         raise ValueError(
             f"batch_size {cfg.batch_size} is not divisible into {grad_accum} microbatches"
         )
+    n_data = data_axis_size(mesh)
+    if cfg.batch_size % n_data:
+        raise ValueError(
+            f"batch_size {cfg.batch_size} is not divisible by the mesh data "
+            f"(x dcn) axis size ({n_data})"
+        )
+    if (cfg.batch_size // grad_accum) % n_data:
+        raise ValueError(
+            f"microbatch size {cfg.batch_size // grad_accum} (batch {cfg.batch_size} / "
+            f"grad-accum {grad_accum}) is not divisible by the mesh data (x dcn) "
+            f"axis size ({n_data})"
+        )
     schedule = make_lr_schedule(
         cfg.lr, (schedule_epochs or epochs) * n_batches, warmup_steps=cfg.warmup_steps
     )
@@ -160,26 +186,30 @@ def train(
         state.optimizer.load_state_dict(restored["optimizer"])
         state.step = restored["step"]
         start_epoch = state.step // n_batches
+    replicate_tree(mesh, state.model.state_dict())  # rank 0's weights everywhere
 
     norms = {k: n.state() for k, n in (("x_normalizer", problem.x_normalizer),
                                         ("y_normalizer", problem.y_normalizer)) if n is not None}
 
     def save(path):
-        ckpt.save(path, state.model.state_dict(), cfg.name,
-                  optimizer=state.optimizer.state_dict(), step=state.step, **norms)
+        if main:
+            ckpt.save(path, state.model.state_dict(), cfg.name,
+                      optimizer=state.optimizer.state_dict(), step=state.step, **norms)
+        multihost.barrier()  # no rank reads it before it is whole
 
     to_dev = lambda d: {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for k, v in d.items()}
     train_data, test_data = to_dev(problem.train_data), to_dev(problem.test_data)
-    train_epoch = make_train_epoch(problem.task, schedule, grad_accum)
+    train_epoch = make_train_epoch(problem.task, schedule, grad_accum, mesh=mesh)
     # a rollout task's eval epoch gives its own stepwise set
     metrics = None if cfg.rollout_steps else default_metrics(cfg.model.out_dim)
-    eval_epoch = make_eval_epoch(problem.task, metrics)
-    eval_bs = min(cfg.eval_batch_size or cfg.batch_size, problem.n_test)
+    eval_epoch = make_eval_epoch(problem.task, metrics, mesh=mesh)
+    # the eval batch divides over the ranks too
+    eval_bs = round_batch(min(cfg.eval_batch_size or cfg.batch_size, problem.n_test), n_data)
     eval_perm = eval_permutation(problem.n_test, eval_bs).to(dev)
     denom = n_batches if problem.task.batch_mean_loss else n_batches * cfg.batch_size
 
     history = []
-    logf = open(log_path, "a") if log_path else None
+    logf = open(log_path, "a") if log_path and main else None
     pending = []  # (epoch, device train loss, device eval sums)
     group_t0 = time.perf_counter()
 
@@ -212,7 +242,7 @@ def train(
     last_periodic_save = -1
     try:
         # the first epoch pays for kernel builds and allocator growth
-        profile_epoch = min(start_epoch + 1, epochs - 1) if profile_dir else -1
+        profile_epoch = min(start_epoch + 1, epochs - 1) if profile_dir and main else -1
         for ep in range(start_epoch, epochs):
             perm = epoch_permutation(seed, ep, problem.n_train, cfg.batch_size).to(dev)
             if ep == profile_epoch:
@@ -234,7 +264,7 @@ def train(
     finally:
         if logf:
             logf.close()
-    if history_csv or history_plot:
+    if (history_csv or history_plot) and main:
         save_history(history, history_csv, history_plot)
     if checkpoint_path and last_periodic_save != epochs - 1:
         save(checkpoint_path)
@@ -267,20 +297,30 @@ def save_history(history, csv_path=None, plot_path=None):
         plt.close()
 
 
-def predict(problem, data=None, batch_size: Optional[int] = None) -> np.ndarray:
+def predict(problem, data=None, batch_size: Optional[int] = None, mesh=None) -> np.ndarray:
     """Predictions of ``problem.model`` over a host data dict (default: the
     test split), in padded batches of one size on the model's device. Every
     variable of the dict rides with its batch: per-sample geometry reads
-    its coordinates from there."""
+    its coordinates from there. ``mesh``: data-parallel prediction, every
+    rank calling with the same arguments; each runs its shard of every
+    batch (the batch size rounded to a multiple of the ranks) and every
+    rank returns the whole prediction."""
+    mesh = parse_mesh_spec(mesh)
     data = data if data is not None else problem.test_data
     n = np.shape(data["x"])[0]
     bs = min(batch_size or problem.config.eval_batch_size or problem.config.batch_size, n)
+    bs = round_batch(bs, data_axis_size(mesh))
     dev = next(problem.model.parameters()).device
     problem.model.eval()
     outs = []
     with torch.inference_mode():
         for idx in padded_batches(n, bs):
+            if mesh is not None:
+                idx = shard_rows(mesh, idx)
             batch = {k: torch.from_numpy(np.ascontiguousarray(np.asarray(v)[idx])).to(dev)
                      for k, v in data.items()}
-            outs.append(problem.task.forward(problem.geom, batch).cpu().numpy())
+            out = problem.task.forward(problem.geom, batch)
+            if mesh is not None:
+                out = all_gather(mesh.group, out)
+            outs.append(out.cpu().numpy())
     return np.concatenate(outs, axis=0)[:n]

@@ -28,6 +28,13 @@
 Malformed requests are 400s; failures while running the model are 500s.
 Device work runs on one worker thread with dynamic batching: concurrent
 shape-compatible requests are concatenated into one call of the model.
+
+With a ``mesh`` (``make_server(mesh=...)``, every rank of a
+``torch.distributed`` world calling it alike) rank 0 binds the HTTP server.
+Its worker broadcasts each call of the model (the request dict, the
+horizon and the batch size) to the other ranks, whose servers follow those
+broadcasts (:class:`FollowerServer`), and every rank runs its shard of
+each device batch; rank 0's ``server_close`` stops them.
 """
 
 from __future__ import annotations
@@ -94,9 +101,18 @@ class _Batcher:
         self.predictor = predictor
         self._queue: list[_Request] = []
         self._cv = threading.Condition()
+        self._closing = False
         self.n_calls = 0  # device batches run, written by the worker only
         self._thread = threading.Thread(target=self._worker, daemon=True)
         self._thread.start()
+
+    def close(self):
+        """Stop the worker once the requests queued before are answered;
+        under a mesh it then tells the other ranks to stop."""
+        with self._cv:
+            self._closing = True
+            self._cv.notify()
+        self._thread.join(60)
 
     def predict(self, data, steps, batch_size) -> np.ndarray:
         req = _Request(data, steps, batch_size)
@@ -109,11 +125,19 @@ class _Batcher:
         return req.result
 
     def _worker(self):
+        if self.predictor.device.index is not None:  # a thread's current card is its own
+            import torch
+
+            torch.cuda.set_device(self.predictor.device)
         while True:
             with self._cv:
-                while not self._queue:
+                while not self._queue and not self._closing:
                     self._cv.wait()
                 batch, self._queue = self._queue, []
+                if not batch:  # closing, and every request answered
+                    if self.predictor.mesh is not None:
+                        _broadcast_call(self.predictor.mesh, None)
+                    return
             try:
                 self._run_batch(batch)
             except Exception as e:  # the one worker must not die and leave
@@ -135,7 +159,10 @@ class _Batcher:
                     k: np.concatenate([np.asarray(r.data[k]) for r in reqs])
                     for k in reqs[0].data
                 }
-                out = self.predictor.predict_array(data, reqs[0].steps, reqs[0].batch_size)
+                call = (data, reqs[0].steps, reqs[0].batch_size)
+                if self.predictor.mesh is not None:
+                    _broadcast_call(self.predictor.mesh, call)
+                out = self.predictor.predict_array(*call)
                 bs = self.predictor._batch_size(reqs[0].batch_size)
                 self.n_calls += -(-sum(sizes) // bs)
                 start = 0
@@ -148,6 +175,41 @@ class _Batcher:
             finally:
                 for r in reqs:
                     r.done.set()
+
+
+def _broadcast_call(mesh, call):
+    """Rank 0 sends one call of ``Predictor.predict_array`` (its
+    arguments; None to stop) to every rank; the others receive it."""
+    import torch.distributed as dist
+
+    if mesh.group is None:  # a world of one
+        return call
+    box = [call]
+    dist.broadcast_object_list(box, src=0, group=mesh.group)
+    return box[0]
+
+
+class FollowerServer:
+    """The server of a rank other than 0 under a mesh: ``serve_forever``
+    runs every model call rank 0's worker broadcasts, on this rank's shard
+    of each device batch, until rank 0's server closes."""
+
+    def __init__(self, predictor):
+        self.predictor = predictor
+
+    def serve_forever(self):
+        mesh = self.predictor.mesh
+        while True:
+            call = _broadcast_call(mesh, None)
+            if call is None:
+                return
+            try:
+                self.predictor.predict_array(*call)
+            except Exception:  # rank 0 answers the request with its own error
+                traceback.print_exc()
+
+    def server_close(self):
+        pass
 
 
 class PredictHandler(BaseHTTPRequestHandler):
@@ -272,6 +334,10 @@ class PredictServer(ThreadingHTTPServer):
         self.max_rollout_steps = int(os.environ.get(
             "PIT_SERVE_MAX_ROLLOUT", str(max(100, 4 * predictor.cfg.rollout_steps))))
 
+    def server_close(self):
+        super().server_close()
+        self.batcher.close()
+
 
 def make_server(
     config,
@@ -284,11 +350,14 @@ def make_server(
     setup_kwargs: Optional[dict] = None,
     device="cuda",
     model_variant: Optional[str] = None,
-) -> PredictServer:
+    mesh=None,
+):
     """Build the server, bound but not yet serving (call ``serve_forever``).
     ``setup_kwargs``: extra arguments of the benchmark's setup (darcy
     answering at 421^2: ``{"downsampling": 1}``); ``model_variant``: the TF
-    family's ablation model the checkpoint holds.
+    family's ablation model the checkpoint holds. ``mesh``: every rank
+    calls ``make_server`` alike; rank 0 gets the bound
+    :class:`PredictServer`, every other rank a :class:`FollowerServer`.
 
     ``warmup=True`` runs one batch at the serving batch size first, so the
     first request does not pay for kernel builds and allocator growth. The
@@ -297,25 +366,30 @@ def make_server(
     """
     from position_induced_transformer_torch.train.evaluate import Predictor
 
-    predictor = Predictor(config, checkpoint_path, data_path=data_path,
-                          setup_kwargs=setup_kwargs, device=device, model_variant=model_variant)
-    if warmup:
+    from position_induced_transformer_torch.parallel import multihost
+
+    predictor = Predictor(config, checkpoint_path, data_path=data_path, setup_kwargs=setup_kwargs,
+                          device=device, model_variant=model_variant, mesh=mesh)
+    if warmup:  # every rank alike
         keys = {"x"} | set(predictor.required_keys)
         data = {k: np.asarray(v) for k, v in predictor.problem.test_data.items() if k in keys}
         idx = np.minimum(np.arange(predictor._batch_size()), data["x"].shape[0] - 1)
         predictor.predict_array({k: v[idx] for k, v in data.items()}, predictor.cfg.rollout_steps)
+    if predictor.mesh is not None and not multihost.is_main():
+        return FollowerServer(predictor)
     return PredictServer((host, port), predictor, verbose=verbose)
 
 
 def serve(config, checkpoint_path: str, **kwargs) -> None:
     """Blocking entry point: build the server and serve until interrupted."""
     server = make_server(config, checkpoint_path, **kwargs)
-    host, port = server.server_address[:2]
-    print(
-        f"serving benchmark {server.predictor.cfg.name!r} on "
-        f"http://{host}:{port} (POST /predict, GET /health, GET /info)",
-        flush=True,
-    )
+    if isinstance(server, PredictServer):
+        host, port = server.server_address[:2]
+        print(
+            f"serving benchmark {server.predictor.cfg.name!r} on "
+            f"http://{host}:{port} (POST /predict, GET /health, GET /info)",
+            flush=True,
+        )
     try:
         server.serve_forever()
     except KeyboardInterrupt:

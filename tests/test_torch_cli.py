@@ -196,13 +196,14 @@ def test_convert_structure_mismatch_is_clean_error(tmp_path):
     assert not os.path.exists(tmp_path / "out.pt")
 
 
-@pytest.mark.parametrize("option,value", [("--mesh", "data=2"), ("--model-variant", "lite"),
-                                          ("--multihost", "auto")])
+@pytest.mark.parametrize("option,value", [("--mesh", "model=2"), ("--model-variant", "lite"),
+                                          ("--mesh", "stage=2")])
 def test_options_not_ported_raise(option, value):
-    """--mesh and --multihost raise as not ported; --model-variant is
-    ported and reaches the model, which on a benchmark of the torch family
-    raises with the JAX package's words (the variants exist for the TF
-    family only)."""
+    """--mesh's model (head) and pipeline (stage) axes raise as not ported
+    (its data axis and --multihost are ported:
+    tests/test_torch_multihost.py); --model-variant is ported and reaches
+    the model, which on a benchmark of the torch family raises with the JAX
+    package's words (the variants exist for the TF family only)."""
     for command in ("train", "evaluate", "describe"):
         argv = [command, "--benchmark", "burgers", option, value, *CPU]
         if command == "evaluate":

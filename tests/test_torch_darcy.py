@@ -306,8 +306,8 @@ def test_evaluate_zssr_matches_jax(problems, tmp_path):
 
 def test_evaluate_refusals(tmp_path):
     """ZSSR on a setup without ``downsampling`` is a ValueError, as in JAX,
-    and so is the shuffle ablation of a rollout benchmark; ``mesh`` is not
-    ported yet and raises NotImplementedError. ``model_variant`` is ported:
+    and so is the shuffle ablation of a rollout benchmark; ``mesh``'s model
+    and stage axes are not ported yet and raise NotImplementedError. ``model_variant`` is ported:
     on the torch family it raises with the JAX package's words, and a
     TF-family variant refuses a checkpoint of another model."""
     cfg = t_configs.apply_overrides(t_configs.BURGERS, ["grid=64", "latent_grid=16",
@@ -315,8 +315,9 @@ def test_evaluate_refusals(tmp_path):
     path = t_ckpt.save(str(tmp_path / "b.pt"), t_bench._make_model(cfg).state_dict(), "burgers")
     with pytest.raises(ValueError, match="downsampling"):
         t_eval.evaluate(cfg, path, zssr=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="evaluate\\(mesh=...\\) is not ported"):
-        t_eval.evaluate(cfg, path, device="cpu", mesh="x")
+    for spec in ("model=2", "stage=2"):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            t_eval.evaluate(cfg, path, device="cpu", mesh=spec)
     with pytest.raises(ValueError, match="exists for the TF-family benchmarks only"):
         t_eval.evaluate(cfg, path, device="cpu", model_variant="x")
     with pytest.raises(ValueError, match="one-step operator map"):

@@ -288,12 +288,14 @@ def test_grad_accum_matches_whole_batches():
 
 @pytest.mark.parametrize("option", ["mesh", "model_variant"])
 def test_unported_runner_options_raise(option):
-    """``mesh`` is not ported; ``model_variant`` is, and reaches the model:
-    an unknown one raises, and on the torch family any raises with the JAX
-    package's words."""
+    """``mesh``'s model (head) and pipeline (stage) axes are not ported
+    (its data axis is: tests/test_torch_parallel_train.py); ``model_variant``
+    is, and reaches the model: an unknown one raises, and on the torch
+    family any raises with the JAX package's words."""
     if option == "mesh":
-        with pytest.raises(NotImplementedError, match="not ported"):
-            t_runner.train("burgers", device="cpu", **{option: "x"})
+        for spec in ("model=2", "stage=2"):
+            with pytest.raises(NotImplementedError, match="not ported"):
+                t_runner.train("burgers", device="cpu", **{option: spec})
         return
     with pytest.raises(ValueError, match="exists for the TF-family benchmarks only"):
         t_runner.train(_small_cfg(), device="cpu", ntrain=4, ntest=2, model_variant="x")
