@@ -430,6 +430,16 @@ def fail(msg: str):
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
+def on_one_device(got, want):
+    """Both tensors in float64 on the card where either lies there (a
+    comparison of large tensors takes seconds on the host), else on the
+    CPU."""
+    import torch
+
+    dev = got.device if got.is_cuda else want.device
+    return got.to(dev, torch.float64), want.to(dev, torch.float64)
+
+
 def check_close(name, got, want, rtol, atol, size=None):
     """Max abs error; fails when any element exceeds atol + rtol * size.
     ``size`` defaults to |want|; for a sum of signed terms pass the sum of
@@ -437,8 +447,8 @@ def check_close(name, got, want, rtol, atol, size=None):
     with its (cancelled) result."""
     import torch
 
-    got, want = got.double().cpu(), want.double().cpu()
-    size = want.abs() if size is None else size.double().cpu()
+    got, want = on_one_device(got, want)
+    size = want.abs() if size is None else size.to(want.device, torch.float64)
     if got.shape != want.shape:
         fail(f"{name}: shape {tuple(got.shape)} != {tuple(want.shape)}")
     if not torch.isfinite(got).all():
@@ -455,7 +465,7 @@ def rel_l2(got, want):
     """The relative L2 distance |got - want| / |want|."""
     import torch
 
-    got, want = got.double().cpu(), want.double().cpu()
+    got, want = on_one_device(got, want)
     return (torch.linalg.vector_norm(got - want) / torch.linalg.vector_norm(want)).item()
 
 
@@ -475,7 +485,7 @@ def check_rel(name, got, want, tol):
     return d
 
 
-def cuda_ms(fn, reps=20, per_rep=10, warmup=5):
+def cuda_ms(fn, reps=5, per_rep=10, warmup=2):
     """Median device time of one call, from CUDA events around ``per_rep``
     back-to-back calls. A spin kernel (``torch.cuda._sleep``) holds the
     stream while the host enqueues them, so the events time the device's
@@ -499,6 +509,23 @@ def cuda_ms(fn, reps=20, per_rep=10, warmup=5):
     return statistics.median(times)
 
 
+def trace_events(prof, user=True):
+    """(device type, start us, end us, name) of each event of a finished
+    torch.profiler trace, read from its raw records: the events that
+    ``prof.events()`` lists, without building their tree of CPU parents
+    and children (which takes seconds a trace). ``user``: keep the user
+    annotations."""
+    from torch.autograd.profiler_util import _filter_name, _rewrite_name
+
+    result = prof.profiler.kineto_results
+    t0 = result.trace_start_ns()
+    return [(e.device_type(), (e.start_ns() - t0) / 1e3, (e.end_ns() - t0) / 1e3,
+             _rewrite_name(e.name(), with_wildcard=True))
+            for e in result.events()
+            if not _filter_name(e.name()) and not getattr(e, "is_hidden_event", bool)()
+            and (user or not e.is_user_annotation())]
+
+
 def profile_device(fn, unit, reps=5, groups=None):
     """Wall time and device busy time of warm calls of ``fn``, from
     torch.profiler: the union of the CUDA activity intervals over the
@@ -519,10 +546,8 @@ def profile_device(fn, unit, reps=5, groups=None):
         wall_ms = (time.perf_counter() - t0) * 1e3 / reps
     # device work only: a user annotation (the optimizer's step range)
     # spans the gaps between its kernels
-    spans = sorted(
-        (e.time_range.start, e.time_range.end, e.name) for e in prof.events()
-        if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation
-    )
+    spans = sorted((s0, e0, name) for kind, s0, e0, name in trace_events(prof, user=False)
+                   if kind == torch.autograd.DeviceType.CUDA)
     if not spans:
         return {f"wall_ms_per_{unit}": wall_ms, f"device_busy_ms_per_{unit}": None}
     busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
@@ -1700,7 +1725,7 @@ def batched_backward_phase(shapes):
                 "H": H, "B": B, "L_out": Lo, "L_in": Li, "D": D,
                 "band_width": width, "inspected": inspected, "kept_entries": kept,
                 "launches_per_step": n, "max_abs_err": e[kernel], "ms": cuda_ms(launch),
-                "plain_ms": cuda_ms(plain, reps=10, per_rep=3),
+                "plain_ms": cuda_ms(plain, reps=5, per_rep=3),
                 # no one PyTorch call computes either function
                 "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
                 "flops": flops, "bytes": 4 * nwords, "list_length": lists,
@@ -1813,10 +1838,17 @@ def elasticity_serve_phase():
     predictor = server.predictor
     cpu = Predictor(cfg.name, ckpt, device="cpu")
     err_plain = err_cpu = 0.0
+    # the warm requests repeat five inputs: each input's references are
+    # computed once, and every reply is held against them
+    plain_refs, cpu_refs = {}, {}
+    key = lambda a, m: (a.shape, a.tobytes(), m.tobytes())
     with mock.patch.object(pit, "position_attention_batched", plain_batched):
         for a, m, out in sent:
             before = counts()
-            ref = torch.from_numpy(predictor.predict_array({"x": a, "mesh": m}))
+            if key(a, m) not in plain_refs:
+                plain_refs[key(a, m)] = torch.from_numpy(
+                    predictor.predict_array({"x": a, "mesh": m}))
+            ref = plain_refs[key(a, m)]
             if counts() != before:
                 fail("elasticity serve: the plain comparison run launched a kernel")
             got = torch.from_numpy(out)
@@ -1825,9 +1857,11 @@ def elasticity_serve_phase():
             err_plain = max(err_plain, check_close(
                 "elasticity serve vs plain on CUDA", got, ref, MODEL_RTOL, MODEL_ATOL))
     for a, m, out in sent:
-        ref_cpu = torch.from_numpy(cpu.predict_array({"x": a, "mesh": m}))
+        if key(a, m) not in cpu_refs:
+            cpu_refs[key(a, m)] = torch.from_numpy(cpu.predict_array({"x": a, "mesh": m}))
         err_cpu = max(err_cpu, check_close(
-            "elasticity serve vs CPU", torch.from_numpy(out), ref_cpu, MODEL_RTOL, MODEL_ATOL))
+            "elasticity serve vs CPU", torch.from_numpy(out), cpu_refs[key(a, m)], MODEL_RTOL,
+            MODEL_ATOL))
     return {
         "config": cfg.name, "startup_s": startup_s,
         "profile_10_samples": profile_device(
@@ -1845,7 +1879,16 @@ def run_training(cfg, device, epochs, ntrain, ntest, patch=None, **train_kw):
     """runner.train with the launch counts zeroed first; returns the
     problem, state, history, per-step losses, final weights, launches and
     seconds. ``patch``: a context manager around the run; ``train_kw``:
-    more arguments of runner.train."""
+    more arguments of runner.train. A CPU run without a patch goes through
+    :data:`CPU_REFS` (from its worker where queued), without the problem,
+    state and history (None)."""
+    if device == "cpu" and patch is None:
+        return (None, None, None, *CPU_REFS.take("run_training", cfg, (epochs, ntrain, ntest),
+                                                 train_kw))
+    return _run_training(cfg, device, epochs, ntrain, ntest, patch, **train_kw)
+
+
+def _run_training(cfg, device, epochs, ntrain, ntest, patch=None, **train_kw):
     import torch
 
     from position_induced_transformer_torch.train import runner
@@ -1893,17 +1936,17 @@ def step_timing(problem, state, batch_size, n_rows, lr, groups=None):
         i = next(rows)
         train_epoch(state, problem.geom, data, perm[i:i + 1])
 
-    for _ in range(5):
+    for _ in range(3):
         one_step()
     torch.cuda.synchronize()
     walls = []
-    for _ in range(30):
+    for _ in range(10):
         t0 = time.perf_counter()
         one_step()
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
     epoch_s = []
-    for _ in range(3):
+    for _ in range(2):
         t0 = time.perf_counter()
         train_epoch(state, problem.geom, data, perm)
         torch.cuda.synchronize()
@@ -1969,9 +2012,8 @@ def elasticity_train_phase():
     n = 2
     card_losses, card_weights, _ = first_steps(cfg, "cuda", n, ntrain, ntest, epochs)
     check_close("elasticity first steps vs the full run", card_losses, losses[:n], LOSS_RTOL, 0.0)
-    t0 = time.perf_counter()
     cpu_losses, cpu_weights, cpu_launched = first_steps(cfg, "cpu", n, ntrain, ntest, epochs)
-    report["seconds_first_steps_cpu"] = time.perf_counter() - t0
+    report["seconds_first_steps_cpu"] = CPU_REFS.seconds
     if any(cpu_launched.values()):
         fail(f"elasticity train: the CPU run launched kernels: {cpu_launched}")
     report["cpu_steps_compared"] = n
@@ -2220,7 +2262,7 @@ def tf_kernel_phase():
         err, want = compare(name, calls, kind)
         errs[kind] = max(errs[kind], err)
         ms = cuda_ms(lambda: tf_launch(calls, kind))
-        plain_ms = cuda_ms(lambda: tf_plain(calls, kind), reps=10, per_rep=3)
+        plain_ms = cuda_ms(lambda: tf_plain(calls, kind), reps=5, per_rep=3)
         # yardstick: one SDPA call with zero q and k, per-head values and
         # the masked logits as attn_mask (built outside the timing)
         dist, keep, _ = tf_rows(calls, kind)
@@ -2552,10 +2594,164 @@ def elasticity_tf_serve_phase():
     }
 
 
+# ------------------------------------- the CPU reference runs, in a worker
+
+# threads of the worker process that runs the CPU reference runs while this
+# process drives the card (the card machine has 8 cores); the worker runs
+# at the lowest priority (nice 19), so this process's own host work and
+# its subprocesses take the cores first
+CPU_REF_THREADS = 6
+
+
+def cpu_run_training(cfg, epochs, ntrain, ntest, **train_kw):
+    """A CPU run_training: per-step losses, final weights, launches, seconds."""
+    return _run_training(cfg, "cpu", epochs, ntrain, ntest, **train_kw)[3:]
+
+
+def cpu_first_steps(cfg, n_steps, ntrain, ntest, epochs):
+    return _first_steps(cfg, "cpu", n_steps, ntrain, ntest, epochs)
+
+
+CPU_RUNS = {"run_training": cpu_run_training, "first_steps": cpu_first_steps}
+
+
+def cpu_reference_jobs():
+    """The CPU reference runs that the phases take, in the order they take
+    them: (function, configuration, arguments, keyword arguments), as
+    :func:`run_training` and :func:`first_steps` ask for them."""
+    import dataclasses
+
+    from position_induced_transformer_torch import configs
+
+    jobs = [("run_training", configs.BURGERS, (2, 64, 16), {}),  # phase 7
+            ("first_steps", configs.ELASTICITY, (2, 80, 20, 2), {}),  # 11
+            ("first_steps", configs.ELASTICITY_TF, (2, 80, 20, 2), {}),  # 15
+            ("run_training", configs.DARCY, (2, 64, 16), {}),  # 17
+            ("run_training", configs.SOD, (2, 64, 16), {}),  # 20
+            ("first_steps", configs.NACA, (2, 80, 20, 2), {}),  # 21
+            ("first_steps", configs.VORTICITY, (1, 160, 40, 2), {})]  # 23
+    jobs += [("run_training", configs.get(name), (2, ntrain, ntest), {})  # 30
+             for name, (ntrain, ntest, refs) in TF_FIXED_TRAIN.items() if "cpu" in refs]
+    for name, (variants, ntrain, ntest, refs) in VARIANT_TRAIN.items():  # 33-36
+        for variant in variants:
+            if "cpu" in refs:
+                jobs.append(("run_training", configs.get(name), (2, ntrain, ntest),
+                             {"model_variant": variant}))
+            if name == "elasticity_tf":
+                cfg = dataclasses.replace(configs.get(name), model_variant=variant)
+                jobs.append(("first_steps", cfg, (1, ntrain, ntest, 2), {}))
+    jobs.append(("first_steps", dataclasses.replace(configs.ELASTICITY, name=DENSE_NAME),
+                 (1, 40, 10, 1), {}))  # 38
+    return jobs
+
+
+def cpu_reference_key(fn, cfg, args, kw):
+    return repr((fn, cfg, tuple(args), sorted(kw.items())))
+
+
+def cpu_reference_worker(jobs, results, threads):
+    """The worker process: each job's CPU run in order, its result (saved
+    by torch.save) or its traceback put on ``results`` with its seconds."""
+    import torch
+
+    os.nice(19)
+    torch.set_num_threads(threads)
+    register_elasticity_dense()
+    for fn, cfg, args, kw in jobs:
+        key = cpu_reference_key(fn, cfg, args, kw)
+        t0 = time.perf_counter()
+        try:
+            out = CPU_RUNS[fn](cfg, *args, **kw)
+            buf = io.BytesIO()
+            torch.save(out, buf)
+            results.put((key, buf.getvalue(), time.perf_counter() - t0, None))
+        except BaseException:
+            results.put((key, None, 0.0, traceback.format_exc()))
+
+
+class CpuReferences:
+    """The CPU reference runs, computed by one worker process (spawned,
+    :data:`CPU_REF_THREADS` threads, nice 19) while this process drives the card:
+    the same functions on the same seeds, each result taken once. A run
+    that was not queued is computed here, and said so."""
+
+    def __init__(self):
+        self.proc = self.results = None
+        self.queued, self.done, self.here = set(), {}, []
+        self.seconds = None  # of the run taken last
+        self.waited = 0.0  # this process's seconds waiting on the worker
+
+    def start(self, jobs):
+        import multiprocessing
+
+        ctx = multiprocessing.get_context("spawn")
+        self.results = ctx.Queue()
+        self.queued = {cpu_reference_key(*job) for job in jobs}
+        self.proc = ctx.Process(target=cpu_reference_worker, daemon=True,
+                                args=(jobs, self.results, CPU_REF_THREADS))
+        self.proc.start()
+        log(f"cpu references: {len(jobs)} runs queued in a worker of {CPU_REF_THREADS} threads "
+            "at nice 19")
+
+    def take(self, fn, cfg, args, kw):
+        import queue
+
+        import torch
+
+        key = cpu_reference_key(fn, cfg, args, kw)
+        if key not in self.queued:
+            self.here.append(f"{fn} {cfg.name} {args} {kw}")
+            t0 = time.perf_counter()
+            out = CPU_RUNS[fn](cfg, *args, **kw)
+            self.seconds = time.perf_counter() - t0
+            return out
+        self.queued.discard(key)
+        t0 = time.perf_counter()
+        while key not in self.done:
+            try:
+                got, payload, seconds, err = self.results.get(timeout=10)
+            except queue.Empty:
+                if not self.proc.is_alive():
+                    fail(f"the CPU reference worker exited ({self.proc.exitcode}) "
+                         f"before {fn} {cfg.name}")
+                continue
+            self.done[got] = (payload, seconds, err)
+        self.waited += time.perf_counter() - t0
+        payload, self.seconds, err = self.done.pop(key)
+        if err:
+            fail(f"CPU reference {fn} {cfg.name} {args} {kw}:\n{err}")
+        return torch.load(io.BytesIO(payload), weights_only=False)
+
+    def stop(self):
+        """Ends the worker; logs the runs computed here and those queued
+        but never taken."""
+        if self.proc is not None:
+            if self.proc.is_alive():
+                self.proc.terminate()
+            self.proc.join(timeout=30)
+            if self.proc.is_alive():
+                self.proc.kill()
+                self.proc.join()
+            self.proc = None
+            log("cpu references " + json.dumps({"computed_here": self.here,
+                                                "queued_not_taken": len(self.queued),
+                                                "seconds_waited": self.waited}))
+
+
+CPU_REFS = CpuReferences()
+
+
 def first_steps(cfg, device, n_steps, ntrain, ntest, epochs):
     """The first ``n_steps`` optimizer steps of ``runner.train(cfg)`` on
     ``device`` (the same setup, weights, shuffle and schedule): per-step
-    losses, the weights after them, and the launches."""
+    losses, the weights after them, and the launches. A CPU run goes
+    through :data:`CPU_REFS` (from its worker where queued)."""
+    if device == "cpu":
+        return CPU_REFS.take("first_steps", cfg, (n_steps, ntrain, ntest, epochs), {})
+    return _first_steps(cfg, device, n_steps, ntrain, ntest, epochs)
+
+
+def _first_steps(cfg, device, n_steps, ntrain, ntest, epochs):
     import numpy as np
     import torch
 
@@ -2623,9 +2819,8 @@ def elasticity_tf_train_phase():
     n = 2
     card_losses, card_weights, card_launched = first_steps(cfg, "cuda", n, ntrain, ntest, epochs)
     check_close("elasticity_tf first steps vs the full run", card_losses, losses[:n], LOSS_RTOL, 0.0)
-    t0 = time.perf_counter()
     cpu_losses, cpu_weights, cpu_launched = first_steps(cfg, "cpu", n, ntrain, ntest, epochs)
-    report["seconds_first_steps_cpu"] = time.perf_counter() - t0
+    report["seconds_first_steps_cpu"] = CPU_REFS.seconds
     if any(cpu_launched.values()):
         fail(f"elasticity_tf train: the CPU run launched kernels: {cpu_launched}")
     report["cpu_steps_compared"] = n
@@ -3444,9 +3639,8 @@ def naca_train_phase():
     n = 2
     card_losses, card_weights, _ = first_steps(cfg, "cuda", n, ntrain, ntest, epochs)
     check_close("naca first steps vs the full run", card_losses, losses[:n], LOSS_RTOL, 0.0)
-    t0 = time.perf_counter()
     cpu_losses, cpu_weights, cpu_launched = first_steps(cfg, "cpu", n, ntrain, ntest, epochs)
-    report["seconds_first_steps_cpu"] = time.perf_counter() - t0
+    report["seconds_first_steps_cpu"] = CPU_REFS.seconds
     if any(cpu_launched.values()):
         fail(f"naca train: the CPU run launched kernels: {cpu_launched}")
     report["cpu_steps_compared"] = n
@@ -3769,9 +3963,8 @@ def vorticity_train_phase(schedule_rows):
     n = 1
     card_losses, card_weights, _ = first_steps(cfg, "cuda", n, ntrain, ntest, epochs)
     check_close("vorticity first step vs the full run", card_losses, losses[:n], LOSS_RTOL, 0.0)
-    t0 = time.perf_counter()
     cpu_losses, cpu_weights, cpu_launched = first_steps(cfg, "cpu", n, ntrain, ntest, epochs)
-    report["seconds_first_steps_cpu"] = time.perf_counter() - t0
+    report["seconds_first_steps_cpu"] = CPU_REFS.seconds
     if any(cpu_launched.values()):
         fail(f"vorticity train: the CPU run launched kernels: {cpu_launched}")
     report["cpu_steps_compared"] = n
@@ -4092,11 +4285,11 @@ def cli_phase(ckpt):
         start("benchmarks", "benchmarks")
         start("convert_to_torch", "convert", "--benchmark", "cylinder", "--from", ckpt,
               "--to-torch", pth)
-        results = {k: finish(k) for k in ("train", "evaluate", "infer", "describe", "benchmarks",
-                                          "convert_to_torch")}
+        results = {"convert_to_torch": finish("convert_to_torch")}
         start("convert_from_torch", "convert", "--benchmark", "cylinder", "--from-torch", pth,
               "--to", back)
-        results["convert_from_torch"] = finish("convert_from_torch")
+        results.update({k: finish(k) for k in ("train", "evaluate", "infer", "describe",
+                                               "benchmarks", "convert_from_torch")})
         url = f"http://127.0.0.1:{port}"
         t0 = time.perf_counter()
         while True:
@@ -5758,7 +5951,7 @@ def dist_route_rows(geom, lmdas, dims, rng):
                    "value_copy_ms": cuda_ms(copy),
                    "empty_row_select_ms": cuda_ms(select) if thr is not None else 0.0,
                    "plain_ms": cuda_ms(lambda: plain_dist_route(dist, lmda, u, loc, thr),
-                                       reps=10, per_rep=3),
+                                       reps=5, per_rep=3),
                    "library_ms": cuda_ms(sdpa), "library_max_abs_err": lib_err,
                    "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops, "bytes": 4 * words}
             # #10 as the kernels read it: dist, stats, g and (dscale) the
@@ -5899,9 +6092,8 @@ def elasticity_dense_phases():
     card_losses, card_weights, _ = first_steps(cfg, "cuda", 1, ntrain, ntest, epochs)
     check_close("elasticity_dense first step vs the full run", card_losses, losses[:1],
                 LOSS_RTOL, 0.0)
-    t0 = time.perf_counter()
     cpu_losses, cpu_weights, cpu_launched = first_steps(cfg, "cpu", 1, ntrain, ntest, epochs)
-    train["seconds_first_step_cpu"] = time.perf_counter() - t0
+    train["seconds_first_step_cpu"] = CPU_REFS.seconds
     if any(cpu_launched.values()):
         fail(f"elasticity_dense train: the CPU run launched kernels: {cpu_launched}")
     train["max_abs_err_step_loss_vs_cpu"] = check_close(
@@ -6572,18 +6764,18 @@ def dp_step_timing(problem, state, mesh, reps=10):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / reps
     squash = lambda name: name.lower().replace("_", "")
-    events = list(prof.events())
-    host = [(e.time_range.start, e.time_range.end) for e in events
-            if e.device_type == torch.autograd.DeviceType.CPU and "allreduce" in squash(e.name)]
-    nccl = [(e.time_range.start, e.time_range.end) for e in events
-            if e.device_type == torch.autograd.DeviceType.CUDA and "nccl" in e.name.lower()]
+    events = trace_events(prof)
+    host = [(s0, e0) for kind, s0, e0, name in events
+            if kind == torch.autograd.DeviceType.CPU and "allreduce" in squash(name)]
+    nccl = [(s0, e0) for kind, s0, e0, name in events
+            if kind == torch.autograd.DeviceType.CUDA and "nccl" in name.lower()]
     out["profiler_all_reduce_host_ms_per_step"] = union_ms(host) / reps
     out["profiler_all_reduce_device_ms_per_step"] = union_ms(nccl) / reps
     out["profiler_wall_ms_per_step"] = wall_ms
     out["profiler_all_reduce_host_share"] = union_ms(host) / reps / wall_ms
-    out["all_reduce_event_names"] = sorted({e.name for e in events
-                                            if "allreduce" in squash(e.name)
-                                            or "nccl" in e.name.lower()})[:8]
+    out["all_reduce_event_names"] = sorted({name for _, _, _, name in events
+                                            if "allreduce" in squash(name)
+                                            or "nccl" in name.lower()})[:8]
     spent, inner = [], sharding.all_reduce
 
     def timed(m, t):
@@ -6638,6 +6830,39 @@ def compare_training(label, got_losses, got_weights, want_losses, want_weights):
             check_close(f"{label} weight {k}", v, want_weights[k], PARAM_RTOL, PARAM_ATOL)
             for k, v in got_weights.items()),
     }
+
+
+def run_gloo_ranks(label, out, call, world=DP_WORLD, timeout=600):
+    """Start ``world`` processes sharing the card, rank r running
+    ``chip_smoke.<call(r, store)>`` (a FileStore under ``out``, each rank's
+    output in ``out/rank<r>.log``), and wait for all; a rank that fails
+    leaves the others waiting in a collective, so all are stopped and the
+    phase fails with every rank's log."""
+    store = str(out / "store")
+    procs, logs = [], []
+    try:
+        for r in range(world):
+            logs.append(open(out / f"rank{r}.log", "wb"))
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", f"import sys, chip_smoke; sys.exit(chip_smoke.{call(r, store)})"],
+                cwd=REPO, stdout=logs[-1], stderr=subprocess.STDOUT))
+        deadline = time.perf_counter() + timeout
+        while any(p.poll() is None for p in procs) and time.perf_counter() < deadline:
+            if any(p.poll() not in (None, 0) for p in procs):
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            text = "\n".join(f"rank {q}:\n" + (out / f"rank{q}.log").read_text(
+                errors="replace")[-5000:] for q in range(world))
+            fail(f"{label}: gloo rank {r} exited {p.returncode}:\n{text}")
 
 
 def data_parallel_rank(rank, world, store, out_dir, darcy_ckpt):
@@ -6793,36 +7018,10 @@ def data_parallel_phase(darcy_ckpt):
 
     np.save(out / "burgers_x.npy", synthetic.burgers(n=max(DP_SERVE_SIZES), L=cfg.grid[0],
                                                      seed=1)[0])
-    store = out / "store"
-    procs, logs = [], []
     t0 = time.perf_counter()
-    try:
-        for r in range(DP_WORLD):
-            logs.append(open(out / f"rank{r}.log", "wb"))
-            procs.append(subprocess.Popen(
-                [sys.executable, "-c", "import sys, chip_smoke; sys.exit(chip_smoke."
-                 f"data_parallel_rank({r}, {DP_WORLD}, {str(store)!r}, {str(out)!r}, "
-                 f"{str(darcy_ckpt)!r}))"],
-                cwd=REPO, stdout=logs[-1], stderr=subprocess.STDOUT))
-        deadline = time.perf_counter() + 600
-        # a rank that fails leaves the other waiting in a collective: stop both
-        while any(p.poll() is None for p in procs) and time.perf_counter() < deadline:
-            if any(p.poll() not in (None, 0) for p in procs):
-                break
-            time.sleep(0.5)
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-        for f in logs:
-            f.close()
+    run_gloo_ranks("data parallel", out, lambda r, store: (
+        f"data_parallel_rank({r}, {DP_WORLD}, {store!r}, {str(out)!r}, {str(darcy_ckpt)!r})"))
     report["gloo_ranks_seconds"] = time.perf_counter() - t0
-    for r, p in enumerate(procs):
-        if p.returncode != 0:
-            text = "\n".join(f"rank {q}:\n" + (out / f"rank{q}.log").read_text(
-                errors="replace")[-5000:] for q in range(DP_WORLD))
-            fail(f"data parallel: gloo rank {r} exited {p.returncode}:\n{text}")
     ranks = [json.loads((out / f"report_rank{r}.json").read_text()) for r in range(DP_WORLD)]
     e_expected = dp_expected(ecfg, e_per_step, *DP_ELASTICITY, DP_WORLD)
     b_expected = dp_expected(cfg, per_step, *DP_BURGERS, DP_WORLD)
@@ -6875,6 +7074,352 @@ def data_parallel_phase(darcy_ckpt):
     return report
 
 
+# ------------------------------- phase 42: the model axis and the stage axis
+
+MS_DARCY = (2, 64, 16)  # darcy_train_phase's run: 16 steps at batch 8, 2 eval batches a epoch
+MS_STAGES, MS_MICRO = 2, 2  # Darcy's 4 blocks over 2 stages, batch 8 in 2 micro-batches
+MS_DARCY_SERVE = 13  # one served Darcy request: two device batches of 10 (the eval batch)
+
+
+def pipeline_per_step(n_blocks, stages, n_micro):
+    """Each rank's launches of #1/#3/#4 a pipelined step: the replicated
+    encoder and decoder once each on the whole batch, and the rank's
+    n_blocks / stages blocks once a micro-batch (du: all but the
+    encoder's, whose input needs no gradient)."""
+    k = n_blocks // stages
+    return {"posatt_fixed_fwd": 2 + k * n_micro, "posatt_stats": 0,
+            "posatt_bwd_dscale": 2 + k * n_micro, "posatt_bwd_du": 1 + k * n_micro}
+
+
+COLLECTIVES = ("all_reduce", "all_gather", "broadcast", "send", "recv")
+
+
+def collective_step_timing(task, problem, state, mesh, reps=5):
+    """Warm training steps of ``task`` on ``state`` (every rank the same
+    steps: they are collectives): the wall and device busy ms a step
+    (profile_device); torch.profiler's CPU events of c10d's all-reduce,
+    all-gather, broadcast, send and recv over the wall of the same profiled
+    steps (gloo's records end before its wait); and the host clock around
+    each of those ``torch.distributed`` calls, synchronised before and
+    after, over the wall of ``reps`` more steps (none in one process)."""
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from position_induced_transformer_torch.train import loop
+
+    cfg = problem.config
+    dev = next(state.model.parameters()).device
+    data = {k: torch.from_numpy(v).to(dev) for k, v in problem.train_data.items()}
+    perm = loop.epoch_permutation(0, 99, problem.n_train, cfg.batch_size).to(dev)
+    train_epoch = loop.make_train_epoch(task, lambda step: cfg.lr, mesh=mesh)
+    rows = itertools.cycle(range(perm.shape[0]))
+
+    def one_step():
+        i = next(rows)
+        train_epoch(state, problem.geom, data, perm[i:i + 1])
+
+    for _ in range(3):
+        one_step()
+    out = profile_device(one_step, "step", reps=reps)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            one_step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+    squash = lambda name: name.lower().replace("_", "")
+    kinds = ("allreduce", "allgather", "broadcast", "send", "recv")
+    events = [(s0, e0, name) for kind, s0, e0, name in trace_events(prof)
+              if kind == torch.autograd.DeviceType.CPU
+              and name.startswith("c10d::") and any(k in squash(name) for k in kinds)]
+    # a call nested in one of its own name is one call, as prof.events() counts it
+    inside = lambda i, j: (events[j][2] == events[i][2] and events[j][0] <= events[i][0]
+                           and events[i][1] <= events[j][1]
+                           and (j < i or events[j][:2] != events[i][:2]))
+    events = [e for i, e in enumerate(events)
+              if not any(inside(i, j) for j in range(len(events)) if j != i)]
+    spans = [(s0, e0) for s0, e0, _ in events]
+    out["profiler_wall_ms_per_step"] = wall_ms
+    out["profiler_collectives_host_ms_per_step"] = union_ms(spans) / reps
+    out["profiler_collectives_host_share"] = union_ms(spans) / reps / wall_ms
+    out["collective_calls_per_step"] = {
+        n: sum(e[2] == n for e in events) / reps for n in sorted({e[2] for e in events})}
+    if not dist.is_initialized():
+        return out
+    spent = []
+
+    def clocked(fn):
+        def call(*a, **kw):
+            torch.cuda.synchronize()
+            s0 = time.perf_counter()
+            r = fn(*a, **kw)
+            torch.cuda.synchronize()
+            spent.append(time.perf_counter() - s0)
+            return r
+        return call
+
+    with mock.patch.multiple(dist, **{n: clocked(getattr(dist, n)) for n in COLLECTIVES}):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            one_step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    out["clocked_collectives_ms_per_step"] = sum(spent) * 1e3 / reps
+    out["clocked_wall_ms_per_step"] = wall * 1e3 / reps
+    out["clocked_collectives_share"] = sum(spent) / wall
+    return out
+
+
+def model_stage_rank(rank, world, store, out_dir):
+    """One of phase 42's gloo ranks on the shared card (a process of its
+    own, started by model_stage_phase): (a) Burgers at ``mesh="model=2"``
+    (trained, its parts' bytes, its step timing, then a server under the
+    mesh and ``infer(mesh)`` on its requests); (b) Darcy at
+    ``mesh="stage=2"`` (trained, its step timing, ``evaluate(mesh)`` and a
+    served batch); (c) elasticity at ``mesh="model=2"`` (trained). Each
+    part's launches, results and replies under ``out_dir``."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(REPO))
+    from position_induced_transformer_torch import configs
+    from position_induced_transformer_torch.parallel import parse_mesh_spec
+    from position_induced_transformer_torch.train import evaluate, runner
+    from position_induced_transformer_torch.train.serve import make_server
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
+                            world_size=world)
+    out = Path(out_dir)
+
+    def serve(name, ckpt, mesh, sizes, x):
+        """make_server(mesh) answering ``x[:n]`` for n in ``sizes`` (rank 0
+        posts, the other follows), then infer(mesh) on the same inputs."""
+        zero_counts()
+        server = make_server(name, ckpt, port=0, verbose=False, device="cuda", mesh=mesh)
+        warm = counts()
+        if rank == 0:
+            thread = threading.Thread(target=server.serve_forever, daemon=True)
+            thread.start()
+            url = f"http://127.0.0.1:{server.server_address[1]}/predict"
+            for n in sizes:
+                code, body = post(url, npy(x[:n]))
+                if code != 200:
+                    fail(f"{name} serve under {mesh}: HTTP {code}: {body[:2000]!r}")
+                np.save(out / f"{name}_served{n}.npy", np.load(io.BytesIO(body)))
+            server.shutdown()
+        else:
+            server.serve_forever()  # until rank 0 closes
+        server.server_close()
+        launched = counts()
+        for n in sizes:
+            np.save(out / f"{name}_in{n}_rank{rank}.npy", x[:n])
+            evaluate.infer(name, ckpt, str(out / f"{name}_in{n}_rank{rank}.npy"),
+                           output_path=str(out / f"{name}_infer{n}.npy"), device="cuda",
+                           mesh=mesh)
+        return {"warmup_launches": warm, "launches": launched}
+
+    try:
+        report = {"rank": rank, "world": world}
+        mesh = parse_mesh_spec(f"model={world}")
+        parts = {}
+        shard = runner.shard_state
+
+        def keep(m, st):
+            parts["state"] = shard(m, st)
+            return parts["state"]
+
+        ckpt = str(out / "burgers_tp.pt")
+        with mock.patch.object(runner, "shard_state", keep):
+            problem, state, history, losses, weights, launched, seconds = run_training(
+                configs.BURGERS, "cuda", *DP_BURGERS, mesh=mesh, checkpoint_path=ckpt)
+        tp = parts["state"]
+        nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts)
+        mlp = lambda model: [p for n, p in model.named_parameters() if ".mlp" in "." + n]
+        moments = lambda st, ps: [v for p in ps for k, v in st.optimizer.state[p].items()
+                                  if k != "step"]
+        report["burgers"] = {
+            "launches": launched, "seconds_whole_run": seconds, "history": history,
+            "head_counts": {n: p.shape[0] for n, p in tp.model.named_parameters()
+                            if n.endswith("lmda")},
+            "mlp_param_bytes": [nbytes(mlp(tp.model)), nbytes(mlp(state.model))],
+            "mlp_moment_bytes": [nbytes(moments(tp, mlp(tp.model))),
+                                 nbytes(moments(state, mlp(state.model)))],
+            "split_param_bytes": [nbytes(p for n, p in tp.model.named_parameters()
+                                         if tp.model.tensor_parallel_dims[n] is not None),
+                                  nbytes(p for n, p in state.model.named_parameters()
+                                         if tp.model.tensor_parallel_dims[n] is not None)],
+            "timing": collective_step_timing(
+                dataclasses.replace(problem.task, model=tp.model), problem, tp, mesh)}
+        torch.save({"losses": losses, "weights": weights}, out / f"burgers_rank{rank}.pt")
+        del problem, state, tp, parts["state"]
+        x = np.load(out / "burgers_x.npy")
+        report["burgers_serve"] = serve("burgers", ckpt, mesh, DP_SERVE_SIZES, x)
+
+        smesh = parse_mesh_spec(f"stage={world}")
+        dckpt = str(out / "darcy_pp.pt")
+        problem, state, history, losses, weights, launched, seconds = run_training(
+            configs.DARCY, "cuda", *MS_DARCY, mesh=smesh, checkpoint_path=dckpt)
+        report["darcy"] = {"launches": launched, "seconds_whole_run": seconds,
+                           "n_micro": problem.task.pp_micro, "history": history,
+                           "timing": collective_step_timing(problem.task, problem, state, None)}
+        torch.save({"losses": losses, "weights": weights}, out / f"darcy_rank{rank}.pt")
+        del problem, state
+        zero_counts()
+        report["darcy_evaluate"] = {
+            "metrics": evaluate.evaluate("darcy", dckpt, ntest=MS_DARCY[2], device="cuda",
+                                         mesh=smesh),
+            "launches": counts()}
+        xd = np.load(out / "darcy_x.npy")
+        report["darcy_serve"] = serve("darcy", dckpt, smesh, (MS_DARCY_SERVE,), xd)
+
+        problem, state, history, losses, weights, launched, seconds = run_training(
+            configs.ELASTICITY, "cuda", *DP_ELASTICITY, mesh=mesh)
+        report["elasticity"] = {"launches": launched, "seconds_whole_run": seconds}
+        torch.save({"losses": losses, "weights": weights}, out / f"elasticity_rank{rank}.pt")
+        with open(out / f"report_rank{rank}.json", "w") as f:
+            json.dump(report, f)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def model_stage_phase():
+    """Phase 42: the model (head) axis and the GPipe stage axis on two
+    gloo ranks sharing the card (NCCL refuses two ranks on one GPU), each a
+    process (model_stage_rank), against one process: (a) the Burgers
+    flagship at ``mesh="model=2"`` (16 steps, 4 eval batches): 7/0/7/6
+    launches of #1-#4 a step on each rank, each on one head; losses and
+    the gathered weights at the training gates; each rank's split MLP and
+    bandwidth parameters half of one process's bytes, its MLP moments
+    likewise; a server under the mesh whose replies are ``infer(mesh)``'s
+    to the bit and within DP_SERVE_RTOL / DP_SERVE_ATOL of one process's
+    server; (b) Darcy at ``mesh="stage=2"`` (4 blocks, 2 micro-batches):
+    each rank's launches the count ``pipeline_per_step`` derives from the
+    schedule (6/0/6/5 a step), losses and weights at the gates,
+    ``evaluate(mesh)``'s metrics within rtol 1e-5 of one process's, a
+    served batch as in (a); (c) elasticity at ``mesh="model=2"``: 6/6/5 of
+    #7/#8 a step on each rank, each on one head, at the gates."""
+    import numpy as np
+    import torch
+
+    from position_induced_transformer_torch import configs
+    from position_induced_transformer_torch.data import synthetic
+    from position_induced_transformer_torch.train import evaluate
+    from position_induced_transformer_torch.train.serve import make_server
+
+    t_phase = time.perf_counter()
+    cfg, dcfg, ecfg = configs.BURGERS, configs.DARCY, configs.ELASTICITY
+    per_step = per_step_launches(cfg.model.n_blocks)
+    d_per_step = pipeline_per_step(dcfg.model.n_blocks, MS_STAGES, MS_MICRO)
+    e_per_step = {"posatt_batched_fwd": 6, "posatt_batched_bwd_dscale": 6,
+                  "posatt_batched_bwd_du": 5}
+    single, report = {}, {"single_process_timing": {}}
+    for label, c, run in (("burgers", cfg, DP_BURGERS), ("darcy", dcfg, MS_DARCY),
+                          ("elasticity", ecfg, DP_ELASTICITY)):
+        problem, state, _, losses, weights, launched, _ = run_training(c, "cuda", *run)
+        single[label] = (losses, weights, launched)
+        if label != "elasticity":  # the steps the ranks time, in one process
+            report["single_process_timing"][label] = collective_step_timing(
+                problem.task, problem, state, None)
+        del problem, state
+    torch.cuda.empty_cache()  # the ranks share the card with this process
+    out = REPO / "build" / "chip_smoke" / "model_stage"
+    out.mkdir(parents=True, exist_ok=True)
+    for f in out.iterdir():
+        f.unlink()
+    np.save(out / "burgers_x.npy", synthetic.burgers(n=max(DP_SERVE_SIZES), L=cfg.grid[0],
+                                                     seed=1)[0])
+    np.save(out / "darcy_x.npy", synthetic.darcy(n=MS_DARCY_SERVE, s=43, seed=1)[0])
+    t0 = time.perf_counter()
+    run_gloo_ranks("model and stage axes", out, lambda r, store: (
+        f"model_stage_rank({r}, {DP_WORLD}, {store!r}, {str(out)!r})"))
+    report["gloo_ranks_seconds"] = time.perf_counter() - t0
+    ranks = [json.loads((out / f"report_rank{r}.json").read_text()) for r in range(DP_WORLD)]
+    want = {"burgers": dp_expected(cfg, per_step, *DP_BURGERS),
+            "darcy": dp_expected(dcfg, d_per_step, *MS_DARCY),
+            "elasticity": dp_expected(ecfg, e_per_step, *DP_ELASTICITY)}
+    for label, (_, _, launched) in single.items():  # Darcy's schedule: one process's count
+        if launched != want[label]:
+            fail(f"model and stage axes: the single-process {label} run launched {launched}, "
+                 f"expected {want[label]}")
+    zssr_free = evaluate.evaluate("darcy", str(out / "darcy_pp.pt"), ntest=MS_DARCY[2],
+                                  device="cuda")
+    served_single = {}
+    for name, sizes in (("burgers", DP_SERVE_SIZES), ("darcy", (MS_DARCY_SERVE,))):
+        ck = out / ("burgers_tp.pt" if name == "burgers" else "darcy_pp.pt")
+        server = make_server(name, str(ck), port=0, verbose=False, device="cuda")
+        try:
+            for n in sizes:
+                served_single[name, n] = server.predictor.predict_file(
+                    str(out / f"{name}_in{n}_rank0.npy"))
+        finally:
+            server.server_close()
+    for r, rep in enumerate(ranks):
+        for label in ("burgers", "darcy", "elasticity"):
+            if rep[label]["launches"] != want[label]:
+                fail(f"model and stage axes: gloo rank {r}'s {label} run launched "
+                     f"{rep[label]['launches']}, expected {want[label]}")
+            got = torch.load(out / f"{label}_rank{r}.pt")
+            rep[label].update(compare_training(f"gloo rank {r} {label} vs one process",
+                                               got["losses"], got["weights"],
+                                               *single[label][:2]))
+        b = rep["burgers"]
+        if any(h != cfg.model.n_head // DP_WORLD for h in b["head_counts"].values()):
+            fail(f"model axis: gloo rank {r} holds heads {b['head_counts']}")
+        part, whole = b["split_param_bytes"]
+        if 2 * part != whole:
+            fail(f"model axis: gloo rank {r}'s split parameters take {part} of {whole} bytes")
+        if 2 * b["mlp_moment_bytes"][0] > b["mlp_moment_bytes"][1] * 1.01:
+            fail(f"model axis: gloo rank {r}'s MLP moments take {b['mlp_moment_bytes']} bytes")
+        b["mlp_param_share"] = b["mlp_param_bytes"][0] / b["mlp_param_bytes"][1]
+        b["mlp_moment_share"] = b["mlp_moment_bytes"][0] / b["mlp_moment_bytes"][1]
+        if rep["darcy"]["n_micro"] != MS_MICRO:
+            fail(f"stage axis: gloo rank {r} picked {rep['darcy']['n_micro']} micro-batches")
+        d_eval = {k: 0 for k in launchers()}  # 6 forwards a batch of 10
+        d_eval["posatt_fixed_fwd"] = (d_per_step["posatt_fixed_fwd"]
+                                      * -(-MS_DARCY[2] // dcfg.eval_batch_size))
+        if rep["darcy_evaluate"]["launches"] != d_eval:
+            fail(f"stage axis: gloo rank {r}'s evaluate launched "
+                 f"{rep['darcy_evaluate']['launches']}, expected {d_eval}")
+        rep["darcy_evaluate"]["max_rel_err_metrics_vs_one_process"] = max(
+            check_close(f"gloo rank {r} Darcy {k}", got, ref, 1e-5, 0.0) / ref.abs().max().item()
+            for k in ("rel_l1", "rel_l2", "rel_max", "rel_l1_quartiles")
+            for got, ref in [(torch.tensor(rep["darcy_evaluate"]["metrics"][k],
+                                           dtype=torch.float64),
+                              torch.tensor(zssr_free[k], dtype=torch.float64))])
+        for name, sizes, c, per_batch in (
+                ("burgers", DP_SERVE_SIZES, cfg, cfg.model.n_blocks + 2),
+                ("darcy", (MS_DARCY_SERVE,), dcfg, d_per_step["posatt_fixed_fwd"])):
+            bs = c.eval_batch_size or c.batch_size
+            batches = 1 + sum(-(-n // bs) for n in sizes)  # + warm-up
+            fwd = "posatt_fixed_fwd"
+            want_serve = {k: per_batch * batches if k == fwd else 0 for k in launchers()}
+            if rep[f"{name}_serve"]["launches"] != want_serve:
+                fail(f"gloo rank {r}'s {name} server launched "
+                     f"{rep[f'{name}_serve']['launches']}, expected {want_serve}")
+    for name, sizes in (("burgers", DP_SERVE_SIZES), ("darcy", (MS_DARCY_SERVE,))):
+        for n in sizes:
+            got = torch.from_numpy(np.load(out / f"{name}_served{n}.npy"))
+            if not torch.equal(got, torch.from_numpy(np.load(out / f"{name}_infer{n}.npy"))):
+                fail(f"model and stage axes: the served {name} reply of {n} differs from "
+                     "infer(mesh) on it")
+            ranks[0][f"{name}_serve"][f"max_abs_err_reply_{n}_vs_single_server"] = check_close(
+                f"{name} served reply of {n} under its mesh vs one process", got,
+                torch.from_numpy(served_single[name, n]), DP_SERVE_RTOL, DP_SERVE_ATOL)
+    report["gloo_ranks"] = ranks
+    report["phase_seconds"] = time.perf_counter() - t_phase
+    return report
+
+
 def main() -> int:
     import torch
 
@@ -6892,6 +7437,7 @@ def main() -> int:
     environment()
     build()
     stamp("build")
+    CPU_REFS.start(cpu_reference_jobs())  # after the build: nvcc takes every core
     geom = geometry_phase()
     shapes, max_err = kernel_phase(geom)
     bwd_rows, bwd_errs, bwd_config_rows = backward_kernel_phase(geom)
@@ -6977,6 +7523,9 @@ def main() -> int:
     dp = data_parallel_phase(darcy_ckpt)
     log("data_parallel " + json.dumps(dp))
     stamp("41 (data parallel)")
+    ms = model_stage_phase()
+    log("model_stage " + json.dumps(ms))
+    stamp("42 (model and stage axes)")
     fixed_paths = {  # the fixed-mesh model paths: (train, served or evaluated)
         "darcy_train": d_train["launches"], "darcy_zssr": d_zssr["launches"],
         "darcy_serve_43": d_serve43["launches"], "darcy_serve_421": d_serve421["launches"],
@@ -7259,13 +7808,19 @@ def main() -> int:
     dp_rank0 = dp["gloo_ranks"][0]
     more_paths = {"dp_nccl_world_1_burgers_train": dp["burgers_nccl_world_1"]["launches"],
                   **{f"dp_gloo_rank0_{k}": dp_rank0[k]["launches"]
-                     for k in ("burgers", "elasticity", "darcy_zssr", "serve")}}
+                     for k in ("burgers", "elasticity", "darcy_zssr", "serve")},
+                  # the model and stage axes (phase 42): each rank's launches
+                  **{f"ms_gloo_rank{r}_{k}": rep[k]["launches"]
+                     for r, rep in enumerate(ms["gloo_ranks"])
+                     for k in ("burgers", "burgers_serve", "darcy", "darcy_evaluate",
+                               "darcy_serve", "elasticity")}}
     for entry in kernels["kernels"]:
         name = entry["name"]
         for path, launched in {**bf16_paths, **more_paths}.items():
             for k, n in launched.items():
                 if n and (k == name or k.startswith(name + "_")):
                     entry["launches_by_path"][path + k[len(name):]] = n
+    CPU_REFS.stop()
     log(json.dumps(kernels))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -7275,4 +7830,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        rc = main()
+    finally:
+        CPU_REFS.stop()
+    sys.exit(rc)

@@ -14,7 +14,10 @@ every command. ``--multihost`` joins a ``torch.distributed`` world (one
 process per rank, started by torchrun or by the user) before anything
 touches the device, and ``--mesh data=N`` (or ``dcn=K,data=N``, ``auto``)
 then runs the command data-parallel over its ranks, rank 0 alone printing
-and writing files; ``--mesh model=M`` and ``stage=K`` are not ported yet.
+and writing files; ``model=M`` adds the model (head) axis, training tensor
+parallel (serving and evaluation replicate the weights, as in JAX; the TF
+family's model axis is not ported), and ``stage=K`` runs the torch
+family's fixed-mesh processor GPipe pipelined over K ranks.
 The port has no counterpart of ``--fused-mode``, since a CUDA tensor
 always runs the hand-written kernels. Data default to the synthetic
 generators; ``--data-path`` or ``PIT_REAL_DATA_DIR`` selects real
@@ -50,13 +53,15 @@ def _add_common(p):
     )
     p.add_argument(
         "--mesh", default=None,
-        help="data-parallel mesh over the ranks of the torch.distributed world "
-        "(--multihost or torchrun): 'auto' (every rank on the data axis, one "
-        "slice per host), 'data=N' or 'dcn=K,data=N' (K slices of N ranks; "
-        "N x K = the world size). train: batch sharded, gradients summed over "
-        "the ranks. evaluate: data-parallel batches; with --zssr the decoder's "
-        "query rows are split over the ranks instead. 'model=M' and 'stage=K' "
-        "are not ported yet",
+        help="mesh over the ranks of the torch.distributed world (--multihost "
+        "or torchrun): 'auto' (every rank on the data axis, one slice per "
+        "host), 'data=N[,model=M]' or 'dcn=K,data=N[,model=M]' (N x M x K = "
+        "the world size), or 'stage=K' (GPipe pipeline of the processor "
+        "blocks, torch-family fixed meshes, alone). train: batch sharded over "
+        "data x dcn, gradients summed; model=M splits the MLPs and heads "
+        "(tensor parallel; the TF family raises NotImplementedError). "
+        "evaluate/infer/serve: data-parallel batches with the whole weights; "
+        "with --zssr the decoder's query rows are split over the data ranks",
     )
     p.add_argument(
         "--set", action="append", default=None, metavar="KEY=VALUE",

@@ -6,6 +6,10 @@ gradients (and the loss) are summed over the data group and then over the
 dcn group (:func:`..sharding.all_reduce_grads`), and every rank applies the
 same optimizer step and parameter constraint. The train epoch
 (``train/loop.py``) runs this same reduction once per optimizer step.
+Under a model axis ``task.model`` is this rank's part
+(``tensor_parallel.shard_state``), whose forward and backward carry the
+model group's collectives; the gradient sum runs among the ranks of this
+rank's model index.
 """
 
 from __future__ import annotations

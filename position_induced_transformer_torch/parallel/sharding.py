@@ -1,28 +1,32 @@
-"""The data axis on ``torch.distributed``: one process per rank.
+"""Device meshes on ``torch.distributed``: one process per rank.
 
 The JAX package drives every device from one process and lets GSPMD place
 the collectives over a ``jax.sharding.Mesh``. Here each rank is its own
 process (torchrun, or the command line's ``--multihost``), and a
-:class:`DataMesh` stands for the mesh: ``mesh="data=N"`` means an
-initialized default process group of world size N of which this process is
-one rank. Parameters are replicated; every rank runs the hand-written
-kernels on its shard of the batch; gradients are summed by an explicit
-``all_reduce`` over the ranks' process groups.
+:class:`DataMesh` stands for the mesh: ``mesh="data=N,model=M"`` means an
+initialized default process group of world size N x M of which this
+process is one rank. Every rank runs the hand-written kernels on its part
+of the work; the collectives are explicit.
 
-- **Data parallel**: rank r takes rows ``[r B / n, (r + 1) B / n)`` of a
-  batch of B (:func:`shard_batch`), as the JAX package's ``batch_spec``
-  shards the leading axis over ``('dcn', 'data')``.
-- **Multi-slice** (``dcn=K,data=N``): ranks ``[s N, (s + 1) N)`` form slice
-  ``s``'s data group and ranks ``{s N + j}`` form dcn group ``j``, the
-  order ``mesh_utils.create_hybrid_device_mesh`` gives; the gradient sum
-  runs over the data group, then over the dcn group.
+- **Rank order**: a ``dcn=K,data=N,model=M`` mesh is the JAX package's
+  ``devices.reshape(K, N, M)``: rank ``((s N) + d) M + m`` is slice ``s``,
+  data index ``d``, model index ``m`` (the model index varies fastest).
+- **Data parallel**: a batch of B splits over the ``K N`` batch indices
+  ``b = s N + d`` (rows ``[b B / KN, (b + 1) B / KN)``, :func:`shard_batch`),
+  as the JAX package's ``batch_spec`` shards the leading axis over
+  ``('dcn', 'data')``; ranks that differ only in their model index take the
+  same rows. Gradients are summed over this rank's data group, then over
+  its dcn group (the ranks of its model index in the other slices).
+- **Tensor parallel** (``model=M``, training only):
+  :mod:`.tensor_parallel` splits each MLP column- then row-parallel over
+  the model group and the heads where M divides them; prediction,
+  evaluation and serving replicate the whole weights, as in JAX.
 - **Sequence parallel** (ZSSR decode): the decoder's query rows split over
   the data group (:func:`sequence_shard_geometry`,
   :func:`sequence_shard_tf_geometry`); each rank decodes its slab against
   the whole latent cloud and :func:`sequence_gather` joins the slabs.
-
-The model (head) axis and the pipeline (stage) axis are not ported yet:
-``model=M`` (M > 1) and ``stage=K`` raise ``NotImplementedError``.
+- **Pipeline** (``stage=K``, which combines with no other axis): a
+  :class:`StageMesh` (:mod:`.pipeline`).
 """
 
 from __future__ import annotations
@@ -39,83 +43,134 @@ AXES = ("dcn", "data", "model", "stage")
 
 @dataclasses.dataclass(frozen=True)
 class DataMesh:
-    """``dcn`` slices of ``data`` ranks each (world = dcn x data), and this
-    process's ``rank`` in it. ``data_group`` holds the ranks of this rank's
-    slice and ``dcn_group`` the ranks at its place in every slice (None
-    without a second axis); ``group`` is the whole world. Groups are None
-    where no process group is initialized (a world of one)."""
+    """``dcn`` slices of ``data`` x ``model`` ranks each (world = dcn x
+    data x model, rank ``((s data) + d) model + m``), and this process's
+    ``rank`` in it. ``data_group`` holds the ranks of this rank's slice and
+    model index, ``dcn_group`` those of its data and model index in every
+    slice (None with one slice), ``model_group`` those of its slice and
+    data index (None without a model axis), ``batch_group`` every rank of
+    its model index in batch order; ``group`` is the whole world. Groups
+    are None where no process group is initialized (a world of one)."""
 
     dcn: int
     data: int
+    model: int = 1
     rank: int = 0
     group: Optional[object] = None
     data_group: Optional[object] = None
     dcn_group: Optional[object] = None
+    model_group: Optional[object] = None
+    batch_group: Optional[object] = None
 
     @property
-    def world(self) -> int:
+    def n_batch(self) -> int:
+        """Batch-sharding ways: the dcn axis times the data axis."""
         return self.dcn * self.data
 
     @property
+    def batch_rank(self) -> int:
+        """This rank's batch index ``s data + d``: its shard of a batch."""
+        return self.rank // self.model
+
+    @property
     def data_rank(self) -> int:
-        """This rank's place in its slice: its slab of a sequence split."""
-        return self.rank % self.data
+        """This rank's place in its slice: its slab of a sequence split,
+        the same on every rank of its model group."""
+        return self.batch_rank % self.data
+
+    @property
+    def model_rank(self) -> int:
+        """This rank's model index: its part of a tensor-parallel layer."""
+        return self.rank % self.model
+
+
+@dataclasses.dataclass(frozen=True)
+class StageMesh:
+    """The pipeline's 1-D mesh of ``stage`` ranks (the whole world; rank s
+    holds stage s), made by :func:`.pipeline.make_stage_mesh`. ``group`` is
+    None in a world of one."""
+
+    stage: int
+    rank: int = 0
+    group: Optional[object] = None
+
+    n_batch = 1  # the batch stays whole on every stage
 
 
 def _world() -> int:
     return dist.get_world_size() if dist.is_initialized() else 1
 
 
-def make_mesh(n_data: Optional[int] = None, n_model: int = 1, n_dcn: int = 1) -> DataMesh:
-    """The :class:`DataMesh` of ``n_dcn`` slices of ``n_data`` ranks over
-    the default process group (``n_data`` defaults to the world over
-    ``n_dcn``). The world must hold exactly ``n_dcn x n_data`` ranks. With
-    ``n_dcn > 1`` every rank creates every slice's and every dcn group, in
-    one order, as ``torch.distributed.new_group`` requires."""
-    if n_model > 1:
-        raise NotImplementedError(
-            f"mesh model={n_model}: the model (head) axis is not ported yet"
-        )
-    world = _world()
-    if n_data is None:
-        n_data = max(1, world // n_dcn)
-    want = n_dcn * n_data
+def _need(spec: str, want: int, world: int) -> None:
     if want != world:
         raise ValueError(
-            f"mesh dcn={n_dcn},data={n_data} needs {want} devices but only "
-            f"{world} are visible (the world size of the default process group)"
+            f"mesh {spec} needs {want} devices but only {world} are visible "
+            "(the world size of the default process group)"
         )
+
+
+def make_mesh(n_data: Optional[int] = None, n_model: int = 1, n_dcn: int = 1) -> DataMesh:
+    """The :class:`DataMesh` of ``n_dcn`` slices of ``n_data`` x
+    ``n_model`` ranks over the default process group (``n_data`` defaults
+    to the world over ``n_model`` x ``n_dcn``). The world must hold exactly
+    ``n_dcn x n_data x n_model`` ranks. Every rank creates every group, in
+    one order, as ``torch.distributed.new_group`` requires."""
+    world = _world()
+    if n_data is None:
+        n_data = max(1, world // (n_model * n_dcn))
+    K, N, M = n_dcn, n_data, n_model
+    _need(f"dcn={K},data={N},model={M}", K * N * M, world)
     if not dist.is_initialized():
-        return DataMesh(dcn=n_dcn, data=n_data)
+        return DataMesh(dcn=K, data=N, model=M)
     rank = dist.get_rank()
     world_group = dist.group.WORLD
-    if n_dcn == 1:
-        return DataMesh(n_dcn, n_data, rank, world_group, world_group)
-    data_group = dcn_group = None
-    for s in range(n_dcn):
-        g = dist.new_group(list(range(s * n_data, (s + 1) * n_data)))
-        if rank // n_data == s:
-            data_group = g
-    for j in range(n_data):
-        g = dist.new_group([s * n_data + j for s in range(n_dcn)])
-        if rank % n_data == j:
-            dcn_group = g
-    return DataMesh(n_dcn, n_data, rank, world_group, data_group, dcn_group)
+    if K == 1 and M == 1:
+        return DataMesh(K, N, M, rank, world_group, world_group, batch_group=world_group)
+    at = lambda s, d, m: (s * N + d) * M + m
+    s0, d0, m0 = rank // (N * M), (rank // M) % N, rank % M
+    mine = {}
+    for s in range(K):
+        for m in range(M):
+            g = dist.new_group([at(s, d, m) for d in range(N)])
+            if (s, m) == (s0, m0):
+                mine["data_group"] = g
+    if K > 1:
+        for d in range(N):
+            for m in range(M):
+                g = dist.new_group([at(s, d, m) for s in range(K)])
+                if (d, m) == (d0, m0):
+                    mine["dcn_group"] = g
+    if M > 1:
+        for s in range(K):
+            for d in range(N):
+                g = dist.new_group([at(s, d, m) for m in range(M)])
+                if (s, d) == (s0, d0):
+                    mine["model_group"] = g
+        for m in range(M):
+            g = dist.new_group([at(s, d, m) for s in range(K) for d in range(N)])
+            if m == m0:
+                mine["batch_group"] = g
+    else:
+        mine["batch_group"] = world_group
+    return DataMesh(K, N, M, rank, world_group, **mine)
 
 
-def parse_mesh_spec(spec) -> Optional[DataMesh]:
+def parse_mesh_spec(spec):
     """Resolve the runner's and command line's ``mesh`` argument.
 
-    A :class:`DataMesh` is returned as it is; ``None``, ``''``, ``'none'``
-    and ``'1'`` give None (one process, no mesh). ``'auto'``: the whole
-    world as the data axis, or, where torchrun says the world spans several
-    hosts (``LOCAL_WORLD_SIZE`` dividing it), one slice per host; None when
-    no process group is initialized or the world is one. ``'data=N'``,
-    optionally with ``dcn=K``: N x K must equal the world size. The specs
-    accepted and refused, and the errors, are the JAX package's
-    (``parallel/sharding.py`` ``parse_mesh_spec``); ``model=M`` with M > 1
-    and ``stage=K`` raise ``NotImplementedError`` (not ported yet)."""
-    if spec is None or isinstance(spec, DataMesh):
+    A :class:`DataMesh` or :class:`StageMesh` is returned as it is;
+    ``None``, ``''``, ``'none'`` and ``'1'`` give None (one process, no
+    mesh). ``'auto'``: the whole world as the data axis, or, where torchrun
+    says the world spans several hosts (``LOCAL_WORLD_SIZE`` dividing it),
+    one slice per host; None when no process group is initialized or the
+    world is one. ``'data=N[,model=M]'``, optionally with ``dcn=K``: N x M
+    x K must equal the world size. ``'stage=K'``: the GPipe pipeline over
+    K ranks (:func:`.pipeline.make_stage_mesh`), combined with no other
+    axis. The specs accepted and refused, and the errors, are the JAX
+    package's (``parallel/sharding.py`` ``parse_mesh_spec``), except that a
+    spec naming fewer devices than the world is refused (a rank cannot sit
+    out)."""
+    if spec is None or isinstance(spec, (DataMesh, StageMesh)):
         return spec
     s = str(spec).strip().lower()
     if s in ("", "none", "1"):
@@ -147,6 +202,7 @@ def parse_mesh_spec(spec) -> Optional[DataMesh]:
                 f"unknown mesh axis {key!r} in {spec!r} (axes: dcn, data, model, stage)"
             )
         sizes[key] = int(val)
+    world = _world()
     if sizes["stage"]:
         if sizes["data"] > 1 or sizes["model"] > 1 or sizes["dcn"] > 1:
             raise ValueError(
@@ -154,26 +210,18 @@ def parse_mesh_spec(spec) -> Optional[DataMesh]:
                 "combined with 'dcn'/'data'/'model' — the GPipe schedule "
                 "owns its whole mesh"
             )
-        raise NotImplementedError(
-            f"mesh {spec!r}: the pipeline ('stage') axis is not ported yet"
-        )
-    if sizes["model"] > 1:
-        raise NotImplementedError(
-            f"mesh {spec!r}: the model (head) axis is not ported yet"
-        )
-    world = _world()
-    if sizes["dcn"] * sizes["data"] != world:
-        raise ValueError(
-            f"mesh {spec!r} needs {sizes['dcn'] * sizes['data']} devices but "
-            f"only {world} are visible (the world size of the default process group)"
-        )
-    return make_mesh(n_data=sizes["data"], n_dcn=sizes["dcn"])
+        from position_induced_transformer_torch.parallel.pipeline import make_stage_mesh
+
+        _need(repr(spec), sizes["stage"], world)
+        return make_stage_mesh(sizes["stage"])
+    _need(repr(spec), sizes["dcn"] * sizes["data"] * sizes["model"], world)
+    return make_mesh(n_data=sizes["data"], n_model=sizes["model"], n_dcn=sizes["dcn"])
 
 
-def data_axis_size(mesh: Optional[DataMesh]) -> int:
+def data_axis_size(mesh) -> int:
     """Total batch-sharding ways: the data axis times the dcn axis (1 for
-    no mesh)."""
-    return 1 if mesh is None else mesh.world
+    no mesh and for a stage mesh)."""
+    return 1 if mesh is None else mesh.n_batch
 
 
 def _rows(n: int, k: int, i: int) -> slice:
@@ -183,9 +231,10 @@ def _rows(n: int, k: int, i: int) -> slice:
 
 
 def shard_rows(mesh: DataMesh, a):
-    """This rank's rows of ``a``: rank r of n takes ``[r B / n, (r + 1) B
-    / n)`` of the leading axis (a view)."""
-    return a[_rows(a.shape[0], mesh.world, mesh.rank)]
+    """This rank's rows of ``a``: batch index b of n takes ``[b B / n,
+    (b + 1) B / n)`` of the leading axis (a view); the ranks of one model
+    group take the same rows."""
+    return a[_rows(a.shape[0], mesh.n_batch, mesh.batch_rank)]
 
 
 def shard_batch(mesh: DataMesh, batch: dict) -> dict:
@@ -194,10 +243,17 @@ def shard_batch(mesh: DataMesh, batch: dict) -> dict:
     return {k: shard_rows(mesh, v) for k, v in batch.items()}
 
 
+def gather_rows(mesh: DataMesh, t: torch.Tensor) -> torch.Tensor:
+    """Every batch index's rows of ``t`` (this rank's :func:`shard_rows`
+    result), joined in batch order over this rank's batch group."""
+    return all_gather(mesh.batch_group, t)
+
+
 def all_reduce(mesh: DataMesh, t: torch.Tensor) -> torch.Tensor:
     """Sum ``t`` in place over the data group, then over the dcn group: the
     two-level gradient all-reduce (within a slice first, then one hop
-    across slices). Nothing to do without a process group."""
+    across slices), among the ranks of this rank's model index. Nothing to
+    do without a process group."""
     if mesh.group is None:
         return t
     dist.all_reduce(t, group=mesh.data_group)
@@ -217,7 +273,7 @@ def all_reduce_grads(mesh: DataMesh, params, loss: torch.Tensor, batch_mean: boo
     flat = torch.cat([g.reshape(-1) for g in grads] + [loss.detach().reshape(1).float()])
     all_reduce(mesh, flat)
     if batch_mean:
-        flat /= mesh.world
+        flat /= mesh.n_batch
     start = 0
     for g in grads:
         g.copy_(flat[start:start + g.numel()].view_as(g))

@@ -6,7 +6,9 @@ on the 43^2 grid, evaluated on the 421^2 one). :class:`Predictor` holds a
 checkpoint warm on one device for repeated calls; :func:`infer` is the
 one-shot form. With a ``mesh`` each rank of a ``torch.distributed`` world
 runs its shard of every batch, or, for a ZSSR evaluation, its slab of the
-decoder's query rows, and every rank gets the whole result. Inputs are
+decoder's query rows, and every rank gets the whole result; a model axis
+replicates the whole weights (its ranks compute the same rows), and a
+stage axis runs the processor GPipe pipelined over the ranks. Inputs are
 ``.npy``, MATLAB ``.mat`` (v5, or v7.3 through the optional h5py) or HDF5 ``.h5`` files laid out like the benchmark's
 inputs, with raw values: a normalizing benchmark (darcy) normalizes them
 with the checkpoint's statistics, resized to the input's own grid. A benchmark on per-sample meshes
@@ -44,15 +46,18 @@ from position_induced_transformer_torch.ops.metrics import (
 )
 from position_induced_transformer_torch.ops.normalization import PixelWiseNormalizer
 from position_induced_transformer_torch.parallel import multihost
+from position_induced_transformer_torch.parallel.pipeline import enable_pipeline
 from position_induced_transformer_torch.parallel.sharding import (
-    all_gather,
+    StageMesh,
     data_axis_size,
+    gather_rows,
     parse_mesh_spec,
     sequence_gather,
     sequence_shard_geometry,
     sequence_shard_tf_geometry,
     shard_rows,
 )
+from position_induced_transformer_torch.parallel.tensor_parallel import check_model_axis
 from position_induced_transformer_torch.train import benchmarks
 from position_induced_transformer_torch.train import checkpoint as ckpt
 from position_induced_transformer_torch.train import runner
@@ -239,10 +244,13 @@ class Predictor:
     ``{"downsampling": 1}``). A normalizing benchmark takes its statistics
     from the checkpoint; a checkpoint without them refits them on the full
     training split, as its training did. ``model_variant``: the TF family's
-    ablation model the checkpoint holds. ``mesh``: data-parallel inference,
-    every rank building its Predictor and calling it with the same inputs;
-    each runs its shard of every device batch (the batch size rounded to a
-    multiple of the ranks) and every rank returns the whole prediction.
+    ablation model the checkpoint holds. ``mesh``: every rank builds its
+    Predictor and calls it with the same inputs. Under ``data=N`` (with
+    ``dcn=K``, ``model=M``) each batch index runs its shard of every device
+    batch (the batch size rounded to a multiple of N x K) with the whole
+    weights, and every rank returns the whole prediction; under
+    ``stage=K`` every batch runs pipelined over the ranks (the batch size
+    rounded to the schedule's micro-batch count).
     """
 
     def __init__(
@@ -270,6 +278,11 @@ class Predictor:
         problem.model.load_state_dict(restored["state_dict"])
         problem.model.eval()
         problem.train_data = {}
+        check_model_axis(self.mesh, problem.model)
+        self._rows = self.mesh  # the mesh a device batch is sharded over
+        if isinstance(self.mesh, StageMesh):
+            enable_pipeline(problem, self.mesh, batch_size=cfg.eval_batch_size or cfg.batch_size)
+            self._rows = None
         self.cfg = cfg
         with open(checkpoint_path, "rb") as f:  # the checkpoint's identity, not its path
             self.checkpoint_sha256 = hashlib.file_digest(f, "sha256").hexdigest()
@@ -283,7 +296,8 @@ class Predictor:
         if batch_size is not None and batch_size < 1:
             raise ValueError(f"batch_size must be >= 1, got {batch_size}")
         bs = batch_size or self.cfg.eval_batch_size or self.cfg.batch_size
-        return round_batch(bs, data_axis_size(self.mesh))
+        bs = round_batch(bs, self.problem.task.pp_micro or 1)
+        return round_batch(bs, data_axis_size(self._rows))
 
     def predict_array(
         self, data: dict, rollout_steps: int = 0, batch_size: Optional[int] = None,
@@ -295,7 +309,7 @@ class Predictor:
         :meth:`Task.rollout` lays it out."""
         n = int(np.shape(data["x"])[0])
         bs = self._batch_size(batch_size)
-        task, geom, mesh = self.problem.task, self.problem.geom, self.mesh
+        task, geom, mesh = self.problem.task, self.problem.geom, self._rows
         outs = []
         with torch.inference_mode():
             for idx in padded_batches(n, bs):
@@ -310,7 +324,7 @@ class Predictor:
                 else:
                     out = task.forward(geom, batch)
                 if mesh is not None:
-                    out = all_gather(mesh.group, out)
+                    out = gather_rows(mesh, out)
                 outs.append(out.cpu().numpy())
         return np.concatenate(outs, axis=0)[:n]
 
@@ -465,7 +479,8 @@ def _rollout_batches(problem, x: np.ndarray, steps: int, mesh=None) -> np.ndarra
     batch size rounded to a multiple of the ranks), gathered."""
     cfg = problem.config
     n = x.shape[0]
-    bs = round_batch(min(cfg.eval_batch_size or cfg.batch_size, n), data_axis_size(mesh))
+    bs = round_batch(min(cfg.eval_batch_size or cfg.batch_size, n), problem.task.pp_micro or 1)
+    bs = round_batch(bs, data_axis_size(mesh))
     dev = next(problem.model.parameters()).device
     problem.model.eval()
     preds = []
@@ -476,7 +491,7 @@ def _rollout_batches(problem, x: np.ndarray, steps: int, mesh=None) -> np.ndarra
             xb = torch.from_numpy(np.ascontiguousarray(x[idx])).to(dev)
             out = problem.task.rollout(problem.geom, xb, steps)
             if mesh is not None:
-                out = all_gather(mesh.group, out)
+                out = gather_rows(mesh, out)
             preds.append(out.cpu().numpy())
     return np.concatenate(preds, axis=0)[:n]
 
@@ -569,12 +584,14 @@ def evaluate(
     TF family's ablation model the checkpoint holds.
 
     ``mesh`` (as ``runner.train`` takes it; every rank calls with the same
-    arguments): the metrics data-parallel, each rank running its shard of
-    every batch; with ``zssr=True`` on a fixed mesh the decode is sequence
-    parallel instead: each rank decodes its slab of the query rows (padded
-    to a multiple of the ranks) against the whole latent cloud, on the
-    whole batch, and the slabs are gathered. Only rank 0 writes plots and
-    ``save_pred``.
+    arguments): the metrics data-parallel, each batch index running its
+    shard of every batch with the whole weights (a model axis's ranks
+    compute the same rows); with ``zssr=True`` on a fixed mesh the decode
+    is sequence parallel instead: each rank decodes its slab of the query
+    rows (padded to a multiple of the data ranks) against the whole latent
+    cloud, on the whole batch, and the slabs are gathered. Under
+    ``stage=K`` every batch runs through the GPipe pipelined forward. Only
+    rank 0 writes plots and ``save_pred``.
     """
     if plots_dir:
         require_matplotlib()
@@ -602,6 +619,10 @@ def evaluate(
         cfg, data_path, ntrain=ntrain, ntest=ntest, device=device, **setup_kwargs
     )
     problem.model.load_state_dict(restored["state_dict"])
+    check_model_axis(mesh, problem.model)
+    if isinstance(mesh, StageMesh):
+        enable_pipeline(problem, mesh, batch_size=cfg.eval_batch_size or cfg.batch_size)
+        mesh = None  # every batch whole, through the pipelined forward
     if mesh is not None and zssr and problem.geom is not None:
         _sequence_parallel(problem, mesh)
         mesh = None  # the batch stays whole: rows are the long axis here

@@ -96,6 +96,10 @@ class Task:
     # model -> None, applied under torch.no_grad() after every optimizer
     # update: keras' constraint semantics (naca_tf's NonNeg bandwidth)
     param_constraint: Optional[Callable] = None
+    # the GPipe schedule's micro-batch count where the forward runs
+    # pipelined over a stage mesh (parallel.pipeline.pipeline_task); every
+    # batch a forward sees must divide into it
+    pp_micro: int = 0
 
     def _geometry(self, geom, batch):
         return self.geom_fn(batch) if self.geom_fn is not None else geom

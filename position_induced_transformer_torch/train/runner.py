@@ -1,5 +1,6 @@
 """The benchmark runner: train, evaluate and predict on one device, or
-data-parallel over the ranks of a ``torch.distributed`` world.
+over the ranks of a ``torch.distributed`` world (data, model and stage
+axes).
 
 Per epoch it runs the train epoch and the eval epoch, prints the columns
 the JAX package's runner prints (epoch, seconds, train loss, the test
@@ -21,12 +22,19 @@ import torch
 from position_induced_transformer_torch.configs import BenchmarkConfig, get
 from position_induced_transformer_torch.ops.metrics import rel_lp_norm, rel_max_norm
 from position_induced_transformer_torch.parallel import multihost
+from position_induced_transformer_torch.parallel.pipeline import enable_pipeline, sync_stages
 from position_induced_transformer_torch.parallel.sharding import (
-    all_gather,
+    StageMesh,
     data_axis_size,
+    gather_rows,
     parse_mesh_spec,
     replicate_tree,
     shard_rows,
+)
+from position_induced_transformer_torch.parallel.tensor_parallel import (
+    gather_state,
+    param_shardings,
+    shard_state,
 )
 from position_induced_transformer_torch.train import benchmarks
 from position_induced_transformer_torch.train import checkpoint as ckpt
@@ -126,15 +134,22 @@ def train(
     ``model_variant``: the TF family's ablation model (``lite``,
     ``transformer``, ``selfpit``; default the config's).
 
-    ``mesh`` (``'auto'``, ``'data=N'``, ``'dcn=K,data=N'`` or a
-    ``parallel.DataMesh``; ``parallel.sharding.parse_mesh_spec``): this
-    process is one rank of an initialized process group, and every rank
-    calls ``train`` with the same arguments. Each takes its shard of every
-    batch (which must divide over the ranks, as must a grad-accum
-    microbatch), the gradients are summed over the ranks each step, and
-    every rank returns the same weights and history. Only rank 0 prints and
-    writes the log, the history files and the checkpoints, which hold the
-    model's own state dict and restore in one process.
+    ``mesh`` (``'auto'``, ``'data=N[,model=M]'``, ``'dcn=K,data=N[,model=M]'``,
+    ``'stage=K'``, or a ``parallel.DataMesh`` / ``StageMesh``;
+    ``parallel.sharding.parse_mesh_spec``): this process is one rank of an
+    initialized process group, and every rank calls ``train`` with the
+    same arguments. Each batch index takes its shard of every batch (which
+    must divide over the data x dcn ranks, as must a grad-accum
+    microbatch), and the gradients are summed over them each step. Under
+    ``model=M`` each rank trains its part of the PiT
+    (``parallel.tensor_parallel``: MLP widths split, heads where M divides
+    them, Adam moments alike); under ``stage=K`` the processor runs GPipe
+    pipelined over the ranks (``parallel.pipeline``; the schedule picked
+    from the batch a forward sees, ``batch_size / grad_accum``). Every rank
+    returns the same whole weights (the one-process layout) and history.
+    Only rank 0 prints and writes the log, the history files and the
+    checkpoints, which hold the model's own state dict and restore in one
+    process.
     """
     if history_plot:
         require_matplotlib()
@@ -145,6 +160,11 @@ def train(
     problem = benchmarks.setup(
         cfg, data_path, ntrain=ntrain, ntest=ntest, device=device, **(setup_kwargs or {})
     )
+    stages = isinstance(mesh, StageMesh)
+    data_mesh = None if stages else mesh  # a stage mesh keeps every batch whole
+    tensor_parallel = data_mesh is not None and data_mesh.model > 1
+    if tensor_parallel:
+        param_shardings(data_mesh, problem.model)  # the TF family and odd widths raise now
     dev = next(problem.model.parameters()).device
     epochs = epochs if epochs is not None else cfg.epochs
     seed = seed if seed is not None else cfg.seed
@@ -159,7 +179,7 @@ def train(
         raise ValueError(
             f"batch_size {cfg.batch_size} is not divisible into {grad_accum} microbatches"
         )
-    n_data = data_axis_size(mesh)
+    n_data = data_axis_size(data_mesh)
     if cfg.batch_size % n_data:
         raise ValueError(
             f"batch_size {cfg.batch_size} is not divisible by the mesh data "
@@ -187,24 +207,47 @@ def train(
         state.step = restored["step"]
         start_epoch = state.step // n_batches
     replicate_tree(mesh, state.model.state_dict())  # rank 0's weights everywhere
+    whole_task, whole_model, n_micro = problem.task, state.model, 1
+    if stages:
+        fwd_bs = cfg.batch_size // grad_accum  # the batch a forward sees
+        n_micro = enable_pipeline(problem, mesh, batch_size=fwd_bs)
+        if fwd_bs % n_micro:  # only where PIT_PP_MICRO forces a non-divisor
+            raise ValueError(
+                f"microbatch size {fwd_bs} is not divisible into the pipeline "
+                f"schedule's {n_micro} GPipe microbatches"
+            )
+    elif tensor_parallel:
+        state = shard_state(data_mesh, state)
+        problem.task = dataclasses.replace(problem.task, model=state.model)
 
     norms = {k: n.state() for k, n in (("x_normalizer", problem.x_normalizer),
                                         ("y_normalizer", problem.y_normalizer)) if n is not None}
 
-    def save(path):
+    def whole_state():
+        """The one-process training state: a collective under a model or
+        stage axis (every rank's part gathered, or every stage's blocks)."""
+        if tensor_parallel:
+            return gather_state(data_mesh, state, whole_model)
+        if stages:
+            sync_stages(mesh, state.model, state.optimizer)
+        return state
+
+    def save(path, st=None):
+        st = st or whole_state()
         if main:
-            ckpt.save(path, state.model.state_dict(), cfg.name,
-                      optimizer=state.optimizer.state_dict(), step=state.step, **norms)
+            ckpt.save(path, st.model.state_dict(), cfg.name,
+                      optimizer=st.optimizer.state_dict(), step=st.step, **norms)
         multihost.barrier()  # no rank reads it before it is whole
 
     to_dev = lambda d: {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for k, v in d.items()}
     train_data, test_data = to_dev(problem.train_data), to_dev(problem.test_data)
-    train_epoch = make_train_epoch(problem.task, schedule, grad_accum, mesh=mesh)
+    train_epoch = make_train_epoch(problem.task, schedule, grad_accum, mesh=data_mesh)
     # a rollout task's eval epoch gives its own stepwise set
     metrics = None if cfg.rollout_steps else default_metrics(cfg.model.out_dim)
-    eval_epoch = make_eval_epoch(problem.task, metrics, mesh=mesh)
-    # the eval batch divides over the ranks too
+    eval_epoch = make_eval_epoch(problem.task, metrics, mesh=data_mesh)
+    # the eval batch divides over the ranks too, and into the GPipe schedule
     eval_bs = round_batch(min(cfg.eval_batch_size or cfg.batch_size, problem.n_test), n_data)
+    eval_bs = round_batch(eval_bs, n_micro)
     eval_perm = eval_permutation(problem.n_test, eval_bs).to(dev)
     denom = n_batches if problem.task.batch_mean_loss else n_batches * cfg.batch_size
 
@@ -266,8 +309,11 @@ def train(
             logf.close()
     if (history_csv or history_plot) and main:
         save_history(history, history_csv, history_plot)
+    state = whole_state()
+    if tensor_parallel:  # prediction after training replicates the whole weights
+        problem.task = whole_task
     if checkpoint_path and last_periodic_save != epochs - 1:
-        save(checkpoint_path)
+        save(checkpoint_path, state)
     return problem, state, history
 
 
@@ -301,15 +347,20 @@ def predict(problem, data=None, batch_size: Optional[int] = None, mesh=None) -> 
     """Predictions of ``problem.model`` over a host data dict (default: the
     test split), in padded batches of one size on the model's device. Every
     variable of the dict rides with its batch: per-sample geometry reads
-    its coordinates from there. ``mesh``: data-parallel prediction, every
-    rank calling with the same arguments; each runs its shard of every
-    batch (the batch size rounded to a multiple of the ranks) and every
-    rank returns the whole prediction."""
+    its coordinates from there. The batch size is rounded to the task's
+    GPipe micro-batch count where it runs pipelined. ``mesh``: data-parallel
+    prediction, every rank calling with the same arguments; each batch
+    index runs its shard of every batch (the batch size rounded to a
+    multiple of the data x dcn ranks; the ranks of a model group compute
+    the same rows with the whole weights) and every rank returns the whole
+    prediction. A stage mesh keeps every batch whole."""
     mesh = parse_mesh_spec(mesh)
+    if isinstance(mesh, StageMesh):
+        mesh = None
     data = data if data is not None else problem.test_data
     n = np.shape(data["x"])[0]
     bs = min(batch_size or problem.config.eval_batch_size or problem.config.batch_size, n)
-    bs = round_batch(bs, data_axis_size(mesh))
+    bs = round_batch(round_batch(bs, problem.task.pp_micro or 1), data_axis_size(mesh))
     dev = next(problem.model.parameters()).device
     problem.model.eval()
     outs = []
@@ -321,6 +372,6 @@ def predict(problem, data=None, batch_size: Optional[int] = None, mesh=None) -> 
                      for k, v in data.items()}
             out = problem.task.forward(problem.geom, batch)
             if mesh is not None:
-                out = all_gather(mesh.group, out)
+                out = gather_rows(mesh, out)
             outs.append(out.cpu().numpy())
     return np.concatenate(outs, axis=0)[:n]

@@ -34,7 +34,9 @@ With a ``mesh`` (``make_server(mesh=...)``, every rank of a
 Its worker broadcasts each call of the model (the request dict, the
 horizon and the batch size) to the other ranks, whose servers follow those
 broadcasts (:class:`FollowerServer`), and every rank runs its shard of
-each device batch; rank 0's ``server_close`` stops them.
+each device batch (a model axis's ranks the same rows, with the whole
+weights; a stage axis every batch through the pipelined forward); rank
+0's ``server_close`` stops them.
 """
 
 from __future__ import annotations

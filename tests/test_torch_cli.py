@@ -199,11 +199,14 @@ def test_convert_structure_mismatch_is_clean_error(tmp_path):
 @pytest.mark.parametrize("option,value", [("--mesh", "model=2"), ("--model-variant", "lite"),
                                           ("--mesh", "stage=2")])
 def test_options_not_ported_raise(option, value):
-    """--mesh's model (head) and pipeline (stage) axes raise as not ported
-    (its data axis and --multihost are ported:
-    tests/test_torch_multihost.py); --model-variant is ported and reaches
-    the model, which on a benchmark of the torch family raises with the JAX
-    package's words (the variants exist for the TF family only)."""
+    """--mesh's model (head) and pipeline (stage) axes are ported (with
+    --multihost: tests/test_torch_multihost.py, tests/test_torch_pipeline.py):
+    in a world of one they raise the JAX package's ValueError about
+    devices, and in a world of two (the fake backend) the TF family's model
+    axis, the one part not ported, raises NotImplementedError;
+    --model-variant is ported and reaches the model, which on a benchmark
+    of the torch family raises with the JAX package's words (the variants
+    exist for the TF family only)."""
     for command in ("train", "evaluate", "describe"):
         argv = [command, "--benchmark", "burgers", option, value, *CPU]
         if command == "evaluate":
@@ -214,8 +217,20 @@ def test_options_not_ported_raise(option, value):
             with pytest.raises(ValueError, match="exists for the TF-family benchmarks only"):
                 t_cli.main(argv + ["--ntrain", "4", "--ntest", "2", *SHRINK])
             continue
-        with pytest.raises(NotImplementedError, match="not ported"):
+        with pytest.raises(ValueError, match="needs 2 devices but only 1"):
             t_cli.main(argv)
+    if value == "model=2":
+        import torch.distributed as dist
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+
+        dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=2)
+        try:
+            with pytest.raises(NotImplementedError, match="TF family"):
+                t_cli.main(["train", "--benchmark", "burgers_tf", option, value, *CPU,
+                            "--ntrain", "4", "--ntest", "2", "--set", "grid=64",
+                            "--set", "latent_grid=32", "--set", "model.hid_dim=8"])
+        finally:
+            dist.destroy_process_group()
     with pytest.raises(SystemExit):  # no --fused-mode: the port has no such switch
         t_cli.main(["train", "--benchmark", "burgers", "--fused-mode", "never", *CPU])
 

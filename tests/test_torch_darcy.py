@@ -307,7 +307,8 @@ def test_evaluate_zssr_matches_jax(problems, tmp_path):
 def test_evaluate_refusals(tmp_path):
     """ZSSR on a setup without ``downsampling`` is a ValueError, as in JAX,
     and so is the shuffle ablation of a rollout benchmark; ``mesh``'s model
-    and stage axes are not ported yet and raise NotImplementedError. ``model_variant`` is ported:
+    and stage axes are ported, and in a world of one ``model=2`` and
+    ``stage=2`` raise JAX's ValueError about devices. ``model_variant`` is ported:
     on the torch family it raises with the JAX package's words, and a
     TF-family variant refuses a checkpoint of another model."""
     cfg = t_configs.apply_overrides(t_configs.BURGERS, ["grid=64", "latent_grid=16",
@@ -316,7 +317,7 @@ def test_evaluate_refusals(tmp_path):
     with pytest.raises(ValueError, match="downsampling"):
         t_eval.evaluate(cfg, path, zssr=True, device="cpu")
     for spec in ("model=2", "stage=2"):
-        with pytest.raises(NotImplementedError, match="not ported"):
+        with pytest.raises(ValueError, match="needs 2 devices but only 1"):
             t_eval.evaluate(cfg, path, device="cpu", mesh=spec)
     with pytest.raises(ValueError, match="exists for the TF-family benchmarks only"):
         t_eval.evaluate(cfg, path, device="cpu", model_variant="x")

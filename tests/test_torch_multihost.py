@@ -50,11 +50,12 @@ def test_multihost_spec_errors(monkeypatch):
     assert multihost.is_main()
 
 
-@pytest.mark.parametrize("launch", ["coordinator", "torchrun_env"])
+@pytest.mark.parametrize("launch", ["coordinator", "torchrun_env", "model=2", "stage=2"])
 def test_cli_two_process_train_restores_in_one_process(tmp_path, launch):
     """``train --multihost coordinator=localhost:P,... --mesh data=2`` in two
-    processes, or ``--multihost auto --mesh auto`` in the environment
-    torchrun gives its ranks: the final row rank 0 prints, and the
+    processes (or ``--mesh model=2``: tensor parallel, ``--mesh stage=2``:
+    the GPipe pipeline), or ``--multihost auto --mesh auto`` in the
+    environment torchrun gives its ranks: the final row rank 0 prints, and the
     checkpoint and log it alone writes, equal a single-process run's
     (losses rtol 1e-4, weights rtol 2e-4 / atol 2e-5); the checkpoint (the
     model's own keys) evaluates in one process as the single-process one
@@ -70,9 +71,10 @@ def test_cli_two_process_train_restores_in_one_process(tmp_path, launch):
     try:
         for r in range(2):
             env = dict(os.environ, OMP_NUM_THREADS="1")
-            if launch == "coordinator":
+            if launch != "torchrun_env":
                 spec = f"coordinator=localhost:{port},num_processes=2,process_id={r}"
-                flags = ["--multihost", spec, "--mesh", "data=2"]
+                mesh = "data=2" if launch == "coordinator" else launch
+                flags = ["--multihost", spec, "--mesh", mesh]
             else:
                 env.update(RANK=str(r), LOCAL_RANK=str(r), WORLD_SIZE="2", LOCAL_WORLD_SIZE="2",
                            MASTER_ADDR="localhost", MASTER_PORT=str(port))

@@ -219,30 +219,37 @@ def test_shard_map_step_matches_jax(tmp_path):
 def test_parse_mesh_spec_matches_jax(fake_world):
     """``parse_mesh_spec`` in a world of 8 ranks (the fake backend) against
     the JAX package's on its 8 fake devices: the same specs accepted, with
-    the same axis sizes, and refused, with the same exception type and
-    message fragment. A spec naming fewer devices than there are is
+    the same axis sizes (the model axis too, and the device order: the
+    model index varies fastest), and refused, with the same exception type
+    and message fragment. A spec naming fewer devices than there are is
     accepted by JAX (it takes a subset) and refused by the port (a rank
-    cannot sit out), so the list holds whole-world specs; the model and
-    stage axes, not ported, raise ``NotImplementedError``."""
+    cannot sit out), so the list holds whole-world specs; ``stage=2`` is
+    compared in a world of two."""
     from position_induced_transformer_tpu.parallel import parse_mesh_spec as j_parse
 
     assert len(jax.devices()) == 8
     fake_world(8)
-    accepted = [None, "", "none", "1", "auto", "data=8", "dcn=2,data=4", "DCN=4, data=2"]
+    accepted = [None, "", "none", "1", "auto", "data=8", "dcn=2,data=4", "DCN=4, data=2",
+                "data=4,model=2", "dcn=2,data=2,model=2"]
     for spec in accepted:
         j, t = j_parse(spec), parse_mesh_spec(spec)
         assert (j is None) == (t is None), spec
         if j is not None:
             assert (j.shape.get("dcn", 1), j.shape["data"], j.shape["model"]) == (
-                t.dcn, t.data, 1), spec
+                t.dcn, t.data, t.model), spec
+            # rank r holds the device at position r of JAX's (dcn, data, model) array
+            ids = [d.id for d in np.asarray(j.devices).reshape(-1)]
+            assert ids == list(range(8)), spec
     refused = [("data=x", "bad mesh spec"), ("data=0", "bad mesh spec"), ("data", "bad mesh spec"),
                ("data=2,data=8", "duplicate mesh axis"), ("rows=2", "unknown mesh axis"),
                ("data=2,stage=2", "cannot be combined"), ("dcn=2,stage=2", "cannot be combined"),
-               ("data=16", "devices"), ("dcn=8,data=2", "devices")]
+               ("data=16", "devices"), ("dcn=8,data=2", "devices"), ("stage=16", "devices"),
+               ("data=4,model=4", "devices")]
     for spec, fragment in refused:
         for parse in (j_parse, parse_mesh_spec):
             with pytest.raises(ValueError, match=fragment):
                 parse(spec)
-    for spec in ("model=2", "data=4,model=2", "stage=2"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            parse_mesh_spec(spec)
+    dist.destroy_process_group()
+    fake_world(2)
+    j, t = j_parse("stage=2"), parse_mesh_spec("stage=2")
+    assert dict(j.shape) == {"stage": t.stage} == {"stage": 2}

@@ -288,14 +288,29 @@ def test_grad_accum_matches_whole_batches():
 
 @pytest.mark.parametrize("option", ["mesh", "model_variant"])
 def test_unported_runner_options_raise(option):
-    """``mesh``'s model (head) and pipeline (stage) axes are not ported
-    (its data axis is: tests/test_torch_parallel_train.py); ``model_variant``
-    is, and reaches the model: an unknown one raises, and on the torch
-    family any raises with the JAX package's words."""
+    """``mesh``'s axes are ported (tests/test_torch_parallel_train.py,
+    tests/test_torch_parallel_model.py, tests/test_torch_pipeline.py): in a
+    world of one, ``model=2`` and ``stage=2`` raise the JAX package's
+    ValueError about devices, and in a world of two (the fake backend) the
+    TF family's model axis, the one part not ported, raises
+    NotImplementedError. ``model_variant`` is ported, and reaches the
+    model: an unknown one raises, and on the torch family any raises with
+    the JAX package's words."""
     if option == "mesh":
         for spec in ("model=2", "stage=2"):
-            with pytest.raises(NotImplementedError, match="not ported"):
+            with pytest.raises(ValueError, match="needs 2 devices but only 1"):
                 t_runner.train("burgers", device="cpu", **{option: spec})
+        import torch.distributed as dist
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+
+        dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=2)
+        try:
+            with pytest.raises(NotImplementedError, match="TF family"):
+                t_runner.train(dataclasses.replace(t_configs.BURGERS_TF, grid=(64,),
+                                                   latent_grid=(32,)),
+                               device="cpu", ntrain=5, ntest=2, **{option: "model=2"})
+        finally:
+            dist.destroy_process_group()
         return
     with pytest.raises(ValueError, match="exists for the TF-family benchmarks only"):
         t_runner.train(_small_cfg(), device="cpu", ntrain=4, ntest=2, model_variant="x")
