@@ -7173,6 +7173,41 @@ def collective_step_timing(task, problem, state, mesh, reps=5):
     return out
 
 
+def serve_under_mesh(rank, out, name, ckpt, mesh, sizes, x):
+    """One gloo rank's part of a server under ``mesh``: make_server(mesh)
+    answering ``x[:n]`` for n in ``sizes`` (rank 0 posts and saves each
+    reply under ``out``, the others follow), then infer(mesh) on the same
+    inputs; the launches of each, the server's with its warm-up."""
+    import numpy as np
+
+    from position_induced_transformer_torch.train import evaluate
+    from position_induced_transformer_torch.train.serve import make_server
+
+    zero_counts()
+    server = make_server(name, ckpt, port=0, verbose=False, device="cuda", mesh=mesh)
+    warm = counts()
+    if rank == 0:
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        url = f"http://127.0.0.1:{server.server_address[1]}/predict"
+        for n in sizes:
+            code, body = post(url, npy(x[:n]))
+            if code != 200:
+                fail(f"{name} serve under {mesh}: HTTP {code}: {body[:2000]!r}")
+            np.save(out / f"{name}_served{n}.npy", np.load(io.BytesIO(body)))
+        server.shutdown()
+    else:
+        server.serve_forever()  # until rank 0 closes
+    server.server_close()
+    launched = counts()
+    for n in sizes:
+        np.save(out / f"{name}_in{n}_rank{rank}.npy", x[:n])
+        evaluate.infer(name, ckpt, str(out / f"{name}_in{n}_rank{rank}.npy"),
+                       output_path=str(out / f"{name}_infer{n}.npy"), device="cuda",
+                       mesh=mesh)
+    return {"warmup_launches": warm, "launches": launched}
+
+
 def model_stage_rank(rank, world, store, out_dir):
     """One of phase 42's gloo ranks on the shared card (a process of its
     own, started by model_stage_phase): (a) Burgers at ``mesh="model=2"``
@@ -7191,7 +7226,6 @@ def model_stage_rank(rank, world, store, out_dir):
     from position_induced_transformer_torch import configs
     from position_induced_transformer_torch.parallel import parse_mesh_spec
     from position_induced_transformer_torch.train import evaluate, runner
-    from position_induced_transformer_torch.train.serve import make_server
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -7199,33 +7233,6 @@ def model_stage_rank(rank, world, store, out_dir):
     dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
                             world_size=world)
     out = Path(out_dir)
-
-    def serve(name, ckpt, mesh, sizes, x):
-        """make_server(mesh) answering ``x[:n]`` for n in ``sizes`` (rank 0
-        posts, the other follows), then infer(mesh) on the same inputs."""
-        zero_counts()
-        server = make_server(name, ckpt, port=0, verbose=False, device="cuda", mesh=mesh)
-        warm = counts()
-        if rank == 0:
-            thread = threading.Thread(target=server.serve_forever, daemon=True)
-            thread.start()
-            url = f"http://127.0.0.1:{server.server_address[1]}/predict"
-            for n in sizes:
-                code, body = post(url, npy(x[:n]))
-                if code != 200:
-                    fail(f"{name} serve under {mesh}: HTTP {code}: {body[:2000]!r}")
-                np.save(out / f"{name}_served{n}.npy", np.load(io.BytesIO(body)))
-            server.shutdown()
-        else:
-            server.serve_forever()  # until rank 0 closes
-        server.server_close()
-        launched = counts()
-        for n in sizes:
-            np.save(out / f"{name}_in{n}_rank{rank}.npy", x[:n])
-            evaluate.infer(name, ckpt, str(out / f"{name}_in{n}_rank{rank}.npy"),
-                           output_path=str(out / f"{name}_infer{n}.npy"), device="cuda",
-                           mesh=mesh)
-        return {"warmup_launches": warm, "launches": launched}
 
     try:
         report = {"rank": rank, "world": world}
@@ -7262,7 +7269,8 @@ def model_stage_rank(rank, world, store, out_dir):
         torch.save({"losses": losses, "weights": weights}, out / f"burgers_rank{rank}.pt")
         del problem, state, tp, parts["state"]
         x = np.load(out / "burgers_x.npy")
-        report["burgers_serve"] = serve("burgers", ckpt, mesh, DP_SERVE_SIZES, x)
+        report["burgers_serve"] = serve_under_mesh(rank, out, "burgers", ckpt, mesh,
+                                                    DP_SERVE_SIZES, x)
 
         smesh = parse_mesh_spec(f"stage={world}")
         dckpt = str(out / "darcy_pp.pt")
@@ -7279,7 +7287,8 @@ def model_stage_rank(rank, world, store, out_dir):
                                          mesh=smesh),
             "launches": counts()}
         xd = np.load(out / "darcy_x.npy")
-        report["darcy_serve"] = serve("darcy", dckpt, smesh, (MS_DARCY_SERVE,), xd)
+        report["darcy_serve"] = serve_under_mesh(rank, out, "darcy", dckpt, smesh,
+                                                  (MS_DARCY_SERVE,), xd)
 
         problem, state, history, losses, weights, launched, seconds = run_training(
             configs.ELASTICITY, "cuda", *DP_ELASTICITY, mesh=mesh)
@@ -7420,6 +7429,181 @@ def model_stage_phase():
     return report
 
 
+# phase 43: label -> (configuration, (epochs, ntrain, ntest), model variant,
+# #13 / #11-#12 / #14 launches a step); two steps each, one eval batch
+TF_MA_RUNS = {
+    "elasticity_tf": ("elasticity_tf", (1, 20, 10), None,
+                      {"posatt_tf_coord_fwd": 6, "posatt_tf_coord_bwd_dscale": 6,
+                       "posatt_tf_coord_bwd_dv": 6}),
+    "burgers_tf": ("burgers_tf", (1, 10, 5), None,
+                   {"posatt_tf_fixed_fwd": 7, "posatt_tf_fixed_bwd_dscale": 7,
+                    "posatt_tf_fixed_bwd_dv": 7}),
+    "transformer": ("burgers_tf", (1, 10, 5), "transformer",
+                    {"dotatt_fwd": 7, "dotatt_bwd_dq": 7, "dotatt_bwd_dkdv": 7}),
+}
+TF_MA_SERVE_SIZES = (8, 13)  # one and two device batches of 10
+TF_MA_REPS = {"elasticity_tf": 3, "burgers_tf": 5, "transformer": 5}  # timed steps
+
+
+def tf_model_axis_rank(rank, world, store, out_dir):
+    """One of phase 43's gloo ranks on the shared card (a process of its
+    own, started by tf_model_axis_phase): each of TF_MA_RUNS trained at
+    ``mesh="model=2"`` (its launches, its part's split bytes and moments,
+    the names it keeps whole, its step timing), then elasticity_tf served
+    under the mesh and ``infer(mesh)`` on its requests. Each part's
+    launches, results and replies under ``out_dir``."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(REPO))
+    from position_induced_transformer_torch import configs
+    from position_induced_transformer_torch.parallel import parse_mesh_spec
+    from position_induced_transformer_torch.train import runner
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
+                            world_size=world)
+    out = Path(out_dir)
+    try:
+        report = {"rank": rank, "world": world}
+        mesh = parse_mesh_spec(f"model={world}")
+        shard = runner.shard_state
+        nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts)
+        moments = lambda st, ps: [v for p in ps for k, v in st.optimizer.state[p].items()
+                                  if k != "step"]
+        for label, (name, run, variant, _) in TF_MA_RUNS.items():
+            parts = {}
+
+            def keep(m, st):
+                parts["state"] = shard(m, st)
+                return parts["state"]
+
+            ckpt = str(out / f"{label}.pt")
+            with mock.patch.object(runner, "shard_state", keep):
+                problem, state, history, losses, weights, launched, seconds = run_training(
+                    configs.get(name), "cuda", *run, mesh=mesh, checkpoint_path=ckpt,
+                    model_variant=variant)
+            tp = parts["state"]
+            dims = tp.model.tensor_parallel_dims
+            split = lambda model: [p for n, p in model.named_parameters() if dims[n] is not None]
+            report[label] = {
+                "launches": launched, "seconds_whole_run": seconds, "history": history,
+                "replicated": [n for n, d in dims.items() if d is None],
+                "split_param_bytes": [nbytes(split(tp.model)), nbytes(split(state.model))],
+                "split_moment_bytes": [nbytes(moments(tp, split(tp.model))),
+                                       nbytes(moments(state, split(state.model)))],
+                "timing": collective_step_timing(
+                    dataclasses.replace(problem.task, model=tp.model), problem, tp, mesh,
+                    reps=TF_MA_REPS[label])}
+            torch.save({"losses": losses, "weights": weights}, out / f"{label}_rank{rank}.pt")
+            del problem, state, tp, parts["state"]
+        x = np.load(out / "elasticity_tf_x.npy")
+        report["elasticity_tf_serve"] = serve_under_mesh(
+            rank, out, "elasticity_tf", str(out / "elasticity_tf.pt"), mesh, TF_MA_SERVE_SIZES, x)
+        with open(out / f"report_rank{rank}.json", "w") as f:
+            json.dump(report, f)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def tf_model_axis_phase():
+    """Phase 43: the TF family's model (head) axis on two gloo ranks
+    sharing the card (NCCL refuses two ranks on one GPU), each a process
+    (tf_model_axis_rank), against one process on the card, at full width:
+    (a) elasticity_tf (hid 512, 8 heads, 4 blocks, 972-point clouds, batch
+    10) at ``mesh="model=2"``: each rank 6/6/6 of #11 / #12's dscale / dv a
+    step, every head on each rank; then a server under the mesh answering
+    8 and 13 bare clouds on #9 (6 a device batch), its replies
+    ``infer(mesh)``'s and one process's server's to the bit; (b) burgers_tf
+    at ``model=2``: 7/7/7 of #13 a step; (c) its ``transformer`` variant:
+    7/7/7 of #14 a step. For each: losses and gathered weights at the
+    training gates of one process, every parameter the axis keeps whole
+    equal to the bit on both ranks, each rank's split MLP leaves and their
+    KerasAdam moments exactly half of one process's bytes, and the step's
+    wall, busy ms and gloo collectives (collective_step_timing)."""
+    import numpy as np
+    import torch
+
+    from position_induced_transformer_torch import configs
+    from position_induced_transformer_torch.data import synthetic
+    from position_induced_transformer_torch.train.serve import make_server
+
+    t_phase = time.perf_counter()
+    single, report = {}, {"single_process_timing": {}}
+    for label, (name, run, variant, _) in TF_MA_RUNS.items():
+        problem, state, _, losses, weights, launched, _ = run_training(
+            configs.get(name), "cuda", *run, model_variant=variant)
+        single[label] = (losses, weights, launched)
+        report["single_process_timing"][label] = collective_step_timing(
+            problem.task, problem, state, None, reps=TF_MA_REPS[label])
+        del problem, state
+    torch.cuda.empty_cache()  # the ranks share the card with this process
+    out = REPO / "build" / "chip_smoke" / "tf_model_axis"
+    out.mkdir(parents=True, exist_ok=True)
+    for f in out.iterdir():
+        f.unlink()
+    np.save(out / "elasticity_tf_x.npy",
+            synthetic.elasticity(n=max(TF_MA_SERVE_SIZES), seed=1)[0])
+    t0 = time.perf_counter()
+    run_gloo_ranks("TF model axis", out, lambda r, store: (
+        f"tf_model_axis_rank({r}, {DP_WORLD}, {store!r}, {str(out)!r})"))
+    report["gloo_ranks_seconds"] = time.perf_counter() - t0
+    ranks = [json.loads((out / f"report_rank{r}.json").read_text()) for r in range(DP_WORLD)]
+    want = {label: dp_expected(configs.get(name), per_step, *run)
+            for label, (name, run, _, per_step) in TF_MA_RUNS.items()}
+    for label, (_, _, launched) in single.items():
+        if launched != want[label]:
+            fail(f"TF model axis: the single-process {label} run launched {launched}, "
+                 f"expected {want[label]}")
+    ecfg = configs.ELASTICITY_TF
+    bs = ecfg.eval_batch_size or ecfg.batch_size
+    batches = 1 + sum(-(-n // bs) for n in TF_MA_SERVE_SIZES)  # + warm-up
+    want_serve = {k: 6 * batches if k == "posatt_tf_fwd" else 0 for k in launchers()}
+    weights = {label: [torch.load(out / f"{label}_rank{r}.pt") for r in range(DP_WORLD)]
+               for label in TF_MA_RUNS}
+    for r, rep in enumerate(ranks):
+        for label in TF_MA_RUNS:
+            if rep[label]["launches"] != want[label]:
+                fail(f"TF model axis: gloo rank {r}'s {label} run launched "
+                     f"{rep[label]['launches']}, expected {want[label]}")
+            got = weights[label][r]
+            rep[label].update(compare_training(f"gloo rank {r} {label} vs one process",
+                                               got["losses"], got["weights"],
+                                               *single[label][:2]))
+            for n in rep[label]["replicated"]:
+                if not torch.equal(got["weights"][n], weights[label][0]["weights"][n]):
+                    fail(f"TF model axis: {label}'s replicated {n} differs between ranks")
+            for key in ("split_param_bytes", "split_moment_bytes"):
+                part, whole = rep[label][key]
+                if part == 0 or 2 * part != whole:
+                    fail(f"TF model axis: gloo rank {r}'s {label} {key}: {part} of {whole}")
+        if rep["elasticity_tf_serve"]["launches"] != want_serve:
+            fail(f"TF model axis: gloo rank {r}'s elasticity_tf server launched "
+                 f"{rep['elasticity_tf_serve']['launches']}, expected {want_serve}")
+    server = make_server("elasticity_tf", str(out / "elasticity_tf.pt"), port=0, verbose=False,
+                         device="cuda")
+    try:
+        for n in TF_MA_SERVE_SIZES:
+            got = np.load(out / f"elasticity_tf_served{n}.npy")
+            one = server.predictor.predict_file(str(out / f"elasticity_tf_in{n}_rank0.npy"))
+            if not (np.array_equal(got, np.load(out / f"elasticity_tf_infer{n}.npy"))
+                    and np.array_equal(got, one)):
+                fail(f"TF model axis: the served elasticity_tf reply of {n} differs from "
+                     "infer(mesh) or from one process's server on it")
+            ranks[0]["elasticity_tf_serve"][f"reply_{n}_equal_to_the_bit"] = True
+    finally:
+        server.server_close()
+    report["gloo_ranks"] = ranks
+    report["phase_seconds"] = time.perf_counter() - t_phase
+    return report
+
+
 def main() -> int:
     import torch
 
@@ -7526,6 +7710,9 @@ def main() -> int:
     ms = model_stage_phase()
     log("model_stage " + json.dumps(ms))
     stamp("42 (model and stage axes)")
+    tfma = tf_model_axis_phase()
+    log("tf_model_axis " + json.dumps(tfma))
+    stamp("43 (the TF family's model axis)")
     fixed_paths = {  # the fixed-mesh model paths: (train, served or evaluated)
         "darcy_train": d_train["launches"], "darcy_zssr": d_zssr["launches"],
         "darcy_serve_43": d_serve43["launches"], "darcy_serve_421": d_serve421["launches"],
@@ -7813,7 +8000,11 @@ def main() -> int:
                   **{f"ms_gloo_rank{r}_{k}": rep[k]["launches"]
                      for r, rep in enumerate(ms["gloo_ranks"])
                      for k in ("burgers", "burgers_serve", "darcy", "darcy_evaluate",
-                               "darcy_serve", "elasticity")}}
+                               "darcy_serve", "elasticity")},
+                  # the TF family's model axis (phase 43): each rank's launches
+                  **{f"tfma_gloo_rank{r}_{k}": rep[k]["launches"]
+                     for r, rep in enumerate(tfma["gloo_ranks"])
+                     for k in (*TF_MA_RUNS, "elasticity_tf_serve")}}
     for entry in kernels["kernels"]:
         name = entry["name"]
         for path, launched in {**bf16_paths, **more_paths}.items():

@@ -58,8 +58,8 @@ def _add_common(p):
         "host), 'data=N[,model=M]' or 'dcn=K,data=N[,model=M]' (N x M x K = "
         "the world size), or 'stage=K' (GPipe pipeline of the processor "
         "blocks, torch-family fixed meshes, alone). train: batch sharded over "
-        "data x dcn, gradients summed; model=M splits the MLPs and heads "
-        "(tensor parallel; the TF family raises NotImplementedError). "
+        "data x dcn, gradients summed; model=M splits the MLPs (and the "
+        "torch family's heads; tensor parallel, either family). "
         "evaluate/infer/serve: data-parallel batches with the whole weights; "
         "with --zssr the decoder's query rows are split over the data ranks",
     )

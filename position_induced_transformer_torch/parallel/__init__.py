@@ -1,5 +1,7 @@
 """Distributed on ``torch.distributed`` (one process per rank): device
-meshes of the data, dcn and model (head) axes, the GPipe stage axis,
+meshes of the data, dcn and model (head) axes (the model axis for both
+families: ``PiT`` and the TF family's ``PiTTF`` / ``PiTTFPointCloud`` and
+variants), the GPipe stage axis (the torch family's fixed meshes),
 multi-process start-up, and the explicit-collective training step."""
 
 from position_induced_transformer_torch.parallel.pipeline import (

@@ -17,10 +17,11 @@ of the work; the collectives are explicit.
   ``('dcn', 'data')``; ranks that differ only in their model index take the
   same rows. Gradients are summed over this rank's data group, then over
   its dcn group (the ranks of its model index in the other slices).
-- **Tensor parallel** (``model=M``, training only):
+- **Tensor parallel** (``model=M``, training only, either family):
   :mod:`.tensor_parallel` splits each MLP column- then row-parallel over
-  the model group and the heads where M divides them; prediction,
-  evaluation and serving replicate the whole weights, as in JAX.
+  the model group, and ``PiT``'s heads where M divides them (the TF
+  family's attention stays whole); prediction, evaluation and serving
+  replicate the whole weights, as in JAX.
 - **Sequence parallel** (ZSSR decode): the decoder's query rows split over
   the data group (:func:`sequence_shard_geometry`,
   :func:`sequence_shard_tf_geometry`); each rank decodes its slab against

@@ -57,7 +57,6 @@ from position_induced_transformer_torch.parallel.sharding import (
     sequence_shard_tf_geometry,
     shard_rows,
 )
-from position_induced_transformer_torch.parallel.tensor_parallel import check_model_axis
 from position_induced_transformer_torch.train import benchmarks
 from position_induced_transformer_torch.train import checkpoint as ckpt
 from position_induced_transformer_torch.train import runner
@@ -248,7 +247,8 @@ class Predictor:
     Predictor and calls it with the same inputs. Under ``data=N`` (with
     ``dcn=K``, ``model=M``) each batch index runs its shard of every device
     batch (the batch size rounded to a multiple of N x K) with the whole
-    weights, and every rank returns the whole prediction; under
+    weights, as the JAX package replicates them for either family, and
+    every rank returns the whole prediction; under
     ``stage=K`` every batch runs pipelined over the ranks (the batch size
     rounded to the schedule's micro-batch count).
     """
@@ -278,7 +278,6 @@ class Predictor:
         problem.model.load_state_dict(restored["state_dict"])
         problem.model.eval()
         problem.train_data = {}
-        check_model_axis(self.mesh, problem.model)
         self._rows = self.mesh  # the mesh a device batch is sharded over
         if isinstance(self.mesh, StageMesh):
             enable_pipeline(problem, self.mesh, batch_size=cfg.eval_batch_size or cfg.batch_size)
@@ -586,7 +585,7 @@ def evaluate(
     ``mesh`` (as ``runner.train`` takes it; every rank calls with the same
     arguments): the metrics data-parallel, each batch index running its
     shard of every batch with the whole weights (a model axis's ranks
-    compute the same rows); with ``zssr=True`` on a fixed mesh the decode
+    compute the same rows, for either family); with ``zssr=True`` on a fixed mesh the decode
     is sequence parallel instead: each rank decodes its slab of the query
     rows (padded to a multiple of the data ranks) against the whole latent
     cloud, on the whole batch, and the slabs are gathered. Under
@@ -619,7 +618,6 @@ def evaluate(
         cfg, data_path, ntrain=ntrain, ntest=ntest, device=device, **setup_kwargs
     )
     problem.model.load_state_dict(restored["state_dict"])
-    check_model_axis(mesh, problem.model)
     if isinstance(mesh, StageMesh):
         enable_pipeline(problem, mesh, batch_size=cfg.eval_batch_size or cfg.batch_size)
         mesh = None  # every batch whole, through the pipelined forward

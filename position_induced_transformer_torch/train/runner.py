@@ -141,15 +141,17 @@ def train(
     same arguments. Each batch index takes its shard of every batch (which
     must divide over the data x dcn ranks, as must a grad-accum
     microbatch), and the gradients are summed over them each step. Under
-    ``model=M`` each rank trains its part of the PiT
-    (``parallel.tensor_parallel``: MLP widths split, heads where M divides
-    them, Adam moments alike); under ``stage=K`` the processor runs GPipe
-    pipelined over the ranks (``parallel.pipeline``; the schedule picked
-    from the batch a forward sees, ``batch_size / grad_accum``). Every rank
-    returns the same whole weights (the one-process layout) and history.
-    Only rank 0 prints and writes the log, the history files and the
-    checkpoints, which hold the model's own state dict and restore in one
-    process.
+    ``model=M`` each rank trains its part of the model, of either family
+    (``parallel.tensor_parallel``: MLP widths split, PiT's heads where M
+    divides them, the TF family's attention whole, Adam moments alike;
+    ``Task.param_constraint`` acts on each rank's part); under
+    ``stage=K`` the processor runs GPipe pipelined over the ranks
+    (``parallel.pipeline``; the torch family's fixed meshes; the schedule
+    picked from the batch a forward sees, ``batch_size / grad_accum``).
+    Every rank returns the same whole weights (the one-process layout) and
+    history. Only rank 0 prints and writes the log, the history files and
+    the checkpoints, which hold the model's own state dict and restore in
+    one process.
     """
     if history_plot:
         require_matplotlib()
@@ -164,7 +166,7 @@ def train(
     data_mesh = None if stages else mesh  # a stage mesh keeps every batch whole
     tensor_parallel = data_mesh is not None and data_mesh.model > 1
     if tensor_parallel:
-        param_shardings(data_mesh, problem.model)  # the TF family and odd widths raise now
+        param_shardings(data_mesh, problem.model)  # odd MLP widths raise now
     dev = next(problem.model.parameters()).device
     epochs = epochs if epochs is not None else cfg.epochs
     seed = seed if seed is not None else cfg.seed

@@ -200,10 +200,13 @@ def test_convert_structure_mismatch_is_clean_error(tmp_path):
                                           ("--mesh", "stage=2")])
 def test_options_not_ported_raise(option, value):
     """--mesh's model (head) and pipeline (stage) axes are ported (with
-    --multihost: tests/test_torch_multihost.py, tests/test_torch_pipeline.py):
-    in a world of one they raise the JAX package's ValueError about
-    devices, and in a world of two (the fake backend) the TF family's model
-    axis, the one part not ported, raises NotImplementedError;
+    --multihost: tests/test_torch_multihost.py, tests/test_torch_pipeline.py,
+    tests/test_torch_parallel_tf.py): in a world of one they raise the JAX
+    package's ValueError about devices; in a world of two (the fake
+    backend) ``train --benchmark burgers_tf --mesh model=2`` gets past the
+    mesh checks and trains (the fake collectives move nothing), and in a
+    world of three ``model=3`` on hid 8 raises JAX's ValueError naming the
+    leaf;
     --model-variant is ported and reaches the model, which on a benchmark
     of the torch family raises with the JAX package's words (the variants
     exist for the TF family only)."""
@@ -223,14 +226,20 @@ def test_options_not_ported_raise(option, value):
         import torch.distributed as dist
         from torch.testing._internal.distributed.fake_pg import FakeStore
 
-        dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=2)
-        try:
-            with pytest.raises(NotImplementedError, match="TF family"):
-                t_cli.main(["train", "--benchmark", "burgers_tf", option, value, *CPU,
-                            "--ntrain", "4", "--ntest", "2", "--set", "grid=64",
-                            "--set", "latent_grid=32", "--set", "model.hid_dim=8"])
-        finally:
-            dist.destroy_process_group()
+        tf = ["train", "--benchmark", "burgers_tf", *CPU, "--ntrain", "5", "--ntest", "2",
+              "--epochs", "1", "--set", "grid=64", "--set", "latent_grid=32",
+              "--set", "model.hid_dim=8"]
+        for world in (2, 3):
+            dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=world)
+            try:
+                if world == 2:
+                    assert t_cli.main(tf + [option, value]) in (0, None)
+                else:
+                    with pytest.raises(ValueError, match="MLP_0.mlp1.weight is not divisible "
+                                                         "by the 'model' axis size 3"):
+                        t_cli.main(tf + [option, "model=3"])
+            finally:
+                dist.destroy_process_group()
     with pytest.raises(SystemExit):  # no --fused-mode: the port has no such switch
         t_cli.main(["train", "--benchmark", "burgers", "--fused-mode", "never", *CPU])
 

@@ -289,13 +289,15 @@ def test_grad_accum_matches_whole_batches():
 @pytest.mark.parametrize("option", ["mesh", "model_variant"])
 def test_unported_runner_options_raise(option):
     """``mesh``'s axes are ported (tests/test_torch_parallel_train.py,
-    tests/test_torch_parallel_model.py, tests/test_torch_pipeline.py): in a
-    world of one, ``model=2`` and ``stage=2`` raise the JAX package's
-    ValueError about devices, and in a world of two (the fake backend) the
-    TF family's model axis, the one part not ported, raises
-    NotImplementedError. ``model_variant`` is ported, and reaches the
-    model: an unknown one raises, and on the torch family any raises with
-    the JAX package's words."""
+    tests/test_torch_parallel_model.py, tests/test_torch_parallel_tf.py,
+    tests/test_torch_pipeline.py): in a world of one, ``model=2`` and
+    ``stage=2`` raise the JAX package's ValueError about devices; in a
+    world of two (the fake backend) the TF family's model axis gets past
+    the mesh checks and trains (the fake collectives move nothing), and in
+    a world of three ``model=3`` on hid 8 raises JAX's ValueError naming
+    the leaf. ``model_variant`` is ported, and reaches the model: an
+    unknown one raises, and on the torch family any raises with the JAX
+    package's words."""
     if option == "mesh":
         for spec in ("model=2", "stage=2"):
             with pytest.raises(ValueError, match="needs 2 devices but only 1"):
@@ -303,14 +305,26 @@ def test_unported_runner_options_raise(option):
         import torch.distributed as dist
         from torch.testing._internal.distributed.fake_pg import FakeStore
 
-        dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=2)
-        try:
-            with pytest.raises(NotImplementedError, match="TF family"):
-                t_runner.train(dataclasses.replace(t_configs.BURGERS_TF, grid=(64,),
-                                                   latent_grid=(32,)),
-                               device="cpu", ntrain=5, ntest=2, **{option: "model=2"})
-        finally:
-            dist.destroy_process_group()
+        cfg = t_configs.apply_overrides(t_configs.BURGERS_TF, ["grid=64", "latent_grid=32",
+                                                               "model.hid_dim=8"])
+        for world in (2, 3):
+            dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=world)
+            try:
+                if world == 2:
+                    _, state, history = t_runner.train(cfg, device="cpu", ntrain=5, ntest=2,
+                                                       epochs=1, verbose=False,
+                                                       **{option: "model=2"})
+                    assert state.step == 1 and len(history) == 1
+                    whole = t_bench._make_model(cfg).state_dict()
+                    assert {k: v.shape for k, v in state.model.state_dict().items()} == {
+                        k: v.shape for k, v in whole.items()}
+                else:
+                    with pytest.raises(ValueError, match="MLP_0.mlp1.weight is not divisible "
+                                                         "by the 'model' axis size 3"):
+                        t_runner.train(cfg, device="cpu", ntrain=5, ntest=2,
+                                       **{option: "model=3"})
+            finally:
+                dist.destroy_process_group()
         return
     with pytest.raises(ValueError, match="exists for the TF-family benchmarks only"):
         t_runner.train(_small_cfg(), device="cpu", ntrain=4, ntest=2, model_variant="x")
